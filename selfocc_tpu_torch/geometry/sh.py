@@ -1,0 +1,65 @@
+"""Real spherical-harmonics bases (deg <= 4) and the SH color decoder —
+counterpart of ``selfocc_tpu/geometry/sh.py``."""
+from __future__ import annotations
+
+import torch
+
+C0 = 0.28209479177387814
+C1 = 0.4886025119029199
+C2 = [1.0925484305920792, -1.0925484305920792, 0.31539156525252005,
+      -1.0925484305920792, 0.5462742152960396]
+C3 = [-0.5900435899266435, 2.890611442640554, -0.4570457994644658,
+      0.3731763325901154, -0.4570457994644658, 1.445305721320277,
+      -0.5900435899266435]
+C4 = [2.5033429417967046, -1.7701307697799304, 0.9461746957575601,
+      -0.6690465435572892, 0.10578554691520431, -0.6690465435572892,
+      0.47308734787878004, -1.7701307697799304, 0.6258357354491761]
+
+
+def eval_sh_bases(deg: int, dirs: torch.Tensor) -> torch.Tensor:
+    """SH bases at unit directions -> (..., (deg+1)**2)."""
+    if not 0 <= deg <= 4:
+        raise ValueError(f"sh degree {deg} not in [0, 4]")
+    comps = [torch.full(dirs.shape[:-1], C0, dtype=dirs.dtype,
+                        device=dirs.device)]
+    if deg > 0:
+        x, y, z = dirs[..., 0], dirs[..., 1], dirs[..., 2]
+        comps += [-C1 * y, C1 * z, -C1 * x]
+        if deg > 1:
+            xx, yy, zz = x * x, y * y, z * z
+            xy, yz, xz = x * y, y * z, x * z
+            comps += [C2[0] * xy, C2[1] * yz, C2[2] * (2.0 * zz - xx - yy),
+                      C2[3] * xz, C2[4] * (xx - yy)]
+            if deg > 2:
+                comps += [C3[0] * y * (3 * xx - yy), C3[1] * xy * z,
+                          C3[2] * y * (4 * zz - xx - yy),
+                          C3[3] * z * (2 * zz - 3 * xx - 3 * yy),
+                          C3[4] * x * (4 * zz - xx - yy),
+                          C3[5] * z * (xx - yy), C3[6] * x * (xx - 3 * yy)]
+                if deg > 3:
+                    comps += [C4[0] * xy * (xx - yy),
+                              C4[1] * yz * (3 * xx - yy),
+                              C4[2] * xy * (7 * zz - 1),
+                              C4[3] * yz * (7 * zz - 3),
+                              C4[4] * (zz * (35 * zz - 30) + 3),
+                              C4[5] * xz * (7 * zz - 3),
+                              C4[6] * (xx - yy) * (7 * zz - 1),
+                              C4[7] * xz * (xx - 3 * yy),
+                              C4[8] * (xx * (xx - 3 * yy)
+                                       - yy * (3 * xx - yy))]
+    return torch.stack(comps, dim=-1)
+
+
+def sh_render(viewdirs: torch.Tensor, features: torch.Tensor, deg: int = 2,
+              act: str = "relu") -> torch.Tensor:
+    """SH coefficients (..., 3*(deg+1)**2) + directions -> RGB (..., 3);
+    ``relu`` is ``relu(raw + 0.5)`` as in the reference ``SHRender``."""
+    n_bases = (deg + 1) ** 2
+    sh_mult = eval_sh_bases(deg, viewdirs)[..., None, :]
+    rgb_sh = features.reshape(*features.shape[:-1], 3, n_bases)
+    raw = (sh_mult * rgb_sh).sum(-1)
+    if act == "relu":
+        return torch.clamp_min(raw + 0.5, 0.0)
+    if act == "sigmoid":
+        return torch.sigmoid(raw)
+    raise NotImplementedError(act)

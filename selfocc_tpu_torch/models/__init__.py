@@ -1,0 +1,1 @@
+"""models — see the matching subpackage of selfocc_tpu."""

@@ -1,0 +1,1 @@
+"""utils — see the matching subpackage of selfocc_tpu."""
