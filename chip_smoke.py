@@ -1,33 +1,74 @@
 """Chip smoke test of the PyTorch/CUDA port (``selfocc_tpu_torch``).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases kernels,train]
 
-Needs one CUDA card. It builds the port's CUDA kernels from ``csrc/``, holds
-each kernel against its plain PyTorch version at the shapes of one real call
-of the flagship ``nuscenes_occ`` depth eval, then runs one full-width
-synthetic frame (6 cameras at 384x800, 2,160,000 rays x 256 samples) through
-``selfocc_tpu_torch.eval_depth``'s code path with seeded random weights,
-after one cold frame on another input that pays the one-time costs. It
-checks that every kernel was launched by that run, that the depths are finite
-and inside the rays' [near, far] band, and that a 4096-ray subset rendered
-with the kernels on the card matches the plain versions on the CPU.
+Needs one CUDA card. It builds the port's CUDA kernels from ``csrc/`` (one
+``nvcc`` per source, in parallel) and runs these phases; any failed check
+raises and the exit code is non-zero.
 
-Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and as
-its last line ``{"ok": true, "device": {...}}``. Any failure raises and the
-exit code is non-zero; without a CUDA card it exits 2 before doing anything.
-Imports nothing of JAX.
+- ``[kernels]``: each kernel against its plain PyTorch version at the shapes
+  of its main-path calls, timed with CUDA events (median after a warm-up):
+  the forwards of the eval frame (NeuS weights, trilinear with gradient,
+  MSDA cross- and self-attention), the backwards of the training step
+  (``msda_bwd`` on the cross and self calls, ``trilinear_bwd`` on one
+  4096-ray training chunk at C = 25 and at C = 1), and ``gather_rows`` on
+  an fp32 table of 28-byte rows.
+- ``[gather]``: ``gather_rows``'s own path (no production path calls it):
+  one call through the public wrapper at ``tools/bench_gather.py``'s shape,
+  launches counted, held against ``index_select`` (exact), then timed
+  against its plain version and ``index_select``.
+- ``[frame]``: one full-width ``nuscenes_occ`` depth-eval frame (6 cameras at
+  384x800, 2,160,000 rays x 256 samples) through ``eval_depth``'s code path
+  with seeded random weights after a cold frame; depths finite and in band,
+  a 4096-ray subset on the card against the plain versions on the CPU.
+- ``[train-parity]``: one ``tiny`` training step with the kernels on the card,
+  rendered in checkpointed chunks of 20 rays (48 rays: the last chunk is
+  padded), against the same step rendered densely with the plain versions
+  on the CPU (same weights and draws, dropout 0): loss dict and every
+  parameter gradient.
+- ``[train]``: ``nuscenes_occ`` at full width (ResNet-50 + FPN, 4 encoder
+  layers, a (25, 257, 257, 25) volume, 28,800 rays x 256 samples, the five
+  losses, AdamW with clipping), synthetic batch, seeded weights: one cold
+  step, then 3 measured steps (forward / backward / optimizer split by
+  synchronised host clocks, peak memory, losses, grad_norm), a
+  ``torch.profiler`` look at one warm step (the 15 kernels with the most
+  device time), then the same step with one dense render
+  (``train_ray_chunk = 0``): one warm-up step and one measured step.
+
+``--phases`` runs a subset (then no result line is printed). Each path's
+launch counts are set to 0 just before it runs and read just after; a
+kernel of the path that was not launched fails the run. Prints a
+``{"kernels": [...]}`` line, the card's name and power limit, and as its last
+line ``{"ok": true, "device": {...}}``. Without a CUDA card it exits 2 before
+doing anything. Imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import argparse
 import copy
+import dataclasses
 import json
 import subprocess
 import sys
 import time
 
 SEED = 0
+PARITY_RAY_CHUNK = 20  # tiny renders 48 rays: chunks 20, 20, 8 + 12 padded
 CHUNK = 32768          # rays per render chunk (eval_depth's default)
 SUBSET_RAYS = 4096
+TRAIN_CHUNK_POINTS = 4096 * 256   # one training render chunk's samples
+HBM_BYTES_PER_S = 3.35e12         # H100 SXM HBM3
+FP32_FLOPS_PER_S = 67e12          # H100 SXM fp32 outside the tensor cores
+GRAD_RTOL = 1e-4                  # max|d| <= 1e-4 * max|ref| + 1e-7
+# fp32 operations (an FMA counts 2) that MSDA needs per sampled point, once
+# per point (pixel position, corner weights; the backward also scales the
+# location gradient by the level size) and per (point, channel): forward,
+# the 4-corner blend and the attention-weighted accumulate; backward, the
+# blend, its dot with the cotangent, g * a, the 4 corner adds into
+# grad_value, the x and y slopes and their accumulation
+MSDA_FWD_OPS = (12, 10)
+MSDA_BWD_OPS = (14, 33)
+PHASES = ("kernels", "gather", "frame", "train-parity", "train")
 
 
 def log(msg):
@@ -51,41 +92,101 @@ def timed(fn, reps, warmup=1):
     return sorted(times)[len(times) // 2]
 
 
+def bound(nbytes, flops):
+    """Least milliseconds the card could take: the larger of the bytes over
+    the HBM rate and the fp32 operations over the fp32 peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def max_err(a, b):
     return float((a.double() - b.double()).abs().max())
 
 
 def check(name, err, tol):
-    log(f"  {name}: max_abs_err {err:.3e} (tolerance {tol:.0e})")
+    log(f"  {name}: max_abs_err {err:.3e} (tolerance {tol:.1e})")
     if not err <= tol:
         raise AssertionError(f"{name}: kernel disagrees with its plain "
-                             f"version ({err:.3e} > {tol:.0e})")
+                             f"version ({err:.3e} > {tol:.1e})")
+
+
+def check_grads(name, got, ref):
+    """Each gradient tensor within GRAD_RTOL of its reference's max;
+    returns the largest absolute error."""
+    worst = 0.0
+    for i, (g, r) in enumerate(zip(got, ref)):
+        err = max_err(g, r)
+        check(f"{name} grad {i}", err,
+              GRAD_RTOL * float(r.abs().max()) + 1e-7)
+        worst = max(worst, err)
+    return worst
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def kernel_record(err, ms, plain_ms, bytes_flops, library_ms=None, **extra):
+    b_ms, by = bound(*bytes_flops)
+    rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=by, library_ms=library_ms)
+    rec.update(extra)
+    return rec
+
+
+def msda_case(g, device, B, Q, shapes, P, H=6, D=16):
+    """Random MSDA inputs, some locations outside [0, 1]. The slope of
+    bilinear interpolation jumps at integer pixel positions, and the plain
+    version reaches the pixel through grid_sample's ``((2 loc - 1) + 1) w -
+    1) / 2``, which rounds differently from the kernel's ``loc w - 0.5``; so
+    locations within 1e-3 px of a knot are moved 2e-3 px off it, or the
+    location gradients of a few thousand of the 76M points would compare
+    slopes of neighbouring cells."""
+    import torch
+    L = sum(h * w for h, w in shapes)
+    value = torch.randn((B, L, H, D), generator=g, device=device)
+    loc = torch.rand((B, Q, H, len(shapes), P, 2), generator=g,
+                     device=device) * 1.2 - 0.1
+    size = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32,
+                        device=device)[:, None, :]           # (Lv, 1, 2)
+    px = loc * size - 0.5
+    frac = px - px.floor()
+    loc = torch.where((frac < 1e-3) | (frac > 1 - 1e-3), loc + 2e-3 / size,
+                      loc)
+    att = torch.rand((B, Q, H, len(shapes) * P), generator=g,
+                     device=device).softmax(-1)
+    return value, shapes, loc, att.reshape(B, Q, H, len(shapes), P)
+
+
+def msda_points(case):
+    value, _, loc, _ = case
+    return loc[..., 0].numel(), value.shape[3]
 
 
 def kernel_checks(device):
-    """Each kernel against its plain version at flagship call shapes (timed)
-    and at a few off-flagship shapes (checked only)."""
+    """Each kernel against its plain version at main-path call shapes
+    (timed) and at a few off-flagship shapes (checked only)."""
     import torch
-    from selfocc_tpu_torch.ops import interp, msda, render_weights
+    from selfocc_tpu_torch.ops import gather_rows, interp, msda, \
+        render_weights
     g = torch.Generator(device=device).manual_seed(SEED)
     res = {}
 
-    # kernel 1: one render chunk of NeuS alpha, incl. saturated samples
+    # NeuS weights: one eval render chunk, incl. saturated samples
     alpha = torch.rand((CHUNK, 256), generator=g, device=device)
     alpha[::7, 100:110] = 1.0
     alpha[::5, :20] = 0.0
-    w_k = render_weights.neus_weights_fwd(alpha)
-    w_p = render_weights.weights_from_alpha_plain(alpha)
-    err = max_err(w_k, w_p)
+    err = max_err(render_weights.neus_weights_fwd(alpha),
+                  render_weights.weights_from_alpha_plain(alpha))
     check("neus_weights_fwd (32768 x 256)", err, 2e-5)
-    res["neus_weights_fwd"] = dict(
-        max_abs_err=err,
-        ms=timed(lambda: render_weights.neus_weights_fwd(alpha), 20),
-        plain_ms=timed(lambda: render_weights.weights_from_alpha_plain(alpha),
-                       20))
+    res["neus_weights_fwd"] = kernel_record(
+        err, timed(lambda: render_weights.neus_weights_fwd(alpha), 20),
+        timed(lambda: render_weights.weights_from_alpha_plain(alpha), 20),
+        (2 * nbytes(alpha), 6 * alpha.numel()), shape="32768 x 256")
 
-    # kernel 2: depth-path volume (channel 0 of 257x257x25), one chunk of
-    # sample points, a margin of them outside the volume
+    # trilinear forward: depth-path volume (channel 0 of 257x257x25), one
+    # eval chunk of points, a margin of them outside the volume
     vol = torch.randn((1, 257, 257, 25), generator=g, device=device)
     hi = torch.tensor([257.0, 257.0, 25.0], device=device)
     pts = torch.rand((CHUNK * 256, 3), generator=g, device=device) \
@@ -94,93 +195,170 @@ def kernel_checks(device):
     v_p, g_p = interp.trilinear_sample_cf_with_grad_plain(vol, pts)
     err = max(max_err(v_k, v_p), max_err(g_k, g_p))
     check("trilinear_cf_with_grad_fwd (C=1, 8.4M points)", err, 1e-5)
-    res["trilinear_cf_with_grad_fwd"] = dict(
-        max_abs_err=err,
-        ms=timed(lambda: interp.trilinear_cf_with_grad_fwd(vol, pts), 10),
-        plain_ms=timed(
-            lambda: interp.trilinear_sample_cf_with_grad_plain(vol, pts), 3))
+    n = pts.shape[0]
+    res["trilinear_cf_with_grad_fwd"] = kernel_record(
+        err, timed(lambda: interp.trilinear_cf_with_grad_fwd(vol, pts), 10),
+        timed(lambda: interp.trilinear_sample_cf_with_grad_plain(vol, pts),
+              3),
+        (nbytes(vol, pts, v_k, g_k), n * (20 + 16 * 1 + 96)),
+        shape="C=1, 8388608 points")
+    del v_k, g_k, v_p, g_p
 
-    # kernel 3: hw-plane image cross-attention (6 cams, 4 FPN levels of a
+    # trilinear backward: one training chunk (4096 rays x 256 samples) on
+    # the 25-channel volume, and on the sdf channel with both cotangents
+    vol25 = torch.randn((25, 257, 257, 25), generator=g, device=device)
+    tp = pts[:TRAIN_CHUNK_POINTS].contiguous()
+    tri = {}
+    for C, volc in ((25, vol25), (1, vol)):
+        gv = torch.randn((tp.shape[0], C), generator=g, device=device)
+        gg = torch.randn((tp.shape[0], 3), generator=g, device=device)
+        k = interp.trilinear_bwd(volc, tp, gv, gg)
+        p = interp.trilinear_bwd_plain(volc, tp, gv, gg)
+        err = check_grads(f"trilinear_bwd (C={C}, 1M points)", [k], [p])
+        del k, p
+        tri[C] = kernel_record(
+            err, timed(lambda: interp.trilinear_bwd(volc, tp, gv, gg), 10),
+            timed(lambda: interp.trilinear_bwd_plain(volc, tp, gv, gg), 3),
+            (nbytes(tp, gv, gg, volc), tp.shape[0] * 8 * (9 + 2 * C)))
+    res["trilinear_bwd"] = dict(tri[25], shape="C=25, 1048576 points",
+                                c1_ms=tri[1]["ms"],
+                                c1_plain_ms=tri[1]["plain_ms"],
+                                c1_bound_ms=tri[1]["bound_ms"],
+                                c1_max_abs_err=tri[1]["max_abs_err"])
+    res["trilinear_bwd"]["max_abs_err"] = max(tri[25]["max_abs_err"],
+                                              tri[1]["max_abs_err"])
+    del vol25, pts, tp
+    torch.cuda.empty_cache()
+
+    # MSDA: hw-plane image cross-attention (6 cams, 4 FPN levels of a
     # 384x800 input, 66049 queries, 8 points) and the TPV self-attention
-    # (78899 queries over the 3 planes, 12 points)
-    def msda_case(B, Q, shapes, P):
-        L = sum(h * w for h, w in shapes)
-        value = torch.randn((B, L, 6, 16), generator=g, device=device)
-        loc = torch.rand((B, Q, 6, len(shapes), P, 2), generator=g,
-                         device=device) * 1.2 - 0.1
-        att = torch.rand((B, Q, 6, len(shapes) * P), generator=g,
-                         device=device).softmax(-1)
-        return value, shapes, loc, att.reshape(B, Q, 6, len(shapes), P)
-
-    out = {}
-    for tag, case in (
-            ("cross", msda_case(6, 66049, ((96, 200), (48, 100), (24, 50),
-                                           (12, 25)), 8)),
-            ("self", msda_case(1, 78899, ((257, 257), (25, 257), (257, 25)),
-                               12))):
+    # (78899 queries over the 3 planes, 12 points); forward and backward
+    fwd, bwd = {}, {}
+    for tag, args in (
+            ("cross", (6, 66049, ((96, 200), (48, 100), (24, 50), (12, 25)),
+                       8)),
+            ("self", (1, 78899, ((257, 257), (25, 257), (257, 25)), 12))):
+        case = msda_case(g, device, *args)
+        value, shapes, loc, att = case
+        pts_n, D = msda_points(case)
         o_k = msda.msda_fwd(*case)
-        o_p = msda.ms_deform_attn_plain(*case)
-        err = max_err(o_k, o_p)
-        del o_p
+        err = max_err(o_k, msda.ms_deform_attn_plain(*case))
         check(f"msda_fwd ({tag})", err, 1e-5)
-        out[tag] = dict(err=err, ms=timed(lambda: msda.msda_fwd(*case), 5),
-                        plain_ms=timed(
-                            lambda: msda.ms_deform_attn_plain(*case), 3))
-        del case
+        fwd[tag] = kernel_record(
+            err, timed(lambda: msda.msda_fwd(*case), 5),
+            timed(lambda: msda.ms_deform_attn_plain(*case), 3),
+            (nbytes(value, loc, att, o_k),
+             pts_n * (MSDA_FWD_OPS[0] + D * MSDA_FWD_OPS[1])))
+        grad_out = torch.randn(o_k.shape, generator=g, device=device)
+        del o_k
         torch.cuda.empty_cache()
+        got = msda.msda_bwd(*case, grad_out)
+        ref = msda.msda_bwd_plain(*case, grad_out)
+        err = check_grads(f"msda_bwd ({tag})", got, ref)
+        del got, ref
+        torch.cuda.empty_cache()
+        bwd[tag] = kernel_record(
+            err, timed(lambda: msda.msda_bwd(*case, grad_out), 5),
+            timed(lambda: msda.msda_bwd_plain(*case, grad_out), 2),
+            (2 * nbytes(value, loc, att) + nbytes(grad_out),
+             pts_n * (MSDA_BWD_OPS[0] + D * MSDA_BWD_OPS[1])))
+        del case, value, loc, att, grad_out
+        torch.cuda.empty_cache()
+    for name, rec in (("msda_fwd", fwd), ("msda_bwd", bwd)):
+        res[name] = dict(rec["cross"], shape="cross hw plane",
+                         self_attn_ms=rec["self"]["ms"],
+                         self_attn_plain_ms=rec["self"]["plain_ms"],
+                         self_attn_bound_ms=rec["self"]["bound_ms"])
+        res[name]["max_abs_err"] = max(rec["cross"]["max_abs_err"],
+                                       rec["self"]["max_abs_err"])
 
-    # off-flagship shapes the kernels also take: a ragged sample count, the
-    # 25-channel volume of the rgb/sem render, small and wide MSDA heads
+    # off-flagship shapes the kernels also take: a ragged sample count, a
+    # small and a wide MSDA head (shared-memory reduction), fp32 rows of a
+    # width that is no multiple of 16 bytes
     a = torch.rand((37, 19), generator=g, device=device)
     a[:, 5:8] = 1.0
     check("neus_weights_fwd (37 x 19)", max_err(
         render_weights.neus_weights_fwd(a),
         render_weights.weights_from_alpha_plain(a)), 2e-5)
-    vol25 = torch.randn((25, 257, 257, 25), generator=g, device=device)
-    p25 = pts[:100_000]
-    v_k, g_k = interp.trilinear_cf_with_grad_fwd(vol25, p25)
-    v_p, g_p = interp.trilinear_sample_cf_with_grad_plain(vol25, p25)
-    check("trilinear_cf_with_grad_fwd (C=25)",
-          max(max_err(v_k, v_p), max_err(g_k, g_p)), 1e-5)
     for B, Q, H, D, shapes, P in ((2, 37, 3, 4, ((6, 8), (3, 4)), 5),
-                                  (1, 300, 8, 160, ((9, 7), (4, 5)), 3)):
-        L = sum(h * w for h, w in shapes)
-        value = torch.randn((B, L, H, D), generator=g, device=device)
-        loc = torch.rand((B, Q, H, len(shapes), P, 2), generator=g,
-                         device=device) * 1.4 - 0.2
-        att = torch.rand((B, Q, H, len(shapes), P), generator=g,
-                         device=device)
-        case = (value, shapes, loc, att / att.sum((-1, -2), keepdim=True))
+                                  (1, 300, 8, 24, ((9, 7), (4, 5)), 3)):
+        case = msda_case(g, device, B, Q, shapes, P, H, D)
         check(f"msda_fwd (H={H}, D={D})", max_err(
             msda.msda_fwd(*case), msda.ms_deform_attn_plain(*case)), 1e-5)
-
-    res["msda_fwd"] = dict(
-        max_abs_err=max(out["cross"]["err"], out["self"]["err"]),
-        ms=out["cross"]["ms"],
-        plain_ms=out["cross"]["plain_ms"], self_attn_ms=out["self"]["ms"],
-        self_attn_plain_ms=out["self"]["plain_ms"])
+        gout = torch.randn((B, Q, H * D), generator=g, device=device)
+        check_grads(f"msda_bwd (H={H}, D={D})", msda.msda_bwd(*case, gout),
+                    msda.msda_bwd_plain(*case, gout))
+    t = torch.randn((50, 7), generator=g, device=device)
+    i = torch.randint(0, 50, (512,), generator=g, device=device,
+                      dtype=torch.int32)
+    check("gather_rows (fp32, 28-byte rows)", max_err(
+        gather_rows.gather_rows(t, i), t.index_select(0, i.long())), 0.0)
     return res
+
+
+def reset_counts(wrappers):
+    for fn in wrappers:
+        fn.launches = 0
+
+
+def read_counts(wrappers, path):
+    counts = {fn.__name__: fn.launches for fn in wrappers}
+    log(f"  launches in the {path}: {counts}")
+    for name, n in counts.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched by the {path}")
+    return counts
+
+
+def gather_path(device):
+    """gather_rows's own path (no production path calls it): one call
+    through the public wrapper at tools/bench_gather.py's default shape,
+    its launches counted, held exactly against index_select; then timed."""
+    import torch
+    from selfocc_tpu_torch.ops import gather_rows
+    g = torch.Generator(device=device).manual_seed(SEED + 1)
+    table = torch.randn((257 * 257 * 25, 200), generator=g, device=device
+                        ).to(torch.bfloat16)
+    idx = torch.randint(0, table.shape[0], (1 << 21,), generator=g,
+                        device=device, dtype=torch.int32)
+    reset_counts([gather_rows.gather_rows_fwd])
+    out = gather_rows.gather_rows(table, idx)
+    torch.cuda.synchronize()
+    counts = read_counts([gather_rows.gather_rows_fwd], "gather phase")
+    err = max_err(out, torch.index_select(table, 0, idx))
+    check("gather_rows (2^21 rows of 1651225 x 200 bf16)", err, 0.0)
+    rec = kernel_record(
+        err, timed(lambda: gather_rows.gather_rows(table, idx), 10),
+        timed(lambda: gather_rows.gather_rows_plain(table, idx), 10),
+        (2 * nbytes(out) + nbytes(idx), 0),
+        library_ms=timed(lambda: torch.index_select(table, 0, idx), 10),
+        shape="2^21 x 200 bf16", launches=counts["gather_rows_fwd"])
+    del table, idx, out
+    torch.cuda.empty_cache()
+    return rec
 
 
 def full_frame(device):
     """One full-width nuscenes_occ frame through the eval_depth code path,
     with the launch counts of that run."""
     import torch
-    from selfocc_tpu.configs.experiments import get_config
     from selfocc_tpu_torch import eval_depth
+    from selfocc_tpu_torch.configs.experiments import get_config
     from selfocc_tpu_torch.models import neus
     from selfocc_tpu_torch.ops import interp, msda, render_weights
     from selfocc_tpu_torch.utils.eval_lib import (ChunkedRenderer,
                                                   eval_ray_grid,
                                                   eval_trans_mats,
                                                   rays_for_cams)
+    from selfocc_tpu_torch.utils.runtime import (get_dataset, get_logger,
+                                                 to_device)
 
     cfg = get_config("nuscenes_occ")
     t0 = time.time()
     model = eval_depth.build_model(cfg, SEED, device)
-    ds = eval_depth.get_dataset(cfg, synthetic=True)
+    ds = get_dataset(cfg, synthetic=True)
     log(f"  model + synthetic dataset set-up {time.time() - t0:.1f}s")
-    logger = eval_depth.get_logger()
+    logger = get_logger()
 
     # a cold frame first (lazy CUDA module loading, cuDNN heuristics), then
     # the measured frame on another input, counts reset just before it
@@ -190,20 +368,17 @@ def full_frame(device):
     item = ds[0]
     wrappers = (render_weights.neus_weights_fwd,
                 interp.trilinear_cf_with_grad_fwd, msda.msda_fwd)
-    for fn in wrappers:
-        fn.launches = 0
+    reset_counts(wrappers + (msda.msda_bwd, interp.trilinear_bwd))
     torch.cuda.reset_peak_memory_stats()
     res = eval_depth.evaluate(cfg, model, [item], device, 1, CHUNK, logger)
-    launches = {fn.__name__: fn.launches for fn in wrappers}
+    launches = read_counts(wrappers, "eval frame")
+    if msda.msda_bwd.launches or interp.trilinear_bwd.launches:
+        raise AssertionError("the no-grad eval frame launched a backward")
     res["max_memory_gb"] = torch.cuda.max_memory_allocated() / 2**30
     res["cold"] = {k: cold[k] for k in ("prepare_s", "render_s")}
-    log(f"  launches in the frame: {launches}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} was not launched by the main path")
 
     # depth bounds: 0 <= depth <= far, in z-depth units per ray
-    batch = eval_depth.to_device(item, device)
+    batch = to_device(item, device)
     rays = eval_ray_grid(cfg, device=device)
     origin, direction = rays_for_cams(eval_trans_mats(batch, cfg), rays)
     if origin.shape[0] != 2_160_000:
@@ -242,10 +417,203 @@ def full_frame(device):
         raise AssertionError("subset depth outside [acc*near, acc*far]")
     res["subset_err"] = sub_err
     res["launches"] = launches
+    del model, cpu_model, volume
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_parity(device):
+    """One tiny step: kernels on the card vs plain versions on the CPU,
+    same weights and draws, dropout 0."""
+    import torch
+    from selfocc_tpu_torch.configs.experiments import get_config
+    from selfocc_tpu_torch.losses import MultiLoss
+    from selfocc_tpu_torch.models.initializers import init_weights
+    from selfocc_tpu_torch.models.segmentor import TPVSegmentor
+    from selfocc_tpu_torch.utils.runtime import get_dataset, to_device
+    from selfocc_tpu_torch.utils.train_lib import build_loss_inputs
+
+    cfg = get_config("tiny")
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, encoder=dataclasses.replace(cfg.model.encoder,
+                                               dropout=0.0)))
+    h = cfg.model.head
+    item = get_dataset(cfg, synthetic=True)[0]
+    g = torch.Generator().manual_seed(SEED)
+    R = cfg.num_cams * h.ray_number[0] * h.ray_number[1]
+    draws = {"cellular": torch.rand(4, generator=g),
+             "t_rand": torch.rand((R, h.num_samples + 1), generator=g),
+             "bkgd": torch.rand((R, 3), generator=g)}
+    model = TPVSegmentor(cfg.model)
+    init_weights(model, torch.Generator().manual_seed(SEED))
+    results = []
+    for dev, chunk in ((device, PARITY_RAY_CHUNK), (torch.device("cpu"), 0)):
+        m = copy.deepcopy(model).to(dev).train()
+        m.head.train_ray_chunk = chunk
+        batch = to_device(item, dev)
+        out = m(batch["imgs"], batch["lidar2img"], batch[h.trans_kw],
+                train=True, draws=draws)
+        tot, ldict = MultiLoss(cfg.loss_cfgs)(
+            build_loss_inputs(cfg, out, batch))
+        tot.backward()
+        results.append((
+            {k: float(v.detach()) for k, v in ldict.items()},
+            {n: p.grad.detach().cpu() for n, p in m.named_parameters()}))
+    (l_k, g_k), (l_p, g_p) = results
+    for k in l_p:
+        err = abs(l_k[k] - l_p[k])
+        check(f"tiny loss {k}", err, 1e-5 * abs(l_p[k]) + 1e-7)
+    worst = 0.0
+    for n in g_p:
+        err = max_err(g_k[n], g_p[n])
+        tol = GRAD_RTOL * float(g_p[n].abs().max()) + 1e-7
+        if not err <= tol:
+            raise AssertionError(f"tiny grad {n}: {err:.3e} > {tol:.3e}")
+        worst = max(worst, err / tol)
+    log(f"  chunks of {PARITY_RAY_CHUNK} rays on the card vs dense on the "
+        f"CPU: {len(g_p)} parameter gradients within tolerance (worst "
+        f"{worst:.2f} of its tolerance); losses {l_k}")
+    return {"losses_cuda": l_k, "losses_cpu": l_p,
+            "worst_grad_err_over_tol": worst}
+
+
+def full_train(device):
+    """nuscenes_occ at full width: one cold step, 3 measured steps, a
+    profiled warm step, then a warm-up and a measured step with one dense
+    render (no checkpointed chunks)."""
+    import torch
+    from selfocc_tpu_torch.configs.experiments import get_config
+    from selfocc_tpu_torch.ops import interp, msda, render_weights
+    from selfocc_tpu_torch.train import build_trainer
+    from selfocc_tpu_torch.utils.runtime import get_dataset, to_device
+
+    cfg = get_config("nuscenes_occ")
+    t0 = time.time()
+    trainer = build_trainer(cfg, SEED, device)
+    batch = to_device(get_dataset(cfg, synthetic=True, length=1)[0], device)
+    log(f"  set-up {time.time() - t0:.1f}s; train_ray_chunk "
+        f"{cfg.model.head.train_ray_chunk}")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    sync = torch.cuda.synchronize
+
+    def finite(m):
+        bad = [k for k, v in m.items()
+               if k != "times" and not torch.isfinite(torch.as_tensor(v))]
+        if bad:
+            raise AssertionError(f"non-finite train metrics: {bad}")
+
+    def show(tag, m):
+        vals = {k: float(v) for k, v in m.items() if k != "times"}
+        log(f"  {tag}: " + ", ".join(f"{k}={v:.6g}" for k, v in
+                                     sorted(vals.items()))
+            + " | " + ", ".join(f"{k}={v:.3f}" for k, v in
+                                m["times"].items()))
+        return vals
+
+    t0 = time.perf_counter()
+    finite(cold := trainer.step(batch, gen, sync=sync))
+    cold_s = time.perf_counter() - t0
+    show("cold step", cold)
+    wrappers = (render_weights.neus_weights_fwd,
+                interp.trilinear_cf_with_grad_fwd, interp.trilinear_bwd,
+                msda.msda_fwd, msda.msda_bwd)
+    reset_counts(wrappers)
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i in range(3):
+        t0 = time.perf_counter()
+        m = trainer.step(batch, gen, sync=sync)
+        wall = time.perf_counter() - t0
+        finite(m)
+        steps.append(dict(show(f"step {i}", m), step_s=wall,
+                          **m["times"]))
+    launches = read_counts(wrappers, "training steps")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = {k: sorted(s[k] for s in steps)[1]
+           for k in ("step_s", "forward_s", "backward_s", "optimizer_s")}
+    log(f"  median step {med['step_s']:.3f}s (forward "
+        f"{med['forward_s']:.3f}, backward {med['backward_s']:.3f}, "
+        f"optimizer {med['optimizer_s']:.3f}); peak {peak:.2f} GiB")
+    prof = profile_step(trainer, batch, gen, med["step_s"])
+
+    # the same step with one dense render: does checkpointing pay for
+    # itself, and would the step fit without it
+    trainer.model.head.train_ray_chunk = 0
+    finite(trainer.step(batch, gen, sync=sync))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m = trainer.step(batch, gen, sync=sync)
+    dense = dict(show("dense-render step", m),
+                 step_s=time.perf_counter() - t0, **m["times"],
+                 max_memory_gb=torch.cuda.max_memory_allocated() / 2**30)
+    finite(m)
+    trainer.model.head.train_ray_chunk = cfg.model.head.train_ray_chunk
+    log(f"  dense-render step {dense['step_s']:.3f}s, peak "
+        f"{dense['max_memory_gb']:.2f} GiB")
+    return {"cold_step_s": cold_s, "median": med, "steps": steps,
+            "max_memory_gb": peak,
+            "launches_per_step": {k: v / 3 for k, v in launches.items()},
+            "launches": launches, "profile": prof,
+            "train_ray_chunk": cfg.model.head.train_ray_chunk,
+            "dense_render_step": dense}
+
+
+def profile_step(trainer, batch, gen, step_s):
+    """torch.profiler over one warm step: device time by kernel (CUDA-side
+    events only, so an op and the kernel it launched count once), the share
+    of the backward kernels, kernel time over the unprofiled step time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.step(batch, gen, sync=torch.cuda.synchronize)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    averages = prof.key_averages()
+    kernels = sorted((e for e in averages
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    total_us = sum(e.self_device_time_total for e in kernels)
+
+    def share(key):
+        return sum(e.self_device_time_total for e in kernels
+                   if key in e.key) / max(total_us, 1)
+
+    top = [{"name": e.key[:90], "calls": e.count,
+            "device_ms": e.self_device_time_total / 1e3,
+            "share": e.self_device_time_total / max(total_us, 1)}
+           for e in kernels[:15]]
+    res = {"profiled_wall_ms": wall_ms, "kernel_ms": total_us / 1e3,
+           "kernel_launches": sum(e.count for e in kernels),
+           "device_busy_share": total_us / 1e6 / step_s,
+           "msda_bwd_share": share("msda_bwd_kernel"),
+           "trilinear_bwd_share": share("trilinear_bwd_kernel"),
+           "msda_fwd_share": share("msda_fwd_kernel"),
+           "trilinear_fwd_share": share("trilinear_cf_with_grad_fwd_kernel"),
+           "neus_weights_share": share("neus_weights"),
+           "top": top}
+    log(f"  profiled step: wall {wall_ms:.1f} ms, {res['kernel_launches']} "
+        f"kernels, {total_us / 1e3:.1f} ms of kernel time "
+        f"({res['device_busy_share']:.0%} of the unprofiled step); msda_bwd "
+        f"{res['msda_bwd_share']:.1%}, trilinear_bwd "
+        f"{res['trilinear_bwd_share']:.1%}, msda_fwd "
+        f"{res['msda_fwd_share']:.1%}, trilinear fwd "
+        f"{res['trilinear_fwd_share']:.1%} of kernel time")
+    for t in top:
+        log(f"    {t['device_ms']:9.2f} ms {t['share']:6.1%} "
+            f"x{t['calls']:<5d} {t['name']}")
     return res
 
 
 def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES))
+    args = ap.parse_args()
+    wanted = args.phases.split(",")
+    if set(wanted) - set(PHASES):
+        ap.error(f"unknown phases {sorted(set(wanted) - set(PHASES))}")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -267,40 +635,59 @@ def main():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    log("[kernels] each against its plain version at flagship shapes")
-    t0 = time.time()
-    kres = kernel_checks(device)
-    log(f"[kernels] done in {time.time() - t0:.1f}s")
+    runs = {"kernels": lambda: kernel_checks(device),
+            "gather": lambda: gather_path(device),
+            "frame": lambda: full_frame(device),
+            "train-parity": lambda: train_parity(device),
+            "train": lambda: full_train(device)}
+    phases = {}
+    for tag in PHASES:
+        if tag not in wanted:
+            continue
+        log(f"[{tag}]")
+        t0 = time.time()
+        phases[tag] = runs[tag]()
+        log(f"[{tag}] done in {time.time() - t0:.1f}s")
+    if len(phases) < len(PHASES):
+        log(f"partial run ({', '.join(phases)}): no result line")
+        return
 
-    log("[frame] nuscenes_occ, 1 synthetic frame, full width")
-    fres = full_frame(device)
-    rays_per_s = fres["rays"] / fres["render_s"]
+    kres = dict(phases["kernels"], gather_rows=phases["gather"])
+    fres, tres = phases["frame"], phases["train"]
     log(f"[frame] prepare {fres['prepare_s']:.3f}s render "
-        f"{fres['render_s']:.3f}s ({rays_per_s:.0f} rays/s), peak "
-        f"{fres['max_memory_gb']:.2f} GiB allocated")
-
-    sources = {"neus_weights_fwd": ("selfocc_tpu_torch/csrc/neus_weights.cu",
-                                    "selfocc_tpu/ops/render_pallas.py:54"),
-               "trilinear_cf_with_grad_fwd": (
-                   "selfocc_tpu_torch/csrc/trilinear.cu",
-                   "selfocc_tpu/ops/interp.py:159"),
-               "msda_fwd": ("selfocc_tpu_torch/csrc/msda.cu",
-                            "selfocc_tpu/ops/msda.py:160")}
+        f"{fres['render_s']:.3f}s ({fres['rays'] / fres['render_s']:.0f} "
+        f"rays/s), peak {fres['max_memory_gb']:.2f} GiB allocated")
+    sources = {
+        "neus_weights_fwd": ("neus_weights.cu",
+                             "selfocc_tpu/ops/render_pallas.py:54"),
+        "trilinear_cf_with_grad_fwd": ("trilinear.cu",
+                                       "selfocc_tpu/ops/interp.py:159"),
+        "trilinear_bwd": ("trilinear.cu", "selfocc_tpu/ops/interp.py:159"),
+        "msda_fwd": ("msda.cu", "selfocc_tpu/ops/msda.py:160"),
+        "msda_bwd": ("msda.cu", "selfocc_tpu/ops/msda.py:160"),
+        "gather_rows": ("gather_rows.cu",
+                        "selfocc_tpu/ops/gather_rows.py:82")}
     kernels = []
     for name, (src, replaces) in sources.items():
-        entry = {"name": name, "route": "cuda", "source": src,
-                 "replaces": replaces, "launches": fres["launches"][name]}
+        entry = {"name": name, "route": "cuda",
+                 "source": f"selfocc_tpu_torch/csrc/{src}",
+                 "replaces": replaces,
+                 "launches": tres["launches"].get(name)}
         entry.update(kres[name])
+        if name in fres["launches"]:
+            entry["launches_eval_frame"] = fres["launches"][name]
         kernels.append(entry)
-    print(json.dumps({"kernels": kernels,
-                      "frame": {"prepare_s": fres["prepare_s"],
-                                "render_s": fres["render_s"],
-                                "rays": fres["rays"],
-                                "rays_per_s": rays_per_s,
-                                "max_memory_gb": fres["max_memory_gb"],
-                                "cold_frame": fres["cold"],
-                                "subset_max_abs_err": fres["subset_err"]}}),
-          flush=True)
+    print(json.dumps({
+        "kernels": kernels,
+        "frame": {"prepare_s": fres["prepare_s"],
+                  "render_s": fres["render_s"], "rays": fres["rays"],
+                  "rays_per_s": fres["rays"] / fres["render_s"],
+                  "max_memory_gb": fres["max_memory_gb"],
+                  "cold_frame": fres["cold"],
+                  "subset_max_abs_err": fres["subset_err"]},
+        "train_parity": phases["train-parity"],
+        "train": {k: v for k, v in tres.items() if k != "launches"}}),
+        flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True,

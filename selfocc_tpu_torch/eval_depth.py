@@ -4,33 +4,34 @@ render -> bilinear lookup of the predicted depth at the sparse GT pixels ->
 ``DepthMetric`` raw / median-scaled tables).
 
     python -m selfocc_tpu_torch.eval_depth --py-config nuscenes_occ \
-        --synthetic --num-samples 1
+        --synthetic --num-samples 1 [--device cpu]
 
 Weights are drawn from seeded initialisers that mirror the JAX package's
-(``--seed``); checkpoint loading, flip test-time augmentation and the
-argmax-weight depth target come with later slices. Runs on the first CUDA
-device when there is one (kernels built on first use), else on the CPU with
-the kernels' plain versions.
+(``--seed``); checkpoint loading, flip test-time augmentation, the
+argmax-weight depth target and the real nuScenes loaders come with later
+slices (without ``--synthetic`` it stops with an error). Runs on the first
+CUDA device (kernels built on first use) unless ``--device cpu`` asks for the
+kernels' plain versions on the CPU; with no card and no ``--device cpu`` it
+exits non-zero.
 """
 from __future__ import annotations
 
 import argparse
-import logging
-import sys
 import time
 from typing import Dict
 
 import numpy as np
 import torch
 
-from selfocc_tpu.configs.experiments import get_config
-from selfocc_tpu.utils.metrics import _DEPTH_KEYS, DepthMetric
-
+from .configs.experiments import get_config
 from .models.initializers import init_weights
 from .models.segmentor import TPVSegmentor
 from .ops.interp import bilinear_sample
 from .utils.eval_lib import (ChunkedRenderer, eval_ray_grid, eval_trans_mats,
                              rays_for_cams)
+from .utils.metrics import DepthMetric
+from .utils.runtime import (add_device_arg, get_dataset, get_logger,
+                            resolve_device, to_device)
 
 
 def parse_args(argv=None):
@@ -41,25 +42,8 @@ def parse_args(argv=None):
     ap.add_argument("--synthetic", action="store_true")
     ap.add_argument("--num-samples", type=int, default=0)
     ap.add_argument("--seed", type=int, default=42)
+    add_device_arg(ap)
     return ap.parse_args(argv)
-
-
-def get_dataset(cfg, synthetic: bool):
-    """Real val split when its data is on disk, else the synthetic scene
-    (the JAX driver's fallback, ``train.py:114-135``)."""
-    from selfocc_tpu.data.synthetic import SyntheticDataset
-    if not synthetic:
-        try:
-            from selfocc_tpu.data import build_dataset
-            ds = build_dataset(cfg, phase="val")
-            if ds is not None:
-                return ds
-        except (ImportError, FileNotFoundError):
-            pass
-    n_sem = max(cfg.num_classes, cfg.model.head.sem_dims or 0)
-    return SyntheticDataset(
-        num_cams=cfg.num_cams, input_size=cfg.input_size,
-        img_size=cfg.img_size, num_classes=n_sem, length=64)
 
 
 def build_model(cfg, seed: int, device) -> TPVSegmentor:
@@ -67,11 +51,6 @@ def build_model(cfg, seed: int, device) -> TPVSegmentor:
     model = TPVSegmentor(cfg.model)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval()
-
-
-def to_device(item, device) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(np.asarray(v)).to(device)
-            for k, v in item.items() if not isinstance(v, (str, dict))}
 
 
 def sample_depth_at(depth_map: torch.Tensor, loc: np.ndarray, rh: int,
@@ -84,38 +63,6 @@ def sample_depth_at(depth_map: torch.Tensor, loc: np.ndarray, rh: int,
     return np.stack([bilinear_sample(depth_map[c][..., None].cpu(), pix[c],
                                      "border")[..., 0].numpy()
                      for c in range(depth_map.shape[0])])
-
-
-def reduce_depth_metric(metric: DepthMetric, logger) -> Dict[str, np.ndarray]:
-    """``DepthMetric._after_epoch`` for one process (that method reduces
-    across JAX processes)."""
-    count = max(metric.count, 1)
-    out = {k: metric.sums[k] / count for k in _DEPTH_KEYS}
-    out["scaling"] = metric.scaling / count
-    logger.info(f"Averaging over {int(metric.count)} samples.")
-    for ti, t in enumerate(metric.eval_types):
-        logger.info(f"{t} evaluation:")
-        logger.info(("{:>12} | " * 9).format("cam_name", *_DEPTH_KEYS,
-                                              "scale"))
-        for cam, name in enumerate(metric.camera_names):
-            vals = [out[k][ti, cam] for k in _DEPTH_KEYS]
-            vals.append(out["scaling"][ti, cam])
-            logger.info((f"{name:>12} | " + "&{: 12.3f}  " * 8).format(*vals))
-        vals = [out[k][ti].mean() for k in _DEPTH_KEYS]
-        vals.append(out["scaling"][ti].mean())
-        logger.info(("{:>12} | " + "&{: 12.3f}  " * 8).format("All", *vals))
-    return out
-
-
-def get_logger() -> logging.Logger:
-    logger = logging.getLogger("selfocc_tpu_torch")
-    logger.setLevel(logging.INFO)
-    logger.propagate = False
-    if not logger.handlers:
-        h = logging.StreamHandler(sys.stdout)
-        h.setFormatter(logging.Formatter("%(asctime)s %(message)s"))
-        logger.addHandler(h)
-    return logger
 
 
 def evaluate(cfg, model, ds, device, num_samples: int, chunk: int,
@@ -155,22 +102,18 @@ def evaluate(cfg, model, ds, device, num_samples: int, chunk: int,
     logger.info(f"total {total_rays} rays: prepare {t_prep:.3f}s, render "
                 f"{t_render:.3f}s ({total_rays / max(t_render, 1e-9):.0f} "
                 "rays/s)")
-    table = reduce_depth_metric(metric, logger)
+    table = metric._after_epoch(logger)
     return {"metric": table, "prepare_s": t_prep, "render_s": t_render,
             "rays": total_rays, "last_depth": depth}
 
 
 def main(argv=None):
     args = parse_args(argv)
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    if device.type == "cuda":
-        # the exact tier is fp32: no TF32 in convolutions or matmuls
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+    device = resolve_device(args.device)
     cfg = get_config(args.py_config)
+    ds = get_dataset(cfg, args.synthetic)
     logger = get_logger()
     model = build_model(cfg, args.seed, device)
-    ds = get_dataset(cfg, args.synthetic)
     return evaluate(cfg, model, ds, device, args.num_samples, args.batch,
                     logger)
 

@@ -1,6 +1,6 @@
 """Camera projection geometry — counterpart of
-``selfocc_tpu/geometry/projection.py`` (``point_sampling``,
-``rays_from_img2lidar``). Both are fp32 islands: inputs are cast to float32
+``selfocc_tpu/geometry/projection.py`` (``point_sampling``, ``cal_pixel``,
+``rays_from_img2lidar``). All are fp32 islands: inputs are cast to float32
 whatever the caller's dtype, as in the JAX package and the reference
 (``@autocast(enabled=False)``)."""
 from __future__ import annotations
@@ -43,3 +43,17 @@ def rays_from_img2lidar(img2lidar, rays):
     rays_pad = torch.cat([rays, torch.ones_like(rays[..., :1])], dim=-1)
     direction = torch.einsum("bnij,rj->bnri", m[..., :3, :3], rays_pad)
     return origin, direction
+
+
+def cal_pixel(trans, coords, img_size):
+    """Project homogeneous points through a 4x4: trans (..., 4, 4), coords
+    (..., 4) (already scaled by the ray depth t), static img_size (H, W) ->
+    pixel (..., 2), in-image mask (...,) (``projection.py:102-122``)."""
+    trans = trans.float()
+    coords = coords.float()
+    pixel = torch.einsum("...ij,...j->...i", trans, coords)
+    mask = pixel[..., 2] > 0
+    pix = pixel[..., :2] / pixel[..., 2:3].clamp_min(EPS)
+    mask = mask & (pix[..., 0] > 0) & (pix[..., 0] < img_size[1]) & \
+        (pix[..., 1] > 0) & (pix[..., 1] < img_size[0])
+    return pix, mask

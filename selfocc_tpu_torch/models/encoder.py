@@ -13,8 +13,11 @@ Linears (the reference keeps those on the attention module).
 Only the exact tier is ported: per-head sampling locations and the dense
 image cross-attention (``cross_visible_capacity = 1.0``). The TPU layout
 levers (bundling, point/query chunking, bf16 payloads) are fp reassociations
-that the MSDA kernel stands in for. Dropout is the identity at eval and is
-left out.
+that the MSDA kernel stands in for. Dropout (p = ``EncoderConfig.dropout``)
+sits where the JAX package has it (``encoder.py:270,387,404,406``): after the
+self-attention's and each cross-attention's output projection and twice in
+the FFN. It is active in train mode only and draws its masks from an explicit
+``torch.Generator`` passed to ``forward``.
 """
 from __future__ import annotations
 
@@ -117,6 +120,17 @@ def offset_bias_init(num_heads, num_levels, num_points,
     return grid.reshape(-1).astype(np.float32)
 
 
+def dropout(x, p: float, training: bool, generator):
+    """flax ``nn.Dropout``: keep with probability 1 - p, scale by
+    1 / (1 - p); the identity at eval or p = 0."""
+    if not training or p == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("train-mode dropout needs a torch.Generator")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+
+
 def deform_heads(query, sampling_offsets: nn.Linear,
                  attention_weights: nn.Linear, H: int, L: int, P: int):
     """Query -> sampling offsets (B, Q, H, L, P, 2) and softmaxed attention
@@ -153,9 +167,11 @@ class CrossViewHybridAttention(nn.Module):
     ``cross_view_hybrid_attention.py:12-124``): the planes are the 3 levels of
     a deformable attention over the concatenated plane sequence."""
 
-    def __init__(self, embed_dims: int, num_heads: int, num_points: int):
+    def __init__(self, embed_dims: int, num_heads: int, num_points: int,
+                 dropout_p: float = 0.0):
         super().__init__()
         self.num_heads, self.num_points = num_heads, num_points
+        self.dropout_p = dropout_p
         self.sampling_offsets = nn.Linear(embed_dims,
                                           num_heads * 3 * num_points * 2)
         self.attention_weights = nn.Linear(embed_dims,
@@ -169,7 +185,8 @@ class CrossViewHybridAttention(nn.Module):
         _reset_xavier(self.value_proj, generator)
         _reset_xavier(self.output_proj, generator)
 
-    def forward(self, query, query_pos, ref_points, spatial_shapes):
+    def forward(self, query, query_pos, ref_points, spatial_shapes,
+                generator=None):
         # query (B, Qtot, C); ref_points (Qtot, 3, P, 2)
         B, Q, C = query.shape
         H = self.num_heads
@@ -181,7 +198,9 @@ class CrossViewHybridAttention(nn.Module):
         loc = ref_points[None, :, None] + \
             offsets / norm[None, None, None, :, None, :]
         out = ms_deform_attn(value, spatial_shapes, loc, attn)
-        return self.output_proj(out) + query
+        out = dropout(self.output_proj(out), self.dropout_p, self.training,
+                      generator)
+        return out + query
 
 
 class BEVDeformableAttention(nn.Module):
@@ -213,16 +232,18 @@ class BEVCrossAttention(nn.Module):
     per-query hit count."""
 
     def __init__(self, embed_dims: int, num_heads: int, num_levels: int,
-                 num_points: int):
+                 num_points: int, dropout_p: float = 0.0):
         super().__init__()
         self.deformable_attention = BEVDeformableAttention(
             embed_dims, num_heads, num_levels, num_points)
         self.output_proj = nn.Linear(embed_dims, embed_dims)
+        self.dropout_p = dropout_p
 
     def reset_parameters_like_jax(self, generator):
         _reset_xavier(self.output_proj, generator)
 
-    def forward(self, query, value, ref_cams, masks, spatial_shapes):
+    def forward(self, query, value, ref_cams, masks, spatial_shapes,
+                generator=None):
         # query (1, Q, C); value (cams, L, C); ref_cams (cams, Q, P, 2);
         # masks (cams, Q, P)
         da = self.deformable_attention
@@ -243,7 +264,9 @@ class BEVCrossAttention(nn.Module):
         slots = (out * hitf[..., None]).sum(0)
         count = hitf.sum(0).clamp_min(1.0)
         slots = (slots / count[..., None])[None]
-        return self.output_proj(slots) + query
+        slots = dropout(self.output_proj(slots), self.dropout_p,
+                        self.training, generator)
+        return slots + query
 
 
 class TPVImageCrossAttention(nn.Module):
@@ -253,33 +276,41 @@ class TPVImageCrossAttention(nn.Module):
 
     PLANES = ("hw", "zh", "wz")
 
-    def __init__(self, embed_dims, num_heads, num_levels, num_points_cross):
+    def __init__(self, embed_dims, num_heads, num_levels, num_points_cross,
+                 dropout_p: float = 0.0):
         super().__init__()
         for i, plane in enumerate(self.PLANES):
             self.add_module(f"attn_{plane}", BEVCrossAttention(
-                embed_dims, num_heads, num_levels, num_points_cross[2 - i]))
+                embed_dims, num_heads, num_levels, num_points_cross[2 - i],
+                dropout_p))
 
     def forward(self, planes, value, ref_cams_list, masks_list,
-                spatial_shapes) -> List[torch.Tensor]:
+                spatial_shapes, generator=None) -> List[torch.Tensor]:
         return [getattr(self, f"attn_{plane}")(
                     planes[i], value, ref_cams_list[i], masks_list[i],
-                    spatial_shapes)
+                    spatial_shapes, generator)
                 for i, plane in enumerate(self.PLANES)]
 
 
 class FFN(nn.Module):
-    """mmcv FFN (2 Linears, ReLU) with residual; keys ``layers.0.0`` and
-    ``layers.1`` as in mmcv."""
+    """mmcv FFN (2 Linears, ReLU, dropout after each) with residual; keys
+    ``layers.0.0`` and ``layers.1`` as in mmcv."""
 
-    def __init__(self, embed_dims: int, feedforward_channels: int):
+    def __init__(self, embed_dims: int, feedforward_channels: int,
+                 dropout_p: float = 0.0):
         super().__init__()
         self.layers = nn.Sequential(
             nn.Sequential(nn.Linear(embed_dims, feedforward_channels),
                           nn.ReLU()),
             nn.Linear(feedforward_channels, embed_dims))
+        self.dropout_p = dropout_p
 
-    def forward(self, x):
-        return self.layers(x) + x
+    def forward(self, x, generator=None):
+        y = dropout(self.layers[0](x), self.dropout_p, self.training,
+                    generator)
+        y = dropout(self.layers[1](y), self.dropout_p, self.training,
+                    generator)
+        return y + x
 
 
 class TPVFormerLayer(nn.Module):
@@ -287,29 +318,32 @@ class TPVFormerLayer(nn.Module):
     (post-norm, reference ``tpvformer_encoder_layer.py:123-219``)."""
 
     def __init__(self, embed_dims, num_heads, num_levels, num_points_cross,
-                 num_points_self, feedforward_channels, tpv_size):
+                 num_points_self, feedforward_channels, tpv_size,
+                 dropout_p: float = 0.0):
         super().__init__()
         self.tpv_size = tuple(tpv_size)
         self.attentions = nn.ModuleList([
-            CrossViewHybridAttention(embed_dims, num_heads, num_points_self),
+            CrossViewHybridAttention(embed_dims, num_heads, num_points_self,
+                                     dropout_p),
             TPVImageCrossAttention(embed_dims, num_heads, num_levels,
-                                   num_points_cross)])
-        self.ffns = nn.ModuleList([FFN(embed_dims, feedforward_channels)])
+                                   num_points_cross, dropout_p)])
+        self.ffns = nn.ModuleList([FFN(embed_dims, feedforward_channels,
+                                       dropout_p)])
         self.norms = nn.ModuleList(
             nn.LayerNorm(embed_dims, eps=LN_EPS) for _ in range(3))
 
     def forward(self, planes, value, tpv_pos, cross_view_ref, ref_cams_list,
-                masks_list, img_spatial_shapes):
+                masks_list, img_spatial_shapes, generator=None):
         H, W, D = self.tpv_size
         sizes = [H * W, D * H, W * D]
         plane_shapes = ((H, W), (D, H), (W, D))
         q = self.attentions[0](torch.cat(planes, 1), torch.cat(tpv_pos, 1),
-                               cross_view_ref, plane_shapes)
+                               cross_view_ref, plane_shapes, generator)
         planes = list(self.norms[0](q).split(sizes, dim=1))
         planes = self.attentions[1](planes, value, ref_cams_list, masks_list,
-                                    img_spatial_shapes)
+                                    img_spatial_shapes, generator)
         q = self.norms[1](torch.cat(planes, 1))
-        q = self.norms[2](self.ffns[0](q))
+        q = self.norms[2](self.ffns[0](q, generator))
         return list(q.split(sizes, dim=1))
 
 
@@ -343,7 +377,8 @@ class TPVFormerEncoder(nn.Module):
                  num_points_self: int = 16, num_layers: int = 4,
                  feedforward_channels: int = 192,
                  pos_num_freqs: Sequence[int] = (12, 12, 12),
-                 pc_range: Sequence[float] = (-40., -40., -1., 40., 40., 5.4)):
+                 pc_range: Sequence[float] = (-40., -40., -1., 40., 40., 5.4),
+                 dropout_p: float = 0.0):
         super().__init__()
         mapping = make_mapping(**mapping_args)
         self.tpv_size = (mapping.size_h, mapping.size_w, mapping.size_d)
@@ -356,7 +391,7 @@ class TPVFormerEncoder(nn.Module):
         self.layers = nn.ModuleList(
             TPVFormerLayer(embed_dims, num_heads, num_feature_levels,
                            tuple(num_points_cross), num_points_self,
-                           feedforward_channels, self.tpv_size)
+                           feedforward_channels, self.tpv_size, dropout_p)
             for _ in range(num_layers))
         # geometry tables (the JAX package's 'consts' collection): derived
         # from the config alone, so not part of the state dict
@@ -372,10 +407,12 @@ class TPVFormerEncoder(nn.Module):
         normal_(self.level_embeds, 1.0, generator)
         normal_(self.cams_embeds, 1.0, generator)
 
-    def forward(self, representation, ms_img_feats, lidar2img, img_shape):
+    def forward(self, representation, ms_img_feats, lidar2img, img_shape,
+                generator=None):
         """representation: [hw (1,HW,C), zh (1,DH,C), wz (1,WD,C)];
         ms_img_feats: list of (1, N, h, w, C); lidar2img (1, N, 4, 4);
-        img_shape: (H, W) of the network input."""
+        img_shape: (H, W) of the network input; ``generator`` draws the
+        train-mode dropout masks."""
         if ms_img_feats[0].shape[0] != 1:
             raise ValueError("the TPV encoder runs batch size 1")
         tpv_pos = [p[None] for p in self.positional_encoding()]
@@ -395,5 +432,5 @@ class TPVFormerEncoder(nn.Module):
         for layer in self.layers:
             planes = layer(planes, value, tpv_pos, self.cross_view_ref,
                            ref_cams_list, masks_list,
-                           tuple(img_spatial_shapes))
+                           tuple(img_spatial_shapes), generator)
         return planes

@@ -1,5 +1,8 @@
 """TPV-decoded SDF field — counterpart of ``selfocc_tpu/models/field.py``
-(``TPVSDFField.decode``, ``query_geo_grad``, ``color``, ``inv_s``).
+(``TPVSDFField.decode``, ``query_geo_grad``, ``sdf``, ``second_grad``,
+``second_grad_noncompact``, ``color``, ``inv_s``). Every volume query goes
+through ``ops.interp.trilinear_sample_cf_with_grad``, so on the card its
+forward and backward are the trilinear kernels.
 
 State-dict keys follow the reference field: ``density_net.{2i+1}`` for the
 Linears of ``Sequential([Softplus, Linear] x density_layers)``,
@@ -106,6 +109,40 @@ class TPVSDFField(nn.Module):
         grad = torch.stack([gs[..., 1], gs[..., 0], gs[..., 2]], dim=-1)
         return self._split(vals), grad
 
+    def sdf(self, volume, xyz):
+        """SDF-only query (channel 0 of the volume) at metric points."""
+        return self.query_geo_grad(volume[:1], xyz)[0]["sdf"]
+
+    def second_grad(self, volume, xyz, delta: float, center=None):
+        """Compact numerical second derivative along the 3 axes
+        (``field.py:282-294``): ``(sdf(x+d) + sdf(x-d) - 2 sdf(x)) / d^2``;
+        ``center`` is the SDF at ``xyz`` when the caller has it."""
+        if center is None:
+            center = self.sdf(volume, xyz)
+        comps = []
+        for axis in range(3):
+            e = _axis_step(axis, delta, xyz)
+            comps.append((self.sdf(volume, xyz + e) + self.sdf(volume, xyz - e)
+                          - 2 * center) / (delta * delta))
+        return torch.stack(comps, dim=-1)
+
+    def second_grad_noncompact(self, volume, xyz, delta: float):
+        """Non-compact second derivative, the flagship default
+        (``field.py:296-313``): the central difference of the SDF gradient
+        along each axis, ``(d_i sdf(x + d e_i) - d_i sdf(x - d e_i)) / 2d``.
+        The JAX package takes ``jax.grad`` of a trilinear sample for the
+        gradient; here it is the analytic ``query_geo_grad`` gradient on the
+        sdf channel (equal up to rounding), so its backward runs through
+        the trilinear backward as well."""
+        comps = []
+        sdf_vol = volume[:1]
+        for axis in range(3):
+            e = _axis_step(axis, delta, xyz)
+            gp = self.query_geo_grad(sdf_vol, xyz + e)[1][..., axis]
+            gm = self.query_geo_grad(sdf_vol, xyz - e)[1][..., axis]
+            comps.append((gp - gm) / (2 * delta))
+        return torch.stack(comps, dim=-1)
+
     def color(self, color_feat, viewdirs):
         """Interpolated SH coefficients + view directions -> RGB."""
         return sh_lib.sh_render(viewdirs, color_feat, self.sh_deg,
@@ -113,3 +150,9 @@ class TPVSDFField(nn.Module):
 
     def inv_s(self):
         return self.deviation_network()
+
+
+def _axis_step(axis: int, delta: float, like: torch.Tensor) -> torch.Tensor:
+    e = torch.zeros(3, dtype=torch.float32, device=like.device)
+    e[axis] = delta
+    return e

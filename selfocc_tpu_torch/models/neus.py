@@ -1,7 +1,8 @@
 """NeuS volume-rendering math — counterpart of ``selfocc_tpu/models/neus.py``
-(box collider, uniform sampling without jitter, SDF -> alpha, weights,
-compositing). Stratified jitter, importance sampling and random backgrounds
-come with the training slice."""
+(box collider, uniform sampling with optional stratified jitter, SDF ->
+alpha, weights, compositing, backgrounds). Importance sampling is not
+ported. The random draws (jitter, random background) come from an explicit
+``torch.Generator`` or are passed in, as the parity tests do."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -44,13 +45,22 @@ def ray_aabb_near_far(origins, directions, aabb, near_plane=0.0,
     return near, far
 
 
-def sample_uniform(near, far, num_samples: int) -> RaySegments:
-    """Uniform bins between near and far (no jitter: the eval path)."""
+def sample_uniform(near, far, num_samples: int,
+                   t_rand=None) -> RaySegments:
+    """Uniform bins between near and far; with ``t_rand`` (R, S + 1) uniforms
+    each bin edge is jittered within the two half-bins around it
+    (nerfstudio's ``UniformSampler(single_jitter=False)``, ``neus.py:64-82``);
+    without it, no jitter (the eval path)."""
     R = near.shape[0]
     # i / n, the values jnp.linspace(0, 1, n + 1) gives in float32
     bins = (torch.arange(num_samples + 1, dtype=torch.float32,
                          device=near.device) / num_samples)
     bins = bins[None, :].expand(R, -1)
+    if t_rand is not None:
+        centers = (bins[:, 1:] + bins[:, :-1]) / 2
+        upper = torch.cat([centers, bins[:, -1:]], dim=-1)
+        lower = torch.cat([bins[:, :1], centers], dim=-1)
+        bins = lower + (upper - lower) * t_rand
     t = near[:, None] + (far - near)[:, None] * bins
     return RaySegments(starts=t[:, :-1], ends=t[:, 1:], nears=near, fars=far)
 
@@ -83,11 +93,21 @@ def composite(weights, values):
     return (weights[..., None] * values).sum(-2)
 
 
-def background_color(render_bkgd: str, shape, device):
-    """'white' | 'black' (the rng-less eval backgrounds)."""
+def background_color(render_bkgd: str, shape, device, generator=None,
+                     draw=None):
+    """'white' | 'black' | 'random' (uniform per ray and channel, drawn per
+    step from ``generator`` or given as ``draw``; reference
+    ``rendering.py:164-168``)."""
     if render_bkgd == "white":
         return torch.ones(shape, dtype=torch.float32, device=device)
     if render_bkgd == "black":
         return torch.zeros(shape, dtype=torch.float32, device=device)
-    raise ValueError(f"background {render_bkgd!r} needs a random generator; "
-                     "eval renders use 'white' or 'black'")
+    if render_bkgd == "random":
+        if draw is not None:
+            return torch.as_tensor(draw, dtype=torch.float32,
+                                   device=device).reshape(shape)
+        if generator is None:
+            raise ValueError("a random background needs a generator or a "
+                             "draw")
+        return torch.rand(shape, generator=generator, device=device)
+    raise ValueError(render_bkgd)

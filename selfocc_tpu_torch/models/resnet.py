@@ -2,9 +2,11 @@
 
 ``ResNet50`` keeps torchvision/mmdet naming (``conv1``, ``bn1``,
 ``layer{1..4}.{i}.conv{1,2,3}``, ``downsample.{0,1}``) so its state-dict keys
-are the reference's ``img_backbone.*`` keys. BatchNorm runs in eval mode
-(running statistics) and carries no ``num_batches_tracked`` buffer, which the
-reference export does not have either. Modules take and return NCHW tensors.
+are the reference's ``img_backbone.*`` keys. BatchNorm is flax's
+(``selfocc_tpu/models/resnet.py:30,65``): batch statistics in train mode,
+running statistics in eval mode, and no ``num_batches_tracked`` buffer, which
+the reference export does not have either. Modules take and return NCHW
+tensors.
 """
 from __future__ import annotations
 
@@ -15,12 +17,17 @@ import torch.nn.functional as F
 from torch import nn
 
 
-class FrozenBatchNorm2d(nn.Module):
-    """Eval-mode BatchNorm2d: affine params plus running statistics."""
+class BatchNorm2d(nn.Module):
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` on NCHW: in train
+    mode it normalises with the batch statistics and updates
+    ``running = 0.9 * running + 0.1 * batch`` with the biased batch variance
+    (torch's ``BatchNorm2d`` takes the unbiased one); in eval mode it
+    normalises with the running statistics."""
 
-    def __init__(self, num_features: int, eps: float = 1e-5):
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: float = 0.9):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -33,8 +40,19 @@ class FrozenBatchNorm2d(nn.Module):
         self.running_var.fill_(1.0)
 
     def forward(self, x):
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, False, 0.0, self.eps)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        # batch statistics for the output (one fused op), the biased
+        # variance again for the running update
+        out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                           self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            m = self.momentum
+            self.running_mean.mul_(m).add_(mean, alpha=1 - m)
+            self.running_var.mul_(m).add_(var, alpha=1 - m)
+        return out
 
 
 class Bottleneck(nn.Module):
@@ -44,15 +62,15 @@ class Bottleneck(nn.Module):
                  downsample: bool = False):
         super().__init__()
         self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
-        self.bn1 = FrozenBatchNorm2d(planes)
+        self.bn1 = BatchNorm2d(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=1,
                                bias=False)
-        self.bn2 = FrozenBatchNorm2d(planes)
+        self.bn2 = BatchNorm2d(planes)
         self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
-        self.bn3 = FrozenBatchNorm2d(planes * 4)
+        self.bn3 = BatchNorm2d(planes * 4)
         self.downsample = nn.Sequential(
             nn.Conv2d(inplanes, planes * 4, 1, stride=stride, bias=False),
-            FrozenBatchNorm2d(planes * 4)) if downsample else None
+            BatchNorm2d(planes * 4)) if downsample else None
 
     def forward(self, x):
         out = F.relu(self.bn1(self.conv1(x)))
@@ -70,7 +88,7 @@ class ResNet50(nn.Module):
     def __init__(self):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = FrozenBatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64)
         inplanes, planes = 64, 64
         for stage, blocks in enumerate(self.STAGE_BLOCKS):
             layer = []

@@ -1,7 +1,7 @@
 """TPVSegmentor — counterpart of ``selfocc_tpu/models/segmentor.py``:
-backbone -> neck -> lifter -> encoder -> NeuS head, eval path
-(``extract_img_feat``, ``get_representation``, ``prepare``,
-``render_rays``).
+backbone -> neck -> lifter -> encoder -> NeuS head: the training forward
+(``forward``) and the eval path (``extract_img_feat``,
+``get_representation``, ``prepare``, ``render_rays``).
 
 Public tensors keep the JAX package's layouts: images (B, N, H, W, 3) NHWC,
 features (B, N, h, w, C), the decoded volume (C, H, W, D). Only the exact
@@ -14,8 +14,7 @@ import dataclasses
 
 from torch import nn
 
-from selfocc_tpu.configs.base import ModelConfig
-
+from ..configs.base import ModelConfig
 from ..geometry.mappings import make_mapping
 from .encoder import TPVFormerEncoder
 from .fpn import FPN
@@ -44,6 +43,10 @@ _PORTED = (
     ("head", "return_max_depth", False),
     ("head", "return_surface_sdf", False),
     ("head", "estimate_flow", False),
+    ("head", "anneal_aabb", False),
+    ("head", "two_split", False),
+    ("head", "return_uniform_sdf", False),
+    ("head", "return_sample_sdf", False),
 )
 
 
@@ -88,7 +91,8 @@ class TPVSegmentor(nn.Module):
             num_points_cross=tuple(e.num_points_cross),
             num_points_self=e.num_points_self, num_layers=e.num_layers,
             feedforward_channels=e.feedforward_channels,
-            pos_num_freqs=tuple(e.pos_num_freqs), pc_range=tuple(e.pc_range))
+            pos_num_freqs=tuple(e.pos_num_freqs), pc_range=tuple(e.pc_range),
+            dropout_p=e.dropout)
         self.head = NeuSHead(
             roi_aabb=tuple(h.roi_aabb), mapping_args=h.mapping_args,
             near_plane=h.near_plane, far_plane=h.far_plane,
@@ -96,25 +100,52 @@ class TPVSegmentor(nn.Module):
             return_sem=h.return_sem, render_bkgd=h.render_bkgd,
             embed_dims=h.embed_dims, color_dims=h.color_dims,
             sem_dims=h.sem_dims, density_layers=h.density_layers,
-            sh_deg=h.sh_deg, sh_act=h.sh_act)
+            sh_deg=h.sh_deg, sh_act=h.sh_act,
+            return_second_grad=h.return_second_grad,
+            use_compact_2nd_grad=h.use_compact_2nd_grad,
+            numerical_gradients_delta=h.numerical_gradients_delta,
+            ray_sample_mode=h.ray_sample_mode, ray_number=tuple(h.ray_number),
+            ray_img_size=tuple(h.ray_img_size),
+            ray_upper_crop=h.ray_upper_crop, ray_x_dsr_max=h.ray_x_dsr_max,
+            ray_y_dsr_max=h.ray_y_dsr_max,
+            train_ray_chunk=h.train_ray_chunk)
 
     def extract_img_feat(self, imgs):
         """Backbone + neck. imgs (B, N, H, W, 3) -> list of (B, N, h, w, C)."""
         B, N, H, W, _ = imgs.shape
         x = imgs.float().reshape(B * N, H, W, 3).permute(0, 3, 1, 2)
         feats = self.img_backbone(x.contiguous())
-        feats = self.img_neck([feats[i]
-                               for i in self.cfg.img_backbone_out_indices])
+        feats = [feats[i] for i in self.cfg.img_backbone_out_indices]
+        if self.cfg.freeze_img_backbone:
+            # the reference's requires_grad_(False) (tpv_segmentor.py:29-32);
+            # BatchNorm statistics still update
+            feats = [f.detach() for f in feats]
+        feats = self.img_neck(feats)
+        if self.cfg.freeze_img_neck and self.cfg.freeze_img_backbone:
+            feats = [f.detach() for f in feats]
         return [f.permute(0, 2, 3, 1).reshape(B, N, *f.shape[2:],
                                               f.shape[1]).float()
                 for f in feats]
 
-    def get_representation(self, imgs, lidar2img):
-        """backbone -> neck -> lifter -> encoder: the three TPV planes."""
+    def get_representation(self, imgs, lidar2img, generator=None):
+        """backbone -> neck -> lifter -> encoder: the three TPV planes
+        (``generator`` draws the encoder's train-mode dropout)."""
         feats = self.extract_img_feat(imgs)
         rep = self.lifter(feats)
         return self.encoder(rep, feats, lidar2img,
-                            (imgs.shape[2], imgs.shape[3]))
+                            (imgs.shape[2], imgs.shape[3]), generator)
+
+    def forward(self, imgs, lidar2img, img2lidar, train: bool = True,
+                generator=None, draws=None):
+        """Training forward -> the head's loss inputs
+        (``selfocc_tpu/models/segmentor.py:236``). BatchNorm and dropout
+        follow the module's mode (``model.train()``); ``train`` selects the
+        head's training render. Random numbers come from ``generator`` (a
+        ``torch.Generator`` on the model's device) unless ``draws`` fixes
+        the head's (see ``NeuSHead``)."""
+        rep = self.get_representation(imgs, lidar2img, generator)
+        return self.head(rep, img2lidar, train=train, generator=generator,
+                         draws=draws)
 
     def prepare(self, imgs, lidar2img):
         """Decode the field volume once per frame: (C, H, W, D) fp32."""

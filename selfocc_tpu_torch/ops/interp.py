@@ -5,9 +5,13 @@ Conventions are the JAX package's: the public functions take **fractional
 indices** under ``align_corners=True`` (0 .. size-1), not [-1, 1] grids, and
 volumes are channel-first ``(C, H, W, D)``.
 
-``trilinear_sample_cf_with_grad`` is the render's hot loop. For a CUDA volume
-it launches ``csrc/trilinear.cu`` (one thread per point, zeros padding); for a
-CPU volume it takes the plain version ``trilinear_sample_cf_with_grad_plain``.
+``trilinear_sample_cf_with_grad`` is the render's hot loop. It is
+differentiable with respect to the volume, from both of its outputs
+(``_TrilinearWithGrad``): for a CUDA volume its forward and backward launch
+``csrc/trilinear.cu`` (``trilinear_cf_with_grad_fwd``, ``trilinear_bwd``: one
+thread per point, zeros padding); for a CPU volume they take the plain
+versions (``trilinear_sample_cf_with_grad_plain`` and
+``trilinear_bwd_plain``, autograd through it). The points get no gradient.
 """
 from __future__ import annotations
 
@@ -145,21 +149,107 @@ _SIGNATURES = {"trilinear_cf_with_grad_fwd": (
     _build.I32, _build.I32, _build.I32, _build.PTR)}
 
 
+def trilinear_bwd_plain(vol_cf, hwd, grad_vals, grad_grad0,
+                        padding: str = "zeros"):
+    """Plain PyTorch version of ``trilinear_bwd``: autograd through
+    ``trilinear_sample_cf_with_grad_plain``; either cotangent may be None."""
+    with torch.enable_grad():
+        vol = vol_cf.detach().requires_grad_(True)
+        vals, grad0 = trilinear_sample_cf_with_grad_plain(vol, hwd, padding)
+        outs = [(o, g) for o, g in ((vals, grad_vals), (grad0, grad_grad0))
+                if g is not None]
+        if not outs:
+            return torch.zeros_like(vol_cf)
+        return torch.autograd.grad([o for o, _ in outs], vol,
+                                   [g for _, g in outs])[0]
+
+
+def trilinear_bwd(vol_cf: torch.Tensor, hwd: torch.Tensor, grad_vals,
+                  grad_grad0) -> torch.Tensor:
+    """Launch ``csrc/trilinear.cu::trilinear_bwd``: the (C, H, W, D)
+    cotangent of the volume for cotangents ``grad_vals`` (N, C) and
+    ``grad_grad0`` (N, 3) of ``trilinear_cf_with_grad_fwd`` (either may be
+    None), zeros padding."""
+    _build.require_cuda_tensor(vol_cf, "trilinear_bwd volume", torch.float32,
+                               4)
+    _build.require_cuda_tensor(hwd, "trilinear_bwd points", torch.float32, 2)
+    C, H, W, D = vol_cf.shape
+    N = hwd.shape[0]
+    for g, name, width in ((grad_vals, "grad_vals", C),
+                           (grad_grad0, "grad_grad0", 3)):
+        if g is not None:
+            _build.require_cuda_tensor(g, f"trilinear_bwd {name}",
+                                       torch.float32, 2)
+            if tuple(g.shape) != (N, width):
+                raise ValueError(f"trilinear_bwd: {name} must be ({N}, "
+                                 f"{width}), got {tuple(g.shape)}")
+    lib = _build.load("trilinear", _SIGNATURES)
+    grad_vol = torch.zeros_like(vol_cf)
+    status = lib.trilinear_bwd(
+        _build.ptr(hwd), _optional_ptr(grad_vals), _optional_ptr(grad_grad0),
+        _build.ptr(grad_vol), N, C, H, W, D, _build.stream_ptr(hwd.device))
+    _build.check(status, "trilinear_bwd")
+    trilinear_bwd.launches += 1
+    return grad_vol
+
+
+def _optional_ptr(t):
+    return _build.ptr(t) if t is not None else None
+
+
+trilinear_bwd.launches = 0
+_SIGNATURES["trilinear_bwd"] = (
+    _build.PTR, _build.PTR, _build.PTR, _build.PTR, _build.I64, _build.I32,
+    _build.I32, _build.I32, _build.I32, _build.PTR)
+
+
+class _TrilinearWithGrad(torch.autograd.Function):
+    """The kernels on a CUDA volume, the plain versions on a CPU volume;
+    (N, 3) points that need no gradient."""
+
+    @staticmethod
+    def forward(ctx, vol_cf, hwd, padding):
+        if hwd.requires_grad:
+            raise NotImplementedError(
+                "trilinear_sample_cf_with_grad: no gradient with respect to "
+                "the points is ported (detach them)")
+        ctx.padding = padding
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(vol_cf, hwd)
+        if vol_cf.is_cuda:
+            return trilinear_cf_with_grad_fwd(vol_cf, hwd)
+        return trilinear_sample_cf_with_grad_plain(vol_cf, hwd, padding)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_vals, grad_grad0):
+        vol_cf, hwd = ctx.saved_tensors
+        if vol_cf.is_cuda:
+            grad_vol = trilinear_bwd(
+                vol_cf, hwd,
+                None if grad_vals is None else grad_vals.contiguous(),
+                None if grad_grad0 is None else grad_grad0.contiguous())
+        else:
+            grad_vol = trilinear_bwd_plain(vol_cf, hwd, grad_vals,
+                                           grad_grad0, ctx.padding)
+        return grad_vol, None, None
+
+
 def trilinear_sample_cf_with_grad(vol_cf: torch.Tensor, hwd: torch.Tensor,
                                   padding: str = "zeros"):
     """Channel-first trilinear sampling with the analytic gradient of
     channel 0. vol (C, H, W, D), hwd (..., 3) -> vals (..., C) fp32,
-    grad0 (..., 3) fp32 (d channel0 / d(h, w, d))."""
+    grad0 (..., 3) fp32 (d channel0 / d(h, w, d)); both differentiable with
+    respect to the volume."""
     if vol_cf.dim() != 4 or hwd.shape[-1] != 3:
         raise ValueError("trilinear_sample_cf_with_grad: expected a (C, H, W,"
                          f" D) volume and (..., 3) points, got "
                          f"{tuple(vol_cf.shape)} / {tuple(hwd.shape)}")
-    if not vol_cf.is_cuda:
-        return trilinear_sample_cf_with_grad_plain(vol_cf, hwd, padding)
-    if padding != "zeros":
+    if vol_cf.is_cuda and padding != "zeros":
         raise ValueError("the CUDA trilinear kernel implements zeros padding")
     pts_shape = hwd.shape[:-1]
-    vals, grad0 = trilinear_cf_with_grad_fwd(
-        vol_cf.float().contiguous(), hwd.reshape(-1, 3).float().contiguous())
+    vals, grad0 = _TrilinearWithGrad.apply(
+        vol_cf.float().contiguous(), hwd.reshape(-1, 3).float().contiguous(),
+        padding)
     return (vals.reshape(*pts_shape, vol_cf.shape[0]),
             grad0.reshape(*pts_shape, 3))

@@ -14,8 +14,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from selfocc_tpu.configs.base import Config
-
+from ..configs.base import Config
 from ..geometry.projection import rays_from_img2lidar
 from ..geometry.ray_sampler import RaySampler
 
