@@ -9,10 +9,10 @@ raises and the exit code is non-zero.
 - ``[kernels]``: each kernel against its plain PyTorch version at the shapes
   of its main-path calls, timed with CUDA events (median after a warm-up):
   the forwards of the eval frame (NeuS weights, trilinear with gradient,
-  MSDA cross- and self-attention), the backwards of the training step
-  (``msda_bwd`` on the cross and self calls, ``trilinear_bwd`` on one
-  4096-ray training chunk at C = 25 and at C = 1), and ``gather_rows`` on
-  an fp32 table of 28-byte rows.
+  MSDA hw-, zh/wz-plane cross- and self-attention), the backwards of the
+  training step (``msda_bwd`` on the same three calls, ``trilinear_bwd`` on
+  one 4096-ray training chunk at C = 25 and at C = 1), and ``gather_rows``
+  on an fp32 table of 28-byte rows.
 - ``[gather]``: ``gather_rows``'s own path (no production path calls it):
   one call through the public wrapper at ``tools/bench_gather.py``'s shape,
   launches counted, held against ``index_select`` (exact), then timed
@@ -230,13 +230,15 @@ def kernel_checks(device):
     del vol25, pts, tp
     torch.cuda.empty_cache()
 
-    # MSDA: hw-plane image cross-attention (6 cams, 4 FPN levels of a
-    # 384x800 input, 66049 queries, 8 points) and the TPV self-attention
-    # (78899 queries over the 3 planes, 12 points); forward and backward
+    # MSDA at its three main-path call shapes: the hw-plane image
+    # cross-attention (6 cams, 4 FPN levels of a 384x800 input, 66049
+    # queries, 8 points), the zh- and wz-plane ones (6425 queries, 48
+    # points) and the TPV self-attention (78899 queries over the 3 planes,
+    # 12 points); forward and backward
+    fpn = ((96, 200), (48, 100), (24, 50), (12, 25))
     fwd, bwd = {}, {}
     for tag, args in (
-            ("cross", (6, 66049, ((96, 200), (48, 100), (24, 50), (12, 25)),
-                       8)),
+            ("cross", (6, 66049, fpn, 8)), ("zh", (6, 6425, fpn, 48)),
             ("self", (1, 78899, ((257, 257), (25, 257), (257, 25)), 12))):
         case = msda_case(g, device, *args)
         value, shapes, loc, att = case
@@ -265,34 +267,51 @@ def kernel_checks(device):
         del case, value, loc, att, grad_out
         torch.cuda.empty_cache()
     for name, rec in (("msda_fwd", fwd), ("msda_bwd", bwd)):
-        res[name] = dict(rec["cross"], shape="cross hw plane",
-                         self_attn_ms=rec["self"]["ms"],
-                         self_attn_plain_ms=rec["self"]["plain_ms"],
-                         self_attn_bound_ms=rec["self"]["bound_ms"])
-        res[name]["max_abs_err"] = max(rec["cross"]["max_abs_err"],
-                                       rec["self"]["max_abs_err"])
+        res[name] = dict(rec["cross"], shape="cross hw plane")
+        for tag, key in (("zh", "zh"), ("self", "self_attn")):
+            for k in ("ms", "plain_ms", "bound_ms"):
+                res[name][f"{key}_{k}"] = rec[tag][k]
+        res[name]["max_abs_err"] = max(r["max_abs_err"] for r in rec.values())
 
-    # off-flagship shapes the kernels also take: a ragged sample count, a
-    # small and a wide MSDA head (shared-memory reduction), fp32 rows of a
-    # width that is no multiple of 16 bytes
+    # off-flagship shapes the kernels also take: a ragged sample count; MSDA
+    # at every instance of its kernels (float4 lanes at D = 4, 24 and 1024,
+    # scalar lanes at D = 6 and 66, channel chunks at D = 66 and 1024, a
+    # value 4 bytes off 16-byte alignment, query counts no multiple of the
+    # block's 8-query tile); fp32 rows of a width that is no multiple of 16
+    # bytes
     a = torch.rand((37, 19), generator=g, device=device)
     a[:, 5:8] = 1.0
     check("neus_weights_fwd (37 x 19)", max_err(
         render_weights.neus_weights_fwd(a),
         render_weights.weights_from_alpha_plain(a)), 2e-5)
-    for B, Q, H, D, shapes, P in ((2, 37, 3, 4, ((6, 8), (3, 4)), 5),
-                                  (1, 300, 8, 24, ((9, 7), (4, 5)), 3)):
-        case = msda_case(g, device, B, Q, shapes, P, H, D)
-        check(f"msda_fwd (H={H}, D={D})", max_err(
+    small4 = ((12, 10), (6, 5), (3, 3), (2, 2))
+    for B, Q, H, D, shapes, P, shift in (
+            (2, 37, 3, 4, ((6, 8), (3, 4)), 5, False),
+            (1, 300, 8, 24, ((9, 7), (4, 5)), 3, False),
+            (1, 45, 5, 6, small4, 48, False),
+            (1, 19, 1, 1024, ((9, 7), (4, 5)), 3, False),
+            (1, 23, 2, 66, ((9, 7), (4, 5)), 4, False),
+            (2, 41, 6, 16, small4, 8, True)):
+        value, shapes, loc, att = msda_case(g, device, B, Q, shapes, P, H, D)
+        if shift:
+            buf = torch.empty(value.numel() + 1, device=device)
+            buf[1:].copy_(value.reshape(-1))
+            value = buf[1:].view(value.shape)
+        case = (value, shapes, loc, att)
+        tag = f"H={H}, D={D}, Q={Q}" + (", value +4 bytes" if shift else "")
+        check(f"msda_fwd ({tag})", max_err(
             msda.msda_fwd(*case), msda.ms_deform_attn_plain(*case)), 1e-5)
         gout = torch.randn((B, Q, H * D), generator=g, device=device)
-        check_grads(f"msda_bwd (H={H}, D={D})", msda.msda_bwd(*case, gout),
+        check_grads(f"msda_bwd ({tag})", msda.msda_bwd(*case, gout),
                     msda.msda_bwd_plain(*case, gout))
     t = torch.randn((50, 7), generator=g, device=device)
     i = torch.randint(0, 50, (512,), generator=g, device=device,
                       dtype=torch.int32)
     check("gather_rows (fp32, 28-byte rows)", max_err(
         gather_rows.gather_rows(t, i), t.index_select(0, i.long())), 0.0)
+    for name, rec in res.items():
+        log(f"  {name}: " + ", ".join(f"{k} {v:.4g}" for k, v in rec.items()
+                                      if k.endswith("ms") and v is not None))
     return res
 
 

@@ -113,8 +113,6 @@ def msda_bwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
                         (attention_weights, "weights", 5),
                         (grad_out, "grad_out", 3)):
         _build.require_cuda_tensor(t, f"msda_bwd {name}", torch.float32, nd)
-    if H * D > 1024:
-        raise ValueError(f"msda_bwd: H * D = {H * D} > 1024 threads")
     level_table = _level_table(spatial_shapes, value.device)
     lib = _build.load("msda", _SIGNATURES)
     grad_value = torch.zeros_like(value)

@@ -48,6 +48,8 @@ def _msda_case(seed, bs=2, q=37, heads=3, d=4, shapes=((6, 8), (3, 4)), p=5):
     (0, {}),
     (1, dict(q=53)),
     (2, dict(bs=1, heads=6, d=16, shapes=((9, 7), (5, 4), (3, 2)), p=12)),
+    (3, dict(bs=1, q=5, heads=2, d=6, shapes=((6, 5), (3, 4), (2, 3), (1, 2)),
+             p=48)),
 ])
 def test_ms_deform_attn_matches_jax(seed, kw):
     # fp32 sums in another order: atol 1e-5

@@ -92,6 +92,10 @@ MSDA_CASES = [
     (1, dict(bs=1, q=53, heads=6, d=16, shapes=((9, 7), (5, 4), (3, 2)),
              p=12)),
     (2, dict(bs=3, q=20, heads=2, d=8, shapes=((4, 4),), p=3)),
+    # the zh / wz point count (4 levels x 48) at a head width that is no
+    # multiple of 4 (the kernels' scalar-lane instance)
+    (3, dict(bs=1, q=5, heads=2, d=6, shapes=((6, 5), (3, 4), (2, 3), (1, 2)),
+             p=48)),
 ]
 
 
