@@ -8,11 +8,15 @@ raises and the exit code is non-zero.
 
 - ``[kernels]``: each kernel against its plain PyTorch version at the shapes
   of its main-path calls, timed with CUDA events (median after a warm-up):
-  the forwards of the eval frame (NeuS weights, trilinear with gradient,
-  MSDA hw-, zh/wz-plane cross- and self-attention), the backwards of the
-  training step (``msda_bwd`` on the same three calls, ``trilinear_bwd`` on
-  one 4096-ray training chunk at C = 25 and at C = 1), and ``gather_rows``
-  on an fp32 table of 28-byte rows.
+  the forwards of the eval frame (NeuS weights, MSDA hw-, zh/wz-plane
+  cross- and self-attention), the backwards of the training step
+  (``msda_bwd`` on the same three calls), the trilinear forward and
+  backward at the main paths' own points (the first 4096-ray training
+  chunk at C = 25 and C = 1, the first 32768-ray frame chunk at C = 1) and
+  on uniform random points, and ``gather_rows`` on an fp32 table of
+  28-byte rows. ``--baseline DIR`` (a checkout of another commit) also
+  times that checkout's trilinear kernels at the main paths' points, in
+  turns with this one's.
 - ``[gather]``: ``gather_rows``'s own path (no production path calls it):
   one call through the public wrapper at ``tools/bench_gather.py``'s shape,
   launches counted, held against ``index_select`` (exact), then timed
@@ -32,12 +36,14 @@ raises and the exit code is non-zero.
   step, then 3 measured steps (forward / backward / optimizer split by
   synchronised host clocks, peak memory, losses, grad_norm), a
   ``torch.profiler`` look at one warm step (the 15 kernels with the most
-  device time), then the same step with one dense render
+  device time, the trilinear kernels by instance), then the same step with
+  one dense render
   (``train_ray_chunk = 0``): one warm-up step and one measured step.
 
 ``--phases`` runs a subset (then no result line is printed). Each path's
 launch counts are set to 0 just before it runs and read just after; a
-kernel of the path that was not launched fails the run. Prints a
+kernel of the path that was not launched fails the run (the trilinear
+wrappers' counts also by instance: C = 1 ``plane``, C > 1 ``rows``). Prints a
 ``{"kernels": [...]}`` line, the card's name and power limit, and as its last
 line ``{"ok": true, "device": {...}}``. Without a CUDA card it exits 2 before
 doing anything. Imports nothing of JAX and nothing of the JAX package.
@@ -48,6 +54,7 @@ import argparse
 import copy
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -90,6 +97,31 @@ def timed(fn, reps, warmup=1):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return sorted(times)[len(times) // 2]
+
+
+def device_ms(fn, reps):
+    """Device milliseconds per call of ``fn()``: the time of the CUDA
+    kernels it launches (a wrapper's fills included), summed by
+    ``torch.profiler`` over ``reps`` calls after a warm-up. Unlike
+    ``timed`` it leaves out the gaps in which the card waits for the
+    host's next launch, which dominate calls of a few tens of µs. A
+    profile that recorded no device time (seen once in a run of many) is
+    taken again; None if the third is empty too."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / reps / 1e3
+    return None
 
 
 def bound(nbytes, flops):
@@ -164,12 +196,289 @@ def msda_points(case):
     return loc[..., 0].numel(), value.shape[3]
 
 
-def kernel_checks(device):
-    """Each kernel against its plain version at main-path call shapes
-    (timed) and at a few off-flagship shapes (checked only)."""
+def render_grid_points(head, origin, direction, t_rand=None):
+    """Grid-space (fractional index) sample points of rays, ray-major, as
+    ``NeuSHead.render_rays`` makes them: box near / far, uniform bins
+    (jittered by ``t_rand``), ``meter2grid``."""
     import torch
-    from selfocc_tpu_torch.ops import gather_rows, interp, msda, \
-        render_weights
+    from selfocc_tpu_torch.models import neus
+    unit = direction / torch.linalg.norm(direction, dim=-1, keepdim=True)
+    near, far = neus.ray_aabb_near_far(origin, unit, head.roi_aabb,
+                                       head.near_plane, head.far_plane)
+    mids = neus.sample_uniform(near, far, head.num_samples, t_rand).mids
+    pos = origin[:, None, :] + unit[:, None, :] * mids[..., None]
+    return head.field.mapping.meter2grid(pos).reshape(-1, 3).contiguous()
+
+
+def step_points(device):
+    """The trilinear kernels' points on the main paths: the first 4096-ray
+    chunk of the [train] step (its synthetic batch, the head's cellular
+    sampler and jitter from a seeded generator; 1,048,576 points) and the
+    first 32768-ray chunk of the [frame] render (the fixed eval grid, no
+    jitter; 8,388,608 points)."""
+    import torch
+    from selfocc_tpu_torch.configs.experiments import get_config
+    from selfocc_tpu_torch.geometry.projection import rays_from_img2lidar
+    from selfocc_tpu_torch.models.segmentor import TPVSegmentor
+    from selfocc_tpu_torch.utils.eval_lib import (eval_ray_grid,
+                                                  eval_trans_mats,
+                                                  rays_for_cams)
+    from selfocc_tpu_torch.utils.runtime import get_dataset, to_device
+    cfg = get_config("nuscenes_occ")
+    h = cfg.model.head
+    head = TPVSegmentor(cfg.model).head
+    batch = to_device(get_dataset(cfg, synthetic=True, length=1)[0], device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    rays = head.ray_sampler(device, gen)
+    origin, direction = rays_from_img2lidar(batch[h.trans_kw], rays)
+    origin = origin[:, :, None, :].expand(direction.shape).reshape(-1, 3)
+    direction = direction.reshape(-1, 3)
+    n = h.train_ray_chunk
+    t_rand = torch.rand((n, head.num_samples + 1), generator=gen,
+                        device=device)
+    train = render_grid_points(head, origin[:n], direction[:n], t_rand)
+    origin, direction = rays_for_cams(eval_trans_mats(batch, cfg),
+                                      eval_ray_grid(cfg, device=device))
+    frame = render_grid_points(head, origin[:CHUNK], direction[:CHUNK])
+    return train, frame
+
+
+def corner_voxels(pts, shape):
+    """The distinct in-volume corner voxels of (N, 3) points: the volume
+    rows a trilinear forward must read (its bound's input bytes)."""
+    import torch
+    H, W, D = shape
+    base = torch.floor(pts).long()
+    flat = []
+    for k in range(8):
+        c = base + torch.tensor([k >> 2, (k >> 1) & 1, k & 1],
+                                device=pts.device)
+        ok = ((c >= 0) & (c < torch.tensor([H, W, D], device=pts.device))
+              ).all(-1)
+        flat.append(((c[:, 0] * W + c[:, 1]) * D + c[:, 2])[ok])
+    return int(torch.unique(torch.cat(flat)).numel())
+
+
+def trilinear_case(interp, vol, pts, g, cots=("vals", "grad0")):
+    """The forward and backward kernels on one input against their plain
+    versions; returns (forward error, (backward error, its tolerance),
+    cotangents)."""
+    import torch
+    C = vol.shape[0]
+    v_k, g_k = interp.trilinear_cf_with_grad_fwd(vol, pts)
+    v_p, g_p = interp.trilinear_sample_cf_with_grad_plain(vol, pts)
+    fwd = max(max_err(v_k, v_p), max_err(g_k, g_p))
+    del v_k, g_k, v_p, g_p
+    gv = (torch.randn((pts.shape[0], C), generator=g, device=pts.device)
+          if "vals" in cots else None)
+    gg = (torch.randn((pts.shape[0], 3), generator=g, device=pts.device)
+          if "grad0" in cots else None)
+    got = interp.trilinear_bwd(vol, pts, gv, gg)
+    ref = interp.trilinear_bwd_plain(vol, pts, gv, gg)
+    tol = GRAD_RTOL * float(ref.abs().max()) + 1e-7
+    bwd = max_err(got, ref)
+    return fwd, (bwd, tol), (gv, gg)
+
+
+def load_baseline_interp(root):
+    """``ops.interp`` of the ``selfocc_tpu_torch`` package under ``root``
+    (a checkout of another commit), imported as a package of another name
+    so that it builds and loads its own kernels beside this checkout's."""
+    import importlib
+    import importlib.util
+    from pathlib import Path
+    name = "baseline_selfocc_tpu_torch"
+    pkg = Path(root).resolve() / "selfocc_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return importlib.import_module(f"{name}.ops.interp")
+
+
+def trilinear_checks(g, device, baseline=None):
+    """The trilinear forward and backward at the main paths' own points
+    (timed), on uniform random points as in earlier runs (timed: a second
+    column), and at off-path inputs that reach every branch of the kernels
+    (checked only). Forward tolerance 1e-5 abs; backward GRAD_RTOL of the
+    plain gradient's max: the chains and the atomics add in another order
+    than the plain version. With ``baseline`` (a checkout of another
+    commit), that checkout's kernels are timed at the main paths' points in
+    turns with this one's (baseline, this, this, baseline)."""
+    import torch
+    from selfocc_tpu_torch.ops import interp
+    shape = (257, 257, 25)
+    # the step's decoded volume is channel-last (field.decode); the sdf
+    # queries read its first channel as a contiguous plane
+    vol25 = torch.randn(shape + (25,), generator=g,
+                        device=device).permute(3, 0, 1, 2)
+    vol1 = interp.first_channel(vol25)
+    train_pts, frame_pts = step_points(device)
+    hi = torch.tensor(shape, dtype=torch.float32, device=device)
+    uniform = torch.rand((CHUNK * 256, 3), generator=g, device=device) \
+        * (hi + 3.0) - 1.5
+    pts = {"train": train_pts, "frame": frame_pts, "uniform": uniform,
+           "uniform_1m": uniform[:TRAIN_CHUNK_POINTS].contiguous()}
+    voxels = {k: corner_voxels(p, shape) for k, p in pts.items()}
+    log(f"  points: train chunk {train_pts.shape[0]} ({voxels['train']} "
+        f"corner voxels), frame chunk {frame_pts.shape[0]} "
+        f"({voxels['frame']}), uniform {uniform.shape[0]} / "
+        f"{TRAIN_CHUNK_POINTS}")
+    cases = {}
+
+    def case(tag, kind, vol, key, reps):
+        p = pts[key]
+        n, C = p.shape[0], vol.shape[0]
+        fwd, (bwd, tol), (gv, gg) = trilinear_case(interp, vol, p, g)
+        check(f"trilinear_cf_with_grad_fwd ({tag})", fwd, 1e-5)
+        check(f"trilinear_bwd ({tag})", bwd, tol)
+        if kind == "fwd":
+            rec = kernel_record(
+                fwd, timed(lambda: interp.trilinear_cf_with_grad_fwd(vol, p),
+                           reps),
+                timed(lambda: interp.trilinear_sample_cf_with_grad_plain(
+                    vol, p), 3),
+                (voxels[key] * C * 4 + nbytes(p) + n * (C + 3) * 4,
+                 n * (20 + 16 * C + 96)))
+        else:
+            rec = kernel_record(
+                bwd, timed(lambda: interp.trilinear_bwd(vol, p, gv, gg),
+                           reps),
+                timed(lambda: interp.trilinear_bwd_plain(vol, p, gv, gg), 3),
+                (nbytes(p, gv, gg, vol), n * 8 * (9 + 2 * C)))
+        if kind == "fwd":
+            dev = device_ms(lambda: interp.trilinear_cf_with_grad_fwd(vol, p),
+                            reps)
+        else:
+            dev = device_ms(lambda: interp.trilinear_bwd(vol, p, gv, gg),
+                            reps)
+        cases[f"{kind}_{tag}"] = dict(rec, device_ms=dev, C=C, points=n)
+        del gv, gg
+        torch.cuda.empty_cache()
+
+    case("c25_train", "fwd", vol25, "train", 20)
+    case("c1_train", "fwd", vol1, "train", 20)
+    case("c1_frame", "fwd", vol1, "frame", 10)
+    case("c1_uniform", "fwd", vol1, "uniform", 10)
+    case("c25_uniform", "fwd", vol25, "uniform_1m", 10)
+    case("c25_train", "bwd", vol25, "train", 20)
+    case("c1_train", "bwd", vol1, "train", 20)
+    case("c25_uniform", "bwd", vol25, "uniform_1m", 10)
+    case("c1_uniform", "bwd", vol1, "uniform_1m", 10)
+    for k, r in cases.items():
+        log(f"  trilinear {k}: ms {r['ms']:.4g}, device_ms "
+            f"{r['device_ms']}, plain_ms "
+            f"{r['plain_ms']:.4g}, bound_ms {r['bound_ms']:.4g} "
+            f"({r['bound_by']})")
+
+    # off-path inputs, checked only: every channel case of both instances
+    # (C = 1; scalar rows of 2, 3, 5, 25, 28 channels; 33, past one warp of
+    # channel lanes) on a small volume, rays through it and out of it,
+    # uniform points with a margin outside and 1/8 of them on integer
+    # knots, a ragged count; a ray whose samples all lie in one cell (every
+    # lane of a warp shares every corner); each cotangent alone; the
+    # training chunk in shuffled order
+    small = (13, 17, 9)
+    sh = torch.tensor(small, dtype=torch.float32, device=device)
+    o = torch.rand((40, 3), generator=g, device=device) * sh * 0.5 + sh / 4
+    d = torch.randn((40, 3), generator=g, device=device)
+    t = torch.sort(torch.rand((40, 97), generator=g, device=device), -1)[0]
+    ray_pts = (o[:, None] + d[:, None] / d.norm(dim=-1, keepdim=True)[
+        :, None] * t[..., None] * 1.3 * float(sh.max())).reshape(-1, 3)
+    uni = torch.rand((5003, 3), generator=g, device=device) * (sh + 3) - 1.5
+    uni[::8] = torch.round(uni[::8])
+    cell = torch.tensor([4.3, 5.1, 2.3], device=device) + 0.5 * torch.rand(
+        (4099, 3), generator=g, device=device)
+    for C in (1, 2, 3, 5, 25, 28, 33):
+        vol = torch.randn(small + (C,), generator=g,
+                          device=device).permute(3, 0, 1, 2)
+        for tag, p, cots in (("rays", ray_pts, ("vals", "grad0")),
+                             ("uniform + knots", uni, ("vals", "grad0")),
+                             ("one cell", cell, ("vals", "grad0")),
+                             ("rays, grad_vals only", ray_pts, ("vals",)),
+                             ("rays, grad_grad0 only", ray_pts, ("grad0",))):
+            fwd, (bwd, tol), _ = trilinear_case(interp, vol, p, g, cots)
+            check(f"trilinear_cf_with_grad_fwd (C={C}, {tag}, "
+                  f"N={p.shape[0]})", fwd, 1e-5)
+            check(f"trilinear_bwd (C={C}, {tag})", bwd, tol)
+    perm = torch.randperm(train_pts.shape[0], generator=g, device=device)
+    for vol in (vol25, vol1):
+        fwd, (bwd, tol), _ = trilinear_case(interp, vol, train_pts[perm], g)
+        check(f"trilinear_cf_with_grad_fwd (C={vol.shape[0]}, train chunk "
+              "shuffled)", fwd, 1e-5)
+        check(f"trilinear_bwd (C={vol.shape[0]}, train chunk shuffled)",
+              bwd, tol)
+    del uniform, pts, perm
+    torch.cuda.empty_cache()
+
+    res = {}
+    for name, kind, main, shape in (
+            ("trilinear_cf_with_grad_fwd", "fwd", "fwd_c1_frame",
+             "C=1, 8388608 frame-chunk points"),
+            ("trilinear_bwd", "bwd", "bwd_c25_train",
+             "C=25, 1048576 train-chunk points")):
+        mine = {k: r for k, r in cases.items() if k.startswith(kind)}
+        res[name] = dict(cases[main], shape=shape, cases=mine)
+        res[name]["max_abs_err"] = max(r["max_abs_err"]
+                                       for r in mine.values())
+    if baseline is not None:
+        res["trilinear_ab"] = trilinear_ab(
+            load_baseline_interp(baseline), interp, vol25, train_pts,
+            frame_pts, g)
+    del vol25, vol1, train_pts, frame_pts
+    torch.cuda.empty_cache()
+    return res
+
+
+def trilinear_ab(base, this, vol25, train_pts, frame_pts, g):
+    """Median ms of the two checkouts' trilinear kernels at the main paths'
+    points, in turns: baseline, this, this, baseline. Each gets the volume
+    in the layout its own decode produces (the baseline's kernels read
+    channel-first, ``kernel_volume`` marks this one's)."""
+    import torch
+    n = train_pts.shape[0]
+    gv25 = torch.randn((n, 25), generator=g, device=train_pts.device)
+    gv1 = torch.randn((n, 1), generator=g, device=train_pts.device)
+    gg = torch.randn((n, 3), generator=g, device=train_pts.device)
+
+    def calls(mod):
+        layout = getattr(mod, "kernel_volume", torch.Tensor.contiguous)
+        v25 = layout(vol25)
+        v1 = layout(vol25[:1])
+        return {
+            "fwd_c25_train": lambda: mod.trilinear_cf_with_grad_fwd(
+                v25, train_pts),
+            "fwd_c1_train": lambda: mod.trilinear_cf_with_grad_fwd(
+                v1, train_pts),
+            "fwd_c1_frame": lambda: mod.trilinear_cf_with_grad_fwd(
+                v1, frame_pts),
+            "bwd_c25_train": lambda: mod.trilinear_bwd(v25, train_pts, gv25,
+                                                       gg),
+            "bwd_c1_train": lambda: mod.trilinear_bwd(v1, train_pts, gv1,
+                                                      gg)}
+
+    runs = {"baseline": [], "this": []}
+    for side in ("baseline", "this", "this", "baseline"):
+        fns = calls(base if side == "baseline" else this)
+        runs[side].append({k: (timed(f, 20), device_ms(f, 20))
+                           for k, f in fns.items()})
+        del fns
+        torch.cuda.empty_cache()
+    out = {side: {k: sorted(r[k] for r in rs) for k in rs[0]}
+           for side, rs in runs.items()}
+    for k in out["this"]:
+        log(f"  A/B {k} (event ms, device ms): baseline {out['baseline'][k]}"
+            f", this {out['this'][k]}")
+    return out
+
+
+def kernel_checks(device, baseline=None):
+    """Each kernel against its plain version at main-path call shapes
+    (timed) and at a few off-flagship shapes (checked only); ``baseline``:
+    see ``trilinear_checks``."""
+    import torch
+    from selfocc_tpu_torch.ops import gather_rows, msda, render_weights
     g = torch.Generator(device=device).manual_seed(SEED)
     res = {}
 
@@ -185,50 +494,7 @@ def kernel_checks(device):
         timed(lambda: render_weights.weights_from_alpha_plain(alpha), 20),
         (2 * nbytes(alpha), 6 * alpha.numel()), shape="32768 x 256")
 
-    # trilinear forward: depth-path volume (channel 0 of 257x257x25), one
-    # eval chunk of points, a margin of them outside the volume
-    vol = torch.randn((1, 257, 257, 25), generator=g, device=device)
-    hi = torch.tensor([257.0, 257.0, 25.0], device=device)
-    pts = torch.rand((CHUNK * 256, 3), generator=g, device=device) \
-        * (hi + 3.0) - 1.5
-    v_k, g_k = interp.trilinear_cf_with_grad_fwd(vol, pts)
-    v_p, g_p = interp.trilinear_sample_cf_with_grad_plain(vol, pts)
-    err = max(max_err(v_k, v_p), max_err(g_k, g_p))
-    check("trilinear_cf_with_grad_fwd (C=1, 8.4M points)", err, 1e-5)
-    n = pts.shape[0]
-    res["trilinear_cf_with_grad_fwd"] = kernel_record(
-        err, timed(lambda: interp.trilinear_cf_with_grad_fwd(vol, pts), 10),
-        timed(lambda: interp.trilinear_sample_cf_with_grad_plain(vol, pts),
-              3),
-        (nbytes(vol, pts, v_k, g_k), n * (20 + 16 * 1 + 96)),
-        shape="C=1, 8388608 points")
-    del v_k, g_k, v_p, g_p
-
-    # trilinear backward: one training chunk (4096 rays x 256 samples) on
-    # the 25-channel volume, and on the sdf channel with both cotangents
-    vol25 = torch.randn((25, 257, 257, 25), generator=g, device=device)
-    tp = pts[:TRAIN_CHUNK_POINTS].contiguous()
-    tri = {}
-    for C, volc in ((25, vol25), (1, vol)):
-        gv = torch.randn((tp.shape[0], C), generator=g, device=device)
-        gg = torch.randn((tp.shape[0], 3), generator=g, device=device)
-        k = interp.trilinear_bwd(volc, tp, gv, gg)
-        p = interp.trilinear_bwd_plain(volc, tp, gv, gg)
-        err = check_grads(f"trilinear_bwd (C={C}, 1M points)", [k], [p])
-        del k, p
-        tri[C] = kernel_record(
-            err, timed(lambda: interp.trilinear_bwd(volc, tp, gv, gg), 10),
-            timed(lambda: interp.trilinear_bwd_plain(volc, tp, gv, gg), 3),
-            (nbytes(tp, gv, gg, volc), tp.shape[0] * 8 * (9 + 2 * C)))
-    res["trilinear_bwd"] = dict(tri[25], shape="C=25, 1048576 points",
-                                c1_ms=tri[1]["ms"],
-                                c1_plain_ms=tri[1]["plain_ms"],
-                                c1_bound_ms=tri[1]["bound_ms"],
-                                c1_max_abs_err=tri[1]["max_abs_err"])
-    res["trilinear_bwd"]["max_abs_err"] = max(tri[25]["max_abs_err"],
-                                              tri[1]["max_abs_err"])
-    del vol25, pts, tp
-    torch.cuda.empty_cache()
+    res.update(trilinear_checks(g, device, baseline))
 
     # MSDA at its three main-path call shapes: the hw-plane image
     # cross-attention (6 cams, 4 FPN levels of a 384x800 input, 66049
@@ -318,10 +584,20 @@ def kernel_checks(device):
 def reset_counts(wrappers):
     for fn in wrappers:
         fn.launches = 0
+        if hasattr(fn, "plane_launches"):
+            fn.plane_launches = 0
 
 
-def read_counts(wrappers, path):
+def read_counts(wrappers, path, instances=("plane",)):
+    """Each wrapper's launches in the path; the trilinear wrappers' also by
+    kernel instance (``plane``: C = 1, ``rows``: C > 1). Fails if a wrapper,
+    or one of ``instances`` of the trilinear kernels, was not launched."""
     counts = {fn.__name__: fn.launches for fn in wrappers}
+    for fn in wrappers:
+        if hasattr(fn, "plane_launches"):
+            kinds = {"plane": fn.plane_launches,
+                     "rows": fn.launches - fn.plane_launches}
+            counts.update({f"{fn.__name__}.{k}": kinds[k] for k in instances})
     log(f"  launches in the {path}: {counts}")
     for name, n in counts.items():
         if n <= 0:
@@ -546,7 +822,7 @@ def full_train(device):
         finite(m)
         steps.append(dict(show(f"step {i}", m), step_s=wall,
                           **m["times"]))
-    launches = read_counts(wrappers, "training steps")
+    launches = read_counts(wrappers, "training steps", ("plane", "rows"))
     peak = torch.cuda.max_memory_allocated() / 2**30
     med = {k: sorted(s[k] for s in steps)[1]
            for k in ("step_s", "forward_s", "backward_s", "optimizer_s")}
@@ -607,9 +883,9 @@ def profile_step(trainer, batch, gen, step_s):
            "kernel_launches": sum(e.count for e in kernels),
            "device_busy_share": total_us / 1e6 / step_s,
            "msda_bwd_share": share("msda_bwd_kernel"),
-           "trilinear_bwd_share": share("trilinear_bwd_kernel"),
+           "trilinear_bwd_share": share("trilinear_bwd"),
            "msda_fwd_share": share("msda_fwd_kernel"),
-           "trilinear_fwd_share": share("trilinear_cf_with_grad_fwd_kernel"),
+           "trilinear_fwd_share": share("trilinear_cf_with_grad_fwd"),
            "neus_weights_share": share("neus_weights"),
            "top": top}
     log(f"  profiled step: wall {wall_ms:.1f} ms, {res['kernel_launches']} "
@@ -622,6 +898,21 @@ def profile_step(trainer, batch, gen, step_s):
     for t in top:
         log(f"    {t['device_ms']:9.2f} ms {t['share']:6.1%} "
             f"x{t['calls']:<5d} {t['name']}")
+    # the trilinear kernels by instance: in-step ms, calls, ms per call
+    tri = {}
+    for e in kernels:
+        m = re.search(r"trilinear_\w+_kernel", e.key)
+        if m:
+            t = tri.setdefault(m.group(0), {"calls": 0, "device_ms": 0.0})
+            t["calls"] += e.count
+            t["device_ms"] += e.self_device_time_total / 1e3
+    for name, t in sorted(tri.items()):
+        t["ms_per_call"] = t["device_ms"] / max(t["calls"], 1)
+        log(f"    trilinear by instance: {name} x{t['calls']} "
+            f"{t['device_ms']:.2f} ms ({t['ms_per_call']:.4f} ms per call)")
+    res["trilinear_kernels"] = tri
+    res["trilinear_ms"] = sum(t["device_ms"] for t in tri.values())
+    log(f"    trilinear in the step: {res['trilinear_ms']:.2f} ms")
     return res
 
 
@@ -629,6 +920,10 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
+    ap.add_argument("--baseline", default=None, metavar="DIR",
+                    help="a checkout of another commit: [kernels] also times "
+                    "its trilinear kernels at the main paths' points, in "
+                    "turns with this checkout's")
     args = ap.parse_args()
     wanted = args.phases.split(",")
     if set(wanted) - set(PHASES):
@@ -654,7 +949,7 @@ def main():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    runs = {"kernels": lambda: kernel_checks(device),
+    runs = {"kernels": lambda: kernel_checks(device, args.baseline),
             "gather": lambda: gather_path(device),
             "frame": lambda: full_frame(device),
             "train-parity": lambda: train_parity(device),
@@ -692,6 +987,9 @@ def main():
                  "source": f"selfocc_tpu_torch/csrc/{src}",
                  "replaces": replaces,
                  "launches": tres["launches"].get(name)}
+        for kind in ("plane", "rows"):
+            if f"{name}.{kind}" in tres["launches"]:
+                entry[f"launches_{kind}"] = tres["launches"][f"{name}.{kind}"]
         entry.update(kres[name])
         if name in fres["launches"]:
             entry["launches_eval_frame"] = fres["launches"][name]

@@ -7,8 +7,9 @@ forward and backward are the trilinear kernels.
 State-dict keys follow the reference field: ``density_net.{2i+1}`` for the
 Linears of ``Sequential([Softplus, Linear] x density_layers)``,
 ``color_proj`` and ``deviation_network.variance`` (shape (1,)).
-The decoded volume is channel-first ``(B, C, H, W, D)`` with channels
-``[sdf | SH coefficients | sem logits]``; everything is fp32.
+The decoded volume has the channel-first shape ``(B, C, H, W, D)`` with
+channels ``[sdf | SH coefficients | sem logits]``, laid out channel-last in
+memory (the layout the trilinear kernels read); everything is fp32.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from torch import nn
 
 from ..geometry import sh as sh_lib
 from ..geometry.mappings import make_mapping
-from ..ops.interp import trilinear_sample_cf_with_grad
+from ..ops.interp import first_channel, trilinear_sample_cf_with_grad
 
 
 class LearnedVariance(nn.Module):
@@ -70,7 +71,10 @@ class TPVSDFField(nn.Module):
 
     def decode(self, rep) -> torch.Tensor:
         """Plane features [hw, zh, wz] -> (B, C_out, H, W, D) fp32: the
-        broadcast-sum of the three planes through the MLP."""
+        broadcast-sum of the three planes through the MLP, returned as a
+        permuted view of the MLP's channel-last output. The trilinear
+        kernels read that layout as it is, and their channel-last volume
+        gradient flows back through the permute without a transpose."""
         H, W, D = self.grid_shape
         C = self.embed_dims
         tpv_hw, tpv_zh, tpv_wz = rep
@@ -83,7 +87,7 @@ class TPVSDFField(nn.Module):
             sh = self.color_proj(out[..., 1:1 + self.color_dims])
             out = torch.cat([out[..., :1], sh,
                              out[..., 1 + self.color_dims:]], dim=-1)
-        return out.permute(0, 4, 1, 2, 3).contiguous()
+        return out.permute(0, 4, 1, 2, 3)
 
     def _split(self, vals):
         return {"sdf": vals[..., 0],
@@ -111,7 +115,7 @@ class TPVSDFField(nn.Module):
 
     def sdf(self, volume, xyz):
         """SDF-only query (channel 0 of the volume) at metric points."""
-        return self.query_geo_grad(volume[:1], xyz)[0]["sdf"]
+        return self.query_geo_grad(first_channel(volume), xyz)[0]["sdf"]
 
     def second_grad(self, volume, xyz, delta: float, center=None):
         """Compact numerical second derivative along the 3 axes
@@ -135,7 +139,7 @@ class TPVSDFField(nn.Module):
         sdf channel (equal up to rounding), so its backward runs through
         the trilinear backward as well."""
         comps = []
-        sdf_vol = volume[:1]
+        sdf_vol = first_channel(volume)
         for axis in range(3):
             e = _axis_step(axis, delta, xyz)
             gp = self.query_geo_grad(sdf_vol, xyz + e)[1][..., axis]

@@ -26,6 +26,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..geometry.projection import rays_from_img2lidar
 from ..geometry.ray_sampler import RaySampler
+from ..ops.interp import first_channel
 from ..ops.render_weights import weights_from_alpha
 from . import neus
 from .field import TPVSDFField
@@ -123,7 +124,7 @@ class NeuSHead(nn.Module):
         mids, deltas = segs.mids, segs.deltas                 # (R, S)
         positions = origin[:, None, :] + unit_dir[:, None, :] * mids[..., None]
 
-        qvol = volume[:1] if geo_only else volume
+        qvol = first_channel(volume) if geo_only else volume
         geo, grad = self.field.query_geo_grad(qvol, positions)
         sdf = geo["sdf"]
         if inv_s is None:

@@ -3,15 +3,21 @@
 
 Conventions are the JAX package's: the public functions take **fractional
 indices** under ``align_corners=True`` (0 .. size-1), not [-1, 1] grids, and
-volumes are channel-first ``(C, H, W, D)``.
+volumes have the channel-first shape ``(C, H, W, D)``.
 
 ``trilinear_sample_cf_with_grad`` is the render's hot loop. It is
 differentiable with respect to the volume, from both of its outputs
 (``_TrilinearWithGrad``): for a CUDA volume its forward and backward launch
-``csrc/trilinear.cu`` (``trilinear_cf_with_grad_fwd``, ``trilinear_bwd``: one
-thread per point, zeros padding); for a CPU volume they take the plain
-versions (``trilinear_sample_cf_with_grad_plain`` and
-``trilinear_bwd_plain``, autograd through it). The points get no gradient.
+``csrc/trilinear.cu`` (``trilinear_cf_with_grad_fwd``, ``trilinear_bwd``,
+zeros padding); for a CPU volume they take the plain versions
+(``trilinear_sample_cf_with_grad_plain`` and ``trilinear_bwd_plain``,
+autograd through it). The points get no gradient.
+
+The kernels read a channel-last volume: ``(H, W, D, C)`` in memory, seen as
+``(C, H, W, D)`` through a permute, so that a corner's channels are one
+contiguous row. ``field.decode`` produces that layout; ``kernel_volume``
+passes it through and copies any other, and ``first_channel`` takes the sdf
+plane of it with a gradient in the same layout.
 """
 from __future__ import annotations
 
@@ -120,11 +126,39 @@ def trilinear_sample_cf_with_grad_plain(vol_cf: torch.Tensor,
             grad0.reshape(*pts_shape, 3).float())
 
 
+def kernel_volume(vol_cf: torch.Tensor) -> torch.Tensor:
+    """``vol_cf`` (C, H, W, D) in the layout the kernels read: channel-last
+    memory (for C = 1, a contiguous plane). A volume already laid out so is
+    returned as it is; any other is copied (differentiably)."""
+    cl = vol_cf.permute(1, 2, 3, 0)
+    return vol_cf if cl.is_contiguous() else \
+        cl.contiguous().permute(3, 0, 1, 2)
+
+
+def first_channel(vol_cf: torch.Tensor) -> torch.Tensor:
+    """Channel 0 of a (C, H, W, D) volume as a contiguous (1, H, W, D)
+    plane, the sdf queries' volume. A channel-first volume gives a slice.
+    A channel-last one is sliced on its (H, W, D, C) view and copied, so
+    that autograd's zero-filled gradient of the slice is channel-last too
+    and adds to the volume's other gradients without a transpose."""
+    if vol_cf.is_contiguous():
+        return vol_cf[:1]
+    return kernel_volume(vol_cf.permute(1, 2, 3, 0)[..., :1]
+                         .permute(3, 0, 1, 2))
+
+
+def _require_kernel_volume(vol_cf, name):
+    _build.require_cuda_tensor(vol_cf.permute(1, 2, 3, 0),
+                               f"{name} volume (channel-last)", torch.float32,
+                               4)
+
+
 def trilinear_cf_with_grad_fwd(vol_cf: torch.Tensor, hwd: torch.Tensor):
-    """Launch ``csrc/trilinear.cu``: fp32 CUDA (C, H, W, D) volume, (N, 3)
-    fractional indices, zeros padding -> vals (N, C), grad0 (N, 3)."""
-    _build.require_cuda_tensor(vol_cf, "trilinear_cf_with_grad_fwd volume",
-                               torch.float32, 4)
+    """Launch ``csrc/trilinear.cu``: an fp32 CUDA (C, H, W, D) volume in the
+    kernels' layout (``kernel_volume``), (N, 3) fractional indices, zeros
+    padding -> vals (N, C), grad0 (N, 3). C = 1 takes the plane kernel, any
+    other C the rows kernel (``plane_launches`` counts the former)."""
+    _require_kernel_volume(vol_cf, "trilinear_cf_with_grad_fwd")
     _build.require_cuda_tensor(hwd, "trilinear_cf_with_grad_fwd points",
                                torch.float32, 2)
     if hwd.shape[1] != 3 or hwd.device != vol_cf.device:
@@ -140,10 +174,12 @@ def trilinear_cf_with_grad_fwd(vol_cf: torch.Tensor, hwd: torch.Tensor):
         _build.ptr(grad0), N, C, H, W, D, _build.stream_ptr(hwd.device))
     _build.check(status, "trilinear_cf_with_grad_fwd")
     trilinear_cf_with_grad_fwd.launches += 1
+    trilinear_cf_with_grad_fwd.plane_launches += C == 1
     return vals, grad0
 
 
 trilinear_cf_with_grad_fwd.launches = 0
+trilinear_cf_with_grad_fwd.plane_launches = 0
 _SIGNATURES = {"trilinear_cf_with_grad_fwd": (
     _build.PTR, _build.PTR, _build.PTR, _build.PTR, _build.I64, _build.I32,
     _build.I32, _build.I32, _build.I32, _build.PTR)}
@@ -167,11 +203,13 @@ def trilinear_bwd_plain(vol_cf, hwd, grad_vals, grad_grad0,
 def trilinear_bwd(vol_cf: torch.Tensor, hwd: torch.Tensor, grad_vals,
                   grad_grad0) -> torch.Tensor:
     """Launch ``csrc/trilinear.cu::trilinear_bwd``: the (C, H, W, D)
-    cotangent of the volume for cotangents ``grad_vals`` (N, C) and
-    ``grad_grad0`` (N, 3) of ``trilinear_cf_with_grad_fwd`` (either may be
-    None), zeros padding."""
-    _build.require_cuda_tensor(vol_cf, "trilinear_bwd volume", torch.float32,
-                               4)
+    cotangent of a volume in the kernels' layout, in that layout, for
+    cotangents ``grad_vals`` (N, C) and ``grad_grad0`` (N, 3) of
+    ``trilinear_cf_with_grad_fwd`` (either may be None; with neither, zeros
+    and no launch), zeros padding. The kernel accumulates into the
+    zero-filled result itself; C = 1 takes the plane kernel
+    (``plane_launches``), any other C the rows kernel."""
+    _require_kernel_volume(vol_cf, "trilinear_bwd")
     _build.require_cuda_tensor(hwd, "trilinear_bwd points", torch.float32, 2)
     C, H, W, D = vol_cf.shape
     N = hwd.shape[0]
@@ -183,14 +221,17 @@ def trilinear_bwd(vol_cf: torch.Tensor, hwd: torch.Tensor, grad_vals,
             if tuple(g.shape) != (N, width):
                 raise ValueError(f"trilinear_bwd: {name} must be ({N}, "
                                  f"{width}), got {tuple(g.shape)}")
+    grad = torch.zeros((H, W, D, C), dtype=torch.float32, device=hwd.device)
+    if grad_vals is None and grad_grad0 is None:
+        return grad.permute(3, 0, 1, 2)
     lib = _build.load("trilinear", _SIGNATURES)
-    grad_vol = torch.zeros_like(vol_cf)
     status = lib.trilinear_bwd(
         _build.ptr(hwd), _optional_ptr(grad_vals), _optional_ptr(grad_grad0),
-        _build.ptr(grad_vol), N, C, H, W, D, _build.stream_ptr(hwd.device))
+        _build.ptr(grad), N, C, H, W, D, _build.stream_ptr(hwd.device))
     _build.check(status, "trilinear_bwd")
     trilinear_bwd.launches += 1
-    return grad_vol
+    trilinear_bwd.plane_launches += C == 1
+    return grad.permute(3, 0, 1, 2)
 
 
 def _optional_ptr(t):
@@ -198,6 +239,7 @@ def _optional_ptr(t):
 
 
 trilinear_bwd.launches = 0
+trilinear_bwd.plane_launches = 0
 _SIGNATURES["trilinear_bwd"] = (
     _build.PTR, _build.PTR, _build.PTR, _build.PTR, _build.I64, _build.I32,
     _build.I32, _build.I32, _build.I32, _build.PTR)
@@ -238,9 +280,10 @@ class _TrilinearWithGrad(torch.autograd.Function):
 def trilinear_sample_cf_with_grad(vol_cf: torch.Tensor, hwd: torch.Tensor,
                                   padding: str = "zeros"):
     """Channel-first trilinear sampling with the analytic gradient of
-    channel 0. vol (C, H, W, D), hwd (..., 3) -> vals (..., C) fp32,
-    grad0 (..., 3) fp32 (d channel0 / d(h, w, d)); both differentiable with
-    respect to the volume."""
+    channel 0. vol (C, H, W, D) in any layout (a channel-last one is read
+    as it is, any other copied: ``kernel_volume``), hwd (..., 3) -> vals
+    (..., C) fp32, grad0 (..., 3) fp32 (d channel0 / d(h, w, d)); both
+    differentiable with respect to the volume."""
     if vol_cf.dim() != 4 or hwd.shape[-1] != 3:
         raise ValueError("trilinear_sample_cf_with_grad: expected a (C, H, W,"
                          f" D) volume and (..., 3) points, got "
@@ -249,7 +292,7 @@ def trilinear_sample_cf_with_grad(vol_cf: torch.Tensor, hwd: torch.Tensor,
         raise ValueError("the CUDA trilinear kernel implements zeros padding")
     pts_shape = hwd.shape[:-1]
     vals, grad0 = _TrilinearWithGrad.apply(
-        vol_cf.float().contiguous(), hwd.reshape(-1, 3).float().contiguous(),
-        padding)
+        kernel_volume(vol_cf.float()),
+        hwd.reshape(-1, 3).float().contiguous(), padding)
     return (vals.reshape(*pts_shape, vol_cf.shape[0]),
             grad0.reshape(*pts_shape, 3))

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from ..configs.base import Config
 from ..geometry.projection import rays_from_img2lidar
 from ..geometry.ray_sampler import RaySampler
+from ..ops.interp import first_channel
 
 # outputs derived from the sdf channel alone: a render that asks only for
 # these samples a 1-channel view of the volume (the JAX ``geo_only``)
@@ -43,7 +44,10 @@ class ChunkedRenderer:
     def render(self, volume, origin, direction) -> Dict[str, np.ndarray]:
         """origin/direction (R, 3) on the volume's device -> host dict of
         per-ray outputs. The ray axis is padded to a whole number of chunks
-        (directions with 1.0 so padded rays stay finite)."""
+        (directions with 1.0 so padded rays stay finite). A geo-only render
+        takes the sdf plane out of the volume once, not once per chunk."""
+        if self.geo_only:
+            volume = first_channel(volume)
         R = origin.shape[0]
         pad = (-R) % self.chunk
         o = F.pad(origin, (0, 0, 0, pad))

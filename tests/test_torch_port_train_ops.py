@@ -148,9 +148,33 @@ def _vol_points(seed, C, shape=(7, 9, 5), n=500):
     return vol, pts.astype(np.float32), gv, gg
 
 
-@pytest.mark.parametrize("C", [1, 25])
-def test_trilinear_with_grad_plain_vjp_matches_jax(C):
-    vol, pts, gv, gg = _vol_points(20 + C, C)
+def _ray_points(seed, C, shape=(7, 9, 5), rays=6, samples=40):
+    """Monotone samples along rays that start inside the volume and leave
+    it (the render's ray-major order, consecutive samples sharing cells),
+    with cotangents."""
+    rng = np.random.RandomState(seed)
+    vol = rng.randn(C, *shape).astype(np.float32)
+    hi = np.asarray(shape, np.float64) - 1
+    o = rng.uniform(0.25, 0.75, (rays, 3)) * hi
+    d = rng.randn(rays, 3)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t = np.sort(rng.uniform(0, 1.5 * hi.max(), (rays, samples)), axis=1)
+    pts = (o[:, None] + d[:, None] * t[..., None]).reshape(-1, 3)
+    n = pts.shape[0]
+    gv = rng.randn(n, C).astype(np.float32)
+    gg = rng.randn(n, 3).astype(np.float32)
+    return vol, pts.astype(np.float32), gv, gg
+
+
+@pytest.mark.parametrize("C,points", [(1, "uniform"), (25, "uniform"),
+                                      (1, "rays"), (25, "rays")],
+                         ids=["1", "25", "1-rays", "25-rays"])
+def test_trilinear_with_grad_plain_vjp_matches_jax(C, points):
+    make = _vol_points if points == "uniform" else _ray_points
+    vol, pts, gv, gg = make(20 + C, C)
+    if points == "rays":  # some samples leave the volume
+        assert not ((pts >= 0) & (pts <= np.asarray(vol.shape[1:]) - 1)
+                    ).all()
     (rv, rg), vjp = jax.vjp(
         lambda v: jinterp.trilinear_sample_cf_with_grad(v, jnp.asarray(pts)),
         jnp.asarray(vol))
@@ -165,9 +189,12 @@ def test_trilinear_with_grad_plain_vjp_matches_jax(C):
     assert_grad_close(tv.grad, g_ref, "volume")
 
 
-@pytest.mark.parametrize("which", ["both", "vals", "grad0"])
+@pytest.mark.parametrize("which", ["both", "vals", "grad0",
+                                   "both-channel-last"])
 def test_trilinear_function_cpu_path_equals_plain_autograd(which):
     vol, pts, gv, gg = _vol_points(3, 5)
+    channel_last = which.endswith("channel-last")
+    which = which.split("-")[0]
     cots = {"vals": (gv, None), "grad0": (None, gg), "both": (gv, gg)}[which]
 
     def loss(fn, v):
@@ -177,7 +204,10 @@ def test_trilinear_function_cpu_path_equals_plain_autograd(which):
         return sum(terms)
 
     (fv,) = leaves(vol)
-    loss(tinterp.trilinear_sample_cf_with_grad, fv).backward()
+    # the layout field.decode gives: the Function reads it without a copy
+    fvol = fv.permute(1, 2, 3, 0).contiguous().permute(3, 0, 1, 2) \
+        if channel_last else fv
+    loss(tinterp.trilinear_sample_cf_with_grad, fvol).backward()
     (pv,) = leaves(vol)
     loss(tinterp.trilinear_sample_cf_with_grad_plain, pv).backward()
     np.testing.assert_allclose(fv.grad.numpy(), pv.grad.numpy(), atol=1e-6)
@@ -186,6 +216,65 @@ def test_trilinear_function_cpu_path_equals_plain_autograd(which):
         tinterp.trilinear_bwd_plain(
             T(vol), T(pts), *(None if c is None else T(c) for c in cots)
         ).numpy(), pv.grad.numpy(), atol=1e-6)
+
+
+def _channel_last(vol):
+    """A (C, H, W, D) tensor of ``vol``'s values laid out (H, W, D, C)."""
+    return T(np.ascontiguousarray(vol.transpose(1, 2, 3, 0))
+             ).permute(3, 0, 1, 2)
+
+
+def test_kernel_volume_layouts():
+    vol = np.random.RandomState(5).randn(3, 4, 5, 6).astype(np.float32)
+    cl = _channel_last(vol)
+    assert tinterp.kernel_volume(cl) is cl        # already channel-last
+    for v in (T(vol), cl, cl[:1], T(vol)[:, 1:]):
+        got = tinterp.kernel_volume(v)
+        assert got.permute(1, 2, 3, 0).is_contiguous()
+        np.testing.assert_array_equal(got.numpy(), v.numpy())
+    # the copy is differentiable
+    (leaf,) = leaves(vol)
+    (tinterp.kernel_volume(leaf) * 2).sum().backward()
+    np.testing.assert_array_equal(leaf.grad.numpy(), np.full_like(vol, 2))
+
+
+@pytest.mark.parametrize("layout", ["channel_first", "channel_last"])
+def test_first_channel_plane_and_gradient_layout(layout):
+    """The sdf plane is a contiguous (1, H, W, D) tensor of channel 0 whose
+    gradient reaches the volume in the volume's own layout (so that it adds
+    to the kernels' channel-last gradient without a transpose); with a
+    full-volume query beside it the volume's gradient equals the plain
+    one."""
+    vol, pts, gv, gg = _ray_points(31, 4)
+
+    def volume(leaf):
+        return leaf if layout == "channel_first" else \
+            leaf.permute(1, 2, 3, 0).contiguous().permute(3, 0, 1, 2)
+
+    (leaf,) = leaves(vol)
+    v = volume(leaf)
+    seen = []
+    v.register_hook(lambda g: seen.append(g.stride()))
+    plane = tinterp.first_channel(v)
+    assert plane.shape == (1,) + vol.shape[1:] and plane.is_contiguous()
+    np.testing.assert_array_equal(plane.detach().numpy(), vol[:1])
+    (plane * 3).sum().backward()
+    assert seen == [v.stride()]
+
+    (leaf,) = leaves(vol)
+    v = volume(leaf)
+    vals, grad0 = tinterp.trilinear_sample_cf_with_grad(v, T(pts))
+    _, g_plane = tinterp.trilinear_sample_cf_with_grad(
+        tinterp.first_channel(v), T(pts))
+    ((vals * T(gv)).sum() + (grad0 * T(gg)).sum()
+     + (g_plane * T(gg)).sum()).backward()
+    (ref,) = leaves(vol)
+    r_vals, r_grad0 = tinterp.trilinear_sample_cf_with_grad_plain(ref, T(pts))
+    _, r_plane = tinterp.trilinear_sample_cf_with_grad_plain(ref[:1], T(pts))
+    ((r_vals * T(gv)).sum() + (r_grad0 * T(gg)).sum()
+     + (r_plane * T(gg)).sum()).backward()
+    np.testing.assert_allclose(leaf.grad.numpy(), ref.grad.numpy(),
+                               atol=1e-5)
 
 
 def test_trilinear_function_refuses_point_gradients():
