@@ -19,8 +19,11 @@ raises and the exit code is non-zero.
   backwards of the training step (``msda_bwd`` on the same three calls),
   the trilinear forward and backward at the main paths' own points (the
   first 4096-ray training chunk at C = 25 and C = 1, the first 32768-ray
-  frame chunk at C = 1) and on uniform random points, and ``gather_rows``
-  on an fp32 table of 28-byte rows. ``--baseline DIR`` (a checkout of
+  frame chunk at C = 1) and on uniform random points, the values-only
+  trilinear forward ``trilinear_cf_fwd`` at the dense occupancy query's
+  shape (timed against ``F.grid_sample`` too) and at off-path channel
+  counts and row strides, and ``gather_rows`` on an fp32 table of 28-byte
+  rows. ``--baseline DIR`` (a checkout of
   another commit) also times that checkout's trilinear kernels at the main
   paths' points, in turns with this one's (and ``[frame]`` profiles that
   checkout's eval frame beside this one's).
@@ -38,6 +41,16 @@ raises and the exit code is non-zero.
   frame: kernels and kernel time of the prepare, of one render chunk and
   of the whole render (with ``--baseline``, the other checkout's frame
   too, in turns).
+- ``[occ]``: one full-width ``nuscenes_occ`` occupancy frame through
+  ``eval_iou``'s code path with seeded weights after a cold frame: the
+  Occ3D query (``--occ3d --sem``) by gather and by separable lerps and the
+  OpenOccupancy 512x512x40 query against a fabricated label file, each
+  with ``prepare_s``, ``query_s``, peak memory, launch counts and a
+  profile of its warm device part, which also runs under
+  ``torch.cuda.set_sync_debug_mode("error")``; ``trilinear_cf_fwd``
+  against its plain version on a 1,048,576-point slab of the dense grid
+  and at the 640,000 Occ3D points; the Occ3D occupancy and classes of the
+  kernel path against the plain path, and separable against gather.
 - ``[train-parity]``: one ``tiny`` training step with the kernels on the card,
   rendered in checkpointed chunks of 20 rays (48 rays: the last chunk is
   padded), against the same step rendered densely with the plain versions
@@ -100,7 +113,9 @@ MSDA_BWD_OPS = (14, 33)
 # cosine (22) and the normal's projection (17)
 RENDER_FWD_OPS = 50
 RENDER_BWD_OPS = 103
-PHASES = ("kernels", "gather", "frame", "train-parity", "train")
+PHASES = ("kernels", "gather", "frame", "occ", "train-parity", "train")
+OPENOCC_PCR = (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0)   # 512 x 512 x 40 at 0.2
+OCC_SLAB = 1 << 20    # dense-grid points held against the plain version
 
 
 def log(msg):
@@ -498,6 +513,131 @@ def trilinear_ab(base, this, vol25, train_pts, frame_pts, g):
         log(f"  A/B {k} (event ms, device ms): baseline {out['baseline'][k]}"
             f", this {out['this'][k]}")
     return out
+
+
+def channel_close(got, ref):
+    """The largest error of each channel of (N, C) values over 1e-5 of that
+    channel's largest reference magnitude (<= 1 passes), and the largest
+    absolute error."""
+    d = (got.double() - ref.double()).abs().amax(0)
+    scale = ref.double().abs().amax(0).clamp_min(1e-30)
+    return float((d / (1e-5 * scale)).max()), float(d.max())
+
+
+def grid_sample_of(vol_cf, pts):
+    """``F.grid_sample`` computing trilinear values of a (C, H, W, D)
+    volume at (N, 3) fractional (h, w, d) indices: a 5-D channel-first
+    input (its own contiguous copy), align_corners=True, zeros padding; x
+    <-> d, y <-> w, z <-> h, normalised as 2 i / (n - 1) - 1. Returns
+    (call, copy) where call() gives (N, C) and copy() makes the input."""
+    import torch
+    import torch.nn.functional as F
+    C, H, W, D = vol_cf.shape
+    x = vol_cf.contiguous()[None]
+    grid = torch.stack([2 * pts[:, 2] / (D - 1) - 1,
+                        2 * pts[:, 1] / (W - 1) - 1,
+                        2 * pts[:, 0] / (H - 1) - 1], -1).view(1, 1, 1, -1, 3)
+
+    def call():
+        return F.grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
+                             align_corners=True).view(C, -1).T
+
+    return call, vol_cf.contiguous
+
+
+def dense_grid_points(cfg, device):
+    """The OpenOccupancy 512 x 512 x 40 grid of the occupancy query as
+    fractional indices of ``cfg``'s decoded volume."""
+    from selfocc_tpu_torch.geometry.mappings import make_mapping
+    from selfocc_tpu_torch.models.heads import uniform_axes_on, uniform_grid
+    xyz = uniform_grid(*uniform_axes_on(OPENOCC_PCR, 0.2, device))
+    return make_mapping(**cfg.model.head.mapping_args).meter2grid(
+        xyz.reshape(-1, 3)).contiguous()
+
+
+def values_kernel_checks(g, device):
+    """``trilinear_cf_fwd`` (the values-only forward) at the dense
+    occupancy query's shape (the 512 x 512 x 40 grid, 10,485,760 points, on
+    a random (25, 257, 257, 25) channel-last volume): against its plain
+    version (each channel within 1e-5 of its max) and ``F.grid_sample``,
+    timed (events and device time, the channel-first copy that
+    ``grid_sample`` needs timed apart). Then off-path inputs, checked only:
+    C = 1, 2, 3, 5, 21, 25, 33, volumes that are channel slices of wider
+    rows (row stride > C), rays, uniform points with knots, one-cell runs;
+    and the values agree with the with-grad forward's (the same value
+    arithmetic; bit-equal cases are counted)."""
+    import torch
+    from selfocc_tpu_torch.configs.experiments import get_config
+    from selfocc_tpu_torch.ops import interp
+    cfg = get_config("nuscenes_occ")
+    shape = (257, 257, 25)
+    vol = torch.randn(shape + (25,), generator=g,
+                      device=device).permute(3, 0, 1, 2)
+    pts = dense_grid_points(cfg, device)
+    n, C = pts.shape[0], vol.shape[0]
+    got = interp.trilinear_cf_fwd(vol, pts)
+    ref = interp.trilinear_sample_cf_plain(vol, pts)
+    rel, err = channel_close(got, ref)
+    check("trilinear_cf_fwd (dense query, C=25, 10485760 points) / "
+          "channel tolerance", rel, 1.0)
+    lib, copy = grid_sample_of(vol, pts)
+    lib_rel, lib_err = channel_close(lib(), ref)
+    log(f"  F.grid_sample at the dense query: {lib_err:.3e} from the "
+        f"plain version ({lib_rel:.3f} of 1e-5 per channel)")
+    del got, ref
+    torch.cuda.empty_cache()
+    voxels = corner_voxels(pts, shape)
+    rec = kernel_record(
+        err, timed(lambda: interp.trilinear_cf_fwd(vol, pts), 10),
+        timed(lambda: interp.trilinear_sample_cf_plain(vol, pts), 3),
+        (voxels * C * 4 + nbytes(pts) + n * C * 4, n * (20 + 16 * C)),
+        library_ms=timed(lib, 10), library="F.grid_sample",
+        library_copy_ms=timed(copy, 10),
+        library_device_ms=device_ms(lib, 10),
+        device_ms=device_ms(lambda: interp.trilinear_cf_fwd(vol, pts), 10),
+        shape="dense query, C=25, 10485760 points", points=n, C=C,
+        corner_voxels=voxels, channel_rel_err=rel)
+    log(f"  trilinear_cf_fwd dense query: ms {rec['ms']:.4g}, device_ms "
+        f"{rec['device_ms']}, plain_ms {rec['plain_ms']:.4g}, grid_sample "
+        f"{rec['library_ms']:.4g} (+ copy {rec['library_copy_ms']:.4g}), "
+        f"bound_ms {rec['bound_ms']:.4g} ({rec['bound_by']})")
+    del vol, pts, lib, copy
+    torch.cuda.empty_cache()
+
+    small = (13, 17, 9)
+    sh = torch.tensor(small, dtype=torch.float32, device=device)
+    o = torch.rand((40, 3), generator=g, device=device) * sh * 0.5 + sh / 4
+    d = torch.randn((40, 3), generator=g, device=device)
+    t = torch.sort(torch.rand((40, 97), generator=g, device=device), -1)[0]
+    ray_pts = (o[:, None] + d[:, None] / d.norm(dim=-1, keepdim=True)[
+        :, None] * t[..., None] * 1.3 * float(sh.max())).reshape(-1, 3)
+    uni = torch.rand((5003, 3), generator=g, device=device) * (sh + 3) - 1.5
+    uni[::8] = torch.round(uni[::8])
+    cell = torch.tensor([4.3, 5.1, 2.3], device=device) + 0.5 * torch.rand(
+        (4099, 3), generator=g, device=device)
+    same = total = 0
+    for C in (1, 2, 3, 5, 21, 25, 33):
+        full = torch.randn(small + (C + 4,), generator=g, device=device)
+        for tag, v in (("contiguous", full[..., :C].contiguous()),
+                       ("row stride", full[..., 4:])):
+            v = v.permute(3, 0, 1, 2)
+            for ptag, p in (("rays", ray_pts), ("uniform + knots", uni),
+                            ("one cell", cell)):
+                got = interp.trilinear_cf_fwd(v, p)
+                err = max_err(got, interp.trilinear_sample_cf_plain(v, p))
+                check(f"trilinear_cf_fwd (C={C}, {tag}, {ptag}, "
+                      f"N={p.shape[0]})", err, 1e-5)
+                if tag == "contiguous":
+                    wg = interp.trilinear_cf_with_grad_fwd(v, p)[0]
+                    check(f"  against trilinear_cf_with_grad_fwd",
+                          max_err(got, wg), 1e-6)
+                    same += bool(torch.equal(got, wg))
+                    total += 1
+    log(f"  values-only and with-grad forwards bit-equal in {same} of "
+        f"{total} cases")
+    torch.cuda.synchronize()
+    return {"trilinear_cf_fwd": dict(rec, bit_equal_to_with_grad=[same,
+                                                                  total])}
 
 
 def render_case(g, device, R, S, C=1, saturated=False, misalign=False,
@@ -901,6 +1041,8 @@ def kernel_checks(device, baseline=None):
 
     res.update(trilinear_checks(g, device, baseline))
 
+    res.update(values_kernel_checks(g, device))
+
     # MSDA at its three main-path call shapes: the hw-plane image
     # cross-attention (6 cams, 4 FPN levels of a 384x800 input, 66049
     # queries, 8 points), the zh- and wz-plane ones (6425 queries, 48
@@ -1229,6 +1371,244 @@ def frame_profiles(device, baseline=None):
     return out
 
 
+class OccItems:
+    """One synthetic item as ``eval_iou.evaluate``'s dataset: its Occ3D
+    labels, or (``label_path``) an OpenOccupancy label file instead."""
+
+    def __init__(self, ds, idx, label_path=None):
+        self.ds, self.idx, self.label_path = ds, idx, label_path
+        if label_path is None:
+            self.occ3d_labels = lambda i: ds.occ3d_labels(idx)
+
+    def __len__(self):
+        return 1
+
+    def __getitem__(self, i):
+        item = dict(self.ds[self.idx])
+        if self.label_path is not None:
+            item["openocc_label_path"] = self.label_path
+        return item
+
+
+def occ_profile(fn):
+    """Kernels, kernel ms and ``trilinear_cf_fwd``'s kernel ms of one call
+    of ``fn`` (a warm query's device part), by ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"kernels": sum(e.count for e in kernels),
+            "kernel_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
+            "trilinear_cf_fwd_ms": sum(
+                e.self_device_time_total for e in kernels
+                if "trilinear_fwd_" in e.key) / 1e3,
+            "trilinear_cf_fwd_calls": sum(
+                e.count for e in kernels if "trilinear_fwd_" in e.key)}
+
+
+def occ_frame(device):
+    """One full-width nuscenes_occ occupancy frame through the eval_iou
+    code path (seeded weights, synthetic labels), after a cold frame: the
+    Occ3D query (--occ3d --sem) by gather and by separable lerps and the
+    OpenOccupancy 512 x 512 x 40 query (sdf, sem), each with its prepare_s,
+    query_s, peak memory, launch counts (reset just before, read just
+    after: trilinear_cf_fwd must be launched) and a profile of its warm
+    device part. Then, on the frame's own volume: trilinear_cf_fwd against
+    its plain version on a 1,048,576-point slab of the dense grid and at
+    the 640,000 Occ3D points (each channel within 1e-5 of its max, timed);
+    the Occ3D occupancy and classes of the kernel path against the plain
+    path on the card (a voxel may differ only where |sdf| < 1e-5 or the
+    logit gap < 1e-5); separable against gather (sdf_r and logits_r within
+    rtol 1e-5, atol 1e-6; classes by the same gap rule); and each warm
+    query's device part under set_sync_debug_mode("error")."""
+    import os
+    import numpy as np
+    import torch
+    from selfocc_tpu_torch import eval_depth, eval_iou
+    from selfocc_tpu_torch.configs.experiments import get_config
+    from selfocc_tpu_torch.ops import interp, msda
+    from selfocc_tpu_torch.utils.eval_lib import (GridOccEvaluator,
+                                                  occ3d_indices)
+    from selfocc_tpu_torch.utils.runtime import (get_dataset, get_logger,
+                                                 to_device)
+
+    cfg = get_config("nuscenes_occ")
+    t0 = time.time()
+    model = eval_depth.build_model(cfg, SEED, device)
+    ds = get_dataset(cfg, synthetic=True)
+    logger = get_logger()
+    # a fabricated OpenOccupancy label file (voxel rows + class column) in
+    # the git-ignored work_dirs/
+    os.makedirs(os.path.join("work_dirs", "chip_smoke"), exist_ok=True)
+    label_path = os.path.join("work_dirs", "chip_smoke", "occ_labels.npy")
+    rs = np.random.RandomState(SEED)
+    np.save(label_path, np.stack([rs.randint(0, 40, 20000),
+                                  rs.randint(0, 512, 20000),
+                                  rs.randint(0, 512, 20000),
+                                  rs.randint(1, 17, 20000)], 1))
+    log(f"  model + synthetic dataset set-up {time.time() - t0:.1f}s")
+    occ3d = ["--py-config", "nuscenes_occ", "--synthetic", "--occ3d", "--sem"]
+    runs = {"occ3d_gather": (occ3d, None),
+            "occ3d_separable": (occ3d + ["--grid-query", "separable"], None),
+            "openocc": (["--py-config", "nuscenes_occ", "--synthetic",
+                         "--sem"], label_path)}
+    wrappers = (interp.trilinear_cf_fwd, msda.msda_fwd)
+    off_path = (interp.trilinear_cf_with_grad_fwd, interp.trilinear_bwd,
+                msda.msda_bwd)
+
+    cold = eval_iou.evaluate(cfg, model, OccItems(ds, 1), device,
+                             eval_iou.parse_args(occ3d), logger)
+    log(f"  cold frame (Occ3D, gather): prepare {cold['prepare_s']:.3f}s "
+        f"query {cold['query_s']:.3f}s")
+    res = {"cold": {k: cold[k] for k in ("prepare_s", "query_s")}}
+    for tag, (flags, path) in runs.items():
+        args = eval_iou.parse_args(flags)
+        reset_counts(wrappers + off_path)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        r = eval_iou.evaluate(cfg, model, OccItems(ds, 0, path), device,
+                              args, logger)
+        launches = read_counts(wrappers, f"{tag} occupancy frame",
+                               ("plane", "rows") if tag.startswith("occ3d")
+                               else ("rows",))
+        stray = {fn.__name__: fn.launches for fn in off_path if fn.launches}
+        if stray:
+            raise AssertionError(f"the {tag} frame launched {stray}")
+        scores = {k: r[k] for k in ("iou_miou", "iou_iou", "miou_miou",
+                                    "miou_iou") if k in r}
+        if not all(np.isfinite(v) for v in scores.values()):
+            raise AssertionError(f"{tag}: non-finite scores {scores}")
+        res[tag] = dict(prepare_s=r["prepare_s"], query_s=r["query_s"],
+                        max_memory_gb=torch.cuda.max_memory_allocated()
+                        / 2**30, launches=launches, scores=scores)
+        log(f"  {tag}: prepare {r['prepare_s']:.4f}s query "
+            f"{r['query_s']:.4f}s, peak "
+            f"{res[tag]['max_memory_gb']:.2f} GiB, {scores}")
+
+    # the frame's device part, warm: profiled and sync-checked
+    batch = to_device(ds[0], device)
+    volume = GridOccEvaluator(model).prepare(batch["imgs"], batch["lidar2img"])
+    pcr, expansion = eval_iou.OCC3D_SCENES[0]
+    ev = {q: GridOccEvaluator(model, query=q)
+          for q in ("gather", "separable")}
+    pts = eval_iou.occ3d_ego_to_grid_coords(pcr, expansion, np.eye(4))
+    idx = torch.from_numpy(occ3d_indices(
+        pts, pcr, expansion, ev["gather"].grid_shape(pcr, 0.2))).to(device)
+    calls = {
+        "occ3d_gather": lambda: ev["gather"].query_grid_occ3d_device(
+            volume, tuple(pcr), 0.2, idx),
+        "occ3d_separable": lambda: ev["separable"].query_grid_occ3d_device(
+            volume, tuple(pcr), 0.2, idx),
+        "openocc": lambda: ev["gather"].query_grid_device(
+            volume, OPENOCC_PCR, 0.2, keys=("sdf", "sem"))}
+    for tag, fn in calls.items():
+        fn()
+        res[tag]["profile"] = occ_profile(fn)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        if not all(bool(torch.isfinite(v.float()).all())
+                   for v in out.values()):
+            raise AssertionError(f"{tag}: non-finite outputs")
+        res[tag]["sync_checked"] = True
+        log(f"  {tag} warm device part: {res[tag]['profile']}; no "
+            "synchronising call under set_sync_debug_mode('error')")
+        del out
+
+    # trilinear_cf_fwd against its plain version on the frame's volume
+    grid = dense_grid_points(cfg, device)
+    mid = grid.shape[0] // 2
+    slab = grid[mid - OCC_SLAB // 2: mid + OCC_SLAB // 2].contiguous()
+    del grid
+    dense = ev["gather"]._dense(volume, pcr, 0.2, ("sdf", "logits"))
+    sdf_v, logit_v = dense["sdf"][..., None].permute(3, 0, 1, 2), \
+        dense["logits"].permute(3, 0, 1, 2)
+    kern = {}
+    for tag, vol, p in (("dense slab, C=25", volume, slab),
+                        ("Occ3D logits, C=21, row 25", logit_v, idx),
+                        ("Occ3D sdf plane, row 25", sdf_v, idx)):
+        p = p.reshape(-1, 3).contiguous()
+        row = interp.row_stride(vol)      # the query's layout: read in place
+        kv = vol if row is not None else interp.kernel_volume(vol)
+        got = interp.trilinear_cf_fwd(kv, p)
+        ref = interp.trilinear_sample_cf_plain(vol, p)
+        rel, err = channel_close(got, ref)
+        check(f"trilinear_cf_fwd ({tag}, {p.shape[0]} points) / channel "
+              "tolerance", rel, 1.0)
+        n, C = p.shape[0], vol.shape[0]
+        b_ms, by = bound(corner_voxels(p, tuple(vol.shape[1:])) * C * 4
+                         + nbytes(p) + n * C * 4, n * (20 + 16 * C))
+        kern[tag] = {"max_abs_err": err, "channel_rel_err": rel,
+                     "points": int(n), "C": int(C), "row": row,
+                     "bound_ms": b_ms, "bound_by": by,
+                     "ms": timed(lambda: interp.trilinear_cf_fwd(kv, p), 10),
+                     "device_ms": device_ms(
+                         lambda: interp.trilinear_cf_fwd(kv, p), 10),
+                     "plain_ms": timed(
+                         lambda: interp.trilinear_sample_cf_plain(vol, p), 3)}
+        log(f"  trilinear_cf_fwd {tag}: {kern[tag]}")
+        del got, ref
+    res["kernel_vs_plain"] = kern
+
+    # Occ3D occupancy and classes: the kernel path against the plain path
+    # (the plain versions run on the card) and separable against gather
+    flat, shape = ev["gather"]._flat_grid(pcr, 0.2, device)
+    field = model.head.field
+    vals = interp.trilinear_sample_cf_plain(volume, field.mapping.meter2grid(
+        flat)).reshape(shape + (volume.shape[0],))
+    n_sh = field.n_sh
+    plain_sdf = interp.trilinear_sample_cf_plain(
+        vals[..., :1].permute(3, 0, 1, 2), idx)[..., 0]
+    plain_logits = interp.trilinear_sample_cf_plain(
+        vals[..., 1 + n_sh:].permute(3, 0, 1, 2), idx)
+    del vals, flat, dense, sdf_v, logit_v
+    torch.cuda.empty_cache()
+    out = {q: ev[q].query_grid_occ3d_device(volume, tuple(pcr), 0.2, idx)
+           for q in ev}
+    g = out["gather"]
+    flips = {}
+    for name, ref_sdf, ref_logits, ref_sem in (
+            ("kernel vs plain", plain_sdf, plain_logits,
+             plain_logits.argmax(-1)),
+            ("separable vs gather", g["sdf_r"], g["logits_r"], g["sem_r"])):
+        o = g if name == "kernel vs plain" else out["separable"]
+        if name == "separable vs gather":
+            for k, r in (("sdf_r", ref_sdf), ("logits_r", ref_logits)):
+                bad = ((o[k] - r).abs() > 1e-5 * r.abs() + 1e-6).sum()
+                if int(bad):
+                    raise AssertionError(f"{name}: {int(bad)} {k} values "
+                                         "beyond rtol 1e-5, atol 1e-6")
+        occ_d = (o["sdf_r"] <= 0) != (ref_sdf <= 0)
+        occ_bad = occ_d & ~((o["sdf_r"].abs() < 1e-5)
+                            | (ref_sdf.abs() < 1e-5))
+        top = torch.topk(o["logits_r"], 2, dim=-1).values
+        sem_d = o["sem_r"] != ref_sem
+        sem_bad = sem_d & ~((top[..., 0] - top[..., 1]) < 1e-5)
+        flips[name] = {"occupancy_differ": int(occ_d.sum()),
+                       "class_differ": int(sem_d.sum()),
+                       "sdf_max_abs_err": max_err(o["sdf_r"], ref_sdf),
+                       "logits_max_abs_err": max_err(o["logits_r"],
+                                                     ref_logits)}
+        log(f"  Occ3D {name}: {flips[name]}")
+        if int(occ_bad.sum()) or int(sem_bad.sum()):
+            raise AssertionError(f"Occ3D {name}: {int(occ_bad.sum())} "
+                                 f"occupancy and {int(sem_bad.sum())} class "
+                                 "differences outside the flip rule")
+    res["flips"] = flips
+    del model, volume, out, g, plain_sdf, plain_logits, slab, idx
+    torch.cuda.empty_cache()
+    return res
+
+
 def train_parity(device):
     """One tiny step: kernels on the card vs plain versions on the CPU,
     same weights and draws, dropout 0."""
@@ -1509,6 +1889,7 @@ def main():
                 weights_path_launches=weights_path(device)),
             "gather": lambda: gather_path(device),
             "frame": lambda: full_frame(device, args.baseline),
+            "occ": lambda: occ_frame(device),
             "train-parity": lambda: train_parity(device),
             "train": lambda: full_train(device)}
     phases = {}
@@ -1528,7 +1909,7 @@ def main():
     # launches neus_weights_fwd since the render is fused
     kres["neus_weights_fwd"].update(
         launches=kres.pop("weights_path_launches"), launches_main_path=0)
-    fres, tres = phases["frame"], phases["train"]
+    fres, tres, ores = phases["frame"], phases["train"], phases["occ"]
     log(f"[frame] prepare {fres['prepare_s']:.3f}s render "
         f"{fres['render_s']:.3f}s ({fres['rays'] / fres['render_s']:.0f} "
         f"rays/s), peak {fres['max_memory_gb']:.2f} GiB allocated")
@@ -1542,6 +1923,8 @@ def main():
         "trilinear_cf_with_grad_fwd": ("trilinear.cu",
                                        "selfocc_tpu/ops/interp.py:159"),
         "trilinear_bwd": ("trilinear.cu", "selfocc_tpu/ops/interp.py:159"),
+        "trilinear_cf_fwd": ("trilinear.cu",
+                             "selfocc_tpu/ops/interp.py:118"),
         "msda_fwd": ("msda.cu", "selfocc_tpu/ops/msda.py:160"),
         "msda_bwd": ("msda.cu", "selfocc_tpu/ops/msda.py:160"),
         "gather_rows": ("gather_rows.cu",
@@ -1562,6 +1945,13 @@ def main():
             entry["in_step_calls"] = in_step["calls"]
         if name in fres["launches"]:
             entry["launches_eval_frame"] = fres["launches"][name]
+        if name == "trilinear_cf_fwd":
+            # its main path is the occupancy eval: the Occ3D gather frame
+            occ_l = {t: ores[t]["launches"] for t in
+                     ("occ3d_gather", "occ3d_separable", "openocc")}
+            entry["launches"] = occ_l["occ3d_gather"][name]
+            entry.update({f"launches_{t}": v for t, v in occ_l.items()},
+                         frame_checks=ores["kernel_vs_plain"])
         kernels.append(entry)
     print(json.dumps({
         "kernels": kernels,
@@ -1575,6 +1965,8 @@ def main():
                   "launches_per_chunk": fres["launches_per_chunk"],
                   "profile": fres["profile"],
                   "sync_checked": fres["sync_checked"]},
+        "occ": {k: v for k, v in ores.items()
+                if k != "kernel_vs_plain"},
         "train_parity": phases["train-parity"],
         "train": {k: v for k, v in tres.items() if k != "launches"}}),
         flush=True)

@@ -1,10 +1,14 @@
 // Trilinear sampling of a volume with the analytic gradient of channel 0:
 // forward (trilinear_cf_with_grad_fwd) and the volume's cotangent
-// (trilinear_bwd).
+// (trilinear_bwd); and the values alone (trilinear_cf_fwd), for the
+// occupancy eval.
 //
 // Replaces: selfocc_tpu/ops/interp.py::trilinear_sample_cf_with_grad
 // (interp.py:159), which XLA lowers on the TPU to 8 corner gathers over a
-// flattened (C, H*W*D) volume, and its JAX autodiff cotangent. Semantics:
+// flattened (C, H*W*D) volume, and its JAX autodiff cotangent; and, values
+// only, interp.py::trilinear_sample_cf (:118, the dense occupancy query)
+// and interp.py::trilinear_sample (:73, the Occ3D resample of the dense
+// sdf and logits grids). Semantics:
 // align_corners=True fractional (h, w, d) indices, zeros padding; vals
 // (N, C) = sum over the 8 corners of weight * value; grad0 (N, 3) =
 // d(channel 0)/d(h, w, d), the bilinear interpolation over the other two
@@ -69,6 +73,15 @@
 // one per voxel); chains in the rows kernels.
 // - Both forwards stage grad0 through shared memory, so the warp writes its
 //   32 x 3 floats with three coalesced stores.
+// - Values only (trilinear_cf_fwd): the same two forward kernels with
+//   kGrad = false, which drops grad0's arithmetic, loads, staging and
+//   stores. It takes a row stride: the occupancy eval resamples the sdf
+//   and logit channels of its dense query's (N, 25) values where they lie,
+//   without copying them out (881 MB of logits at 512 x 512 x 40). At the
+//   dense query's 10.5M points the rows kernel is bound by its 1.05 GB of
+//   vals stores (one 100-byte row per point): 0.38 ms over HBM, 0.89-0.99
+//   ms measured on an NVIDIA H100 80GB HBM3 at 700 W, where F.grid_sample
+//   takes 1.02-1.13 ms on a channel-first copy.
 // Sums are taken in another order than the plain version's (per run or
 // chain, then atomics in any order); the fp32 results agree within the
 // tolerances chip_smoke.py states.
@@ -205,15 +218,17 @@ __device__ __forceinline__ int corner_offset(int k, int W, int D) {
 
 // ---------------------------------------------------------------- forward
 
-// C = 1: vol is the (H, W, D) plane. One lane per point.
+// C = 1: vol is the (H, W, D) plane, one value every `row` floats (1 for a
+// contiguous plane). One lane per point. kGrad: also grad0; without it
+// (the values-only entry) grad0's arithmetic, staging and stores go.
+template <bool kGrad>
 __global__ void __launch_bounds__(kThreads)
-    trilinear_cf_with_grad_fwd_plane_kernel(const float* __restrict__ vol,
-                                            const float* __restrict__ hwd,
-                                            float* __restrict__ vals,
-                                            float* __restrict__ grad0,
-                                            int64_t num_points, int H, int W,
-                                            int D) {
-  __shared__ float stage[kWarps][3 * kWarp];
+    trilinear_fwd_plane_kernel(const float* __restrict__ vol,
+                               const float* __restrict__ hwd,
+                               float* __restrict__ vals,
+                               float* __restrict__ grad0, int64_t num_points,
+                               int H, int W, int D, int64_t row) {
+  __shared__ float stage[kGrad ? kWarps : 1][3 * kWarp];
   const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
   const int64_t tile =
       (static_cast<int64_t>(blockIdx.x) * kWarps + warp) * kWarp;
@@ -225,29 +240,34 @@ __global__ void __launch_bounds__(kThreads)
     float acc = 0.f;
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
-      const float v = in_volume(c, k, H, W, D)
-                          ? __ldg(vol + voxel(c, k, W, D)) : 0.f;
+      const float v =
+          in_volume(c, k, H, W, D)
+              ? __ldg(vol + static_cast<int64_t>(voxel(c, k, W, D)) * row)
+              : 0.f;
       acc += weight(c, k) * v;
-      add_grad0(c, k, v, g0);
+      if constexpr (kGrad) add_grad0(c, k, v, g0);
     }
     vals[n] = acc;
   }
-  store_rows3(stage[warp], grad0, tile, num_points, lane, g0);
+  if constexpr (kGrad)
+    store_rows3(stage[warp], grad0, tile, num_points, lane, g0);
 }
 
-// C > 1: vol is (H, W, D, C). grad0 from the point's own lane (channel 0 of
-// its corners), vals from lanes over channels walking the points in order
-// and keeping the 8 corner rows of the current cell in registers: a point
-// in the same cell as the one before it loads nothing.
+// C > 1: vol is (H, W, D, C) with `row` >= C floats from one voxel's row to
+// the next (C for a contiguous volume). grad0 (kGrad only) from the
+// point's own lane (channel 0 of its corners), vals from lanes over
+// channels walking the points in order and keeping the 8 corner rows of
+// the current cell in registers: a point in the same cell as the one
+// before it loads nothing.
+template <bool kGrad>
 __global__ void __launch_bounds__(kThreads)
-    trilinear_cf_with_grad_fwd_rows_kernel(const float* __restrict__ vol,
-                                           const float* __restrict__ hwd,
-                                           float* __restrict__ vals,
-                                           float* __restrict__ grad0,
-                                           int64_t num_points, int C, int H,
-                                           int W, int D) {
+    trilinear_fwd_rows_kernel(const float* __restrict__ vol,
+                              const float* __restrict__ hwd,
+                              float* __restrict__ vals,
+                              float* __restrict__ grad0, int64_t num_points,
+                              int C, int H, int W, int D, int64_t row) {
   __shared__ PointRec recs[kWarps][kWarp];
-  __shared__ float stage[kWarps][3 * kWarp];
+  __shared__ float stage[kGrad ? kWarps : 1][3 * kWarp];
   const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
   const int64_t tile =
       (static_cast<int64_t>(blockIdx.x) * kWarps + warp) * kWarp;
@@ -260,24 +280,26 @@ __global__ void __launch_bounds__(kThreads)
   if (live) c = locate(hwd, n);
   const PointRec mine = point_rec(c, live, H, W, D);
   recs[warp][lane] = mine;
-  float g0[3] = {0.f, 0.f, 0.f};
+  if constexpr (kGrad) {
+    float g0[3] = {0.f, 0.f, 0.f};
 #pragma unroll
-  for (int k = 0; k < 8; ++k)
-    add_grad0(c, k,
-              (mine.mask >> k) & 1
-                  ? __ldg(vol + static_cast<int64_t>(mine.base +
-                                                     corner_offset(k, W, D)) *
-                                    C)
-                  : 0.f,
-              g0);
-  store_rows3(stage[warp], grad0, tile, num_points, lane, g0);
+    for (int k = 0; k < 8; ++k)
+      add_grad0(c, k,
+                (mine.mask >> k) & 1
+                    ? __ldg(vol + static_cast<int64_t>(
+                                      mine.base + corner_offset(k, W, D)) *
+                                      row)
+                    : 0.f,
+                g0);
+    store_rows3(stage[warp], grad0, tile, num_points, lane, g0);
+  }
   __syncwarp();
 
   const int count = static_cast<int>(
       num_points - tile < kWarp ? num_points - tile : kWarp);
   for (int c0 = 0; c0 < C; c0 += kWarp) {
     const int ch = c0 + lane;
-    float row[8];
+    float rowv[8];
     int key = -2;  // no cell loaded yet
     for (int p = 0; p < count; ++p) {  // warp-uniform
       const PointRec r = recs[warp][p];
@@ -285,18 +307,18 @@ __global__ void __launch_bounds__(kThreads)
         key = r.key;
 #pragma unroll
         for (int k = 0; k < 8; ++k)
-          row[k] = ((r.mask >> k) & 1) && ch < C
-                       ? __ldg(vol +
-                               static_cast<int64_t>(r.base +
-                                                    corner_offset(k, W, D)) *
-                                   C +
-                               ch)
-                       : 0.f;
+          rowv[k] = ((r.mask >> k) & 1) && ch < C
+                        ? __ldg(vol +
+                                static_cast<int64_t>(r.base +
+                                                     corner_offset(k, W, D)) *
+                                    row +
+                                ch)
+                        : 0.f;
       }
       const Cell rc = rec_cell(r);
       float acc = 0.f;
 #pragma unroll
-      for (int k = 0; k < 8; ++k) acc += weight(rc, k) * row[k];
+      for (int k = 0; k < 8; ++k) acc += weight(rc, k) * rowv[k];
       if (ch < C) vals[(tile + p) * C + ch] = acc;
     }
   }
@@ -542,6 +564,24 @@ unsigned blocks_for(int64_t num_points) {
   return static_cast<unsigned>((num_points + kThreads - 1) / kThreads);
 }
 
+template <bool kGrad>
+int trilinear_fwd(const float* vol, const float* hwd, float* vals,
+                  float* grad0, int64_t num_points, int C, int H, int W,
+                  int D, int64_t row, void* stream) {
+  if (num_points > 0) {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (C == 1)
+      trilinear_fwd_plane_kernel<kGrad>
+          <<<blocks_for(num_points), kThreads, 0, s>>>(
+              vol, hwd, vals, grad0, num_points, H, W, D, row);
+    else
+      trilinear_fwd_rows_kernel<kGrad>
+          <<<blocks_for(num_points), kThreads, 0, s>>>(
+              vol, hwd, vals, grad0, num_points, C, H, W, D, row);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // vol: (H, W, D, C) channel-last (the (H, W, D) plane when C = 1); hwd
@@ -550,18 +590,20 @@ extern "C" int trilinear_cf_with_grad_fwd(const float* vol, const float* hwd,
                                           float* vals, float* grad0,
                                           int64_t num_points, int C, int H,
                                           int W, int D, void* stream) {
-  if (num_points > 0) {
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (C == 1)
-      trilinear_cf_with_grad_fwd_plane_kernel<<<blocks_for(num_points),
-                                                kThreads, 0, s>>>(
-          vol, hwd, vals, grad0, num_points, H, W, D);
-    else
-      trilinear_cf_with_grad_fwd_rows_kernel<<<blocks_for(num_points),
-                                               kThreads, 0, s>>>(
-          vol, hwd, vals, grad0, num_points, C, H, W, D);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return trilinear_fwd<true>(vol, hwd, vals, grad0, num_points, C, H, W, D, C,
+                             stream);
+}
+
+// The values-only entry: vals (N, C) written, no grad0. vol: (H, W, D, C)
+// with channels contiguous and `row` >= C floats between consecutive
+// voxels, so that a slice of channels of a wider channel-last tensor (the
+// occupancy query's sdf or logits out of its (N, 25) values) is read in
+// place.
+extern "C" int trilinear_cf_fwd(const float* vol, const float* hwd,
+                                float* vals, int64_t num_points, int C, int H,
+                                int W, int D, int64_t row, void* stream) {
+  return trilinear_fwd<false>(vol, hwd, vals, nullptr, num_points, C, H, W, D,
+                              row, stream);
 }
 
 // gv (N, C) or null, gg (N, 3) or null; grad (H, W, D, C) channel-last,

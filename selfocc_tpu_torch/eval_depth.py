@@ -7,9 +7,11 @@ render -> bilinear lookup of the predicted depth at the sparse GT pixels ->
         --synthetic --num-samples 1 [--device cpu]
 
 Weights are drawn from seeded initialisers that mirror the JAX package's
-(``--seed``); checkpoint loading, flip test-time augmentation, the
-argmax-weight depth target and the real nuScenes loaders come with later
-slices (without ``--synthetic`` it stops with an error). Runs on the first
+(``--seed``), or loaded from the port's own ``train.py`` checkpoint
+(``--ckpt-path``) or a reference-SelfOcc ``.pth`` (``--torch-ckpt``); flip
+test-time augmentation, the argmax-weight depth target and the real
+nuScenes loaders come with later slices (without ``--synthetic`` it stops
+with an error). Runs on the first
 CUDA device (kernels built on first use) unless ``--device cpu`` asks for the
 kernels' plain versions on the CPU; with no card and no ``--device cpu`` it
 exits non-zero.
@@ -30,8 +32,9 @@ from .ops.interp import bilinear_sample
 from .utils.eval_lib import (ChunkedRenderer, eval_ray_grid, eval_trans_mats,
                              rays_for_cams)
 from .utils.metrics import DepthMetric
-from .utils.runtime import (add_device_arg, get_dataset, get_logger,
-                            resolve_device, to_device)
+from .utils.runtime import (add_device_arg, add_weights_args, get_dataset,
+                            get_logger, load_weights, resolve_device,
+                            to_device)
 
 
 def parse_args(argv=None):
@@ -42,6 +45,7 @@ def parse_args(argv=None):
     ap.add_argument("--synthetic", action="store_true")
     ap.add_argument("--num-samples", type=int, default=0)
     ap.add_argument("--seed", type=int, default=42)
+    add_weights_args(ap)
     add_device_arg(ap)
     return ap.parse_args(argv)
 
@@ -114,6 +118,7 @@ def main(argv=None):
     ds = get_dataset(cfg, args.synthetic)
     logger = get_logger()
     model = build_model(cfg, args.seed, device)
+    load_weights(model, args.ckpt_path, args.torch_ckpt, logger)
     return evaluate(cfg, model, ds, device, args.num_samples, args.batch,
                     logger)
 

@@ -1,8 +1,10 @@
 """TPV-decoded SDF field — counterpart of ``selfocc_tpu/models/field.py``
-(``TPVSDFField.decode``, ``query_geo_grad``, ``sdf``, ``second_grad``,
-``second_grad_noncompact``, ``color``, ``inv_s``). Every volume query goes
-through ``ops.interp.trilinear_sample_cf_with_grad``, so on the card its
-forward and backward are the trilinear kernels.
+(``TPVSDFField.decode``, ``query_geo``, ``query_geo_uniform``,
+``query_geo_grad``, ``sdf``, ``second_grad``, ``second_grad_noncompact``,
+``color``, ``inv_s``). The render's volume queries go through
+``ops.interp.trilinear_sample_cf_with_grad``, the occupancy queries through
+``trilinear_sample_cf`` (values only) or the separable lerps, so on the card
+they run the trilinear kernels.
 
 State-dict keys follow the reference field: ``density_net.{2i+1}`` for the
 Linears of ``Sequential([Softplus, Linear] x density_layers)``,
@@ -20,7 +22,8 @@ from torch import nn
 
 from ..geometry import sh as sh_lib
 from ..geometry.mappings import make_mapping
-from ..ops.interp import first_channel, trilinear_sample_cf_with_grad
+from ..ops.interp import (first_channel, separable_grid_resample_cf,
+                          trilinear_sample_cf, trilinear_sample_cf_with_grad)
 
 
 class LearnedVariance(nn.Module):
@@ -93,6 +96,32 @@ class TPVSDFField(nn.Module):
         return {"sdf": vals[..., 0],
                 "color_feat": vals[..., 1:1 + self.n_sh],
                 "sem_logits": vals[..., 1 + self.n_sh:]}
+
+    def query_geo(self, volume, xyz):
+        """All channels of a (C, H, W, D) volume at metric points (..., 3),
+        split into ``sdf`` (...), ``color_feat`` (..., n_sh) and
+        ``sem_logits`` (..., sem_dims): values only, no gradient (the
+        occupancy query, ``field.py:150-170``). Each is a view of one
+        (..., C) result."""
+        grid = self.mapping.meter2grid(xyz.float())
+        return self._split(trilinear_sample_cf(volume, grid, "zeros"))
+
+    def query_geo_uniform(self, volume, xs, ys, zs):
+        """``query_geo`` on the separable metric grid ``ys`` x ``xs`` x
+        ``zs`` -> (H, W, D) outputs (``field.py:172-196``): ``meter2grid``
+        maps each metric axis alone (h <- y, w <- x, d <- z), so the query
+        is three per-axis lerps (``separable_grid_resample_cf``); the same
+        interpolant as ``query_geo``, rounded in another order (~1 ulp)."""
+        def axis(m, i):                  # metric points on one axis
+            cols = [torch.zeros_like(m, dtype=torch.float32)] * 3
+            cols[i] = m.float()
+            return torch.stack(cols, -1)
+
+        gh = self.mapping.meter2grid(axis(ys, 1))[..., 0]
+        gw = self.mapping.meter2grid(axis(xs, 0))[..., 1]
+        gd = self.mapping.meter2grid(axis(zs, 2))[..., 2]
+        vals = separable_grid_resample_cf(volume.float(), gh, gw, gd)
+        return self._split(vals.permute(1, 2, 3, 0))
 
     def query_geo_grad(self, volume, xyz):
         """All channels of a (C, H, W, D) volume at metric points (..., 3),

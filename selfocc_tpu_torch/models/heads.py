@@ -1,7 +1,9 @@
 """NeuS rendering head — counterpart of
 ``selfocc_tpu/models/heads.py::NeuSHead``: ``prepare`` and
-``render_rays`` for eval, and the training ``forward`` (``heads.py:397-526``)
-with its chunked, checkpointed render.
+``render_rays`` for eval, the training ``forward`` (``heads.py:397-526``)
+with its chunked, checkpointed render, and the occupancy queries
+(``get_uniform_sdf``, ``forward_occ``, ``occ_from_volume``,
+``occ_uniform``; ``heads.py:528-577``).
 
 The field sits at ``head.model.field`` so its state-dict keys are the
 reference's (``head.model.field.*``, the sdfstudio wrapper's naming).
@@ -18,8 +20,10 @@ parity tests hand the JAX draws to the port.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Collection, Dict, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -31,6 +35,36 @@ from ..ops.interp import first_channel
 from ..ops.render_weights import neus_composite
 from . import neus
 from .field import TPVSDFField
+
+
+def uniform_axes(aabb: Sequence[float], resolution: float):
+    """The uniform occupancy grid's metric axes ``xs``, ``ys``, ``zs`` over
+    ``aabb`` at ``resolution`` (``heads.py:531-533``,
+    ``eval_lib.py:311-319``), as fp32 numpy arrays. JAX builds them with an
+    fp32 ``jnp.linspace``, whose bits differ between its eager and jitted
+    forms and which rounds at the scale of the endpoints; here they are
+    computed in float64 and rounded once, which puts each value within 1
+    ulp of the larger endpoint of JAX's eager axes. ``get_uniform_sdf`` and
+    the evaluator share this function."""
+    return tuple(np.linspace(aabb[i], aabb[i + 3],
+                             int((aabb[i + 3] - aabb[i]) / resolution)
+                             ).astype(np.float32) for i in range(3))
+
+
+@functools.lru_cache(maxsize=16)
+def uniform_axes_on(aabb: tuple, resolution: float, device: torch.device):
+    """``uniform_axes`` as tensors on ``device``, copied there once per
+    (aabb, resolution, device): a per-call host-to-device copy would
+    synchronise the stream."""
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in uniform_axes(aabb, resolution))
+
+
+def uniform_grid(xs, ys, zs) -> torch.Tensor:
+    """(H, W, D, 3) metric (x, y, z) points of the grid ``ys`` x ``xs`` x
+    ``zs`` (h <- y, w <- x, d <- z)."""
+    Y, X, Z = torch.meshgrid(ys, xs, zs, indexing="ij")
+    return torch.stack([X, Y, Z], dim=-1)
 
 
 class _FieldHolder(nn.Module):
@@ -60,9 +94,10 @@ class NeuSHead(nn.Module):
                  ray_upper_crop: int = 0,
                  ray_x_dsr_max: Optional[float] = None,
                  ray_y_dsr_max: Optional[float] = None,
-                 train_ray_chunk: int = 0):
+                 train_ray_chunk: int = 0, resolution: float = 0.4):
         super().__init__()
         self.roi_aabb = tuple(roi_aabb)
+        self.resolution = resolution
         self.near_plane, self.far_plane = near_plane, far_plane
         self.num_samples = num_samples
         self.return_sem = return_sem
@@ -263,6 +298,68 @@ class NeuSHead(nn.Module):
         if "second_grad" in r:
             outputs["second_grad"] = r["second_grad"].reshape(-1, 3)
         return outputs
+
+    def get_uniform_sdf(self, volume, aabb, resolution, generator=None,
+                        shift: Optional[torch.Tensor] = None):
+        """The sdf and sem logits on the uniform metric grid over ``aabb``
+        (``heads.py:528-542``) -> (sdf (H, W, D), sem_logits (H, W, D,
+        sem_dims), xyz (H, W, D, 3)). The points are jittered by ``shift``
+        (H, W, D, 3) uniforms times ``resolution`` when given (the parity
+        tests hand over the JAX draw), else by uniforms from ``generator``
+        when one is given, else not at all."""
+        xs, ys, zs = uniform_axes_on(tuple(aabb), resolution, volume.device)
+        xyz = uniform_grid(xs, ys, zs)
+        if shift is None and generator is not None:
+            shift = torch.rand(xyz.shape, generator=generator,
+                               device=xyz.device)
+        if shift is not None:
+            xyz = xyz + shift * resolution
+        geo = self.field.query_geo(volume, xyz)
+        return geo["sdf"], geo["sem_logits"], xyz
+
+    def _occ(self, geo, outputs):
+        out = {"sdf": geo["sdf"]}
+        if self._occ_sem(outputs):
+            out["sem"] = torch.argmax(geo["sem_logits"], dim=-1)
+            out["logits"] = geo["sem_logits"]
+        return out
+
+    def _occ_sem(self, outputs):
+        return (self.return_sem and self.sem_dims > 0 and
+                (outputs is None or bool({"sem", "logits"} & set(outputs))))
+
+    @torch.no_grad()
+    def forward_occ(self, representation, aabb=None, resolution=None):
+        """Occupancy eval (``heads.py:543-554``): decode, then the uniform
+        grid's sdf, ``xyz`` and, with semantics, the logits and their
+        argmax ``sem``."""
+        volume = self.field.decode(representation)[0]
+        aabb = self.roi_aabb if aabb is None else aabb
+        resolution = self.resolution if resolution is None else resolution
+        sdf, sem_logits, xyz = self.get_uniform_sdf(volume, aabb, resolution)
+        return dict(self._occ({"sdf": sdf, "sem_logits": sem_logits}, None),
+                    xyz=xyz)
+
+    @torch.no_grad()
+    def occ_from_volume(self, volume, xyz,
+                        outputs: Optional[Collection[str]] = None):
+        """``forward_occ``'s query against a decoded (C, H, W, D) volume at
+        metric points (..., 3) (``heads.py:556-566``). ``outputs``: the keys
+        the caller reads (None: all); without ``sem`` or ``logits`` only
+        the sdf plane is sampled, which computes the same sdf."""
+        sem = self._occ_sem(outputs)
+        return self._occ(self.field.query_geo(
+            volume if sem else first_channel(volume), xyz), outputs)
+
+    @torch.no_grad()
+    def occ_uniform(self, volume, xs, ys, zs,
+                    outputs: Optional[Collection[str]] = None):
+        """``occ_from_volume`` on the separable grid ``ys`` x ``xs`` x
+        ``zs`` through the per-axis query (``heads.py:568-577``,
+        ``eval_iou --grid-query separable``) -> (H, W, D[, C]) outputs."""
+        sem = self._occ_sem(outputs)
+        return self._occ(self.field.query_geo_uniform(
+            volume if sem else first_channel(volume), xs, ys, zs), outputs)
 
     def _render_chunk(self, volume, origin, direction, inv_s, draws):
         r = self.render_rays(volume, origin, direction, train=True,

@@ -1,7 +1,8 @@
 """TPVSegmentor — counterpart of ``selfocc_tpu/models/segmentor.py``:
 backbone -> neck -> lifter -> encoder -> NeuS head: the training forward
-(``forward``) and the eval path (``extract_img_feat``,
-``get_representation``, ``prepare``, ``render_rays``).
+(``forward``), the eval path (``extract_img_feat``,
+``get_representation``, ``prepare``, ``render_rays``) and the occupancy
+eval (``forward_occ``, ``occ_from_volume``, ``occ_uniform``).
 
 Public tensors keep the JAX package's layouts: images (B, N, H, W, 3) NHWC,
 features (B, N, h, w, C), the decoded volume (C, H, W, D). Only the exact
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
@@ -108,7 +110,7 @@ class TPVSegmentor(nn.Module):
             ray_img_size=tuple(h.ray_img_size),
             ray_upper_crop=h.ray_upper_crop, ray_x_dsr_max=h.ray_x_dsr_max,
             ray_y_dsr_max=h.ray_y_dsr_max,
-            train_ray_chunk=h.train_ray_chunk)
+            train_ray_chunk=h.train_ray_chunk, resolution=h.resolution)
 
     def extract_img_feat(self, imgs):
         """Backbone + neck. imgs (B, N, H, W, 3) -> list of (B, N, h, w, C)."""
@@ -150,6 +152,22 @@ class TPVSegmentor(nn.Module):
     def prepare(self, imgs, lidar2img):
         """Decode the field volume once per frame: (C, H, W, D) fp32."""
         return self.head.prepare(self.get_representation(imgs, lidar2img))
+
+    @torch.no_grad()
+    def forward_occ(self, imgs, lidar2img, aabb=None, resolution=None):
+        """Occupancy eval (``segmentor.py:248-253``): the representation,
+        then the head's uniform-grid sdf (+ semantics)."""
+        return self.head.forward_occ(self.get_representation(imgs, lidar2img),
+                                     aabb=aabb, resolution=resolution)
+
+    def occ_from_volume(self, volume, xyz, outputs=None):
+        """The occupancy query against a prepared volume at metric points
+        (``outputs``: see ``NeuSHead.occ_from_volume``)."""
+        return self.head.occ_from_volume(volume, xyz, outputs=outputs)
+
+    def occ_uniform(self, volume, xs, ys, zs, outputs=None):
+        """The separable-grid occupancy query against a prepared volume."""
+        return self.head.occ_uniform(volume, xs, ys, zs, outputs=outputs)
 
     def render_rays(self, volume, origin, direction, geo_only: bool = False,
                     outputs=None):

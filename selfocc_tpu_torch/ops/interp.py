@@ -5,6 +5,13 @@ Conventions are the JAX package's: the public functions take **fractional
 indices** under ``align_corners=True`` (0 .. size-1), not [-1, 1] grids, and
 volumes have the channel-first shape ``(C, H, W, D)``.
 
+``trilinear_sample_cf`` (values only; the occupancy query) and
+``trilinear_sample`` (a channel-last volume; the Occ3D resample) launch the
+values-only kernel ``trilinear_cf_fwd`` for a CUDA volume and take
+``trilinear_sample_cf_plain`` for a CPU one; ``lerp_axis_cf`` and
+``separable_grid_resample_cf`` (the separable occupancy query) are plain
+torch ops.
+
 ``trilinear_sample_cf_with_grad`` is the render's hot loop. It is
 differentiable with respect to the volume, from both of its outputs
 (``_TrilinearWithGrad``): for a CUDA volume its forward and backward launch
@@ -80,9 +87,10 @@ def _corners(vol_cf, hwd, padding):
                 yield (ih, iw, idd), lin, mask, (wh_, ww_, wd_)
 
 
-def trilinear_sample_cf(vol_cf: torch.Tensor, hwd: torch.Tensor,
-                        padding: str = "zeros") -> torch.Tensor:
-    """vol (C, H, W, D), hwd (..., 3) fractional indices -> (..., C)."""
+def trilinear_sample_cf_plain(vol_cf: torch.Tensor, hwd: torch.Tensor,
+                              padding: str = "zeros") -> torch.Tensor:
+    """Plain PyTorch version of ``trilinear_cf_fwd`` (``interp.py:118``):
+    vol (C, H, W, D), hwd (..., 3) fractional indices -> (..., C)."""
     C = vol_cf.shape[0]
     pts_shape = hwd.shape[:-1]
     v_flat = vol_cf.reshape(C, -1)
@@ -95,6 +103,73 @@ def trilinear_sample_cf(vol_cf: torch.Tensor, hwd: torch.Tensor,
         term = wgt[None, :] * v_flat[:, lin]
         out = term if out is None else out + term
     return out.T.reshape(*pts_shape, C)
+
+
+def trilinear_sample_cf(vol_cf: torch.Tensor, hwd: torch.Tensor,
+                        padding: str = "zeros") -> torch.Tensor:
+    """Values-only trilinear sampling (``interp.py:118``): vol (C, H, W, D),
+    hwd (..., 3) fractional indices -> (..., C) fp32. A CUDA volume
+    launches ``trilinear_cf_fwd`` (zeros padding, no gradient), reading a
+    channel-last volume in place, rows of a wider channel-last tensor
+    included (``row_stride``), and copying any other layout; a CPU volume
+    takes ``trilinear_sample_cf_plain``."""
+    if not vol_cf.is_cuda:
+        return trilinear_sample_cf_plain(vol_cf, hwd, padding)
+    if padding != "zeros":
+        raise ValueError("the CUDA trilinear kernel implements zeros padding")
+    if torch.is_grad_enabled() and vol_cf.requires_grad:
+        raise NotImplementedError(
+            "trilinear_sample_cf: the values-only kernel has no backward "
+            "(use trilinear_sample_cf_with_grad)")
+    vol = vol_cf.float()
+    if row_stride(vol) is None:
+        vol = kernel_volume(vol)
+    vals = trilinear_cf_fwd(vol, hwd.reshape(-1, 3).float().contiguous())
+    return vals.reshape(*hwd.shape[:-1], vol_cf.shape[0])
+
+
+def trilinear_sample(vol: torch.Tensor, hwd: torch.Tensor,
+                     padding: str = "zeros") -> torch.Tensor:
+    """Sample a channel-last (H, W, D, C) volume at (..., 3) fractional
+    (h, w, d) indices -> (..., C) (``interp.py:73``): the same interpolant
+    as ``trilinear_sample_cf`` on its (C, H, W, D) view, which on the card
+    reads the channel-last memory where it lies."""
+    return trilinear_sample_cf(vol.permute(3, 0, 1, 2), hwd, padding)
+
+
+def lerp_axis_cf(vol_cf: torch.Tensor, g: torch.Tensor,
+                 axis: int) -> torch.Tensor:
+    """Linear interpolation of a volume along ONE axis at fractional
+    indices ``g`` (1-D), zeros outside ``[0, size - 1]``; that axis is
+    resized to ``g.shape[0]`` (``interp.py:361``). Element for element the
+    JAX function's arithmetic, on any layout: the result takes the
+    input's order of dimensions in memory."""
+    size = vol_cf.shape[axis]
+    i0 = torch.floor(g)
+    f = (g - i0).to(vol_cf.dtype)
+    i0i = i0.long()
+    w0 = (1.0 - f) * ((i0i >= 0) & (i0i <= size - 1))
+    w1 = f * ((i0i + 1 >= 0) & (i0i + 1 <= size - 1))
+    v0 = vol_cf.index_select(axis, i0i.clamp(0, size - 1))
+    v1 = vol_cf.index_select(axis, (i0i + 1).clamp(0, size - 1))
+    shape = [1] * vol_cf.dim()
+    shape[axis] = g.shape[0]
+    return v0 * w0.reshape(shape) + v1 * w1.reshape(shape)
+
+
+def separable_grid_resample_cf(vol_cf: torch.Tensor, gh: torch.Tensor,
+                               gw: torch.Tensor,
+                               gd: torch.Tensor) -> torch.Tensor:
+    """Trilinear sampling of a (C, H, W, D) volume on the separable index
+    grid ``gh`` x ``gw`` x ``gd`` -> (C, Ho, Wo, Do) (``interp.py:379``):
+    three per-axis lerps, h then w then d, as in the JAX function. They run
+    on the channel-last view, so a channel-last volume gives a channel-last
+    result (a permuted view, as ``field.decode``'s), which the Occ3D
+    resample reads in place."""
+    out = vol_cf.permute(1, 2, 3, 0)
+    out = lerp_axis_cf(out, gh, 0)
+    out = lerp_axis_cf(out, gw, 1)
+    return lerp_axis_cf(out, gd, 2).permute(3, 0, 1, 2)
 
 
 def trilinear_sample_cf_with_grad_plain(vol_cf: torch.Tensor,
@@ -147,6 +222,21 @@ def first_channel(vol_cf: torch.Tensor) -> torch.Tensor:
                          .permute(3, 0, 1, 2))
 
 
+def row_stride(vol_cf: torch.Tensor):
+    """The floats from one voxel's channels to the next voxel's when the
+    (C, H, W, D) volume is channel-last with its channels contiguous: C for
+    a contiguous channel-last volume, more for a slice of channels of a
+    wider one. None for any other layout."""
+    C, H, W, D = vol_cf.shape
+    cl = vol_cf.permute(1, 2, 3, 0)
+    sh, sw, sd, _ = cl.stride()
+    row = sd if D > 1 else sw if W > 1 else sh if H > 1 else C
+    want = (W * D * row, D * row, row, 1)
+    ok = row >= C and all(n == 1 or st == w for n, st, w in
+                          zip(cl.shape, cl.stride(), want))
+    return row if ok else None
+
+
 def _require_kernel_volume(vol_cf, name):
     _build.require_cuda_tensor(vol_cf.permute(1, 2, 3, 0),
                                f"{name} volume (channel-last)", torch.float32,
@@ -183,6 +273,46 @@ trilinear_cf_with_grad_fwd.plane_launches = 0
 _SIGNATURES = {"trilinear_cf_with_grad_fwd": (
     _build.PTR, _build.PTR, _build.PTR, _build.PTR, _build.I64, _build.I32,
     _build.I32, _build.I32, _build.I32, _build.PTR)}
+
+
+def trilinear_cf_fwd(vol_cf: torch.Tensor, hwd: torch.Tensor) -> torch.Tensor:
+    """Launch ``csrc/trilinear.cu::trilinear_cf_fwd``, the values-only
+    forward: an fp32 CUDA (C, H, W, D) volume that is channel-last with
+    contiguous channels and any row stride (``row_stride``), (N, 3)
+    fractional indices, zeros padding -> vals (N, C). C = 1 takes the plane
+    kernel (``plane_launches``), any other C the rows kernel."""
+    if not vol_cf.is_cuda or vol_cf.dtype != torch.float32 \
+            or vol_cf.dim() != 4:
+        raise ValueError("trilinear_cf_fwd: expected an fp32 CUDA (C, H, W, "
+                         f"D) volume, got {vol_cf.dtype} {vol_cf.device} "
+                         f"{tuple(vol_cf.shape)}")
+    row = row_stride(vol_cf)
+    if row is None:
+        raise ValueError("trilinear_cf_fwd: the volume must be channel-last "
+                         "with contiguous channels (kernel_volume)")
+    _build.require_cuda_tensor(hwd, "trilinear_cf_fwd points",
+                               torch.float32, 2)
+    if hwd.shape[1] != 3 or hwd.device != vol_cf.device:
+        raise ValueError("trilinear_cf_fwd: points must be (N, 3) on the "
+                         "volume's device")
+    lib = _build.load("trilinear", _SIGNATURES)
+    C, H, W, D = vol_cf.shape
+    N = hwd.shape[0]
+    vals = torch.empty((N, C), dtype=torch.float32, device=hwd.device)
+    status = lib.trilinear_cf_fwd(
+        _build.ptr(vol_cf), _build.ptr(hwd), _build.ptr(vals), N, C, H, W, D,
+        row, _build.stream_ptr(hwd.device))
+    _build.check(status, "trilinear_cf_fwd")
+    trilinear_cf_fwd.launches += 1
+    trilinear_cf_fwd.plane_launches += C == 1
+    return vals
+
+
+trilinear_cf_fwd.launches = 0
+trilinear_cf_fwd.plane_launches = 0
+_SIGNATURES["trilinear_cf_fwd"] = (
+    _build.PTR, _build.PTR, _build.PTR, _build.I64, _build.I32, _build.I32,
+    _build.I32, _build.I32, _build.I64, _build.PTR)
 
 
 def trilinear_bwd_plain(vol_cf, hwd, grad_vals, grad_grad0,

@@ -31,8 +31,8 @@ import torch
 from .configs.experiments import get_config
 from .models.initializers import init_weights
 from .models.segmentor import TPVSegmentor
-from .utils.runtime import (add_device_arg, get_dataset, get_logger,
-                            resolve_device, to_device)
+from .utils.runtime import (add_device_arg, checkpoint_path, get_dataset,
+                            get_logger, resolve_device, to_device)
 from .utils.train_lib import Trainer
 
 
@@ -56,11 +56,6 @@ def build_trainer(cfg, seed: int, device) -> Trainer:
     model = TPVSegmentor(cfg.model)
     init_weights(model, torch.Generator().manual_seed(seed))
     return Trainer(cfg, model.to(device))
-
-
-def checkpoint_path(path: str) -> str:
-    return os.path.join(path, "ckpts", "latest.pt") if os.path.isdir(path) \
-        else path
 
 
 def format_metrics(metrics) -> str:

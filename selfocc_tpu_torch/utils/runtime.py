@@ -1,8 +1,10 @@
-"""What the port's drivers (``eval_depth``, ``train``) share: the device
-flag, the dataset factory, the logger and host-to-device batches."""
+"""What the port's drivers (``eval_depth``, ``eval_iou``, ``train``) share:
+the device flag, the weights flags, the dataset factory, the logger and
+host-to-device batches."""
 from __future__ import annotations
 
 import logging
+import os
 import sys
 from typing import Dict
 
@@ -31,6 +33,68 @@ def resolve_device(name: str) -> torch.device:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda", 0)
+
+
+def checkpoint_path(path: str) -> str:
+    """A ``train.py`` checkpoint: the file itself, or a work dir's
+    ``ckpts/latest.pt``."""
+    return os.path.join(path, "ckpts", "latest.pt") if os.path.isdir(path) \
+        else path
+
+
+def add_weights_args(ap):
+    ap.add_argument("--ckpt-path", default="",
+                    help="the port's own train.py checkpoint (a file, or a "
+                         "work dir holding ckpts/latest.pt): its model entry")
+    ap.add_argument("--torch-ckpt", default="",
+                    help="a reference-SelfOcc .pth state dict")
+
+
+# keys a reference checkpoint may lack: the reference's colour head is not
+# this projection, so an authentic checkpoint keeps the seeded one
+_OPTIONAL_KEYS = ("head.model.field.color_proj.",)
+
+
+def load_weights(model, ckpt_path: str = "", torch_ckpt: str = "",
+                 logger=None):
+    """Load ``--ckpt-path`` or ``--torch-ckpt`` into ``model`` (seeded
+    weights stay where neither is given). A reference ``.pth`` (the JAX
+    package's ``ref_import`` steps, ``restore_eval_variables``): the
+    ``state_dict`` entry when there is one, ``module.`` prefixes stripped,
+    ``num_batches_tracked`` dropped; the port's keys are the reference's,
+    so nothing is transposed. A checkpoint without ``color_proj`` keeps the
+    seeded one; keys the model does not have are logged; any other model
+    key that the checkpoint lacks is an error."""
+    if ckpt_path and torch_ckpt:
+        raise SystemExit("give --ckpt-path or --torch-ckpt, not both")
+    if ckpt_path:
+        path = checkpoint_path(ckpt_path)
+        model.load_state_dict(torch.load(path, map_location="cpu")["model"])
+        if logger is not None:
+            logger.info(f"weights from {path}")
+        return
+    if not torch_ckpt:
+        return
+    sd = torch.load(torch_ckpt, map_location="cpu", weights_only=False)
+    sd = sd.get("state_dict", sd)
+    sd = {k[len("module."):] if k.startswith("module.") else k: v
+          for k, v in sd.items() if not k.endswith("num_batches_tracked")}
+    own = model.state_dict()
+    missing = sorted(k for k in own if k not in sd
+                     and not k.startswith(_OPTIONAL_KEYS))
+    if missing:
+        raise RuntimeError(f"{torch_ckpt}: {len(missing)} model keys missing "
+                           f"(first: {missing[:5]})")
+    unmatched = sorted(k for k in sd if k not in own)
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in sd.items()
+                           if k in own}, strict=False)
+    if logger is not None:
+        kept = sorted(k for k in own if k not in sd)
+        logger.info(f"weights from {torch_ckpt}; seeded {kept}" if kept
+                    else f"weights from {torch_ckpt}")
+        if unmatched:
+            logger.warning(f"{torch_ckpt}: {len(unmatched)} keys not "
+                           f"imported (first: {unmatched[:5]})")
 
 
 def get_dataset(cfg, synthetic: bool, length: int = 64):

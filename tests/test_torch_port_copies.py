@@ -1,9 +1,10 @@
 """The port's copies of jax-free modules of the JAX package, pinned to their
 originals: the port imports nothing of ``selfocc_tpu``, so it keeps its own
 ``configs/{base,experiments}.py``, ``data/synthetic.py`` and
-``utils/metrics.py`` (``DepthMetric``), and these tests fail as soon as a
-copy and its original drift apart. Extend them with each module a later
-slice copies."""
+``utils/metrics.py`` (``DepthMetric``, ``MeanIoU``, ``IoU``,
+``openseed2nuscenes``) and the ``eval_iou`` driver's helpers, and these
+tests fail as soon as a copy and its original drift apart. Extend them with
+each module a later slice copies."""
 import dataclasses
 
 import numpy as np
@@ -69,3 +70,96 @@ def test_depth_metric_copy_equals_its_original():
     assert set(got) == set(ref)
     for k in ref:
         np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+
+
+def test_occupancy_metric_copies_equal_their_originals():
+    from selfocc_tpu.utils import metrics as jm
+    from selfocc_tpu_torch.utils import metrics as tm
+    rng = np.random.RandomState(11)
+    np.testing.assert_array_equal(tm.OPENSEED2NUSCENES, jm.OPENSEED2NUSCENES)
+    sem = rng.randint(0, 21, (7, 9, 4))
+    np.testing.assert_array_equal(tm.openseed2nuscenes(sem),
+                                  jm.openseed2nuscenes(sem))
+    # MeanIoU on dense grids (with and without a mask) and on Occ3D dict
+    # targets (camera mask, z-crop of empty slabs); IoU on voxel indices
+    # and on Occ3D targets
+    for use_mask in (False, True):
+        pair = [cls(list(range(1, 17)), 0, [f"c{i}" for i in range(16)],
+                    use_mask, 0, name="miou")
+                for cls in (jm.MeanIoU, tm.MeanIoU)]
+        occ3d = [cls(list(range(1, 17)), 0, [f"c{i}" for i in range(16)],
+                     use_mask, 17) for cls in (jm.MeanIoU, tm.MeanIoU)]
+        ious = [cls(use_mask=use_mask) for cls in (jm.IoU, tm.IoU)]
+        for _ in range(3):
+            pred = rng.randint(0, 17, (20, 20, 16))
+            gt = rng.randint(0, 17, (20, 20, 16))
+            mask = rng.rand(20, 20, 16) > 0.3
+            labels = {"semantics": rng.randint(0, 18, (20, 20, 16)),
+                      "mask_camera": mask}
+            occ = (rng.rand(20, 20, 16) > 0.5).astype(np.float32)
+            idx = np.stack(np.nonzero(gt > 8), -1)
+            for m in pair:
+                m._after_step(pred, gt, mask if use_mask else None)
+            for m in occ3d:
+                m._after_step(pred, labels)
+            for m in ious:
+                m._after_step(occ, idx)
+                m._after_step(occ, labels, occ3d=True)
+        for ref, got in (pair, occ3d):
+            assert got._after_epoch() == ref._after_epoch()
+            for k in ("total_seen", "total_correct", "total_positive"):
+                np.testing.assert_array_equal(getattr(got, k),
+                                              getattr(ref, k))
+        assert ious[1]._after_epoch() == ious[0]._after_epoch()
+
+
+def test_eval_iou_helper_copies_equal_their_originals(tmp_path):
+    import eval_iou as jd
+    from selfocc_tpu_torch import eval_iou as td
+    assert td.OCC3D_SCENES == jd.OCC3D_SCENES
+    assert td.OPENOCC_PCR == jd.OPENOCC_PCR
+    assert td.NUSC_LABELS == jd.NUSC_LABELS
+    rng = np.random.RandomState(12)
+    theta = 0.3
+    ego2lidar = np.eye(4)
+    ego2lidar[:2, :2] = [[np.cos(theta), -np.sin(theta)],
+                         [np.sin(theta), np.cos(theta)]]
+    ego2lidar[:3, 3] = [0.7, -1.1, 0.4]
+    for size in (0, 4):
+        pcr, exp = jd.OCC3D_SCENES[size]
+        pts = td.occ3d_ego_to_grid_coords(pcr, exp, ego2lidar)
+        np.testing.assert_array_equal(
+            pts, jd.occ3d_ego_to_grid_coords(pcr, exp, ego2lidar))
+        # the port resamples through its own trilinear_sample: the same
+        # fp32 interpolant, the same corner order
+        for vol in (rng.randn(24, 20, 6).astype(np.float32),
+                    rng.randn(24, 20, 6, 3).astype(np.float32)):
+            np.testing.assert_allclose(
+                td.resample_volume_at(vol, pts, pcr, exp),
+                jd.resample_volume_at(vol, pts, pcr, exp), rtol=0, atol=1e-6)
+    occ = (rng.rand(200, 200, 16) > 0.5).astype(np.int32)
+    np.testing.assert_array_equal(td.apply_occ3d_crops(occ),
+                                  jd.apply_occ3d_crops(occ))
+    occ = (rng.rand(64, 64, 40) > 0.5).astype(np.int32)
+    np.testing.assert_array_equal(td.apply_openocc_crops(occ),
+                                  jd.apply_openocc_crops(occ))
+    label = np.stack([rng.randint(0, 44, 300), rng.randint(-2, 66, 300),
+                      rng.randint(0, 64, 300), rng.randint(1, 17, 300)], 1)
+    for cls in (None, label[:, 3]):
+        np.testing.assert_array_equal(
+            td.openocc_gt_grid(label[:, :3], (64, 64, 40), cls),
+            jd.openocc_gt_grid(label[:, :3], (64, 64, 40), cls))
+    for cols in (3, 4):
+        path = str(tmp_path / f"occupancy{cols}.npy")
+        np.save(path, label[:, :cols])
+        for got, ref in zip(td.read_openoccupancy_label(path),
+                            jd.read_openoccupancy_label(path)):
+            np.testing.assert_array_equal(got, ref)
+    path = str(tmp_path / "labels.npz")
+    np.savez(path, semantics=rng.randint(0, 18, (200, 200, 16)),
+             mask_camera=rng.rand(200, 200, 16) > 0.5,
+             mask_lidar=rng.rand(200, 200, 16) > 0.5)
+    got, ref = td.read_occ3d_label(path), jd.read_occ3d_label(path)
+    assert set(got) == set(ref)
+    for k in ref:
+        np.testing.assert_array_equal(got[k], ref[k])

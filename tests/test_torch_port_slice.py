@@ -161,14 +161,17 @@ def test_bridge_keys_match_reference_export():
 
 
 def test_eval_depth_runs_without_jax(tmp_path):
-    # both drivers' main on tiny, on the CPU, in a fresh process: nothing of
+    # the drivers' main on tiny, on the CPU, in a fresh process: nothing of
     # JAX and nothing of the JAX package (top-level name ``selfocc_tpu``)
     # may be imported
     code = (
         "import sys\n"
-        "from selfocc_tpu_torch import eval_depth, train\n"
+        "from selfocc_tpu_torch import eval_depth, eval_iou, train\n"
         "eval_depth.main(['--py-config', 'tiny', '--synthetic',"
         " '--num-samples', '1', '--batch', '256', '--device', 'cpu'])\n"
+        "eval_iou.main(['--py-config', 'tiny', '--synthetic',"
+        " '--num-samples', '1', '--resolution', '1.0', '--occ3d',"
+        " '--use-mask', '--sem', '--device', 'cpu'])\n"
         "train.main(['--py-config', 'tiny', '--synthetic', '--max-steps',"
         f" '1', '--device', 'cpu', '--work-dir', {str(tmp_path)!r}])\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
@@ -182,10 +185,11 @@ def test_eval_depth_runs_without_jax(tmp_path):
     assert "NO_JAX_OK" in proc.stdout
     assert "rendered 192 rays" in proc.stdout
     assert "raw evaluation:" in proc.stdout
+    assert "miou_miou:" in proc.stdout
     assert "checkpoint saved" in proc.stdout
 
 
-@pytest.mark.parametrize("module", ["eval_depth", "train"])
+@pytest.mark.parametrize("module", ["eval_depth", "eval_iou", "train"])
 def test_drivers_need_a_card_or_device_cpu_and_synthetic(module):
     env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
     base = [sys.executable, "-m", f"selfocc_tpu_torch.{module}",
