@@ -49,8 +49,10 @@ raises and the exit code is non-zero.
   profile of its warm device part, which also runs under
   ``torch.cuda.set_sync_debug_mode("error")``; ``trilinear_cf_fwd``
   against its plain version on a 1,048,576-point slab of the dense grid
-  and at the 640,000 Occ3D points; the Occ3D occupancy and classes of the
-  kernel path against the plain path, and separable against gather.
+  and at the 640,000 Occ3D points (there ``F.grid_sample`` is timed on the
+  same values, without and with its channel-first copy); the Occ3D
+  occupancy and classes of the kernel path against the plain path, and
+  separable against gather.
 - ``[train-parity]``: one ``tiny`` training step with the kernels on the card,
   rendered in checkpointed chunks of 20 rays (48 rays: the last chunk is
   padded), against the same step rendered densely with the plain versions
@@ -67,6 +69,28 @@ raises and the exit code is non-zero.
   ``torch.cuda.set_sync_debug_mode("error")`` without ``sync`` (as
   ``train.py`` runs it), then the same step with one dense render
   (``train_ray_chunk = 0``): one warm-up step and one measured step.
+- ``[data]``: the nuScenes data path on a full-size nuScenes-format dataset
+  fabricated in a temporary directory (one scene of 8 keyframes, 6 cameras
+  of 900x1600 JPEGs, 34,000-point lidar sweeps, the sweeps and temporal_v2
+  infos, Occ3D labels for keyframe 0, offline teacher maps), registered as
+  the configs ``nuscenes_occ_fab`` / ``nuscenes_novel_depth_fab``: the
+  host seconds per train item of ``build_dataset`` (with a cProfile of two
+  items) and ``BatchPrefetcher``'s items/s at depth 2; 4 ``nuscenes_occ``
+  steps from the loader through ``train.main`` with ``--ckpt-freq-iters
+  2``, a ``--iter-resume`` run from the step-2 checkpoint (the same items;
+  losses within rtol 1e-5, bit-equality reported; the two runs' weights;
+  the same step's backward twice), one whole epoch for the steady step
+  time (against ``[train]``'s synthetic step when it ran); one val frame
+  through ``eval_depth.main`` and one through ``eval_iou.main`` (Occ3D by
+  gather); ``eval_novel_depth.main`` with ``--depth-tgt raw`` and
+  ``max`` (two frames: prepare and render per neighbour, rays/s, peak),
+  then on one neighbour: depths finite and in band, ``max_depth`` on the
+  card against the CPU plain path on 4096 rays (the same sample except
+  where the two largest w / deltas lie within 1e-6), a warm render under
+  ``torch.cuda.set_sync_debug_mode("error")`` and the kernels and kernel
+  ms of a 32768-ray chunk and a neighbour's render with and without
+  ``max_depth``. Each driver run's launch counts are reset just before it
+  and read just after.
 
 ``--phases`` runs a subset (then no result line is printed). Each path's
 launch counts are set to 0 just before it runs and read just after; a
@@ -84,6 +108,7 @@ import argparse
 import copy
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -113,7 +138,8 @@ MSDA_BWD_OPS = (14, 33)
 # cosine (22) and the normal's projection (17)
 RENDER_FWD_OPS = 50
 RENDER_BWD_OPS = 103
-PHASES = ("kernels", "gather", "frame", "occ", "train-parity", "train")
+PHASES = ("kernels", "gather", "frame", "occ", "train-parity", "train",
+          "data")
 OPENOCC_PCR = (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0)   # 512 x 512 x 40 at 0.2
 OCC_SLAB = 1 << 20    # dense-grid points held against the plain version
 
@@ -1555,6 +1581,21 @@ def occ_frame(device):
                          lambda: interp.trilinear_cf_fwd(kv, p), 10),
                      "plain_ms": timed(
                          lambda: interp.trilinear_sample_cf_plain(vol, p), 3)}
+        if tag.startswith("Occ3D"):
+            # the library call on the same values: F.grid_sample on a
+            # channel-first copy, timed without and with making the copy
+            lib, _ = grid_sample_of(vol, p)
+            lib_rel, lib_err = channel_close(lib(), ref)
+
+            def lib_copy(vol=vol, p=p):
+                return grid_sample_of(vol, p)[0]()
+            kern[tag].update(
+                library="F.grid_sample", library_max_abs_err=lib_err,
+                library_channel_rel_err=lib_rel, library_ms=timed(lib, 10),
+                library_device_ms=device_ms(lib, 10),
+                library_with_copy_ms=timed(lib_copy, 10),
+                library_with_copy_device_ms=device_ms(lib_copy, 10))
+            del lib
         log(f"  trilinear_cf_fwd {tag}: {kern[tag]}")
         del got, ref
     res["kernel_vs_plain"] = kern
@@ -1850,6 +1891,603 @@ def profile_step(trainer, batch, gen, step_s):
     return res
 
 
+NUSC_CAMS = ("CAM_FRONT", "CAM_FRONT_RIGHT", "CAM_FRONT_LEFT", "CAM_BACK",
+             "CAM_BACK_LEFT", "CAM_BACK_RIGHT")
+FAB_SAMPLES = 8                   # one scene of 8 keyframes
+FAB_STEP = 1.5                    # metres of ego motion between keyframes
+FAB_IMG = (900, 1600)             # nuScenes camera images
+FAB_LIDAR_POINTS = 34_000         # points per sweep, 5 float32 each
+FAB_LIDAR2EGO = (0.94, 0.0, 1.84)
+
+
+def rotmat_to_quat(m):
+    """(w, x, y, z) of a 3x3 rotation (inverse of the loaders'
+    ``quaternion_to_rotmat``)."""
+    import numpy as np
+    m = np.asarray(m, np.float64)
+    tr = np.trace(m)
+    if tr > 0:
+        s = 2.0 * np.sqrt(tr + 1.0)
+        return [0.25 * s, (m[2, 1] - m[1, 2]) / s, (m[0, 2] - m[2, 0]) / s,
+                (m[1, 0] - m[0, 1]) / s]
+    i = int(np.argmax(np.diag(m)))
+    j, k = (i + 1) % 3, (i + 2) % 3
+    s = 2.0 * np.sqrt(1.0 + m[i, i] - m[j, j] - m[k, k])
+    q = [0.0] * 4
+    q[0] = (m[k, j] - m[j, k]) / s
+    q[1 + i] = 0.25 * s
+    q[1 + j] = (m[j, i] + m[i, j]) / s
+    q[1 + k] = (m[k, i] + m[i, k]) / s
+    return q
+
+
+def fabricate_nuscenes(root):
+    """A full-size nuScenes-format mini dataset under ``root``, in the
+    layouts of the JAX tests' fixtures (``tests/test_nuscenes_dataset.py::
+    _make_mini_nuscenes``, ``tests/test_novel_eval_datasets.py::
+    make_nuscenes_eval_fixture``; copied here, since the card has no JAX
+    tests): one scene of 8 keyframes 1.5 m apart, 6 cameras of 900 x 1600
+    JPEGs (the procedural ground scene, smooth), a lidar sweep of 34,000
+    points (x, y, z, intensity, ring) per keyframe on the ground and on
+    walls around the ego, the train / val sweeps infos, the temporal_v2
+    infos, Occ3D ``labels.npz`` for keyframe 0 and offline teacher maps
+    (768 x 1600, 21 classes) for every image. Returns the paths."""
+    import math
+    import os
+    import pickle
+    from concurrent.futures import ThreadPoolExecutor
+    import cv2
+    import numpy as np
+    from selfocc_tpu_torch.data.synthetic import (render_synthetic_view,
+                                                  surround_cameras)
+
+    cam2ego, K = surround_cameras(6, FAB_IMG)
+    l2e_t = np.asarray(FAB_LIDAR2EGO)
+    ident = [1.0, 0.0, 0.0, 0.0]
+    for sub in ("samples", "sem", "occ3d"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    rng = np.random.RandomState(SEED)
+
+    def write_view(job):
+        i, c = job
+        ego_t = np.array([FAB_STEP * i, 0.0, 0.0])
+        img = render_synthetic_view(cam2ego[c], K, FAB_IMG, shift=ego_t)
+        name = f"samples/{NUSC_CAMS[c]}_{i}.jpg"
+        cv2.imwrite(os.path.join(root, name),
+                    (img * 255).clip(0, 255).astype(np.uint8),
+                    [cv2.IMWRITE_JPEG_QUALITY, 90])
+        # the teacher's classes by image row: sky above the horizon, road
+        # below, a band of "vehicles" (class 3) around it
+        rows = np.arange(768)[:, None]
+        sem = np.where(rows < 440, 20, np.where(rows < 480, 3, 12))
+        np.save(os.path.join(root, "sem", os.path.basename(name) + ".npy"),
+                np.broadcast_to(sem, (768, 1600)).astype(np.uint8))
+        return name
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write_view, [(i, c) for i in range(FAB_SAMPLES)
+                                   for c in range(6)]))
+    scene, temporal = [], []
+    for i in range(FAB_SAMPLES):
+        ego_t = [FAB_STEP * i, 0.0, 0.0]
+        # lidar: 3/4 of the points on the ground 2-60 m out, 1/4 on walls
+        # 12-40 m out up to 4 m high (ego frame), in the lidar frame
+        n_g = FAB_LIDAR_POINTS * 3 // 4
+        n_w = FAB_LIDAR_POINTS - n_g
+        ang = rng.uniform(0, 2 * math.pi, FAB_LIDAR_POINTS)
+        r = np.concatenate([rng.uniform(2, 60, n_g), rng.uniform(12, 40, n_w)])
+        z = np.concatenate([np.zeros(n_g), rng.uniform(0, 4, n_w)])
+        pts = np.stack([r * np.cos(ang), r * np.sin(ang), z], 1) - l2e_t
+        sweep = np.concatenate([pts, rng.uniform(0, 255, (len(r), 1)),
+                                rng.randint(0, 32, (len(r), 1))], 1)
+        lidar_name = f"samples/LIDAR_TOP_{i}.bin"
+        sweep.astype(np.float32).tofile(os.path.join(root, lidar_name))
+        data, cams = {}, {}
+        for c, cam in enumerate(NUSC_CAMS):
+            name = f"samples/{cam}_{i}.jpg"
+            q = rotmat_to_quat(cam2ego[c][:3, :3])
+            data[cam] = {
+                "filename": name,
+                "calib": {"camera_intrinsic": K[:3, :3].tolist(),
+                          "rotation": q,
+                          "translation": cam2ego[c][:3, 3].tolist()},
+                "pose": {"rotation": ident, "translation": ego_t}}
+            cam2lidar = cam2ego[c].copy()
+            cam2lidar[:3, 3] -= l2e_t
+            cams[cam] = {
+                "data_path": os.path.join(root, name),
+                "cam_intrinsic": K[:3, :3],
+                "sensor2lidar_rotation": cam2lidar[:3, :3],
+                "sensor2lidar_translation": cam2lidar[:3, 3],
+                "sensor2ego_rotation": q,
+                "sensor2ego_translation": cam2ego[c][:3, 3].tolist(),
+                "ego2global_rotation": ident,
+                "ego2global_translation": ego_t}
+        data["LIDAR_TOP"] = {
+            "filename": lidar_name, "token": f"lidartok{i}",
+            "calib": {"rotation": ident, "translation": list(FAB_LIDAR2EGO)},
+            "pose": {"rotation": ident, "translation": ego_t}}
+        scene.append({"token": f"tok{i}", "timestamp": i * 0.5,
+                      "scene_name": "scene-0001", "data": data})
+        temporal.append({
+            "token": f"tok{i}", "timestamp": i * 0.5,
+            "lidar2ego_rotation": ident,
+            "lidar2ego_translation": list(FAB_LIDAR2EGO),
+            "ego2global_rotation": ident, "ego2global_translation": ego_t,
+            "cams": cams, "lidar_path": os.path.join(root, lidar_name),
+            "nice_neighbor_prev": [i - 1] if i > 0 else [],
+            "nice_neighbor_next": [i + 1] if i < FAB_SAMPLES - 1 else [],
+            "prev_dists": [FAB_STEP] if i > 0 else [],
+            "next_dists": [FAB_STEP] if i < FAB_SAMPLES - 1 else []})
+    # Occ3D labels of keyframe 0: the ground layer occupied (class 11,
+    # driveable surface), the rest free (17)
+    sem = np.full((200, 200, 16), 17, np.uint8)
+    sem[:, :, 4] = 11
+    occ = os.path.join(root, "occ3d", "scene-0001", "tok0")
+    os.makedirs(occ)
+    np.savez_compressed(os.path.join(occ, "labels.npz"), semantics=sem,
+                        mask_camera=(rng.rand(200, 200, 16) < 0.8
+                                     ).astype(np.uint8),
+                        mask_lidar=np.ones((200, 200, 16), np.uint8))
+    paths = {"data_path": root + "/",
+             "sweeps": os.path.join(root, "infos_sweeps.pkl"),
+             "temporal": os.path.join(root, "infos_val_temporal_v2.pkl"),
+             "occ3d_root": os.path.join(root, "occ3d"),
+             "sem_from": os.path.join(root, "sem")}
+    with open(paths["sweeps"], "wb") as f:
+        pickle.dump({"infos": {"scene0": scene},
+                     "metadata": [("scene0", i) for i in range(FAB_SAMPLES)]},
+                    f)
+    with open(paths["temporal"], "wb") as f:
+        pickle.dump({"infos": temporal,
+                     "scene_info": {"scene-0001": (0, FAB_SAMPLES - 1)}}, f)
+    return paths
+
+
+def fabricated_configs(paths):
+    """``nuscenes_occ`` and ``nuscenes_novel_depth`` on the fabricated
+    files, registered as ``nuscenes_occ_fab`` / ``nuscenes_novel_depth_fab``
+    for the drivers' ``--py-config``: the recipes' own values, with the
+    data paths, the Occ3D root and the offline teacher maps (the recipe
+    trains its semantic head on OpenSeeD's 21 classes, so no LUT)."""
+    from selfocc_tpu_torch.configs import experiments as ex
+    files = dict(data_path=paths["data_path"], imageset=paths["sweeps"],
+                 occ3d_root=paths["occ3d_root"])
+
+    def occ():
+        cfg = ex.nuscenes_occ()
+        return dataclasses.replace(
+            cfg, name="nuscenes_occ_fab",
+            train_dataset_args=dict(cfg.train_dataset_args, **files),
+            val_dataset_args=dict(cfg.val_dataset_args, **files),
+            wrapper_args=dict(sem_from=paths["sem_from"],
+                              sem_apply_lut=False))
+
+    def novel():
+        cfg = ex.nuscenes_novel_depth()
+        return dataclasses.replace(
+            cfg, name="nuscenes_novel_depth_fab",
+            val_dataset_args=dict(cfg.val_dataset_args,
+                                  data_path=paths["data_path"],
+                                  imageset=paths["temporal"]))
+
+    ex.register_config("nuscenes_occ_fab", occ)
+    ex.register_config("nuscenes_novel_depth_fab", novel)
+    return occ(), novel()
+
+
+def loader_rates(cfg):
+    """Host seconds per train item of ``build_dataset(cfg, "train")`` (as
+    ``train.py`` builds it: seeded, labels dropped) and the items per second
+    of ``BatchPrefetcher`` at depth 2 over the epoch."""
+    from selfocc_tpu_torch import train
+    from selfocc_tpu_torch.data import build_dataset
+    from selfocc_tpu_torch.data.prefetch import BatchPrefetcher
+    ds = build_dataset(cfg, "train")
+    secs = []
+    for pos in range(len(ds)):
+        t0 = time.perf_counter()
+        item = train.host_batch(ds, pos, SEED, 0, pos)
+        secs.append(time.perf_counter() - t0)
+    shapes = {k: tuple(v.shape) for k, v in item.items()}
+    t0 = time.perf_counter()
+    n = sum(1 for _ in BatchPrefetcher(
+        lambda pos: train.host_batch(ds, pos, SEED, 1, pos),
+        range(len(ds)), depth=2))
+    rate = n / (time.perf_counter() - t0)
+    med = sorted(secs)[len(secs) // 2]
+    log("  loader profile, per item (cProfile, 2 items):")
+    top = loader_profile(ds)
+    log(f"  loader: {len(ds)} train items, {med:.3f} s per item (median; "
+        f"{min(secs):.3f}-{max(secs):.3f}), prefetch depth 2: {rate:.2f} "
+        f"items/s; imgs {shapes['imgs']}, curr_imgs {shapes['curr_imgs']}, "
+        f"sem_gt {shapes['sem_gt']}")
+    return {"items": len(ds), "item_s": secs, "item_s_median": med,
+            "prefetch_items_per_s": rate, "shapes": shapes, "profile": top}
+
+
+def train_from_loader(work, synthetic_step_s, step_kernel_ms, device):
+    """4 nuscenes_occ steps from the loader through ``train.main`` with an
+    iteration checkpoint every 2 steps, then a ``--iter-resume`` run from
+    the step-2 checkpoint to step 4: the same items, the same ``lr``, and
+    steps 2 and 3's losses within [train]'s loss tolerance (rtol 1e-5;
+    whether they are bit-equal is reported, with both runs' ``grad_norm``:
+    the backward's atomic sums may round otherwise, see
+    ``backward_repeat``; and the two runs' weights after step 3). Launch
+    counts of the first run. Then a third run of one whole epoch (8 steps)
+    with no iteration checkpoint: its steps 4-7, after the prefetcher's
+    head start of the cold step is used up, give the steady step time from
+    the loader, against [train]'s synthetic step."""
+    import os
+    import torch
+    from selfocc_tpu_torch import train
+    from selfocc_tpu_torch.ops import interp, msda, render_weights
+
+    wrappers = (render_weights.neus_render_fwd,
+                render_weights.neus_render_bwd,
+                interp.trilinear_cf_with_grad_fwd, interp.trilinear_bwd,
+                msda.msda_fwd, msda.msda_bwd)
+    flags = ["--py-config", "nuscenes_occ_fab", "--seed", str(SEED),
+             "--print-freq", "1", "--prefetch", "2"]
+    reset_counts(wrappers)
+    torch.cuda.reset_peak_memory_stats()
+    a = train.main(flags + ["--max-steps", "4", "--ckpt-freq-iters", "2",
+                            "--work-dir", os.path.join(work, "a")])
+    launches = read_counts(wrappers, "training steps from the loader",
+                           ("plane", "rows"))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    b = train.main(flags + ["--max-steps", "4", "--iter-resume",
+                            "--resume-from",
+                            os.path.join(work, "a", "ckpts", "iter_2.pt"),
+                            "--work-dir", os.path.join(work, "b")])
+    if b["items"] != a["items"][2:]:
+        raise AssertionError(f"resumed items {b['items']} != "
+                             f"{a['items'][2:]}")
+    losses = {}
+    for step in (2, 3):
+        va, vb = a["logged"][step], b["logged"][step]
+        if not all(math.isfinite(v) for v in va.values()):
+            raise AssertionError(f"non-finite losses at step {step}: {va}")
+        keys = [k for k in va if k not in ("grad_norm", "lr")]
+        rel = max(abs(va[k] - vb[k]) / max(abs(va[k]), 1e-30) for k in keys)
+        losses[f"step{step}"] = {
+            "bit_equal": all(va[k] == vb[k] for k in keys),
+            "max_rel_diff": rel, "lr_equal": va["lr"] == vb["lr"],
+            "grad_norm": [va["grad_norm"], vb["grad_norm"]]}
+        if rel > 1e-5 or va["lr"] != vb["lr"]:
+            raise AssertionError(f"resumed step {step} beyond rtol 1e-5: "
+                                 f"{va} vs {vb}")
+    # the two runs' weights after step 3 (a: iter_4, b: final)
+    wa = torch.load(os.path.join(work, "a", "ckpts", "iter_4.pt"),
+                    map_location="cpu")["model"]
+    wb = torch.load(os.path.join(work, "b", "ckpts", "final.pt"),
+                    map_location="cpu")["model"]
+    weights_diff = max(float((wa[k].double() - wb[k].double()).abs().max()
+                             / max(float(wa[k].double().abs().max()),
+                                   1e-30))
+                       for k in wa if wa[k].is_floating_point())
+    # AdamW's step is scale-free: a parameter whose gradient is rounding
+    # noise moves by up to lr either way, so the largest weight difference
+    # is also given in units of the two steps' lr
+    lrs = a["logged"][2]["lr"] + a["logged"][3]["lr"]
+    losses["weights_after_step3_max_rel_diff"] = weights_diff
+    losses["weights_after_step3_max_abs_diff_in_lr"] = max(
+        float((wa[k].double() - wb[k].double()).abs().max())
+        for k in wa if wa[k].is_floating_point()) / lrs
+    del wa, wb
+    backward = backward_repeat(a["items"][0], device)
+    c = train.main(flags + ["--max-steps", "8",
+                            "--work-dir", os.path.join(work, "c")])
+    steady = sorted(c["step_s"][4:])
+    med = (steady[1] + steady[2]) / 2
+    res = {"items": a["items"], "resumed_items": b["items"],
+           "step_s": a["step_s"], "data_wait_s": a["data_wait_s"],
+           "epoch_step_s": c["step_s"], "epoch_data_wait_s": c["data_wait_s"],
+           "step_s_steady_median": med,
+           "synthetic_step_s": synthetic_step_s,
+           "device_busy_share": (step_kernel_ms / 1e3 / med
+                                 if step_kernel_ms else None),
+           "max_memory_gb": peak, "launches": launches, "resume": losses,
+           "backward_repeat": backward}
+    log(f"  from the loader: items {a['items']}, resumed {b['items']}; resume "
+        f"{losses}; step s {[round(x, 4) for x in a['step_s']]}, waits "
+        f"{[round(x, 4) for x in a['data_wait_s']]}; one epoch: step s "
+        f"{[round(x, 4) for x in c['step_s']]}, waits for the batch "
+        f"{[round(x, 4) for x in c['data_wait_s']]} s; steady median (steps "
+        f"4-7) {med:.4f} s against the synthetic {synthetic_step_s}, busy "
+        f"share {res['device_busy_share']}, peak {peak:.2f} GiB")
+    return res
+
+
+def backward_repeat(index, device):
+    """The same full-width step's loss and gradient computed twice on the
+    same weights, batch and draws (no optimizer step): how far apart the
+    global gradient norms of two backward passes are (the backward's
+    atomic sums, ``msda_bwd`` and ``trilinear_bwd``, add in whatever order
+    the card runs them)."""
+    import torch
+    from selfocc_tpu_torch import train
+    from selfocc_tpu_torch.configs.experiments import get_config
+    from selfocc_tpu_torch.data import build_dataset
+    from selfocc_tpu_torch.utils.runtime import to_device
+    from selfocc_tpu_torch.utils.train_lib import build_loss_inputs
+    cfg = get_config("nuscenes_occ_fab")
+    trainer = train.build_trainer(cfg, SEED, device)
+    model = trainer.model.train()
+    batch = to_device(train.host_batch(build_dataset(cfg, "train"), index,
+                                       SEED, 0, 0), device)
+    out = []
+    for _ in range(2):
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        pred = model(batch["imgs"], batch["lidar2img"],
+                     batch[cfg.model.head.trans_kw], train=True,
+                     generator=gen)
+        tot, _ = trainer.loss_fn(build_loss_inputs(cfg, pred, batch))
+        model.zero_grad(set_to_none=True)
+        tot.backward()
+        norm = torch.linalg.vector_norm(torch.stack(
+            [p.grad.norm() for p in model.parameters() if p.grad is not None]))
+        out.append((float(tot.detach()), float(norm)))
+    (l0, n0), (l1, n1) = out
+    res = {"loss": [l0, l1], "grad_norm": [n0, n1],
+           "grad_norm_rel_diff": abs(n0 - n1) / n0}
+    log(f"  the same step's backward twice: {res}")
+    del trainer, model, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def loader_profile(ds, n=2):
+    """cProfile of ``n`` train items' host builds: the functions with the
+    most cumulative time."""
+    import cProfile
+    import pstats
+    from selfocc_tpu_torch import train
+    prof = cProfile.Profile()
+    prof.enable()
+    for pos in range(n):
+        train.host_batch(ds, pos, SEED, 2, pos)
+    prof.disable()
+    st = pstats.Stats(prof)
+    rows = []
+    for (fname, line, func), (_, ncalls, tt, ct, _) in st.stats.items():
+        rows.append((ct / n, tt / n, ncalls // n,
+                     f"{fname.rsplit('/', 1)[-1]}:{line}({func})"))
+    rows.sort(reverse=True)
+    top = [{"cum_s": round(c, 4), "self_s": round(t, 4), "calls": k,
+            "fn": f} for c, t, k, f in rows[:25]]
+    for r in top:
+        log(f"    {r['cum_s']:8.4f} s cum {r['self_s']:8.4f} s self "
+            f"x{r['calls']:<5d} {r['fn']}")
+    return top
+
+
+def eval_frames_from_loader():
+    """One val frame through ``eval_depth.main`` and one through
+    ``eval_iou.main`` (Occ3D by gather, masks, semantics) on the fabricated
+    val split, each with its launch counts."""
+    import numpy as np
+    from selfocc_tpu_torch import eval_depth, eval_iou
+    from selfocc_tpu_torch.ops import interp, msda, render_weights
+    res = {}
+    wrappers = (render_weights.neus_render_fwd,
+                interp.trilinear_cf_with_grad_fwd, msda.msda_fwd)
+    reset_counts(wrappers)
+    r = eval_depth.main(["--py-config", "nuscenes_occ_fab", "--num-samples",
+                         "1", "--seed", str(SEED)])
+    launches = read_counts(wrappers, "val depth frame")
+    table = {k: float(np.asarray(v).mean()) for k, v in r["metric"].items()}
+    if not all(np.isfinite(v) for v in table.values()):
+        raise AssertionError(f"eval_depth table not finite: {table}")
+    res["eval_depth"] = {"prepare_s": r["prepare_s"],
+                         "render_s": r["render_s"], "rays": r["rays"],
+                         "table_means": table, "launches": launches}
+    wrappers = (interp.trilinear_cf_fwd, msda.msda_fwd)
+    reset_counts(wrappers)
+    r = eval_iou.main(["--py-config", "nuscenes_occ_fab", "--num-samples",
+                       "1", "--occ3d", "--use-mask", "--sem", "--seed",
+                       str(SEED)])
+    launches = read_counts(wrappers, "val occupancy frame", ("plane", "rows"))
+    scores = {k: r[k] for k in ("iou_miou", "iou_iou", "miou_miou",
+                                "miou_iou")}
+    if not all(np.isfinite(v) for v in scores.values()):
+        raise AssertionError(f"eval_iou scores not finite: {scores}")
+    res["eval_iou"] = {"prepare_s": r["prepare_s"], "query_s": r["query_s"],
+                       "scores": scores, "launches": launches}
+    log(f"  val frames: depth {res['eval_depth']}; occupancy "
+        f"{res['eval_iou']}")
+    return res
+
+
+def novel_frame(device):
+    """``eval_novel_depth.main`` on the fabricated temporal_v2 split,
+    ``--depth-tgt raw`` then ``max``: two frames each (frame 0 cold with one
+    neighbour, frame 1 with two), launch counts; then on frame 1's first
+    neighbour: depths finite and in their rays' bands, ``max_depth`` on the
+    card against the CPU plain path on 4096 rays, a warm render under
+    ``set_sync_debug_mode("error")``, and a profile of one 32768-ray chunk
+    with and without ``max_depth``."""
+    import numpy as np
+    import torch
+    from selfocc_tpu_torch import eval_depth, eval_novel_depth
+    from selfocc_tpu_torch.configs.experiments import get_config
+    from selfocc_tpu_torch.data import build_dataset
+    from selfocc_tpu_torch.models import neus
+    from selfocc_tpu_torch.ops import interp, msda, render_weights
+    from selfocc_tpu_torch.utils.eval_lib import (ChunkedRenderer,
+                                                  enable_max_depth,
+                                                  eval_ray_grid,
+                                                  prep_input_imgs,
+                                                  rays_for_cams)
+    res = {}
+    wrappers = (render_weights.neus_render_fwd,
+                interp.trilinear_cf_with_grad_fwd, msda.msda_fwd)
+    for tgt in ("raw", "max"):
+        reset_counts(wrappers)
+        torch.cuda.reset_peak_memory_stats()
+        r = eval_novel_depth.main(["--py-config", "nuscenes_novel_depth_fab",
+                                   "--num-samples", "2", "--depth-tgt", tgt,
+                                   "--seed", str(SEED)])
+        launches = read_counts(wrappers, f"novel-view frames ({tgt})")
+        table = {b: v for b, v in r["table"].items()}
+        if not table or not all(np.isfinite(v).all()
+                                for v in map(np.asarray, table.values())):
+            raise AssertionError(f"novel depth table ({tgt}): {table}")
+        warm = r["render_s"][1:]          # frame 1's two neighbours
+        res[tgt] = {"prepare_s": r["prepare_s"], "render_s": r["render_s"],
+                    "render_s_warm": warm, "rays": r["rays"],
+                    "rays_per_s": r["rays"] / (sum(warm) / len(warm)),
+                    "max_memory_gb": torch.cuda.max_memory_allocated()
+                    / 2**30, "launches": launches, "table": table}
+        log(f"  novel ({tgt}): prepare {r['prepare_s']} s, render per "
+            f"neighbour {r['render_s']} s ({res[tgt]['rays_per_s']:.0f} "
+            f"rays/s warm), peak {res[tgt]['max_memory_gb']:.2f} GiB, "
+            f"table {table}")
+
+    # frame 1's first neighbour, on the model the driver built
+    cfg = enable_max_depth(get_config("nuscenes_novel_depth_fab"))
+    model = eval_depth.build_model(cfg, SEED, device)
+    input_imgs, _, metas = build_dataset(cfg, "novel_eval")[1]
+    imgs = prep_input_imgs(input_imgs, cfg, device)
+    l2i = torch.as_tensor(np.asarray(metas["lidar2img"]), dtype=torch.float32,
+                          device=device)[None]
+    renderer = ChunkedRenderer(model, chunk=CHUNK,
+                               outputs=("depth", "max_depth", "acc"))
+    volume = renderer.prepare(imgs, l2i)
+    tem = torch.as_tensor(np.asarray(metas["temImg2lidars"][0]),
+                          dtype=torch.float32, device=device)[None]
+    origin, direction = rays_for_cams(tem, eval_ray_grid(cfg, device=device))
+    n_rays = cfg.num_cams * cfg.eval_num_rays[0] * cfg.eval_num_rays[1]
+    if origin.shape[0] != n_rays:      # 6 x 450 x 800 = 2,160,000
+        raise AssertionError(f"{origin.shape[0]} rays, expected {n_rays}")
+    out = renderer.render_device(volume, origin, direction)
+    dn = torch.linalg.norm(direction, dim=-1)
+    near, far = neus.ray_aabb_near_far(origin, direction / dn[:, None],
+                                       cfg.model.head.roi_aabb)
+    for k in ("depth", "max_depth"):
+        if not bool(torch.isfinite(out[k]).all()):
+            raise AssertionError(f"novel {k}: non-finite")
+    lo = out["acc"] * near / dn - 1e-3
+    if bool((out["depth"] < lo).any()) or \
+            bool((out["depth"] > far / dn * (1 + 1e-5) + 1e-3).any()):
+        raise AssertionError("novel depth outside [acc near, far]")
+    hit = out["acc"] > 0
+    if bool((out["max_depth"][hit] < near[hit] / dn[hit] - 1e-3).any()) or \
+            bool((out["max_depth"] > far / dn * (1 + 1e-5) + 1e-3).any()):
+        raise AssertionError("novel max_depth outside [near, far]")
+    # max_depth on the card against the plain path on the CPU, 4096 rays:
+    # each path's max_depth is its ts at the argmax of its w / deltas; the
+    # two take the same sample except where the CPU's two largest w /
+    # deltas lie within 1e-6 (relative) of each other, and where they take
+    # the same sample its ts agree within 1e-6 of the largest ts (the
+    # kernel's ts tolerance, render_fwd_error)
+    idx = torch.linspace(0, origin.shape[0] - 1, SUBSET_RAYS,
+                         device=device).long()
+    outs = ("max_depth", "weights", "deltas", "ts")
+    gpu = ChunkedRenderer(model, chunk=SUBSET_RAYS, outputs=outs).render(
+        volume, origin[idx], direction[idx])
+    cpu_model = copy.deepcopy(model).cpu()
+    cpu = ChunkedRenderer(cpu_model, chunk=SUBSET_RAYS, outputs=outs).render(
+        volume.cpu(), origin[idx].cpu(), direction[idx].cpu())
+    eps = np.float32(np.finfo(np.float32).eps)
+
+    def ratio(r):      # in fp32, as the head divides: the same argmax
+        return np.where(r["deltas"] < eps, np.float32(0), r["weights"]) \
+            / np.maximum(r["deltas"], eps)
+    r_c, r_g = ratio(cpu), ratio(gpu)
+    rows = np.arange(SUBSET_RAYS)
+    ig, ic = r_g.argmax(-1), r_c.argmax(-1)
+    if not (np.array_equal(gpu["ts"][rows, ig], gpu["max_depth"])
+            and np.array_equal(cpu["ts"][rows, ic], cpu["max_depth"])):
+        raise AssertionError("max_depth is not ts at the argmax of w/deltas")
+    top = np.sort(r_c.astype(np.float64), -1)
+    tie = (top[:, -1] - top[:, -2]) < 1e-6 * np.abs(top[:, -1])
+    flips = ig != ic
+    same = ~flips
+    ts_err = float(np.abs(gpu["max_depth"][same].astype(np.float64)
+                          - cpu["max_depth"][same]).max(initial=0.0))
+    ts_tol = 1e-6 * float(np.abs(cpu["ts"]).max())
+    res["max_depth_subset"] = {
+        "rays": SUBSET_RAYS, "other_sample": int(flips.sum()),
+        "other_sample_outside_ties": int((flips & ~tie).sum()),
+        "near_ties": int(tie.sum()), "bit_equal": int(
+            (gpu["max_depth"] == cpu["max_depth"]).sum()),
+        "same_sample_max_abs_err": ts_err, "ts_tolerance": ts_tol,
+        "weights_max_abs_err": float(np.abs(
+            gpu["weights"].astype(np.float64) - cpu["weights"]).max())}
+    if (flips & ~tie).any() or not ts_err <= ts_tol:
+        raise AssertionError(f"max_depth against the CPU: "
+                             f"{res['max_depth_subset']}")
+    # a warm neighbour render under the sync check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = renderer.render_device(volume, origin, direction)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    res["sync_checked"] = True
+    # one render chunk and one neighbour's render, with and without
+    # max_depth: kernels and kernel ms (torch.profiler), events ms
+    from torch.profiler import ProfilerActivity, profile
+    prof = {}
+    for tag, outputs in (("raw", ("depth",)), ("max", ("max_depth",))):
+        rr = ChunkedRenderer(model, chunk=CHUNK, outputs=outputs)
+        for part, (o, d) in (("chunk", (origin[:CHUNK], direction[:CHUNK])),
+                             ("neighbour", (origin, direction))):
+            fn = (lambda rr=rr, o=o, d=d: rr.render_device(volume, o, d))
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as p:
+                fn()
+                torch.cuda.synchronize()
+            kernels = [e for e in p.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            prof[f"{tag}_{part}"] = {
+                "kernels": sum(e.count for e in kernels),
+                "kernel_ms": sum(e.self_device_time_total
+                                 for e in kernels) / 1e3,
+                "events_ms": timed(fn, 3 if part == "neighbour" else 10)}
+    res["profile"] = prof
+    log(f"  novel neighbour render: depths finite and in band; max_depth "
+        f"subset {res['max_depth_subset']}; warm render under "
+        f"set_sync_debug_mode('error'): no synchronising call; profile "
+        f"{prof}")
+    del model, cpu_model, volume, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def data_phase(device, train_res=None):
+    """The nuScenes data path on a fabricated full-size dataset (a
+    temporary directory, removed after): loader rates, training from the
+    loader with a mid-epoch resume, the val frames and the novel-view
+    frame. ``train_res``: the [train] phase's result (the synthetic step and
+    its kernel time) when it ran in this call."""
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix="selfocc_nusc_")
+    try:
+        t0 = time.time()
+        paths = fabricate_nuscenes(root)
+        occ_cfg, _ = fabricated_configs(paths)
+        log(f"  fabricated {FAB_SAMPLES} keyframes x 6 cameras of "
+            f"{FAB_IMG[0]}x{FAB_IMG[1]} JPEGs, {FAB_LIDAR_POINTS} lidar "
+            f"points each, in {time.time() - t0:.1f}s")
+        res = {"loader": loader_rates(occ_cfg)}
+        syn = kms = None
+        if train_res is not None:
+            syn = train_res["median"]["step_s"]
+            kms = train_res["profile"]["kernel_ms"]
+        res["train"] = train_from_loader(root, syn, kms, device)
+        res["eval"] = eval_frames_from_loader()
+        res["novel"] = novel_frame(device)
+        return res
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1891,7 +2529,8 @@ def main():
             "frame": lambda: full_frame(device, args.baseline),
             "occ": lambda: occ_frame(device),
             "train-parity": lambda: train_parity(device),
-            "train": lambda: full_train(device)}
+            "train": lambda: full_train(device),
+            "data": lambda: data_phase(device, phases.get("train"))}
     phases = {}
     for tag in PHASES:
         if tag not in wanted:
@@ -1910,6 +2549,13 @@ def main():
     kres["neus_weights_fwd"].update(
         launches=kres.pop("weights_path_launches"), launches_main_path=0)
     fres, tres, ores = phases["frame"], phases["train"], phases["occ"]
+    dres = phases["data"]
+    data_launches = {
+        "data_train": dres["train"]["launches"],
+        "data_depth_frame": dres["eval"]["eval_depth"]["launches"],
+        "data_occ_frame": dres["eval"]["eval_iou"]["launches"],
+        "novel_raw": dres["novel"]["raw"]["launches"],
+        "novel_max": dres["novel"]["max"]["launches"]}
     log(f"[frame] prepare {fres['prepare_s']:.3f}s render "
         f"{fres['render_s']:.3f}s ({fres['rays'] / fres['render_s']:.0f} "
         f"rays/s), peak {fres['max_memory_gb']:.2f} GiB allocated")
@@ -1945,6 +2591,9 @@ def main():
             entry["in_step_calls"] = in_step["calls"]
         if name in fres["launches"]:
             entry["launches_eval_frame"] = fres["launches"][name]
+        for path, counts in data_launches.items():
+            if name in counts:
+                entry[f"launches_{path}"] = counts[name]
         if name == "trilinear_cf_fwd":
             # its main path is the occupancy eval: the Occ3D gather frame
             occ_l = {t: ores[t]["launches"] for t in
@@ -1968,7 +2617,8 @@ def main():
         "occ": {k: v for k, v in ores.items()
                 if k != "kernel_vs_plain"},
         "train_parity": phases["train-parity"],
-        "train": {k: v for k, v in tres.items() if k != "launches"}}),
+        "train": {k: v for k, v in tres.items() if k != "launches"},
+        "data": dres}),
         flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

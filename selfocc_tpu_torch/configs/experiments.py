@@ -1,9 +1,11 @@
-"""The experiment configs the port runs: copies of ``nuscenes_occ`` and
-``tiny`` from ``selfocc_tpu/configs/experiments.py`` (value-for-value mirrors
+"""The experiment configs the port runs: copies of ``nuscenes_occ``,
+``nuscenes_depth``, ``nuscenes_novel_depth`` and ``tiny`` from ``selfocc_tpu/configs/experiments.py`` (value-for-value mirrors
 of the reference ``config/`` files). ``get_config(name)`` replaces
 ``Config.fromfile``.
 """
 from __future__ import annotations
+
+import dataclasses
 
 from .base import Config, EncoderConfig, HeadConfig, ModelConfig
 
@@ -15,6 +17,8 @@ _REPROJ_INPUTS = {
 _RGB_INPUTS = {"ms_colors": "ms_colors", "ms_rays": "ms_rays",
                "gt_imgs": "color_imgs"}
 _SEM_INPUTS = {"sem": "sem", "sem_gt": "sem_gt", "ms_rays": "ms_rays"}
+_EDGE_INPUTS = {"curr_imgs": "curr_imgs", "ms_depths": "ms_depths",
+                "ms_rays": "ms_rays"}
 _BASE_CONVERTION = dict(
     ms_depths="ms_depths", ms_rays="ms_rays", ms_colors="ms_colors",
     weights="weights", ts="ts", eik_grad="eik_grad")
@@ -96,6 +100,76 @@ def nuscenes_occ() -> Config:
         train_dataset_args=train_ds, val_dataset_args=val_ds)
 
 
+def nuscenes_depth() -> Config:
+    """reference ``config/nuscenes/nuscenes_depth.py``."""
+    cfg = nuscenes_occ()
+    img_size = (896, 1600)
+    num_rays = (48, 100)
+    mapping_args = dict(
+        nonlinear_mode="linear",
+        h_size=[128, 0], h_range=[51.2, 0], h_half=False,
+        w_size=[128, 0], w_range=[51.2, 0], w_half=False,
+        d_size=[30, 0], d_range=[-4.0, 5.0, 5.0])
+    pc_range = (-51.2, -51.2, -4.0, 51.2, 51.2, 5.0)
+    loss_cfgs = [
+        dict(type="ReprojLossMonoMultiNewCombine", weight=1.0, no_ssim=False,
+             img_size=list(img_size), ray_resize=list(num_rays),
+             input_dict=dict(_REPROJ_INPUTS)),
+        dict(type="EikonalLoss", weight=0.1),
+        dict(type="EdgeLoss3DMS", weight=0.01, img_size=list(img_size),
+             ray_resize=list(num_rays), input_dict=dict(_EDGE_INPUTS)),
+    ]
+    model = ModelConfig(
+        encoder=dataclasses.replace(cfg.model.encoder, mapping_args=mapping_args,
+                             pc_range=pc_range),
+        head=dataclasses.replace(
+            cfg.model.head, roi_aabb=pc_range, mapping_args=mapping_args,
+            return_second_grad=False, return_sem=False, color_dims=0,
+            sem_dims=0, ray_img_size=img_size),
+        lifter_type="TPVQueryLifter", embed_dims=96)
+    # dataset crop_size is the 900x1600 SUPERVISION size; the 896x1600
+    # input crop comes via input_img_crop_size (reference
+    # config/nuscenes/nuscenes_depth.py train_dataset_config)
+    train_ds, val_ds = _nusc_dataset_args(
+        max_dist=6.0, train_cur_prob=1.0, ego_centric=False,
+        crop_size=[900, 1600], input_img_crop_size=list(img_size))
+    return dataclasses.replace(
+        cfg, name="nuscenes_depth", model=model, loss_cfgs=loss_cfgs,
+        loss_input_convertion=dict(_BASE_CONVERTION), img_size=img_size,
+        input_size=(448, 800), max_epochs=24, sem=False,
+        eval_num_rays=(450, 800),
+        train_dataset_args=train_ds, val_dataset_args=val_ds)
+
+
+def nuscenes_novel_depth() -> Config:
+    """reference ``config/nuscenes/nuscenes_novel_depth.py``."""
+    cfg = nuscenes_depth()
+    img_size = (768, 1600)
+    num_rays = (48, 100)
+    loss_cfgs = [
+        dict(type="ReprojLossMonoMultiNewCombine", weight=1.0, no_ssim=False,
+             img_size=list(img_size), ray_resize=list(num_rays),
+             input_dict=dict(_REPROJ_INPUTS)),
+        dict(type="RGBLossMS", weight=0.1, img_size=list(img_size),
+             no_ssim=False, ray_resize=list(num_rays),
+             input_dict=dict(_RGB_INPUTS)),
+        dict(type="EikonalLoss", weight=0.1),
+        dict(type="SecondGradLoss", weight=0.01),
+    ]
+    model = dataclasses.replace(
+        cfg.model,
+        head=dataclasses.replace(cfg.model.head, return_second_grad=True,
+                          color_dims=3, ray_img_size=img_size))
+    convertion = dict(_BASE_CONVERTION, second_grad="second_grad")
+    train_ds, val_ds = _nusc_dataset_args(
+        max_dist=10.0, train_cur_prob=0.333, ego_centric=False)
+    return dataclasses.replace(
+        cfg, name="nuscenes_novel_depth", model=model, loss_cfgs=loss_cfgs,
+        loss_input_convertion=convertion, img_size=img_size,
+        input_size=(384, 800),
+        train_dataset_args=train_ds, val_dataset_args=val_ds)
+
+
 def tiny() -> Config:
     """Miniature config (tiny backbone, 17^2x9 TPV grid) for smoke tests and
     multi-chip dry runs — not a reference experiment."""
@@ -145,7 +219,16 @@ def tiny() -> Config:
 _CONFIGS = {
     "tiny": tiny,
     "nuscenes_occ": nuscenes_occ,
+    "nuscenes_depth": nuscenes_depth,
+    "nuscenes_novel_depth": nuscenes_novel_depth,
 }
+
+def register_config(name: str, factory) -> None:
+    """Make ``get_config(name)`` (the drivers' ``--py-config``) return
+    ``factory()``: a config of one's own, such as a copied recipe with
+    other dataset paths, label roots or teacher maps."""
+    _CONFIGS[name] = factory
+
 
 def get_config(name: str) -> Config:
     """Resolve a config by name or by reference-style path

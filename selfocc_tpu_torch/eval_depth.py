@@ -4,14 +4,18 @@ render -> bilinear lookup of the predicted depth at the sparse GT pixels ->
 ``DepthMetric`` raw / median-scaled tables).
 
     python -m selfocc_tpu_torch.eval_depth --py-config nuscenes_occ \
-        --synthetic --num-samples 1 [--device cpu]
+        [--synthetic] --num-samples 1 [--device cpu]
 
+Real data: the nuScenes val split (``data.build_dataset(cfg, "val")``:
+``data/nuscenes_infos_val_sweeps.pkl``, images and lidar sweeps under
+``data/nuscenes/``), whose items carry the lidar depth GT (``depth_loc``,
+``depth_gt``, ``depth_mask``); without it the driver exits non-zero,
+naming the missing path. ``--synthetic``: the procedural scene.
 Weights are drawn from seeded initialisers that mirror the JAX package's
 (``--seed``), or loaded from the port's own ``train.py`` checkpoint
 (``--ckpt-path``) or a reference-SelfOcc ``.pth`` (``--torch-ckpt``); flip
-test-time augmentation, the argmax-weight depth target and the real
-nuScenes loaders come with later slices (without ``--synthetic`` it stops
-with an error). Runs on the first
+test-time augmentation and the argmax-weight depth target come with later
+slices. Runs on the first
 CUDA device (kernels built on first use) unless ``--device cpu`` asks for the
 kernels' plain versions on the CPU; with no card and no ``--device cpu`` it
 exits non-zero.
@@ -115,7 +119,7 @@ def main(argv=None):
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = get_config(args.py_config)
-    ds = get_dataset(cfg, args.synthetic)
+    ds = get_dataset(cfg, args.synthetic, phase="val")
     logger = get_logger()
     model = build_model(cfg, args.seed, device)
     load_weights(model, args.ckpt_path, args.torch_ckpt, logger)

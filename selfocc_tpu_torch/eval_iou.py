@@ -2,7 +2,14 @@
 of the repository's ``eval_iou.py`` on one device.
 
     python -m selfocc_tpu_torch.eval_iou --py-config nuscenes_occ \\
-        --synthetic --num-samples 1 --occ3d --use-mask --sem [--device cpu]
+        [--synthetic] --num-samples 1 --occ3d --use-mask --sem [--device cpu]
+
+Real data: the nuScenes val split (``data.build_dataset(cfg, "val")``,
+``data/nuscenes_infos_val_sweeps.pkl`` and ``data/nuscenes/``); its items
+carry ``occ3d_label_path`` (``<occ3d_root>/<scene name>/<token>/
+labels.npz``) and ``openocc_label_path`` where the config's dataset args
+name ``occ3d_root`` / ``openocc_root``. Without the index it exits
+non-zero, naming the missing path.
 
 Per sample: ``GridOccEvaluator`` decodes the field once and evaluates the
 sdf (+ semantics) on the uniform metric grid over the scoring AABB,
@@ -27,8 +34,7 @@ point. Weights are seeded (``--seed``), or loaded with ``--ckpt-path`` (the
 port's ``train.py`` checkpoint) or ``--torch-ckpt`` (a reference-SelfOcc
 ``.pth``). Runs on the first CUDA device unless ``--device cpu`` asks for
 the kernels' plain versions on the CPU; with no card and no ``--device
-cpu`` it exits non-zero, and without ``--synthetic`` it stops with an error
-(the real loaders come with a later slice). The JAX driver's mesh options
+cpu`` it exits non-zero. The JAX driver's mesh options
 (``--no-shard``, ``--prepare-shard``) have no counterpart on one device.
 """
 from __future__ import annotations
@@ -341,7 +347,7 @@ def main(argv=None):
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = get_config(args.py_config)
-    ds = get_dataset(cfg, args.synthetic)
+    ds = get_dataset(cfg, args.synthetic, phase="val")
     logger = get_logger()
     model = build_model(cfg, args.seed, device)
     load_weights(model, args.ckpt_path, args.torch_ckpt, logger)

@@ -1,6 +1,7 @@
 """NeuS rendering head — counterpart of
 ``selfocc_tpu/models/heads.py::NeuSHead``: ``prepare`` and
-``render_rays`` for eval, the training ``forward`` (``heads.py:397-526``)
+``render_rays`` for eval (with ``return_max_depth``, the argmax-weight
+depth ``max_depth``), the training ``forward`` (``heads.py:397-526``)
 with its chunked, checkpointed render, and the occupancy queries
 (``get_uniform_sdf``, ``forward_occ``, ``occ_from_volume``,
 ``occ_uniform``; ``heads.py:528-577``).
@@ -67,6 +68,18 @@ def uniform_grid(xs, ys, zs) -> torch.Tensor:
     return torch.stack([X, Y, Z], dim=-1)
 
 
+def max_depth(weights: torch.Tensor, ts: torch.Tensor,
+              deltas: torch.Tensor) -> torch.Tensor:
+    """The argmax-weight depth (JAX ``heads.py:379-386``, the reference's
+    ``neus_head.py:579-587``): among the samples with ``deltas >= eps``,
+    the one of largest ``weights / deltas`` (the first on ties), its
+    ``ts``. (R, S) each -> (R,)."""
+    eps = torch.finfo(torch.float32).eps
+    w = torch.where(deltas < eps, torch.zeros_like(weights), weights)
+    idx = torch.argmax(w / deltas.clamp_min(eps), dim=-1, keepdim=True)
+    return torch.gather(ts, -1, idx)[..., 0]
+
+
 class _FieldHolder(nn.Module):
     """The reference head's ``model`` (its sdfstudio NeuS model), which owns
     the field."""
@@ -94,7 +107,8 @@ class NeuSHead(nn.Module):
                  ray_upper_crop: int = 0,
                  ray_x_dsr_max: Optional[float] = None,
                  ray_y_dsr_max: Optional[float] = None,
-                 train_ray_chunk: int = 0, resolution: float = 0.4):
+                 train_ray_chunk: int = 0, resolution: float = 0.4,
+                 return_max_depth: bool = False):
         super().__init__()
         self.roi_aabb = tuple(roi_aabb)
         self.resolution = resolution
@@ -107,6 +121,7 @@ class NeuSHead(nn.Module):
         self.use_compact_2nd_grad = use_compact_2nd_grad
         self.numerical_gradients_delta = numerical_gradients_delta
         self.train_ray_chunk = train_ray_chunk
+        self.return_max_depth = return_max_depth
         self.ray_sampler = RaySampler(
             ray_sample_mode=ray_sample_mode, ray_number=tuple(ray_number),
             ray_img_size=tuple(ray_img_size), ray_upper_crop=ray_upper_crop,
@@ -179,16 +194,19 @@ class NeuSHead(nn.Module):
         rgb_wanted = self.color_dims > 0 and not geo_only and want("rgb")
         sem_wanted = (self.return_sem and self.sem_dims > 0 and not geo_only
                       and want("sem"))
+        max_wanted = self.return_max_depth and want("max_depth")
         weights, acc, depth, normal_vis, ts, deltas = neus_composite(
             sdf, grad, unit_dir, segs.edges, direction_norm, inv_s,
-            weights=want("weights") or rgb_wanted or sem_wanted,
-            geometry=want("ts", "deltas"))
+            weights=want("weights") or rgb_wanted or sem_wanted or max_wanted,
+            geometry=want("ts", "deltas") or max_wanted)
         out = {"acc": acc, "fars": far, "inv_s": inv_s, "sdf": sdf,
                "eik_grad": grad, "depth": depth, "normal_vis": normal_vis}
         if want("weights"):
             out["weights"] = weights
         if want("ts", "deltas"):
             out["ts"], out["deltas"] = ts, deltas
+        if max_wanted:
+            out["max_depth"] = max_depth(weights, ts, deltas)
 
         if rgb_wanted:
             rgb = neus.composite(weights, self.field.color(
@@ -297,6 +315,8 @@ class NeuSHead(nn.Module):
             outputs["sem"] = [cams(r["sem"], (self.sem_dims,))]
         if "second_grad" in r:
             outputs["second_grad"] = r["second_grad"].reshape(-1, 3)
+        if "max_depth" in r:
+            outputs["ms_max_depths"] = [cams(r["max_depth"])]
         return outputs
 
     def get_uniform_sdf(self, volume, aabb, resolution, generator=None,

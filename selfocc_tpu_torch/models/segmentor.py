@@ -42,7 +42,6 @@ _PORTED = (
     ("head", "num_samples_importance", 0),
     ("head", "eval_skip_coarse", 0),
     ("head", "eval_skip_fine", 0),
-    ("head", "return_max_depth", False),
     ("head", "return_surface_sdf", False),
     ("head", "estimate_flow", False),
     ("head", "anneal_aabb", False),
@@ -110,7 +109,8 @@ class TPVSegmentor(nn.Module):
             ray_img_size=tuple(h.ray_img_size),
             ray_upper_crop=h.ray_upper_crop, ray_x_dsr_max=h.ray_x_dsr_max,
             ray_y_dsr_max=h.ray_y_dsr_max,
-            train_ray_chunk=h.train_ray_chunk, resolution=h.resolution)
+            train_ray_chunk=h.train_ray_chunk, resolution=h.resolution,
+            return_max_depth=h.return_max_depth)
 
     def extract_img_feat(self, imgs):
         """Backbone + neck. imgs (B, N, H, W, 3) -> list of (B, N, h, w, C)."""

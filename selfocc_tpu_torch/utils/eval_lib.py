@@ -1,6 +1,11 @@
 """Eval-driver machinery — counterpart of ``selfocc_tpu/utils/eval_lib.py``
 (``ChunkedRenderer``, ``GridOccEvaluator``, ``eval_ray_grid``,
-``eval_trans_mats``, ``rays_for_cams``).
+``eval_trans_mats``, ``rays_for_cams``, and the novel-view depth eval:
+``enable_max_depth``, ``prep_input_imgs``, ``novel_eval_first_sample``,
+``run_novel_depth_eval``). The JAX module's ``camera_kwargs`` has no
+counterpart: the port refuses camera-aware encoders
+(``models/segmentor.check_ported``), so the prepare takes no camera
+arguments.
 
 ``prepare`` decodes the field once per frame (fp32 volume); ``render`` walks
 the full ray grid in fixed-size chunks against it and returns host numpy
@@ -11,6 +16,10 @@ numpy form and a ``*_device`` form.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
+import time
+from collections import defaultdict
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -21,12 +30,14 @@ from ..configs.base import Config
 from ..geometry.projection import rays_from_img2lidar
 from ..geometry.ray_sampler import RaySampler
 from ..models.heads import uniform_axes, uniform_axes_on, uniform_grid
-from ..ops.interp import first_channel, trilinear_sample
+from ..ops.interp import bilinear_sample, first_channel, trilinear_sample
+from .metrics import cal_depth_metric
 
 # outputs derived from the sdf channel alone: a render that asks only for
 # these samples a 1-channel view of the volume (the JAX ``geo_only``)
 GEO_OUTPUTS = frozenset({"depth", "weights", "acc", "fars", "inv_s", "sdf",
-                         "eik_grad", "ts", "deltas", "normal_vis"})
+                         "eik_grad", "ts", "deltas", "normal_vis",
+                         "max_depth"})
 
 
 class ChunkedRenderer:
@@ -220,3 +231,142 @@ def rays_for_cams(img2lidar, rays):
     _, N, R = direction.shape[:3]
     origin = origin[0, :, None, :].expand(N, R, 3).reshape(-1, 3)
     return origin, direction[0].reshape(-1, 3)
+
+
+def enable_max_depth(cfg: Config) -> Config:
+    """``cfg`` with the head's ``return_max_depth`` on (the reference sets it
+    in every eval driver that scores the argmax-weight render,
+    ``eval_novel_depth.py:70``). An output-only flag: the weights are the
+    same, so checkpoints load as they are."""
+    if cfg.model.head.return_max_depth:
+        return cfg
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, head=dataclasses.replace(cfg.model.head,
+                                            return_max_depth=True)))
+
+
+def prep_input_imgs(input_imgs, cfg: Config, device=None) -> torch.Tensor:
+    """The val pipeline (Normalize -> RandomScale(cfg.scale_rate) -> Pad div
+    32) on a list of raw HWC images -> (1, N, H, W, 3) float32 network
+    input, for raw eval datasets that bypass the ``TemporalDatasetWrapper``
+    (``eval_lib.py:453``)."""
+    from ..data.transforms import (IMG_NORM, NormalizeMultiviewImage,
+                                   PadMultiViewImage,
+                                   RandomScaleImageMultiViewImage,
+                                   forward_aug)
+    transforms = [NormalizeMultiviewImage(**IMG_NORM)]
+    if cfg.scale_rate != 1:
+        transforms.append(RandomScaleImageMultiViewImage([cfg.scale_rate]))
+    transforms.append(PadMultiViewImage(size_divisor=32))
+    imgs, _ = forward_aug(list(input_imgs), {}, transforms)
+    return torch.from_numpy(np.stack(imgs).astype(np.float32))[None].to(
+        device or "cpu")
+
+
+def novel_eval_first_sample(ds, cfg: Config, real: bool) -> Dict:
+    """The first item's network inputs, as host arrays, from a raw
+    novel-view eval dataset (``(input_imgs, anchor_imgs, metas)`` items) or
+    a canonical-batch dataset (``eval_lib.py:503``)."""
+    if real:
+        input_imgs, _, metas0 = ds[0]
+        return {"imgs": prep_input_imgs(input_imgs, cfg).numpy(),
+                "lidar2img": np.asarray(metas0["lidar2img"],
+                                        np.float32)[None],
+                cfg.model.head.trans_kw: np.asarray(
+                    metas0["img2lidar"], np.float32)[None]}
+    return {k: np.asarray(v) for k, v in ds[0].items()
+            if not isinstance(v, (str, dict))}
+
+
+BUCKET_KEYS = ("abs_rel", "sq_rel", "rmse", "rmse_log", "a1", "a2", "a3")
+
+
+def run_novel_depth_eval(ds, real: bool, cfg: Config, renderer, logger,
+                         device, num_samples: int = 0,
+                         offsets=(-2.0, -1.0, 1.0, 2.0),
+                         depth_key: str = "depth") -> Dict:
+    """The novel-view depth loop (``eval_lib.py:517-591``, reference
+    ``eval_novel_depth.py:133-229``): decode the field once per sample,
+    render depth from each temporal neighbour's poses
+    (``temImg2lidars[j]``; on the synthetic scene
+    ``novel_view_sample(i, offset)``), and bucket the depth errors by
+    ``ceil(distance)``. ``depth_key``: the scored render, ``depth`` or
+    ``max_depth`` (``--depth-tgt raw|max``). Logs the bucket table and
+    returns ``buckets`` (bucket -> metric -> per-camera values), ``table``
+    (bucket -> the seven means), ``prepare_s`` (per sample) and
+    ``render_s`` (per neighbour; the render ends with the host copy of the
+    depths), and ``rays`` (per neighbour)."""
+    rays = eval_ray_grid(cfg, device=device)
+    rh, rw = cfg.eval_num_rays
+    buckets = defaultdict(lambda: defaultdict(list))
+    n = min(num_samples or len(ds), len(ds))
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    stats = {"prepare_s": [], "render_s": [], "rays": 0}
+
+    def prepare(imgs, lidar2img):
+        sync()
+        t0 = time.perf_counter()
+        volume = renderer.prepare(imgs, lidar2img)
+        sync()
+        stats["prepare_s"].append(time.perf_counter() - t0)
+        return volume
+
+    def render(volume, tem):
+        origin, direction = rays_for_cams(
+            torch.as_tensor(np.asarray(tem), dtype=torch.float32,
+                            device=device), rays)
+        t0 = time.perf_counter()
+        depth = renderer.render(volume, origin, direction)[depth_key]
+        stats["render_s"].append(time.perf_counter() - t0)
+        stats["rays"] = origin.shape[0]
+        return torch.from_numpy(depth).reshape(cfg.num_cams, rh, rw)
+
+    def score(depth, loc, gt_all, mask_all, bucket):
+        loc = np.asarray(loc)
+        pix = torch.from_numpy(np.stack(
+            [loc[..., 0] * (rw - 1), loc[..., 1] * (rh - 1)], -1)).float()
+        for c in range(cfg.num_cams):
+            m = np.asarray(mask_all[c]).astype(bool)
+            if m.sum() == 0:
+                continue
+            pred = bilinear_sample(depth[c][..., None], pix[c],
+                                   "border")[..., 0].numpy()[m]
+            for k, v in cal_depth_metric(pred,
+                                         np.asarray(gt_all[c])[m]).items():
+                buckets[bucket][k].append(v)
+
+    for i in range(n):
+        if real:
+            input_imgs, _, metas = ds[i]
+            imgs = prep_input_imgs(input_imgs, cfg, device)
+            lidar2img = torch.as_tensor(
+                np.asarray(metas["lidar2img"]), dtype=torch.float32,
+                device=device)[None]
+            volume = prepare(imgs, lidar2img)
+            for j, tem in enumerate(metas["temImg2lidars"]):
+                depth = render(volume, np.asarray(tem)[None])
+                score(depth, metas["depth_loc"][j], metas["depth_gt"][j],
+                      metas["depth_mask"][j],
+                      math.ceil(metas["frame_dists"][j]))
+            logger.info(f"[{i + 1}/{n}] rendered "
+                        f"{len(metas['temImg2lidars'])} novel views")
+            continue
+        item = ds[i]
+        batch = {k: torch.as_tensor(np.asarray(v)).to(device)
+                 for k, v in item.items() if not isinstance(v, (str, dict))}
+        volume = prepare(batch["imgs"], batch["lidar2img"])
+        if not hasattr(ds, "novel_view_sample"):
+            continue
+        for off in offsets:
+            nb = ds.novel_view_sample(i, off)
+            depth = render(volume, nb["temImg2lidar"])
+            score(depth, nb["depth_loc"], nb["depth_gt"], nb["depth_mask"],
+                  math.ceil(nb["frame_dist"]))
+        logger.info(f"[{i + 1}/{n}] rendered {len(offsets)} novel views")
+
+    logger.info(("{:>8} | " * 8).format("dist", *BUCKET_KEYS))
+    table = {}
+    for b in sorted(buckets):
+        table[b] = [float(np.mean(buckets[b][k])) for k in BUCKET_KEYS]
+        logger.info((f"{b:>8} | " + "{: 8.3f} | " * 7).format(*table[b]))
+    return dict(stats, buckets=buckets, table=table)

@@ -1,4 +1,5 @@
-"""What the port's drivers (``eval_depth``, ``eval_iou``, ``train``) share:
+"""What the port's drivers (``eval_depth``, ``eval_iou``,
+``eval_novel_depth``, ``train``) share:
 the device flag, the weights flags, the dataset factory, the logger and
 host-to-device batches."""
 from __future__ import annotations
@@ -97,13 +98,23 @@ def load_weights(model, ckpt_path: str = "", torch_ckpt: str = "",
                            f"imported (first: {unmatched[:5]})")
 
 
-def get_dataset(cfg, synthetic: bool, length: int = 64):
-    """The synthetic scene. The real nuScenes loaders are not ported yet:
-    without ``synthetic`` this raises instead of substituting data."""
+def get_dataset(cfg, synthetic: bool, phase: str = "train",
+                length: int = 64):
+    """The dataset a driver reads: with ``synthetic`` the procedural scene,
+    else ``data.build_dataset(cfg, phase)`` (the nuScenes loaders; phases
+    ``train``, ``val`` and ``novel_eval``). When the real files are absent
+    it exits non-zero with an error that names the missing path: unlike
+    the JAX ``train.get_dataloader``, it never substitutes synthetic data.
+    A dataset type the port does not load (KITTI) raises
+    NotImplementedError."""
     if not synthetic:
-        raise NotImplementedError(
-            "selfocc_tpu_torch has no real-data loaders yet (the nuScenes "
-            "loaders come with a later slice of the port); pass --synthetic")
+        from ..data import build_dataset
+        try:
+            return build_dataset(cfg, phase=phase)
+        except FileNotFoundError as e:
+            sys.exit(f"selfocc_tpu_torch: the real-data loaders found no "
+                     f"data ({e}); put the {cfg.dataset_type} files there, "
+                     "set the config's dataset args, or pass --synthetic")
     n_sem = max(cfg.num_classes, cfg.model.head.sem_dims or 0)
     return SyntheticDataset(
         num_cams=cfg.num_cams, input_size=cfg.input_size,

@@ -1,10 +1,15 @@
 """The port's copies of jax-free modules of the JAX package, pinned to their
 originals: the port imports nothing of ``selfocc_tpu``, so it keeps its own
-``configs/{base,experiments}.py``, ``data/synthetic.py`` and
+``configs/{base,experiments}.py``, ``data/synthetic.py``,
 ``utils/metrics.py`` (``DepthMetric``, ``MeanIoU``, ``IoU``,
-``openseed2nuscenes``) and the ``eval_iou`` driver's helpers, and these
+``openseed2nuscenes``), the ``eval_iou`` driver's helpers, the data
+modules (``transforms``, ``wrapper``, ``nuscenes_dataset``,
+``nuscenes_eval_dataset``, ``sampler``, ``prefetch``), ``build_dataset``'s
+path and override tables and ``utils/openseed_utils.SemTeacher``, and these
 tests fail as soon as a copy and its original drift apart. Extend them with
 each module a later slice copies."""
+import ast
+import importlib
 import dataclasses
 
 import numpy as np
@@ -18,7 +23,8 @@ from selfocc_tpu_torch.data.synthetic import SyntheticDataset as TSynthetic
 from selfocc_tpu_torch.utils.metrics import DepthMetric as TDepthMetric
 
 
-@pytest.mark.parametrize("name", ["nuscenes_occ", "tiny"])
+@pytest.mark.parametrize("name", ["nuscenes_occ", "tiny", "nuscenes_depth",
+                                  "nuscenes_novel_depth"])
 def test_config_copies_equal_their_originals(name):
     ref = dataclasses.asdict(getattr(jexp, name)())
     got = dataclasses.asdict(getattr(texp, name)())
@@ -163,3 +169,87 @@ def test_eval_iou_helper_copies_equal_their_originals(tmp_path):
     assert set(got) == set(ref)
     for k in ref:
         np.testing.assert_array_equal(got[k], ref[k])
+
+
+def _code(tree):
+    """Top-level functions and classes of a module's AST by name (classes'
+    methods by ``Class.method``), docstrings removed, as ``ast.dump``."""
+    out = {}
+
+    def strip(node):
+        body = getattr(node, "body", None)
+        if body and isinstance(body[0], ast.Expr) and isinstance(
+                getattr(body[0], "value", None), ast.Constant) and \
+                isinstance(body[0].value.value, str):
+            node.body = body[1:] or [ast.Pass()]
+        return node
+
+    for node in tree.body:
+        if isinstance(node, ast.ClassDef):
+            for m in node.body:
+                if isinstance(m, ast.FunctionDef):
+                    out[f"{node.name}.{m.name}"] = ast.dump(strip(m))
+            node.body = [m for m in node.body
+                         if not isinstance(m, ast.FunctionDef)]
+            out[node.name] = ast.dump(strip(node))
+        elif isinstance(node, (ast.FunctionDef, ast.Assign)):
+            key = node.name if isinstance(node, ast.FunctionDef) else \
+                ast.dump(node.targets[0])
+            out[key] = ast.dump(strip(node))
+    return out
+
+
+def _source_tree(modname):
+    mod = importlib.import_module(modname)
+    with open(mod.__file__) as f:
+        return ast.parse(f.read())
+
+
+# every function, method, class and module constant equal but these: the
+# JAX package's optional native decoder, and the JAX module's online
+# teacher (not ported)
+_COPIES = {
+    "data.transforms": (), "data.wrapper": (), "data.sampler": (),
+    "data.prefetch": (), "data.nuscenes_eval_dataset": (),
+    "data.nuscenes_dataset": ("nuScenes_One_Frame_Sweeps_Dist."
+                              "read_surround_imgs",),
+    "utils.openseed_utils": ("JaxSemTeacher",),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_COPIES))
+def test_data_module_copies_equal_their_originals(name):
+    ref = _code(_source_tree(f"selfocc_tpu.{name}"))
+    got = _code(_source_tree(f"selfocc_tpu_torch.{name}"))
+    skip = {k for k in ref if k.split(".")[0] in _COPIES[name]
+            or k in _COPIES[name]}
+    assert set(got) - skip == set(ref) - skip
+    for k in set(got) - skip:
+        assert got[k] == ref[k], k
+
+
+def test_read_surround_imgs_is_the_cv2_path(tmp_path):
+    import cv2
+    from selfocc_tpu.data.nuscenes_dataset import \
+        nuScenes_One_Frame_Sweeps_Dist as J
+    from selfocc_tpu_torch.data.nuscenes_dataset import \
+        nuScenes_One_Frame_Sweeps_Dist as T
+    rng = np.random.RandomState(4)
+    paths = []
+    for i in range(3):
+        paths.append(str(tmp_path / f"cam{i}.jpg"))
+        cv2.imwrite(paths[-1], (rng.rand(40, 56, 3) * 255).astype(np.uint8))
+    got = T.read_surround_imgs(None, paths, (32, 48))
+    for p, g in zip(paths, got):
+        ref = cv2.imread(p, cv2.IMREAD_UNCHANGED).astype(np.float32)
+        np.testing.assert_array_equal(g, ref[:32, :48])
+    ref = J.read_surround_imgs(None, paths, (32, 48))
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and np.abs(g - r).max() <= 1.0
+
+
+def test_build_dataset_tables_equal_their_originals():
+    import selfocc_tpu.data as jdata
+    import selfocc_tpu_torch.data as tdata
+    assert tdata.DEFAULT_PATHS == jdata.DEFAULT_PATHS
+    assert tdata.EVAL_OVERRIDES == jdata.EVAL_OVERRIDES

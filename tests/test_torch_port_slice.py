@@ -166,7 +166,11 @@ def test_eval_depth_runs_without_jax(tmp_path):
     # may be imported
     code = (
         "import sys\n"
-        "from selfocc_tpu_torch import eval_depth, eval_iou, train\n"
+        "from selfocc_tpu_torch import eval_depth, eval_iou, "
+        "eval_novel_depth, train\n"
+        "from selfocc_tpu_torch.data import (build_dataset, nuscenes_dataset,"
+        " nuscenes_eval_dataset, prefetch, sampler, transforms, wrapper)\n"
+        "from selfocc_tpu_torch.utils import checkpoint, openseed_utils\n"
         "eval_depth.main(['--py-config', 'tiny', '--synthetic',"
         " '--num-samples', '1', '--batch', '256', '--device', 'cpu'])\n"
         "eval_iou.main(['--py-config', 'tiny', '--synthetic',"
@@ -174,6 +178,9 @@ def test_eval_depth_runs_without_jax(tmp_path):
         " '--use-mask', '--sem', '--device', 'cpu'])\n"
         "train.main(['--py-config', 'tiny', '--synthetic', '--max-steps',"
         f" '1', '--device', 'cpu', '--work-dir', {str(tmp_path)!r}])\n"
+        "eval_novel_depth.main(['--py-config', 'tiny', '--synthetic',"
+        " '--num-samples', '1', '--batch', '256', '--depth-tgt', 'max',"
+        " '--device', 'cpu'])\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'flax', 'selfocc_tpu'))\n"
         "assert not bad, bad\n"
@@ -187,9 +194,11 @@ def test_eval_depth_runs_without_jax(tmp_path):
     assert "raw evaluation:" in proc.stdout
     assert "miou_miou:" in proc.stdout
     assert "checkpoint saved" in proc.stdout
+    assert "rendered 4 novel views" in proc.stdout
 
 
-@pytest.mark.parametrize("module", ["eval_depth", "eval_iou", "train"])
+@pytest.mark.parametrize("module", ["eval_depth", "eval_iou", "train",
+                                    "eval_novel_depth"])
 def test_drivers_need_a_card_or_device_cpu_and_synthetic(module):
     env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
     base = [sys.executable, "-m", f"selfocc_tpu_torch.{module}",
