@@ -92,6 +92,24 @@ raises and the exit code is non-zero.
   ``max_depth``. Each driver run's launch counts are reset just before it
   and read just after.
 
+- ``[kitti]``: the SemanticKITTI recipe on a full-size odometry tree
+  fabricated in a temporary directory (sequences 00 and 08, 12 and 11
+  frames 1.03 m apart, 1226x370 PNGs, 120,000-point scans, sequence 00's
+  calibration, 256x256x32 labels every 5th val frame), registered as
+  ``kitti_occ_fab`` / ``kitti_novel_depth_fab``: 5 ``kitti_occ`` steps at
+  full width from the loader through ``train.main`` (the five losses and
+  ``grad_norm`` finite; a profiled warm step with its launches; a warm
+  step under ``torch.cuda.set_sync_debug_mode("error")``); a KITTI-shaped
+  ``tiny`` step on the card against the CPU (losses rtol 1e-5; gradients,
+  SecondGradLoss's apart); ``eval_iou_kitti.main`` on one val frame (256 x
+  256 x 32 grid; the kernel path's occupancy against the plain path's,
+  equal but where |sdf| < 1e-5); ``eval_novel_depth_kitti.main`` with
+  ``raw`` and ``max`` (two frames, 14 neighbours of 176 x 608 rays) and a
+  4096-ray subset on the card against the CPU. ``[kernels]`` also holds
+  ``trilinear_cf_bwd`` (the values-only backward) at the kitti_occ uniform
+  grid's jittered points and at the compact taps of its first training
+  chunk against its plain version and ``F.grid_sample``'s backward.
+
 ``--phases`` runs a subset (then no result line is printed). Each path's
 launch counts are set to 0 just before it runs and read just after; a
 kernel of the path that was not launched fails the run (the trilinear
@@ -139,9 +157,13 @@ MSDA_BWD_OPS = (14, 33)
 RENDER_FWD_OPS = 50
 RENDER_BWD_OPS = 103
 PHASES = ("kernels", "gather", "frame", "occ", "train-parity", "train",
-          "data")
+          "data", "kitti")
 OPENOCC_PCR = (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0)   # 512 x 512 x 40 at 0.2
 OCC_SLAB = 1 << 20    # dense-grid points held against the plain version
+# the compact stencil's volume cotangent, card against CPU on one volume:
+# the error beyond GRAD_RTOL of its max, over the voxel's sum of term
+# magnitudes (see kitti_train_parity)
+STENCIL_RTOL = 1e-6
 
 
 def log(msg):
@@ -666,6 +688,139 @@ def values_kernel_checks(g, device):
                                                                   total])}
 
 
+def kitti_points(device):
+    """The values-only query's points on the kitti_occ training path, as
+    fractional indices of its (4, 257, 257, 33) volume: the uniform sdf
+    grid (128 x 128 x 16 points 0.4 m apart over the box, each jittered by
+    up to one step, seeded) and the compact second derivative's six taps
+    (+-0.01 m along x, y, z) of the first 4096-ray training chunk's
+    1,048,576 samples (a synthetic batch, the cellular ray grid and the
+    jitter from a seeded generator)."""
+    import torch
+    from selfocc_tpu_torch.configs.experiments import get_config
+    from selfocc_tpu_torch.geometry.projection import rays_from_img2lidar
+    from selfocc_tpu_torch.models import neus
+    from selfocc_tpu_torch.models.heads import uniform_axes_on, uniform_grid
+    from selfocc_tpu_torch.models.segmentor import TPVSegmentor
+    from selfocc_tpu_torch.utils.runtime import get_dataset, to_device
+    cfg = get_config("kitti_occ")
+    h = cfg.model.head
+    head = TPVSegmentor(cfg.model).head
+    m = head.field.mapping
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    xyz = uniform_grid(*uniform_axes_on(tuple(h.roi_aabb), h.resolution,
+                                        device))
+    xyz = xyz + torch.rand(xyz.shape, generator=gen,
+                           device=device) * h.resolution
+    uniform = m.meter2grid(xyz.reshape(-1, 3)).contiguous()
+    batch = to_device(get_dataset(cfg, synthetic=True, length=1)[0], device)
+    origin, direction = rays_from_img2lidar(batch[h.trans_kw],
+                                            head.ray_sampler(device, gen))
+    origin = origin[:, :, None, :].expand(direction.shape).reshape(-1, 3)
+    direction = direction.reshape(-1, 3)
+    n = h.train_ray_chunk
+    unit = direction[:n] / torch.linalg.norm(direction[:n], dim=-1,
+                                             keepdim=True)
+    near, far = neus.ray_aabb_near_far(origin[:n], unit, head.roi_aabb,
+                                       head.near_plane, head.far_plane)
+    t_rand = torch.rand((n, head.num_samples + 1), generator=gen,
+                        device=device)
+    mids = neus.sample_uniform(near, far, head.num_samples, t_rand).mids
+    pos = (origin[:n, None, :] + unit[:, None, :] * mids[..., None]
+           ).reshape(-1, 3)
+    eye = torch.eye(3, device=device) * h.numerical_gradients_delta
+    taps = [m.meter2grid(pos + sign * eye[a]).contiguous()
+            for a in range(3) for sign in (1.0, -1.0)]
+    return head.field.grid_shape, uniform, taps
+
+
+def grid_sample_bwd_of(shape, pts, grad_vals):
+    """``F.grid_sample``'s backward computing the same volume cotangent as
+    ``trilinear_cf_bwd`` (align_corners=True, zeros padding; see
+    ``grid_sample_of``): ``call()`` runs the backward alone on a
+    channel-first (1, C, H, W, D) input; ``with_copy()`` also makes that
+    channel-first copy of the channel-last volume and copies the gradient
+    back into the port's channel-last layout."""
+    import torch
+    C, H, W, D = shape
+    vol_cl = torch.zeros((H, W, D, C), device=pts.device)
+    x = vol_cl.permute(3, 0, 1, 2).contiguous()[None]
+    grid = torch.stack([2 * pts[:, 2] / (D - 1) - 1,
+                        2 * pts[:, 1] / (W - 1) - 1,
+                        2 * pts[:, 0] / (H - 1) - 1], -1).view(1, 1, 1, -1, 3)
+    gout = grad_vals.T.contiguous().view(1, C, 1, 1, -1)
+
+    def call(inp=x):
+        return torch.ops.aten.grid_sampler_3d_backward(
+            gout, inp, grid, 0, 0, True, [True, False])[0]
+
+    def with_copy():
+        g = call(vol_cl.permute(3, 0, 1, 2).contiguous()[None])
+        return g[0].permute(1, 2, 3, 0).contiguous()
+
+    return call, with_copy
+
+
+def values_bwd_checks(g, device):
+    """``trilinear_cf_bwd`` (``trilinear_bwd`` with the values' cotangent
+    alone), the backward of the values-only query, at its kitti_occ
+    training points (``kitti_points``): one compact tap's 1,048,576 points
+    on the sdf plane (C = 1, the plane kernel; 18 calls a step) and the
+    uniform grid's 262,144 jittered points on the 4-channel volume (C = 4,
+    the rows kernel; once a step). Against its plain version (autograd
+    through ``trilinear_sample_cf_plain``; GRAD_RTOL), all six taps
+    checked; timed by events and device time, with ``F.grid_sample``'s
+    backward on the same values (the backward alone, and with the
+    channel-first copy it needs and the gradient copied back). Bound: the
+    cotangent and the points read once, the dense gradient written once;
+    8 multiply-adds per point and channel."""
+    import torch
+    from selfocc_tpu_torch.ops import interp
+    shape, uniform, taps = kitti_points(device)
+    recs = {}
+    for tag, C, pts in (("taps", 1, taps[0]), ("uniform", 4, uniform)):
+        vol_shape = (C,) + tuple(shape)
+        vol = torch.zeros((C,) + tuple(shape), device=device)
+        gv = torch.randn((pts.shape[0], C), generator=g, device=device)
+        worst = 0.0
+        for i, p in enumerate(taps if tag == "taps" else (pts,)):
+            got = interp.trilinear_cf_bwd(vol_shape, p, gv)
+            ref = interp.trilinear_cf_bwd_plain(vol, p, gv)
+            err = max_err(got, ref)
+            check(f"trilinear_cf_bwd ({tag} {i}, C={C}, {p.shape[0]} "
+                  "points)", err, GRAD_RTOL * float(ref.abs().max()) + 1e-7)
+            worst = max(worst, err)
+            del got, ref
+        lib, lib_copy = grid_sample_bwd_of(vol_shape, pts, gv)
+        lib_err = max_err(lib()[0].permute(1, 2, 3, 0),
+                          interp.trilinear_cf_bwd(vol_shape, pts, gv)
+                          .permute(1, 2, 3, 0))
+        n = pts.shape[0]
+        out_bytes = shape[0] * shape[1] * shape[2] * C * 4
+
+        def kern(p=pts, gv=gv, vol_shape=vol_shape):
+            return interp.trilinear_cf_bwd(vol_shape, p, gv)
+        recs[tag] = kernel_record(
+            worst, timed(kern, 10),
+            timed(lambda: interp.trilinear_cf_bwd_plain(vol, pts, gv), 3),
+            (nbytes(pts, gv) + out_bytes, n * (20 + 16 * C)),
+            library_ms=timed(lib, 10), library="F.grid_sample backward",
+            library_device_ms=device_ms(lib, 10),
+            library_with_copy_ms=timed(lib_copy, 10),
+            library_with_copy_device_ms=device_ms(lib_copy, 10),
+            library_max_abs_err=lib_err, device_ms=device_ms(kern, 10),
+            shape=f"{tag}, C={C}, {n} points", points=n, C=C)
+        log(f"  trilinear_cf_bwd {tag}: {recs[tag]}")
+        del vol, gv, lib, lib_copy
+        torch.cuda.empty_cache()
+    rec = dict(recs["taps"])
+    for k in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
+              "library_device_ms", "library_with_copy_ms",
+              "library_with_copy_device_ms", "max_abs_err"):
+        rec[f"uniform_{k}"] = recs["uniform"][k]
+    return {"trilinear_cf_bwd": rec}
+
+
 def render_case(g, device, R, S, C=1, saturated=False, misalign=False,
                 zero_grads=True):
     """Inputs of the fused NeuS render on the card, laid out as the render
@@ -1068,6 +1223,8 @@ def kernel_checks(device, baseline=None):
     res.update(trilinear_checks(g, device, baseline))
 
     res.update(values_kernel_checks(g, device))
+
+    res.update(values_bwd_checks(g, device))
 
     # MSDA at its three main-path call shapes: the hw-plane image
     # cross-attention (6 cams, 4 FPN levels of a 384x800 input, 66049
@@ -2488,6 +2645,576 @@ def data_phase(device, train_res=None):
         shutil.rmtree(root, ignore_errors=True)
 
 
+KITTI_IMG = (370, 1226)            # SemanticKITTI image_2 PNGs
+KITTI_TRAIN_FRAMES = 12            # sequence 00
+KITTI_VAL_FRAMES = 11              # sequence 08: voxels at 0, 5, 10
+KITTI_STEP = 1.03                  # metres of forward motion per frame
+KITTI_LIDAR_POINTS = 120_000       # points per scan, 4 float32 each
+# the public calibration of SemanticKITTI odometry sequence 00
+KITTI_CALIB = (
+    "P0: 7.188560e+02 0 6.071928e+02 0 0 7.188560e+02 1.852157e+02 0 0 0 1 0",
+    "P1: 7.188560e+02 0 6.071928e+02 -3.861448e+02 0 7.188560e+02 "
+    "1.852157e+02 0 0 0 1 0",
+    "P2: 7.188560e+02 0 6.071928e+02 4.538225e+01 0 7.188560e+02 "
+    "1.852157e+02 -1.130887e-01 0 0 1 3.779761e-03",
+    "P3: 7.188560e+02 0 6.071928e+02 -3.372877e+02 0 7.188560e+02 "
+    "1.852157e+02 2.369057e+00 0 0 1 4.915215e-03",
+    "Tr: 4.276802385584e-04 -9.999672484946e-01 -8.084491683471e-03 "
+    "-1.198459927713e-02 -7.210626507497e-03 8.081198471645e-03 "
+    "-9.999413164504e-01 -5.403984729748e-02 9.999738645903e-01 "
+    "4.859485810390e-04 -7.206933692422e-03 -2.921968648686e-01")
+
+
+def fabricate_kitti(root):
+    """A SemanticKITTI-odometry tree under ``root`` in the layout of the
+    JAX tests' fixture (``tests/test_kitti_dataset.py::_make_mini_kitti``),
+    at the real sizes: sequence 00 (train, 12 frames) and 08 (val, 11
+    frames), frames 1.03 m apart along the camera's z, smooth 1226 x 370
+    PNGs, velodyne scans of 120,000 points (x, y, z, reflectance) on the
+    ground and on walls around the car, sequence 00's calibration, and for
+    every 5th val frame the 256 x 256 x 32 completion labels (``.bin``
+    occupancy bits, ``.label`` raw semantic-kitti ids, ``.invalid`` bits):
+    a road layer with scattered cars and buildings."""
+    import math
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+    import cv2
+    import numpy as np
+    rng = np.random.RandomState(SEED)
+    y = np.linspace(0, 1, KITTI_IMG[0])[:, None]
+    x = np.linspace(0, 1, KITTI_IMG[1])[None]
+
+    def write_frame(job):
+        seq, i = job
+        d = os.path.join(root, "dataset", "sequences", seq)
+        r = 120 + 80 * np.sin(6 * x + 0.3 * i) * y
+        gg = 140 + 60 * np.cos(4 * y + 2 * x + 0.1 * i)
+        b = 160 - 100 * y + 30 * np.sin(9 * x * y + 0.2 * i)
+        img = np.stack(np.broadcast_arrays(b, gg, r), -1)
+        cv2.imwrite(os.path.join(d, "image_2", f"{i:06d}.png"),
+                    img.clip(0, 255).astype(np.uint8))
+        lr = np.random.RandomState(1000 * int(seq) + i)
+        n_g = KITTI_LIDAR_POINTS * 3 // 4
+        n_w = KITTI_LIDAR_POINTS - n_g
+        ang = lr.uniform(0, 2 * math.pi, KITTI_LIDAR_POINTS)
+        rad = np.concatenate([lr.uniform(3, 70, n_g), lr.uniform(8, 40, n_w)])
+        z = np.concatenate([np.full(n_g, -1.73), lr.uniform(-1.73, 3, n_w)])
+        pts = np.stack([rad * np.cos(ang), rad * np.sin(ang), z,
+                        lr.uniform(0, 1, KITTI_LIDAR_POINTS)], 1)
+        pts.astype(np.float32).tofile(os.path.join(d, "velodyne",
+                                                   f"{i:06d}.bin"))
+
+    jobs = []
+    for seq, n in (("00", KITTI_TRAIN_FRAMES), ("08", KITTI_VAL_FRAMES)):
+        d = os.path.join(root, "dataset", "sequences", seq)
+        for sub in ("image_2", "velodyne", "voxels"):
+            os.makedirs(os.path.join(d, sub), exist_ok=True)
+        os.makedirs(os.path.join(root, "dataset", "poses"), exist_ok=True)
+        with open(os.path.join(d, "calib.txt"), "w") as f:
+            f.write("\n".join(KITTI_CALIB) + "\n")
+        with open(os.path.join(root, "dataset", "poses", f"{seq}.txt"),
+                  "w") as f:
+            for i in range(n):
+                T = np.eye(4)
+                T[2, 3] = KITTI_STEP * i
+                f.write(" ".join(f"{v:.9e}" for v in T[:3].reshape(-1))
+                        + "\n")
+        jobs += [(seq, i) for i in range(n)]
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write_frame, jobs))
+    vox = os.path.join(root, "dataset", "sequences", "08", "voxels")
+    for i in range(0, KITTI_VAL_FRAMES, 5):
+        label = np.zeros((256, 256, 32), np.uint16)
+        label[:, :, 7] = 40                                     # road
+        cars = rng.rand(256, 256, 32) < 0.004
+        label[cars & (np.arange(32) >= 8) & (np.arange(32) < 12)] = 10
+        walls = rng.rand(256, 256) < 0.01
+        label[walls[..., None] & (np.arange(32) >= 8)] = 50    # building
+        occ = (label > 0).astype(np.uint8)
+        np.packbits(occ.reshape(-1)).tofile(os.path.join(vox,
+                                                         f"{i:06d}.bin"))
+        label.reshape(-1).tofile(os.path.join(vox, f"{i:06d}.label"))
+        invalid = (rng.rand(256 * 256 * 32) < 0.1).astype(np.uint8)
+        np.packbits(invalid).tofile(os.path.join(vox, f"{i:06d}.invalid"))
+    return root
+
+
+def kitti_fab_configs(root):
+    """``kitti_occ`` and ``kitti_novel_depth`` on the fabricated tree,
+    registered as ``kitti_occ_fab`` / ``kitti_novel_depth_fab``: the
+    recipes' own values, the data path, and the train split cut to
+    sequence 00 (the val split is 08, as in the recipe)."""
+    from selfocc_tpu_torch.configs import experiments as ex
+
+    def occ():
+        cfg = ex.kitti_occ()
+        return dataclasses.replace(
+            cfg, name="kitti_occ_fab",
+            train_dataset_args=dict(cfg.train_dataset_args, data_path=root,
+                                    sequences=["00"]),
+            val_dataset_args=dict(cfg.val_dataset_args, data_path=root))
+
+    def novel():
+        cfg = ex.kitti_novel_depth()
+        return dataclasses.replace(
+            cfg, name="kitti_novel_depth_fab",
+            val_dataset_args=dict(cfg.val_dataset_args, data_path=root))
+
+    ex.register_config("kitti_occ_fab", occ)
+    ex.register_config("kitti_novel_depth_fab", novel)
+    return occ(), novel()
+
+
+def kitti_wrappers():
+    """The kernels of the kitti_occ training step, grouped by the kernel
+    instances each must launch: the render's trilinear forward and its
+    backward on the 4-channel volume (rows), the values-only query forward
+    and backward on the uniform grid (rows) and at the compact taps on the
+    sdf plane (plane), the fused render and MSDA."""
+    from selfocc_tpu_torch.ops import interp, msda, render_weights
+    return (((render_weights.neus_render_fwd, render_weights.neus_render_bwd,
+              msda.msda_fwd, msda.msda_bwd), ()),
+            ((interp.trilinear_cf_with_grad_fwd, interp.trilinear_bwd),
+             ("rows",)),
+            ((interp.trilinear_cf_fwd, interp.trilinear_cf_bwd),
+             ("plane", "rows")))
+
+
+def read_kitti_counts(path):
+    """``read_counts`` over ``kitti_wrappers``, each group with its
+    instances."""
+    counts = {}
+    for fns, instances in kitti_wrappers():
+        counts.update(read_counts(fns, path, instances))
+    return counts
+
+
+def kitti_train(device, work):
+    """kitti_occ at full width from the fabricated loader through
+    ``train.main``: a cold step and 4 measured steps (losses and
+    ``grad_norm`` finite and logged every step, so each step's time ends
+    with its losses read), launch counts and peak memory; then on a
+    trainer of its own and one loader batch: a warm step, a profiled warm
+    step with its launches, and a warm step under
+    ``set_sync_debug_mode("error")``."""
+    import os
+    import torch
+    from selfocc_tpu_torch import train
+    from selfocc_tpu_torch.configs.experiments import get_config
+    from selfocc_tpu_torch.data import build_dataset
+    from selfocc_tpu_torch.utils.runtime import to_device
+    for fns, _ in kitti_wrappers():
+        reset_counts(fns)
+    torch.cuda.reset_peak_memory_stats()
+    r = train.main(["--py-config", "kitti_occ_fab", "--seed", str(SEED),
+                    "--print-freq", "1", "--prefetch", "2", "--max-steps",
+                    "5", "--work-dir", os.path.join(work, "train")])
+    launches = read_kitti_counts("kitti_occ training steps from the loader")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = ("ReprojLossMonoMultiNew", "RGBLossMS", "EikonalLoss",
+            "SecondGradLoss", "SoftSparsityLoss", "grad_norm")
+    for step, vals in r["logged"].items():
+        if not all(k in vals and math.isfinite(vals[k]) for k in want):
+            raise AssertionError(f"kitti step {step}: {vals}")
+    measured = sorted(r["step_s"][1:])
+    med = (measured[1] + measured[2]) / 2
+    cfg = get_config("kitti_occ_fab")
+    trainer = train.build_trainer(cfg, SEED, device)
+    batch = to_device(train.host_batch(build_dataset(cfg, "train"), 1, SEED,
+                                       0, 0), device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    trainer.step(batch, gen, sync=torch.cuda.synchronize)
+    for fns, _ in kitti_wrappers():
+        reset_counts(fns)
+    prof = profile_step(trainer, batch, gen, med)
+    per_step = read_kitti_counts("profiled kitti_occ step")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        m = trainer.step(batch, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    if not all(math.isfinite(float(v)) for k, v in m.items()
+               if k != "times"):
+        raise AssertionError(f"sync-checked kitti step: {m}")
+    res = {"items": r["items"], "step_s": r["step_s"],
+           "step_s_median": med, "step_s_spread": [measured[0],
+                                                   measured[-1]],
+           "max_memory_gb": peak, "logged": r["logged"],
+           "launches": launches, "launches_per_step": per_step,
+           "profile": prof, "sync_checked": True}
+    log(f"  kitti_occ from the loader: step s {r['step_s']} (median of "
+        f"steps 1-4 {med:.4f}), peak {peak:.2f} GiB, last losses "
+        f"{r['logged'][max(r['logged'])]}; launches per step {per_step}")
+    del trainer, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def kitti_tiny_config():
+    """``tiny`` widths with ``kitti_occ``'s options (as the CPU parity test
+    builds them): the h_half mapping over a front-only box, one camera, the
+    compact second derivative, ``return_uniform_sdf`` with the five KITTI
+    losses, 3 SH colour channels, no semantic head, dropout 0."""
+    from selfocc_tpu_torch.configs import experiments as ex
+    cfg, k = ex.tiny(), ex.kitti_occ()
+    pc = (-10.0, 0.0, -1.0, 10.0, 10.0, 3.0)
+    mapping = dict(cfg.model.head.mapping_args, h_half=True)
+    loss_cfgs = [dict(c, img_size=list(cfg.img_size),
+                      ray_resize=list(cfg.num_rays)) if "img_size" in c
+                 else dict(c) for c in k.loss_cfgs]
+    enc = dataclasses.replace(cfg.model.encoder, mapping_args=mapping,
+                              pc_range=pc, num_cams=1, dropout=0.0)
+    head = dataclasses.replace(
+        cfg.model.head, roi_aabb=pc, mapping_args=mapping,
+        use_compact_2nd_grad=True, return_uniform_sdf=True, return_sem=False,
+        color_dims=3, sem_dims=0)
+    return dataclasses.replace(
+        cfg, name="kitti_tiny",
+        model=dataclasses.replace(cfg.model, encoder=enc, head=head),
+        loss_cfgs=loss_cfgs, loss_input_convertion=dict(
+            k.loss_input_convertion), num_cams=1, sem=False)
+
+
+def kitti_train_parity(device):
+    """A KITTI-shaped ``tiny`` step with the kernels on the card (rendered
+    in checkpointed chunks of 20 rays: 24 rays, the last chunk padded)
+    against the plain versions on the CPU rendered densely, same weights
+    and draws (the uniform grid's shift included): four losses within rtol
+    1e-5 and each parameter's gradient of them within GRAD_RTOL of its max;
+    SecondGradLoss within rtol 1e-3, and its stencil held on one volume.
+    The compact stencil divides differences of sdf taps 0.01 m apart by
+    1e-4, so it turns the rounding differences of the two paths' decoded
+    volumes (the encoder's sums on the card and on the CPU) into noise at
+    every sample whose taps share a cell, where the true second derivative
+    is 0 and |.| keeps the noise: the loss moves by about 3e-4 of itself,
+    and its parameter gradients by rounding noise alone where they vanish
+    in exact arithmetic (the sdf channel's bias shifts all taps alike);
+    their worst error is reported. So the card's second derivative is
+    also held on the card's decoded volume handed to both paths, at the
+    first chunk's samples: values within 1e-4 of their max + 1e-5 and the
+    volume's cotangent (a random one) within GRAD_RTOL of its max, as
+    tests/test_torch_port_train.py holds them against JAX. The sdf is
+    centred on 0 (the last layer's bias), so that SoftSparsityLoss has
+    negative sdf to act on."""
+    import torch
+    from selfocc_tpu_torch.geometry.projection import rays_from_img2lidar
+    from selfocc_tpu_torch.losses import MultiLoss
+    from selfocc_tpu_torch.models import neus
+    from selfocc_tpu_torch.models.heads import uniform_axes
+    from selfocc_tpu_torch.models.initializers import init_weights
+    from selfocc_tpu_torch.models.segmentor import TPVSegmentor
+    from selfocc_tpu_torch.utils.runtime import get_dataset, to_device
+    from selfocc_tpu_torch.utils.train_lib import build_loss_inputs
+    cfg = kitti_tiny_config()
+    h = cfg.model.head
+    item = get_dataset(cfg, synthetic=True)[0]
+    g = torch.Generator().manual_seed(SEED)
+    R = h.ray_number[0] * h.ray_number[1]
+    xs, ys, zs = uniform_axes(h.roi_aabb, h.resolution)
+    draws = {"cellular": torch.rand(4, generator=g),
+             "t_rand": torch.rand((R, h.num_samples + 1), generator=g),
+             "bkgd": torch.rand((R, 3), generator=g),
+             "uniform_shift": torch.rand((len(ys), len(xs), len(zs), 3),
+                                         generator=g)}
+    model = TPVSegmentor(cfg.model)
+    init_weights(model, torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        model.head.field.density_net[-1].bias[0] -= 1.0
+    results = []
+    for dev, chunk in ((device, PARITY_RAY_CHUNK), (torch.device("cpu"), 0)):
+        m = copy.deepcopy(model).to(dev).train()
+        m.head.train_ray_chunk = chunk
+        batch = to_device(item, dev)
+        grads = []
+        for part in ("others", "SecondGradLoss"):
+            out = m(batch["imgs"], batch["lidar2img"], batch[h.trans_kw],
+                    train=True, draws=draws)
+            _, ldict = MultiLoss(cfg.loss_cfgs)(
+                build_loss_inputs(cfg, out, batch))
+            loss = ldict["SecondGradLoss"] if part == "SecondGradLoss" else \
+                sum(v for k, v in ldict.items() if k != "SecondGradLoss")
+            m.zero_grad(set_to_none=True)
+            loss.backward()
+            grads.append({n: p.grad.detach().cpu()
+                          for n, p in m.named_parameters()
+                          if p.grad is not None})
+        results.append(({k: float(v.detach()) for k, v in ldict.items()},
+                        grads))
+        if dev == device:
+            with torch.no_grad():
+                volume = m.prepare(batch["imgs"], batch["lidar2img"])
+            head = m.head
+            rays = head.ray_sampler(dev, None, draws["cellular"].to(dev))
+            o, d = rays_from_img2lidar(batch[h.trans_kw], rays)
+            o = o[:, :, None, :].expand(d.shape).reshape(-1, 3)
+            unit = d.reshape(-1, 3)
+            unit = unit / torch.linalg.norm(unit, dim=-1, keepdim=True)
+            near, far = neus.ray_aabb_near_far(o, unit, head.roi_aabb,
+                                               head.near_plane,
+                                               head.far_plane)
+            mids = neus.sample_uniform(near, far, head.num_samples,
+                                       draws["t_rand"].to(dev)).mids
+            pos = (o[:, None] + unit[:, None] * mids[..., None]).reshape(-1,
+                                                                         3)
+    (l_k, g_k), (l_p, g_p) = results
+    if not l_p["SoftSparsityLoss"] > 0:
+        raise AssertionError(f"kitti parity: no negative sdf ({l_p})")
+    for k in l_p:
+        rtol = 1e-3 if k == "SecondGradLoss" else 1e-5
+        check(f"kitti tiny loss {k}", abs(l_k[k] - l_p[k]),
+              rtol * abs(l_p[k]) + 1e-7)
+    worst = {}
+    for part, gk, gp in zip(("others", "SecondGradLoss"), g_k, g_p):
+        if set(gk) != set(gp):
+            raise AssertionError(f"kitti parity {part}: gradients of "
+                                 f"{sorted(set(gk) ^ set(gp))}")
+        w = 0.0
+        for n in gp:
+            err = max_err(gk[n], gp[n])
+            tol = GRAD_RTOL * float(gp[n].abs().max()) + 1e-7
+            if part == "others" and not err <= tol:
+                raise AssertionError(f"kitti tiny grad {n}: {err:.3e} > "
+                                     f"{tol:.3e}")
+            w = max(w, err / tol)
+        worst[part] = w
+    # the stencil on one volume: kernels on the card, plain on the CPU
+    field = model.head.field
+    cot = torch.randn((pos.shape[0], 3), generator=g)
+    stencil = []
+    for dev in (device, torch.device("cpu")):
+        v = volume.detach().permute(1, 2, 3, 0).contiguous().to(dev)
+        v.requires_grad_(True)
+        sg = field.to(dev).second_grad(v.permute(3, 0, 1, 2), pos.to(dev),
+                                       h.numerical_gradients_delta)
+        (sg * cot.to(dev)).sum().backward()
+        stencil.append((sg.detach().cpu(), v.grad.cpu()))
+    field.cpu()
+    (sg_k, gv_k), (sg_p, gv_p) = stencil
+    check("kitti compact second derivative (one volume)",
+          max_err(sg_k, sg_p), 1e-4 * float(sg_p.abs().max()) + 1e-5)
+    # the cotangent of each voxel is a sum of terms of 1 / delta^2 = 1e4
+    # times the cotangent that cancel within a cell, so its rounding scales
+    # with the sum of their magnitudes: the stencil's cotangent of |cot|
+    # with every coefficient taken positive (``absolute``)
+    absolute = stencil_absolute_cotangent(field, volume.detach().cpu(),
+                                          pos.cpu(), cot,
+                                          h.numerical_gradients_delta)
+    excess = ((gv_k[..., 0] - gv_p[..., 0]).abs().double()
+              - GRAD_RTOL * float(gv_p.abs().max()) - 1e-7)
+    ratio = float((excess / absolute.double().clamp_min(1e-30)).max())
+    log(f"  kitti stencil cotangent: max_abs_err {max_err(gv_k, gv_p):.3e}, "
+        f"largest {float(gv_p.abs().max()):.3e}, largest absolute sum "
+        f"{float(absolute.max()):.3e}; error beyond GRAD_RTOL of the max "
+        f"over the absolute sum: {ratio:.3e} (tolerance {STENCIL_RTOL:.0e})")
+    if not ratio <= STENCIL_RTOL:
+        raise AssertionError(f"kitti stencil cotangent: {ratio:.3e}")
+    log(f"  kitti tiny, chunks of {PARITY_RAY_CHUNK} rays on the card vs "
+        f"dense on the CPU: losses {l_k}; worst gradient error over "
+        f"GRAD_RTOL of its max {worst} (SecondGradLoss's reported, not "
+        f"held: see the docstring); the stencil on {pos.shape[0]} samples "
+        f"of one volume within tolerance")
+    return {"losses_cuda": l_k, "losses_cpu": l_p,
+            "worst_grad_err_over_tol": worst,
+            "second_grad_loss_rel_diff": abs(
+                l_k["SecondGradLoss"] - l_p["SecondGradLoss"])
+            / abs(l_p["SecondGradLoss"]),
+            "stencil_max_abs_err": [max_err(sg_k, sg_p),
+                                    max_err(gv_k, gv_p)]}
+
+
+def stencil_absolute_cotangent(field, volume, pos, cot, delta):
+    """The volume cotangent of the compact second derivative at metric
+    points ``pos`` for the cotangent ``|cot|`` (N, 3), every stencil
+    coefficient (1 / delta^2 at each tap, 2 / delta^2 at the centre) taken
+    positive: per voxel, the sum of the magnitudes of the terms whose
+    signed sum is the cotangent. Plain versions, (H, W, D)."""
+    import torch
+    from selfocc_tpu_torch.ops import interp
+    plane = interp.first_channel(volume)
+    a = cot.abs() / (delta * delta)
+    m = field.mapping.meter2grid
+    out = interp.trilinear_cf_bwd_plain(plane, m(pos), 2 * a.sum(-1,
+                                                                 True))
+    eye = torch.eye(3) * delta
+    for axis in range(3):
+        for sign in (1.0, -1.0):
+            out = out + interp.trilinear_cf_bwd_plain(
+                plane, m(pos + sign * eye[axis]), a[:, axis:axis + 1])
+    return out[0]
+
+
+def kitti_occupancy(device, root):
+    """``eval_iou_kitti.main`` on one fabricated val frame (the 256 x 256 x
+    32 grid over the front box at 0.2 m, labels read from ``root``), with
+    its launch counts and peak memory; then the same model's query on that
+    frame's volume, kernel path against plain path (the plain versions on
+    the card): the occupancies may differ only at voxels with |sdf| <
+    1e-5."""
+    import numpy as np
+    import torch
+    from selfocc_tpu_torch import eval_iou_kitti
+    from selfocc_tpu_torch.configs.experiments import get_config
+    from selfocc_tpu_torch.data import build_dataset
+    from selfocc_tpu_torch.eval_depth import build_model
+    from selfocc_tpu_torch.ops import interp, msda
+    from selfocc_tpu_torch.utils.eval_lib import GridOccEvaluator
+    from selfocc_tpu_torch.utils.runtime import to_device
+    wrappers = (interp.trilinear_cf_fwd, msda.msda_fwd)
+    args = ["--py-config", "kitti_occ_fab", "--num-samples", "1",
+            "--kitti-root", root, "--seed", str(SEED)]
+    eval_iou_kitti.main(args)                      # cold
+    reset_counts(wrappers)
+    torch.cuda.reset_peak_memory_stats()
+    r = eval_iou_kitti.main(args)
+    launches = read_counts(wrappers, "kitti occupancy frame")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    scores = {"iou": r["iou"], "scenerf_iou": r["stats"]["iou"],
+              **{k: r["stats"][k] for k in ("precision", "recall",
+                                             "iou_ssc_mean")}}
+    if not all(np.isfinite(v) for v in scores.values()):
+        raise AssertionError(f"eval_iou_kitti scores: {scores}")
+    cfg = get_config("kitti_occ_fab")
+    model = build_model(cfg, SEED, device)
+    batch = to_device(build_dataset(cfg, "val")[0], device)
+    ev = GridOccEvaluator(model)
+    volume = ev.prepare(batch["imgs"], batch["lidar2img"])
+    aabb = eval_iou_kitti.KITTI_AABB
+    sdf_k = ev.query_grid_device(volume, aabb, 0.2, keys=("sdf",))["sdf"]
+    flat, shape = ev._flat_grid(aabb, 0.2, device)
+    sdf_p = interp.trilinear_sample_cf_plain(
+        interp.first_channel(volume),
+        model.head.field.mapping.meter2grid(flat))[..., 0].reshape(shape)
+    differ = (sdf_k <= 0) != (sdf_p <= 0)
+    bad = differ & ~((sdf_k.abs() < 1e-5) | (sdf_p.abs() < 1e-5))
+    flips = {"voxels": int(differ.numel()), "differ": int(differ.sum()),
+             "sdf_max_abs_err": max_err(sdf_k, sdf_p),
+             "occupied": float((sdf_k <= 0).float().mean())}
+    log(f"  kitti occupancy: prepare {r['prepare_s']:.4f} s, query "
+        f"{r['query_s']:.4f} s, peak {peak:.2f} GiB, scores {scores}; kernel "
+        f"vs plain {flips}")
+    if int(bad.sum()):
+        raise AssertionError(f"kitti occupancy: {int(bad.sum())} voxels "
+                             "differ outside |sdf| < 1e-5")
+    del model, volume, sdf_k, sdf_p, flat
+    torch.cuda.empty_cache()
+    return {"prepare_s": r["prepare_s"], "query_s": r["query_s"],
+            "grid": list(shape), "max_memory_gb": peak, "scores": scores,
+            "launches": launches, "kernel_vs_plain": flips}
+
+
+def kitti_novel(device):
+    """``eval_novel_depth_kitti.main`` on the fabricated sequence 08,
+    ``--depth-tgt raw`` then ``max``: two frames (0 and 5, with 9 and 5
+    following neighbours), prepare and render per neighbour (176 x 608
+    rays), rays/s, peak, launch counts; then on frame 0's first neighbour:
+    depths finite and in their rays' bands, and a 4096-ray subset on the
+    card against the plain versions on the CPU (depth 1e-3 m, acc 1e-4, as
+    [frame])."""
+    import numpy as np
+    import torch
+    from selfocc_tpu_torch import eval_depth, eval_novel_depth_kitti
+    from selfocc_tpu_torch.configs.experiments import get_config
+    from selfocc_tpu_torch.data import build_dataset
+    from selfocc_tpu_torch.models import neus
+    from selfocc_tpu_torch.ops import interp, msda, render_weights
+    from selfocc_tpu_torch.utils.eval_lib import (ChunkedRenderer,
+                                                  eval_ray_grid,
+                                                  prep_input_imgs,
+                                                  rays_for_cams)
+    res = {}
+    wrappers = (render_weights.neus_render_fwd,
+                interp.trilinear_cf_with_grad_fwd, msda.msda_fwd)
+    for tgt in ("raw", "max"):
+        reset_counts(wrappers)
+        torch.cuda.reset_peak_memory_stats()
+        r = eval_novel_depth_kitti.main([
+            "--py-config", "kitti_novel_depth_fab", "--num-samples", "2",
+            "--depth-tgt", tgt, "--seed", str(SEED)])
+        launches = read_counts(wrappers, f"kitti novel-view frames ({tgt})")
+        table = dict(r["table"])
+        if not table or not all(np.isfinite(v).all()
+                                for v in map(np.asarray, table.values())):
+            raise AssertionError(f"kitti novel depth table ({tgt}): {table}")
+        cfg = get_config("kitti_novel_depth_fab")
+        if r["rays"] != cfg.eval_num_rays[0] * cfg.eval_num_rays[1]:
+            raise AssertionError(f"kitti novel: {r['rays']} rays")
+        warm = r["render_s"][1:]
+        res[tgt] = {"prepare_s": r["prepare_s"], "render_s": r["render_s"],
+                    "rays": r["rays"],
+                    "rays_per_s": r["rays"] / (sum(warm) / len(warm)),
+                    "max_memory_gb": torch.cuda.max_memory_allocated()
+                    / 2**30, "launches": launches, "table": table}
+        log(f"  kitti novel ({tgt}): prepare {r['prepare_s']} s, render per "
+            f"neighbour {r['render_s']} s ({res[tgt]['rays_per_s']:.0f} "
+            f"rays/s warm), peak {res[tgt]['max_memory_gb']:.2f} GiB")
+    cfg = get_config("kitti_novel_depth_fab")
+    model = eval_depth.build_model(cfg, SEED, device)
+    input_imgs, _, metas = build_dataset(cfg, "novel_eval")[0]
+    imgs = prep_input_imgs(input_imgs, cfg, device)
+    l2i = torch.as_tensor(np.asarray(metas["lidar2img"]), dtype=torch.float32,
+                          device=device)[None]
+    renderer = ChunkedRenderer(model, chunk=CHUNK, outputs=("depth", "acc"))
+    volume = renderer.prepare(imgs, l2i)
+    tem = torch.as_tensor(np.asarray(metas["temImg2lidars"][0]),
+                          dtype=torch.float32, device=device)[None]
+    origin, direction = rays_for_cams(tem, eval_ray_grid(cfg, device=device))
+    out = renderer.render_device(volume, origin, direction)
+    dn = torch.linalg.norm(direction, dim=-1)
+    near, far = neus.ray_aabb_near_far(origin, direction / dn[:, None],
+                                       cfg.model.head.roi_aabb)
+    if not bool(torch.isfinite(out["depth"]).all()):
+        raise AssertionError("kitti novel depth: non-finite")
+    if bool((out["depth"] < out["acc"] * near / dn - 1e-3).any()) or \
+            bool((out["depth"] > far / dn * (1 + 1e-5) + 1e-3).any()):
+        raise AssertionError("kitti novel depth outside [acc near, far]")
+    idx = torch.linspace(0, origin.shape[0] - 1, SUBSET_RAYS,
+                         device=device).long()
+    gpu = ChunkedRenderer(model, chunk=SUBSET_RAYS,
+                          outputs=("depth", "acc")).render(
+        volume, origin[idx], direction[idx])
+    cpu_model = copy.deepcopy(model).cpu()
+    cpu = ChunkedRenderer(cpu_model, chunk=SUBSET_RAYS,
+                          outputs=("depth", "acc")).render(
+        volume.cpu(), origin[idx].cpu(), direction[idx].cpu())
+    sub = {k: float(abs(gpu[k].astype("float64") - cpu[k]).max())
+           for k in ("depth", "acc")}
+    log(f"  kitti novel: depths finite and in band; 4096-ray subset, "
+        f"kernels vs plain (CPU): {sub}")
+    if not (sub["depth"] <= 1e-3 and sub["acc"] <= 1e-4):
+        raise AssertionError(f"kitti novel subset disagrees: {sub}")
+    res["subset_err"] = sub
+    del model, cpu_model, volume, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def kitti_phase(device):
+    """The SemanticKITTI recipe on a fabricated full-size odometry tree (a
+    temporary directory, removed after): kitti_occ training from the
+    loader, the KITTI-shaped tiny step against the CPU, one occupancy eval
+    frame and the novel-view depth eval."""
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix="selfocc_kitti_")
+    try:
+        t0 = time.time()
+        fabricate_kitti(root)
+        kitti_fab_configs(root)
+        log(f"  fabricated SemanticKITTI sequences 00 ({KITTI_TRAIN_FRAMES} "
+            f"frames) and 08 ({KITTI_VAL_FRAMES}) of {KITTI_IMG[1]}x"
+            f"{KITTI_IMG[0]} PNGs and {KITTI_LIDAR_POINTS}-point scans in "
+            f"{time.time() - t0:.1f}s")
+        res = {"train": kitti_train(device, root)}
+        res["train_parity"] = kitti_train_parity(device)
+        res["occupancy"] = kitti_occupancy(device, root)
+        res["novel"] = kitti_novel(device)
+        return res
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2530,7 +3257,8 @@ def main():
             "occ": lambda: occ_frame(device),
             "train-parity": lambda: train_parity(device),
             "train": lambda: full_train(device),
-            "data": lambda: data_phase(device, phases.get("train"))}
+            "data": lambda: data_phase(device, phases.get("train")),
+            "kitti": lambda: kitti_phase(device)}
     phases = {}
     for tag in PHASES:
         if tag not in wanted:
@@ -2549,13 +3277,18 @@ def main():
     kres["neus_weights_fwd"].update(
         launches=kres.pop("weights_path_launches"), launches_main_path=0)
     fres, tres, ores = phases["frame"], phases["train"], phases["occ"]
-    dres = phases["data"]
+    dres, kires = phases["data"], phases["kitti"]
     data_launches = {
         "data_train": dres["train"]["launches"],
         "data_depth_frame": dres["eval"]["eval_depth"]["launches"],
         "data_occ_frame": dres["eval"]["eval_iou"]["launches"],
         "novel_raw": dres["novel"]["raw"]["launches"],
-        "novel_max": dres["novel"]["max"]["launches"]}
+        "novel_max": dres["novel"]["max"]["launches"],
+        "kitti_train": kires["train"]["launches"],
+        "kitti_step": kires["train"]["launches_per_step"],
+        "kitti_occ_frame": kires["occupancy"]["launches"],
+        "kitti_novel_raw": kires["novel"]["raw"]["launches"],
+        "kitti_novel_max": kires["novel"]["max"]["launches"]}
     log(f"[frame] prepare {fres['prepare_s']:.3f}s render "
         f"{fres['render_s']:.3f}s ({fres['rays'] / fres['render_s']:.0f} "
         f"rays/s), peak {fres['max_memory_gb']:.2f} GiB allocated")
@@ -2570,6 +3303,8 @@ def main():
                                        "selfocc_tpu/ops/interp.py:159"),
         "trilinear_bwd": ("trilinear.cu", "selfocc_tpu/ops/interp.py:159"),
         "trilinear_cf_fwd": ("trilinear.cu",
+                             "selfocc_tpu/ops/interp.py:118"),
+        "trilinear_cf_bwd": ("trilinear.cu",
                              "selfocc_tpu/ops/interp.py:118"),
         "msda_fwd": ("msda.cu", "selfocc_tpu/ops/msda.py:160"),
         "msda_bwd": ("msda.cu", "selfocc_tpu/ops/msda.py:160"),
@@ -2594,6 +3329,20 @@ def main():
         for path, counts in data_launches.items():
             if name in counts:
                 entry[f"launches_{path}"] = counts[name]
+            for kind in ("plane", "rows"):
+                if f"{name}.{kind}" in counts:
+                    entry[f"launches_{path}_{kind}"] = \
+                        counts[f"{name}.{kind}"]
+        if name == "trilinear_cf_bwd":
+            # its main path is kitti_occ training (values-only gradients);
+            # there the plane instance of trilinear_bwd is its alone
+            entry["launches"] = kires["train"]["launches"][name]
+            plane = kires["train"]["profile"]["trilinear_kernels"].get(
+                "trilinear_bwd_plane_kernel")
+            if plane is not None:
+                entry["in_kitti_step_ms_per_call_plane"] = \
+                    plane["ms_per_call"]
+                entry["in_kitti_step_calls_plane"] = plane["calls"]
         if name == "trilinear_cf_fwd":
             # its main path is the occupancy eval: the Occ3D gather frame
             occ_l = {t: ores[t]["launches"] for t in
@@ -2618,7 +3367,7 @@ def main():
                 if k != "kernel_vs_plain"},
         "train_parity": phases["train-parity"],
         "train": {k: v for k, v in tres.items() if k != "launches"},
-        "data": dres}),
+        "data": dres, "kitti": kires}),
         flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,6 +1,8 @@
 """The experiment configs the port runs: copies of ``nuscenes_occ``,
-``nuscenes_depth``, ``nuscenes_novel_depth`` and ``tiny`` from ``selfocc_tpu/configs/experiments.py`` (value-for-value mirrors
-of the reference ``config/`` files). ``get_config(name)`` replaces
+``nuscenes_depth``, ``nuscenes_novel_depth``, ``kitti_occ``,
+``kitti_novel_depth`` (with ``_KITTI_IMG_NORM``) and ``tiny`` from
+``selfocc_tpu/configs/experiments.py`` (value-for-value mirrors of the
+reference ``config/`` files). ``get_config(name)`` replaces
 ``Config.fromfile``.
 """
 from __future__ import annotations
@@ -22,6 +24,11 @@ _EDGE_INPUTS = {"curr_imgs": "curr_imgs", "ms_depths": "ms_depths",
 _BASE_CONVERTION = dict(
     ms_depths="ms_depths", ms_rays="ms_rays", ms_colors="ms_colors",
     weights="weights", ts="ts", eik_grad="eik_grad")
+
+# KITTI image normalization (reference config/kitti/kitti_occ.py
+# train_wrapper_config.img_norm_cfg — differs from the ImageNet default)
+_KITTI_IMG_NORM = dict(mean=[124.16, 116.74, 103.94],
+                       std=[58.624, 57.344, 57.6], to_rgb=True)
 
 
 def _nusc_dataset_args(min_dist=0.4, max_dist=30.0, train_cur_prob=0.333,
@@ -170,6 +177,94 @@ def nuscenes_novel_depth() -> Config:
         train_dataset_args=train_ds, val_dataset_args=val_ds)
 
 
+def kitti_occ() -> Config:
+    """reference ``config/kitti/kitti_occ.py``."""
+    img_size = (352, 1216)
+    num_rays = (55, 190)
+    mapping_args = dict(
+        nonlinear_mode="linear",
+        h_size=[256, 0], h_range=[51.2, 0], h_half=True,
+        w_size=[128, 0], w_range=[25.6, 0], w_half=False,
+        d_size=[32, 0], d_range=[-2.0, 4.4, 4.4])
+    pc_range = (-25.6, 0.0, -2.0, 25.6, 51.2, 4.4)
+    loss_cfgs = [
+        dict(type="ReprojLossMonoMultiNew", weight=1.0, no_ssim=False,
+             img_size=list(img_size), ray_resize=list(num_rays),
+             input_dict=dict(_REPROJ_INPUTS)),
+        dict(type="RGBLossMS", weight=0.1, img_size=list(img_size),
+             no_ssim=False, ray_resize=list(num_rays),
+             input_dict=dict(_RGB_INPUTS)),
+        dict(type="EikonalLoss", weight=0.1),
+        dict(type="SecondGradLoss", weight=0.1),
+        dict(type="SoftSparsityLoss", weight=0.005,
+             input_dict={"density": "uniform_sdf"}),
+    ]
+    model = ModelConfig(
+        encoder=EncoderConfig(
+            mapping_args=mapping_args, embed_dims=96, num_heads=6, num_cams=1,
+            num_feature_levels=4, num_points_cross=(48, 48, 8),
+            num_points_self=12, num_layers=4, feedforward_channels=192,
+            pc_range=pc_range),
+        head=HeadConfig(
+            roi_aabb=pc_range, mapping_args=mapping_args, resolution=0.4,
+            num_samples=256, beta_init=0.1, beta_max=0.195,
+            total_iters=3516 * 11, use_numerical_gradients=False,
+            use_compact_2nd_grad=True, return_uniform_sdf=True,
+            return_second_grad=True, ray_sample_mode="cellular",
+            ray_number=num_rays, ray_img_size=img_size,
+            trans_kw="temImg2lidar", render_bkgd="random", embed_dims=96,
+            color_dims=3, sem_dims=0, sh_deg=0, two_split=False, tpv=True),
+        lifter_type="TPVQueryLifter", embed_dims=96)
+    convertion = dict(_BASE_CONVERTION, second_grad="second_grad",
+                      uniform_sdf="uniform_sdf")
+    # reference config/kitti/kitti_occ.py train/val_dataset_config +
+    # the KITTI-specific img_norm in the wrapper blocks
+    kitti_common = dict(frames_interval=0.4, sequence_distance=[10, 40],
+                        prev_prob=0.2, choose_nearest=True)
+    train_ds = dict(kitti_common, split="train", cur_prob=0.333, strict=True)
+    val_ds = dict(kitti_common, split="val", cur_prob=1.0, strict=False,
+                  return_depth=True)
+    return Config(
+        name="kitti_occ", model=model, loss_cfgs=loss_cfgs,
+        loss_input_convertion=convertion, img_size=img_size,
+        input_size=(176, 608), num_rays=num_rays, num_cams=1, max_epochs=24,
+        sem=False, num_classes=20, lr=1e-3, weight_decay=0.01,
+        steps_per_epoch=3516, scale_rate=0.5,
+        dataset_type="Kitti_One_Frame", eval_num_rays=(176, 608),
+        train_dataset_args=train_ds, val_dataset_args=val_ds,
+        wrapper_args=dict(img_norm_cfg=dict(_KITTI_IMG_NORM)))
+
+
+def kitti_novel_depth() -> Config:
+    """reference ``config/kitti/kitti_novel_depth.py``."""
+    cfg = kitti_occ()
+    img_size = (370, 1216)
+    loss_cfgs = [c for c in cfg.loss_cfgs if c["type"] != "SoftSparsityLoss"]
+    for c in loss_cfgs:
+        if c["type"] == "SecondGradLoss":
+            c["weight"] = 0.01
+        if "img_size" in c:
+            c["img_size"] = list(img_size)
+    model = dataclasses.replace(
+        cfg.model,
+        head=dataclasses.replace(cfg.model.head, return_uniform_sdf=False,
+                          use_compact_2nd_grad=False, ray_img_size=img_size))
+    convertion = dict(_BASE_CONVERTION, second_grad="second_grad")
+    # reference config/kitti/kitti_novel_depth.py dataset/wrapper blocks
+    train_ds = dict(split="train", cur_prob=0.5, strict=True, prev_prob=0.0,
+                    choose_nearest=True)
+    val_ds = dict(split="val", cur_prob=1.0, strict=False, prev_prob=0.5,
+                  choose_nearest=True, return_depth=True)
+    return dataclasses.replace(
+        cfg, name="kitti_novel_depth", model=model, loss_cfgs=loss_cfgs,
+        loss_input_convertion=convertion, img_size=img_size,
+        input_size=(176, 608),
+        train_dataset_args=train_ds, val_dataset_args=val_ds,
+        wrapper_args=dict(img_norm_cfg=dict(_KITTI_IMG_NORM),
+                          pad_img_size=[384, 1216],
+                          pad_scale_rate=[1.038, 1.0]))
+
+
 def tiny() -> Config:
     """Miniature config (tiny backbone, 17^2x9 TPV grid) for smoke tests and
     multi-chip dry runs — not a reference experiment."""
@@ -221,6 +316,8 @@ _CONFIGS = {
     "nuscenes_occ": nuscenes_occ,
     "nuscenes_depth": nuscenes_depth,
     "nuscenes_novel_depth": nuscenes_novel_depth,
+    "kitti_occ": kitti_occ,
+    "kitti_novel_depth": kitti_novel_depth,
 }
 
 def register_config(name: str, factory) -> None:

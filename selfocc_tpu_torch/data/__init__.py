@@ -1,21 +1,23 @@
 """Data layer — the port's copies of the JAX package's jax-free data modules
-(the synthetic scene, the nuScenes loaders, the wrapper, the transforms, the
-sampler and the prefetcher) and ``build_dataset``, the counterpart of
+(the synthetic scene, the nuScenes and SemanticKITTI loaders, the voxel-label
+IO, the wrapper, the transforms, the sampler and the prefetcher) and
+``build_dataset``, the counterpart of
 ``selfocc_tpu/data/__init__.py::build_dataset``.
 
 ``build_dataset`` mirrors the reference ``get_dataloader``
 (``dataset/__init__.py:20-106``): dataset -> wrapper(aug) -> canonical array
 batches. It raises FileNotFoundError, naming the path, when the dataset
-index is absent; the port's drivers turn that into an error exit and never
-substitute synthetic data. The KITTI datasets are not ported: a KITTI
-config raises NotImplementedError.
+index (nuScenes) or the odometry tree ``<data_path>/dataset`` (KITTI) is
+absent; the port's drivers turn that into an error exit and never
+substitute synthetic data. The KITTI-raw datasets (``Kitti_Raw``,
+``Kitti_Raw_Stereo``) are not ported: they raise NotImplementedError.
 
 ``phase='val'`` builds the VAL split through the val wrapper pipeline (no
 PhotoMetric/flip) with the reference's eval-time dataset overrides applied
 (``utils/config_tools.py:10-67``: ``strict=False, cur_prob=1,
 return_depth=True``). ``phase='novel_eval'`` returns the raw novel-view
 evaluation dataset (``nuScenes_One_Frame_Eval`` over the temporal_v2
-infos).
+infos, ``Kitti_Novel_View_Eval`` over the odometry tree).
 """
 from __future__ import annotations
 
@@ -46,30 +48,28 @@ DEFAULT_PATHS = {
 # depth-returning dataset the reference evaluates with.
 EVAL_OVERRIDES = dict(strict=False, cur_prob=1.0, return_depth=True)
 
-KITTI_TYPES = ("Kitti_One_Frame", "Kitti_Raw", "Kitti_Raw_Stereo")
-
-
 def build_dataset(cfg, phase="train"):
     """Real dataset factory; FileNotFoundError (naming the path) when the
-    dataset index is not on disk, NotImplementedError for a dataset type
-    the port does not load (KITTI)."""
-    if cfg.dataset_type in KITTI_TYPES:
+    dataset index or tree is not on disk, NotImplementedError for a dataset
+    type the port does not load (KITTI-raw)."""
+    if cfg.dataset_type in ("Kitti_Raw", "Kitti_Raw_Stereo"):
         raise NotImplementedError(
-            f"selfocc_tpu_torch: the {cfg.dataset_type} loaders are not "
-            "ported (ROADMAP queue 1 item 7, KITTI)")
-    if cfg.dataset_type != "nuScenes_One_Frame_Sweeps_Dist":
+            f"selfocc_tpu_torch: the {cfg.dataset_type} loader is not ported "
+            "(ROADMAP queue 1 item 1, kitti_raw_depth)")
+    if cfg.dataset_type not in DEFAULT_PATHS:
         raise NotImplementedError(
             f"selfocc_tpu_torch: no loader for dataset type "
             f"{cfg.dataset_type!r}")
     args = dict(cfg.train_dataset_args if phase == "train"
                 else cfg.val_dataset_args)
     if phase == "val":
-        # the novel_eval dataset has its own eval semantics baked in;
-        # the overrides apply to the val-split sweeps dataset only
+        # the novel_eval datasets have their own eval semantics baked in;
+        # the overrides apply to the val-split datasets only
         args.update(EVAL_OVERRIDES)
     defaults = DEFAULT_PATHS[cfg.dataset_type]
     data_path = args.pop("data_path", defaults["data_path"])
     crop_size = args.pop("crop_size", list(cfg.img_size))
+    kitti = cfg.dataset_type == "Kitti_One_Frame"
 
     def probe(path, what="dataset index"):
         if not path or not os.path.exists(path):
@@ -77,6 +77,14 @@ def build_dataset(cfg, phase="train"):
         return path
 
     if phase == "novel_eval":
+        if kitti:
+            # the odometry tree under the config's data path (the JAX
+            # factory probes the default data/kitti/dataset)
+            probe(args.pop("imageset", os.path.join(data_path, "dataset")),
+                  "SemanticKITTI root")
+            from .kitti_eval_dataset import Kitti_Novel_View_Eval
+            return Kitti_Novel_View_Eval(data_path=data_path,
+                                         crop_size=crop_size, **args)
         imageset = args.pop("imageset", defaults["novel_pkl"])
         probe(imageset)
         from .nuscenes_eval_dataset import nuScenes_One_Frame_Eval
@@ -84,13 +92,23 @@ def build_dataset(cfg, phase="train"):
             data_path=data_path, imageset=imageset,
             crop_size=crop_size, **args)
 
-    pkl_key = "train_pkl" if phase == "train" else "val_pkl"
-    imageset = args.pop("imageset", defaults[pkl_key])
-    probe(imageset)
-    from .nuscenes_dataset import nuScenes_One_Frame_Sweeps_Dist
-    raw = nuScenes_One_Frame_Sweeps_Dist(
-        data_path=data_path, imageset=imageset,
-        crop_size=crop_size, **args)
+    if kitti:
+        args.pop("imageset", None)
+        args.setdefault("split", "train" if phase == "train" else "val")
+        args.setdefault("preprocess_root", os.path.join(data_path,
+                                                        "preprocess"))
+        probe(os.path.join(data_path, "dataset"), "SemanticKITTI root")
+        from .kitti_dataset import Kitti_One_Frame
+        raw = Kitti_One_Frame(data_path=data_path, crop_size=crop_size,
+                              **args)
+    else:
+        pkl_key = "train_pkl" if phase == "train" else "val_pkl"
+        imageset = args.pop("imageset", defaults[pkl_key])
+        probe(imageset)
+        from .nuscenes_dataset import nuScenes_One_Frame_Sweeps_Dist
+        raw = nuScenes_One_Frame_Sweeps_Dist(
+            data_path=data_path, imageset=imageset,
+            crop_size=crop_size, **args)
     return TemporalDatasetWrapper(
         raw, phase=phase, scale_rate=cfg.scale_rate,
         photometric_aug=dict(use_swap_channel=False), **cfg.wrapper_args)

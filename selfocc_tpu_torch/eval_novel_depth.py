@@ -34,9 +34,10 @@ from .utils.runtime import (add_device_arg, add_weights_args, get_dataset,
                             get_logger, load_weights, resolve_device)
 
 
-def parse_args(argv=None):
+def parse_args(argv=None, default_config=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--py-config", required=True)
+    ap.add_argument("--py-config", required=default_config is None,
+                    default=default_config)
     ap.add_argument("--batch", type=int, default=32768,
                     help="rays per render chunk")
     ap.add_argument("--synthetic", action="store_true")
@@ -53,8 +54,8 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def main(argv=None) -> Dict:
-    args = parse_args(argv)
+def main(argv=None, default_config=None) -> Dict:
+    args = parse_args(argv, default_config)
     device = resolve_device(args.device)
     cfg = get_config(args.py_config)
     depth_key = "depth" if args.depth_tgt == "raw" else "max_depth"

@@ -1,8 +1,11 @@
-"""Loss registry — counterpart of ``selfocc_tpu/losses`` (the five losses of
-the ``nuscenes_occ`` recipe and two siblings; ``EdgeLoss3DMS`` and the
-sparsity family are not ported yet)."""
+"""Loss registry — counterpart of ``selfocc_tpu/losses``: the losses of the
+``nuscenes_occ`` and ``kitti_occ`` recipes (``ReprojLossMonoMultiNew`` and
+its ``Combine`` variant, ``RGBLossMS``, ``EikonalLoss``, ``SecondGradLoss``,
+``SemCELossMS``, ``SoftSparsityLoss``) and ``SemLossMS``. ``EdgeLoss3DMS``
+and the other sparsity losses (``SparsityLoss``, ``HardSparsityLoss``,
+``AdaptiveSparsityLoss``) are not ported yet."""
 from .base import OPENOCC_LOSS, BaseLoss, MultiLoss, build_loss, register
-from .regularizers import EikonalLoss, SecondGradLoss
+from .regularizers import EikonalLoss, SecondGradLoss, SoftSparsityLoss
 from .reproj import ReprojLossMonoMultiNew, ReprojLossMonoMultiNewCombine
 from .rgb import RGBLossMS, SemCELossMS, SemLossMS
 
@@ -10,4 +13,5 @@ __all__ = [
     "OPENOCC_LOSS", "BaseLoss", "MultiLoss", "build_loss", "register",
     "ReprojLossMonoMultiNew", "ReprojLossMonoMultiNewCombine",
     "RGBLossMS", "SemCELossMS", "SemLossMS", "EikonalLoss", "SecondGradLoss",
+    "SoftSparsityLoss",
 ]

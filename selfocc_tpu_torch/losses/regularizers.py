@@ -1,5 +1,5 @@
-"""SDF regularizers — counterpart of ``EikonalLoss`` and ``SecondGradLoss``
-of ``selfocc_tpu/losses/regularizers.py``."""
+"""SDF regularizers — counterpart of ``EikonalLoss``, ``SecondGradLoss`` and
+``SoftSparsityLoss`` of ``selfocc_tpu/losses/regularizers.py``."""
 from __future__ import annotations
 
 import torch
@@ -33,3 +33,17 @@ class SecondGradLoss(BaseLoss):
 
     def loss_func(self, second_grad):
         return second_grad.abs().mean()
+
+
+@register
+class SoftSparsityLoss(BaseLoss):
+    """``relu(-sdf).mean()`` on the uniform grid
+    (reference ``sparsity_loss.py:65-80``)."""
+
+    def __init__(self, weight=1.0, input_dict=None, **kwargs):
+        super().__init__(weight, input_dict)
+        if input_dict is None:
+            self.input_dict = {"density": "density"}
+
+    def loss_func(self, density):
+        return torch.relu(-density).mean()

@@ -2,9 +2,10 @@
 (``TPVSDFField.decode``, ``query_geo``, ``query_geo_uniform``,
 ``query_geo_grad``, ``sdf``, ``second_grad``, ``second_grad_noncompact``,
 ``color``, ``inv_s``). The render's volume queries go through
-``ops.interp.trilinear_sample_cf_with_grad``, the occupancy queries through
-``trilinear_sample_cf`` (values only) or the separable lerps, so on the card
-they run the trilinear kernels.
+``ops.interp.trilinear_sample_cf_with_grad``, the occupancy queries and the
+sdf taps (``sdf``, the compact ``second_grad``) through
+``trilinear_sample_cf`` (values only, differentiable) or the separable
+lerps, so on the card they run the trilinear kernels.
 
 State-dict keys follow the reference field: ``density_net.{2i+1}`` for the
 Linears of ``Sequential([Softplus, Linear] x density_layers)``,
@@ -22,8 +23,9 @@ from torch import nn
 
 from ..geometry import sh as sh_lib
 from ..geometry.mappings import make_mapping
-from ..ops.interp import (first_channel, separable_grid_resample_cf,
-                          trilinear_sample_cf, trilinear_sample_cf_with_grad)
+from ..ops.interp import (channel0_view, first_channel,
+                          separable_grid_resample_cf, trilinear_sample_cf,
+                          trilinear_sample_cf_with_grad)
 
 
 class LearnedVariance(nn.Module):
@@ -143,19 +145,26 @@ class TPVSDFField(nn.Module):
         return self._split(vals), grad
 
     def sdf(self, volume, xyz):
-        """SDF-only query (channel 0 of the volume) at metric points."""
-        return self.query_geo_grad(first_channel(volume), xyz)[0]["sdf"]
+        """SDF-only query at metric points (``field.py:198-203``): the
+        values of channel 0 of the volume, read in place
+        (``channel0_view``), through the values-only query."""
+        grid = self.mapping.meter2grid(xyz.float())
+        return trilinear_sample_cf(channel0_view(volume), grid,
+                                   "zeros")[..., 0]
 
     def second_grad(self, volume, xyz, delta: float, center=None):
         """Compact numerical second derivative along the 3 axes
         (``field.py:282-294``): ``(sdf(x+d) + sdf(x-d) - 2 sdf(x)) / d^2``;
-        ``center`` is the SDF at ``xyz`` when the caller has it."""
+        ``center`` is the SDF at ``xyz`` when the caller has it. The sdf
+        plane is taken out of the volume once, for the six taps."""
+        sdf_vol = first_channel(volume)
         if center is None:
-            center = self.sdf(volume, xyz)
+            center = self.sdf(sdf_vol, xyz)
         comps = []
         for axis in range(3):
             e = _axis_step(axis, delta, xyz)
-            comps.append((self.sdf(volume, xyz + e) + self.sdf(volume, xyz - e)
+            comps.append((self.sdf(sdf_vol, xyz + e)
+                          + self.sdf(sdf_vol, xyz - e)
                           - 2 * center) / (delta * delta))
         return torch.stack(comps, dim=-1)
 

@@ -4,7 +4,8 @@
 depth ``max_depth``), the training ``forward`` (``heads.py:397-526``)
 with its chunked, checkpointed render, and the occupancy queries
 (``get_uniform_sdf``, ``forward_occ``, ``occ_from_volume``,
-``occ_uniform``; ``heads.py:528-577``).
+``occ_uniform``; ``heads.py:528-577``); ``return_uniform_sdf`` puts the
+uniform grid's sdf among the training outputs.
 
 The field sits at ``head.model.field`` so its state-dict keys are the
 reference's (``head.model.field.*``, the sdfstudio wrapper's naming).
@@ -14,10 +15,11 @@ volume queries through ``ops.interp``: the hand-written kernels for CUDA
 tensors, their plain versions on the CPU.
 
 Randomness: the JAX head splits a PRNG key for the cellular ray grid, the
-stratified jitter and the random background. Here those come from an
-explicit ``torch.Generator``, or from a ``draws`` dict that fixes them
-(``cellular`` (4,), ``t_rand`` (R, S + 1), ``bkgd`` (R, 3)), which is how the
-parity tests hand the JAX draws to the port.
+stratified jitter, the random background and the uniform sdf grid's
+jitter. Here those come from an explicit ``torch.Generator``, or from a
+``draws`` dict that fixes them (``cellular`` (4,), ``t_rand`` (R, S + 1),
+``bkgd`` (R, 3), ``uniform_shift`` (H, W, D, 3)), which is how the parity
+tests hand the JAX draws to the port.
 """
 from __future__ import annotations
 
@@ -108,7 +110,8 @@ class NeuSHead(nn.Module):
                  ray_x_dsr_max: Optional[float] = None,
                  ray_y_dsr_max: Optional[float] = None,
                  train_ray_chunk: int = 0, resolution: float = 0.4,
-                 return_max_depth: bool = False):
+                 return_max_depth: bool = False,
+                 return_uniform_sdf: bool = False):
         super().__init__()
         self.roi_aabb = tuple(roi_aabb)
         self.resolution = resolution
@@ -122,6 +125,7 @@ class NeuSHead(nn.Module):
         self.numerical_gradients_delta = numerical_gradients_delta
         self.train_ray_chunk = train_ray_chunk
         self.return_max_depth = return_max_depth
+        self.return_uniform_sdf = return_uniform_sdf
         self.ray_sampler = RaySampler(
             ray_sample_mode=ray_sample_mode, ray_number=tuple(ray_number),
             ray_img_size=tuple(ray_img_size), ray_upper_crop=ray_upper_crop,
@@ -255,7 +259,10 @@ class NeuSHead(nn.Module):
         as the JAX head uses ``jax.checkpoint``) and return the loss inputs
         (``ms_depths``, ``ms_colors``, ``weights``, ``ts``, ``eik_grad``,
         ``second_grad``, ``sem``, ...). ``img2lidar`` (1, N, 4, 4) is the
-        caller's ``trans_kw`` matrix."""
+        caller's ``trans_kw`` matrix. With ``return_uniform_sdf`` it also
+        returns ``uniform_sdf``, the sdf on the jittered uniform grid over
+        ``roi_aabb`` at ``resolution`` (``get_uniform_sdf``), which
+        ``SoftSparsityLoss`` reads; its gradient flows into the volume."""
         volume = self.field.decode(representation)[0]
         device = volume.device
         draws = {k: torch.as_tensor(v, dtype=torch.float32, device=device)
@@ -317,6 +324,13 @@ class NeuSHead(nn.Module):
             outputs["second_grad"] = r["second_grad"].reshape(-1, 3)
         if "max_depth" in r:
             outputs["ms_max_depths"] = [cams(r["max_depth"])]
+        if self.return_uniform_sdf:
+            # the jitter: JAX draws uniform(split(rng)[1], xyz.shape)
+            # (heads.py:503-506); here the caller's generator, or the
+            # replayed draw ``uniform_shift`` (H, W, D, 3)
+            outputs["uniform_sdf"] = self.get_uniform_sdf(
+                volume, self.roi_aabb, self.resolution, generator=generator,
+                shift=draws.get("uniform_shift"))[0]
         return outputs
 
     def get_uniform_sdf(self, volume, aabb, resolution, generator=None,

@@ -46,7 +46,6 @@ _PORTED = (
     ("head", "estimate_flow", False),
     ("head", "anneal_aabb", False),
     ("head", "two_split", False),
-    ("head", "return_uniform_sdf", False),
     ("head", "return_sample_sdf", False),
 )
 
@@ -110,7 +109,8 @@ class TPVSegmentor(nn.Module):
             ray_upper_crop=h.ray_upper_crop, ray_x_dsr_max=h.ray_x_dsr_max,
             ray_y_dsr_max=h.ray_y_dsr_max,
             train_ray_chunk=h.train_ray_chunk, resolution=h.resolution,
-            return_max_depth=h.return_max_depth)
+            return_max_depth=h.return_max_depth,
+            return_uniform_sdf=h.return_uniform_sdf)
 
     def extract_img_feat(self, imgs):
         """Backbone + neck. imgs (B, N, H, W, 3) -> list of (B, N, h, w, C)."""

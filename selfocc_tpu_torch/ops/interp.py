@@ -5,12 +5,16 @@ Conventions are the JAX package's: the public functions take **fractional
 indices** under ``align_corners=True`` (0 .. size-1), not [-1, 1] grids, and
 volumes have the channel-first shape ``(C, H, W, D)``.
 
-``trilinear_sample_cf`` (values only; the occupancy query) and
-``trilinear_sample`` (a channel-last volume; the Occ3D resample) launch the
-values-only kernel ``trilinear_cf_fwd`` for a CUDA volume and take
-``trilinear_sample_cf_plain`` for a CPU one; ``lerp_axis_cf`` and
-``separable_grid_resample_cf`` (the separable occupancy query) are plain
-torch ops.
+``trilinear_sample_cf`` (values only: the occupancy query, the uniform
+sdf grid of ``SoftSparsityLoss`` and the compact second derivative's sdf
+taps) and ``trilinear_sample`` (a channel-last volume; the Occ3D resample)
+launch the values-only kernel ``trilinear_cf_fwd`` for a CUDA volume and
+take ``trilinear_sample_cf_plain`` for a CPU one. Where the CUDA volume
+needs a gradient, ``_TrilinearValues`` pairs that forward with
+``trilinear_cf_bwd`` (``csrc/trilinear.cu::trilinear_bwd`` with the values'
+cotangent alone); on the CPU autograd runs through the plain version.
+``lerp_axis_cf`` and ``separable_grid_resample_cf`` (the separable
+occupancy query) are plain torch ops.
 
 ``trilinear_sample_cf_with_grad`` is the render's hot loop. It is
 differentiable with respect to the volume, from both of its outputs
@@ -23,8 +27,9 @@ autograd through it). The points get no gradient.
 The kernels read a channel-last volume: ``(H, W, D, C)`` in memory, seen as
 ``(C, H, W, D)`` through a permute, so that a corner's channels are one
 contiguous row. ``field.decode`` produces that layout; ``kernel_volume``
-passes it through and copies any other, and ``first_channel`` takes the sdf
-plane of it with a gradient in the same layout.
+passes it through and copies any other, ``channel0_view`` takes the sdf
+channel of it as a view at the volume's row stride and ``first_channel`` as
+a contiguous plane, both with a gradient in the same layout.
 """
 from __future__ import annotations
 
@@ -108,23 +113,25 @@ def trilinear_sample_cf_plain(vol_cf: torch.Tensor, hwd: torch.Tensor,
 def trilinear_sample_cf(vol_cf: torch.Tensor, hwd: torch.Tensor,
                         padding: str = "zeros") -> torch.Tensor:
     """Values-only trilinear sampling (``interp.py:118``): vol (C, H, W, D),
-    hwd (..., 3) fractional indices -> (..., C) fp32. A CUDA volume
-    launches ``trilinear_cf_fwd`` (zeros padding, no gradient), reading a
-    channel-last volume in place, rows of a wider channel-last tensor
-    included (``row_stride``), and copying any other layout; a CPU volume
-    takes ``trilinear_sample_cf_plain``."""
+    hwd (..., 3) fractional indices -> (..., C) fp32, differentiable with
+    respect to the volume (the points get no gradient). A CUDA volume
+    launches ``trilinear_cf_fwd`` (zeros padding), reading a channel-last
+    volume in place, rows of a wider channel-last tensor included
+    (``row_stride``), and copying any other layout; where it needs a
+    gradient, the backward launches ``trilinear_cf_bwd``. A CPU volume takes
+    ``trilinear_sample_cf_plain``, with autograd through it."""
     if not vol_cf.is_cuda:
         return trilinear_sample_cf_plain(vol_cf, hwd, padding)
     if padding != "zeros":
         raise ValueError("the CUDA trilinear kernel implements zeros padding")
-    if torch.is_grad_enabled() and vol_cf.requires_grad:
-        raise NotImplementedError(
-            "trilinear_sample_cf: the values-only kernel has no backward "
-            "(use trilinear_sample_cf_with_grad)")
     vol = vol_cf.float()
     if row_stride(vol) is None:
         vol = kernel_volume(vol)
-    vals = trilinear_cf_fwd(vol, hwd.reshape(-1, 3).float().contiguous())
+    pts = hwd.reshape(-1, 3).float().contiguous()
+    if torch.is_grad_enabled() and (vol.requires_grad or pts.requires_grad):
+        vals = _TrilinearValues.apply(vol, pts)
+    else:
+        vals = trilinear_cf_fwd(vol, pts)
     return vals.reshape(*hwd.shape[:-1], vol_cf.shape[0])
 
 
@@ -210,16 +217,22 @@ def kernel_volume(vol_cf: torch.Tensor) -> torch.Tensor:
         cl.contiguous().permute(3, 0, 1, 2)
 
 
+def channel0_view(vol_cf: torch.Tensor) -> torch.Tensor:
+    """Channel 0 of a (C, H, W, D) volume as a (1, H, W, D) view, without a
+    copy: on a channel-last volume the values one row stride apart
+    (``row_stride``). It is sliced on the (H, W, D, C) view, so that
+    autograd's zero-filled gradient of the slice is channel-last too and
+    adds to the volume's other gradients without a transpose."""
+    return vol_cf.permute(1, 2, 3, 0)[..., :1].permute(3, 0, 1, 2)
+
+
 def first_channel(vol_cf: torch.Tensor) -> torch.Tensor:
     """Channel 0 of a (C, H, W, D) volume as a contiguous (1, H, W, D)
-    plane, the sdf queries' volume. A channel-first volume gives a slice.
-    A channel-last one is sliced on its (H, W, D, C) view and copied, so
-    that autograd's zero-filled gradient of the slice is channel-last too
-    and adds to the volume's other gradients without a transpose."""
+    plane, the sdf queries' volume. A channel-first volume gives a slice,
+    a channel-last one a copy of ``channel0_view``."""
     if vol_cf.is_contiguous():
         return vol_cf[:1]
-    return kernel_volume(vol_cf.permute(1, 2, 3, 0)[..., :1]
-                         .permute(3, 0, 1, 2))
+    return kernel_volume(channel0_view(vol_cf))
 
 
 def row_stride(vol_cf: torch.Tensor):
@@ -373,6 +386,75 @@ trilinear_bwd.plane_launches = 0
 _SIGNATURES["trilinear_bwd"] = (
     _build.PTR, _build.PTR, _build.PTR, _build.PTR, _build.I64, _build.I32,
     _build.I32, _build.I32, _build.I32, _build.PTR)
+
+
+def trilinear_cf_bwd_plain(vol_cf, hwd, grad_vals):
+    """Plain PyTorch version of ``trilinear_cf_bwd``: autograd through
+    ``trilinear_sample_cf_plain``."""
+    with torch.enable_grad():
+        vol = vol_cf.detach().requires_grad_(True)
+        vals = trilinear_sample_cf_plain(vol, hwd)
+        return torch.autograd.grad(vals, vol, grad_vals)[0]
+
+
+def trilinear_cf_bwd(vol_shape, hwd: torch.Tensor,
+                     grad_vals: torch.Tensor) -> torch.Tensor:
+    """Launch ``csrc/trilinear.cu::trilinear_bwd`` with the values'
+    cotangent alone (no grad0 cotangent): the backward of
+    ``trilinear_cf_fwd``. ``vol_shape`` (C, H, W, D), (N, 3) fractional
+    indices and ``grad_vals`` (N, C), zeros padding -> the volume's
+    cotangent as a (C, H, W, D) view of a contiguous channel-last (H, W, D,
+    C) tensor, which the kernel accumulates into after a zero fill. A
+    row-strided forward (channel 0 of a wider volume, ``channel0_view``)
+    gets this gradient of its C channels; autograd's backward of the slice
+    scatters it into the wider volume's channel-last gradient. C = 1 takes
+    the plane kernel (``plane_launches``), any other C the rows kernel."""
+    C, H, W, D = vol_shape
+    _build.require_cuda_tensor(hwd, "trilinear_cf_bwd points", torch.float32,
+                               2)
+    _build.require_cuda_tensor(grad_vals, "trilinear_cf_bwd grad_vals",
+                               torch.float32, 2)
+    N = hwd.shape[0]
+    if hwd.shape[1] != 3 or tuple(grad_vals.shape) != (N, C) \
+            or grad_vals.device != hwd.device:
+        raise ValueError(f"trilinear_cf_bwd: expected (N, 3) points and "
+                         f"({N}, {C}) grad_vals on one device, got "
+                         f"{tuple(hwd.shape)} / {tuple(grad_vals.shape)}")
+    grad = torch.zeros((H, W, D, C), dtype=torch.float32, device=hwd.device)
+    lib = _build.load("trilinear", _SIGNATURES)
+    status = lib.trilinear_bwd(
+        _build.ptr(hwd), _build.ptr(grad_vals), None, _build.ptr(grad), N, C,
+        H, W, D, _build.stream_ptr(hwd.device))
+    _build.check(status, "trilinear_cf_bwd")
+    trilinear_cf_bwd.launches += 1
+    trilinear_cf_bwd.plane_launches += C == 1
+    return grad.permute(3, 0, 1, 2)
+
+
+trilinear_cf_bwd.launches = 0
+trilinear_cf_bwd.plane_launches = 0
+
+
+class _TrilinearValues(torch.autograd.Function):
+    """``trilinear_cf_fwd`` and ``trilinear_cf_bwd`` on a CUDA volume that
+    needs a gradient; (N, 3) points that need none."""
+
+    @staticmethod
+    def forward(ctx, vol_cf, hwd):
+        if hwd.requires_grad:
+            raise NotImplementedError(
+                "trilinear_sample_cf: no gradient with respect to the "
+                "points is ported (detach them)")
+        ctx.vol_shape = tuple(vol_cf.shape)
+        ctx.save_for_backward(hwd)
+        return trilinear_cf_fwd(vol_cf, hwd)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_vals):
+        (hwd,) = ctx.saved_tensors
+        return trilinear_cf_bwd(ctx.vol_shape, hwd,
+                                grad_vals.contiguous()), None
 
 
 class _TrilinearWithGrad(torch.autograd.Function):

@@ -1,9 +1,10 @@
 """Evaluation metrics — the port's copies of ``OPENSEED2NUSCENES`` /
-``openseed2nuscenes``, ``MeanIoU``, ``IoU``, ``DepthMetric`` and
+``openseed2nuscenes``, ``CITYSCAPES2SEMANTICKITTI`` /
+``cityscapes2semantickitti``, ``MeanIoU``, ``IoU``, ``DepthMetric`` and
 ``_DEPTH_KEYS`` from ``selfocc_tpu/utils/metrics.py`` (host-side numpy).
-The port runs one process, so ``_after_epoch`` sums and averages locally:
-the JAX package's ``_allreduce_sum`` across processes is the identity on
-one.
+The port runs one process, so ``_after_epoch`` sums and averages locally.
+``_allreduce_sum``, which ``utils/scenerf_metric.SSCMetrics`` calls, is
+the JAX package's sum across processes on one process: the identity.
 """
 from __future__ import annotations
 
@@ -12,14 +13,28 @@ from typing import Dict, Sequence
 import numpy as np
 
 # reference metric_util.py:9-64
+CITYSCAPES2SEMANTICKITTI = np.array(
+    [9, 11, 13, 13, 14, 18, 19, 19, 15, 17, 0, 6, 7, 1, 4, 5, 5, 3, 2],
+    np.int32)
 OPENSEED2NUSCENES = np.array(
     [1, 2, 3, 4, 5, 5, 6, 7, 8, 9, 9, 10, 11, 12, 13, 14, 14, 15, 15, 16, 0],
     np.int32)
 
 
+def cityscapes2semantickitti(sem):
+    return CITYSCAPES2SEMANTICKITTI[np.asarray(sem).reshape(-1)].reshape(
+        np.shape(sem))
+
+
 def openseed2nuscenes(sem):
     return OPENSEED2NUSCENES[np.asarray(sem).reshape(-1)].reshape(
         np.shape(sem))
+
+
+def _allreduce_sum(x: np.ndarray) -> np.ndarray:
+    """Sum across processes: the port's drivers run one process, where
+    the JAX package's sum is the identity too."""
+    return x
 
 
 class MeanIoU:

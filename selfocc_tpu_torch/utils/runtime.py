@@ -1,5 +1,6 @@
 """What the port's drivers (``eval_depth``, ``eval_iou``,
-``eval_novel_depth``, ``train``) share:
+``eval_iou_kitti``, ``eval_novel_depth``, ``eval_novel_depth_kitti``,
+``train``) share:
 the device flag, the weights flags, the dataset factory, the logger and
 host-to-device batches."""
 from __future__ import annotations
@@ -101,12 +102,12 @@ def load_weights(model, ckpt_path: str = "", torch_ckpt: str = "",
 def get_dataset(cfg, synthetic: bool, phase: str = "train",
                 length: int = 64):
     """The dataset a driver reads: with ``synthetic`` the procedural scene,
-    else ``data.build_dataset(cfg, phase)`` (the nuScenes loaders; phases
-    ``train``, ``val`` and ``novel_eval``). When the real files are absent
-    it exits non-zero with an error that names the missing path: unlike
-    the JAX ``train.get_dataloader``, it never substitutes synthetic data.
-    A dataset type the port does not load (KITTI) raises
-    NotImplementedError."""
+    else ``data.build_dataset(cfg, phase)`` (the nuScenes and SemanticKITTI
+    loaders; phases ``train``, ``val`` and ``novel_eval``). When the real
+    files are absent it exits non-zero with an error that names the missing
+    path: unlike the JAX ``train.get_dataloader``, it never substitutes
+    synthetic data. A dataset type the port does not load (KITTI-raw)
+    raises NotImplementedError."""
     if not synthetic:
         from ..data import build_dataset
         try:

@@ -2,10 +2,13 @@
 originals: the port imports nothing of ``selfocc_tpu``, so it keeps its own
 ``configs/{base,experiments}.py``, ``data/synthetic.py``,
 ``utils/metrics.py`` (``DepthMetric``, ``MeanIoU``, ``IoU``,
-``openseed2nuscenes``), the ``eval_iou`` driver's helpers, the data
-modules (``transforms``, ``wrapper``, ``nuscenes_dataset``,
-``nuscenes_eval_dataset``, ``sampler``, ``prefetch``), ``build_dataset``'s
-path and override tables and ``utils/openseed_utils.SemTeacher``, and these
+``openseed2nuscenes``, ``cityscapes2semantickitti``), the ``eval_iou``
+driver's helpers, the data modules (``transforms``, ``wrapper``,
+``nuscenes_dataset``, ``nuscenes_eval_dataset``, ``sampler``, ``prefetch``,
+``semantic_kitti_io``, ``kitti_dataset``, ``kitti_eval_dataset``),
+``build_dataset``'s path and override tables,
+``utils/openseed_utils.SemTeacher`` and ``utils/scenerf_metric.SSCMetrics``
+(the KITTI configs with the config test), and these
 tests fail as soon as a copy and its original drift apart. Extend them with
 each module a later slice copies."""
 import ast
@@ -24,7 +27,8 @@ from selfocc_tpu_torch.utils.metrics import DepthMetric as TDepthMetric
 
 
 @pytest.mark.parametrize("name", ["nuscenes_occ", "tiny", "nuscenes_depth",
-                                  "nuscenes_novel_depth"])
+                                  "nuscenes_novel_depth", "kitti_occ",
+                                  "kitti_novel_depth"])
 def test_config_copies_equal_their_originals(name):
     ref = dataclasses.asdict(getattr(jexp, name)())
     got = dataclasses.asdict(getattr(texp, name)())
@@ -213,7 +217,10 @@ _COPIES = {
     "data.prefetch": (), "data.nuscenes_eval_dataset": (),
     "data.nuscenes_dataset": ("nuScenes_One_Frame_Sweeps_Dist."
                               "read_surround_imgs",),
+    "data.semantic_kitti_io": (), "data.kitti_eval_dataset": (),
+    "data.kitti_dataset": ("Kitti_One_Frame.read_surround_imgs",),
     "utils.openseed_utils": ("JaxSemTeacher",),
+    "utils.scenerf_metric": (),
 }
 
 
@@ -226,6 +233,34 @@ def test_data_module_copies_equal_their_originals(name):
     assert set(got) - skip == set(ref) - skip
     for k in set(got) - skip:
         assert got[k] == ref[k], k
+
+
+def test_kitti_metric_copies_equal_their_originals():
+    from selfocc_tpu.utils import metrics as jm
+    from selfocc_tpu.utils.scenerf_metric import SSCMetrics as JSSC
+    from selfocc_tpu_torch.utils import metrics as tm
+    from selfocc_tpu_torch.utils.scenerf_metric import SSCMetrics as TSSC
+    rng = np.random.RandomState(13)
+    np.testing.assert_array_equal(tm.CITYSCAPES2SEMANTICKITTI,
+                                  jm.CITYSCAPES2SEMANTICKITTI)
+    sem = rng.randint(0, 19, (9, 7, 5))
+    np.testing.assert_array_equal(tm.cityscapes2semantickitti(sem),
+                                  jm.cityscapes2semantickitti(sem))
+    x = rng.rand(20)
+    np.testing.assert_array_equal(tm._allreduce_sum(x), jm._allreduce_sum(x))
+    metrics = [JSSC(n_classes=20), TSSC(n_classes=20)]
+    for _ in range(3):
+        pred = rng.randint(0, 20, (1, 16, 16, 4))
+        gt = rng.randint(0, 20, (1, 16, 16, 4))
+        gt[rng.rand(*gt.shape) < 0.1] = 255
+        nonempty = rng.rand(*gt.shape) > 0.2
+        for m in metrics:
+            m.add_batch(pred, gt)
+            m.add_batch(pred, gt, nonempty=nonempty)
+    ref, got = (m.get_stats() for m in metrics)
+    assert set(got) == set(ref)
+    for k in ref:
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
 
 
 def test_read_surround_imgs_is_the_cv2_path(tmp_path):

@@ -241,30 +241,44 @@ def test_missing_data_exits_naming_the_path(tmp_path, monkeypatch, phase,
 @pytest.mark.parametrize("dtype", ["Kitti_One_Frame", "Kitti_Raw",
                                    "Kitti_Raw_Stereo"])
 def test_kitti_is_not_ported(tmp_path, monkeypatch, dtype):
+    # SemanticKITTI (Kitti_One_Frame) is ported: without its odometry tree
+    # every phase raises FileNotFoundError naming <data_path>/dataset, and
+    # the drivers exit naming it. The KITTI-raw loaders are not:
     # NotImplementedError, never FileNotFoundError ("no data"), in every
     # phase, even where the files would be absent
     monkeypatch.chdir(tmp_path)
     cfg = dataclasses.replace(get_config("tiny"), dataset_type=dtype)
     for phase in ("train", "val", "novel_eval"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        if dtype == "Kitti_One_Frame":
+            with pytest.raises(FileNotFoundError, match="data/kitti/dataset"):
+                build_dataset(cfg, phase)
+            with pytest.raises(SystemExit, match="data/kitti/dataset"):
+                get_dataset(cfg, False, phase)
+            continue
+        with pytest.raises(NotImplementedError,
+                           match="queue 1 item 1, kitti_raw_depth"):
             build_dataset(cfg, phase)
         with pytest.raises(NotImplementedError):
             get_dataset(cfg, False, phase)
 
 
 @pytest.mark.parametrize("module", ["train", "eval_depth", "eval_iou",
-                                    "eval_novel_depth"])
+                                    "eval_novel_depth", "eval_iou_kitti",
+                                    "eval_novel_depth_kitti"])
 def test_drivers_without_data_exit_naming_the_path(tmp_path, module):
     # no --synthetic and no files: a non-zero exit that names the index
-    # the loader looked for, and no synthetic run
+    # (nuScenes) or the odometry tree (the KITTI drivers, on their default
+    # configs) the loader looked for, and no synthetic run
     env = dict(os.environ, PYTHONPATH=REPO)
     flag = "--max-steps" if module == "train" else "--num-samples"
+    kitti = module.endswith("_kitti")
     proc = subprocess.run(
-        [sys.executable, "-m", f"selfocc_tpu_torch.{module}", "--py-config",
-         "tiny", flag, "1", "--device", "cpu"], cwd=tmp_path, env=env,
-        capture_output=True, text=True, timeout=300)
+        [sys.executable, "-m", f"selfocc_tpu_torch.{module}", flag, "1",
+         "--device", "cpu"] + ([] if kitti else ["--py-config", "tiny"]),
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
     want = {"train": "train_sweeps", "eval_novel_depth": "val_temporal_v2"}.get(
         module, "val_sweeps")
+    want = "data/kitti/dataset" if kitti else f"data/nuscenes_infos_{want}.pkl"
     assert proc.returncode != 0
-    assert f"data/nuscenes_infos_{want}.pkl" in proc.stderr, proc.stderr
+    assert want in proc.stderr, proc.stderr
     assert "rendered" not in proc.stdout and "[e0 i0]" not in proc.stdout

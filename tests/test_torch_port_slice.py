@@ -167,10 +167,12 @@ def test_eval_depth_runs_without_jax(tmp_path):
     code = (
         "import sys\n"
         "from selfocc_tpu_torch import eval_depth, eval_iou, "
-        "eval_novel_depth, train\n"
-        "from selfocc_tpu_torch.data import (build_dataset, nuscenes_dataset,"
-        " nuscenes_eval_dataset, prefetch, sampler, transforms, wrapper)\n"
-        "from selfocc_tpu_torch.utils import checkpoint, openseed_utils\n"
+        "eval_iou_kitti, eval_novel_depth, eval_novel_depth_kitti, train\n"
+        "from selfocc_tpu_torch.data import (build_dataset, kitti_dataset,"
+        " kitti_eval_dataset, nuscenes_dataset, nuscenes_eval_dataset,"
+        " prefetch, sampler, semantic_kitti_io, transforms, wrapper)\n"
+        "from selfocc_tpu_torch.utils import (checkpoint, openseed_utils,"
+        " scenerf_metric)\n"
         "eval_depth.main(['--py-config', 'tiny', '--synthetic',"
         " '--num-samples', '1', '--batch', '256', '--device', 'cpu'])\n"
         "eval_iou.main(['--py-config', 'tiny', '--synthetic',"
@@ -180,6 +182,12 @@ def test_eval_depth_runs_without_jax(tmp_path):
         f" '1', '--device', 'cpu', '--work-dir', {str(tmp_path)!r}])\n"
         "eval_novel_depth.main(['--py-config', 'tiny', '--synthetic',"
         " '--num-samples', '1', '--batch', '256', '--depth-tgt', 'max',"
+        " '--device', 'cpu'])\n"
+        "eval_iou_kitti.main(['--py-config', 'tiny', '--synthetic',"
+        " '--num-samples', '1', '--resolution', '1.0', '--sem',"
+        " '--device', 'cpu'])\n"
+        "eval_novel_depth_kitti.main(['--py-config', 'tiny', '--synthetic',"
+        " '--num-samples', '1', '--batch', '256', '--offsets', '1.1',"
         " '--device', 'cpu'])\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'flax', 'selfocc_tpu'))\n"
@@ -195,10 +203,13 @@ def test_eval_depth_runs_without_jax(tmp_path):
     assert "miou_miou:" in proc.stdout
     assert "checkpoint saved" in proc.stdout
     assert "rendered 4 novel views" in proc.stdout
+    assert "SceneRF iou:" in proc.stdout and "mIoU:" in proc.stdout
+    assert "rendered 1 novel views" in proc.stdout
 
 
 @pytest.mark.parametrize("module", ["eval_depth", "eval_iou", "train",
-                                    "eval_novel_depth"])
+                                    "eval_novel_depth", "eval_iou_kitti",
+                                    "eval_novel_depth_kitti"])
 def test_drivers_need_a_card_or_device_cpu_and_synthetic(module):
     env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
     base = [sys.executable, "-m", f"selfocc_tpu_torch.{module}",

@@ -410,7 +410,7 @@ def test_chunked_render_equals_dense(tiny_step):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("anneal_aabb", True), ("two_split", True), ("return_uniform_sdf", True),
+    ("anneal_aabb", True), ("two_split", True), ("return_surface_sdf", True),
     ("num_samples_importance", 8), ("return_sample_sdf", True)])
 def test_unported_head_options_are_refused(option, value):
     cfg = get_config("tiny")
