@@ -110,6 +110,27 @@ raises and the exit code is non-zero.
   grid's jittered points and at the compact taps of its first training
   chunk against its plain version and ``F.grid_sample``'s backward.
 
+- ``[depth]``: the depth recipes on fabricated full-size data in a
+  temporary directory: a KITTI-raw tree (the day 2011_09_26 with two drives
+  of 12 frames 1.0123 m apart, 1242x375 PNGs with per-frame texture,
+  120,000-point scans, KITTI-like calibration, ORB-SLAM poses, eigen_zhou
+  split files) registered as ``kitti_raw_depth_fab``, and the ``[data]``
+  nuScenes tree registered as ``nuscenes_depth_fab``: 5 ``kitti_raw_depth``
+  steps at full width from the loader through ``train.main`` (the three
+  losses and ``grad_norm`` finite, step times, waits, peak, host seconds
+  per item; on one loader batch, its focal ratios checked, warm steps, a
+  profiled step and one under ``set_sync_debug_mode("error")``); a
+  KITTI-raw-shaped ``tiny`` step from a loader batch with its focal ratios
+  on the card against the CPU; ``eval_depth.main`` on 2 val frames raw,
+  ``--flip``, ``--depth-metric-tgt max`` and ``--save-depth`` (then a
+  4096-ray subset, ``max_depth`` and the flipped prepare's volume against
+  the CPU and a warm flipped frame under the sync check); 3
+  ``nuscenes_depth`` steps likewise. Every depth path must launch the
+  trilinear kernels on the plane instance only, and never the rows
+  instance, ``trilinear_cf_*`` or ``neus_weights_fwd``. ``[kernels]``
+  also holds the plane instance at the first ``kitti_raw_depth`` training
+  chunk's points.
+
 ``--phases`` runs a subset (then no result line is printed). Each path's
 launch counts are set to 0 just before it runs and read just after; a
 kernel of the path that was not launched fails the run (the trilinear
@@ -157,7 +178,7 @@ MSDA_BWD_OPS = (14, 33)
 RENDER_FWD_OPS = 50
 RENDER_BWD_OPS = 103
 PHASES = ("kernels", "gather", "frame", "occ", "train-parity", "train",
-          "data", "kitti")
+          "data", "kitti", "depth")
 OPENOCC_PCR = (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0)   # 512 x 512 x 40 at 0.2
 OCC_SLAB = 1 << 20    # dense-grid points held against the plain version
 # the compact stencil's volume cotangent, card against CPU on one volume:
@@ -331,6 +352,33 @@ def step_points(device):
     return train, frame
 
 
+def raw_depth_points(device):
+    """The trilinear kernels' points on the kitti_raw_depth training path:
+    the first 4096-ray chunk of its 44 x 152 ray grid (a synthetic batch,
+    the cellular sampler and the jitter from a seeded generator; 1,048,576
+    points) as fractional indices of its (1, 257, 257, 33) volume. Returns
+    (grid shape, points)."""
+    import torch
+    from selfocc_tpu_torch.configs.experiments import get_config
+    from selfocc_tpu_torch.geometry.projection import rays_from_img2lidar
+    from selfocc_tpu_torch.models.segmentor import TPVSegmentor
+    from selfocc_tpu_torch.utils.runtime import get_dataset, to_device
+    cfg = get_config("kitti_raw_depth")
+    h = cfg.model.head
+    head = TPVSegmentor(cfg.model).head
+    batch = to_device(get_dataset(cfg, synthetic=True, length=1)[0], device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    origin, direction = rays_from_img2lidar(batch[h.trans_kw],
+                                            head.ray_sampler(device, gen))
+    origin = origin[:, :, None, :].expand(direction.shape).reshape(-1, 3)
+    direction = direction.reshape(-1, 3)
+    n = h.train_ray_chunk
+    t_rand = torch.rand((n, head.num_samples + 1), generator=gen,
+                        device=device)
+    return tuple(head.field.grid_shape), render_grid_points(
+        head, origin[:n], direction[:n], t_rand)
+
+
 def corner_voxels(pts, shape):
     """The distinct in-volume corner voxels of (N, 3) points: the volume
     rows a trilinear forward must read (its bound's input bytes)."""
@@ -455,6 +503,14 @@ def trilinear_checks(g, device, baseline=None):
     case("c1_train", "bwd", vol1, "train", 20)
     case("c25_uniform", "bwd", vol25, "uniform_1m", 10)
     case("c1_uniform", "bwd", vol1, "uniform_1m", 10)
+    # the plane instance on the kitti_raw_depth step's one-channel volume
+    # (its sdf query with both cotangents live)
+    raw_shape, pts["kitti_raw"] = raw_depth_points(device)
+    voxels["kitti_raw"] = corner_voxels(pts["kitti_raw"], raw_shape)
+    vol_raw = torch.randn((1,) + raw_shape, generator=g, device=device)
+    case("c1_kitti_raw", "fwd", vol_raw, "kitti_raw", 20)
+    case("c1_kitti_raw", "bwd", vol_raw, "kitti_raw", 20)
+    del vol_raw
     for k, r in cases.items():
         log(f"  trilinear {k}: ms {r['ms']:.4g}, device_ms "
             f"{r['device_ms']}, plain_ms "
@@ -1246,7 +1302,8 @@ def kernel_checks(device, baseline=None):
             err, timed(lambda: msda.msda_fwd(*case), 5),
             timed(lambda: msda.ms_deform_attn_plain(*case), 3),
             (nbytes(value, loc, att, o_k),
-             pts_n * (MSDA_FWD_OPS[0] + D * MSDA_FWD_OPS[1])))
+             pts_n * (MSDA_FWD_OPS[0] + D * MSDA_FWD_OPS[1])),
+            device_ms=device_ms(lambda: msda.msda_fwd(*case), 5))
         grad_out = torch.randn(o_k.shape, generator=g, device=device)
         del o_k
         torch.cuda.empty_cache()
@@ -1259,13 +1316,14 @@ def kernel_checks(device, baseline=None):
             err, timed(lambda: msda.msda_bwd(*case, grad_out), 5),
             timed(lambda: msda.msda_bwd_plain(*case, grad_out), 2),
             (2 * nbytes(value, loc, att) + nbytes(grad_out),
-             pts_n * (MSDA_BWD_OPS[0] + D * MSDA_BWD_OPS[1])))
+             pts_n * (MSDA_BWD_OPS[0] + D * MSDA_BWD_OPS[1])),
+            device_ms=device_ms(lambda: msda.msda_bwd(*case, grad_out), 5))
         del case, value, loc, att, grad_out
         torch.cuda.empty_cache()
     for name, rec in (("msda_fwd", fwd), ("msda_bwd", bwd)):
         res[name] = dict(rec["cross"], shape="cross hw plane")
         for tag, key in (("zh", "zh"), ("self", "self_attn")):
-            for k in ("ms", "plain_ms", "bound_ms"):
+            for k in ("ms", "device_ms", "plain_ms", "bound_ms"):
                 res[name][f"{key}_{k}"] = rec[tag][k]
         res[name]["max_abs_err"] = max(r["max_abs_err"] for r in rec.values())
 
@@ -2532,49 +2590,8 @@ def novel_frame(device):
     if bool((out["max_depth"][hit] < near[hit] / dn[hit] - 1e-3).any()) or \
             bool((out["max_depth"] > far / dn * (1 + 1e-5) + 1e-3).any()):
         raise AssertionError("novel max_depth outside [near, far]")
-    # max_depth on the card against the plain path on the CPU, 4096 rays:
-    # each path's max_depth is its ts at the argmax of its w / deltas; the
-    # two take the same sample except where the CPU's two largest w /
-    # deltas lie within 1e-6 (relative) of each other, and where they take
-    # the same sample its ts agree within 1e-6 of the largest ts (the
-    # kernel's ts tolerance, render_fwd_error)
-    idx = torch.linspace(0, origin.shape[0] - 1, SUBSET_RAYS,
-                         device=device).long()
-    outs = ("max_depth", "weights", "deltas", "ts")
-    gpu = ChunkedRenderer(model, chunk=SUBSET_RAYS, outputs=outs).render(
-        volume, origin[idx], direction[idx])
-    cpu_model = copy.deepcopy(model).cpu()
-    cpu = ChunkedRenderer(cpu_model, chunk=SUBSET_RAYS, outputs=outs).render(
-        volume.cpu(), origin[idx].cpu(), direction[idx].cpu())
-    eps = np.float32(np.finfo(np.float32).eps)
-
-    def ratio(r):      # in fp32, as the head divides: the same argmax
-        return np.where(r["deltas"] < eps, np.float32(0), r["weights"]) \
-            / np.maximum(r["deltas"], eps)
-    r_c, r_g = ratio(cpu), ratio(gpu)
-    rows = np.arange(SUBSET_RAYS)
-    ig, ic = r_g.argmax(-1), r_c.argmax(-1)
-    if not (np.array_equal(gpu["ts"][rows, ig], gpu["max_depth"])
-            and np.array_equal(cpu["ts"][rows, ic], cpu["max_depth"])):
-        raise AssertionError("max_depth is not ts at the argmax of w/deltas")
-    top = np.sort(r_c.astype(np.float64), -1)
-    tie = (top[:, -1] - top[:, -2]) < 1e-6 * np.abs(top[:, -1])
-    flips = ig != ic
-    same = ~flips
-    ts_err = float(np.abs(gpu["max_depth"][same].astype(np.float64)
-                          - cpu["max_depth"][same]).max(initial=0.0))
-    ts_tol = 1e-6 * float(np.abs(cpu["ts"]).max())
-    res["max_depth_subset"] = {
-        "rays": SUBSET_RAYS, "other_sample": int(flips.sum()),
-        "other_sample_outside_ties": int((flips & ~tie).sum()),
-        "near_ties": int(tie.sum()), "bit_equal": int(
-            (gpu["max_depth"] == cpu["max_depth"]).sum()),
-        "same_sample_max_abs_err": ts_err, "ts_tolerance": ts_tol,
-        "weights_max_abs_err": float(np.abs(
-            gpu["weights"].astype(np.float64) - cpu["weights"]).max())}
-    if (flips & ~tie).any() or not ts_err <= ts_tol:
-        raise AssertionError(f"max_depth against the CPU: "
-                             f"{res['max_depth_subset']}")
+    res["max_depth_subset"] = max_depth_subset(model, volume, origin,
+                                               direction)
     # a warm neighbour render under the sync check
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -2611,8 +2628,57 @@ def novel_frame(device):
         f"subset {res['max_depth_subset']}; warm render under "
         f"set_sync_debug_mode('error'): no synchronising call; profile "
         f"{prof}")
-    del model, cpu_model, volume, out
+    del model, volume, out
     torch.cuda.empty_cache()
+    return res
+
+
+def max_depth_subset(model, volume, origin, direction):
+    """``max_depth`` on the card against the plain path on the CPU, at 4096
+    rays spread over ``origin`` / ``direction``: each path's max_depth is
+    its ts at the argmax of its w / deltas; the two take the same sample
+    except where the CPU's two largest w / deltas lie within 1e-6
+    (relative) of each other, and where they take the same sample its ts
+    agree within 1e-6 of the largest ts (the kernel's ts tolerance,
+    render_fwd_error). Returns the counts; raises outside the tie band."""
+    import numpy as np
+    import torch
+    from selfocc_tpu_torch.utils.eval_lib import ChunkedRenderer
+    idx = torch.linspace(0, origin.shape[0] - 1, SUBSET_RAYS,
+                         device=origin.device).long()
+    outs = ("max_depth", "weights", "deltas", "ts")
+    gpu = ChunkedRenderer(model, chunk=SUBSET_RAYS, outputs=outs).render(
+        volume, origin[idx], direction[idx])
+    cpu_model = copy.deepcopy(model).cpu()
+    cpu = ChunkedRenderer(cpu_model, chunk=SUBSET_RAYS, outputs=outs).render(
+        volume.cpu(), origin[idx].cpu(), direction[idx].cpu())
+    eps = np.float32(np.finfo(np.float32).eps)
+
+    def ratio(r):      # in fp32, as the head divides: the same argmax
+        return np.where(r["deltas"] < eps, np.float32(0), r["weights"]) \
+            / np.maximum(r["deltas"], eps)
+    r_c, r_g = ratio(cpu), ratio(gpu)
+    rows = np.arange(SUBSET_RAYS)
+    ig, ic = r_g.argmax(-1), r_c.argmax(-1)
+    if not (np.array_equal(gpu["ts"][rows, ig], gpu["max_depth"])
+            and np.array_equal(cpu["ts"][rows, ic], cpu["max_depth"])):
+        raise AssertionError("max_depth is not ts at the argmax of w/deltas")
+    top = np.sort(r_c.astype(np.float64), -1)
+    tie = (top[:, -1] - top[:, -2]) < 1e-6 * np.abs(top[:, -1])
+    flips = ig != ic
+    same = ~flips
+    ts_err = float(np.abs(gpu["max_depth"][same].astype(np.float64)
+                          - cpu["max_depth"][same]).max(initial=0.0))
+    ts_tol = 1e-6 * float(np.abs(cpu["ts"]).max())
+    res = {"rays": SUBSET_RAYS, "other_sample": int(flips.sum()),
+           "other_sample_outside_ties": int((flips & ~tie).sum()),
+           "near_ties": int(tie.sum()), "bit_equal": int(
+               (gpu["max_depth"] == cpu["max_depth"]).sum()),
+           "same_sample_max_abs_err": ts_err, "ts_tolerance": ts_tol,
+           "weights_max_abs_err": float(np.abs(
+               gpu["weights"].astype(np.float64) - cpu["weights"]).max())}
+    if (flips & ~tie).any() or not ts_err <= ts_tol:
+        raise AssertionError(f"max_depth against the CPU: {res}")
     return res
 
 
@@ -3215,6 +3281,550 @@ def kitti_phase(device):
         shutil.rmtree(root, ignore_errors=True)
 
 
+RAW_DAY = "2011_09_26"                 # its images are 1242 x 375
+RAW_IMG = (375, 1242)
+RAW_DRIVES = ("2011_09_26_drive_0001_sync", "2011_09_26_drive_0002_sync")
+RAW_FRAMES = 12                        # frames per drive
+RAW_STEP = 1.0123                      # metres per frame, off the knots
+RAW_LIDAR_POINTS = 120_000             # points per scan, 4 float32 each
+# KITTI-like calibration of the 2011_09_26 drives: rectified projections
+# of cameras 2 and 3 (focal 721.5 px, 0.54 m apart), the rectifying
+# rotation, velodyne -> camera 0 (for (focal, cx, cy) of another image
+# size, ``raw_calib`` scales the projections)
+RAW_P2 = (721.5377, 609.5593, 172.854, 44.85728, 0.2163791, 0.002745884)
+RAW_P3 = (721.5377, 609.5593, 172.854, -339.5242, 2.199936, 0.002729905)
+RAW_R_RECT = ("9.999239e-01 9.837760e-03 -7.445048e-03 -9.869795e-03 "
+              "9.999421e-01 -4.278459e-03 7.402527e-03 4.351614e-03 "
+              "9.999631e-01")
+RAW_VELO = ("R: 7.533745e-03 -9.999714e-01 -6.166020e-04 1.480249e-02 "
+            "7.280733e-04 -9.998902e-01 9.998621e-01 7.523790e-03 "
+            "1.480755e-02\nT: -4.069766e-03 -7.631618e-02 -2.717806e-01\n")
+
+
+def raw_calib(img_hw):
+    """``calib_cam_to_cam.txt`` of the fabricated day for images of
+    ``img_hw``: the 2011_09_26 projections scaled to that size."""
+    s = img_hw[1] / RAW_IMG[1]
+    lines = ["calib_time: 09-Jan-2012 13:57:47"]
+    for name, (f, cx, cy, tx, ty, tz) in (("P_rect_02", RAW_P2),
+                                          ("P_rect_03", RAW_P3)):
+        lines.append(f"{name}: {f * s:.6e} 0 {cx * s:.6e} {tx * s:.6e} 0 "
+                     f"{f * s:.6e} {cy * s:.6e} {ty * s:.6e} 0 0 1 {tz:.6e}")
+    lines.append(f"R_rect_00: {RAW_R_RECT}")
+    return "\n".join(lines) + "\n"
+
+
+def fabricate_kitti_raw(root, img_hw=RAW_IMG, frames=RAW_FRAMES,
+                        points=RAW_LIDAR_POINTS):
+    """A KITTI-raw tree under ``root`` in the layout of the JAX tests'
+    fixture (``tests/test_kitti_raw_dataset.py::_make_raw_tree``): the day
+    ``2011_09_26`` with two drives of ``frames`` frames ``RAW_STEP`` metres
+    apart along the camera's z, ``image_02`` / ``image_03`` PNGs of
+    ``img_hw`` (smooth colour fields with noise of their own per frame and
+    side), velodyne scans of ``points`` points (x, y, z, reflectance; 3/4 on
+    the ground 3-70 m out, 1/4 on walls 8-40 m out), the day's calibration
+    (``raw_calib``), ORB-SLAM pose files and the eigen_zhou split: every
+    4th frame of each drive, both sides, in ``test_files.txt``, the others
+    in ``train_files.txt``. Returns (root, pose dir, split dir)."""
+    import math
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+    import cv2
+    import numpy as np
+    H, W = img_hw
+    y = np.linspace(0, 1, H)[:, None]
+    x = np.linspace(0, 1, W)[None]
+    data, poses = os.path.join(root, "raw"), os.path.join(root, "poses")
+    split = os.path.join(root, "splits", "eigen_zhou")
+    for d in (os.path.join(poses, RAW_DAY), split):
+        os.makedirs(d)
+
+    def write_frame(job):
+        d, i = job
+        seq = os.path.join(data, RAW_DAY, RAW_DRIVES[d])
+        r = np.random.RandomState(1000 * d + i)
+        for c, cam in enumerate(("image_02", "image_03")):
+            img = np.stack(np.broadcast_arrays(
+                120 + 80 * np.sin(6 * x + 0.3 * i + c) * y,
+                140 + 60 * np.cos(4 * y + 2 * x + 0.1 * i),
+                160 - 100 * y + 30 * np.sin(9 * x * y + 0.2 * i + d)), -1)
+            img = img + r.uniform(-30, 30, img.shape)
+            cv2.imwrite(os.path.join(seq, cam, "data", f"{i:010d}.png"),
+                        img.clip(0, 255).astype(np.uint8))
+        n_g = points * 3 // 4
+        ang = r.uniform(0, 2 * math.pi, points)
+        rad = np.concatenate([r.uniform(3, 70, n_g),
+                              r.uniform(8, 40, points - n_g)])
+        z = np.concatenate([np.full(n_g, -1.73),
+                            r.uniform(-1.73, 3, points - n_g)])
+        pts = np.stack([rad * np.cos(ang), rad * np.sin(ang), z,
+                        r.uniform(0, 1, points)], 1)
+        pts.astype(np.float32).tofile(os.path.join(
+            seq, "velodyne_points", "data", f"{i:010d}.bin"))
+
+    lines = {"train_files.txt": [], "test_files.txt": []}
+    for d, drive in enumerate(RAW_DRIVES):
+        seq = os.path.join(data, RAW_DAY, drive)
+        for sub in ("image_02/data", "image_03/data", "velodyne_points/data"):
+            os.makedirs(os.path.join(seq, sub))
+        rows = []
+        for i in range(frames):
+            pose = np.eye(4)
+            pose[2, 3] = RAW_STEP * i
+            rows.append(" ".join(f"{v:.9e}" for v in pose[:3].reshape(-1)))
+            name = "train_files.txt" if i % 4 else "test_files.txt"
+            lines[name] += [f"{RAW_DAY}/{drive} {i} l",
+                            f"{RAW_DAY}/{drive} {i} r"]
+        with open(os.path.join(poses, RAW_DAY, f"{drive}.txt"), "w") as f:
+            f.write("\n".join(rows) + "\n")
+    with open(os.path.join(data, RAW_DAY, "calib_cam_to_cam.txt"), "w") as f:
+        f.write(raw_calib(img_hw))
+    with open(os.path.join(data, RAW_DAY, "calib_velo_to_cam.txt"), "w") as f:
+        f.write(RAW_VELO)
+    for name, rows in lines.items():
+        with open(os.path.join(split, name), "w") as f:
+            f.write("\n".join(rows) + "\n")
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write_frame, [(d, i) for d in range(len(RAW_DRIVES))
+                                    for i in range(frames)]))
+    return data, poses, split
+
+
+def raw_dataset_args(cfg, tree, **extra):
+    """``cfg``'s train and val dataset arguments pointed at a
+    ``fabricate_kitti_raw`` tree (its eigen_zhou split files)."""
+    import os
+    data, poses, split = tree
+    return {f"{phase}_dataset_args": dict(
+        getattr(cfg, f"{phase}_dataset_args"), data_path=data,
+        pose_path=poses, split_path=os.path.join(split, name), **extra)
+        for phase, name in (("train", "train_files.txt"),
+                            ("val", "test_files.txt"))}
+
+
+def depth_fab_configs(tree, nusc_paths):
+    """``kitti_raw_depth`` on the fabricated KITTI-raw tree and
+    ``nuscenes_depth`` on the fabricated nuScenes files, registered as
+    ``kitti_raw_depth_fab`` / ``nuscenes_depth_fab``: the recipes' own
+    values with the data paths."""
+    from selfocc_tpu_torch.configs import experiments as ex
+
+    def raw():
+        cfg = ex.kitti_raw_depth()
+        return dataclasses.replace(cfg, name="kitti_raw_depth_fab",
+                                   **raw_dataset_args(cfg, tree))
+
+    def nusc():
+        cfg = ex.nuscenes_depth()
+        files = dict(data_path=nusc_paths["data_path"],
+                     imageset=nusc_paths["sweeps"])
+        return dataclasses.replace(
+            cfg, name="nuscenes_depth_fab",
+            train_dataset_args=dict(cfg.train_dataset_args, **files),
+            val_dataset_args=dict(cfg.val_dataset_args, **files))
+
+    ex.register_config("kitti_raw_depth_fab", raw)
+    ex.register_config("nuscenes_depth_fab", nusc)
+
+
+def depth_kernels():
+    """The kernels of the depth recipes' paths, by role: the training
+    step's (MSDA forward and backward, the trilinear forward and backward
+    on the sdf plane, the fused render and its backward), the eval frame's
+    (their forwards) and those that no depth path may launch (the
+    trilinear rows instance, checked by count; the values-only query and
+    its backward; the unfused weights kernel)."""
+    from selfocc_tpu_torch.ops import interp, msda, render_weights
+    train = (msda.msda_fwd, msda.msda_bwd, interp.trilinear_cf_with_grad_fwd,
+             interp.trilinear_bwd, render_weights.neus_render_fwd,
+             render_weights.neus_render_bwd)
+    frame = (msda.msda_fwd, interp.trilinear_cf_with_grad_fwd,
+             render_weights.neus_render_fwd)
+    never = (interp.trilinear_cf_fwd, interp.trilinear_cf_bwd,
+             render_weights.neus_weights_fwd)
+    return train, frame, never
+
+
+def reset_depth_counts():
+    train, _, never = depth_kernels()
+    reset_counts(train + never)
+
+
+def read_depth_counts(path, training=True):
+    """``read_counts`` of a depth path's kernels (each launched; the
+    trilinear ones on the plane instance), then no launch of the rows
+    instance or of a kernel no depth path runs (and, for an eval frame, of
+    a backward)."""
+    train, frame, never = depth_kernels()
+    need = train if training else frame
+    counts = read_counts(need, path)
+    stray = {fn.__name__: fn.launches for fn in
+             never + tuple(f for f in train if f not in need) if fn.launches}
+    stray.update({f"{fn.__name__}.rows": fn.launches - fn.plane_launches
+                  for fn in need if hasattr(fn, "plane_launches")
+                  and fn.launches != fn.plane_launches})
+    if stray:
+        raise AssertionError(f"the {path} launched {stray}")
+    return counts
+
+
+def depth_train(device, cfg_name, steps, want):
+    """``steps`` training steps of ``cfg_name`` from its loader through
+    ``train.main`` (a cold step, then measured ones, each logged so that
+    its time ends with its losses read): the losses ``want`` and
+    ``grad_norm`` finite, step times, the waits for the batch, peak memory
+    and the launch counts of the run. Then on a trainer of its own and one
+    loader batch (item 1, its focal ratios checked against the config's
+    scale rates): a warm step, 3 steps each ended by a synchronise (the
+    step without the loader), a profiled step with its launches, and a
+    step under ``set_sync_debug_mode("error")``."""
+    import tempfile
+    import torch
+    from selfocc_tpu_torch import train
+    from selfocc_tpu_torch.configs.experiments import get_config
+    from selfocc_tpu_torch.data import build_dataset
+    from selfocc_tpu_torch.utils.runtime import to_device
+    reset_depth_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="selfocc_depth_train_") as work:
+        r = train.main(["--py-config", cfg_name, "--seed", str(SEED),
+                        "--print-freq", "1", "--prefetch", "2",
+                        "--max-steps", str(steps), "--work-dir", work])
+    launches = read_depth_counts(f"{cfg_name} training steps")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for step, vals in r["logged"].items():
+        if not all(k in vals and math.isfinite(vals[k])
+                   for k in want + ("grad_norm",)):
+            raise AssertionError(f"{cfg_name} step {step}: {vals}")
+    measured = sorted(r["step_s"][1:])
+    res = {"items": r["items"], "step_s": r["step_s"],
+           "step_s_median": (measured[(len(measured) - 1) // 2]
+                             + measured[len(measured) // 2]) / 2,
+           "step_s_spread": [measured[0], measured[-1]],
+           "data_wait_s": r["data_wait_s"], "max_memory_gb": peak,
+           "logged": r["logged"], "launches": launches}
+    log(f"  {cfg_name} from the loader: step s {r['step_s']} (median of "
+        f"steps 1-{steps - 1} {res['step_s_median']:.4f}), waits for the "
+        f"batch {r['data_wait_s']}, peak {peak:.2f} GiB, last losses "
+        f"{r['logged'][max(r['logged'])]}")
+    cfg = get_config(cfg_name)
+    host = train.host_batch(build_dataset(cfg, "train"), 1, SEED, 0, 1)
+    # the loader's focal ratios: the scale rate over the pad scale rate
+    # (x: its width entry); 0.9975 / 0.9712 for kitti_raw_depth, 1 without
+    # a pad_scale_rate (nuscenes_depth)
+    pad = cfg.wrapper_args.get("pad_scale_rate", [cfg.scale_rate] * 2)
+    ratios = [float(host["focal_ratios_x"][0]),
+              float(host["focal_ratios_y"][0])]
+    if abs(ratios[0] - cfg.scale_rate / pad[1]) > 1e-6 or \
+            abs(ratios[1] - cfg.scale_rate / pad[0]) > 1e-6:
+        raise AssertionError(f"{cfg_name} focal ratios {ratios}")
+    res["focal_ratios"] = ratios
+    trainer = train.build_trainer(cfg, SEED, device)
+    batch = to_device(host, device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    trainer.step(batch, gen, sync=torch.cuda.synchronize)
+    warm = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.step(batch, gen)
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+    res["warm_step_s"] = warm
+    reset_depth_counts()
+    res["profile"] = profile_step(trainer, batch, gen, sorted(warm)[1])
+    res["launches_per_step"] = read_depth_counts(f"profiled {cfg_name} step")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        m = trainer.step(batch, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    if not all(math.isfinite(float(v)) for k, v in m.items()
+               if k != "times"):
+        raise AssertionError(f"sync-checked {cfg_name} step: {m}")
+    res["sync_checked"] = True
+    log(f"  {cfg_name}: focal ratios {ratios}; warm steps on one batch "
+        f"{[round(t, 4) for t in warm]} s; launches per step "
+        f"{res['launches_per_step']}; a warm step under "
+        "set_sync_debug_mode('error'): no synchronising call")
+    del trainer, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def raw_depth_train(device):
+    """kitti_raw_depth at full width: ``depth_train`` with 5 steps, and the
+    host seconds of 6 train items as ``train.py`` builds them."""
+    from selfocc_tpu_torch import train
+    from selfocc_tpu_torch.configs.experiments import get_config
+    from selfocc_tpu_torch.data import build_dataset
+    res = depth_train(device, "kitti_raw_depth_fab", 5,
+                      ("ReprojLossMonoMultiNew", "EikonalLoss",
+                       "EdgeLoss3DMS"))
+    ds = build_dataset(get_config("kitti_raw_depth_fab"), "train")
+    secs = []
+    for pos in range(6):
+        t0 = time.perf_counter()
+        train.host_batch(ds, pos, SEED, 0, pos)
+        secs.append(time.perf_counter() - t0)
+    res["item_s"] = secs
+    log(f"  kitti_raw_depth: host s per item {[round(s, 4) for s in secs]}")
+    return res
+
+
+def raw_tiny_config(tree):
+    """``tiny`` widths with ``kitti_raw_depth``'s options, as the CPU
+    parity test (``tests/test_torch_port_depth.py``) builds them: the
+    h_half mapping over a front-only box, one camera, one sdf channel, the
+    recipe's three losses, ``_KITTI_IMG_NORM``, its dataset arguments on
+    ``tree`` at a 64 x 96 crop, a 0.5 resize with ``pad_scale_rate``
+    (0.5149, 0.5013), dropout 0."""
+    from selfocc_tpu_torch.configs import experiments as ex
+    cfg, r = ex.tiny(), ex.kitti_raw_depth()
+    pc = (-10.0, 0.0, -1.0, 10.0, 10.0, 3.0)
+    mapping = dict(cfg.model.head.mapping_args, h_half=True)
+    loss_cfgs = [dict(c, img_size=list(cfg.img_size),
+                      ray_resize=list(cfg.num_rays)) if "img_size" in c
+                 else dict(c) for c in r.loss_cfgs]
+    enc = dataclasses.replace(cfg.model.encoder, mapping_args=mapping,
+                              pc_range=pc, num_cams=1, dropout=0.0)
+    head = dataclasses.replace(
+        cfg.model.head, roi_aabb=pc, mapping_args=mapping,
+        return_second_grad=False, return_sem=False, color_dims=0, sem_dims=0)
+    return dataclasses.replace(
+        cfg, name="raw_tiny",
+        model=dataclasses.replace(cfg.model, encoder=enc, head=head),
+        loss_cfgs=loss_cfgs, loss_input_convertion=dict(
+            r.loss_input_convertion), num_cams=1, sem=False,
+        dataset_type=r.dataset_type, scale_rate=0.5,
+        wrapper_args=dict(r.wrapper_args, pad_img_size=list(cfg.input_size),
+                          pad_scale_rate=[0.5149, 0.5013]),
+        **raw_dataset_args(r, tree, crop_size=list(cfg.img_size)))
+
+
+def raw_train_parity(device, root):
+    """A KITTI-raw-shaped ``tiny`` step from a loader batch (a 72 x 104
+    tree fabricated under ``root``; the batch carries its focal ratios,
+    0.9975 / 0.9711, and ``flip``) with the kernels on the card (rendered
+    in checkpointed chunks of 20 rays: 24 rays, the last chunk padded)
+    against the plain versions on the CPU rendered densely, same weights
+    and draws: the three losses within rtol 1e-5, each parameter's
+    gradient within GRAD_RTOL of its max + 1e-7."""
+    import torch
+    from selfocc_tpu_torch import train
+    from selfocc_tpu_torch.data import build_dataset
+    from selfocc_tpu_torch.losses import MultiLoss
+    from selfocc_tpu_torch.models.initializers import init_weights
+    from selfocc_tpu_torch.models.segmentor import TPVSegmentor
+    from selfocc_tpu_torch.utils.runtime import to_device
+    from selfocc_tpu_torch.utils.train_lib import aug_kwargs, build_loss_inputs
+    cfg = raw_tiny_config(fabricate_kitti_raw(root, (72, 104), 8, 400))
+    h = cfg.model.head
+    host = train.host_batch(build_dataset(cfg, "train"), 5, SEED, 0, 5)
+    ratios = [float(host["focal_ratios_x"][0]), float(host["focal_ratios_y"][0])]
+    if not max(abs(r - 1) for r in ratios) > 0.02:
+        raise AssertionError(f"raw tiny batch: focal ratios {ratios}")
+    g = torch.Generator().manual_seed(SEED)
+    R = h.ray_number[0] * h.ray_number[1]
+    draws = {"cellular": torch.rand(4, generator=g),
+             "t_rand": torch.rand((R, h.num_samples + 1), generator=g),
+             "bkgd": torch.rand((R, 3), generator=g)}
+    model = TPVSegmentor(cfg.model)
+    init_weights(model, torch.Generator().manual_seed(SEED))
+    results = []
+    for dev, chunk in ((device, PARITY_RAY_CHUNK), (torch.device("cpu"), 0)):
+        m = copy.deepcopy(model).to(dev).train()
+        m.head.train_ray_chunk = chunk
+        batch = to_device(host, dev)
+        out = m(batch["imgs"], batch["lidar2img"], batch[h.trans_kw],
+                train=True, draws=draws, **aug_kwargs(batch))
+        tot, ldict = MultiLoss(cfg.loss_cfgs)(build_loss_inputs(cfg, out,
+                                                                batch))
+        m.zero_grad(set_to_none=True)
+        tot.backward()
+        results.append(({k: float(v.detach()) for k, v in ldict.items()},
+                        {n: p.grad.detach().cpu()
+                         for n, p in m.named_parameters()
+                         if p.grad is not None}))
+    (l_k, g_k), (l_p, g_p) = results
+    if sorted(l_p) != ["EdgeLoss3DMS", "EikonalLoss",
+                       "ReprojLossMonoMultiNew"]:
+        raise AssertionError(f"raw tiny losses {l_p}")
+    for k in l_p:
+        check(f"raw tiny loss {k}", abs(l_k[k] - l_p[k]),
+              1e-5 * abs(l_p[k]) + 1e-7)
+    if set(g_k) != set(g_p):
+        raise AssertionError(f"raw tiny gradients of "
+                             f"{sorted(set(g_k) ^ set(g_p))}")
+    worst = 0.0
+    for n in g_p:
+        err = max_err(g_k[n], g_p[n])
+        tol = GRAD_RTOL * float(g_p[n].abs().max()) + 1e-7
+        if not err <= tol:
+            raise AssertionError(f"raw tiny grad {n}: {err:.3e} > {tol:.3e}")
+        worst = max(worst, err / tol)
+    log(f"  raw tiny, loader batch (focal ratios {ratios}), chunks of "
+        f"{PARITY_RAY_CHUNK} rays on the card vs dense on the CPU: losses "
+        f"{l_k}; worst gradient error over its tolerance {worst:.3f}")
+    return {"focal_ratios": ratios, "losses_cuda": l_k, "losses_cpu": l_p,
+            "worst_grad_err_over_tol": worst}
+
+
+def raw_eval(device):
+    """``eval_depth.main`` on 2 fabricated val frames of kitti_raw_depth
+    (176 x 608 rays a frame), four runs: raw, ``--flip``, ``--depth-metric-
+    tgt max``, ``--save-depth``: prepare and render seconds, rays/s, peak,
+    launches, the metric table finite, the saved maps; then on frame 1: the
+    depths finite and in their rays' bands, a 4096-ray subset on the card
+    against the CPU (depth 1e-3 m, acc 1e-4; ``max_depth`` in the tie band
+    of ``max_depth_subset``), the flipped prepare's volume on the card
+    against the CPU's (within 1e-4 of its largest magnitude: the two
+    backbones' fp32 sums in another order), and a warm flipped frame
+    (prepare and render) under ``set_sync_debug_mode("error")``."""
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from selfocc_tpu_torch import eval_depth
+    from selfocc_tpu_torch.configs.experiments import get_config
+    from selfocc_tpu_torch.data import build_dataset
+    from selfocc_tpu_torch.models import neus
+    from selfocc_tpu_torch.utils.eval_lib import (ChunkedRenderer,
+                                                  enable_max_depth,
+                                                  eval_ray_grid,
+                                                  eval_trans_mats,
+                                                  rays_for_cams)
+    from selfocc_tpu_torch.utils.runtime import to_device
+    cfg = get_config("kitti_raw_depth_fab")
+    n_rays = cfg.eval_num_rays[0] * cfg.eval_num_rays[1]
+    res = {}
+    args = ["--py-config", "kitti_raw_depth_fab", "--num-samples", "2",
+            "--seed", str(SEED)]
+    eval_depth.main(args + ["--flip", "--depth-metric-tgt", "max"])  # cold
+    with tempfile.TemporaryDirectory(prefix="selfocc_depth_eval_") as work:
+        for tag, flags in (("raw", []), ("flip", ["--flip"]),
+                           ("max", ["--depth-metric-tgt", "max"]),
+                           ("save", ["--save-depth", "--work-dir", work])):
+            reset_depth_counts()
+            torch.cuda.reset_peak_memory_stats()
+            r = eval_depth.main(args + flags)
+            launches = read_depth_counts(f"kitti_raw_depth eval ({tag})",
+                                         training=False)
+            passes = 2 if tag == "flip" else 1
+            if r["rays"] != 2 * passes * n_rays:
+                raise AssertionError(f"eval ({tag}): {r['rays']} rays")
+            table = {k: float(np.asarray(v).mean())
+                     for k, v in r["metric"].items()}
+            if not table or not all(np.isfinite(v) for v in table.values()):
+                raise AssertionError(f"eval ({tag}) table: {table}")
+            res[tag] = {"prepare_s": r["prepare_s"], "render_s": r["render_s"],
+                        "rays": r["rays"],
+                        "rays_per_s": r["rays"] / r["render_s"],
+                        "max_memory_gb": torch.cuda.max_memory_allocated()
+                        / 2**30, "launches": launches, "table_means": table}
+            log(f"  eval_depth ({tag}): prepare {r['prepare_s']:.4f} s, "
+                f"render {r['render_s']:.4f} s for {r['rays']} rays "
+                f"({res[tag]['rays_per_s']:.0f} rays/s), peak "
+                f"{res[tag]['max_memory_gb']:.2f} GiB, table {table}")
+        saved = sorted(os.listdir(work))
+        if saved != ["depth_0000.npy", "depth_0001.npy"] or not np.array_equal(
+                np.load(os.path.join(work, "depth_0001.npy")),
+                r["last_depth"].numpy()):
+            raise AssertionError(f"--save-depth wrote {saved}")
+        res["save"]["saved"] = saved
+    model = eval_depth.build_model(enable_max_depth(cfg), SEED, device)
+    batch = to_device(build_dataset(cfg, "val")[1], device)
+    origin, direction = rays_for_cams(eval_trans_mats(batch, cfg),
+                                      eval_ray_grid(cfg, device=device))
+    renderer = ChunkedRenderer(model, chunk=CHUNK, outputs=("depth", "acc"))
+    mirrored = batch["imgs"].flip(3)
+    vol_f = renderer.prepare(mirrored, batch["lidar2img"], flip=True)
+    cpu_model = copy.deepcopy(model).cpu()
+    vol_c = ChunkedRenderer(cpu_model).prepare(
+        mirrored.cpu(), batch["lidar2img"].cpu(), flip=True)
+    vol_err = max_err(vol_f.cpu(), vol_c)
+    check("flipped prepare's volume, card vs CPU", vol_err,
+          1e-4 * float(vol_c.abs().max()))
+    del cpu_model, vol_c
+    volume = renderer.prepare(batch["imgs"], batch["lidar2img"])
+    out = renderer.render_device(volume, origin, direction)
+    dn = torch.linalg.norm(direction, dim=-1)
+    near, far = neus.ray_aabb_near_far(origin, direction / dn[:, None],
+                                       cfg.model.head.roi_aabb)
+    if not bool(torch.isfinite(out["depth"]).all()):
+        raise AssertionError("kitti_raw_depth eval: non-finite depth")
+    if bool((out["depth"] < out["acc"] * near / dn - 1e-3).any()) or \
+            bool((out["depth"] > far / dn * (1 + 1e-5) + 1e-3).any()):
+        raise AssertionError("kitti_raw_depth eval: depth outside "
+                             "[acc near, far]")
+    idx = torch.linspace(0, origin.shape[0] - 1, SUBSET_RAYS,
+                         device=device).long()
+    gpu = ChunkedRenderer(model, chunk=SUBSET_RAYS,
+                          outputs=("depth", "acc")).render(
+        volume, origin[idx], direction[idx])
+    cpu = ChunkedRenderer(copy.deepcopy(model).cpu(), chunk=SUBSET_RAYS,
+                          outputs=("depth", "acc")).render(
+        volume.cpu(), origin[idx].cpu(), direction[idx].cpu())
+    sub = {k: float(abs(gpu[k].astype("float64") - cpu[k]).max())
+           for k in ("depth", "acc")}
+    if not (sub["depth"] <= 1e-3 and sub["acc"] <= 1e-4):
+        raise AssertionError(f"kitti_raw_depth subset disagrees: {sub}")
+    res["subset_err"] = sub
+    res["max_depth_subset"] = max_depth_subset(model, volume, origin,
+                                               direction)
+    res["flip_volume_max_abs_err"] = vol_err
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        vol_f = renderer.prepare(mirrored, batch["lidar2img"], flip=True)
+        renderer.render_device(vol_f, origin, direction)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    res["sync_checked"] = True
+    log(f"  kitti_raw_depth eval frame: depths finite and in band; 4096-ray "
+        f"subset vs the CPU {sub}; max_depth {res['max_depth_subset']}; "
+        f"flipped volume card vs CPU {vol_err:.3e}; a warm flipped frame "
+        "under set_sync_debug_mode('error'): no synchronising call")
+    del model, volume, vol_f, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def depth_phase(device):
+    """The depth recipes on fabricated full-size data (temporary
+    directories, removed after): kitti_raw_depth training from the
+    KITTI-raw loader, the KITTI-raw-shaped tiny step against the CPU,
+    ``eval_depth`` on its val split (raw, flip, max, saved maps), then
+    nuscenes_depth training from a fabricated nuScenes tree."""
+    import os
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix="selfocc_depth_")
+    try:
+        t0 = time.time()
+        tree = fabricate_kitti_raw(os.path.join(root, "kitti_raw"))
+        nusc = fabricate_nuscenes(os.path.join(root, "nuscenes"))
+        depth_fab_configs(tree, nusc)
+        log(f"  fabricated KITTI-raw {RAW_DAY} ({len(RAW_DRIVES)} drives x "
+            f"{RAW_FRAMES} frames x 2 sides of {RAW_IMG[1]}x{RAW_IMG[0]} "
+            f"PNGs, {RAW_LIDAR_POINTS}-point scans) and nuScenes "
+            f"({FAB_SAMPLES} keyframes x 6 cameras) in "
+            f"{time.time() - t0:.1f}s")
+        res = {"kitti_raw_train": raw_depth_train(device)}
+        res["train_parity"] = raw_train_parity(device,
+                                               os.path.join(root, "tiny"))
+        res["kitti_raw_eval"] = raw_eval(device)
+        res["nuscenes_depth_train"] = depth_train(
+            device, "nuscenes_depth_fab", 3,
+            ("ReprojLossMonoMultiNewCombine", "EikonalLoss", "EdgeLoss3DMS"))
+        return res
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3258,7 +3868,8 @@ def main():
             "train-parity": lambda: train_parity(device),
             "train": lambda: full_train(device),
             "data": lambda: data_phase(device, phases.get("train")),
-            "kitti": lambda: kitti_phase(device)}
+            "kitti": lambda: kitti_phase(device),
+            "depth": lambda: depth_phase(device)}
     phases = {}
     for tag in PHASES:
         if tag not in wanted:
@@ -3277,7 +3888,7 @@ def main():
     kres["neus_weights_fwd"].update(
         launches=kres.pop("weights_path_launches"), launches_main_path=0)
     fres, tres, ores = phases["frame"], phases["train"], phases["occ"]
-    dres, kires = phases["data"], phases["kitti"]
+    dres, kires, depres = phases["data"], phases["kitti"], phases["depth"]
     data_launches = {
         "data_train": dres["train"]["launches"],
         "data_depth_frame": dres["eval"]["eval_depth"]["launches"],
@@ -3288,7 +3899,14 @@ def main():
         "kitti_step": kires["train"]["launches_per_step"],
         "kitti_occ_frame": kires["occupancy"]["launches"],
         "kitti_novel_raw": kires["novel"]["raw"]["launches"],
-        "kitti_novel_max": kires["novel"]["max"]["launches"]}
+        "kitti_novel_max": kires["novel"]["max"]["launches"],
+        "kitti_raw_train": depres["kitti_raw_train"]["launches"],
+        "kitti_raw_step": depres["kitti_raw_train"]["launches_per_step"],
+        "kitti_raw_eval_raw": depres["kitti_raw_eval"]["raw"]["launches"],
+        "kitti_raw_eval_flip": depres["kitti_raw_eval"]["flip"]["launches"],
+        "kitti_raw_eval_max": depres["kitti_raw_eval"]["max"]["launches"],
+        "nuscenes_depth_train":
+            depres["nuscenes_depth_train"]["launches"]}
     log(f"[frame] prepare {fres['prepare_s']:.3f}s render "
         f"{fres['render_s']:.3f}s ({fres['rays'] / fres['render_s']:.0f} "
         f"rays/s), peak {fres['max_memory_gb']:.2f} GiB allocated")
@@ -3367,7 +3985,7 @@ def main():
                 if k != "kernel_vs_plain"},
         "train_parity": phases["train-parity"],
         "train": {k: v for k, v in tres.items() if k != "launches"},
-        "data": dres, "kitti": kires}),
+        "data": dres, "kitti": kires, "depth": depres}),
         flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,6 +1,7 @@
 """The experiment configs the port runs: copies of ``nuscenes_occ``,
 ``nuscenes_depth``, ``nuscenes_novel_depth``, ``kitti_occ``,
-``kitti_novel_depth`` (with ``_KITTI_IMG_NORM``) and ``tiny`` from
+``kitti_novel_depth``, ``kitti_raw_depth`` (with ``_KITTI_IMG_NORM``) and
+``tiny`` from
 ``selfocc_tpu/configs/experiments.py`` (value-for-value mirrors of the
 reference ``config/`` files). ``get_config(name)`` replaces
 ``Config.fromfile``.
@@ -265,6 +266,66 @@ def kitti_novel_depth() -> Config:
                           pad_scale_rate=[1.038, 1.0]))
 
 
+def kitti_raw_depth() -> Config:
+    """reference ``config/kitti_raw/kitti_raw_depth.py`` — the minimum
+    end-to-end slice (SURVEY §7)."""
+    img_size = (370, 1216)
+    num_rays = (44, 152)
+    mapping_args = dict(
+        nonlinear_mode="linear",
+        h_size=[256, 0], h_range=[51.2, 0], h_half=True,
+        w_size=[128, 0], w_range=[25.6, 0], w_half=False,
+        d_size=[32, 0], d_range=[-2.0, 4.4, 4.4])
+    pc_range = (-25.6, 0.0, -2.0, 25.6, 51.2, 4.4)
+    loss_cfgs = [
+        dict(type="ReprojLossMonoMultiNew", weight=1.0, no_ssim=False,
+             img_size=list(img_size), ray_resize=list(num_rays),
+             input_dict=dict(_REPROJ_INPUTS)),
+        dict(type="EikonalLoss", weight=0.1),
+        dict(type="EdgeLoss3DMS", weight=0.01, img_size=list(img_size),
+             ray_resize=list(num_rays), input_dict=dict(_EDGE_INPUTS)),
+    ]
+    model = ModelConfig(
+        encoder=EncoderConfig(
+            mapping_args=mapping_args, embed_dims=96, num_heads=6, num_cams=1,
+            num_feature_levels=4, num_points_cross=(48, 48, 8),
+            num_points_self=12, num_layers=4, feedforward_channels=192,
+            pc_range=pc_range),
+        head=HeadConfig(
+            roi_aabb=pc_range, mapping_args=mapping_args, resolution=0.4,
+            num_samples=256, beta_init=0.1, beta_max=0.195,
+            total_iters=3516 * 11, return_second_grad=False,
+            ray_sample_mode="cellular", ray_number=num_rays,
+            ray_img_size=img_size, trans_kw="temImg2lidar",
+            render_bkgd="random", embed_dims=96, color_dims=0, sem_dims=0,
+            sh_deg=0, two_split=False, tpv=True),
+        lifter_type="TPVQueryLifter", embed_dims=96)
+    # reference config/kitti_raw/kitti_raw_depth.py dataset/wrapper blocks
+    # (pose/split paths relocated under data/kitti_raw/; the reference ships
+    # them inside its repo at dataset/kitti_raw/)
+    raw_common = dict(pose_path="data/kitti_raw/orb-slam_poses",
+                      frames_interval=1.0, sequence_distance=5.0,
+                      cur_prob=1.0, choose_nearest=True, eval_depth=80,
+                      include_stereo=True)
+    train_ds = dict(raw_common, strict=True, return_depth=False, prev_prob=0,
+                    split_path="data/kitti_raw/splits/eigen_zhou/"
+                               "train_files.txt")
+    val_ds = dict(raw_common, strict=False, return_depth=True, prev_prob=0.5,
+                  split_path="data/kitti_raw/splits/eigen_zhou/"
+                             "test_files.txt")
+    return Config(
+        name="kitti_raw_depth", model=model, loss_cfgs=loss_cfgs,
+        loss_input_convertion=dict(_BASE_CONVERTION), img_size=img_size,
+        input_size=(320, 1024), num_rays=num_rays, num_cams=1, max_epochs=24,
+        sem=False, lr=1e-4, weight_decay=0.01, steps_per_epoch=3516,
+        scale_rate=0.84, dataset_type="Kitti_Raw_Stereo",
+        eval_num_rays=(176, 608),
+        train_dataset_args=train_ds, val_dataset_args=val_ds,
+        wrapper_args=dict(img_norm_cfg=dict(_KITTI_IMG_NORM),
+                          pad_img_size=[320, 1024],
+                          pad_scale_rate=[0.8649, 0.8421]))
+
+
 def tiny() -> Config:
     """Miniature config (tiny backbone, 17^2x9 TPV grid) for smoke tests and
     multi-chip dry runs — not a reference experiment."""
@@ -318,6 +379,7 @@ _CONFIGS = {
     "nuscenes_novel_depth": nuscenes_novel_depth,
     "kitti_occ": kitti_occ,
     "kitti_novel_depth": kitti_novel_depth,
+    "kitti_raw_depth": kitti_raw_depth,
 }
 
 def register_config(name: str, factory) -> None:

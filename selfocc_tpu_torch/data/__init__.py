@@ -8,9 +8,11 @@ IO, the wrapper, the transforms, the sampler and the prefetcher) and
 (``dataset/__init__.py:20-106``): dataset -> wrapper(aug) -> canonical array
 batches. It raises FileNotFoundError, naming the path, when the dataset
 index (nuScenes) or the odometry tree ``<data_path>/dataset`` (KITTI) is
-absent; the port's drivers turn that into an error exit and never
-substitute synthetic data. The KITTI-raw datasets (``Kitti_Raw``,
-``Kitti_Raw_Stereo``) are not ported: they raise NotImplementedError.
+absent, or the split file (KITTI-raw: ``Kitti_Raw_Stereo`` and its
+monocular ``Kitti_Raw``, ``kitti_raw_dataset``); the port's drivers turn
+that into an error exit and never substitute synthetic data. KITTI-raw has
+no novel-view eval dataset: its ``novel_eval`` raises FileNotFoundError, as
+the JAX factory's does.
 
 ``phase='val'`` builds the VAL split through the val wrapper pipeline (no
 PhotoMetric/flip) with the reference's eval-time dataset overrides applied
@@ -50,12 +52,8 @@ EVAL_OVERRIDES = dict(strict=False, cur_prob=1.0, return_depth=True)
 
 def build_dataset(cfg, phase="train"):
     """Real dataset factory; FileNotFoundError (naming the path) when the
-    dataset index or tree is not on disk, NotImplementedError for a dataset
-    type the port does not load (KITTI-raw)."""
-    if cfg.dataset_type in ("Kitti_Raw", "Kitti_Raw_Stereo"):
-        raise NotImplementedError(
-            f"selfocc_tpu_torch: the {cfg.dataset_type} loader is not ported "
-            "(ROADMAP queue 1 item 1, kitti_raw_depth)")
+    dataset index, tree or split file is not on disk, NotImplementedError
+    for a dataset type the port does not load."""
     if cfg.dataset_type not in DEFAULT_PATHS:
         raise NotImplementedError(
             f"selfocc_tpu_torch: no loader for dataset type "
@@ -70,6 +68,7 @@ def build_dataset(cfg, phase="train"):
     data_path = args.pop("data_path", defaults["data_path"])
     crop_size = args.pop("crop_size", list(cfg.img_size))
     kitti = cfg.dataset_type == "Kitti_One_Frame"
+    raw_kitti = cfg.dataset_type in ("Kitti_Raw", "Kitti_Raw_Stereo")
 
     def probe(path, what="dataset index"):
         if not path or not os.path.exists(path):
@@ -77,6 +76,12 @@ def build_dataset(cfg, phase="train"):
         return path
 
     if phase == "novel_eval":
+        if raw_kitti:
+            # as the JAX factory: the default novel-view index is "", so
+            # the probe fails
+            probe(args.pop("imageset", ""))
+            raise FileNotFoundError(
+                f"no novel-view eval dataset for {cfg.dataset_type}")
         if kitti:
             # the odometry tree under the config's data path (the JAX
             # factory probes the default data/kitti/dataset)
@@ -92,7 +97,19 @@ def build_dataset(cfg, phase="train"):
             data_path=data_path, imageset=imageset,
             crop_size=crop_size, **args)
 
-    if kitti:
+    if raw_kitti:
+        args.pop("imageset", None)
+        split_path = args.pop("split_path", "")
+        probe(split_path, "KITTI-raw split file")
+        from .kitti_raw_dataset import Kitti_Raw, Kitti_Raw_Stereo
+        klass = (Kitti_Raw_Stereo if cfg.dataset_type == "Kitti_Raw_Stereo"
+                 else Kitti_Raw)
+        # the reference supports current-frame supervision only here
+        # (kitti_raw configs pass cur_prob=1.0 for both splits)
+        args["cur_prob"] = 1.0
+        raw = klass(data_path=data_path, split_path=split_path,
+                    crop_size=crop_size, **args)
+    elif kitti:
         args.pop("imageset", None)
         args.setdefault("split", "train" if phase == "train" else "val")
         args.setdefault("preprocess_root", os.path.join(data_path,

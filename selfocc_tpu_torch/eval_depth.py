@@ -1,28 +1,40 @@
 """Rendered-depth evaluation driver on the PyTorch port — counterpart of the
-repository's ``eval_depth.py`` (prepare -> chunked 450x800-per-camera ray
-render -> bilinear lookup of the predicted depth at the sparse GT pixels ->
+repository's ``eval_depth.py`` (prepare -> chunked ray render over the
+config's eval grid (450x800 per nuScenes camera, 176x608 on KITTI-raw) ->
+bilinear lookup of the predicted depth at the sparse GT pixels ->
 ``DepthMetric`` raw / median-scaled tables).
 
     python -m selfocc_tpu_torch.eval_depth --py-config nuscenes_occ \
-        [--synthetic] --num-samples 1 [--device cpu]
+        [--synthetic] --num-samples 1 [--flip] [--depth-metric-tgt max] \
+        [--save-depth --work-dir DIR] [--device cpu]
 
-Real data: the nuScenes val split (``data.build_dataset(cfg, "val")``:
-``data/nuscenes_infos_val_sweeps.pkl``, images and lidar sweeps under
-``data/nuscenes/``), whose items carry the lidar depth GT (``depth_loc``,
-``depth_gt``, ``depth_mask``); without it the driver exits non-zero,
-naming the missing path. ``--synthetic``: the procedural scene.
+Real data: the config's val split (``data.build_dataset(cfg, "val")``:
+nuScenes reads ``data/nuscenes_infos_val_sweeps.pkl`` with images and lidar
+sweeps under ``data/nuscenes/``; ``kitti_raw_depth`` reads the eigen split's
+``test_files.txt`` with the raw drives under ``data/kitti_raw/``), whose
+items carry the lidar depth GT (``depth_loc``, ``depth_gt``,
+``depth_mask``; KITTI-raw's within the eigen crop, of a length of their
+own per frame); without it the driver exits non-zero, naming the missing
+path. ``--synthetic``: the procedural scene.
+``--flip``: flip test-time augmentation, a second prepare and render on
+the images mirrored along W with the features mirrored back
+(``prepare(flip=True)``), the two depths averaged (reference
+``eval_depth.py:168-183``). ``--depth-metric-tgt max`` scores the
+argmax-weight depth (the head's ``return_max_depth``); ``median`` exits, as
+the JAX driver does. ``--save-depth`` writes each frame's (N_cams, H, W)
+depth to ``<work-dir>/depth_{i:04d}.npy`` (and with ``max``
+``depth_max_{i:04d}.npy``).
 Weights are drawn from seeded initialisers that mirror the JAX package's
 (``--seed``), or loaded from the port's own ``train.py`` checkpoint
-(``--ckpt-path``) or a reference-SelfOcc ``.pth`` (``--torch-ckpt``); flip
-test-time augmentation and the argmax-weight depth target come with later
-slices. Runs on the first
-CUDA device (kernels built on first use) unless ``--device cpu`` asks for the
-kernels' plain versions on the CPU; with no card and no ``--device cpu`` it
-exits non-zero.
+(``--ckpt-path``) or a reference-SelfOcc ``.pth`` (``--torch-ckpt``). Runs
+on the first CUDA device (kernels built on first use) unless ``--device
+cpu`` asks for the kernels' plain versions on the CPU; with no card and no
+``--device cpu`` it exits non-zero.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Dict
 
@@ -33,8 +45,8 @@ from .configs.experiments import get_config
 from .models.initializers import init_weights
 from .models.segmentor import TPVSegmentor
 from .ops.interp import bilinear_sample
-from .utils.eval_lib import (ChunkedRenderer, eval_ray_grid, eval_trans_mats,
-                             rays_for_cams)
+from .utils.eval_lib import (ChunkedRenderer, enable_max_depth, eval_ray_grid,
+                             eval_trans_mats, rays_for_cams)
 from .utils.metrics import DepthMetric
 from .utils.runtime import (add_device_arg, add_weights_args, get_dataset,
                             get_logger, load_weights, resolve_device,
@@ -49,6 +61,19 @@ def parse_args(argv=None):
     ap.add_argument("--synthetic", action="store_true")
     ap.add_argument("--num-samples", type=int, default=0)
     ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--work-dir", default="work_dirs/eval_depth")
+    ap.add_argument("--flip", action="store_true",
+                    help="flip test-time augmentation: average the depth "
+                         "with a second pass on the images mirrored along W")
+    ap.add_argument("--depth-metric-tgt", default="raw",
+                    choices=["raw", "median", "max"],
+                    help="the scored render: raw (expected depth) or max "
+                         "(argmax-weight depth); median exits, as the JAX "
+                         "driver does (the reference's median render is "
+                         "dead code)")
+    ap.add_argument("--save-depth", action="store_true",
+                    help="save each frame's (N_cams, H, W) depth map to "
+                         "<work-dir>/depth_{i:04d}.npy")
     add_weights_args(ap)
     add_device_arg(ap)
     return ap.parse_args(argv)
@@ -74,10 +99,15 @@ def sample_depth_at(depth_map: torch.Tensor, loc: np.ndarray, rh: int,
 
 
 def evaluate(cfg, model, ds, device, num_samples: int, chunk: int,
-             logger) -> Dict:
-    """The eval loop. Returns the metric table and timings (seconds,
-    synchronised on the device)."""
-    renderer = ChunkedRenderer(model, chunk=chunk, outputs=("depth",))
+             logger, flip: bool = False, tgt: str = "raw",
+             save_dir: str = "") -> Dict:
+    """The eval loop. ``flip``: flip-TTA; ``tgt``: the scored render
+    (``raw`` or ``max``, the model built with ``return_max_depth``);
+    ``save_dir``: where the depth maps go (none when empty). Returns the
+    metric table, timings (seconds, synchronised on the device; the flip
+    pass's in them) and the last frame's depth maps."""
+    outputs = ("depth",) if tgt == "raw" else ("depth", "max_depth")
+    renderer = ChunkedRenderer(model, chunk=chunk, outputs=outputs)
     rays = eval_ray_grid(cfg, device=device)
     rh, rw = cfg.eval_num_rays
     metric = DepthMetric(camera_names=[f"cam{i}" for i in range(cfg.num_cams)],
@@ -86,45 +116,71 @@ def evaluate(cfg, model, ds, device, num_samples: int, chunk: int,
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     t_prep = t_render = 0.0
     total_rays = 0
-    depth = None
+    depth = maxd = None
+
+    def maps(out):
+        return {k: torch.from_numpy(v).reshape(cfg.num_cams, rh, rw)
+                for k, v in out.items()}
+
     for i in range(n):
         batch = to_device(ds[i], device)
-        sync()
-        t0 = time.perf_counter()
-        volume = renderer.prepare(batch["imgs"], batch["lidar2img"])
-        sync()
-        t1 = time.perf_counter()
         origin, direction = rays_for_cams(eval_trans_mats(batch, cfg), rays)
-        out = renderer.render(volume, origin, direction)
-        t2 = time.perf_counter()
-        t_prep += t1 - t0
-        t_render += t2 - t1
-        total_rays += origin.shape[0]
-        depth = torch.from_numpy(out["depth"]).reshape(cfg.num_cams, rh, rw)
+        outs = []
+        for mirrored in (False, True) if flip else (False,):
+            imgs = batch["imgs"].flip(3) if mirrored else batch["imgs"]
+            sync()
+            t0 = time.perf_counter()
+            volume = renderer.prepare(imgs, batch["lidar2img"], flip=mirrored)
+            sync()
+            t1 = time.perf_counter()
+            outs.append(maps(renderer.render(volume, origin, direction)))
+            t_prep += t1 - t0
+            t_render += time.perf_counter() - t1
+            total_rays += origin.shape[0]
+        out = outs[0] if not flip else {
+            k: 0.5 * (outs[0][k] + outs[1][k]) for k in outs[0]}
+        depth, maxd = out["depth"], out.get("max_depth")
+        if save_dir:
+            np.save(os.path.join(save_dir, f"depth_{i:04d}.npy"),
+                    depth.numpy())
+            if maxd is not None:
+                np.save(os.path.join(save_dir, f"depth_max_{i:04d}.npy"),
+                        maxd.numpy())
         if "depth_loc" in batch:
-            pred_at = sample_depth_at(depth, batch["depth_loc"].cpu().numpy(),
-                                      rh, rw)
+            score_map = maxd if tgt == "max" else depth
+            pred_at = sample_depth_at(score_map,
+                                      batch["depth_loc"].cpu().numpy(), rh, rw)
             metric._after_step(pred_at, batch["depth_gt"].cpu().numpy(),
                                batch["depth_mask"].cpu().numpy())
-        logger.info(f"[{i + 1}/{n}] rendered {origin.shape[0]} rays")
+        logger.info(f"[{i + 1}/{n}] rendered {origin.shape[0]} rays"
+                    + (" twice (flip)" if flip else ""))
     logger.info(f"total {total_rays} rays: prepare {t_prep:.3f}s, render "
                 f"{t_render:.3f}s ({total_rays / max(t_render, 1e-9):.0f} "
                 "rays/s)")
     table = metric._after_epoch(logger)
     return {"metric": table, "prepare_s": t_prep, "render_s": t_render,
-            "rays": total_rays, "last_depth": depth}
+            "rays": total_rays, "last_depth": depth, "last_max_depth": maxd}
 
 
 def main(argv=None):
     args = parse_args(argv)
+    if args.depth_metric_tgt == "median":
+        raise SystemExit("--depth-metric-tgt median: the reference's median "
+                         "depth render is dead code (see --help); use raw "
+                         "(median-scaled column included) or max")
     device = resolve_device(args.device)
     cfg = get_config(args.py_config)
+    if args.depth_metric_tgt == "max":
+        cfg = enable_max_depth(cfg)
     ds = get_dataset(cfg, args.synthetic, phase="val")
     logger = get_logger()
     model = build_model(cfg, args.seed, device)
     load_weights(model, args.ckpt_path, args.torch_ckpt, logger)
+    if args.save_depth:
+        os.makedirs(args.work_dir, exist_ok=True)
     return evaluate(cfg, model, ds, device, args.num_samples, args.batch,
-                    logger)
+                    logger, flip=args.flip, tgt=args.depth_metric_tgt,
+                    save_dir=args.work_dir if args.save_depth else "")
 
 
 if __name__ == "__main__":

@@ -10,13 +10,18 @@ import torch
 EPS = 1e-5
 
 
-def point_sampling(ref_points, lidar2img, img_shape):
+def point_sampling(ref_points, lidar2img, img_shape, focal_ratios_x=None,
+                   focal_ratios_y=None):
     """Project 3D reference points into every camera.
 
     Args:
       ref_points: (P, Q, 3) metric xyz.
       lidar2img: (B, N, 4, 4).
       img_shape: (H, W) of the network input image.
+      focal_ratios_x / focal_ratios_y: optional (N,) per-camera factors of
+        the normalised x / y, applied after the visibility mask is taken
+        (``RandomScaleImageMultiViewImage``'s ``pad_scale_rate``; reference
+        ``bevformer/utils.py:198-204``).
     Returns:
       ref_cam (N, B, Q, P, 2) normalized pixel coords; mask (N, B, Q, P) bool.
     """
@@ -30,6 +35,10 @@ def point_sampling(ref_points, lidar2img, img_shape):
     x = xy[..., 0] / img_shape[1]
     y = xy[..., 1] / img_shape[0]
     mask = mask & (x > 0.0) & (x < 1.0) & (y > 0.0) & (y < 1.0)
+    if focal_ratios_x is not None:
+        x = x * focal_ratios_x.float()[None, :, None, None]
+    if focal_ratios_y is not None:
+        y = y * focal_ratios_y.float()[None, :, None, None]
     ref_cam = torch.stack([x, y], dim=-1).permute(1, 0, 3, 2, 4)
     return ref_cam, mask.permute(1, 0, 3, 2)
 

@@ -1,9 +1,11 @@
-"""SDF regularizers — counterpart of ``EikonalLoss``, ``SecondGradLoss`` and
-``SoftSparsityLoss`` of ``selfocc_tpu/losses/regularizers.py``."""
+"""SDF regularizers and the depth smoothness loss — counterpart of
+``EikonalLoss``, ``SecondGradLoss``, ``get_smooth_loss``, ``EdgeLoss3DMS``
+and ``SoftSparsityLoss`` of ``selfocc_tpu/losses/regularizers.py``."""
 from __future__ import annotations
 
 import torch
 
+from ..ops.interp import bilinear_sample
 from .base import BaseLoss, register
 
 
@@ -33,6 +35,61 @@ class SecondGradLoss(BaseLoss):
 
     def loss_func(self, second_grad):
         return second_grad.abs().mean()
+
+
+def get_smooth_loss(disp, img):
+    """Edge-aware smoothness (monodepth2), channel-last (B, H, W, C)
+    (reference ``edge_loss_3d_ms.py:7-21``)."""
+    grad_disp_x = (disp[:, :, :-1] - disp[:, :, 1:]).abs()
+    grad_disp_y = (disp[:, :-1] - disp[:, 1:]).abs()
+    grad_img_x = (img[:, :, :-1] - img[:, :, 1:]).abs().mean(-1, keepdim=True)
+    grad_img_y = (img[:, :-1] - img[:, 1:]).abs().mean(-1, keepdim=True)
+    return (grad_disp_x * torch.exp(-grad_img_x)).mean() + \
+        (grad_disp_y * torch.exp(-grad_img_y)).mean()
+
+
+@register
+class EdgeLoss3DMS(BaseLoss):
+    """Edge-aware smoothness of the ray grid's depth, each depth map
+    divided by its mean, against the current image sampled at the ray
+    pixels (border padding, index ``(x + 1) / 2 (W - 1)`` of the
+    normalised coordinate; reference ``edge_loss_3d_ms.py:24-79``).
+    ``use_inf_mask`` blends each depth with ``max_depths`` by ``ms_accs``."""
+
+    def __init__(self, weight=1.0, input_dict=None, **kwargs):
+        super().__init__(weight, input_dict)
+        if input_dict is None:
+            self.input_dict = {
+                "curr_imgs": "curr_imgs", "ms_depths": "ms_depths",
+                "ms_rays": "ms_rays"}
+        self.img_size = kwargs.get("img_size", [768, 1600])
+        self.ray_resize = kwargs.get("ray_resize", None)
+        self.use_inf_mask = kwargs.get("use_inf_mask", False)
+        assert self.ray_resize is not None
+
+    def loss_func(self, curr_imgs, ms_depths, ms_rays, ms_accs=None,
+                  max_depths=None):
+        if self.use_inf_mask:
+            assert ms_accs is not None and max_depths is not None
+        bs, num_cams, _ = ms_depths[0].shape
+        h, w = self.ray_resize
+        xn = ms_rays[:, 0] / self.img_size[1] * 2 - 1
+        yn = ms_rays[:, 1] / self.img_size[0] * 2 - 1
+        px = (xn + 1) * 0.5 * (curr_imgs.shape[3] - 1)
+        py = (yn + 1) * 0.5 * (curr_imgs.shape[2] - 1)
+        pix = torch.stack([px, py], dim=-1)
+        imgs = curr_imgs.reshape(bs * num_cams, *curr_imgs.shape[2:])
+        rgb = torch.stack([bilinear_sample(im, pix, "border") for im in imgs])
+        rgb = rgb.reshape(bs * num_cams, h, w, -1)
+        tot = 0.0
+        for scale, depth in enumerate(ms_depths):
+            if self.use_inf_mask:
+                depth = depth * ms_accs[scale] + \
+                    max_depths[scale] * (1 - ms_accs[scale])
+            d = depth.reshape(bs * num_cams, h, w, 1)
+            mean_d = d.mean(dim=(1, 2), keepdim=True)
+            tot = tot + get_smooth_loss(d / (mean_d + 1e-6), rgb)
+        return tot / len(ms_depths)
 
 
 @register

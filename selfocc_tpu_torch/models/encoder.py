@@ -418,11 +418,12 @@ class TPVFormerEncoder(nn.Module):
         normal_(self.cams_embeds, 1.0, generator)
 
     def forward(self, representation, ms_img_feats, lidar2img, img_shape,
-                generator=None):
+                generator=None, focal_ratios_x=None, focal_ratios_y=None):
         """representation: [hw (1,HW,C), zh (1,DH,C), wz (1,WD,C)];
         ms_img_feats: list of (1, N, h, w, C); lidar2img (1, N, 4, 4);
         img_shape: (H, W) of the network input; ``generator`` draws the
-        train-mode dropout masks."""
+        train-mode dropout masks; ``focal_ratios_x/y``: optional (N,)
+        scales of the projected reference points (``point_sampling``)."""
         if ms_img_feats[0].shape[0] != 1:
             raise ValueError("the TPV encoder runs batch size 1")
         tpv_pos = [p[None] for p in self.positional_encoding()]
@@ -435,7 +436,8 @@ class TPVFormerEncoder(nn.Module):
         value = torch.cat(feats, dim=1)                    # (N, L, C)
         ref_cams_list, masks_list = [], []
         for ref in (self.ref_3d_hw, self.ref_3d_zh, self.ref_3d_wz):
-            rc, m = point_sampling(ref, lidar2img, img_shape)
+            rc, m = point_sampling(ref, lidar2img, img_shape, focal_ratios_x,
+                                   focal_ratios_y)
             ref_cams_list.append(rc[:, 0])
             masks_list.append(m[:, 0])
         planes = list(representation)

@@ -50,6 +50,14 @@ _PORTED = (
 )
 
 
+def flip_width(f, flip):
+    """(..., W) ``f`` mirrored along W where ``flip``: a Python bool, or a
+    0-d bool tensor, chosen on the card without a host synchronisation."""
+    if torch.is_tensor(flip) and flip.device.type != "cpu":
+        return torch.where(flip, f.flip(-1), f)
+    return f.flip(-1) if bool(flip) else f
+
+
 def check_ported(cfg: ModelConfig):
     """Raise for a config option whose code path is not ported yet."""
     sections = {"model": cfg, "encoder": cfg.encoder, "head": cfg.head}
@@ -112,8 +120,11 @@ class TPVSegmentor(nn.Module):
             return_max_depth=h.return_max_depth,
             return_uniform_sdf=h.return_uniform_sdf)
 
-    def extract_img_feat(self, imgs):
-        """Backbone + neck. imgs (B, N, H, W, 3) -> list of (B, N, h, w, C)."""
+    def extract_img_feat(self, imgs, flip=False):
+        """Backbone + neck. imgs (B, N, H, W, 3) -> list of (B, N, h, w, C).
+        ``flip`` (a bool or a 0-d bool tensor, the batch's ``flip``) mirrors
+        the features along W (``segmentor.py:207-214``, reference
+        ``tpv_segmentor.py:53-55``)."""
         B, N, H, W, _ = imgs.shape
         x = imgs.float().reshape(B * N, H, W, 3).permute(0, 3, 1, 2)
         feats = self.img_backbone(x.contiguous())
@@ -125,33 +136,41 @@ class TPVSegmentor(nn.Module):
         feats = self.img_neck(feats)
         if self.cfg.freeze_img_neck and self.cfg.freeze_img_backbone:
             feats = [f.detach() for f in feats]
-        return [f.permute(0, 2, 3, 1).reshape(B, N, *f.shape[2:],
-                                              f.shape[1]).float()
-                for f in feats]
+        return [flip_width(f, flip).permute(0, 2, 3, 1).reshape(
+            B, N, *f.shape[2:], f.shape[1]).float() for f in feats]
 
-    def get_representation(self, imgs, lidar2img, generator=None):
+    def get_representation(self, imgs, lidar2img, generator=None, flip=False,
+                           focal_ratios_x=None, focal_ratios_y=None):
         """backbone -> neck -> lifter -> encoder: the three TPV planes
-        (``generator`` draws the encoder's train-mode dropout)."""
-        feats = self.extract_img_feat(imgs)
+        (``generator`` draws the encoder's train-mode dropout; ``flip`` see
+        ``extract_img_feat``; ``focal_ratios_x/y`` (N,) scale the projected
+        reference points, see ``geometry.projection.point_sampling``)."""
+        feats = self.extract_img_feat(imgs, flip)
         rep = self.lifter(feats)
         return self.encoder(rep, feats, lidar2img,
-                            (imgs.shape[2], imgs.shape[3]), generator)
+                            (imgs.shape[2], imgs.shape[3]), generator,
+                            focal_ratios_x, focal_ratios_y)
 
     def forward(self, imgs, lidar2img, img2lidar, train: bool = True,
-                generator=None, draws=None):
+                generator=None, draws=None, flip=False, focal_ratios_x=None,
+                focal_ratios_y=None):
         """Training forward -> the head's loss inputs
         (``selfocc_tpu/models/segmentor.py:236``). BatchNorm and dropout
         follow the module's mode (``model.train()``); ``train`` selects the
         head's training render. Random numbers come from ``generator`` (a
         ``torch.Generator`` on the model's device) unless ``draws`` fixes
-        the head's (see ``NeuSHead``)."""
-        rep = self.get_representation(imgs, lidar2img, generator)
+        the head's (see ``NeuSHead``). ``flip`` and ``focal_ratios_x/y``:
+        the batch's augmentation record (``get_representation``)."""
+        rep = self.get_representation(imgs, lidar2img, generator, flip,
+                                      focal_ratios_x, focal_ratios_y)
         return self.head(rep, img2lidar, train=train, generator=generator,
                          draws=draws)
 
-    def prepare(self, imgs, lidar2img):
-        """Decode the field volume once per frame: (C, H, W, D) fp32."""
-        return self.head.prepare(self.get_representation(imgs, lidar2img))
+    def prepare(self, imgs, lidar2img, flip=False):
+        """Decode the field volume once per frame: (C, H, W, D) fp32
+        (``flip``: the flip-TTA pass on W-mirrored images)."""
+        return self.head.prepare(self.get_representation(imgs, lidar2img,
+                                                         flip=flip))
 
     @torch.no_grad()
     def forward_occ(self, imgs, lidar2img, aabb=None, resolution=None):

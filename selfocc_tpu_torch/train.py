@@ -60,7 +60,8 @@ from .models.initializers import init_weights
 from .models.segmentor import TPVSegmentor
 from .utils.checkpoint import load_torch_resnet50, save_checkpoint
 from .utils.runtime import (add_device_arg, checkpoint_path, get_dataset,
-                            get_logger, resolve_device, to_device)
+                            get_logger, host_arrays, resolve_device,
+                            to_device)
 from .utils.train_lib import Trainer
 
 RESNET_PTH = "ckpts/resnet50-0676ba61.pth"
@@ -107,14 +108,14 @@ def format_metrics(metrics) -> str:
 
 
 def host_batch(ds, index: int, seed: int, epoch: int, pos: int) -> Dict:
-    """Item ``index`` of ``ds`` as host arrays (labels and tokens dropped),
-    built after seeding Python's and numpy's global generators from
-    (seed, epoch, position): the dataset's augmentation draws from them."""
+    """Item ``index`` of ``ds`` as host arrays (labels, tokens and
+    sequence names dropped), built after seeding Python's and numpy's
+    global generators from (seed, epoch, position): the dataset's
+    augmentation and KITTI-raw's stereo side draw from them."""
     s = (seed * 1_000_003 + epoch * 100_003 + pos) % 2**32
     random.seed(s)
     np.random.seed(s)
-    return {k: np.asarray(v) for k, v in ds[index].items()
-            if not isinstance(v, (str, dict))}
+    return host_arrays(ds[index])
 
 
 def train(cfg, trainer: Trainer, ds, device, max_steps: int, seed: int,

@@ -51,9 +51,13 @@ class ChunkedRenderer:
         self.geo_only = set(self.outputs) <= GEO_OUTPUTS
 
     @torch.no_grad()
-    def prepare(self, imgs: torch.Tensor, lidar2img: torch.Tensor):
-        """Backbone -> encoder -> decoded (C, H, W, D) fp32 volume."""
-        return self.model.prepare(imgs, lidar2img).float()
+    def prepare(self, imgs: torch.Tensor, lidar2img: torch.Tensor,
+                flip: bool = False):
+        """Backbone -> encoder -> decoded (C, H, W, D) fp32 volume;
+        ``flip=True``: the flip-TTA pass, ``imgs`` mirrored along W and the
+        features mirrored back before the encoder (``eval_lib.py:187-230``).
+        No focal ratios, as in the JAX eval drivers."""
+        return self.model.prepare(imgs, lidar2img, flip=flip).float()
 
     def render(self, volume, origin, direction) -> Dict[str, np.ndarray]:
         """origin/direction (R, 3) on the volume's device -> host dict of

@@ -102,12 +102,13 @@ def load_weights(model, ckpt_path: str = "", torch_ckpt: str = "",
 def get_dataset(cfg, synthetic: bool, phase: str = "train",
                 length: int = 64):
     """The dataset a driver reads: with ``synthetic`` the procedural scene,
-    else ``data.build_dataset(cfg, phase)`` (the nuScenes and SemanticKITTI
-    loaders; phases ``train``, ``val`` and ``novel_eval``). When the real
-    files are absent it exits non-zero with an error that names the missing
+    else ``data.build_dataset(cfg, phase)`` (the nuScenes, SemanticKITTI
+    and KITTI-raw loaders; phases ``train``, ``val`` and ``novel_eval``).
+    When the real files are absent (KITTI-raw: its split file; it has no
+    ``novel_eval``) it exits non-zero with an error that names the missing
     path: unlike the JAX ``train.get_dataloader``, it never substitutes
-    synthetic data. A dataset type the port does not load (KITTI-raw)
-    raises NotImplementedError."""
+    synthetic data. A dataset type the port does not load raises
+    NotImplementedError."""
     if not synthetic:
         from ..data import build_dataset
         try:
@@ -122,9 +123,22 @@ def get_dataset(cfg, synthetic: bool, phase: str = "train",
         img_size=cfg.img_size, num_classes=n_sem, length=length)
 
 
+def host_arrays(item) -> Dict[str, np.ndarray]:
+    """An item's numeric entries as numpy arrays: strings, tuples of
+    strings (a KITTI-raw item's ``sequence``) and dicts are dropped."""
+    out = {}
+    for k, v in item.items():
+        if isinstance(v, (str, dict)):
+            continue
+        a = np.asarray(v)
+        if a.dtype.kind not in "USO":
+            out[k] = a
+    return out
+
+
 def to_device(item, device) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(np.asarray(v)).to(device)
-            for k, v in item.items() if not isinstance(v, (str, dict))}
+    return {k: torch.as_tensor(v).to(device)
+            for k, v in host_arrays(item).items()}
 
 
 def get_logger() -> logging.Logger:

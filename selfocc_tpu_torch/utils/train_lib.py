@@ -121,6 +121,20 @@ def build_loss_inputs(cfg: Config, out: Dict, batch: Dict) -> Dict:
     return inputs
 
 
+def aug_kwargs(batch: Dict) -> Dict:
+    """The augmentation record the model takes from a batch, where the
+    batch has it (``train_lib.py:132-140``): ``flip``, and the per-camera
+    ``focal_ratios_x`` / ``focal_ratios_y`` of a ``pad_scale_rate``
+    resize."""
+    kw = {}
+    if "flip" in batch:
+        kw["flip"] = batch["flip"]
+    if "focal_ratios_x" in batch:
+        kw["focal_ratios_x"] = batch["focal_ratios_x"]
+        kw["focal_ratios_y"] = batch["focal_ratios_y"]
+    return kw
+
+
 class Trainer:
     """Model, optimizer, schedule, loss and step count of one run; ``step``
     is ``selfocc_tpu/utils/train_lib.py``'s ``make_train_step`` body."""
@@ -135,16 +149,19 @@ class Trainer:
     def step(self, batch: Dict[str, torch.Tensor], generator,
              draws: Optional[Dict] = None,
              sync: Optional[Callable[[], None]] = None) -> Dict:
-        """One optimizer step on a device batch. Returns the weighted loss
-        dict, ``total``, ``grad_norm`` (of the trainable parameters, before
-        clipping) and ``lr`` as tensors, plus the host seconds of forward,
-        backward and optimizer (each ended by ``sync`` when given)."""
+        """One optimizer step on a device batch (its ``flip`` and focal
+        ratios, where it has them, go to the model: ``aug_kwargs``).
+        Returns the weighted loss dict, ``total``, ``grad_norm`` (of the
+        trainable parameters, before clipping) and ``lr`` as tensors, plus
+        the host seconds of forward, backward and optimizer (each ended by
+        ``sync`` when given)."""
         sync = sync or (lambda: None)
         self.model.train()
         t0 = time.perf_counter()
         out = self.model(batch["imgs"], batch["lidar2img"],
                          batch[self.cfg.model.head.trans_kw], train=True,
-                         generator=generator, draws=draws)
+                         generator=generator, draws=draws,
+                         **aug_kwargs(batch))
         tot, ldict = self.loss_fn(build_loss_inputs(self.cfg, out, batch))
         sync()
         t1 = time.perf_counter()

@@ -5,7 +5,8 @@ originals: the port imports nothing of ``selfocc_tpu``, so it keeps its own
 ``openseed2nuscenes``, ``cityscapes2semantickitti``), the ``eval_iou``
 driver's helpers, the data modules (``transforms``, ``wrapper``,
 ``nuscenes_dataset``, ``nuscenes_eval_dataset``, ``sampler``, ``prefetch``,
-``semantic_kitti_io``, ``kitti_dataset``, ``kitti_eval_dataset``),
+``semantic_kitti_io``, ``kitti_dataset``, ``kitti_eval_dataset``,
+``kitti_raw_dataset``),
 ``build_dataset``'s path and override tables,
 ``utils/openseed_utils.SemTeacher`` and ``utils/scenerf_metric.SSCMetrics``
 (the KITTI configs with the config test), and these
@@ -28,7 +29,7 @@ from selfocc_tpu_torch.utils.metrics import DepthMetric as TDepthMetric
 
 @pytest.mark.parametrize("name", ["nuscenes_occ", "tiny", "nuscenes_depth",
                                   "nuscenes_novel_depth", "kitti_occ",
-                                  "kitti_novel_depth"])
+                                  "kitti_novel_depth", "kitti_raw_depth"])
 def test_config_copies_equal_their_originals(name):
     ref = dataclasses.asdict(getattr(jexp, name)())
     got = dataclasses.asdict(getattr(texp, name)())
@@ -219,6 +220,7 @@ _COPIES = {
                               "read_surround_imgs",),
     "data.semantic_kitti_io": (), "data.kitti_eval_dataset": (),
     "data.kitti_dataset": ("Kitti_One_Frame.read_surround_imgs",),
+    "data.kitti_raw_dataset": ("Kitti_Raw_Stereo.read_surround_imgs",),
     "utils.openseed_utils": ("JaxSemTeacher",),
     "utils.scenerf_metric": (),
 }

@@ -241,11 +241,14 @@ def test_missing_data_exits_naming_the_path(tmp_path, monkeypatch, phase,
 @pytest.mark.parametrize("dtype", ["Kitti_One_Frame", "Kitti_Raw",
                                    "Kitti_Raw_Stereo"])
 def test_kitti_is_not_ported(tmp_path, monkeypatch, dtype):
-    # SemanticKITTI (Kitti_One_Frame) is ported: without its odometry tree
+    # SemanticKITTI (Kitti_One_Frame) and KITTI-raw (Kitti_Raw and
+    # Kitti_Raw_Stereo) are ported. Without SemanticKITTI's odometry tree
     # every phase raises FileNotFoundError naming <data_path>/dataset, and
-    # the drivers exit naming it. The KITTI-raw loaders are not:
-    # NotImplementedError, never FileNotFoundError ("no data"), in every
-    # phase, even where the files would be absent
+    # the drivers exit naming it. Without a KITTI-raw split file train and
+    # val raise FileNotFoundError naming the split file, as the JAX
+    # factory does (tiny has no split_path: the probe gets ""), and
+    # novel_eval raises FileNotFoundError (KITTI-raw has no novel-view
+    # eval dataset); the drivers exit
     monkeypatch.chdir(tmp_path)
     cfg = dataclasses.replace(get_config("tiny"), dataset_type=dtype)
     for phase in ("train", "val", "novel_eval"):
@@ -255,11 +258,20 @@ def test_kitti_is_not_ported(tmp_path, monkeypatch, dtype):
             with pytest.raises(SystemExit, match="data/kitti/dataset"):
                 get_dataset(cfg, False, phase)
             continue
-        with pytest.raises(NotImplementedError,
-                           match="queue 1 item 1, kitti_raw_depth"):
-            build_dataset(cfg, phase)
-        with pytest.raises(NotImplementedError):
+        what = "dataset index" if phase == "novel_eval" else \
+            "KITTI-raw split file"
+        for pkg in (jbuild, build_dataset):
+            with pytest.raises(FileNotFoundError, match=what):
+                pkg(cfg, phase)
+        with pytest.raises(SystemExit, match=what):
             get_dataset(cfg, False, phase)
+    if dtype == "Kitti_Raw_Stereo":
+        # the recipe names its eigen split file
+        want = "data/kitti_raw/splits/eigen_zhou/train_files.txt"
+        with pytest.raises(FileNotFoundError, match=want):
+            build_dataset(get_config("kitti_raw_depth"), "train")
+        with pytest.raises(SystemExit, match=want):
+            get_dataset(get_config("kitti_raw_depth"), False, "train")
 
 
 @pytest.mark.parametrize("module", ["train", "eval_depth", "eval_iou",

@@ -151,4 +151,4 @@ def test_multi_loss_on_tiny_recipe(loss_inputs):
 
 def test_unported_loss_is_refused():
     with pytest.raises(NotImplementedError):
-        tlosses.build_loss(dict(type="EdgeLoss3DMS", ray_resize=[4, 6]))
+        tlosses.build_loss(dict(type="SparsityLoss"))

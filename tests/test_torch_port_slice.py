@@ -169,12 +169,17 @@ def test_eval_depth_runs_without_jax(tmp_path):
         "from selfocc_tpu_torch import eval_depth, eval_iou, "
         "eval_iou_kitti, eval_novel_depth, eval_novel_depth_kitti, train\n"
         "from selfocc_tpu_torch.data import (build_dataset, kitti_dataset,"
-        " kitti_eval_dataset, nuscenes_dataset, nuscenes_eval_dataset,"
-        " prefetch, sampler, semantic_kitti_io, transforms, wrapper)\n"
+        " kitti_eval_dataset, kitti_raw_dataset, nuscenes_dataset,"
+        " nuscenes_eval_dataset, prefetch, sampler, semantic_kitti_io,"
+        " transforms, wrapper)\n"
+        "from selfocc_tpu_torch.losses import EdgeLoss3DMS\n"
         "from selfocc_tpu_torch.utils import (checkpoint, openseed_utils,"
         " scenerf_metric)\n"
         "eval_depth.main(['--py-config', 'tiny', '--synthetic',"
         " '--num-samples', '1', '--batch', '256', '--device', 'cpu'])\n"
+        "eval_depth.main(['--py-config', 'tiny', '--synthetic',"
+        " '--num-samples', '1', '--batch', '256', '--flip',"
+        " '--depth-metric-tgt', 'max', '--device', 'cpu'])\n"
         "eval_iou.main(['--py-config', 'tiny', '--synthetic',"
         " '--num-samples', '1', '--resolution', '1.0', '--occ3d',"
         " '--use-mask', '--sem', '--device', 'cpu'])\n"
