@@ -20,13 +20,20 @@ raises and the exit code is non-zero.
   the trilinear forward and backward at the main paths' own points (the
   first 4096-ray training chunk at C = 25 and C = 1, the first 32768-ray
   frame chunk at C = 1) and on uniform random points, the values-only
-  trilinear forward ``trilinear_cf_fwd`` at the dense occupancy query's
-  shape (timed against ``F.grid_sample`` too) and at off-path channel
-  counts and row strides, and ``gather_rows`` on an fp32 table of 28-byte
-  rows. ``--baseline DIR`` (a checkout of
-  another commit) also times that checkout's trilinear kernels at the main
-  paths' points, in turns with this one's (and ``[frame]`` profiles that
-  checkout's eval frame beside this one's).
+  pair ``trilinear_cf_fwd`` / ``trilinear_cf_bwd`` at their main-path
+  shapes (the dense occupancy query, the kitti_occ uniform sdf grid at
+  C = 4 and the compact second derivative's one query of 6 x 1,048,576
+  point-major taps; timed against ``F.grid_sample`` and its backward too)
+  and at edge cases (points outside the volume and on its knots, counts no
+  multiple of a tile, row strides above C, rows and cotangents off 16-byte
+  alignment; the values bit-equal to the with-grad forward's), the compact
+  ``second_grad``'s one query against one query per tap (forward bit for
+  bit, the volume's cotangent within GRAD_RTOL, one launch each way), and
+  ``gather_rows`` on an fp32 table of 28-byte rows. ``--baseline DIR`` (a
+  checkout of another commit) also times that checkout's trilinear
+  kernels at the main paths' points, the values-only pair included, in
+  turns with this one's (and ``[frame]`` profiles that checkout's eval
+  frame beside this one's).
 - ``[gather]``: ``gather_rows``'s own path (no production path calls it):
   one call through the public wrapper at ``tools/bench_gather.py``'s shape,
   launches counted, held against ``index_select`` (exact), then timed
@@ -50,7 +57,8 @@ raises and the exit code is non-zero.
   ``torch.cuda.set_sync_debug_mode("error")``; ``trilinear_cf_fwd``
   against its plain version on a 1,048,576-point slab of the dense grid
   and at the 640,000 Occ3D points (there ``F.grid_sample`` is timed on the
-  same values, without and with its channel-first copy); the Occ3D
+  same values, without and with its channel-first copy, and a strided
+  bound counts each corner row as whole 32-byte sectors); the Occ3D
   occupancy and classes of the kernel path against the plain path, and
   separable against gather.
 - ``[train-parity]``: one ``tiny`` training step with the kernels on the card,
@@ -98,17 +106,16 @@ raises and the exit code is non-zero.
   calibration, 256x256x32 labels every 5th val frame), registered as
   ``kitti_occ_fab`` / ``kitti_novel_depth_fab``: 5 ``kitti_occ`` steps at
   full width from the loader through ``train.main`` (the five losses and
-  ``grad_norm`` finite; a profiled warm step with its launches; a warm
-  step under ``torch.cuda.set_sync_debug_mode("error")``); a KITTI-shaped
+  ``grad_norm`` finite; 8 synchronised warm steps for the median and
+  spread; a profiled warm step with its launches, the values-only kernels
+  on the plane 6 times forward and 3 times backward; a warm step under
+  ``torch.cuda.set_sync_debug_mode("error")``); a KITTI-shaped
   ``tiny`` step on the card against the CPU (losses rtol 1e-5; gradients,
   SecondGradLoss's apart); ``eval_iou_kitti.main`` on one val frame (256 x
   256 x 32 grid; the kernel path's occupancy against the plain path's,
   equal but where |sdf| < 1e-5); ``eval_novel_depth_kitti.main`` with
   ``raw`` and ``max`` (two frames, 14 neighbours of 176 x 608 rays) and a
-  4096-ray subset on the card against the CPU. ``[kernels]`` also holds
-  ``trilinear_cf_bwd`` (the values-only backward) at the kitti_occ uniform
-  grid's jittered points and at the compact taps of its first training
-  chunk against its plain version and ``F.grid_sample``'s backward.
+  4096-ray subset on the card against the CPU.
 
 - ``[depth]``: the depth recipes on fabricated full-size data in a
   temporary directory: a KITTI-raw tree (the day 2011_09_26 with two drives
@@ -185,6 +192,7 @@ OCC_SLAB = 1 << 20    # dense-grid points held against the plain version
 # the error beyond GRAD_RTOL of its max, over the voxel's sum of term
 # magnitudes (see kitti_train_parity)
 STENCIL_RTOL = 1e-6
+WARM_STEPS = 8        # kitti_occ steps on one batch timed for the median
 
 
 def log(msg):
@@ -231,6 +239,29 @@ def device_ms(fn, reps):
         if us > 0:
             return us / reps / 1e3
     return None
+
+
+def cold_device_ms(fn, reps, key):
+    """Device milliseconds per call of the kernels named ``key`` in
+    ``fn()``, with the L2 cache flushed before every call (a 256 MB fill in
+    between, left out of the sum): what the call takes when none of its
+    inputs lies in L2 from the call before."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    junk = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            junk.fill_(1.0)
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and key in e.key)
+    del junk
+    return us / reps / 1e3 if us > 0 else None
 
 
 def bound(nbytes, flops):
@@ -619,6 +650,50 @@ def trilinear_ab(base, this, vol25, train_pts, frame_pts, g):
     return out
 
 
+def values_ab(base, this, g, device):
+    """Median ms (events, device) of the two checkouts' values-only kernels
+    at their main-path shapes, in turns: baseline, this, this, baseline.
+    Each gets the same inputs: the dense occupancy query (C = 25), the
+    kitti_occ uniform grid (C = 4) and the compact taps' one query on the
+    plane, forward and backward."""
+    import torch
+    from selfocc_tpu_torch.configs.experiments import get_config
+    dense = dense_grid_points(get_config("nuscenes_occ"), device)
+    vol25 = torch.randn((257, 257, 25, 25), generator=g,
+                        device=device).permute(3, 0, 1, 2)
+    shape, uniform, taps = kitti_points(device)[:3]
+    vol4 = torch.randn(tuple(shape) + (4,), generator=g,
+                       device=device).permute(3, 0, 1, 2)
+    plane = torch.randn((1,) + tuple(shape), generator=g, device=device)
+    gv4 = torch.randn((uniform.shape[0], 4), generator=g, device=device)
+    gv1 = torch.randn((taps.shape[0], 1), generator=g, device=device)
+
+    def calls(mod):
+        return {
+            "fwd_dense_c25": lambda: mod.trilinear_cf_fwd(vol25, dense),
+            "fwd_uniform_c4": lambda: mod.trilinear_cf_fwd(vol4, uniform),
+            "fwd_taps_c1": lambda: mod.trilinear_cf_fwd(plane, taps),
+            "bwd_uniform_c4": lambda: mod.trilinear_cf_bwd(
+                vol4.shape, uniform, gv4),
+            "bwd_taps_c1": lambda: mod.trilinear_cf_bwd(plane.shape, taps,
+                                                        gv1)}
+
+    runs = {"baseline": [], "this": []}
+    for side in ("baseline", "this", "this", "baseline"):
+        fns = calls(base if side == "baseline" else this)
+        runs[side].append({k: (timed(f, 10), device_ms(f, 10))
+                           for k, f in fns.items()})
+        torch.cuda.empty_cache()
+    out = {side: {k: sorted(r[k] for r in rs) for k in rs[0]}
+           for side, rs in runs.items()}
+    for k in out["this"]:
+        log(f"  A/B {k} (event ms, device ms): baseline {out['baseline'][k]}"
+            f", this {out['this'][k]}")
+    del vol25, vol4, plane, dense, uniform, taps, gv4, gv1
+    torch.cuda.empty_cache()
+    return out
+
+
 def channel_close(got, ref):
     """The largest error of each channel of (N, C) values over 1e-5 of that
     channel's largest reference magnitude (<= 1 passes), and the largest
@@ -659,74 +734,127 @@ def dense_grid_points(cfg, device):
         xyz.reshape(-1, 3)).contiguous()
 
 
-def values_kernel_checks(g, device):
-    """``trilinear_cf_fwd`` (the values-only forward) at the dense
-    occupancy query's shape (the 512 x 512 x 40 grid, 10,485,760 points, on
-    a random (25, 257, 257, 25) channel-last volume): against its plain
-    version (each channel within 1e-5 of its max) and ``F.grid_sample``,
-    timed (events and device time, the channel-first copy that
-    ``grid_sample`` needs timed apart). Then off-path inputs, checked only:
-    C = 1, 2, 3, 5, 21, 25, 33, volumes that are channel slices of wider
-    rows (row stride > C), rays, uniform points with knots, one-cell runs;
-    and the values agree with the with-grad forward's (the same value
-    arithmetic; bit-equal cases are counted)."""
+def values_fwd_record(interp, vol, pts, shape, reps):
+    """``trilinear_cf_fwd`` on one input: against its plain version (each
+    channel within 1e-5 of its max) and ``F.grid_sample``; timed by events
+    and device time beside its plain version and ``F.grid_sample`` (the
+    channel-first copy that it needs timed apart). Bound: the distinct
+    corner rows its points touch read once, the points read once, the
+    values written once; 20 + 16 C operations per point."""
     import torch
-    from selfocc_tpu_torch.configs.experiments import get_config
-    from selfocc_tpu_torch.ops import interp
-    cfg = get_config("nuscenes_occ")
-    shape = (257, 257, 25)
-    vol = torch.randn(shape + (25,), generator=g,
-                      device=device).permute(3, 0, 1, 2)
-    pts = dense_grid_points(cfg, device)
     n, C = pts.shape[0], vol.shape[0]
     got = interp.trilinear_cf_fwd(vol, pts)
     ref = interp.trilinear_sample_cf_plain(vol, pts)
     rel, err = channel_close(got, ref)
-    check("trilinear_cf_fwd (dense query, C=25, 10485760 points) / "
-          "channel tolerance", rel, 1.0)
+    check(f"trilinear_cf_fwd ({shape}) / channel tolerance", rel, 1.0)
     lib, copy = grid_sample_of(vol, pts)
     lib_rel, lib_err = channel_close(lib(), ref)
-    log(f"  F.grid_sample at the dense query: {lib_err:.3e} from the "
-        f"plain version ({lib_rel:.3f} of 1e-5 per channel)")
     del got, ref
     torch.cuda.empty_cache()
-    voxels = corner_voxels(pts, shape)
+    voxels = corner_voxels(pts, tuple(vol.shape[1:]))
+
+    def kern():
+        return interp.trilinear_cf_fwd(vol, pts)
     rec = kernel_record(
-        err, timed(lambda: interp.trilinear_cf_fwd(vol, pts), 10),
+        err, timed(kern, reps),
         timed(lambda: interp.trilinear_sample_cf_plain(vol, pts), 3),
         (voxels * C * 4 + nbytes(pts) + n * C * 4, n * (20 + 16 * C)),
-        library_ms=timed(lib, 10), library="F.grid_sample",
-        library_copy_ms=timed(copy, 10),
-        library_device_ms=device_ms(lib, 10),
-        device_ms=device_ms(lambda: interp.trilinear_cf_fwd(vol, pts), 10),
-        shape="dense query, C=25, 10485760 points", points=n, C=C,
-        corner_voxels=voxels, channel_rel_err=rel)
-    log(f"  trilinear_cf_fwd dense query: ms {rec['ms']:.4g}, device_ms "
+        library_ms=timed(lib, reps), library="F.grid_sample",
+        library_copy_ms=timed(copy, reps),
+        library_device_ms=device_ms(lib, reps), library_max_abs_err=lib_err,
+        library_channel_rel_err=lib_rel, device_ms=device_ms(kern, reps),
+        shape=shape, points=n, C=C, corner_voxels=voxels,
+        channel_rel_err=rel)
+    log(f"  trilinear_cf_fwd {shape}: ms {rec['ms']:.4g}, device_ms "
         f"{rec['device_ms']}, plain_ms {rec['plain_ms']:.4g}, grid_sample "
-        f"{rec['library_ms']:.4g} (+ copy {rec['library_copy_ms']:.4g}), "
-        f"bound_ms {rec['bound_ms']:.4g} ({rec['bound_by']})")
-    del vol, pts, lib, copy
+        f"{rec['library_ms']:.4g} (device {rec['library_device_ms']}, + "
+        f"copy {rec['library_copy_ms']:.4g}), bound_ms "
+        f"{rec['bound_ms']:.4g} ({rec['bound_by']})")
+    del lib, copy
     torch.cuda.empty_cache()
+    return rec
 
-    small = (13, 17, 9)
+
+def edge_points(g, device, small):
+    """Off-path points on a small volume: rays through it and out of it,
+    the compact stencil's six point-major taps of their samples 0.05 cells
+    apart, uniform points with a margin outside and 1/8 of them on
+    integer knots, a ray whose samples all lie in one cell (every lane of a
+    warp shares every corner), points far outside and on the last knots,
+    and the rays shuffled; no count a multiple of 128."""
+    import torch
     sh = torch.tensor(small, dtype=torch.float32, device=device)
     o = torch.rand((40, 3), generator=g, device=device) * sh * 0.5 + sh / 4
     d = torch.randn((40, 3), generator=g, device=device)
     t = torch.sort(torch.rand((40, 97), generator=g, device=device), -1)[0]
-    ray_pts = (o[:, None] + d[:, None] / d.norm(dim=-1, keepdim=True)[
+    rays = (o[:, None] + d[:, None] / d.norm(dim=-1, keepdim=True)[
         :, None] * t[..., None] * 1.3 * float(sh.max())).reshape(-1, 3)
+    eye = torch.eye(3, device=device) * 0.05
+    taps = (rays[:, None, :] + torch.stack([eye, -eye], 1).reshape(6, 3)
+            ).reshape(-1, 3)
     uni = torch.rand((5003, 3), generator=g, device=device) * (sh + 3) - 1.5
     uni[::8] = torch.round(uni[::8])
     cell = torch.tensor([4.3, 5.1, 2.3], device=device) + 0.5 * torch.rand(
         (4099, 3), generator=g, device=device)
+    far = torch.tensor([[1e9, 2.0, 2.0], [-1e9, 3.0, 1.0],
+                        [small[0] - 1.0, small[1] - 1.0, small[2] - 1.0],
+                        [-1.0, -1.0, -1.0], [-0.5, 0.5, 0.5]],
+                       device=device).repeat(41, 1)
+    perm = torch.randperm(rays.shape[0], generator=g, device=device)
+    return {"rays": rays, "taps": taps, "uniform + knots": uni,
+            "one cell": cell, "far and last knots": far,
+            "rays shuffled": rays[perm]}
+
+
+def values_kernel_checks(g, device):
+    """``trilinear_cf_fwd`` (the values-only forward) at its main-path
+    shapes, each against its plain version and ``F.grid_sample``, timed
+    (``values_fwd_record``): the dense occupancy query (the 512 x 512 x 40
+    grid, 10,485,760 points, on a random (25, 257, 257, 25) channel-last
+    volume), the kitti_occ uniform sdf grid (262,144 points, C = 4, 16-byte
+    rows) and the compact second derivative's one query (6,291,456
+    point-major taps on the (257, 257, 33) sdf plane). Then off-path
+    inputs, checked only: C = 1, 2, 3, 4, 5, 8, 21, 25, 33, volumes that are
+    channel slices of wider rows (row stride > C, 16-byte aligned or 4
+    bytes off), the points of ``edge_points``; and the values agree bit
+    for bit with the with-grad forward's (the same value arithmetic)."""
+    import torch
+    from selfocc_tpu_torch.configs.experiments import get_config
+    from selfocc_tpu_torch.ops import interp
+    cfg = get_config("nuscenes_occ")
+    vol = torch.randn((257, 257, 25, 25), generator=g,
+                      device=device).permute(3, 0, 1, 2)
+    rec = values_fwd_record(interp, vol, dense_grid_points(cfg, device),
+                            "dense query, C=25, 10485760 points", 10)
+    del vol
+    torch.cuda.empty_cache()
+    kshape, uniform, taps = kitti_points(device)[:3]
+    vol4 = torch.randn(tuple(kshape) + (4,), generator=g,
+                       device=device).permute(3, 0, 1, 2)
+    plane = torch.randn((1,) + tuple(kshape), generator=g, device=device)
+    for tag, v, p in (("uniform", vol4, uniform), ("taps", plane, taps)):
+        r = values_fwd_record(interp, v, p, f"kitti_occ {tag}, C="
+                              f"{v.shape[0]}, {p.shape[0]} points", 20)
+        for k in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
+                  "library_device_ms", "library_copy_ms", "max_abs_err",
+                  "points"):
+            rec[f"{tag}_{k}"] = r[k]
+    rec["max_abs_err"] = max(rec[k] for k in ("max_abs_err",
+                                              "uniform_max_abs_err",
+                                              "taps_max_abs_err"))
+    del vol4, plane, uniform, taps
+    torch.cuda.empty_cache()
+
+    small = (13, 17, 9)
+    sets = edge_points(g, device, small)
     same = total = 0
-    for C in (1, 2, 3, 5, 21, 25, 33):
+    for C in (1, 2, 3, 4, 5, 8, 21, 25, 33):
         full = torch.randn(small + (C + 4,), generator=g, device=device)
         for tag, v in (("contiguous", full[..., :C].contiguous()),
-                       ("row stride", full[..., 4:])):
+                       ("row stride", full[..., 4:]),
+                       ("row stride, 4 bytes off", full[..., 1:C + 1])):
             v = v.permute(3, 0, 1, 2)
-            for ptag, p in (("rays", ray_pts), ("uniform + knots", uni),
-                            ("one cell", cell)):
+            for ptag, p in sets.items():
                 got = interp.trilinear_cf_fwd(v, p)
                 err = max_err(got, interp.trilinear_sample_cf_plain(v, p))
                 check(f"trilinear_cf_fwd (C={C}, {tag}, {ptag}, "
@@ -739,6 +867,9 @@ def values_kernel_checks(g, device):
                     total += 1
     log(f"  values-only and with-grad forwards bit-equal in {same} of "
         f"{total} cases")
+    if same != total:
+        raise AssertionError("trilinear_cf_fwd: values differ from the "
+                             f"with-grad forward's in {total - same} cases")
     torch.cuda.synchronize()
     return {"trilinear_cf_fwd": dict(rec, bit_equal_to_with_grad=[same,
                                                                   total])}
@@ -751,7 +882,9 @@ def kitti_points(device):
     up to one step, seeded) and the compact second derivative's six taps
     (+-0.01 m along x, y, z) of the first 4096-ray training chunk's
     1,048,576 samples (a synthetic batch, the cellular ray grid and the
-    jitter from a seeded generator)."""
+    jitter from a seeded generator), 6,291,456 points in the one query's
+    point-major order. Returns (grid shape, uniform, taps, the field, the
+    samples' metric positions)."""
     import torch
     from selfocc_tpu_torch.configs.experiments import get_config
     from selfocc_tpu_torch.geometry.projection import rays_from_img2lidar
@@ -784,10 +917,12 @@ def kitti_points(device):
     mids = neus.sample_uniform(near, far, head.num_samples, t_rand).mids
     pos = (origin[:n, None, :] + unit[:, None, :] * mids[..., None]
            ).reshape(-1, 3)
-    eye = torch.eye(3, device=device) * h.numerical_gradients_delta
-    taps = [m.meter2grid(pos + sign * eye[a]).contiguous()
-            for a in range(3) for sign in (1.0, -1.0)]
-    return head.field.grid_shape, uniform, taps
+    # as field.second_grad lays them out: point-major, x+d, x-d along x,
+    # then y, then z
+    steps = torch.eye(3, device=device) * h.numerical_gradients_delta
+    taps = m.meter2grid(pos[:, None, :] + torch.stack(
+        [steps, -steps], 1).reshape(6, 3)).reshape(-1, 3).contiguous()
+    return head.field.grid_shape, uniform, taps, head.field, pos
 
 
 def grid_sample_bwd_of(shape, pts, grad_vals):
@@ -818,36 +953,41 @@ def grid_sample_bwd_of(shape, pts, grad_vals):
 
 
 def values_bwd_checks(g, device):
-    """``trilinear_cf_bwd`` (``trilinear_bwd`` with the values' cotangent
-    alone), the backward of the values-only query, at its kitti_occ
-    training points (``kitti_points``): one compact tap's 1,048,576 points
-    on the sdf plane (C = 1, the plane kernel; 18 calls a step) and the
-    uniform grid's 262,144 jittered points on the 4-channel volume (C = 4,
-    the rows kernel; once a step). Against its plain version (autograd
-    through ``trilinear_sample_cf_plain``; GRAD_RTOL), all six taps
-    checked; timed by events and device time, with ``F.grid_sample``'s
-    backward on the same values (the backward alone, and with the
-    channel-first copy it needs and the gradient copied back). Bound: the
-    cotangent and the points read once, the dense gradient written once;
-    8 multiply-adds per point and channel."""
+    """``trilinear_cf_bwd`` (the values-only backward) at its kitti_occ
+    training points (``kitti_points``): the compact second derivative's
+    one query, 6,291,456 point-major taps on the sdf plane (C = 1, the
+    plane kernel; 3 calls a step), and the uniform grid's 262,144 jittered
+    points on the 4-channel volume (C = 4, float4 atomics; once a step).
+    Against its plain version (autograd through
+    ``trilinear_sample_cf_plain``; GRAD_RTOL); timed by events and device
+    time, with ``F.grid_sample``'s backward on the same values (the
+    backward alone, and with the channel-first copy it needs and the
+    gradient copied back). Bound: the cotangent and the points read once,
+    the dense gradient written once; 20 + 16 C operations per point. Then
+    off-path inputs, checked only: C = 1, 2, 3, 4, 5, 8, 25 at the points
+    of ``edge_points``, and at C = 4 a cotangent 4 bytes off 16-byte
+    alignment (the scalar lanes)."""
     import torch
     from selfocc_tpu_torch.ops import interp
-    shape, uniform, taps = kitti_points(device)
+    shape, uniform, taps = kitti_points(device)[:3]
     recs = {}
-    for tag, C, pts in (("taps", 1, taps[0]), ("uniform", 4, uniform)):
+    for tag, C, pts in (("taps", 1, taps), ("uniform", 4, uniform)):
         vol_shape = (C,) + tuple(shape)
         vol = torch.zeros((C,) + tuple(shape), device=device)
         gv = torch.randn((pts.shape[0], C), generator=g, device=device)
-        worst = 0.0
-        for i, p in enumerate(taps if tag == "taps" else (pts,)):
-            got = interp.trilinear_cf_bwd(vol_shape, p, gv)
-            ref = interp.trilinear_cf_bwd_plain(vol, p, gv)
-            err = max_err(got, ref)
-            check(f"trilinear_cf_bwd ({tag} {i}, C={C}, {p.shape[0]} "
-                  "points)", err, GRAD_RTOL * float(ref.abs().max()) + 1e-7)
-            worst = max(worst, err)
-            del got, ref
+        got = interp.trilinear_cf_bwd(vol_shape, pts, gv)
+        ref = interp.trilinear_cf_bwd_plain(vol, pts, gv)
+        err = max_err(got, ref)
+        check(f"trilinear_cf_bwd ({tag}, C={C}, {pts.shape[0]} points)",
+              err, GRAD_RTOL * float(ref.abs().max()) + 1e-7)
+        del got, ref
         lib, lib_copy = grid_sample_bwd_of(vol_shape, pts, gv)
+        # the locality the plane backward's segments use: runs of one cell
+        # in a warp's 32 consecutive points, and the voxels touched
+        cells = torch.floor(pts[: pts.shape[0] // 32 * 32]).long()
+        cells = cells.view(-1, 32, 3)
+        runs = float(((cells[:, 1:] != cells[:, :-1]).any(-1).sum(1) + 1)
+                     .float().mean())
         lib_err = max_err(lib()[0].permute(1, 2, 3, 0),
                           interp.trilinear_cf_bwd(vol_shape, pts, gv)
                           .permute(1, 2, 3, 0))
@@ -857,24 +997,120 @@ def values_bwd_checks(g, device):
         def kern(p=pts, gv=gv, vol_shape=vol_shape):
             return interp.trilinear_cf_bwd(vol_shape, p, gv)
         recs[tag] = kernel_record(
-            worst, timed(kern, 10),
+            err, timed(kern, 20),
             timed(lambda: interp.trilinear_cf_bwd_plain(vol, pts, gv), 3),
             (nbytes(pts, gv) + out_bytes, n * (20 + 16 * C)),
             library_ms=timed(lib, 10), library="F.grid_sample backward",
             library_device_ms=device_ms(lib, 10),
             library_with_copy_ms=timed(lib_copy, 10),
             library_with_copy_device_ms=device_ms(lib_copy, 10),
-            library_max_abs_err=lib_err, device_ms=device_ms(kern, 10),
-            shape=f"{tag}, C={C}, {n} points", points=n, C=C)
+            library_max_abs_err=lib_err, device_ms=device_ms(kern, 20),
+            shape=f"{tag}, C={C}, {n} points", points=n, C=C,
+            cell_runs_per_warp=runs,
+            corner_voxels=corner_voxels(pts, tuple(shape)))
         log(f"  trilinear_cf_bwd {tag}: {recs[tag]}")
         del vol, gv, lib, lib_copy
         torch.cuda.empty_cache()
     rec = dict(recs["taps"])
     for k in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
               "library_device_ms", "library_with_copy_ms",
-              "library_with_copy_device_ms", "max_abs_err"):
+              "library_with_copy_device_ms", "max_abs_err", "points",
+              "cell_runs_per_warp", "corner_voxels"):
         rec[f"uniform_{k}"] = recs["uniform"][k]
+    del uniform, taps
+    torch.cuda.empty_cache()
+
+    small = (13, 17, 9)
+    sets = edge_points(g, device, small)
+    for C in (1, 2, 3, 4, 5, 8, 25):
+        vol = torch.zeros((C,) + small, device=device)
+        for ptag, p in sets.items():
+            gv = torch.randn((p.shape[0], C), generator=g, device=device)
+            ref = interp.trilinear_cf_bwd_plain(vol, p, gv)
+            check(f"trilinear_cf_bwd (C={C}, {ptag}, N={p.shape[0]})",
+                  max_err(interp.trilinear_cf_bwd(vol.shape, p, gv), ref),
+                  GRAD_RTOL * float(ref.abs().max()) + 1e-7)
+    p = sets["rays"]
+    buf = torch.randn(p.shape[0] * 4 + 1, generator=g, device=device)
+    gv = buf[1:].view(-1, 4)
+    ref = interp.trilinear_cf_bwd_plain(torch.zeros((4,) + small,
+                                                    device=device), p, gv)
+    check("trilinear_cf_bwd (C=4, rays, grad_vals 4 bytes off)",
+          max_err(interp.trilinear_cf_bwd((4,) + small, p, gv), ref),
+          GRAD_RTOL * float(ref.abs().max()) + 1e-7)
     return {"trilinear_cf_bwd": rec}
+
+
+def second_grad_checks(g, device):
+    """The compact second derivative (``TPVSDFField.second_grad``) of the
+    kitti_occ field on a random (4, 257, 257, 33) channel-last volume at the
+    first training chunk's 1,048,576 samples, its centre given as the head
+    gives it: one values-only query of the six taps, one forward and one
+    backward launch on the plane; against the composition of one query per
+    tap it replaces, run through the same kernels: the forward bit for bit,
+    the volume's cotangent within GRAD_RTOL (the six taps' sums are taken
+    in another order). Both timed, forward and backward (CUDA events)."""
+    import torch
+    from selfocc_tpu_torch.ops import interp
+    shape, _, _, field, pos = kitti_points(device)
+    delta = 0.01
+    leaf = torch.randn(tuple(shape) + (4,), generator=g,
+                       device=device).requires_grad_()
+    vol = leaf.permute(3, 0, 1, 2)
+    cot = torch.randn((pos.shape[0], 3), generator=g, device=device)
+    with torch.no_grad():
+        center = field.sdf(interp.first_channel(vol), pos)
+
+    def per_tap():
+        sdf_vol = interp.first_channel(vol)
+        comps = []
+        for axis in range(3):
+            e = torch.eye(3, device=device)[axis] * delta
+            comps.append((field.sdf(sdf_vol, pos + e)
+                          + field.sdf(sdf_vol, pos - e) - 2 * center)
+                         / (delta * delta))
+        return torch.stack(comps, dim=-1)
+
+    def merged():
+        return field.second_grad(vol, pos, delta, center=center)
+
+    counts = (interp.trilinear_cf_fwd, interp.trilinear_cf_bwd)
+    reset_counts(counts)
+    got = merged()
+    (g_got,) = torch.autograd.grad((got * cot).sum(), leaf)
+    torch.cuda.synchronize()
+    launches = {f"{fn.__name__}.plane": fn.plane_launches for fn in counts}
+    if launches != {"trilinear_cf_fwd.plane": 1,
+                    "trilinear_cf_bwd.plane": 1}:
+        raise AssertionError(f"second_grad: {launches} launches on the "
+                             "plane, one forward and one backward wanted")
+    ref = per_tap()
+    (g_ref,) = torch.autograd.grad((ref * cot).sum(), leaf)
+    bit_equal = bool(torch.equal(got, ref))
+    log(f"  second_grad (one query) against the per-tap composition: "
+        f"forward bit-equal {bit_equal} (max |d| {max_err(got, ref):.3e})")
+    if not bit_equal:
+        raise AssertionError("second_grad: the one query's forward differs "
+                             "from the per-tap composition's")
+    err = max_err(g_got, g_ref)
+    check("second_grad volume cotangent, one query against per tap", err,
+          GRAD_RTOL * float(g_ref.abs().max()) + 1e-7)
+
+    def fwd_bwd(fn):
+        def run():
+            out = fn()
+            torch.autograd.grad((out * cot).sum(), leaf)
+        return run
+    res = {"forward_bit_equal": bit_equal, "cotangent_max_abs_err": err,
+           "launches": launches,
+           "merged_fwd_ms": timed(merged, 10),
+           "per_tap_fwd_ms": timed(per_tap, 10),
+           "merged_fwd_bwd_ms": timed(fwd_bwd(merged), 10),
+           "per_tap_fwd_bwd_ms": timed(fwd_bwd(per_tap), 10)}
+    log(f"  second_grad: {res}")
+    del leaf, vol, got, ref, g_got, g_ref
+    torch.cuda.empty_cache()
+    return res
 
 
 def render_case(g, device, R, S, C=1, saturated=False, misalign=False,
@@ -1281,6 +1517,13 @@ def kernel_checks(device, baseline=None):
     res.update(values_kernel_checks(g, device))
 
     res.update(values_bwd_checks(g, device))
+    res["trilinear_cf_bwd"]["second_grad"] = second_grad_checks(g, device)
+    if baseline is not None:
+        import importlib
+        from selfocc_tpu_torch.ops import interp
+        res["trilinear_cf_fwd"]["values_ab"] = values_ab(
+            importlib.import_module(f"{load_baseline(baseline)}.ops.interp"),
+            interp, g, device)
 
     # MSDA at its three main-path call shapes: the hw-plane image
     # cross-attention (6 cams, 4 FPN levels of a 384x800 input, 66049
@@ -1647,9 +1890,9 @@ def occ_profile(fn):
             "kernel_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
             "trilinear_cf_fwd_ms": sum(
                 e.self_device_time_total for e in kernels
-                if "trilinear_fwd_" in e.key) / 1e3,
+                if "values_fwd_" in e.key) / 1e3,
             "trilinear_cf_fwd_calls": sum(
-                e.count for e in kernels if "trilinear_fwd_" in e.key)}
+                e.count for e in kernels if "values_fwd_" in e.key)}
 
 
 def occ_frame(device):
@@ -1786,14 +2029,27 @@ def occ_frame(device):
         check(f"trilinear_cf_fwd ({tag}, {p.shape[0]} points) / channel "
               "tolerance", rel, 1.0)
         n, C = p.shape[0], vol.shape[0]
-        b_ms, by = bound(corner_voxels(p, tuple(vol.shape[1:])) * C * 4
-                         + nbytes(p) + n * C * 4, n * (20 + 16 * C))
+        voxels = corner_voxels(p, tuple(vol.shape[1:]))
+        b_ms, by = bound(voxels * C * 4 + nbytes(p) + n * C * 4,
+                         n * (20 + 16 * C))
+        # a row of C floats inside a wider one is read as whole 32-byte
+        # sectors: the strided bound
+        sectors = -(-C * 4 // 32)
         kern[tag] = {"max_abs_err": err, "channel_rel_err": rel,
                      "points": int(n), "C": int(C), "row": row,
                      "bound_ms": b_ms, "bound_by": by,
+                     "strided_bound_ms": bound(
+                         voxels * sectors * 32 + nbytes(p) + n * C * 4,
+                         n * (20 + 16 * C))[0] if row and row > C else None,
+                     "corner_voxels": voxels,
                      "ms": timed(lambda: interp.trilinear_cf_fwd(kv, p), 10),
                      "device_ms": device_ms(
                          lambda: interp.trilinear_cf_fwd(kv, p), 10),
+                     # the same with L2 flushed before each call: whether
+                     # the back-to-back calls' reads hit L2
+                     "cold_device_ms": cold_device_ms(
+                         lambda: interp.trilinear_cf_fwd(kv, p), 10,
+                         "values_fwd"),
                      "plain_ms": timed(
                          lambda: interp.trilinear_sample_cf_plain(vol, p), 3)}
         if tag.startswith("Occ3D"):
@@ -2075,7 +2331,7 @@ def profile_step(trainer, batch, gen, step_s):
     # the trilinear kernels by instance: in-step ms, calls, ms per call
     tri = {}
     for e in kernels:
-        m = re.search(r"trilinear_\w+_kernel", e.key)
+        m = re.search(r"(?:trilinear|values)_\w+_kernel", e.key)
         if m:
             t = tri.setdefault(m.group(0), {"calls": 0, "device_ms": 0.0})
             t["calls"] += e.count
@@ -2860,8 +3116,10 @@ def kitti_train(device, work):
     ``train.main``: a cold step and 4 measured steps (losses and
     ``grad_norm`` finite and logged every step, so each step's time ends
     with its losses read), launch counts and peak memory; then on a
-    trainer of its own and one loader batch: a warm step, a profiled warm
-    step with its launches, and a warm step under
+    trainer of its own and one loader batch: a warm step, WARM_STEPS
+    synchronised warm steps (median and spread), a profiled warm step with
+    its launches (the values-only kernels on the plane: forward 6, backward
+    3, one query of the six compact taps per chunk), and a warm step under
     ``set_sync_debug_mode("error")``."""
     import os
     import torch
@@ -2890,10 +3148,29 @@ def kitti_train(device, work):
                                        0, 0), device)
     gen = torch.Generator(device=device).manual_seed(SEED)
     trainer.step(batch, gen, sync=torch.cuda.synchronize)
+    warm = []
+    for _ in range(WARM_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.step(batch, gen, sync=torch.cuda.synchronize)
+        warm.append(time.perf_counter() - t0)
+    warm_sorted = sorted(warm)
+    warm_med = (warm_sorted[WARM_STEPS // 2 - 1]
+                + warm_sorted[WARM_STEPS // 2]) / 2
     for fns, _ in kitti_wrappers():
         reset_counts(fns)
+    # busy share over the loader-fed median, as in earlier runs; the warm
+    # median's beside it
     prof = profile_step(trainer, batch, gen, med)
+    prof["device_busy_share_warm"] = prof["kernel_ms"] / 1e3 / warm_med
     per_step = read_kitti_counts("profiled kitti_occ step")
+    # one values-only query of the six compact taps per chunk: 3 chunks,
+    # the forward run again by the chunk's checkpoint
+    plane = {k: per_step[f"{k}.plane"]
+             for k in ("trilinear_cf_fwd", "trilinear_cf_bwd")}
+    if plane != {"trilinear_cf_fwd": 6, "trilinear_cf_bwd": 3}:
+        raise AssertionError(f"kitti_occ step: values-only launches on the "
+                             f"plane {plane}, want forward 6, backward 3")
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -2909,10 +3186,16 @@ def kitti_train(device, work):
                                                    measured[-1]],
            "max_memory_gb": peak, "logged": r["logged"],
            "launches": launches, "launches_per_step": per_step,
+           "warm_step_s": warm, "warm_step_s_median": warm_med,
+           "warm_step_s_spread": [warm_sorted[0], warm_sorted[-1]],
            "profile": prof, "sync_checked": True}
     log(f"  kitti_occ from the loader: step s {r['step_s']} (median of "
         f"steps 1-4 {med:.4f}), peak {peak:.2f} GiB, last losses "
-        f"{r['logged'][max(r['logged'])]}; launches per step {per_step}")
+        f"{r['logged'][max(r['logged'])]}; {WARM_STEPS} warm steps on one "
+        f"batch {[round(x, 4) for x in warm]} (median {warm_med:.4f}); "
+        f"busy {prof['device_busy_share']:.1%} of the loader-fed median, "
+        f"{prof['device_busy_share_warm']:.1%} of the warm median; "
+        f"launches per step {per_step}")
     del trainer, batch
     torch.cuda.empty_cache()
     return res
@@ -3951,16 +4234,20 @@ def main():
                 if f"{name}.{kind}" in counts:
                     entry[f"launches_{path}_{kind}"] = \
                         counts[f"{name}.{kind}"]
+        if name in ("trilinear_cf_fwd", "trilinear_cf_bwd"):
+            # the values-only kernels in the kitti_occ step: the compact
+            # taps on the plane, the uniform grid in rows
+            prefix = "values_" + name[len("trilinear_cf_"):] + "_"
+            for kernel, k in kires["train"]["profile"][
+                    "trilinear_kernels"].items():
+                if kernel.startswith(prefix):
+                    kind = kernel[len(prefix):-len("_kernel")]
+                    entry[f"in_kitti_step_ms_per_call_{kind}"] = \
+                        k["ms_per_call"]
+                    entry[f"in_kitti_step_calls_{kind}"] = k["calls"]
         if name == "trilinear_cf_bwd":
-            # its main path is kitti_occ training (values-only gradients);
-            # there the plane instance of trilinear_bwd is its alone
+            # its main path is kitti_occ training (values-only gradients)
             entry["launches"] = kires["train"]["launches"][name]
-            plane = kires["train"]["profile"]["trilinear_kernels"].get(
-                "trilinear_bwd_plane_kernel")
-            if plane is not None:
-                entry["in_kitti_step_ms_per_call_plane"] = \
-                    plane["ms_per_call"]
-                entry["in_kitti_step_calls_plane"] = plane["calls"]
         if name == "trilinear_cf_fwd":
             # its main path is the occupancy eval: the Occ3D gather frame
             occ_l = {t: ores[t]["launches"] for t in

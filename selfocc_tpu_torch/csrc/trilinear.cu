@@ -1,14 +1,18 @@
-// Trilinear sampling of a volume with the analytic gradient of channel 0:
-// forward (trilinear_cf_with_grad_fwd) and the volume's cotangent
-// (trilinear_bwd); and the values alone (trilinear_cf_fwd), for the
-// occupancy eval.
+// Trilinear sampling of a volume. For the render: the values with the
+// analytic gradient of channel 0, forward (trilinear_cf_with_grad_fwd) and
+// the volume's cotangent (trilinear_bwd). For the occupancy eval, the
+// uniform sdf grid and the compact second derivative: the values alone,
+// forward (trilinear_cf_fwd) and the volume's cotangent
+// (trilinear_cf_bwd), with kernels of their own (the values-only pair,
+// below).
 //
 // Replaces: selfocc_tpu/ops/interp.py::trilinear_sample_cf_with_grad
 // (interp.py:159), which XLA lowers on the TPU to 8 corner gathers over a
 // flattened (C, H*W*D) volume, and its JAX autodiff cotangent; and, values
-// only, interp.py::trilinear_sample_cf (:118, the dense occupancy query)
-// and interp.py::trilinear_sample (:73, the Occ3D resample of the dense
-// sdf and logits grids). Semantics:
+// only, interp.py::trilinear_sample_cf (:118, the dense occupancy query,
+// the KITTI uniform sdf grid and sdf taps) and interp.py::trilinear_sample
+// (:73, the Occ3D resample of the dense sdf and logits grids), with their
+// cotangents. Semantics:
 // align_corners=True fractional (h, w, d) indices, zeros padding; vals
 // (N, C) = sum over the 8 corners of weight * value; grad0 (N, 3) =
 // d(channel 0)/d(h, w, d), the bilinear interpolation over the other two
@@ -73,15 +77,72 @@
 // one per voxel); chains in the rows kernels.
 // - Both forwards stage grad0 through shared memory, so the warp writes its
 //   32 x 3 floats with three coalesced stores.
-// - Values only (trilinear_cf_fwd): the same two forward kernels with
-//   kGrad = false, which drops grad0's arithmetic, loads, staging and
-//   stores. It takes a row stride: the occupancy eval resamples the sdf
-//   and logit channels of its dense query's (N, 25) values where they lie,
-//   without copying them out (881 MB of logits at 512 x 512 x 40). At the
-//   dense query's 10.5M points the rows kernel is bound by its 1.05 GB of
-//   vals stores (one 100-byte row per point): 0.38 ms over HBM, 0.89-0.99
-//   ms measured on an NVIDIA H100 80GB HBM3 at 700 W, where F.grid_sample
-//   takes 1.02-1.13 ms on a channel-first copy.
+//
+// The values-only pair. Its callers: the dense occupancy query (C = 25,
+// 10.5M points of a 512 x 512 x 40 grid, 0.5-0.6 cells apart), the Occ3D
+// resample (C = 21 and the sdf plane, both at row stride 25, 640,000
+// points about 2 cells apart), the kitti_occ uniform sdf grid (C = 4 at
+// row 4, 262,144 jittered points, each in a cell of its own) and the
+// compact second derivative (C = 1: the six taps of each of a chunk's
+// 1,048,576 samples as one point-major query, forward and backward). A
+// sample's six taps lie 0.05 of a cell apart, in one cell 73% of the
+// time; consecutive samples about one cell apart, so the 32 taps of a
+// warp fall in about 9 runs of one cell.
+// - Rows forward, 1 < C <= 32 (walk): as the render's, lanes over channels
+//   walk the warp's 32 points and reload the 8 corner rows only when the
+//   cell changes; each point's row is stored as it is. At the dense query
+//   the bound is the 1.05 GB of values (0.38 ms over HBM); the walk takes
+//   2.6x that, and staging its rows for float4 stores made it slower, so
+//   the row stores are not what bounds it (what does is not measured:
+//   the card has no profiler of its own; the walk reloads 8 corner rows
+//   from L2 at every cell change). Tried and slower there: lanes over the
+//   tile's (point, channel) pairs, each pair's 8 loads independent, the
+//   tile staged for float4 stores (1.5x the walk: every pair loads its 8
+//   corners, where the walk keeps a cell's rows for its next points), and
+//   the walk with its values staged.
+// - Rows forward, C > 32 (pairs): the (point, channel) pairs of a tile of
+//   up to 128 points, its values staged in shared memory for float4
+//   stores.
+// - Rows forward, C = 4 at 16-byte rows (vec4): one thread per point, a
+//   float4 load per corner row and one float4 store: 4x fewer load
+//   requests than lanes over channels, and no walk (every point of the
+//   uniform grid has a cell of its own).
+// - Plane forward: one thread per point, its 8 loads issued before the
+//   sum; a sample's taps on neighbouring lanes read their corners from L1.
+// - Rows backward: one thread per (point, 4 channels) with one float4
+//   atomicAdd per in-volume corner row (8 a point at C = 4, compute
+//   capability 9.x), chosen by the launcher when C is a multiple of 4 and
+//   the cotangent and gradient are 16-byte aligned; else one lane per
+//   (point, channel) and scalar atomics.
+// - Plane backward (segments): no serial walk. A warp's lanes whose points
+//   lie in one cell (consecutive lanes) sum their 8 contributions by a
+//   segmented scan of 5 shuffle steps; each segment's last lane puts the
+//   in-volume corners into the block's hash table in shared memory (open
+//   addressing, 1024 slots, 8 probes, then a global atomic), which the
+//   block flushes with one global atomic per occupied slot after its 4
+//   tiles of 256 points. Uniform, shuffled or out-of-volume points make
+//   segments of one point and fill the table; the rest go straight to
+//   global atomics, and the result is the same. Tried and slower: the
+//   table alone (32-way conflicts on a slot), __match_any_sync peer sums
+//   before the table, larger tables over more tiles, and global atomics
+//   straight from the segments (the chunk's taps touch few voxels, tens
+//   of thousands, so those atomics queue on the same addresses). The
+//   table takes 8 inserts, each an fp32 atomicAdd in shared memory, for
+//   every run of one cell in a warp (chip_smoke.py records the runs per
+//   warp and the voxels touched).
+// Only the chosen designs are built; the ones tried are named above.
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3, 700.00 W (device
+// ms from torch.profiler, ranges over readings; bound: the bytes a call
+// must move over 3.35 TB/s):
+// - forward, dense query, C = 25 (walk): 0.817-0.919 ms, bound 0.384;
+// - forward, uniform grid, C = 4 (vec4): 0.0103-0.0118, bound 0.0091;
+// - forward, the six taps of 1,048,576 samples (plane): 0.0466-0.0523,
+//   bound 0.0301;
+// - forward, Occ3D sdf plane at row 25 (plane): 0.0562, bound 0.0413
+//   with each corner read as a whole 32-byte sector;
+// - backward, the six taps (segments): 0.205-0.208, bound 0.0327;
+// - backward, uniform grid, C = 4 (float4 atomics): 0.0531-0.0540, bound
+//   0.0126.
 // Sums are taken in another order than the plain version's (per run or
 // chain, then atomics in any order); the fp32 results agree within the
 // tolerances chip_smoke.py states.
@@ -100,9 +161,7 @@ struct Cell {
   float fh, fw, fd;
 };
 
-__device__ __forceinline__ Cell locate(const float* __restrict__ hwd,
-                                       int64_t n) {
-  const float h = hwd[3 * n], w = hwd[3 * n + 1], d = hwd[3 * n + 2];
+__device__ __forceinline__ Cell cell_of(float h, float w, float d) {
   Cell c;
   c.h0 = __float2int_rd(h);
   c.w0 = __float2int_rd(w);
@@ -111,6 +170,11 @@ __device__ __forceinline__ Cell locate(const float* __restrict__ hwd,
   c.fw = w - floorf(w);
   c.fd = d - floorf(d);
   return c;
+}
+
+__device__ __forceinline__ Cell locate(const float* __restrict__ hwd,
+                                       int64_t n) {
+  return cell_of(hwd[3 * n], hwd[3 * n + 1], hwd[3 * n + 2]);
 }
 
 // Corner k = (ih, iw, id) = (k >> 2, (k >> 1) & 1, k & 1), the reference's
@@ -218,17 +282,14 @@ __device__ __forceinline__ int corner_offset(int k, int W, int D) {
 
 // ---------------------------------------------------------------- forward
 
-// C = 1: vol is the (H, W, D) plane, one value every `row` floats (1 for a
-// contiguous plane). One lane per point. kGrad: also grad0; without it
-// (the values-only entry) grad0's arithmetic, staging and stores go.
-template <bool kGrad>
+// C = 1: vol is the contiguous (H, W, D) plane. One lane per point.
 __global__ void __launch_bounds__(kThreads)
     trilinear_fwd_plane_kernel(const float* __restrict__ vol,
                                const float* __restrict__ hwd,
                                float* __restrict__ vals,
                                float* __restrict__ grad0, int64_t num_points,
-                               int H, int W, int D, int64_t row) {
-  __shared__ float stage[kGrad ? kWarps : 1][3 * kWarp];
+                               int H, int W, int D) {
+  __shared__ float stage[kWarps][3 * kWarp];
   const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
   const int64_t tile =
       (static_cast<int64_t>(blockIdx.x) * kWarps + warp) * kWarp;
@@ -241,33 +302,27 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
       const float v =
-          in_volume(c, k, H, W, D)
-              ? __ldg(vol + static_cast<int64_t>(voxel(c, k, W, D)) * row)
-              : 0.f;
+          in_volume(c, k, H, W, D) ? __ldg(vol + voxel(c, k, W, D)) : 0.f;
       acc += weight(c, k) * v;
-      if constexpr (kGrad) add_grad0(c, k, v, g0);
+      add_grad0(c, k, v, g0);
     }
     vals[n] = acc;
   }
-  if constexpr (kGrad)
-    store_rows3(stage[warp], grad0, tile, num_points, lane, g0);
+  store_rows3(stage[warp], grad0, tile, num_points, lane, g0);
 }
 
-// C > 1: vol is (H, W, D, C) with `row` >= C floats from one voxel's row to
-// the next (C for a contiguous volume). grad0 (kGrad only) from the
-// point's own lane (channel 0 of its corners), vals from lanes over
-// channels walking the points in order and keeping the 8 corner rows of
-// the current cell in registers: a point in the same cell as the one
-// before it loads nothing.
-template <bool kGrad>
+// C > 1: vol is the contiguous (H, W, D, C). grad0 from the point's own
+// lane (channel 0 of its corners), vals from lanes over channels walking
+// the points in order and keeping the 8 corner rows of the current cell in
+// registers: a point in the same cell as the one before it loads nothing.
 __global__ void __launch_bounds__(kThreads)
     trilinear_fwd_rows_kernel(const float* __restrict__ vol,
                               const float* __restrict__ hwd,
                               float* __restrict__ vals,
                               float* __restrict__ grad0, int64_t num_points,
-                              int C, int H, int W, int D, int64_t row) {
+                              int C, int H, int W, int D) {
   __shared__ PointRec recs[kWarps][kWarp];
-  __shared__ float stage[kGrad ? kWarps : 1][3 * kWarp];
+  __shared__ float stage[kWarps][3 * kWarp];
   const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
   const int64_t tile =
       (static_cast<int64_t>(blockIdx.x) * kWarps + warp) * kWarp;
@@ -280,7 +335,7 @@ __global__ void __launch_bounds__(kThreads)
   if (live) c = locate(hwd, n);
   const PointRec mine = point_rec(c, live, H, W, D);
   recs[warp][lane] = mine;
-  if constexpr (kGrad) {
+  {
     float g0[3] = {0.f, 0.f, 0.f};
 #pragma unroll
     for (int k = 0; k < 8; ++k)
@@ -288,7 +343,7 @@ __global__ void __launch_bounds__(kThreads)
                 (mine.mask >> k) & 1
                     ? __ldg(vol + static_cast<int64_t>(
                                       mine.base + corner_offset(k, W, D)) *
-                                      row)
+                                      C)
                     : 0.f,
                 g0);
     store_rows3(stage[warp], grad0, tile, num_points, lane, g0);
@@ -311,7 +366,7 @@ __global__ void __launch_bounds__(kThreads)
                         ? __ldg(vol +
                                 static_cast<int64_t>(r.base +
                                                      corner_offset(k, W, D)) *
-                                    row +
+                                    C +
                                 ch)
                         : 0.f;
       }
@@ -560,26 +615,327 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-unsigned blocks_for(int64_t num_points) {
-  return static_cast<unsigned>((num_points + kThreads - 1) / kThreads);
+// ------------------------------------------------------------ values only
+
+constexpr int kTileMax = 128;       // points per block, pairs forward
+constexpr int kStageFloats = 8192;  // its staged (points, C) values, 32 KB
+constexpr int kSlotBits = 10;
+constexpr int kSlots = 1 << kSlotBits;  // plane backward's table
+constexpr int kProbes = 8;          // slots tried before a global atomic
+constexpr int kEmpty = -1;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kSegTiles = 4;  // 256-point tiles per block
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-template <bool kGrad>
-int trilinear_fwd(const float* vol, const float* hwd, float* vals,
-                  float* grad0, int64_t num_points, int C, int H, int W,
-                  int D, int64_t row, void* stream) {
-  if (num_points > 0) {
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (C == 1)
-      trilinear_fwd_plane_kernel<kGrad>
-          <<<blocks_for(num_points), kThreads, 0, s>>>(
-              vol, hwd, vals, grad0, num_points, H, W, D, row);
-    else
-      trilinear_fwd_rows_kernel<kGrad>
-          <<<blocks_for(num_points), kThreads, 0, s>>>(
-              vol, hwd, vals, grad0, num_points, C, H, W, D, row);
+// C = 1: vol is the (H, W, D) plane, one value every `row` floats. One
+// thread per point; its 8 corner loads are issued before the sum.
+__global__ void __launch_bounds__(kThreads)
+    values_fwd_plane_kernel(const float* __restrict__ vol,
+                            const float* __restrict__ hwd,
+                            float* __restrict__ vals, int64_t num_points,
+                            int H, int W, int D, int64_t row) {
+  const int64_t n = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (n >= num_points) return;
+  const Cell c = locate(hwd, n);
+  float v[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    v[k] = in_volume(c, k, H, W, D)
+               ? __ldg(vol + static_cast<int64_t>(voxel(c, k, W, D)) * row)
+               : 0.f;
+  float acc = 0.f;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) acc += weight(c, k) * v[k];
+  vals[n] = acc;
+}
+
+// C = 4 with 16-byte rows (`row4` float4s apart): one thread per point, a
+// float4 load per corner row and one float4 store.
+__global__ void __launch_bounds__(kThreads)
+    values_fwd_vec4_kernel(const float4* __restrict__ vol,
+                           const float* __restrict__ hwd,
+                           float4* __restrict__ vals, int64_t num_points,
+                           int H, int W, int D, int64_t row4) {
+  const int64_t n = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (n >= num_points) return;
+  const Cell c = locate(hwd, n);
+  float4 v[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    v[k] = in_volume(c, k, H, W, D)
+               ? __ldg(vol + static_cast<int64_t>(voxel(c, k, W, D)) * row4)
+               : make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const float w = weight(c, k);
+    acc.x += w * v[k].x;
+    acc.y += w * v[k].y;
+    acc.z += w * v[k].z;
+    acc.w += w * v[k].w;
   }
-  return static_cast<int>(cudaGetLastError());
+  vals[n] = acc;
+}
+
+// C > 1: vol is (H, W, D, C) with `row` >= C floats between voxels. A block
+// takes `tile` consecutive points (a multiple of 4). Each point's base
+// voxel, corner mask and 8 weights are computed once, by its own thread,
+// into shared memory; then the threads go over the tile's (point, channel)
+// pairs, each pair's 8 corner loads independent of every other pair's, and
+// stage the tile's (tile, C) values, which lie contiguous in vals, for
+// float4 stores (`vec_store`: vals is 16-byte aligned). Dynamic shared
+// memory: tile * C floats of values, then tile * 8 weights, tile bases and
+// tile masks.
+__global__ void __launch_bounds__(kThreads)
+    values_fwd_rows_kernel(const float* __restrict__ vol,
+                           const float* __restrict__ hwd,
+                           float* __restrict__ vals, int64_t num_points,
+                           int C, int H, int W, int D, int64_t row, int tile,
+                           bool vec_store) {
+  extern __shared__ float4 values_smem[];
+  float* stage = reinterpret_cast<float*>(values_smem);
+  float* wts = stage + tile * C;
+  int* base = reinterpret_cast<int*>(wts + 8 * tile);
+  int* mask = base + tile;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * tile;
+  const int count = static_cast<int>(
+      num_points - first < tile ? num_points - first : tile);
+  for (int p = threadIdx.x; p < tile; p += kThreads) {
+    int m = 0, b = 0;
+    if (p < count) {
+      const Cell c = locate(hwd, first + p);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        if (in_volume(c, k, H, W, D)) m |= 1 << k;
+        wts[8 * p + k] = weight(c, k);
+      }
+      if (m) b = (c.h0 * W + c.w0) * D + c.d0;
+    }
+    base[p] = b;
+    mask[p] = m;
+  }
+  __syncthreads();
+  const int total = count * C;
+  const int dp = kThreads / C, dc = kThreads % C;
+  int p = threadIdx.x / C, ch = threadIdx.x % C;
+  for (int i = threadIdx.x; i < total; i += kThreads) {  // i == p * C + ch
+    const int m = mask[p];
+    const int64_t b = base[p];
+    float v[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      v[k] = (m >> k) & 1
+                 ? __ldg(vol + (b + corner_offset(k, W, D)) * row + ch)
+                 : 0.f;
+    const float* w = wts + 8 * p;
+    float acc = 0.f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc += w[k] * v[k];
+    stage[i] = acc;
+    p += dp;
+    ch += dc;
+    if (ch >= C) {
+      ch -= C;
+      ++p;
+    }
+  }
+  __syncthreads();
+  float* out = vals + first * C;
+  int done = 0;
+  if (vec_store) {
+    done = total & ~3;
+    for (int j = threadIdx.x; j < (total >> 2); j += kThreads)
+      reinterpret_cast<float4*>(out)[j] = values_smem[j];
+  }
+  for (int j = done + threadIdx.x; j < total; j += kThreads) out[j] = stage[j];
+}
+
+// 1 < C <= 32: vol is (H, W, D, C) with `row` >= C floats between voxels.
+// A warp takes 32 consecutive points; each point's own lane computes its
+// cell record and its 8 weights into shared memory, once; then the lanes
+// over channels walk the points in order, keeping the 8 corner rows of the
+// current cell in registers and loading them again only when the cell
+// changes, and store each point's row of values.
+__global__ void __launch_bounds__(kThreads)
+    values_fwd_walk_kernel(const float* __restrict__ vol,
+                           const float* __restrict__ hwd,
+                           float* __restrict__ vals, int64_t num_points,
+                           int C, int H, int W, int D, int64_t row) {
+  __shared__ PointRec recs[kWarps][kWarp];
+  __shared__ float4 wts[kWarps][kWarp][2];
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int64_t tile =
+      (static_cast<int64_t>(blockIdx.x) * kWarps + warp) * kWarp;
+  if (tile >= num_points) return;  // the whole warp
+  const int64_t n = tile + lane;
+  const bool live = n < num_points;
+  Cell c;
+  c.h0 = c.w0 = c.d0 = -2;
+  c.fh = c.fw = c.fd = 0.f;
+  if (live) c = locate(hwd, n);
+  recs[warp][lane] = point_rec(c, live, H, W, D);
+  wts[warp][lane][0] = make_float4(weight(c, 0), weight(c, 1), weight(c, 2),
+                                   weight(c, 3));
+  wts[warp][lane][1] = make_float4(weight(c, 4), weight(c, 5), weight(c, 6),
+                                   weight(c, 7));
+  __syncwarp();
+  const int count = static_cast<int>(
+      num_points - tile < kWarp ? num_points - tile : kWarp);
+  float rowv[8];
+  int key = -2;  // no cell loaded yet
+  for (int p = 0; p < count; ++p) {  // warp-uniform
+    const PointRec r = recs[warp][p];
+    if (r.key != key) {
+      key = r.key;
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        rowv[k] = ((r.mask >> k) & 1) && lane < C
+                      ? __ldg(vol +
+                              static_cast<int64_t>(r.base +
+                                                   corner_offset(k, W, D)) *
+                                  row +
+                              lane)
+                      : 0.f;
+    }
+    const float4 w0 = wts[warp][p][0], w1 = wts[warp][p][1];
+    float acc = 0.f;
+    acc += w0.x * rowv[0];
+    acc += w0.y * rowv[1];
+    acc += w0.z * rowv[2];
+    acc += w0.w * rowv[3];
+    acc += w1.x * rowv[4];
+    acc += w1.y * rowv[5];
+    acc += w1.z * rowv[6];
+    acc += w1.w * rowv[7];
+    if (lane < C) vals[(tile + p) * C + lane] = acc;
+  }
+}
+
+// x into voxel vox's slot of the block's table (open addressing, linear
+// probing); where kProbes slots hold other voxels, straight into grad.
+__device__ __forceinline__ void table_add(int* keys, float* sums, int vox,
+                                          float x, float* grad) {
+  unsigned h = (static_cast<unsigned>(vox) * 2654435761u) >> (32 - kSlotBits);
+  for (int probe = 0; probe < kProbes; ++probe) {
+    int key = *reinterpret_cast<volatile int*>(keys + h);
+    if (key == kEmpty) key = atomicCAS(keys + h, kEmpty, vox);
+    if (key == kEmpty || key == vox) {
+      atomicAdd(sums + h, x);
+      return;
+    }
+    h = (h + 1) & (kSlots - 1);
+  }
+  atomicAdd(grad + vox, x);
+}
+
+// C = 1: grad is the (H, W, D) plane. A block takes kSegTiles tiles of 256 consecutive
+// points, one point per thread. The lanes of a warp whose points lie in
+// one cell, consecutive lanes, form a segment; a segmented scan (5 shuffle
+// steps for each corner) sums each segment's 8 contributions into its last
+// lane, which puts the in-volume ones into the block's table. The table is
+// flushed with one global atomic per slot. On ray-major points (the six
+// compact taps of a sample, then the next sample) a warp's 32 points
+// mostly span one or two cells.
+__global__ void __launch_bounds__(kThreads)
+    values_bwd_plane_seg_kernel(const float* __restrict__ hwd,
+                                const float* __restrict__ gv,
+                                float* __restrict__ grad, int64_t num_points,
+                                int H, int W, int D) {
+  __shared__ int keys[kSlots];
+  __shared__ float sums[kSlots];
+  for (int i = threadIdx.x; i < kSlots; i += kThreads) {
+    keys[i] = kEmpty;
+    sums[i] = 0.f;
+  }
+  __syncthreads();
+  const int lane = threadIdx.x % kWarp;
+  const unsigned upto = (2u << lane) - 1u;  // lanes 0 .. lane
+  for (int t = 0; t < kSegTiles; ++t) {
+    const int64_t n =
+        (static_cast<int64_t>(blockIdx.x) * kSegTiles + t) * kThreads +
+        threadIdx.x;
+    // points past the end: a cell with no corner in the volume
+    Cell c;
+    c.h0 = c.w0 = c.d0 = -2;
+    c.fh = c.fw = c.fd = 0.f;
+    float g = 0.f;
+    if (n < num_points) {
+      c = locate(hwd, n);
+      g = gv[n];
+    }
+    const int ph = __shfl_up_sync(kFull, c.h0, 1);
+    const int pw = __shfl_up_sync(kFull, c.w0, 1);
+    const int pd = __shfl_up_sync(kFull, c.d0, 1);
+    const unsigned heads = __ballot_sync(
+        kFull, lane == 0 || c.h0 != ph || c.w0 != pw || c.d0 != pd);
+    const int start = 31 - __clz(heads & upto);
+    const unsigned later = heads & ~upto;
+    const bool last = later ? __ffs(later) - 2 == lane : lane == kWarp - 1;
+    float x[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) x[k] = weight(c, k) * g;
+#pragma unroll
+    for (int d = 1; d < kWarp; d <<= 1) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const float y = __shfl_up_sync(kFull, x[k], d);
+        if (lane - d >= start) x[k] += y;
+      }
+    }
+    if (last) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        if (in_volume(c, k, H, W, D))
+          table_add(keys, sums, voxel(c, k, W, D), x[k], grad);
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < kSlots; i += kThreads)
+    if (keys[i] != kEmpty) atomicAdd(grad + keys[i], sums[i]);
+}
+
+// C > 1: grad is (H, W, D, C). One thread per (point, group of V
+// channels); V = 4 (C a multiple of 4, gv and grad 16-byte aligned): one
+// float4 atomic per in-volume corner row, 8 per point at C = 4; V = 1:
+// lanes over channels, one scalar atomic per corner.
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+    values_bwd_rows_kernel(const float* __restrict__ hwd,
+                           const float* __restrict__ gv,
+                           float* __restrict__ grad, int64_t num_points,
+                           int C, int H, int W, int D) {
+  const int groups = C / V;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= num_points * groups) return;
+  const int64_t n = i / groups;
+  const int j = static_cast<int>(i - n * groups);
+  const Cell c = locate(hwd, n);
+  if constexpr (V == 4) {
+    const float4 g = __ldg(reinterpret_cast<const float4*>(gv + n * C) + j);
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (in_volume(c, k, H, W, D)) {
+        const float w = weight(c, k);
+        atomicAdd(reinterpret_cast<float4*>(
+                      grad + static_cast<int64_t>(voxel(c, k, W, D)) * C) +
+                      j,
+                  make_float4(w * g.x, w * g.y, w * g.z, w * g.w));
+      }
+  } else {
+    const float g = __ldg(gv + n * C + j);
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (in_volume(c, k, H, W, D))
+        atomicAdd(grad + static_cast<int64_t>(voxel(c, k, W, D)) * C + j,
+                  weight(c, k) * g);
+  }
+}
+
+unsigned blocks_for(int64_t num_points) {
+  return static_cast<unsigned>((num_points + kThreads - 1) / kThreads);
 }
 
 }  // namespace
@@ -590,20 +946,77 @@ extern "C" int trilinear_cf_with_grad_fwd(const float* vol, const float* hwd,
                                           float* vals, float* grad0,
                                           int64_t num_points, int C, int H,
                                           int W, int D, void* stream) {
-  return trilinear_fwd<true>(vol, hwd, vals, grad0, num_points, C, H, W, D, C,
-                             stream);
+  if (num_points > 0) {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (C == 1)
+      trilinear_fwd_plane_kernel<<<blocks_for(num_points), kThreads, 0, s>>>(
+          vol, hwd, vals, grad0, num_points, H, W, D);
+    else
+      trilinear_fwd_rows_kernel<<<blocks_for(num_points), kThreads, 0, s>>>(
+          vol, hwd, vals, grad0, num_points, C, H, W, D);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
-// The values-only entry: vals (N, C) written, no grad0. vol: (H, W, D, C)
-// with channels contiguous and `row` >= C floats between consecutive
-// voxels, so that a slice of channels of a wider channel-last tensor (the
-// occupancy query's sdf or logits out of its (N, 25) values) is read in
-// place.
+// The values-only forward: vals (N, C) written. vol: (H, W, D, C) with
+// channels contiguous and `row` >= C floats between consecutive voxels, so
+// that a slice of channels of a wider channel-last tensor (the occupancy
+// query's sdf or logits out of its (N, 25) values) is read in place. At
+// most kStageFloats / 4 = 2048 channels.
 extern "C" int trilinear_cf_fwd(const float* vol, const float* hwd,
                                 float* vals, int64_t num_points, int C, int H,
                                 int W, int D, int64_t row, void* stream) {
-  return trilinear_fwd<false>(vol, hwd, vals, nullptr, num_points, C, H, W, D,
-                              row, stream);
+  if (C > kStageFloats / 4) return static_cast<int>(cudaErrorInvalidValue);
+  if (num_points > 0) {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (C == 1) {
+      values_fwd_plane_kernel<<<blocks_for(num_points), kThreads, 0, s>>>(
+          vol, hwd, vals, num_points, H, W, D, row);
+    } else if (C == 4 && row % 4 == 0 &&
+               aligned16(vol) && aligned16(vals)) {
+      values_fwd_vec4_kernel<<<blocks_for(num_points), kThreads, 0, s>>>(
+          reinterpret_cast<const float4*>(vol), hwd,
+          reinterpret_cast<float4*>(vals), num_points, H, W, D, row / 4);
+    } else if (C <= kWarp) {
+      values_fwd_walk_kernel<<<blocks_for(num_points), kThreads, 0, s>>>(
+          vol, hwd, vals, num_points, C, H, W, D, row);
+    } else {
+      const int cap = (kStageFloats / C) & ~3;
+      const int tile = cap < kTileMax ? cap : kTileMax;
+      const size_t smem = static_cast<size_t>(tile) * (C + 10) * 4;
+      values_fwd_rows_kernel<<<static_cast<unsigned>(
+                                   (num_points + tile - 1) / tile),
+                               kThreads, smem, s>>>(
+          vol, hwd, vals, num_points, C, H, W, D, row, tile,
+          aligned16(vals));
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The values-only backward: gv (N, C), the values' cotangent; grad (H, W,
+// D, C) channel-last, zeroed by the caller.
+extern "C" int trilinear_cf_bwd(const float* hwd, const float* gv,
+                                float* grad, int64_t num_points, int C, int H,
+                                int W, int D, void* stream) {
+  if (num_points > 0) {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (C == 1)
+      values_bwd_plane_seg_kernel<<<static_cast<unsigned>(
+                                        (num_points + kThreads * kSegTiles -
+                                         1) /
+                                        (kThreads * kSegTiles)),
+                                    kThreads, 0, s>>>(hwd, gv, grad,
+                                                      num_points, H, W, D);
+    else if (C % 4 == 0 && aligned16(gv) && aligned16(grad))
+      values_bwd_rows_kernel<4><<<blocks_for(num_points * (C / 4)), kThreads,
+                                  0, s>>>(hwd, gv, grad, num_points, C, H, W,
+                                          D);
+    else
+      values_bwd_rows_kernel<1><<<blocks_for(num_points * C), kThreads, 0,
+                                  s>>>(hwd, gv, grad, num_points, C, H, W, D);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // gv (N, C) or null, gg (N, 3) or null; grad (H, W, D, C) channel-last,

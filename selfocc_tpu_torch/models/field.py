@@ -25,7 +25,8 @@ from ..geometry import sh as sh_lib
 from ..geometry.mappings import make_mapping
 from ..ops.interp import (channel0_view, first_channel,
                           separable_grid_resample_cf, trilinear_sample_cf,
-                          trilinear_sample_cf_with_grad)
+                          trilinear_sample_cf_with_grad,
+                          trilinear_sample_taps)
 
 
 class LearnedVariance(nn.Module):
@@ -155,18 +156,25 @@ class TPVSDFField(nn.Module):
     def second_grad(self, volume, xyz, delta: float, center=None):
         """Compact numerical second derivative along the 3 axes
         (``field.py:282-294``): ``(sdf(x+d) + sdf(x-d) - 2 sdf(x)) / d^2``;
-        ``center`` is the SDF at ``xyz`` when the caller has it. The sdf
-        plane is taken out of the volume once, for the six taps."""
+        ``center`` is the SDF at ``xyz`` when the caller has it. The six
+        taps (x+d, x-d along x, then y, then z) are one point-major
+        (..., 6, 3) query of the sdf plane, taken out of the volume once:
+        on the card one trilinear forward and one backward launch for all
+        six. Each tap's coordinates and value are those of a query of its
+        own, bit for bit, and the stencil keeps the JAX expression's order
+        (on the CPU its cotangent's too: ``trilinear_sample_taps``)."""
         sdf_vol = first_channel(volume)
         if center is None:
             center = self.sdf(sdf_vol, xyz)
-        comps = []
-        for axis in range(3):
-            e = _axis_step(axis, delta, xyz)
-            comps.append((self.sdf(sdf_vol, xyz + e)
-                          + self.sdf(sdf_vol, xyz - e)
-                          - 2 * center) / (delta * delta))
-        return torch.stack(comps, dim=-1)
+        steps = _axis_steps(delta, xyz)
+        offsets = torch.stack([steps, -steps], 1).reshape(6, 3)
+        grid = self.mapping.meter2grid(xyz.float()[..., None, :] + offsets)
+        taps = trilinear_sample_taps(channel0_view(sdf_vol), grid)[..., 0]
+        # per axis, with one 2 * center: its cotangent then sums the three
+        # axes' in the per-tap composition's order
+        c2 = 2 * center
+        return torch.stack([(taps[..., 2 * a] + taps[..., 2 * a + 1] - c2)
+                            / (delta * delta) for a in range(3)], dim=-1)
 
     def second_grad_noncompact(self, volume, xyz, delta: float):
         """Non-compact second derivative, the flagship default
@@ -195,7 +203,11 @@ class TPVSDFField(nn.Module):
 
 
 def _axis_step(axis: int, delta: float, like: torch.Tensor) -> torch.Tensor:
-    # a row of the identity times a Python scalar: writing the scalar into
-    # a device tensor (e[axis] = delta) is a host-to-device copy that
+    return _axis_steps(delta, like)[axis]
+
+
+def _axis_steps(delta: float, like: torch.Tensor) -> torch.Tensor:
+    # the rows of the identity times a Python scalar: writing the scalar
+    # into a device tensor (e[axis] = delta) is a host-to-device copy that
     # blocks the stream
-    return torch.eye(3, dtype=torch.float32, device=like.device)[axis] * delta
+    return torch.eye(3, dtype=torch.float32, device=like.device) * delta

@@ -10,9 +10,9 @@ sdf grid of ``SoftSparsityLoss`` and the compact second derivative's sdf
 taps) and ``trilinear_sample`` (a channel-last volume; the Occ3D resample)
 launch the values-only kernel ``trilinear_cf_fwd`` for a CUDA volume and
 take ``trilinear_sample_cf_plain`` for a CPU one. Where the CUDA volume
-needs a gradient, ``_TrilinearValues`` pairs that forward with
-``trilinear_cf_bwd`` (``csrc/trilinear.cu::trilinear_bwd`` with the values'
-cotangent alone); on the CPU autograd runs through the plain version.
+needs a gradient, ``_TrilinearValues`` pairs that forward with the
+values-only backward ``trilinear_cf_bwd``; on the CPU autograd runs through
+the plain version.
 ``lerp_axis_cf`` and ``separable_grid_resample_cf`` (the separable
 occupancy query) are plain torch ops.
 
@@ -142,6 +142,21 @@ def trilinear_sample(vol: torch.Tensor, hwd: torch.Tensor,
     as ``trilinear_sample_cf`` on its (C, H, W, D) view, which on the card
     reads the channel-last memory where it lies."""
     return trilinear_sample_cf(vol.permute(3, 0, 1, 2), hwd, padding)
+
+
+def trilinear_sample_taps(vol_cf: torch.Tensor,
+                          hwd: torch.Tensor) -> torch.Tensor:
+    """``trilinear_sample_cf`` at (..., T, 3) taps of each point, zeros
+    padding -> (..., T, C): one values-only query for all T taps, so that a
+    CUDA volume takes one forward and one backward launch. A CPU volume
+    takes the same query through ``_TapsPlain``, whose backward sums the
+    taps' cotangents in the order of T queries of their own (the JAX
+    package's order), for the CPU parity tests of the compact second
+    derivative against the JAX field (``test_torch_port_values.py``,
+    ``test_torch_port_train.py::test_second_grad_matches_jax``)."""
+    if vol_cf.is_cuda:
+        return trilinear_sample_cf(vol_cf, hwd, "zeros")
+    return _TapsPlain.apply(vol_cf, hwd)
 
 
 def lerp_axis_cf(vol_cf: torch.Tensor, g: torch.Tensor,
@@ -288,12 +303,15 @@ _SIGNATURES = {"trilinear_cf_with_grad_fwd": (
     _build.I32, _build.I32, _build.I32, _build.PTR)}
 
 
+TRILINEAR_CF_MAX_CHANNELS = 2048   # the rows forward stages 4 points' rows
+
+
 def trilinear_cf_fwd(vol_cf: torch.Tensor, hwd: torch.Tensor) -> torch.Tensor:
     """Launch ``csrc/trilinear.cu::trilinear_cf_fwd``, the values-only
     forward: an fp32 CUDA (C, H, W, D) volume that is channel-last with
     contiguous channels and any row stride (``row_stride``), (N, 3)
     fractional indices, zeros padding -> vals (N, C). C = 1 takes the plane
-    kernel (``plane_launches``), any other C the rows kernel."""
+    kernel (``plane_launches``), any other C a rows kernel."""
     if not vol_cf.is_cuda or vol_cf.dtype != torch.float32 \
             or vol_cf.dim() != 4:
         raise ValueError("trilinear_cf_fwd: expected an fp32 CUDA (C, H, W, "
@@ -308,8 +326,11 @@ def trilinear_cf_fwd(vol_cf: torch.Tensor, hwd: torch.Tensor) -> torch.Tensor:
     if hwd.shape[1] != 3 or hwd.device != vol_cf.device:
         raise ValueError("trilinear_cf_fwd: points must be (N, 3) on the "
                          "volume's device")
-    lib = _build.load("trilinear", _SIGNATURES)
     C, H, W, D = vol_cf.shape
+    if C > TRILINEAR_CF_MAX_CHANNELS:
+        raise ValueError(f"trilinear_cf_fwd: at most "
+                         f"{TRILINEAR_CF_MAX_CHANNELS} channels, got {C}")
+    lib = _build.load("trilinear", _SIGNATURES)
     N = hwd.shape[0]
     vals = torch.empty((N, C), dtype=torch.float32, device=hwd.device)
     status = lib.trilinear_cf_fwd(
@@ -399,16 +420,15 @@ def trilinear_cf_bwd_plain(vol_cf, hwd, grad_vals):
 
 def trilinear_cf_bwd(vol_shape, hwd: torch.Tensor,
                      grad_vals: torch.Tensor) -> torch.Tensor:
-    """Launch ``csrc/trilinear.cu::trilinear_bwd`` with the values'
-    cotangent alone (no grad0 cotangent): the backward of
-    ``trilinear_cf_fwd``. ``vol_shape`` (C, H, W, D), (N, 3) fractional
+    """Launch ``csrc/trilinear.cu::trilinear_cf_bwd``, the backward of
+    ``trilinear_cf_fwd``: ``vol_shape`` (C, H, W, D), (N, 3) fractional
     indices and ``grad_vals`` (N, C), zeros padding -> the volume's
     cotangent as a (C, H, W, D) view of a contiguous channel-last (H, W, D,
     C) tensor, which the kernel accumulates into after a zero fill. A
     row-strided forward (channel 0 of a wider volume, ``channel0_view``)
     gets this gradient of its C channels; autograd's backward of the slice
     scatters it into the wider volume's channel-last gradient. C = 1 takes
-    the plane kernel (``plane_launches``), any other C the rows kernel."""
+    the plane kernel (``plane_launches``), any other C a rows kernel."""
     C, H, W, D = vol_shape
     _build.require_cuda_tensor(hwd, "trilinear_cf_bwd points", torch.float32,
                                2)
@@ -422,9 +442,9 @@ def trilinear_cf_bwd(vol_shape, hwd: torch.Tensor,
                          f"{tuple(hwd.shape)} / {tuple(grad_vals.shape)}")
     grad = torch.zeros((H, W, D, C), dtype=torch.float32, device=hwd.device)
     lib = _build.load("trilinear", _SIGNATURES)
-    status = lib.trilinear_bwd(
-        _build.ptr(hwd), _build.ptr(grad_vals), None, _build.ptr(grad), N, C,
-        H, W, D, _build.stream_ptr(hwd.device))
+    status = lib.trilinear_cf_bwd(
+        _build.ptr(hwd), _build.ptr(grad_vals), _build.ptr(grad), N, C, H, W,
+        D, _build.stream_ptr(hwd.device))
     _build.check(status, "trilinear_cf_bwd")
     trilinear_cf_bwd.launches += 1
     trilinear_cf_bwd.plane_launches += C == 1
@@ -433,6 +453,9 @@ def trilinear_cf_bwd(vol_shape, hwd: torch.Tensor,
 
 trilinear_cf_bwd.launches = 0
 trilinear_cf_bwd.plane_launches = 0
+_SIGNATURES["trilinear_cf_bwd"] = (
+    _build.PTR, _build.PTR, _build.PTR, _build.I64, _build.I32, _build.I32,
+    _build.I32, _build.I32, _build.PTR)
 
 
 class _TrilinearValues(torch.autograd.Function):
@@ -455,6 +478,31 @@ class _TrilinearValues(torch.autograd.Function):
         (hwd,) = ctx.saved_tensors
         return trilinear_cf_bwd(ctx.vol_shape, hwd,
                                 grad_vals.contiguous()), None
+
+
+class _TapsPlain(torch.autograd.Function):
+    """The taps' one query of a CPU volume. Its backward sums the taps'
+    cotangents one tap at a time, from the last to the first, as autograd
+    sums T queries of their own: the second derivative's stencil cancels
+    terms of order 1 / delta^2, so the order of that sum moves the volume's
+    cotangent by more than fp32 rounding of its result. (The card's one
+    backward launch sums in the order its atomics land.)"""
+
+    @staticmethod
+    def forward(ctx, vol_cf, hwd):
+        ctx.save_for_backward(vol_cf, hwd)
+        return trilinear_sample_cf(vol_cf, hwd, "zeros")
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        vol_cf, hwd = ctx.saved_tensors
+        total = None
+        for t in reversed(range(hwd.shape[-2])):
+            g = trilinear_cf_bwd_plain(vol_cf, hwd[..., t, :],
+                                       grad[..., t, :])
+            total = g if total is None else total + g
+        return total, None
 
 
 class _TrilinearWithGrad(torch.autograd.Function):

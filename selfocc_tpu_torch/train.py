@@ -33,9 +33,12 @@ Checkpoints (``utils/checkpoint.py``) go to ``<work-dir>/ckpts/``:
 each also as ``latest.pt``; each records the epoch and the items of it
 already trained on. ``--resume-from`` (a file, or a work dir holding
 ``ckpts/latest.pt``) continues the weights, the optimizer and the step
-count; with ``--iter-resume`` it also skips the items of the epoch already
-trained on (the reference's iteration resume), without it the epoch starts
-again from its first item. Runs on the first CUDA device unless ``--device
+count; without it, a ``--work-dir`` that holds ``ckpts/latest.pt`` is
+resumed from (as the JAX driver restores its own ``ckpts``), so the same
+command run again continues where it stopped. With ``--iter-resume`` a
+resume also skips the items of the epoch already trained on (the
+reference's iteration resume), without it the epoch starts again from its
+first item. Runs on the first CUDA device unless ``--device
 cpu`` asks for the kernels' plain versions on the CPU; with no card and no
 ``--device cpu`` it exits non-zero. ``--dp``, ``--mp``,
 ``--teacher-ckpt``, ``--amp``, ``--profile``, ``--eval-every-epoch`` and
@@ -73,7 +76,8 @@ def parse_args(argv=None):
     ap.add_argument("--work-dir", default="work_dirs/torch_run")
     ap.add_argument("--resume-from", default="")
     ap.add_argument("--iter-resume", action="store_true",
-                    help="on --resume-from, skip the items of the epoch "
+                    help="on a resume (--resume-from, or the work dir's "
+                         "ckpts/latest.pt), skip the items of the epoch "
                          "that the checkpoint had trained on")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--synthetic", action="store_true")
@@ -214,8 +218,12 @@ def main(argv=None) -> Dict:
         n = load_torch_resnet50(trainer.model, resnet_pth)
         logger.info(f"backbone: {n} tensors from {resnet_pth}")
     start_epoch, start_pos = 0, 0
-    if args.resume_from:
-        path = checkpoint_path(args.resume_from)
+    ckpt_dir = os.path.join(args.work_dir, "ckpts")
+    resume = args.resume_from or (
+        args.work_dir if os.path.exists(os.path.join(ckpt_dir, "latest.pt"))
+        else "")
+    if resume:
+        path = checkpoint_path(resume)
         state = torch.load(path, map_location=device)
         trainer.load_state_dict(state)
         start_epoch = int(state.get("epoch", 0))
@@ -223,7 +231,6 @@ def main(argv=None) -> Dict:
             start_pos = int(state.get("last_iter", 0))
         logger.info(f"resumed from {path} at step {trainer.global_step}, "
                     f"epoch {start_epoch}, item {start_pos} of the epoch")
-    ckpt_dir = os.path.join(args.work_dir, "ckpts")
 
     def checkpoint(name, epoch, pos):
         path = save_checkpoint(ckpt_dir, name, dict(

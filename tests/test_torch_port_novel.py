@@ -2,8 +2,9 @@
 CPU, at ``tiny``: ``eval_depth`` on a fabricated nuScenes val split, the
 novel-view depth eval (``eval_novel_depth``, ``--depth-tgt raw|max``, the
 real temporal_v2 split and ``--synthetic``), the head's ``max_depth``,
-training from the loader with a mid-epoch ``--iter-resume``, and
-``--resnet-pth``.
+training from the loader with a mid-epoch ``--iter-resume``, a rerun
+that resumes from its own ``--work-dir`` (``--resume-from`` taking
+precedence), and ``--resnet-pth``.
 
 Both packages get the same weights: the JAX init (seed 42) with numpy noise
 on every leaf but the tiny backbone's, saved as a reference checkpoint that
@@ -374,6 +375,75 @@ def test_iter_resume_repeats_no_item(sweeps_cfg, tmp_path, monkeypatch):
                            str(tmp_path / "d"), "--resume-from",
                            str(tmp_path / "a" / "ckpts" / "iter_2.pt")])
     assert d["items"] == a["items"][:1]
+
+
+RESUME_FLAGS = ["--py-config", "tiny", "--device", "cpu", "--print-freq",
+                "1", "--prefetch", "0", "--ckpt-freq-iters", "1"]
+
+
+@pytest.fixture(scope="module")
+def four_steps(sweeps_cfg, tmp_path_factory):
+    """An uninterrupted 4-step run with a checkpoint after every step."""
+    work = tmp_path_factory.mktemp("four_steps")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(train, "get_config", lambda name: sweeps_cfg)
+        res = train.main(RESUME_FLAGS + ["--max-steps", "4", "--work-dir",
+                                         str(work)])
+    return work, res
+
+
+def assert_same_steps(got, ref):
+    assert got["items"] == ref["items"]
+    assert set(got["logged"]) == set(ref["logged"])
+    for step, vals in ref["logged"].items():
+        assert got["logged"][step] == vals, step
+
+
+@pytest.mark.parametrize("iter_resume", [False, True])
+def test_rerun_resumes_from_the_work_dir(sweeps_cfg, four_steps, tmp_path,
+                                         monkeypatch, iter_resume):
+    # 2 steps in W, then the same command with --max-steps 4 in W: it
+    # continues from W/ckpts/latest.pt. With --iter-resume it trains on the
+    # uninterrupted run's items 2 and 3 with its losses; without, the epoch
+    # starts again from its first item, as a --resume-from of the same
+    # checkpoint does
+    monkeypatch.setattr(train, "get_config", lambda name: sweeps_cfg)
+    _, a = four_steps
+    flags = RESUME_FLAGS + ["--work-dir", str(tmp_path / "w")] + (
+        ["--iter-resume"] if iter_resume else [])
+    first = train.main(flags + ["--max-steps", "2"])
+    assert first["items"] == a["items"][:2]
+    second = train.main(flags + ["--max-steps", "4"])
+    assert sorted(second["logged"]) == [2, 3]
+    if iter_resume:
+        assert second["items"] == a["items"][2:]
+        for step in (2, 3):
+            assert second["logged"][step] == a["logged"][step], step
+        for k, v in a["metrics"].items():
+            if k not in ("times", "lr"):
+                assert torch.equal(second["metrics"][k], v), k
+    else:
+        assert second["items"] == a["items"][:2]
+        ref = train.main(RESUME_FLAGS + [
+            "--max-steps", "4", "--work-dir", str(tmp_path / "r"),
+            "--resume-from", str(tmp_path / "w" / "ckpts" / "iter_2.pt")])
+        assert_same_steps(second, ref)
+
+
+def test_resume_from_wins_over_the_work_dir(sweeps_cfg, four_steps,
+                                            tmp_path, monkeypatch):
+    # W holds a step-2 checkpoint; --resume-from the uninterrupted run's
+    # step-3 checkpoint trains only its item 3 (resumed from W, the run
+    # would train items 2 and 3)
+    monkeypatch.setattr(train, "get_config", lambda name: sweeps_cfg)
+    work, a = four_steps
+    flags = RESUME_FLAGS + ["--work-dir", str(tmp_path / "w"),
+                            "--iter-resume"]
+    train.main(flags + ["--max-steps", "2"])
+    res = train.main(flags + ["--max-steps", "4", "--resume-from",
+                              str(work / "ckpts" / "iter_3.pt")])
+    assert res["items"] == a["items"][3:]
+    assert res["logged"] == {3: a["logged"][3]}
 
 
 def test_epoch_checkpoints(sweeps_cfg, tmp_path, monkeypatch):
