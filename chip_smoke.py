@@ -138,6 +138,27 @@ raises and the exit code is non-zero.
   also holds the plane instance at the first ``kitti_raw_depth`` training
   chunk's points.
 
+- ``[levers]``: the encoder's recipe options at full width (the card's
+  name and power limit logged first): ``msda_shared_fwd`` /
+  ``msda_shared_bwd`` at the ``nuscenes_occ_fast`` calls (the TPV
+  self-attention, the compacted hw and zh cross-attention) against their
+  plain versions and against the per-head ``msda_fwd`` / ``msda_bwd`` on
+  broadcast locations, timed (events, device ms) beside the per-head
+  kernels at the compacted and the dense shapes, then at off-path widths
+  (scalar lanes, channel chunks, head passes, several units per warp, a
+  value off 16-byte alignment); one ``nuscenes_occ_compact`` eval frame
+  against ``nuscenes_occ`` on the same seeded weights (planes bit-equal or
+  within 1e-6 of their scale, every ``visible_overflow`` 0; prepare_s, MSDA
+  device ms of a warm prepare, and the compaction's argsort, gathers and
+  row copy in device ms per plane); one ``nuscenes_occ_fast`` eval frame
+  (depths finite and in band, their deviation from ``nuscenes_occ``'s); 3
+  measured steps each of ``nuscenes_occ_compact_train`` and
+  ``nuscenes_occ_fast`` (step split, peak memory, launches, a profiled
+  step, a warm step under ``set_sync_debug_mode("error")``); and one
+  ``tiny_fast`` step on the card against the CPU, as ``[train-parity]``.
+  The shared kernels' ``launches`` in the result line are those of the
+  ``nuscenes_occ_fast`` steps.
+
 ``--phases`` runs a subset (then no result line is printed). Each path's
 launch counts are set to 0 just before it runs and read just after; a
 kernel of the path that was not launched fails the run (the trilinear
@@ -168,14 +189,17 @@ TRAIN_CHUNK_POINTS = 4096 * 256   # one training render chunk's samples
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM HBM3
 FP32_FLOPS_PER_S = 67e12          # H100 SXM fp32 outside the tensor cores
 GRAD_RTOL = 1e-4                  # max|d| <= 1e-4 * max|ref| + 1e-7
-# fp32 operations (an FMA counts 2) that MSDA needs per sampled point, once
-# per point (pixel position, corner weights; the backward also scales the
-# location gradient by the level size) and per (point, channel): forward,
-# the 4-corner blend and the attention-weighted accumulate; backward, the
-# blend, its dot with the cotangent, g * a, the 4 corner adds into
-# grad_value, the x and y slopes and their accumulation
+# fp32 operations (an FMA counts 2) that MSDA needs per sampled location
+# (pixel position, corner weights; the backward also scales the location
+# gradient by the level size) and per (location, channel): forward, the
+# 4-corner blend and the attention-weighted accumulate. The backward needs
+# per (location, channel) the 4 corner dots with the cotangent and the 4
+# scaled adds into grad_value, and per (location, head) the weight gradient
+# from those dots (8), the x and y slopes from them scaled by the weight
+# (12), their sum over heads (2) and the 4 corner scales a * w (4). In the
+# per-head op a location has one head.
 MSDA_FWD_OPS = (12, 10)
-MSDA_BWD_OPS = (14, 33)
+MSDA_BWD_OPS = (14, 26, 16)
 # fp32 operations per sample of the fused NeuS render (a transcendental
 # counts 1): forward, the cosine (5), the section estimate and its two
 # sigmoids (18), alpha and its log (7), the scan and the weight (3), the
@@ -185,7 +209,7 @@ MSDA_BWD_OPS = (14, 33)
 RENDER_FWD_OPS = 50
 RENDER_BWD_OPS = 103
 PHASES = ("kernels", "gather", "frame", "occ", "train-parity", "train",
-          "data", "kitti", "depth")
+          "data", "kitti", "depth", "levers")
 OPENOCC_PCR = (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0)   # 512 x 512 x 40 at 0.2
 OCC_SLAB = 1 << 20    # dense-grid points held against the plain version
 # the compact stencil's volume cotangent, card against CPU on one volume:
@@ -1559,7 +1583,8 @@ def kernel_checks(device, baseline=None):
             err, timed(lambda: msda.msda_bwd(*case, grad_out), 5),
             timed(lambda: msda.msda_bwd_plain(*case, grad_out), 2),
             (2 * nbytes(value, loc, att) + nbytes(grad_out),
-             pts_n * (MSDA_BWD_OPS[0] + D * MSDA_BWD_OPS[1])),
+             pts_n * (MSDA_BWD_OPS[0] + MSDA_BWD_OPS[1]
+                      + D * MSDA_BWD_OPS[2])),
             device_ms=device_ms(lambda: msda.msda_bwd(*case, grad_out), 5))
         del case, value, loc, att, grad_out
         torch.cuda.empty_cache()
@@ -1666,12 +1691,8 @@ def full_frame(device, baseline=None):
     import torch
     from selfocc_tpu_torch import eval_depth
     from selfocc_tpu_torch.configs.experiments import get_config
-    from selfocc_tpu_torch.models import neus
     from selfocc_tpu_torch.ops import interp, msda, render_weights
-    from selfocc_tpu_torch.utils.eval_lib import (ChunkedRenderer,
-                                                  eval_ray_grid,
-                                                  eval_trans_mats,
-                                                  rays_for_cams)
+    from selfocc_tpu_torch.utils.eval_lib import ChunkedRenderer
     from selfocc_tpu_torch.utils.runtime import (get_dataset, get_logger,
                                                  to_device)
 
@@ -1713,18 +1734,11 @@ def full_frame(device, baseline=None):
 
     # depth bounds: 0 <= depth <= far, in z-depth units per ray
     batch = to_device(item, device)
-    rays = eval_ray_grid(cfg, device=device)
-    origin, direction = rays_for_cams(eval_trans_mats(batch, cfg), rays)
+    origin, direction, dn, near, far = depth_in_band(
+        cfg, batch, res["last_depth"], device)
     if origin.shape[0] != 2_160_000:
         raise AssertionError(f"{origin.shape[0]} rays, expected 2160000")
-    dn = torch.linalg.norm(direction, dim=-1)
-    near, far = neus.ray_aabb_near_far(origin, direction / dn[:, None],
-                                       cfg.model.head.roi_aabb)
-    depth = res["last_depth"].reshape(-1).to(device)
-    if not bool(torch.isfinite(depth).all()):
-        raise AssertionError("non-finite depth")
-    if bool((depth < 0).any()) or bool((depth > far / dn * (1 + 1e-5)).any()):
-        raise AssertionError("depth outside [0, far]")
+    depth = res["last_depth"]
     log(f"  depth finite, in [0, far]; range {float(depth.min()):.3f} .. "
         f"{float(depth.max()):.3f} m")
 
@@ -1754,6 +1768,38 @@ def full_frame(device, baseline=None):
     del model, cpu_model, volume
     torch.cuda.empty_cache()
     return res
+
+
+def depth_in_band(cfg, batch, depth, device):
+    """Fails unless the eval frame's depths are finite and 0 <= depth <=
+    far in z-depth units per ray; returns the frame's rays (origin,
+    direction), their direction norms and near / far."""
+    import torch
+    from selfocc_tpu_torch.models import neus
+    from selfocc_tpu_torch.utils.eval_lib import (eval_ray_grid,
+                                                  eval_trans_mats,
+                                                  rays_for_cams)
+    rays = eval_ray_grid(cfg, device=device)
+    origin, direction = rays_for_cams(eval_trans_mats(batch, cfg), rays)
+    dn = torch.linalg.norm(direction, dim=-1)
+    near, far = neus.ray_aabb_near_far(origin, direction / dn[:, None],
+                                       cfg.model.head.roi_aabb)
+    depth = depth.reshape(-1).to(device)
+    if not bool(torch.isfinite(depth).all()):
+        raise AssertionError("non-finite depth")
+    if bool((depth < 0).any()) or bool((depth > far / dn * (1 + 1e-5)).any()):
+        raise AssertionError("depth outside [0, far]")
+    return origin, direction, dn, near, far
+
+
+def check_finite_metrics(m, what="train metrics"):
+    """Fails if a loss, ``total`` or ``grad_norm`` of a step is not
+    finite."""
+    import torch
+    bad = [k for k, v in m.items()
+           if k != "times" and not torch.isfinite(torch.as_tensor(v))]
+    if bad:
+        raise AssertionError(f"non-finite {what}: {bad}")
 
 
 def frame_device_path(cfg, model, batch):
@@ -2121,9 +2167,9 @@ def occ_frame(device):
     return res
 
 
-def train_parity(device):
-    """One tiny step: kernels on the card vs plain versions on the CPU,
-    same weights and draws, dropout 0."""
+def train_parity(device, name="tiny"):
+    """One ``name`` step (a tiny-width config): kernels on the card vs
+    plain versions on the CPU, same weights and draws, dropout 0."""
     import torch
     from selfocc_tpu_torch.configs.experiments import get_config
     from selfocc_tpu_torch.losses import MultiLoss
@@ -2132,7 +2178,7 @@ def train_parity(device):
     from selfocc_tpu_torch.utils.runtime import get_dataset, to_device
     from selfocc_tpu_torch.utils.train_lib import build_loss_inputs
 
-    cfg = get_config("tiny")
+    cfg = get_config(name)
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, encoder=dataclasses.replace(cfg.model.encoder,
                                                dropout=0.0)))
@@ -2194,12 +2240,7 @@ def full_train(device):
         f"{cfg.model.head.train_ray_chunk}")
     gen = torch.Generator(device=device).manual_seed(SEED)
     sync = torch.cuda.synchronize
-
-    def finite(m):
-        bad = [k for k, v in m.items()
-               if k != "times" and not torch.isfinite(torch.as_tensor(v))]
-        if bad:
-            raise AssertionError(f"non-finite train metrics: {bad}")
+    finite = check_finite_metrics
 
     def show(tag, m):
         vals = {k: float(v) for k, v in m.items() if k != "times"}
@@ -2315,6 +2356,8 @@ def profile_step(trainer, batch, gen, step_s):
            "msda_bwd_share": share("msda_bwd_kernel"),
            "trilinear_bwd_share": share("trilinear_bwd"),
            "msda_fwd_share": share("msda_fwd_kernel"),
+           "msda_shared_fwd_share": share("msda_shared_fwd_kernel"),
+           "msda_shared_bwd_share": share("msda_shared_bwd_kernel"),
            "trilinear_fwd_share": share("trilinear_cf_with_grad_fwd"),
            "neus_render_share": share("neus_render"),
            "top": top}
@@ -2359,6 +2402,19 @@ def profile_step(trainer, batch, gen, step_s):
     if set(neus) != {"neus_render_fwd", "neus_render_bwd"}:
         raise AssertionError(f"profiled step: neus_render kernels {neus}")
     res["neus_render_kernels"] = neus
+    # the MSDA kernels (per-head and head-shared): in-step ms per call
+    res["msda_kernels"] = {}
+    for e in kernels:
+        m = re.search(r"(msda_\w+)_kernel", e.key)
+        if m:
+            t = res["msda_kernels"].setdefault(
+                m.group(1), {"calls": 0, "device_ms": 0.0})
+            t["calls"] += e.count
+            t["device_ms"] += e.self_device_time_total / 1e3
+    for name, t in sorted(res["msda_kernels"].items()):
+        t["ms_per_call"] = t["device_ms"] / max(t["calls"], 1)
+        log(f"    {name} in the step: x{t['calls']} {t['device_ms']:.3f} ms "
+            f"({t['ms_per_call']:.4f} ms per call)")
     return res
 
 
@@ -4108,6 +4164,467 @@ def depth_phase(device):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ------------------------------------------------------------------ levers
+LEVER_SHAPES = (     # main-path calls of the nuscenes_occ_fast recipe
+    ("self", (1, 78899, ((257, 257), (25, 257), (257, 25)), 12)),
+    ("hw", (6, 19840, ((96, 200), (48, 100), (24, 50), (12, 25)), 8)),
+    ("zh", (6, 4864, ((96, 200), (48, 100), (24, 50), (12, 25)), 48)))
+DENSE_Q = {"hw": 66049, "zh": 6425}   # the same calls without compaction
+
+
+def shared_case(g, device, B, Q, shapes, P, H=6, D=16):
+    """Random inputs of the head-shared op: ``msda_case``'s, with head 0's
+    locations shared by every head."""
+    value, shapes, loc, att = msda_case(g, device, B, Q, shapes, P, H, D)
+    return value, shapes, loc[:, :, 0].contiguous(), att
+
+
+def broadcast_heads(loc, H):
+    """(B, Q, Lv, P, 2) shared locations as the per-head op's (B, Q, H, Lv,
+    P, 2)."""
+    return loc[:, :, None].expand(-1, -1, H, -1, -1, -1).contiguous()
+
+
+def shared_kernel_checks(device):
+    """``msda_shared_fwd`` / ``msda_shared_bwd`` at the nuscenes_occ_fast
+    calls: against their plain versions and against the per-head kernels
+    on broadcast locations; timed (events, device ms) beside the per-head
+    kernels at the compacted and the dense shapes; then off-path widths."""
+    import torch
+    from selfocc_tpu_torch.ops import msda
+    g = torch.Generator(device=device).manual_seed(SEED + 11)
+    fwd, bwd = {}, {}
+    for tag, args in LEVER_SHAPES:
+        case = shared_case(g, device, *args)
+        value, shapes, loc, att = case
+        B, Q, H, D = value.shape[0], loc.shape[1], value.shape[2], \
+            value.shape[3]
+        pts = loc[..., 0].numel()
+        loc6 = broadcast_heads(loc, H)
+        head_case = (value, shapes, loc6, att)
+        out = msda.msda_shared_fwd(*case)
+        err = max_err(out, msda.ms_deform_attn_shared_plain(*case))
+        check(f"msda_shared_fwd ({tag})", err, 1e-5)
+        check(f"msda_shared_fwd vs per-head msda_fwd ({tag})",
+              max_err(out, msda.msda_fwd(*head_case)), 1e-5)
+        f = kernel_record(
+            err, timed(lambda: msda.msda_shared_fwd(*case), 5),
+            timed(lambda: msda.ms_deform_attn_shared_plain(*case), 3),
+            (nbytes(value, loc, att, out),
+             pts * (MSDA_FWD_OPS[0] + H * D * MSDA_FWD_OPS[1])),
+            device_ms=device_ms(lambda: msda.msda_shared_fwd(*case), 5),
+            per_head_device_ms=device_ms(lambda: msda.msda_fwd(*head_case),
+                                         5),
+            per_head_ms=timed(lambda: msda.msda_fwd(*head_case), 5),
+            bytes=nbytes(value, loc, att, out), shape=f"{tag} B={B} Q={Q}")
+        grad_out = torch.randn(out.shape, generator=g, device=device)
+        del out
+        got = msda.msda_shared_bwd(*case, grad_out)
+        ref = msda.msda_shared_bwd_plain(*case, grad_out)
+        err = check_grads(f"msda_shared_bwd ({tag})", got, ref)
+        del ref
+        torch.cuda.empty_cache()
+        gh = msda.msda_bwd(*head_case, grad_out)
+        check_grads(f"msda_shared_bwd vs per-head msda_bwd ({tag})", got,
+                    (gh[0], gh[1].sum(2), gh[2]))
+        del got, gh
+        torch.cuda.empty_cache()
+        nb = 2 * nbytes(value, loc, att) + nbytes(grad_out)
+        b = kernel_record(
+            err, timed(lambda: msda.msda_shared_bwd(*case, grad_out), 5),
+            timed(lambda: msda.msda_shared_bwd_plain(*case, grad_out), 2),
+            (nb, pts * (MSDA_BWD_OPS[0] + H * MSDA_BWD_OPS[1]
+                        + H * D * MSDA_BWD_OPS[2])),
+            device_ms=device_ms(
+                lambda: msda.msda_shared_bwd(*case, grad_out), 5),
+            per_head_device_ms=device_ms(
+                lambda: msda.msda_bwd(*head_case, grad_out), 5),
+            per_head_ms=timed(lambda: msda.msda_bwd(*head_case, grad_out),
+                              5),
+            bytes=nb, shape=f"{tag} B={B} Q={Q}")
+        del head_case, loc6
+        if tag in DENSE_Q:
+            # the per-head kernels on the same call without compaction
+            dense = msda_case(g, device, B, DENSE_Q[tag], shapes,
+                              args[3])
+            gd = torch.randn((B, DENSE_Q[tag], H * D), generator=g,
+                             device=device)
+            f["per_head_dense_device_ms"] = device_ms(
+                lambda: msda.msda_fwd(*dense), 5)
+            b["per_head_dense_device_ms"] = device_ms(
+                lambda: msda.msda_bwd(*dense, gd), 5)
+            del dense, gd
+        fwd[tag], bwd[tag] = f, b
+        log(f"  {tag}: fwd {f['device_ms']} ms device (per-head on "
+            f"broadcast locations {f['per_head_device_ms']}), bound "
+            f"{f['bound_ms']:.4f}; bwd {b['device_ms']} (per-head "
+            f"{b['per_head_device_ms']}), bound {b['bound_ms']:.4f}")
+        del case, value, loc, att, grad_out
+        torch.cuda.empty_cache()
+    # off-path widths: scalar lanes (D = 6), channel chunks (D = 144),
+    # head passes (H = 12), several units per warp (H = 4, D = 8), a value
+    # 4 bytes off 16-byte alignment, query counts no multiple of the tile
+    small = ((12, 10), (6, 5), (3, 3), (2, 2))
+    for B, Q, H, D, shapes, P, shift in (
+            (1, 45, 3, 6, small, 5, False), (1, 19, 1, 144, small[:2], 3,
+                                             False),
+            (2, 37, 12, 16, small, 4, False), (2, 53, 4, 8, small, 4, False),
+            (2, 41, 6, 16, small, 8, True)):
+        value, shapes, loc, att = shared_case(g, device, B, Q, shapes, P, H,
+                                              D)
+        if shift:
+            buf = torch.empty(value.numel() + 1, device=device)
+            buf[1:].copy_(value.reshape(-1))
+            value = buf[1:].view(value.shape)
+        case = (value, shapes, loc, att)
+        tag = f"H={H}, D={D}, Q={Q}" + (", value +4 bytes" if shift else "")
+        check(f"msda_shared_fwd ({tag})", max_err(
+            msda.msda_shared_fwd(*case),
+            msda.ms_deform_attn_shared_plain(*case)), 1e-5)
+        gout = torch.randn((B, Q, H * D), generator=g, device=device)
+        check_grads(f"msda_shared_bwd ({tag})",
+                    msda.msda_shared_bwd(*case, gout),
+                    msda.msda_shared_bwd_plain(*case, gout))
+    res = {}
+    for name, rec in (("msda_shared_fwd", fwd), ("msda_shared_bwd", bwd)):
+        res[name] = dict(rec["hw"], shape="hw cross-attention, compacted")
+        for tag in ("zh", "self"):
+            for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                      "per_head_device_ms"):
+                res[name][f"{tag}_{k}"] = rec[tag][k]
+        res[name]["zh_per_head_dense_device_ms"] = \
+            rec["zh"]["per_head_dense_device_ms"]
+        res[name]["max_abs_err"] = max(r["max_abs_err"] for r in rec.values())
+    return res
+
+
+def compaction_op_ms(model, batch):
+    """Device ms of the compaction's own ops (``models/encoder.py``'s
+    ``visible_first``, ``gather_visible``, ``rows_to_slots``, as the
+    compacted cross-attention calls them) on the frame's masks, per plane
+    (hw, zh, wz) and layer; the offsets, weights and rows are random, of
+    the model's shapes."""
+    import torch
+    from selfocc_tpu_torch.geometry.projection import point_sampling
+    from selfocc_tpu_torch.models.encoder import (gather_visible,
+                                                  rows_to_slots,
+                                                  visible_first,
+                                                  visible_rows)
+    enc = model.encoder
+    g = torch.Generator(device=batch["imgs"].device).manual_seed(SEED)
+    res = {}
+    img_shape = tuple(batch["imgs"].shape[2:4])
+    attns = enc.layers[0].attentions[1]
+    for plane, ref, cap in zip(("hw", "zh", "wz"),
+                               (enc.ref_3d_hw, enc.ref_3d_zh, enc.ref_3d_wz),
+                               enc.visible_capacity):
+        rc, m = point_sampling(ref, batch["lidar2img"], img_shape)
+        ref_cams, masks = rc[:, 0], m[:, 0]
+        cams, Q, P, _ = ref_cams.shape
+        da = getattr(attns, f"attn_{plane}").deformable_attention
+        H, L, C = da.num_heads, da.num_levels, da.value_proj.out_features
+        M = visible_rows(Q, cap)
+        hit = masks.sum(-1) > 0
+        offsets = torch.randn((Q, H, L, P, 2), generator=g, device=g.device)
+        attn = torch.rand((Q, H, L, P), generator=g, device=g.device)
+        out = torch.randn((cams, M, C), generator=g, device=g.device)
+        sel = visible_first(hit, M)
+        hitf = gather_visible(sel, hit, ref_cams, offsets, attn)[0].float()
+        res[plane] = {"Q": Q, "M": M, "visible_max": int((hit.sum(1)).max())}
+        for op, fn in (
+                ("argsort", lambda: visible_first(hit, M)),
+                ("gather", lambda: gather_visible(sel, hit, ref_cams,
+                                                  offsets, attn)),
+                ("scatter", lambda: rows_to_slots(sel, Q, out, hitf))):
+            res[plane][f"{op}_ms"] = device_ms(fn, 5)
+            res[plane][f"{op}_events_ms"] = timed(fn, 5)
+    log(f"  compaction ops (device ms and events ms per plane and layer): "
+        f"{res}")
+    return res
+
+
+def prepare_profile(model, batch):
+    """Kernel ms of one warm prepare by ``torch.profiler``: all kernels,
+    the MSDA forward kernels (per-head and shared)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with torch.no_grad():
+        model.prepare(batch["imgs"], batch["lidar2img"])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model.prepare(batch["imgs"], batch["lidar2img"])
+            torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    msda_ms = sum(e.self_device_time_total for e in kernels
+                  if "msda" in e.key) / 1e3
+    return {"kernel_ms": total, "msda_ms": msda_ms,
+            "kernels": sum(e.count for e in kernels)}
+
+
+
+
+def lever_frames(device):
+    """nuscenes_occ_compact and nuscenes_occ_fast eval frames against
+    nuscenes_occ's on the same seeded weights: the compact planes against
+    the dense ones (bit for bit, or within 1e-6 of their scale) with every
+    overflow 0; each frame through ``eval_depth.evaluate`` (launches
+    counted, prepare_s); the fast frame's depths in band and their
+    deviation from nuscenes_occ's; MSDA and compaction device ms."""
+    import torch
+    from selfocc_tpu_torch import eval_depth
+    from selfocc_tpu_torch.configs.experiments import get_config
+    from selfocc_tpu_torch.ops import interp, msda, render_weights
+    from selfocc_tpu_torch.utils.runtime import (get_dataset, get_logger,
+                                                 to_device)
+    logger = get_logger()
+    cfgs = {n: get_config(n) for n in ("nuscenes_occ", "nuscenes_occ_compact",
+                                       "nuscenes_occ_fast")}
+    dense = eval_depth.build_model(cfgs["nuscenes_occ"], SEED, device)
+    ds = get_dataset(cfgs["nuscenes_occ"], synthetic=True)
+    item = ds[0]
+    batch = to_device(item, device)
+    res = {}
+    with torch.no_grad():
+        planes_d = dense.get_representation(batch["imgs"],
+                                            batch["lidar2img"])
+    fr = eval_depth.evaluate(cfgs["nuscenes_occ"], dense, [item], device, 1,
+                             CHUNK, logger)
+    depth_d = fr["last_depth"]
+    res["dense_frame"] = {k: fr[k] for k in ("prepare_s", "render_s")}
+    res["dense_prepare_profile"] = prepare_profile(dense, batch)
+    state = dense.state_dict()
+    del dense
+    torch.cuda.empty_cache()
+    for name, wrappers in (
+            ("nuscenes_occ_compact", (msda.msda_fwd,)),
+            ("nuscenes_occ_fast", (msda.msda_shared_fwd,))):
+        cfg = cfgs[name]
+        model = eval_depth.build_model(cfg, SEED, device)
+        model.load_state_dict(state, strict=True)
+        if name == "nuscenes_occ_compact":
+            with torch.no_grad():
+                planes_c = model.get_representation(batch["imgs"],
+                                                    batch["lidar2img"])
+            overflow = [int(o) for o in model.encoder.visible_overflow]
+            errs = [float((c - d).abs().max() / d.abs().max())
+                    for c, d in zip(planes_c, planes_d)]
+            equal = all(torch.equal(c, d) for c, d in zip(planes_c, planes_d))
+            log(f"  compact planes vs dense: bit-equal {equal}, max error "
+                f"over scale {errs}; visible_overflow {overflow}")
+            if overflow != [0, 0, 0]:
+                raise AssertionError(f"visible_overflow {overflow}")
+            if not max(errs) <= 1e-6:
+                raise AssertionError(f"compact planes differ: {errs}")
+            del planes_c
+        # a cold frame, then the frame with its launches counted
+        eval_depth.evaluate(cfg, model, [ds[1]], device, 1, CHUNK, logger)
+        off_path = (msda.msda_fwd, msda.msda_shared_fwd, msda.msda_bwd,
+                    msda.msda_shared_bwd, interp.trilinear_bwd,
+                    render_weights.neus_render_bwd)
+        reset_counts(off_path + (render_weights.neus_render_fwd,))
+        torch.cuda.reset_peak_memory_stats()
+        fr = eval_depth.evaluate(cfg, model, [item], device, 1, CHUNK,
+                                 logger)
+        launches = read_counts(wrappers + (render_weights.neus_render_fwd,),
+                               f"{name} eval frame")
+        stray = {fn.__name__: fn.launches for fn in off_path
+                 if fn.launches and fn not in wrappers}
+        if stray:
+            raise AssertionError(f"the {name} frame launched {stray}")
+        depth = fr["last_depth"]
+        depth_in_band(cfg, batch, depth, device)
+        fr = {k: fr[k] for k in ("prepare_s", "render_s", "rays")}
+        fr.update(launches=launches,
+                  max_memory_gb=torch.cuda.max_memory_allocated() / 2**30,
+                  prepare_profile=prepare_profile(model, batch))
+        if name == "nuscenes_occ_compact":
+            fr.update(planes_bit_equal=equal, planes_err=errs,
+                      visible_overflow=overflow,
+                      compaction_ops=compaction_op_ms(model, batch))
+        else:
+            dev = (depth - depth_d).abs()
+            fr["depth_dev_from_nuscenes_occ"] = {
+                "mean_m": float(dev.mean()), "max_m": float(dev.max()),
+                "p99_m": float(dev.reshape(-1).kthvalue(
+                    int(0.99 * dev.numel())).values)}
+            log(f"  fast frame: depths finite and in band; deviation from "
+                f"nuscenes_occ's {fr['depth_dev_from_nuscenes_occ']}")
+        log(f"  {name}: prepare {fr['prepare_s']:.4f}s render "
+            f"{fr['render_s']:.4f}s; prepare kernels "
+            f"{fr['prepare_profile']} (nuscenes_occ: "
+            f"{res['dense_prepare_profile']})")
+        res[name] = fr
+        del model
+        torch.cuda.empty_cache()
+    return res
+
+
+def compact_grad_parity(device):
+    """One ``nuscenes_occ_compact_train`` loss-and-grad at full width against
+    ``nuscenes_occ``'s on the same weights, batch and draws (encoder
+    dropout 0): the compaction is exact while nothing overflows and the
+    2048-ray chunks only recompute, so the losses agree within 1e-5 of
+    their size and every parameter gradient within GRAD_RTOL of its
+    largest magnitude (the MSDA backward's atomics sum in another order)."""
+    import torch
+    from selfocc_tpu_torch.configs.experiments import get_config
+    from selfocc_tpu_torch.losses import MultiLoss
+    from selfocc_tpu_torch.models.initializers import init_weights
+    from selfocc_tpu_torch.models.segmentor import TPVSegmentor
+    from selfocc_tpu_torch.ops import msda
+    from selfocc_tpu_torch.utils.runtime import get_dataset, to_device
+    from selfocc_tpu_torch.utils.train_lib import (aug_kwargs,
+                                                   build_loss_inputs)
+    names = ("nuscenes_occ", "nuscenes_occ_compact_train")
+    cfgs = {}
+    for n in names:
+        cfg = get_config(n)
+        cfgs[n] = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, encoder=dataclasses.replace(cfg.model.encoder,
+                                                   dropout=0.0)))
+    model = TPVSegmentor(cfgs[names[0]].model)
+    init_weights(model, torch.Generator().manual_seed(SEED))
+    state = model.state_dict()
+    del model
+    batch = to_device(get_dataset(cfgs[names[0]], synthetic=True,
+                                  length=1)[0], device)
+    results = {}
+    for n in names:
+        cfg = cfgs[n]
+        m = TPVSegmentor(cfg.model)
+        m.load_state_dict(state, strict=True)
+        m = m.to(device).train()
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        reset_counts((msda.msda_fwd, msda.msda_bwd))
+        out = m(batch["imgs"], batch["lidar2img"],
+                batch[cfg.model.head.trans_kw], train=True, generator=gen,
+                **aug_kwargs(batch))
+        tot, ldict = MultiLoss(cfg.loss_cfgs)(
+            build_loss_inputs(cfg, out, batch))
+        del out
+        tot.backward()
+        read_counts((msda.msda_fwd, msda.msda_bwd), f"{n} loss-and-grad")
+        overflow = ([int(o) for o in m.encoder.visible_overflow]
+                    if m.encoder.visible_overflow is not None else None)
+        results[n] = ({k: float(v.detach()) for k, v in ldict.items()},
+                      {k: p.grad.detach() for k, p in m.named_parameters()
+                       if p.grad is not None}, overflow)
+        del m, tot, ldict
+        torch.cuda.empty_cache()
+    (l_d, g_d, _), (l_c, g_c, overflow) = (results[n] for n in names)
+    if overflow != [0, 0, 0]:
+        raise AssertionError(f"visible_overflow {overflow}")
+    for k in l_d:
+        check(f"compact_train loss {k}", abs(l_c[k] - l_d[k]),
+              1e-5 * abs(l_d[k]) + 1e-7)
+    if set(g_c) != set(g_d):
+        raise AssertionError("the two steps' gradients name other tensors")
+    worst = 0.0
+    for k, ref in g_d.items():
+        err = max_err(g_c[k], ref)
+        tol = GRAD_RTOL * float(ref.abs().max()) + 1e-7
+        if not err <= tol:
+            raise AssertionError(f"compact_train grad {k}: {err:.3e} > "
+                                 f"{tol:.3e}")
+        worst = max(worst, err / tol)
+    log(f"  nuscenes_occ_compact_train vs nuscenes_occ, one loss-and-grad "
+        f"on the same weights and draws: losses {l_c} vs {l_d}; "
+        f"{len(g_d)} gradients within tolerance (worst {worst:.3f} of it)")
+    return {"losses_compact": l_c, "losses_dense": l_d,
+            "grads": len(g_d), "worst_grad_err_over_tol": worst,
+            "visible_overflow": overflow}
+
+
+def lever_train(device, name, wrappers):
+    """``name`` at full width: a cold step, 3 measured steps (forward /
+    backward / optimizer split, peak memory, launches of ``wrappers``), a
+    profiled warm step and a warm step under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    import torch
+    from selfocc_tpu_torch.configs.experiments import get_config
+    from selfocc_tpu_torch.ops import msda
+    from selfocc_tpu_torch.train import build_trainer
+    from selfocc_tpu_torch.utils.runtime import get_dataset, to_device
+    cfg = get_config(name)
+    trainer = build_trainer(cfg, SEED, device)
+    batch = to_device(get_dataset(cfg, synthetic=True, length=1)[0], device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    sync = torch.cuda.synchronize
+
+    def finite(m):
+        check_finite_metrics(m, f"{name} train metrics")
+
+    finite(trainer.step(batch, gen, sync=sync))
+    others = tuple(fn for fn in (msda.msda_fwd, msda.msda_bwd,
+                                 msda.msda_shared_fwd, msda.msda_shared_bwd)
+                   if fn not in wrappers)
+    reset_counts(wrappers + others)
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        m = trainer.step(batch, gen, sync=sync)
+        wall = time.perf_counter() - t0
+        finite(m)
+        steps.append(dict(step_s=wall, **m["times"],
+                          total=float(m["total"]),
+                          grad_norm=float(m["grad_norm"])))
+    launches = read_counts(wrappers, f"{name} training steps")
+    stray = {fn.__name__: fn.launches for fn in others if fn.launches}
+    if stray:
+        raise AssertionError(f"{name} steps launched {stray}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = {k: sorted(s[k] for s in steps)[1]
+           for k in ("step_s", "forward_s", "backward_s", "optimizer_s")}
+    prof = profile_step(trainer, batch, gen, med["step_s"])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        m = trainer.step(batch, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    finite(m)
+    log(f"  {name}: median step {med['step_s']:.4f}s (forward "
+        f"{med['forward_s']:.4f}, backward {med['backward_s']:.4f}, "
+        f"optimizer {med['optimizer_s']:.4f}), peak {peak:.2f} GiB; warm "
+        f"step under set_sync_debug_mode('error'): no synchronising call")
+    res = {"median": med, "steps": steps, "max_memory_gb": peak,
+           "launches": launches,
+           "launches_per_step": {k: v / 3 for k, v in launches.items()},
+           "profile": prof, "sync_checked": True}
+    del trainer, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def levers_phase(device):
+    """The encoder's recipe options at full width: the shared kernels, the
+    compact and fast eval frames, a compact loss-and-grad against the dense
+    one, 3 steps each of nuscenes_occ_compact_train
+    and nuscenes_occ_fast, and a tiny_fast step on the card against the
+    CPU."""
+    from selfocc_tpu_torch.ops import msda
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    log(f"  card: {smi.stdout.strip().splitlines()[0]}")
+    res = {"kernels": shared_kernel_checks(device)}
+    res["frames"] = lever_frames(device)
+    res["compact_grad_parity"] = compact_grad_parity(device)
+    res["compact_train"] = lever_train(
+        device, "nuscenes_occ_compact_train", (msda.msda_fwd, msda.msda_bwd))
+    res["fast_train"] = lever_train(
+        device, "nuscenes_occ_fast",
+        (msda.msda_shared_fwd, msda.msda_shared_bwd))
+    res["tiny_fast_parity"] = train_parity(device, "tiny_fast")
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -4152,7 +4669,8 @@ def main():
             "train": lambda: full_train(device),
             "data": lambda: data_phase(device, phases.get("train")),
             "kitti": lambda: kitti_phase(device),
-            "depth": lambda: depth_phase(device)}
+            "depth": lambda: depth_phase(device),
+            "levers": lambda: levers_phase(device)}
     phases = {}
     for tag in PHASES:
         if tag not in wanted:
@@ -4165,7 +4683,9 @@ def main():
         log(f"partial run ({', '.join(phases)}): no result line")
         return
 
-    kres = dict(phases["kernels"], gather_rows=phases["gather"])
+    lres = phases["levers"]
+    kres = dict(phases["kernels"], gather_rows=phases["gather"],
+                **lres["kernels"])
     # weights_from_alpha's own path, as gather_rows's: no main path
     # launches neus_weights_fwd since the render is fused
     kres["neus_weights_fwd"].update(
@@ -4209,6 +4729,10 @@ def main():
                              "selfocc_tpu/ops/interp.py:118"),
         "msda_fwd": ("msda.cu", "selfocc_tpu/ops/msda.py:160"),
         "msda_bwd": ("msda.cu", "selfocc_tpu/ops/msda.py:160"),
+        "msda_shared_fwd": ("msda_shared.cu",
+                            "selfocc_tpu/ops/msda.py:275"),
+        "msda_shared_bwd": ("msda_shared.cu",
+                            "selfocc_tpu/ops/msda.py:275"),
         "gather_rows": ("gather_rows.cu",
                         "selfocc_tpu/ops/gather_rows.py:82")}
     kernels = []
@@ -4245,6 +4769,18 @@ def main():
                     entry[f"in_kitti_step_ms_per_call_{kind}"] = \
                         k["ms_per_call"]
                     entry[f"in_kitti_step_calls_{kind}"] = k["calls"]
+        if name.startswith("msda_shared"):
+            # their main path is the nuscenes_occ_fast recipe: its training
+            # steps, and its eval frame for the forward
+            fast = lres["fast_train"]
+            entry["launches"] = fast["launches"][name]
+            entry["launches_per_fast_step"] = \
+                fast["launches_per_step"][name]
+            entry["launches_fast_eval_frame"] = lres["frames"][
+                "nuscenes_occ_fast"]["launches"].get(name, 0)
+            in_step = fast["profile"]["msda_kernels"][name]
+            entry["in_step_ms_per_call"] = in_step["ms_per_call"]
+            entry["in_step_calls"] = in_step["calls"]
         if name == "trilinear_cf_bwd":
             # its main path is kitti_occ training (values-only gradients)
             entry["launches"] = kires["train"]["launches"][name]
@@ -4272,7 +4808,8 @@ def main():
                 if k != "kernel_vs_plain"},
         "train_parity": phases["train-parity"],
         "train": {k: v for k, v in tres.items() if k != "launches"},
-        "data": dres, "kitti": kires, "depth": depres}),
+        "data": dres, "kitti": kires, "depth": depres,
+        "levers": {k: v for k, v in lres.items() if k != "kernels"}}),
         flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -24,7 +24,8 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("neus_weights", "trilinear", "msda", "gather_rows")
+KERNELS = ("neus_weights", "trilinear", "msda", "msda_shared",
+           "gather_rows")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

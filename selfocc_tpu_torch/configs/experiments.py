@@ -3,8 +3,12 @@
 ``kitti_novel_depth``, ``kitti_raw_depth`` (with ``_KITTI_IMG_NORM``) and
 ``tiny`` from
 ``selfocc_tpu/configs/experiments.py`` (value-for-value mirrors of the
-reference ``config/`` files). ``get_config(name)`` replaces
-``Config.fromfile``.
+reference ``config/`` files), and of the recipes built on them: the
+visibility-compaction (``nuscenes_occ_compact*``), fast-tier
+(``*_fast*``: head-shared MSDA locations, bf16 backbone/neck) and bundled
+(``*_bundle``, ``*_pairs``: TPU gather layouts that the port's kernels
+stand in for) variants. The BEV and density-head recipes are not copied.
+``get_config(name)`` replaces ``Config.fromfile``.
 """
 from __future__ import annotations
 
@@ -372,15 +376,225 @@ def tiny() -> Config:
         warmup_iters=5, eval_num_rays=(8, 12))
 
 
+def tiny_fast() -> Config:
+    """Tiny config with the fast-tier encoder levers (head-shared MSDA
+    locations + full corner bundle + visibility compaction): a CPU-sized
+    drive of the ``nuscenes_occ_fast_bundle`` encoder code path."""
+    cfg = tiny()
+    model = dataclasses.replace(
+        cfg.model,
+        encoder=dataclasses.replace(
+            cfg.model.encoder, shared_locations=True, msda_bundle="full",
+            cross_visible_capacity=(0.9, 0.9, 0.9)))
+    return dataclasses.replace(cfg, name="tiny_fast", model=model)
+
+
+def nuscenes_occ_compact() -> Config:
+    """Flagship with cross-attn visibility compaction: the dense computation
+    minus (camera, query) pairs that are provably zero, so exact as long as
+    no camera sees more queries than its capacity. Per-camera visible
+    fractions on the synthetic surround rig: hw ~0.18, zh ~0.61, wz ~0.51;
+    the capacities leave margin."""
+    cfg = nuscenes_occ()
+    model = dataclasses.replace(
+        cfg.model,
+        encoder=dataclasses.replace(
+            cfg.model.encoder, cross_visible_capacity=(0.3, 0.75, 0.7)))
+    return dataclasses.replace(cfg, name="nuscenes_occ_compact", model=model)
+
+
+def nuscenes_occ_compact_train() -> Config:
+    """Training recipe with the math of ``nuscenes_occ``: visibility
+    compaction (exact given capacity) + 2048-ray checkpointed chunks
+    (chunking changes only the recompute schedule). No shared_locations and
+    no bf16 compute, unlike ``nuscenes_occ_fast``."""
+    cfg = nuscenes_occ_compact()
+    model = dataclasses.replace(
+        cfg.model,
+        head=dataclasses.replace(cfg.model.head, train_ray_chunk=2048))
+    return dataclasses.replace(cfg, name="nuscenes_occ_compact_train",
+                               model=model)
+
+
+def nuscenes_occ_compact_bf16() -> Config:
+    """``nuscenes_occ_compact`` with bf16 attention value payloads (fp32
+    accumulation): sampling locations, attention weights and the projective
+    math stay fp32; only the gathered image-feature payload rounds to bf16
+    (~1e-2 relative on the attention output)."""
+    cfg = nuscenes_occ_compact()
+    model = dataclasses.replace(
+        cfg.model,
+        encoder=dataclasses.replace(
+            cfg.model.encoder, attn_value_bf16=True))
+    return dataclasses.replace(cfg, name="nuscenes_occ_compact_bf16",
+                               model=model)
+
+
+def nuscenes_occ_compact_pairs() -> Config:
+    """``nuscenes_occ_compact`` with x-pair-bundled MSDA gathers
+    (``msda_bundle="pairs"``): a gather layout of the JAX package, an fp
+    reassociation that the port's kernel stands in for."""
+    cfg = nuscenes_occ_compact()
+    model = dataclasses.replace(
+        cfg.model,
+        encoder=dataclasses.replace(
+            cfg.model.encoder, msda_bundle="pairs"))
+    return dataclasses.replace(cfg, name="nuscenes_occ_compact_pairs",
+                               model=model)
+
+
+def nuscenes_occ_compact_bundle() -> Config:
+    """``nuscenes_occ_compact`` with full 2x2 corner-bundled MSDA gathers
+    (an exact reassociation): the JAX package's reference-exact eval
+    recipe."""
+    cfg = nuscenes_occ_compact()
+    model = dataclasses.replace(
+        cfg.model,
+        encoder=dataclasses.replace(
+            cfg.model.encoder, msda_bundle="full"))
+    return dataclasses.replace(cfg, name="nuscenes_occ_compact_bundle",
+                               model=model)
+
+
+def nuscenes_occ_compact_bf16_pairs() -> Config:
+    """bf16 value payloads (fp32 accumulation) + x-pair-bundled gathers
+    composed; the JAX package keeps it as a repro of a TPU worker fault."""
+    cfg = nuscenes_occ_compact()
+    model = dataclasses.replace(
+        cfg.model,
+        encoder=dataclasses.replace(
+            cfg.model.encoder, attn_value_bf16=True, msda_bundle="pairs"))
+    return dataclasses.replace(cfg, name="nuscenes_occ_compact_bf16_pairs",
+                               model=model)
+
+
+def nuscenes_occ_fast() -> Config:
+    """Fast recipe: the flagship ``nuscenes_occ`` with head-shared
+    deformable sampling locations (deviates from per-head locations) and
+    bf16 backbone/neck compute (AMP analog), plus visibility compaction and
+    2048-ray checkpointed chunks (memory levers of the training step).
+    Losses, schedule, field and renderer are ``nuscenes_occ``'s."""
+    cfg = nuscenes_occ()
+    model = dataclasses.replace(
+        cfg.model,
+        compute_dtype="bfloat16",
+        head=dataclasses.replace(cfg.model.head, train_ray_chunk=2048),
+        encoder=dataclasses.replace(
+            cfg.model.encoder, shared_locations=True,
+            cross_visible_capacity=(0.3, 0.75, 0.7)))
+    return dataclasses.replace(cfg, name="nuscenes_occ_fast", model=model)
+
+
+def nuscenes_occ_fast_bundle() -> Config:
+    """``nuscenes_occ_fast`` + 2x2 corner-bundled shared-location gathers;
+    the JAX package keeps bundled shared payloads fp32, closer to per-head
+    fp32 than plain ``_fast``'s bf16 payloads."""
+    cfg = nuscenes_occ_fast()
+    model = dataclasses.replace(
+        cfg.model,
+        encoder=dataclasses.replace(cfg.model.encoder, msda_bundle="full"))
+    return dataclasses.replace(cfg, name="nuscenes_occ_fast_bundle",
+                               model=model)
+
+
+def nuscenes_occ_compact_train_bundle() -> Config:
+    """``nuscenes_occ_compact_train`` + corner-bundled MSDA gathers (an
+    exact reassociation in the backward too)."""
+    cfg = nuscenes_occ_compact_train()
+    model = dataclasses.replace(
+        cfg.model,
+        encoder=dataclasses.replace(cfg.model.encoder, msda_bundle="full"))
+    return dataclasses.replace(cfg, name="nuscenes_occ_compact_train_bundle",
+                               model=model)
+
+
+def nuscenes_novel_depth_bundle() -> Config:
+    """``nuscenes_novel_depth`` with visibility compaction + 2x2
+    corner-bundled MSDA gathers: the exact-semantics novel-view eval recipe
+    (compaction drops provably-zero attention pairs, bundling is an fp
+    reassociation)."""
+    cfg = nuscenes_novel_depth()
+    model = dataclasses.replace(
+        cfg.model,
+        encoder=dataclasses.replace(cfg.model.encoder,
+                                    cross_visible_capacity=(0.3, 0.75, 0.7),
+                                    msda_bundle="full"))
+    return dataclasses.replace(cfg, name="nuscenes_novel_depth_bundle",
+                               model=model)
+
+
+def nuscenes_novel_depth_fast_bundle() -> Config:
+    """Fast-tier novel-view eval recipe (deviates like
+    ``nuscenes_occ_fast``): ``nuscenes_novel_depth_bundle`` with head-shared
+    sampling locations + bf16 backbone/neck compute."""
+    cfg = nuscenes_novel_depth_bundle()
+    model = dataclasses.replace(
+        cfg.model,
+        compute_dtype="bfloat16",
+        encoder=dataclasses.replace(cfg.model.encoder, shared_locations=True))
+    return dataclasses.replace(cfg, name="nuscenes_novel_depth_fast_bundle",
+                               model=model)
+
+
+def kitti_novel_depth_bundle() -> Config:
+    """``kitti_novel_depth`` with 2x2 corner-bundled MSDA gathers (mono rig,
+    no compaction to compose)."""
+    cfg = kitti_novel_depth()
+    model = dataclasses.replace(
+        cfg.model,
+        encoder=dataclasses.replace(cfg.model.encoder, msda_bundle="full"))
+    return dataclasses.replace(cfg, name="kitti_novel_depth_bundle",
+                               model=model)
+
+
+def kitti_novel_depth_fast_bundle() -> Config:
+    """Fast-tier KITTI novel-view recipe: ``kitti_novel_depth_bundle`` +
+    head-shared sampling locations + bf16 backbone/neck compute (mono rig,
+    no compaction)."""
+    cfg = kitti_novel_depth_bundle()
+    model = dataclasses.replace(
+        cfg.model,
+        compute_dtype="bfloat16",
+        encoder=dataclasses.replace(cfg.model.encoder, shared_locations=True))
+    return dataclasses.replace(cfg, name="kitti_novel_depth_fast_bundle",
+                               model=model)
+
+
+def kitti_occ_bundle() -> Config:
+    """``kitti_occ`` with 2x2 corner-bundled MSDA gathers: the
+    exact-semantics KITTI eval recipe (mono, no compaction)."""
+    cfg = kitti_occ()
+    model = dataclasses.replace(
+        cfg.model,
+        encoder=dataclasses.replace(cfg.model.encoder, msda_bundle="full"))
+    return dataclasses.replace(cfg, name="kitti_occ_bundle", model=model)
+
+
 _CONFIGS = {
     "tiny": tiny,
+    "tiny_fast": tiny_fast,
     "nuscenes_occ": nuscenes_occ,
     "nuscenes_depth": nuscenes_depth,
     "nuscenes_novel_depth": nuscenes_novel_depth,
+    "nuscenes_novel_depth_bundle": nuscenes_novel_depth_bundle,
+    "nuscenes_novel_depth_fast_bundle": nuscenes_novel_depth_fast_bundle,
     "kitti_occ": kitti_occ,
+    "kitti_occ_bundle": kitti_occ_bundle,
     "kitti_novel_depth": kitti_novel_depth,
+    "kitti_novel_depth_bundle": kitti_novel_depth_bundle,
+    "kitti_novel_depth_fast_bundle": kitti_novel_depth_fast_bundle,
     "kitti_raw_depth": kitti_raw_depth,
+    "nuscenes_occ_fast": nuscenes_occ_fast,
+    "nuscenes_occ_fast_bundle": nuscenes_occ_fast_bundle,
+    "nuscenes_occ_compact": nuscenes_occ_compact,
+    "nuscenes_occ_compact_train": nuscenes_occ_compact_train,
+    "nuscenes_occ_compact_train_bundle": nuscenes_occ_compact_train_bundle,
+    "nuscenes_occ_compact_bf16": nuscenes_occ_compact_bf16,
+    "nuscenes_occ_compact_pairs": nuscenes_occ_compact_pairs,
+    "nuscenes_occ_compact_bundle": nuscenes_occ_compact_bundle,
+    "nuscenes_occ_compact_bf16_pairs": nuscenes_occ_compact_bf16_pairs,
 }
+
 
 def register_config(name: str, factory) -> None:
     """Make ``get_config(name)`` (the drivers' ``--py-config``) return

@@ -10,10 +10,13 @@ for the per-plane image cross-attention, ``ffns.0.layers.*``,
 function over the attention's own ``sampling_offsets``/``attention_weights``
 Linears (the reference keeps those on the attention module).
 
-Only the exact tier is ported: per-head sampling locations and the dense
-image cross-attention (``cross_visible_capacity = 1.0``). The TPU layout
-levers (bundling, point/query chunking, bf16 payloads) are fp reassociations
-that the MSDA kernel stands in for. Dropout (p = ``EncoderConfig.dropout``)
+The encoder's recipe options are ported: head-shared sampling locations
+(``shared_locations``, ``DeformHeads`` averages the offsets over heads and
+the shared MSDA op reads one set), visibility compaction of the image
+cross-attention (``visible_capacity`` < 1, per plane) and bf16-rounded
+attention values (``value_bf16``). The TPU layout levers (bundling,
+point/query chunking) are fp reassociations that the MSDA kernels stand in
+for. Dropout (p = ``EncoderConfig.dropout``)
 sits where the JAX package has it (``encoder.py:270,387,404,406``): after the
 self-attention's and each cross-attention's output projection and twice in
 the FFN. It is active in train mode only and draws its masks from an explicit
@@ -133,14 +136,71 @@ def dropout(x, p: float, training: bool, generator):
 
 
 def deform_heads(query, sampling_offsets: nn.Linear,
-                 attention_weights: nn.Linear, H: int, L: int, P: int):
+                 attention_weights: nn.Linear, H: int, L: int, P: int,
+                 shared_locations: bool = False):
     """Query -> sampling offsets (B, Q, H, L, P, 2) and softmaxed attention
-    weights (B, Q, H, L, P) (the JAX package's ``DeformHeads``)."""
+    weights (B, Q, H, L, P) (the JAX package's ``DeformHeads``). With
+    ``shared_locations`` the offsets are averaged over heads, (B, Q, L, P,
+    2): the JAX package broadcasts that mean to every head and its shared
+    op reads head 0 (``encoder.py:164-166``)."""
     B, Q, _ = query.shape
     offsets = sampling_offsets(query).reshape(B, Q, H, L, P, 2)
+    if shared_locations:
+        offsets = offsets.mean(dim=2)
     attn = attention_weights(query).reshape(B, Q, H, L * P)
     attn = torch.softmax(attn, dim=-1).reshape(B, Q, H, L, P)
     return offsets, attn
+
+
+def bf16_rounded(x):
+    """``x`` rounded to bf16 and back: the JAX package's bf16 attention
+    payloads (``value_bf16``), gathered by the fp32 kernels."""
+    return x.to(torch.bfloat16).float()
+
+
+def visible_rows(Q: int, capacity: float) -> int:
+    """Queries per camera that the compacted image cross-attention runs:
+    ``min(Q, ceil(int(Q * capacity) / 128) * 128)`` (``encoder.py:337``),
+    Q for a capacity of 1."""
+    if capacity >= 1.0:
+        return Q
+    return min(Q, -(-int(Q * capacity) // 128) * 128)
+
+
+def visible_first(hit, M: int):
+    """(cams, M) query indices of each camera, its visible queries first in
+    their order (a stable ``argsort`` of ``~hit``, (cams, Q) bool)."""
+    return torch.argsort((~hit).to(torch.uint8), dim=1, stable=True)[:, :M]
+
+
+def gather_visible(sel, hit, ref_cams, offsets, attn):
+    """The compacted image cross-attention's query-side tensors at ``sel``
+    (cams, M): the hits and reference points per camera, (cams, M) and
+    (cams, M, P, 2); the offsets and weights, (Q, ...) for all cameras,
+    as (cams, M, ...)."""
+    return (torch.gather(hit, 1, sel),
+            torch.take_along_dim(ref_cams, sel[:, :, None, None], 1),
+            offsets[sel], attn[sel])
+
+
+def rows_to_slots(sel, Q: int, *rows):
+    """Each (cams, M, ...) tensor of ``rows`` copied into a zeroed (cams,
+    Q, ...) one at ``sel``; each camera's ``sel`` is a permutation's head,
+    so no slot is written twice."""
+    cams, M = sel.shape
+    idx = (sel + Q * torch.arange(cams, device=sel.device)[:, None]
+           ).reshape(-1)
+    return tuple(
+        r.new_zeros((cams * Q,) + r.shape[2:]).index_copy(
+            0, idx, r.reshape((cams * M,) + r.shape[2:])).view(
+            (cams, Q) + r.shape[2:]) for r in rows)
+
+
+def plane_capacities(capacity) -> Tuple[float, float, float]:
+    """A scalar capacity, or one per plane (hw, zh, wz), as three."""
+    if isinstance(capacity, (tuple, list)):
+        return tuple(float(c) for c in capacity)
+    return (float(capacity),) * 3
 
 
 def _reset_deform_linears(sampling_offsets, attention_weights, H, L, P,
@@ -178,10 +238,12 @@ class CrossViewHybridAttention(nn.Module):
     a deformable attention over the concatenated plane sequence."""
 
     def __init__(self, embed_dims: int, num_heads: int, num_points: int,
-                 dropout_p: float = 0.0):
+                 dropout_p: float = 0.0, shared_locations: bool = False,
+                 value_bf16: bool = False):
         super().__init__()
         self.num_heads, self.num_points = num_heads, num_points
         self.dropout_p = dropout_p
+        self.shared_locations, self.value_bf16 = shared_locations, value_bf16
         self.sampling_offsets = nn.Linear(embed_dims,
                                           num_heads * 3 * num_points * 2)
         self.attention_weights = nn.Linear(embed_dims,
@@ -201,13 +263,19 @@ class CrossViewHybridAttention(nn.Module):
         B, Q, C = query.shape
         H = self.num_heads
         value = self.value_proj(query).reshape(B, Q, H, C // H)
+        if self.value_bf16:
+            value = bf16_rounded(value)
+        shared = self.shared_locations
         offsets, attn = deform_heads(query + query_pos, self.sampling_offsets,
                                      self.attention_weights, H, 3,
-                                     self.num_points)
+                                     self.num_points, shared)
         norm = _normalizer(spatial_shapes, query.device)
-        loc = ref_points[None, :, None] + \
-            offsets / norm[None, None, None, :, None, :]
-        out = ms_deform_attn(value, spatial_shapes, loc, attn)
+        if shared:
+            loc = ref_points[None] + offsets / norm[None, None, :, None, :]
+        else:
+            loc = ref_points[None, :, None] + \
+                offsets / norm[None, None, None, :, None, :]
+        out = ms_deform_attn(value, spatial_shapes, loc, attn, shared)
         out = dropout(self.output_proj(out), self.dropout_p, self.training,
                       generator)
         return out + query
@@ -236,18 +304,38 @@ class BEVDeformableAttention(nn.Module):
 
 
 class BEVCrossAttention(nn.Module):
-    """Image cross-attention for one TPV plane, dense branch
-    (``encoder.py:366-383``): deformable attention runs for every
-    (camera, query) pair, hits are masked, summed and divided by the
-    per-query hit count."""
+    """Image cross-attention for one TPV plane (``encoder.py:311-390``).
+
+    Dense branch (``visible_capacity`` 1): deformable attention runs for
+    every (camera, query) pair, hits are masked, summed over cameras and
+    divided by the per-query hit count.
+
+    Compact branch (``visible_capacity`` < 1, the reference's rebatch of
+    visible queries): each camera runs MSDA on ``visible_rows(Q, capacity)``
+    = M queries, taken in a visible-first stable order
+    (``argsort(~hit, stable=True)``), each result weighted by its hit. The
+    JAX package scatter-adds the contributions and hit counts into the
+    slots; here each camera's rows are copied into a zeroed (cams, Q, C)
+    buffer (its ``sel`` is a permutation, so no slot is written twice) and
+    summed over cameras in the dense branch's order, and the counts come the
+    same way from the selected hits. While no camera sees more than M
+    queries the forward is therefore the dense branch's bit for bit; past
+    that, both packages drop the same queries (the overflow, see
+    ``TPVFormerEncoder.visible_overflow``). M is a Python int of static
+    shapes: no host synchronisation."""
 
     def __init__(self, embed_dims: int, num_heads: int, num_levels: int,
-                 num_points: int, dropout_p: float = 0.0):
+                 num_points: int, dropout_p: float = 0.0,
+                 shared_locations: bool = False,
+                 visible_capacity: float = 1.0, value_bf16: bool = False):
         super().__init__()
         self.deformable_attention = BEVDeformableAttention(
             embed_dims, num_heads, num_levels, num_points)
         self.output_proj = nn.Linear(embed_dims, embed_dims)
         self.dropout_p = dropout_p
+        self.shared_locations = shared_locations
+        self.visible_capacity = visible_capacity
+        self.value_bf16 = value_bf16
 
     def reset_parameters_like_jax(self, generator):
         _reset_xavier(self.output_proj, generator)
@@ -261,17 +349,35 @@ class BEVCrossAttention(nn.Module):
         cams = value.shape[0]
         H = da.num_heads
         v = da.value_proj(value).reshape(cams, -1, H, C // H)
+        if self.value_bf16:
+            v = bf16_rounded(v)
+        shared = self.shared_locations
         offsets, attn = deform_heads(query, da.sampling_offsets,
                                      da.attention_weights, H, da.num_levels,
-                                     da.num_points)
+                                     da.num_points, shared)
         norm = _normalizer(spatial_shapes, query.device)
         hit = masks.sum(-1) > 0                               # (cams, Q)
-        loc = ref_cams[:, :, None, None, :, :] + \
-            offsets[0][None] / norm[None, None, None, :, None, :]
-        attn_c = attn[0][None].expand((cams,) + attn.shape[1:])
-        out = ms_deform_attn(v, spatial_shapes, loc, attn_c)  # cams, Q, C
+        M = visible_rows(Q, self.visible_capacity)
+        if M < Q:
+            sel = visible_first(hit, M)                       # (cams, M)
+            hit, ref, off, attn_c = gather_visible(sel, hit, ref_cams,
+                                                   offsets[0], attn[0])
+        else:
+            ref, off = ref_cams, offsets[0][None]
+            attn_c = attn[0][None].expand((cams,) + attn.shape[1:])
+        # the reference broadcasts the P pillar points against the
+        # per-(head, level) offsets (image_cross_attention.py:323-328)
+        if shared:
+            loc = ref[:, :, None] + off / norm[None, None, :, None, :]
+        else:
+            loc = ref[:, :, None, None] + \
+                off / norm[None, None, None, :, None, :]
+        out = ms_deform_attn(v, spatial_shapes, loc, attn_c, shared)
         hitf = hit.to(out.dtype)
-        slots = (out * hitf[..., None]).sum(0)
+        contrib = out * hitf[..., None]                       # cams, M, C
+        if M < Q:
+            contrib, hitf = rows_to_slots(sel, Q, contrib, hitf)
+        slots = contrib.sum(0)
         count = hitf.sum(0).clamp_min(1.0)
         slots = (slots / count[..., None])[None]
         slots = dropout(self.output_proj(slots), self.dropout_p,
@@ -282,17 +388,20 @@ class BEVCrossAttention(nn.Module):
 class TPVImageCrossAttention(nn.Module):
     """The three per-plane cross-attentions, named as the reference's
     ``attentions.1.attn_{hw,zh,wz}``. Per-plane point counts follow the
-    reference: hw -> num_points_cross[2], zh -> [1], wz -> [0]."""
+    reference: hw -> num_points_cross[2], zh -> [1], wz -> [0];
+    ``visible_capacity`` is a scalar or one per plane (hw, zh, wz)."""
 
     PLANES = ("hw", "zh", "wz")
 
     def __init__(self, embed_dims, num_heads, num_levels, num_points_cross,
-                 dropout_p: float = 0.0):
+                 dropout_p: float = 0.0, shared_locations: bool = False,
+                 visible_capacity=1.0, value_bf16: bool = False):
         super().__init__()
+        caps = plane_capacities(visible_capacity)
         for i, plane in enumerate(self.PLANES):
             self.add_module(f"attn_{plane}", BEVCrossAttention(
                 embed_dims, num_heads, num_levels, num_points_cross[2 - i],
-                dropout_p))
+                dropout_p, shared_locations, caps[i], value_bf16))
 
     def forward(self, planes, value, ref_cams_list, masks_list,
                 spatial_shapes, generator=None) -> List[torch.Tensor]:
@@ -329,14 +438,17 @@ class TPVFormerLayer(nn.Module):
 
     def __init__(self, embed_dims, num_heads, num_levels, num_points_cross,
                  num_points_self, feedforward_channels, tpv_size,
-                 dropout_p: float = 0.0):
+                 dropout_p: float = 0.0, shared_locations: bool = False,
+                 visible_capacity=1.0, value_bf16: bool = False):
         super().__init__()
         self.tpv_size = tuple(tpv_size)
         self.attentions = nn.ModuleList([
             CrossViewHybridAttention(embed_dims, num_heads, num_points_self,
-                                     dropout_p),
+                                     dropout_p, shared_locations, value_bf16),
             TPVImageCrossAttention(embed_dims, num_heads, num_levels,
-                                   num_points_cross, dropout_p)])
+                                   num_points_cross, dropout_p,
+                                   shared_locations, visible_capacity,
+                                   value_bf16)])
         self.ffns = nn.ModuleList([FFN(embed_dims, feedforward_channels,
                                        dropout_p)])
         self.norms = nn.ModuleList(
@@ -378,7 +490,16 @@ class TPVPositionalEncoding(nn.Module):
 
 
 class TPVFormerEncoder(nn.Module):
-    """The full encoder (reference ``tpvformer_encoder.py:20-290``)."""
+    """The full encoder (reference ``tpvformer_encoder.py:20-290``).
+
+    ``shared_locations``, ``visible_capacity`` (a scalar or one per plane,
+    hw, zh, wz) and ``attn_value_bf16``: see ``BEVCrossAttention``. Where a
+    plane is compacted, each forward leaves ``visible_overflow``: per plane
+    a 0-d tensor on the device, ``max(hits.max() - M, 0)`` with hits the
+    visible queries of its busiest camera (``encoder.py:916-930``; the JAX
+    package sows it as ``visible_overflow_i``); the compaction is exact
+    while all three are 0. Nothing in the forward reads it back. None where
+    no plane is compacted."""
 
     def __init__(self, mapping_args: Dict, embed_dims: int = 96,
                  num_heads: int = 6, num_cams: int = 6,
@@ -388,8 +509,11 @@ class TPVFormerEncoder(nn.Module):
                  feedforward_channels: int = 192,
                  pos_num_freqs: Sequence[int] = (12, 12, 12),
                  pc_range: Sequence[float] = (-40., -40., -1., 40., 40., 5.4),
-                 dropout_p: float = 0.0):
+                 dropout_p: float = 0.0, shared_locations: bool = False,
+                 visible_capacity=1.0, attn_value_bf16: bool = False):
         super().__init__()
+        self.visible_capacity = plane_capacities(visible_capacity)
+        self.visible_overflow = None
         mapping = make_mapping(**mapping_args)
         self.tpv_size = (mapping.size_h, mapping.size_w, mapping.size_d)
         H, W, D = self.tpv_size
@@ -401,7 +525,9 @@ class TPVFormerEncoder(nn.Module):
         self.layers = nn.ModuleList(
             TPVFormerLayer(embed_dims, num_heads, num_feature_levels,
                            tuple(num_points_cross), num_points_self,
-                           feedforward_channels, self.tpv_size, dropout_p)
+                           feedforward_channels, self.tpv_size, dropout_p,
+                           shared_locations, visible_capacity,
+                           attn_value_bf16)
             for _ in range(num_layers))
         # geometry tables (the JAX package's 'consts' collection): derived
         # from the config alone, so not part of the state dict
@@ -440,6 +566,11 @@ class TPVFormerEncoder(nn.Module):
                                    focal_ratios_y)
             ref_cams_list.append(rc[:, 0])
             masks_list.append(m[:, 0])
+        if min(self.visible_capacity) < 1.0:
+            self.visible_overflow = tuple(
+                ((m.sum(-1) > 0).sum(1).max()
+                 - visible_rows(m.shape[1], cap)).clamp_min(0)
+                for m, cap in zip(masks_list, self.visible_capacity))
         planes = list(representation)
         for layer in self.layers:
             planes = layer(planes, value, tpv_pos, self.cross_view_ref,

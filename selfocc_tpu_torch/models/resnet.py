@@ -7,6 +7,12 @@ are the reference's ``img_backbone.*`` keys. BatchNorm is flax's
 running statistics in eval mode, and no ``num_batches_tracked`` buffer, which
 the reference export does not have either. Modules take and return NCHW
 tensors.
+
+``ResNet50(dtype=torch.bfloat16)`` is the JAX package's ``dtype=`` (bf16
+compute, the reference's AMP analog; ``resnet.py:25-85``): the input is cast
+at the stem, each convolution runs at its input's dtype on its fp32
+weights rounded to it, and BatchNorm normalises in fp32 and returns its
+input's dtype, as flax's does. Parameters and gradients stay fp32.
 """
 from __future__ import annotations
 
@@ -40,6 +46,10 @@ class BatchNorm2d(nn.Module):
         self.running_var.fill_(1.0)
 
     def forward(self, x):
+        if x.dtype != self.weight.dtype:
+            # flax: statistics and normalisation in fp32, the result in the
+            # compute dtype
+            return self.forward(x.float()).to(x.dtype)
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
@@ -53,6 +63,15 @@ class BatchNorm2d(nn.Module):
             self.running_mean.mul_(m).add_(mean, alpha=1 - m)
             self.running_var.mul_(m).add_(var, alpha=1 - m)
         return out
+
+
+def conv_at_input_dtype(conv: nn.Conv2d, x):
+    """``conv(x)`` computed in ``x``'s dtype: the weights (and bias) are
+    rounded to it, as flax's ``nn.Conv(dtype=)`` does."""
+    if x.dtype == conv.weight.dtype:
+        return conv(x)
+    bias = None if conv.bias is None else conv.bias.to(x.dtype)
+    return conv._conv_forward(x, conv.weight.to(x.dtype), bias)
 
 
 class Bottleneck(nn.Module):
@@ -73,20 +92,24 @@ class Bottleneck(nn.Module):
             BatchNorm2d(planes * 4)) if downsample else None
 
     def forward(self, x):
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
-        identity = x if self.downsample is None else self.downsample(x)
+        conv = conv_at_input_dtype
+        out = F.relu(self.bn1(conv(self.conv1, x)))
+        out = F.relu(self.bn2(conv(self.conv2, out)))
+        out = self.bn3(conv(self.conv3, out))
+        identity = x if self.downsample is None else \
+            self.downsample[1](conv(self.downsample[0], x))
         return F.relu(out + identity)
 
 
 class ResNet50(nn.Module):
-    """Four stage features (C2..C5), channels 256/512/1024/2048."""
+    """Four stage features (C2..C5), channels 256/512/1024/2048, in
+    ``dtype`` (None: the input's)."""
 
     STAGE_BLOCKS = (3, 4, 6, 3)
 
-    def __init__(self):
+    def __init__(self, dtype=None):
         super().__init__()
+        self.dtype = dtype
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = BatchNorm2d(64)
         inplanes, planes = 64, 64
@@ -101,7 +124,9 @@ class ResNet50(nn.Module):
             planes *= 2
 
     def forward(self, x) -> List[torch.Tensor]:
-        x = F.relu(self.bn1(self.conv1(x)))
+        if self.dtype is not None:
+            x = x.to(self.dtype)
+        x = F.relu(self.bn1(conv_at_input_dtype(self.conv1, x)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         outs = []
         for i in range(len(self.STAGE_BLOCKS)):

@@ -5,9 +5,13 @@ backbone -> neck -> lifter -> encoder -> NeuS head: the training forward
 eval (``forward_occ``, ``occ_from_volume``, ``occ_uniform``).
 
 Public tensors keep the JAX package's layouts: images (B, N, H, W, 3) NHWC,
-features (B, N, h, w, C), the decoded volume (C, H, W, D). Only the exact
-tier of the TPV NeuS model is ported; the constructor refuses the options
-that would change what it computes.
+features (B, N, h, w, C), the decoded volume (C, H, W, D). The TPV NeuS
+model is ported with the encoder's recipe options (head-shared locations,
+visibility compaction, bf16 attention values) and ``compute_dtype``: with
+``"bfloat16"`` the ResNet-50 backbone (not ``TinyBackbone``, as in the JAX
+package) and the FPN compute in bf16 with fp32 parameters, and the features
+return to fp32 for the encoder. The constructor refuses the options that
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -29,10 +33,6 @@ _PORTED = (
     ("model", "lifter_type", "TPVQueryLifter"),
     ("model", "neck_type", "fpn"),
     ("model", "use_bev_encoder", False),
-    ("model", "compute_dtype", None),
-    ("encoder", "shared_locations", False),
-    ("encoder", "cross_visible_capacity", 1.0),
-    ("encoder", "attn_value_bf16", False),
     ("encoder", "multi_plane_ffn_norm", False),
     ("encoder", "camera_aware", False),
     ("head", "head_type", "neus"),
@@ -76,6 +76,8 @@ def check_ported(cfg: ModelConfig):
                 f"(the port implements {want!r})")
     if cfg.backbone_type not in ("resnet50", "tiny"):
         raise NotImplementedError(f"backbone {cfg.backbone_type!r}")
+    if cfg.compute_dtype not in (None, "float32", "bfloat16"):
+        raise NotImplementedError(f"compute_dtype {cfg.compute_dtype!r}")
 
 
 class TPVSegmentor(nn.Module):
@@ -83,11 +85,13 @@ class TPVSegmentor(nn.Module):
         super().__init__()
         check_ported(cfg)
         self.cfg = cfg
+        dtype = None if cfg.compute_dtype is None else \
+            getattr(torch, cfg.compute_dtype)
         if cfg.backbone_type == "tiny":
             self.img_backbone = TinyBackbone(tuple(cfg.fpn_in_channels))
         else:
-            self.img_backbone = ResNet50()
-        self.img_neck = FPN(tuple(cfg.fpn_in_channels), cfg.embed_dims)
+            self.img_backbone = ResNet50(dtype)
+        self.img_neck = FPN(tuple(cfg.fpn_in_channels), cfg.embed_dims, dtype)
         e, h = cfg.encoder, cfg.head
         m = make_mapping(**e.mapping_args)
         self.lifter = TPVQueryLifter(m.size_h, m.size_w, m.size_d,
@@ -100,7 +104,9 @@ class TPVSegmentor(nn.Module):
             num_points_self=e.num_points_self, num_layers=e.num_layers,
             feedforward_channels=e.feedforward_channels,
             pos_num_freqs=tuple(e.pos_num_freqs), pc_range=tuple(e.pc_range),
-            dropout_p=e.dropout)
+            dropout_p=e.dropout, shared_locations=e.shared_locations,
+            visible_capacity=e.cross_visible_capacity,
+            attn_value_bf16=e.attn_value_bf16)
         self.head = NeuSHead(
             roi_aabb=tuple(h.roi_aabb), mapping_args=h.mapping_args,
             near_plane=h.near_plane, far_plane=h.far_plane,

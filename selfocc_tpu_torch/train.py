@@ -4,7 +4,7 @@
     python -m selfocc_tpu_torch.train --py-config nuscenes_occ \\
         [--synthetic] [--max-steps N] [--epochs N] [--device cpu] \\
         [--work-dir DIR] [--ckpt-freq-iters N] \\
-        [--resume-from CKPT [--iter-resume]] [--resnet-pth PTH]
+        [--resume-from CKPT [--iter-resume]] [--resnet-pth PTH] [--amp]
 
 Data: the nuScenes train split (``data.build_dataset(cfg, "train")``:
 ``data/nuscenes_infos_train_sweeps.pkl``, images and sweeps under
@@ -40,13 +40,16 @@ resume also skips the items of the epoch already trained on (the
 reference's iteration resume), without it the epoch starts again from its
 first item. Runs on the first CUDA device unless ``--device
 cpu`` asks for the kernels' plain versions on the CPU; with no card and no
-``--device cpu`` it exits non-zero. ``--dp``, ``--mp``,
-``--teacher-ckpt``, ``--amp``, ``--profile``, ``--eval-every-epoch`` and
-gradient accumulation come with later slices.
+``--device cpu`` it exits non-zero. ``--amp`` sets the config's
+``compute_dtype`` to bf16 (backbone and neck), as the JAX driver does
+(``train.py:39-41, 165-169``). ``--dp``, ``--mp``, ``--teacher-ckpt``,
+``--profile``, ``--eval-every-epoch`` and gradient accumulation come with
+later slices.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import random
 import sys
@@ -94,8 +97,20 @@ def parse_args(argv=None):
                          "(0: in the loop)")
     ap.add_argument("--resnet-pth", default=RESNET_PTH,
                     help="torchvision ResNet-50 weights for the backbone")
+    ap.add_argument("--amp", action="store_true",
+                    help="bf16 backbone/neck compute (the config's "
+                         "compute_dtype)")
     add_device_arg(ap)
     return ap.parse_args(argv)
+
+
+def config_of(args):
+    """The config ``--py-config`` names, with ``--amp`` applied."""
+    cfg = get_config(args.py_config)
+    if args.amp:
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, compute_dtype="bfloat16"))
+    return cfg
 
 
 def build_trainer(cfg, seed: int, device) -> Trainer:
@@ -201,7 +216,7 @@ def train(cfg, trainer: Trainer, ds, device, max_steps: int, seed: int,
 def main(argv=None) -> Dict:
     args = parse_args(argv)
     device = resolve_device(args.device)
-    cfg = get_config(args.py_config)
+    cfg = config_of(args)
     ds = get_dataset(cfg, args.synthetic, phase="train")
     logger = get_logger()
     logger.info(f"config {cfg.name} on {device}; {len(ds)} items")

@@ -9,7 +9,9 @@ driver's helpers, the data modules (``transforms``, ``wrapper``,
 ``kitti_raw_dataset``),
 ``build_dataset``'s path and override tables,
 ``utils/openseed_utils.SemTeacher`` and ``utils/scenerf_metric.SSCMetrics``
-(the KITTI configs with the config test), and these
+(the KITTI configs with the config test, and the encoder's recipe-option
+configs, which ``check_ported`` accepts while it still refuses the BEV and
+density-head recipes), and these
 tests fail as soon as a copy and its original drift apart. Extend them with
 each module a later slice copies."""
 import ast
@@ -25,16 +27,49 @@ from selfocc_tpu.utils.metrics import DepthMetric as JDepthMetric
 from selfocc_tpu_torch.configs import experiments as texp
 from selfocc_tpu_torch.data.synthetic import SyntheticDataset as TSynthetic
 from selfocc_tpu_torch.utils.metrics import DepthMetric as TDepthMetric
+from test_torch_port_threads import share_cores_with_xdist_workers
+
+share_cores_with_xdist_workers()
+
+
+# the encoder's recipe options: visibility compaction, head-shared
+# locations, bf16 values and compute, and the TPU gather layouts (bundles)
+RECIPE_OPTION_CONFIGS = [
+    "tiny_fast", "nuscenes_occ_fast", "nuscenes_occ_fast_bundle",
+    "nuscenes_occ_compact", "nuscenes_occ_compact_train",
+    "nuscenes_occ_compact_train_bundle", "nuscenes_occ_compact_bf16",
+    "nuscenes_occ_compact_pairs", "nuscenes_occ_compact_bundle",
+    "nuscenes_occ_compact_bf16_pairs", "nuscenes_novel_depth_bundle",
+    "nuscenes_novel_depth_fast_bundle", "kitti_occ_bundle",
+    "kitti_novel_depth_bundle", "kitti_novel_depth_fast_bundle"]
 
 
 @pytest.mark.parametrize("name", ["nuscenes_occ", "tiny", "nuscenes_depth",
                                   "nuscenes_novel_depth", "kitti_occ",
-                                  "kitti_novel_depth", "kitti_raw_depth"])
+                                  "kitti_novel_depth", "kitti_raw_depth"]
+                         + RECIPE_OPTION_CONFIGS)
 def test_config_copies_equal_their_originals(name):
     ref = dataclasses.asdict(getattr(jexp, name)())
     got = dataclasses.asdict(getattr(texp, name)())
     assert got == ref
     assert dataclasses.asdict(texp.get_config(name)) == ref
+
+
+@pytest.mark.parametrize("name", RECIPE_OPTION_CONFIGS)
+def test_recipe_option_configs_are_ported(name):
+    from selfocc_tpu_torch.models.segmentor import check_ported
+    check_ported(texp.get_config(name).model)
+
+
+@pytest.mark.parametrize("name", ["nuscenes_occ_bev", "tiny_bev",
+                                  "tiny_nerfacc", "nuscenes_occ_density"])
+def test_unported_recipes_are_refused(name):
+    # the BEV path and the density head: the JAX package's configs, which
+    # the port does not copy
+    from selfocc_tpu_torch.models.segmentor import check_ported
+    assert name not in texp._CONFIGS
+    with pytest.raises(NotImplementedError):
+        check_ported(getattr(jexp, name)().model)
 
 
 def _assert_items_equal(got, ref):

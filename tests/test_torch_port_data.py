@@ -31,6 +31,9 @@ from selfocc_tpu_torch.utils.runtime import get_dataset
 
 from test_novel_eval_datasets import make_nuscenes_eval_fixture
 from test_nuscenes_dataset import _make_mini_nuscenes
+from test_torch_port_threads import share_cores_with_xdist_workers
+
+share_cores_with_xdist_workers()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

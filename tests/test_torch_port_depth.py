@@ -63,6 +63,9 @@ from test_torch_port_novel import (CHUNK, RTOL, ATOL, TABLE_ATOL, TABLE_RTOL,
                                    TIE, jax_weights)
 from test_torch_port_train import (assert_grad_close, jax_draws, no_dropout,
                                    perturb)
+from test_torch_port_threads import share_cores_with_xdist_workers
+
+share_cores_with_xdist_workers()
 
 T = torch.from_numpy
 DAY = "2011_09_26"

@@ -32,6 +32,9 @@ from selfocc_tpu_torch.bridge import from_jax_variables
 from selfocc_tpu_torch.configs.experiments import get_config
 from selfocc_tpu_torch.models.segmentor import TPVSegmentor
 from selfocc_tpu_torch.utils import eval_lib as teval
+from test_torch_port_threads import share_cores_with_xdist_workers
+
+share_cores_with_xdist_workers()
 
 OPENOCC_PCR = (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0)
 

@@ -63,6 +63,9 @@ from selfocc_tpu_torch.utils import train_lib as ttrain
 from test_kitti_dataset import _make_mini_kitti
 from test_torch_port_novel import CHUNK, assert_tables_close, jax_weights
 from test_torch_port_train import assert_grad_close, jax_draws, perturb
+from test_torch_port_threads import share_cores_with_xdist_workers
+
+share_cores_with_xdist_workers()
 
 T = torch.from_numpy
 KITTI_PC = (-10.0, 0.0, -1.0, 10.0, 10.0, 3.0)   # tiny's box, front only

@@ -16,6 +16,9 @@ from selfocc_tpu import losses as jlosses
 from selfocc_tpu.configs.experiments import get_config
 from selfocc_tpu_torch import losses as tlosses
 from selfocc_tpu_torch.data.synthetic import SyntheticDataset
+from test_torch_port_threads import share_cores_with_xdist_workers
+
+share_cores_with_xdist_workers()
 
 T = torch.from_numpy
 

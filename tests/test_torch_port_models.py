@@ -23,6 +23,9 @@ from selfocc_tpu.utils.eval_lib import init_variables
 from selfocc_tpu_torch.bridge import from_jax_variables
 from selfocc_tpu_torch.models import encoder as tenc
 from selfocc_tpu_torch.models.segmentor import TPVSegmentor
+from test_torch_port_threads import share_cores_with_xdist_workers
+
+share_cores_with_xdist_workers()
 
 T = torch.from_numpy
 

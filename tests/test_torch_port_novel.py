@@ -58,6 +58,9 @@ from test_nuscenes_dataset import _make_mini_nuscenes
 from test_torch_port_data import novel_cfg, nusc_cfg, write_sem_maps
 from test_torch_port_occ import _tiny_pth
 from test_torch_port_slice import _noisy
+from test_torch_port_threads import share_cores_with_xdist_workers
+
+share_cores_with_xdist_workers()
 
 OFFSETS = (-1.9, -0.9, 1.1, 2.1)   # synthetic ego offsets, off the knots
 RTOL, ATOL = 1e-4, 1e-5          # depth, as test_torch_ckpt_gives_the_jax_depth

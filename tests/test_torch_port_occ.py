@@ -36,6 +36,9 @@ from selfocc_tpu_torch.models.segmentor import TPVSegmentor
 from selfocc_tpu_torch.utils import eval_lib as teval
 from selfocc_tpu_torch.utils.runtime import get_logger, load_weights
 from test_torch_port_slice import _noisy
+from test_torch_port_threads import share_cores_with_xdist_workers
+
+share_cores_with_xdist_workers()
 
 T = torch.from_numpy
 FLIP = 1e-5          # |sdf| or logit gap below which 1 ulp may flip a voxel

@@ -28,6 +28,9 @@ from selfocc_tpu_torch.ops import interp as tinterp
 from selfocc_tpu_torch.ops import render_weights
 from selfocc_tpu_torch.ops.msda import ms_deform_attn as t_msda
 from torch_render_cases import RENDER_CASES, jax_composite, render_case
+from test_torch_port_threads import share_cores_with_xdist_workers
+
+share_cores_with_xdist_workers()
 
 T = torch.from_numpy
 

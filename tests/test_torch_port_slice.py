@@ -22,6 +22,9 @@ from selfocc_tpu.utils.ref_export import export_reference_state_dict
 from selfocc_tpu_torch.bridge import from_jax_variables
 from selfocc_tpu_torch.models.segmentor import TPVSegmentor
 from selfocc_tpu_torch.utils import eval_lib as teval
+from test_torch_port_threads import share_cores_with_xdist_workers
+
+share_cores_with_xdist_workers()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUTPUTS = ("depth", "rgb", "acc", "sem")

@@ -36,6 +36,9 @@ from selfocc_tpu_torch.configs.experiments import get_config
 from selfocc_tpu_torch.models import resnet as tresnet
 from selfocc_tpu_torch.models.segmentor import TPVSegmentor
 from selfocc_tpu_torch.utils import train_lib as ttrain
+from test_torch_port_threads import share_cores_with_xdist_workers
+
+share_cores_with_xdist_workers()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T = torch.from_numpy

@@ -26,6 +26,9 @@ from selfocc_tpu_torch.ops import render_weights as trw
 from selfocc_tpu_torch.ops.ssim import ssim as t_ssim
 from torch_render_cases import (COTANGENTS, RENDER_CASES, jax_composite,
                                 render_case)
+from test_torch_port_threads import share_cores_with_xdist_workers
+
+share_cores_with_xdist_workers()
 
 T = torch.from_numpy
 

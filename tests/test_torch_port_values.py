@@ -28,6 +28,9 @@ from selfocc_tpu_torch.ops.interp import (channel0_view, first_channel,
                                           trilinear_sample_cf_plain)
 
 from test_torch_port_train import assert_grad_close
+from test_torch_port_threads import share_cores_with_xdist_workers
+
+share_cores_with_xdist_workers()
 
 T = torch.from_numpy
 DELTA = 0.01
