@@ -144,9 +144,15 @@ raises and the exit code is non-zero.
   self-attention, the compacted hw and zh cross-attention) against their
   plain versions and against the per-head ``msda_fwd`` / ``msda_bwd`` on
   broadcast locations, timed (events, device ms) beside the per-head
-  kernels at the compacted and the dense shapes, then at off-path widths
-  (scalar lanes, channel chunks, head passes, several units per warp, a
-  value off 16-byte alignment); one ``nuscenes_occ_compact`` eval frame
+  kernels at the compacted and the dense shapes, with the instance each
+  call takes (lane group, float4s a lane, staging, registers, shared
+  bytes), and the backward's device ms over the forward's beside its RED
+  bytes; then at off-path widths (scalar lanes, rows no multiple of the
+  group, R = 6, a two-lane group, a weights block that is no multiple of
+  16 bytes, a value off 16-byte alignment, unit counts no multiple of the
+  tile, fewer units than SMs, a tile too large for shared memory), each
+  with its instance; with ``--baseline``, the other checkout's shared
+  kernels in turns with this one's; one ``nuscenes_occ_compact`` eval frame
   against ``nuscenes_occ`` on the same seeded weights (planes bit-equal or
   within 1e-6 of their scale, every ``visible_overflow`` 0; prepare_s, MSDA
   device ms of a warm prepare, and the compaction's argsort, gathers and
@@ -246,23 +252,39 @@ def device_ms(fn, reps):
     ``torch.profiler`` over ``reps`` calls after a warm-up. Unlike
     ``timed`` it leaves out the gaps in which the card waits for the
     host's next launch, which dominate calls of a few tens of µs. A
-    profile that recorded no device time (seen once in a run of many) is
-    taken again; None if the third is empty too."""
+    profile that recorded no device time (seen once in a run of many), or
+    in which some kernel's count is no multiple of ``reps`` (a lost
+    record: one of five calls of a one-kernel function once read 0.8 of
+    its time), is logged and taken again. If the third is such a profile
+    too, each kernel counts at its mean time, as many times a call as the
+    profile saw it per call, rounded up; None if all three were empty."""
+    import math
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    last = None
+    for attempt in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
-        if us > 0:
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.count]
+        us = sum(e.self_device_time_total for e in kernels)
+        odd = [f"{e.key[:60]} x{e.count}" for e in kernels
+               if e.count % reps]
+        if us > 0 and not odd:
             return us / reps / 1e3
-    return None
+        log(f"    device_ms: profile {attempt + 1} of {reps} calls "
+            + (f"has counts no multiple of the calls: {'; '.join(odd)}"
+               if us > 0 else "recorded no device time"))
+        if us > 0:
+            last = sum(e.self_device_time_total / e.count
+                       * math.ceil(e.count / reps) for e in kernels)
+    return None if last is None else last / 1e3
 
 
 def cold_device_ms(fn, reps, key):
@@ -4185,15 +4207,137 @@ def broadcast_heads(loc, H):
     return loc[:, :, None].expand(-1, -1, H, -1, -1, -1).contiguous()
 
 
-def shared_kernel_checks(device):
+# msda_shared_describe's fields, in its order
+SHARED_INSTANCE_FIELDS = (
+    "vec", "group_lanes", "R", "groups_per_unit", "chunks",
+    "units_per_tile", "threads", "staging", "head_aligned", "smem_bytes",
+    "blocks", "registers", "local_bytes", "static_smem_bytes", "buffers",
+    "grads_staged")
+SHARED_STAGING = ("bulk", "copy", "in place")
+
+
+def shared_lib():
+    """``csrc/msda_shared.cu``'s library with its describe entry point
+    bound."""
+    import ctypes
+    from selfocc_tpu_torch import _build
+    from selfocc_tpu_torch.ops import msda
+    lib = _build.load("msda_shared", msda._SHARED_SIGNATURES)
+    lib.msda_shared_describe.argtypes = (
+        [_build.I32] + [_build.PTR] * 7 + [_build.I64] + [_build.I32] * 6
+        + [_build.PTR])
+    lib.msda_shared_describe.restype = ctypes.c_int
+    return lib
+
+
+def shared_instance(case, grad_out=None):
+    """The instance that ``msda_shared_fwd`` (with ``grad_out``:
+    ``msda_shared_bwd``) takes for ``case``: the launcher's plan and the
+    kernel's registers, spills and shared memory."""
+    import ctypes
+    import torch
+    from selfocc_tpu_torch import _build
+    value, _, loc, att = case
+    B, L, H, D = value.shape
+    _, Q, Lv, P, _ = loc.shape
+    info = (ctypes.c_int * len(SHARED_INSTANCE_FIELDS))()
+    if grad_out is None:
+        rows = torch.empty((B, Q, H * D), device=value.device)
+        ptrs = (rows, None, None, None)
+    else:
+        ptrs = (grad_out, torch.empty_like(value), torch.empty_like(loc),
+                torch.empty_like(att))
+    status = shared_lib().msda_shared_describe(
+        int(grad_out is not None), _build.ptr(value), _build.ptr(loc),
+        _build.ptr(att), *(None if t is None else _build.ptr(t)
+                           for t in ptrs), B, L, H, D, Q, Lv, P, info)
+    _build.check(status, "msda_shared_describe")
+    rec = dict(zip(SHARED_INSTANCE_FIELDS, info))
+    rec["staging"] = SHARED_STAGING[rec["staging"]]
+    return rec
+
+
+def corners_in(loc, shapes):
+    """Corners inside their level over all points of ``loc`` (B, Q, Lv, P,
+    2): the backward sends one RED a row's float4 for each."""
+    import torch
+    size = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32,
+                        device=loc.device)[:, None, :]
+    px = loc * size - 0.5
+    x0 = px.floor()
+    n = 0
+    for dy in (0, 1):
+        for dx in (0, 1):
+            x = x0[..., 0] + dx
+            y = x0[..., 1] + dy
+            w, h = size[..., 0], size[..., 1]
+            n += int(((x >= 0) & (x < w) & (y >= 0) & (y < h)).sum())
+    return n
+
+
+def log_instance(what, rec):
+    log(f"  {what}: VEC {rec['vec']}, G {rec['group_lanes']}, R {rec['R']}, "
+        f"S {rec['groups_per_unit']}, chunks {rec['chunks']}, "
+        f"T {rec['units_per_tile']}, {rec['threads']} threads x "
+        f"{rec['blocks']} blocks, staging {rec['staging']} x "
+        f"{rec['buffers']} (gradients staged {rec['grads_staged']}), "
+        f"head-aligned "
+        f"{rec['head_aligned']}, {rec['registers']} registers, "
+        f"{rec['local_bytes']} local bytes, {rec['smem_bytes']} B dynamic "
+        f"shared")
+
+
+def shared_ab(base, this, g, device):
+    """Device ms and event ms of two checkouts' ``msda_shared_fwd`` /
+    ``msda_shared_bwd`` at the three main-path calls, in turns: baseline,
+    this, this, baseline; each side's sorted pair of readings."""
+    import torch
+    cases = {}
+    for tag, args in LEVER_SHAPES:
+        case = shared_case(g, device, *args)
+        value, loc = case[0], case[2]
+        cases[tag] = (case, torch.randn(
+            (value.shape[0], loc.shape[1], value.shape[2] * value.shape[3]),
+            generator=g, device=device))
+    runs = {"baseline": [], "this": []}
+    for side in ("baseline", "this", "this", "baseline"):
+        mod = base if side == "baseline" else this
+        r = {}
+        for tag, (case, gout) in cases.items():
+            def fwd(m=mod, c=case):
+                return m.msda_shared_fwd(*c)
+
+            def bwd(m=mod, c=case, go=gout):
+                return m.msda_shared_bwd(*c, go)
+            r[f"fwd_{tag}"] = (device_ms(fwd, 10), timed(fwd, 10))
+            r[f"bwd_{tag}"] = (device_ms(bwd, 10), timed(bwd, 10))
+        runs[side].append(r)
+        torch.cuda.empty_cache()
+    out = {side: {k: sorted((rr[k] for rr in rs), key=lambda t: t[1])
+                  for k in rs[0]}
+           for side, rs in runs.items()}
+    for k in out["this"]:
+        log(f"  A/B {k} (device ms, event ms): baseline "
+            f"{out['baseline'][k]}, this {out['this'][k]}")
+    del cases
+    torch.cuda.empty_cache()
+    return out
+
+
+def shared_kernel_checks(device, baseline=None):
     """``msda_shared_fwd`` / ``msda_shared_bwd`` at the nuscenes_occ_fast
     calls: against their plain versions and against the per-head kernels
     on broadcast locations; timed (events, device ms) beside the per-head
-    kernels at the compacted and the dense shapes; then off-path widths."""
+    kernels at the compacted and the dense shapes; the backward's REDs (its
+    device ms over the forward's, the REDs' bytes); then off-path widths,
+    each with the instance it took. With ``baseline`` (a checkout of
+    another commit), that checkout's shared kernels timed in turns with
+    this one's."""
+    import importlib
     import torch
     from selfocc_tpu_torch.ops import msda
     g = torch.Generator(device=device).manual_seed(SEED + 11)
-    fwd, bwd = {}, {}
+    fwd, bwd, instances = {}, {}, {}
     for tag, args in LEVER_SHAPES:
         case = shared_case(g, device, *args)
         value, shapes, loc, att = case
@@ -4203,7 +4347,8 @@ def shared_kernel_checks(device):
         loc6 = broadcast_heads(loc, H)
         head_case = (value, shapes, loc6, att)
         out = msda.msda_shared_fwd(*case)
-        err = max_err(out, msda.ms_deform_attn_shared_plain(*case))
+        ref_out = msda.ms_deform_attn_shared_plain(*case)
+        err = max_err(out, ref_out)
         check(f"msda_shared_fwd ({tag})", err, 1e-5)
         check(f"msda_shared_fwd vs per-head msda_fwd ({tag})",
               max_err(out, msda.msda_fwd(*head_case)), 1e-5)
@@ -4219,10 +4364,13 @@ def shared_kernel_checks(device):
             bytes=nbytes(value, loc, att, out), shape=f"{tag} B={B} Q={Q}")
         grad_out = torch.randn(out.shape, generator=g, device=device)
         del out
+        inst = {"fwd": shared_instance(case),
+                "bwd": shared_instance(case, grad_out)}
+        log_instance(f"msda_shared_fwd ({tag}) instance", inst["fwd"])
+        log_instance(f"msda_shared_bwd ({tag}) instance", inst["bwd"])
         got = msda.msda_shared_bwd(*case, grad_out)
         ref = msda.msda_shared_bwd_plain(*case, grad_out)
         err = check_grads(f"msda_shared_bwd ({tag})", got, ref)
-        del ref
         torch.cuda.empty_cache()
         gh = msda.msda_bwd(*head_case, grad_out)
         check_grads(f"msda_shared_bwd vs per-head msda_bwd ({tag})", got,
@@ -4243,6 +4391,16 @@ def shared_kernel_checks(device):
                               5),
             bytes=nb, shape=f"{tag} B={B} Q={Q}")
         del head_case, loc6
+        # the backward's REDs: one per in-bounds corner and row float4
+        b["red_bytes"] = corners_in(loc, shapes) * H * D * 4
+        if b["device_ms"] and f["device_ms"]:
+            over = b["over_forward_device_ms"] = \
+                b["device_ms"] - f["device_ms"]
+            log(f"  {tag}: backward - forward {over:.4f} ms device for "
+                f"{b['red_bytes'] / 1e9:.3f} GB of REDs "
+                f"({b['red_bytes'] / 1e9 / over:.2f} TB/s)")
+        del ref, ref_out
+        torch.cuda.empty_cache()
         if tag in DENSE_Q:
             # the per-head kernels on the same call without compaction
             dense = msda_case(g, device, B, DENSE_Q[tag], shapes,
@@ -4254,22 +4412,33 @@ def shared_kernel_checks(device):
             b["per_head_dense_device_ms"] = device_ms(
                 lambda: msda.msda_bwd(*dense, gd), 5)
             del dense, gd
-        fwd[tag], bwd[tag] = f, b
+        fwd[tag], bwd[tag], instances[tag] = f, b, inst
         log(f"  {tag}: fwd {f['device_ms']} ms device (per-head on "
             f"broadcast locations {f['per_head_device_ms']}), bound "
             f"{f['bound_ms']:.4f}; bwd {b['device_ms']} (per-head "
             f"{b['per_head_device_ms']}), bound {b['bound_ms']:.4f}")
         del case, value, loc, att, grad_out
         torch.cuda.empty_cache()
-    # off-path widths: scalar lanes (D = 6), channel chunks (D = 144),
-    # head passes (H = 12), several units per warp (H = 4, D = 8), a value
-    # 4 bytes off 16-byte alignment, query counts no multiple of the tile
+    # off-path widths, each with the instance it took: scalar lanes (D =
+    # 6), a row of 36 float4s (D = 144: R = 6, 4 masked), H * D / 4 no
+    # multiple of the group (H = 5, D = 12; H = 6, D = 20), R = 6 (H = 12,
+    # D = 16), a two-lane group (H * D = 8), a group of one row (H = 4, D =
+    # 8), a weights block of 3 x 15 floats (staged by plain loads), a value
+    # 4 bytes off 16-byte alignment (scalar lanes, two chunks), unit counts
+    # no multiple of the tile, fewer units than SMs, units of 2 x 4,000
+    # points whose tiles do not fit in shared memory (read in place)
     small = ((12, 10), (6, 5), (3, 3), (2, 2))
+    levels = ((96, 200), (48, 100), (24, 50), (12, 25))
+    off_path = {}
     for B, Q, H, D, shapes, P, shift in (
             (1, 45, 3, 6, small, 5, False), (1, 19, 1, 144, small[:2], 3,
                                              False),
-            (2, 37, 12, 16, small, 4, False), (2, 53, 4, 8, small, 4, False),
-            (2, 41, 6, 16, small, 8, True)):
+            (2, 37, 5, 12, small, 4, False), (2, 29, 6, 20, small, 4, False),
+            (2, 37, 12, 16, small, 4, False), (2, 53, 2, 4, small, 4, False),
+            (2, 53, 4, 8, small, 4, False), (2, 31, 3, 16, small[:3], 5,
+                                             False),
+            (2, 41, 6, 16, small, 8, True), (1, 5, 6, 16, levels, 8, False),
+            (1, 2, 6, 16, ((60, 60), (60, 60)), 4000, False)):
         value, shapes, loc, att = shared_case(g, device, B, Q, shapes, P, H,
                                               D)
         if shift:
@@ -4277,24 +4446,41 @@ def shared_kernel_checks(device):
             buf[1:].copy_(value.reshape(-1))
             value = buf[1:].view(value.shape)
         case = (value, shapes, loc, att)
-        tag = f"H={H}, D={D}, Q={Q}" + (", value +4 bytes" if shift else "")
+        tag = (f"B={B}, Q={Q}, H={H}, D={D}, Lv*P={len(shapes) * P}"
+               + (", value +4 bytes" if shift else ""))
+        gout = torch.randn((B, Q, H * D), generator=g, device=device)
+        inst = {"fwd": shared_instance(case),
+                "bwd": shared_instance(case, gout)}
+        log_instance(f"msda_shared_fwd ({tag}) instance", inst["fwd"])
+        log_instance(f"msda_shared_bwd ({tag}) instance", inst["bwd"])
         check(f"msda_shared_fwd ({tag})", max_err(
             msda.msda_shared_fwd(*case),
             msda.ms_deform_attn_shared_plain(*case)), 1e-5)
-        gout = torch.randn((B, Q, H * D), generator=g, device=device)
         check_grads(f"msda_shared_bwd ({tag})",
                     msda.msda_shared_bwd(*case, gout),
                     msda.msda_shared_bwd_plain(*case, gout))
+        off_path[tag] = inst
     res = {}
     for name, rec in (("msda_shared_fwd", fwd), ("msda_shared_bwd", bwd)):
         res[name] = dict(rec["hw"], shape="hw cross-attention, compacted")
         for tag in ("zh", "self"):
             for k in ("ms", "device_ms", "plain_ms", "bound_ms",
-                      "per_head_device_ms"):
-                res[name][f"{tag}_{k}"] = rec[tag][k]
+                      "per_head_device_ms", "red_bytes",
+                      "over_forward_device_ms"):
+                if k in rec[tag]:
+                    res[name][f"{tag}_{k}"] = rec[tag][k]
         res[name]["zh_per_head_dense_device_ms"] = \
             rec["zh"]["per_head_dense_device_ms"]
         res[name]["max_abs_err"] = max(r["max_abs_err"] for r in rec.values())
+        kind = name[len("msda_shared_"):]
+        res[name]["instances"] = {
+            tag: {k: v for k, v in inst.items() if k.startswith(kind)}
+            for tag, inst in instances.items()}
+    res["msda_shared_fwd"]["off_path_instances"] = off_path
+    if baseline is not None:
+        res["msda_shared_fwd"]["baseline_ab"] = shared_ab(
+            importlib.import_module(f"{load_baseline(baseline)}.ops.msda"),
+            msda, g, device)
     return res
 
 
@@ -4601,8 +4787,9 @@ def lever_train(device, name, wrappers):
     return res
 
 
-def levers_phase(device):
-    """The encoder's recipe options at full width: the shared kernels, the
+def levers_phase(device, baseline=None):
+    """The encoder's recipe options at full width: the shared kernels (with
+    ``baseline``, another checkout's beside them), the
     compact and fast eval frames, a compact loss-and-grad against the dense
     one, 3 steps each of nuscenes_occ_compact_train
     and nuscenes_occ_fast, and a tiny_fast step on the card against the
@@ -4613,7 +4800,7 @@ def levers_phase(device):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     log(f"  card: {smi.stdout.strip().splitlines()[0]}")
-    res = {"kernels": shared_kernel_checks(device)}
+    res = {"kernels": shared_kernel_checks(device, baseline)}
     res["frames"] = lever_frames(device)
     res["compact_grad_parity"] = compact_grad_parity(device)
     res["compact_train"] = lever_train(
@@ -4631,8 +4818,9 @@ def main():
                     help="comma-separated subset of " + ",".join(PHASES))
     ap.add_argument("--baseline", default=None, metavar="DIR",
                     help="a checkout of another commit: [kernels] also times "
-                    "its trilinear kernels at the main paths' points, and "
-                    "[frame] profiles its eval frame, in turns with this "
+                    "its trilinear kernels at the main paths' points, "
+                    "[frame] profiles its eval frame and [levers] times its "
+                    "head-shared MSDA kernels, in turns with this "
                     "checkout's")
     args = ap.parse_args()
     wanted = args.phases.split(",")
@@ -4670,7 +4858,7 @@ def main():
             "data": lambda: data_phase(device, phases.get("train")),
             "kitti": lambda: kitti_phase(device),
             "depth": lambda: depth_phase(device),
-            "levers": lambda: levers_phase(device)}
+            "levers": lambda: levers_phase(device, args.baseline)}
     phases = {}
     for tag in PHASES:
         if tag not in wanted:
