@@ -165,12 +165,39 @@ raises and the exit code is non-zero.
   The shared kernels' ``launches`` in the result line are those of the
   ``nuscenes_occ_fast`` steps.
 
+- ``[bev]``: the BEV recipe ``nuscenes_occ_bev`` at full width (the card's
+  name and power limit logged first): a ``tiny_bev`` step on the card
+  against the CPU, as ``[train-parity]``; ``msda_fwd`` / ``msda_bwd`` at
+  the BEV self-attention (66,049 queries on one 257 x 257 level, 12
+  points) and cross-attention calls against their plain versions, timed;
+  ``trilinear_cf_fwd`` / ``trilinear_cf_bwd`` at the step's uniform sdf
+  query (640,000 jittered points, C = 25; the backward also for the
+  step's cotangent, the sdf channel alone live) against their plain
+  versions, timed beside ``F.grid_sample`` and its channel-first copy;
+  3 measured steps (median, spread, split, peak, launches), a profiled
+  step and one under ``set_sync_debug_mode("error")``; one eval frame
+  through ``eval_depth``'s code path (prepare_s, render_s, launches, a
+  4096-ray subset against the CPU, the device work sync-checked) and one
+  Occ3D frame through ``eval_iou``'s.
+- ``[density]``: the density head, ``nuscenes_occ_density`` at full width:
+  ``neus_weights_fwd`` / ``neus_weights_bwd`` at 28,800 x 256 (a step's
+  one render) and 32,768 x 256 (an eval chunk) against their plain
+  versions, timed, the backward also against a float64 reference on rows
+  with saturated alpha and alpha exactly 0, and at off-path shapes; the
+  values-only pair at the step's 7,372,800-point query (C = 25), as in
+  ``[bev]``; a ``tiny_nerfacc`` step on the card against the CPU; 3
+  measured steps, a profiled one and one under the sync check; one eval
+  frame (the subset's depth held to [near, far] where acc > 0: the head
+  normalises it by the opacity) and one ``eval_iou --density --thresh
+  0.5`` Occ3D frame. ``neus_weights_fwd`` / ``neus_weights_bwd``'s
+  ``launches`` in the result line are those of the density steps.
+
 ``--phases`` runs a subset (then no result line is printed). Each path's
 launch counts are set to 0 just before it runs and read just after; a
 kernel of the path that was not launched fails the run (the trilinear
 wrappers' counts also by instance: C = 1 ``plane``, C > 1 ``rows``), and so
-does a launch of ``neus_weights_fwd`` on a main path (the render is fused;
-its count comes from ``weights_from_alpha``'s own path). Prints a
+does a launch of a kernel that a path must not run (``neus_weights_fwd`` on
+a NeuS path: that render is fused). Prints a
 ``{"kernels": [...]}`` line, the card's name and power limit, and as its last
 line ``{"ok": true, "device": {...}}``. Without a CUDA card it exits 2 before
 doing anything. Imports nothing of JAX and nothing of the JAX package.
@@ -193,6 +220,9 @@ CHUNK = 32768          # rays per render chunk (eval_depth's default)
 SUBSET_RAYS = 4096
 TRAIN_CHUNK_POINTS = 4096 * 256   # one training render chunk's samples
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM HBM3
+# the FPN levels of a nuScenes 384 x 800 input: the image cross-attention's
+# value shapes
+FPN_SHAPES = ((96, 200), (48, 100), (24, 50), (12, 25))
 FP32_FLOPS_PER_S = 67e12          # H100 SXM fp32 outside the tensor cores
 GRAD_RTOL = 1e-4                  # max|d| <= 1e-4 * max|ref| + 1e-7
 # fp32 operations (an FMA counts 2) that MSDA needs per sampled location
@@ -215,7 +245,7 @@ MSDA_BWD_OPS = (14, 26, 16)
 RENDER_FWD_OPS = 50
 RENDER_BWD_OPS = 103
 PHASES = ("kernels", "gather", "frame", "occ", "train-parity", "train",
-          "data", "kitti", "depth", "levers")
+          "data", "kitti", "depth", "levers", "bev", "density")
 OPENOCC_PCR = (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0)   # 512 x 512 x 40 at 0.2
 OCC_SLAB = 1 << 20    # dense-grid points held against the plain version
 # the compact stencil's volume cotangent, card against CPU on one volume:
@@ -227,6 +257,15 @@ WARM_STEPS = 8        # kitti_occ steps on one batch timed for the median
 
 def log(msg):
     print(msg, flush=True)
+
+
+def card_name():
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
 
 
 def timed(fn, reps, warmup=1):
@@ -998,6 +1037,58 @@ def grid_sample_bwd_of(shape, pts, grad_vals):
     return call, with_copy
 
 
+def values_bwd_record(interp, vol_shape, pts, gv, tag, reps):
+    """``trilinear_cf_bwd`` for the cotangent ``gv`` (N, C) at (N, 3)
+    points of a ``vol_shape`` (C, H, W, D) volume: against its plain version
+    (GRAD_RTOL), timed by events and device time beside its plain version
+    and ``F.grid_sample``'s backward (alone, and with the channel-first copy
+    it needs and the gradient copied back). Bound: the cotangent and the
+    points read once, the dense gradient written once; 20 + 16 C
+    operations per point."""
+    import torch
+    C = vol_shape[0]
+    shape = tuple(vol_shape[1:])
+    vol = torch.zeros(vol_shape, device=pts.device)
+    got = interp.trilinear_cf_bwd(vol_shape, pts, gv)
+    ref = interp.trilinear_cf_bwd_plain(vol, pts, gv)
+    err = max_err(got, ref)
+    check(f"trilinear_cf_bwd ({tag}, C={C}, {pts.shape[0]} points)",
+          err, GRAD_RTOL * float(ref.abs().max()) + 1e-7)
+    del got, ref
+    torch.cuda.empty_cache()
+    lib, lib_copy = grid_sample_bwd_of(vol_shape, pts, gv)
+    # the locality the plane backward's segments use: runs of one cell
+    # in a warp's 32 consecutive points, and the voxels touched
+    cells = torch.floor(pts[: pts.shape[0] // 32 * 32]).long()
+    cells = cells.view(-1, 32, 3)
+    runs = float(((cells[:, 1:] != cells[:, :-1]).any(-1).sum(1) + 1)
+                 .float().mean())
+    del cells
+    lib_err = max_err(lib()[0].permute(1, 2, 3, 0),
+                      interp.trilinear_cf_bwd(vol_shape, pts, gv)
+                      .permute(1, 2, 3, 0))
+    n = pts.shape[0]
+    out_bytes = shape[0] * shape[1] * shape[2] * C * 4
+
+    def kern():
+        return interp.trilinear_cf_bwd(vol_shape, pts, gv)
+    rec = kernel_record(
+        err, timed(kern, reps),
+        timed(lambda: interp.trilinear_cf_bwd_plain(vol, pts, gv), 3),
+        (nbytes(pts, gv) + out_bytes, n * (20 + 16 * C)),
+        library_ms=timed(lib, 10), library="F.grid_sample backward",
+        library_device_ms=device_ms(lib, 10),
+        library_with_copy_ms=timed(lib_copy, 10),
+        library_with_copy_device_ms=device_ms(lib_copy, 10),
+        library_max_abs_err=lib_err, device_ms=device_ms(kern, reps),
+        shape=f"{tag}, C={C}, {n} points", points=n, C=C,
+        cell_runs_per_warp=runs, corner_voxels=corner_voxels(pts, shape))
+    log(f"  trilinear_cf_bwd {tag}: {rec}")
+    del vol, lib, lib_copy
+    torch.cuda.empty_cache()
+    return rec
+
+
 def values_bwd_checks(g, device):
     """``trilinear_cf_bwd`` (the values-only backward) at its kitti_occ
     training points (``kitti_points``): the compact second derivative's
@@ -1018,44 +1109,10 @@ def values_bwd_checks(g, device):
     shape, uniform, taps = kitti_points(device)[:3]
     recs = {}
     for tag, C, pts in (("taps", 1, taps), ("uniform", 4, uniform)):
-        vol_shape = (C,) + tuple(shape)
-        vol = torch.zeros((C,) + tuple(shape), device=device)
         gv = torch.randn((pts.shape[0], C), generator=g, device=device)
-        got = interp.trilinear_cf_bwd(vol_shape, pts, gv)
-        ref = interp.trilinear_cf_bwd_plain(vol, pts, gv)
-        err = max_err(got, ref)
-        check(f"trilinear_cf_bwd ({tag}, C={C}, {pts.shape[0]} points)",
-              err, GRAD_RTOL * float(ref.abs().max()) + 1e-7)
-        del got, ref
-        lib, lib_copy = grid_sample_bwd_of(vol_shape, pts, gv)
-        # the locality the plane backward's segments use: runs of one cell
-        # in a warp's 32 consecutive points, and the voxels touched
-        cells = torch.floor(pts[: pts.shape[0] // 32 * 32]).long()
-        cells = cells.view(-1, 32, 3)
-        runs = float(((cells[:, 1:] != cells[:, :-1]).any(-1).sum(1) + 1)
-                     .float().mean())
-        lib_err = max_err(lib()[0].permute(1, 2, 3, 0),
-                          interp.trilinear_cf_bwd(vol_shape, pts, gv)
-                          .permute(1, 2, 3, 0))
-        n = pts.shape[0]
-        out_bytes = shape[0] * shape[1] * shape[2] * C * 4
-
-        def kern(p=pts, gv=gv, vol_shape=vol_shape):
-            return interp.trilinear_cf_bwd(vol_shape, p, gv)
-        recs[tag] = kernel_record(
-            err, timed(kern, 20),
-            timed(lambda: interp.trilinear_cf_bwd_plain(vol, pts, gv), 3),
-            (nbytes(pts, gv) + out_bytes, n * (20 + 16 * C)),
-            library_ms=timed(lib, 10), library="F.grid_sample backward",
-            library_device_ms=device_ms(lib, 10),
-            library_with_copy_ms=timed(lib_copy, 10),
-            library_with_copy_device_ms=device_ms(lib_copy, 10),
-            library_max_abs_err=lib_err, device_ms=device_ms(kern, 20),
-            shape=f"{tag}, C={C}, {n} points", points=n, C=C,
-            cell_runs_per_warp=runs,
-            corner_voxels=corner_voxels(pts, tuple(shape)))
-        log(f"  trilinear_cf_bwd {tag}: {recs[tag]}")
-        del vol, gv, lib, lib_copy
+        recs[tag] = values_bwd_record(interp, (C,) + tuple(shape), pts, gv,
+                                      tag, 20)
+        del gv
         torch.cuda.empty_cache()
     rec = dict(recs["taps"])
     for k in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
@@ -1395,8 +1452,9 @@ def render_checks(g, device):
     130, 200, 255: lanes that hold part of a run or none, next to other
     rays' rows), saturated samples, rows off 16-byte alignment; a forward
     of S = 300 (two tiles; the backward takes S <= 256). And the
-    alpha-input entry neus_weights_fwd, which no main path launches any
-    more, against its plain version."""
+    alpha-input entry neus_weights_fwd, which the density head's render
+    launches (``[density]``), against its plain version at an eval
+    chunk."""
     import torch
     from selfocc_tpu_torch.ops import render_weights as rw
     res = {}
@@ -1531,9 +1589,9 @@ def render_checks(g, device):
 
 
 def weights_path(device):
-    """weights_from_alpha's own path (no main path calls it since the
-    render is fused): one call through the public entry on an eval chunk's
-    alpha, its launches counted, held against the plain version."""
+    """weights_from_alpha's own entry: one call on an eval chunk's alpha,
+    its launches counted, held against the plain version (its main path,
+    the density head, runs in ``[density]``)."""
     import torch
     from selfocc_tpu_torch.ops import render_weights as rw
     g = torch.Generator(device=device).manual_seed(SEED + 2)
@@ -1545,6 +1603,44 @@ def weights_path(device):
     check("weights_from_alpha (32768 x 256)",
           max_err(w, rw.weights_from_alpha_plain(alpha)), 2e-5)
     return counts["neus_weights_fwd"]
+
+
+def msda_records(g, device, tag, args):
+    """``msda_fwd`` and ``msda_bwd`` on random inputs of the call ``args``
+    (``msda_case``'s B, Q, shapes, P) against their plain versions, timed
+    (events and device time): the two kernel records."""
+    import torch
+    from selfocc_tpu_torch.ops import msda
+    case = msda_case(g, device, *args)
+    value, shapes, loc, att = case
+    pts_n, D = msda_points(case)
+    o_k = msda.msda_fwd(*case)
+    err = max_err(o_k, msda.ms_deform_attn_plain(*case))
+    check(f"msda_fwd ({tag})", err, 1e-5)
+    fwd = kernel_record(
+        err, timed(lambda: msda.msda_fwd(*case), 5),
+        timed(lambda: msda.ms_deform_attn_plain(*case), 3),
+        (nbytes(value, loc, att, o_k),
+         pts_n * (MSDA_FWD_OPS[0] + D * MSDA_FWD_OPS[1])),
+        device_ms=device_ms(lambda: msda.msda_fwd(*case), 5))
+    grad_out = torch.randn(o_k.shape, generator=g, device=device)
+    del o_k
+    torch.cuda.empty_cache()
+    got = msda.msda_bwd(*case, grad_out)
+    ref = msda.msda_bwd_plain(*case, grad_out)
+    err = check_grads(f"msda_bwd ({tag})", got, ref)
+    del got, ref
+    torch.cuda.empty_cache()
+    bwd = kernel_record(
+        err, timed(lambda: msda.msda_bwd(*case, grad_out), 5),
+        timed(lambda: msda.msda_bwd_plain(*case, grad_out), 2),
+        (2 * nbytes(value, loc, att) + nbytes(grad_out),
+         pts_n * (MSDA_BWD_OPS[0] + MSDA_BWD_OPS[1]
+                  + D * MSDA_BWD_OPS[2])),
+        device_ms=device_ms(lambda: msda.msda_bwd(*case, grad_out), 5))
+    del case, value, loc, att, grad_out
+    torch.cuda.empty_cache()
+    return fwd, bwd
 
 
 def kernel_checks(device, baseline=None):
@@ -1576,40 +1672,12 @@ def kernel_checks(device, baseline=None):
     # queries, 8 points), the zh- and wz-plane ones (6425 queries, 48
     # points) and the TPV self-attention (78899 queries over the 3 planes,
     # 12 points); forward and backward
-    fpn = ((96, 200), (48, 100), (24, 50), (12, 25))
     fwd, bwd = {}, {}
     for tag, args in (
-            ("cross", (6, 66049, fpn, 8)), ("zh", (6, 6425, fpn, 48)),
+            ("cross", (6, 66049, FPN_SHAPES, 8)),
+            ("zh", (6, 6425, FPN_SHAPES, 48)),
             ("self", (1, 78899, ((257, 257), (25, 257), (257, 25)), 12))):
-        case = msda_case(g, device, *args)
-        value, shapes, loc, att = case
-        pts_n, D = msda_points(case)
-        o_k = msda.msda_fwd(*case)
-        err = max_err(o_k, msda.ms_deform_attn_plain(*case))
-        check(f"msda_fwd ({tag})", err, 1e-5)
-        fwd[tag] = kernel_record(
-            err, timed(lambda: msda.msda_fwd(*case), 5),
-            timed(lambda: msda.ms_deform_attn_plain(*case), 3),
-            (nbytes(value, loc, att, o_k),
-             pts_n * (MSDA_FWD_OPS[0] + D * MSDA_FWD_OPS[1])),
-            device_ms=device_ms(lambda: msda.msda_fwd(*case), 5))
-        grad_out = torch.randn(o_k.shape, generator=g, device=device)
-        del o_k
-        torch.cuda.empty_cache()
-        got = msda.msda_bwd(*case, grad_out)
-        ref = msda.msda_bwd_plain(*case, grad_out)
-        err = check_grads(f"msda_bwd ({tag})", got, ref)
-        del got, ref
-        torch.cuda.empty_cache()
-        bwd[tag] = kernel_record(
-            err, timed(lambda: msda.msda_bwd(*case, grad_out), 5),
-            timed(lambda: msda.msda_bwd_plain(*case, grad_out), 2),
-            (2 * nbytes(value, loc, att) + nbytes(grad_out),
-             pts_n * (MSDA_BWD_OPS[0] + MSDA_BWD_OPS[1]
-                      + D * MSDA_BWD_OPS[2])),
-            device_ms=device_ms(lambda: msda.msda_bwd(*case, grad_out), 5))
-        del case, value, loc, att, grad_out
-        torch.cuda.empty_cache()
+        fwd[tag], bwd[tag] = msda_records(g, device, tag, args)
     for name, rec in (("msda_fwd", fwd), ("msda_bwd", bwd)):
         res[name] = dict(rec["cross"], shape="cross hw plane")
         for tag, key in (("zh", "zh"), ("self", "self_attn")):
@@ -1714,7 +1782,6 @@ def full_frame(device, baseline=None):
     from selfocc_tpu_torch import eval_depth
     from selfocc_tpu_torch.configs.experiments import get_config
     from selfocc_tpu_torch.ops import interp, msda, render_weights
-    from selfocc_tpu_torch.utils.eval_lib import ChunkedRenderer
     from selfocc_tpu_torch.utils.runtime import (get_dataset, get_logger,
                                                  to_device)
 
@@ -1764,7 +1831,23 @@ def full_frame(device, baseline=None):
     log(f"  depth finite, in [0, far]; range {float(depth.min()):.3f} .. "
         f"{float(depth.max()):.3f} m")
 
-    # a 4096-ray subset: kernels on the card vs plain versions on the CPU
+    res["subset_err"] = frame_subset(model, batch, origin, direction, dn,
+                                     near, far, device)
+    res["launches"] = launches
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def frame_subset(model, batch, origin, direction, dn, near, far, device,
+                 opacity_normalized=False):
+    """A 4096-ray subset of a frame's rays: the kernels on the card against
+    the plain versions on the CPU (depth within 1e-3 m, acc within 1e-4) on
+    one prepared volume, and each depth in its band: [acc near, acc far]
+    per |d| for the NeuS head, [near, far] per |d| where acc > 0 for the
+    density head's opacity-normalised depth. Returns the errors."""
+    import torch
+    from selfocc_tpu_torch.utils.eval_lib import ChunkedRenderer
     idx = torch.linspace(0, origin.shape[0] - 1, SUBSET_RAYS,
                          device=device).long()
     o_s, d_s = origin[idx], direction[idx]
@@ -1782,14 +1865,20 @@ def full_frame(device, baseline=None):
         raise AssertionError(f"subset render disagrees: {sub_err}")
     acc = torch.from_numpy(gpu["acc"]).to(device)
     d_sub = torch.from_numpy(gpu["depth"]).to(device)
-    lo, hi = (acc * near[idx] / dn[idx]), (acc * far[idx] / dn[idx])
-    if bool((d_sub < lo - 1e-3).any()) or bool((d_sub > hi + 1e-3).any()):
-        raise AssertionError("subset depth outside [acc*near, acc*far]")
-    res["subset_err"] = sub_err
-    res["launches"] = launches
-    del model, cpu_model, volume
+    if opacity_normalized:
+        hit = acc > 0
+        lo, hi = near[idx] / dn[idx], far[idx] / dn[idx]
+        if bool(((d_sub < lo - 1e-3) & hit).any()) or \
+                bool(((d_sub > hi + 1e-3) & hit).any()):
+            raise AssertionError("subset depth outside [near, far]")
+    else:
+        lo, hi = (acc * near[idx] / dn[idx]), (acc * far[idx] / dn[idx])
+        if bool((d_sub < lo - 1e-3).any()) or \
+                bool((d_sub > hi + 1e-3).any()):
+            raise AssertionError("subset depth outside [acc*near, acc*far]")
+    del cpu_model, volume
     torch.cuda.empty_cache()
-    return res
+    return sub_err
 
 
 def depth_in_band(cfg, batch, depth, device):
@@ -2346,23 +2435,34 @@ def full_train(device):
             "dense_render_step": dense}
 
 
-def profile_step(trainer, batch, gen, step_s):
+def profile_step(trainer, batch, gen, step_s,
+                 render_kernels=("neus_render_fwd", "neus_render_bwd")):
     """torch.profiler over one warm step: device time by kernel (CUDA-side
     events only, so an op and the kernel it launched count once), the share
-    of the backward kernels, kernel time over the unprofiled step time."""
+    of the backward kernels, kernel time over the unprofiled step time.
+    ``render_kernels``: the kernels of ``csrc/neus_weights.cu`` the step
+    must run (the density head's: ``neus_weights_fwd``, which is the
+    alpha-input instance of ``neus_render_fwd_kernel``, and
+    ``neus_weights_bwd``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        trainer.step(batch, gen, sync=torch.cuda.synchronize)
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    averages = prof.key_averages()
-    kernels = sorted((e for e in averages
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
-                     key=lambda e: -e.self_device_time_total)
-    total_us = sum(e.self_device_time_total for e in kernels)
+    for attempt in range(3):
+        # a profile that recorded no device time (seen in runs of many
+        # profiles) is taken again on the next step
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            trainer.step(batch, gen, sync=torch.cuda.synchronize)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = sorted(
+            (e for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA),
+            key=lambda e: -e.self_device_time_total)
+        total_us = sum(e.self_device_time_total for e in kernels)
+        if total_us > 0:
+            break
+        log(f"  profiled step {attempt + 1}: no device time recorded")
 
     def share(key):
         return sum(e.self_device_time_total for e in kernels
@@ -2408,21 +2508,26 @@ def profile_step(trainer, batch, gen, step_s):
     res["trilinear_kernels"] = tri
     res["trilinear_ms"] = sum(t["device_ms"] for t in tri.values())
     log(f"    trilinear in the step: {res['trilinear_ms']:.2f} ms")
-    # the fused NeuS render: in-step ms per call and calls
+    # the kernels of csrc/neus_weights.cu: in-step ms per call and calls
     neus = {}
     for e in kernels:
-        m = re.search(r"neus_render_(fwd|bwd)_kernel", e.key)
+        m = re.search(r"neus_(render|weights)_(fwd|bwd)_kernel", e.key)
         if m:
-            t = neus.setdefault(f"neus_render_{m.group(1)}",
-                                {"calls": 0, "device_ms": 0.0})
+            name = f"neus_{m.group(1)}_{m.group(2)}"
+            if name == "neus_render_fwd" and (
+                    "false>" in e.key or "neus_render_fwd"
+                    not in render_kernels):
+                name = "neus_weights_fwd"      # the alpha-input instance
+            t = neus.setdefault(name, {"calls": 0, "device_ms": 0.0})
             t["calls"] += e.count
             t["device_ms"] += e.self_device_time_total / 1e3
     for name, t in sorted(neus.items()):
         t["ms_per_call"] = t["device_ms"] / max(t["calls"], 1)
         log(f"    {name} in the step: x{t['calls']} {t['device_ms']:.3f} ms "
             f"({t['ms_per_call']:.4f} ms per call)")
-    if set(neus) != {"neus_render_fwd", "neus_render_bwd"}:
-        raise AssertionError(f"profiled step: neus_render kernels {neus}")
+    if set(neus) != set(render_kernels):
+        raise AssertionError(f"profiled step: neus kernels {neus}, "
+                             f"expected {render_kernels}")
     res["neus_render_kernels"] = neus
     # the MSDA kernels (per-head and head-shared): in-step ms per call
     res["msda_kernels"] = {}
@@ -4724,11 +4829,16 @@ def compact_grad_parity(device):
             "visible_overflow": overflow}
 
 
-def lever_train(device, name, wrappers):
+def lever_train(device, name, wrappers, off_path=None,
+                render_kernels=("neus_render_fwd", "neus_render_bwd"),
+                instances=("plane",)):
     """``name`` at full width: a cold step, 3 measured steps (forward /
-    backward / optimizer split, peak memory, launches of ``wrappers``), a
-    profiled warm step and a warm step under
-    ``torch.cuda.set_sync_debug_mode("error")``."""
+    backward / optimizer split, peak memory, launches of ``wrappers``, each
+    launched; none of ``off_path``, by default the MSDA wrappers not in
+    ``wrappers``), a profiled warm step (``render_kernels``: see
+    ``profile_step``) and a warm step under
+    ``torch.cuda.set_sync_debug_mode("error")``; ``instances``: the
+    trilinear kernel instances the steps must launch (``read_counts``)."""
     import torch
     from selfocc_tpu_torch.configs.experiments import get_config
     from selfocc_tpu_torch.ops import msda
@@ -4744,9 +4854,9 @@ def lever_train(device, name, wrappers):
         check_finite_metrics(m, f"{name} train metrics")
 
     finite(trainer.step(batch, gen, sync=sync))
-    others = tuple(fn for fn in (msda.msda_fwd, msda.msda_bwd,
-                                 msda.msda_shared_fwd, msda.msda_shared_bwd)
-                   if fn not in wrappers)
+    others = off_path if off_path is not None else tuple(
+        fn for fn in (msda.msda_fwd, msda.msda_bwd, msda.msda_shared_fwd,
+                      msda.msda_shared_bwd) if fn not in wrappers)
     reset_counts(wrappers + others)
     torch.cuda.reset_peak_memory_stats()
     steps = []
@@ -4758,14 +4868,14 @@ def lever_train(device, name, wrappers):
         steps.append(dict(step_s=wall, **m["times"],
                           total=float(m["total"]),
                           grad_norm=float(m["grad_norm"])))
-    launches = read_counts(wrappers, f"{name} training steps")
+    launches = read_counts(wrappers, f"{name} training steps", instances)
     stray = {fn.__name__: fn.launches for fn in others if fn.launches}
     if stray:
         raise AssertionError(f"{name} steps launched {stray}")
     peak = torch.cuda.max_memory_allocated() / 2**30
     med = {k: sorted(s[k] for s in steps)[1]
            for k in ("step_s", "forward_s", "backward_s", "optimizer_s")}
-    prof = profile_step(trainer, batch, gen, med["step_s"])
+    prof = profile_step(trainer, batch, gen, med["step_s"], render_kernels)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -4778,8 +4888,10 @@ def lever_train(device, name, wrappers):
         f"{med['forward_s']:.4f}, backward {med['backward_s']:.4f}, "
         f"optimizer {med['optimizer_s']:.4f}), peak {peak:.2f} GiB; warm "
         f"step under set_sync_debug_mode('error'): no synchronising call")
-    res = {"median": med, "steps": steps, "max_memory_gb": peak,
-           "launches": launches,
+    spread = [min(s["step_s"] for s in steps),
+              max(s["step_s"] for s in steps)]
+    res = {"median": med, "step_s_spread": spread, "max_memory_gb": peak,
+           "steps": steps, "launches": launches,
            "launches_per_step": {k: v / 3 for k, v in launches.items()},
            "profile": prof, "sync_checked": True}
     del trainer, batch
@@ -4795,11 +4907,7 @@ def levers_phase(device, baseline=None):
     and nuscenes_occ_fast, and a tiny_fast step on the card against the
     CPU."""
     from selfocc_tpu_torch.ops import msda
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
-    log(f"  card: {smi.stdout.strip().splitlines()[0]}")
+    log(f"  card: {card_name()}")
     res = {"kernels": shared_kernel_checks(device, baseline)}
     res["frames"] = lever_frames(device)
     res["compact_grad_parity"] = compact_grad_parity(device)
@@ -4809,6 +4917,372 @@ def levers_phase(device, baseline=None):
         device, "nuscenes_occ_fast",
         (msda.msda_shared_fwd, msda.msda_shared_bwd))
     res["tiny_fast_parity"] = train_parity(device, "tiny_fast")
+    return res
+
+
+# ------------------------------------------------------ [bev], [density]
+# nuscenes_occ_bev's MSDA calls (B, Q, shapes, P): the single-plane
+# self-attention and the image cross-attention of the 257 x 257 plane
+BEV_MSDA_CALLS = (("bev_self", (1, 66049, ((257, 257),), 12)),
+                  ("bev_cross", (6, 66049, FPN_SHAPES, 8)))
+# the density head's weights calls: a training step's 28,800 rays (one
+# render, no chunks) and an eval chunk, 256 samples each
+DENSITY_WEIGHTS_RAYS = (28800, CHUNK)
+DENSITY_THRESH = 0.5     # eval_iou --density --thresh in [density]
+# fp32 operations per sample of the alpha-input weights: forward, log,
+# exp, the scan and the product (6); backward, those and b, its double
+# residual, the recurrence's c and D and the product with T (14)
+WEIGHTS_FWD_OPS = 6
+WEIGHTS_BWD_OPS = 14
+
+
+
+def uniform_sdf_points(cfg, device, gen):
+    """The uniform sdf query of a ``return_uniform_sdf`` step
+    (``NeuSHead.get_uniform_sdf``): the grid over ``roi_aabb`` at
+    ``resolution`` (200 x 200 x 16 = 640,000 points at nuscenes width),
+    jittered by uniforms from ``gen`` times the resolution, as fractional
+    indices of the decoded volume."""
+    import torch
+    from selfocc_tpu_torch.geometry.mappings import make_mapping
+    from selfocc_tpu_torch.models.heads import uniform_axes_on, uniform_grid
+    h = cfg.model.head
+    xyz = uniform_grid(*uniform_axes_on(tuple(h.roi_aabb), h.resolution,
+                                        device))
+    xyz = xyz + torch.rand(xyz.shape, generator=gen,
+                           device=device) * h.resolution
+    return make_mapping(**h.mapping_args).meter2grid(
+        xyz.reshape(-1, 3)).contiguous()
+
+
+def density_step_points(cfg, device, gen):
+    """The density step's volume query: every ray of a synthetic batch
+    (6 cameras x 4,800 cellular rays) x 256 jittered samples, one query
+    without chunks (7,372,800 points), as fractional indices of the decoded
+    volume; the rays and jitter drawn from ``gen``."""
+    import torch
+    from selfocc_tpu_torch.geometry.projection import rays_from_img2lidar
+    from selfocc_tpu_torch.models.segmentor import TPVSegmentor
+    from selfocc_tpu_torch.utils.runtime import get_dataset, to_device
+    h = cfg.model.head
+    head = TPVSegmentor._build_head(h)
+    batch = to_device(get_dataset(cfg, synthetic=True, length=1)[0], device)
+    origin, direction = rays_from_img2lidar(batch[h.trans_kw],
+                                            head.ray_sampler(device, gen))
+    origin = origin[:, :, None, :].expand(direction.shape).reshape(-1, 3)
+    direction = direction.reshape(-1, 3)
+    t_rand = torch.rand((origin.shape[0], head.num_samples + 1),
+                        generator=gen, device=device)
+    return render_grid_points(head, origin, direction, t_rand)
+
+
+def values_pair_records(g, device, grid_shape, pts, tag, reps):
+    """``trilinear_cf_fwd`` and ``trilinear_cf_bwd`` at (N, 3) points of a
+    random channel-last (25, H, W, D) volume (``values_fwd_record``,
+    ``values_bwd_record``: each against its plain version, timed beside
+    ``F.grid_sample`` and its channel-first copy); the backward also for the
+    main path's cotangent, where only the sdf channel is live (checked)."""
+    import torch
+    from selfocc_tpu_torch.ops import interp
+    C = 25
+    vol_shape = (C,) + tuple(grid_shape)
+    vol = torch.randn(tuple(grid_shape) + (C,), generator=g,
+                      device=device).permute(3, 0, 1, 2)
+    fwd = values_fwd_record(interp, vol, pts,
+                            f"{tag}, C={C}, {pts.shape[0]} points", reps)
+    del vol
+    torch.cuda.empty_cache()
+    gv = torch.randn((pts.shape[0], C), generator=g, device=device)
+    bwd = values_bwd_record(interp, vol_shape, pts, gv, tag, reps)
+    gv[:, 1:] = 0.0
+    ref = interp.trilinear_cf_bwd_plain(torch.zeros(vol_shape, device=device),
+                                        pts, gv)
+    err = max_err(interp.trilinear_cf_bwd(vol_shape, pts, gv), ref)
+    check(f"trilinear_cf_bwd ({tag}, channel 0 live)", err,
+          GRAD_RTOL * float(ref.abs().max()) + 1e-7)
+    bwd["channel0_live_max_abs_err"] = err
+    del gv, ref
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
+def saturated_alpha(g, device, R=512, S=256):
+    """Alpha rows where the closed form loses its digits in fp32: a sample
+    of alpha exactly 1 mid-ray, runs of 1 - 2^-24, a ray of ones, exact
+    zeros, a ray of zeros, a tail of 0.999; every row from the ninth on
+    has one saturated sample at a random position, and every ninth row
+    from the seventh has its alphas below 0.3 set to exactly 0."""
+    import torch
+    a = torch.rand((R, S), generator=g, device=device) ** 3
+    a[0, 10] = 1.0
+    a[1, 5:9] = 1.0 - 2.0 ** -24
+    a[2] = 1.0
+    a[3, ::3] = 0.0
+    a[4] = 0.0
+    a[5, 20:] = 0.999
+    pos = torch.randint(0, S, (R,), generator=g, device=device)
+    rows = torch.arange(8, R, device=device)
+    a[rows, pos[8:]] = 1.0
+    a[6::9] = torch.where(a[6::9] < 0.3, torch.zeros_like(a[6::9]),
+                          a[6::9])
+    return a
+
+
+def weights_kernel_checks(g, device):
+    """``neus_weights_fwd`` and ``neus_weights_bwd`` at the density head's
+    calls (``DENSITY_WEIGHTS_RAYS`` x 256, alpha with saturated and zero
+    samples) against their plain versions, timed (events, device time);
+    the backward also against a float64 reference on the rows of
+    ``saturated_alpha``, each row within 1e-5 of its reference's largest
+    magnitude (the plain version's error there is logged); off-path shapes
+    (ragged R and S, S = 1 .. 256) checked, S > 256 refused."""
+    import torch
+    from selfocc_tpu_torch.ops import render_weights as rw
+    recs = {"neus_weights_fwd": {}, "neus_weights_bwd": {}}
+    for R in DENSITY_WEIGHTS_RAYS:
+        alpha = torch.rand((R, 256), generator=g, device=device) ** 4
+        alpha[::7, 100:110] = 1.0
+        alpha[::5, :20] = 0.0
+        gw = torch.randn((R, 256), generator=g, device=device)
+        w = rw.neus_weights_fwd(alpha)
+        err_f = max_err(w, rw.weights_from_alpha_plain(alpha))
+        check(f"neus_weights_fwd ({R} x 256)", err_f, 2e-5)
+        ga = rw.neus_weights_bwd(alpha, gw)
+        ref = rw.weights_grad_plain(alpha, gw)
+        err_b = max_err(ga, ref)
+        check(f"neus_weights_bwd ({R} x 256)", err_b,
+              GRAD_RTOL * float(ref.abs().max()) + 1e-7)
+        del w, ga, ref
+        n = alpha.numel()
+        recs["neus_weights_fwd"][R] = kernel_record(
+            err_f, timed(lambda: rw.neus_weights_fwd(alpha), 20),
+            timed(lambda: rw.weights_from_alpha_plain(alpha), 10),
+            (2 * nbytes(alpha), WEIGHTS_FWD_OPS * n),
+            device_ms=device_ms(lambda: rw.neus_weights_fwd(alpha), 20),
+            shape=f"{R} x 256")
+        recs["neus_weights_bwd"][R] = kernel_record(
+            err_b, timed(lambda: rw.neus_weights_bwd(alpha, gw), 20),
+            timed(lambda: rw.weights_grad_plain(alpha, gw), 10),
+            (3 * nbytes(alpha), WEIGHTS_BWD_OPS * n),
+            device_ms=device_ms(lambda: rw.neus_weights_bwd(alpha, gw), 20),
+            shape=f"{R} x 256")
+        del alpha, gw
+        torch.cuda.empty_cache()
+
+    a = saturated_alpha(g, device)
+    gw = torch.randn(a.shape, generator=g, device=device)
+    a64 = a.double().requires_grad_(True)
+    b = 1.0 - a64 + 1e-7
+    w64 = a64 * torch.cat([torch.ones_like(b[:, :1]),
+                           torch.cumprod(b, -1)[:, :-1]], -1)
+    (g64,) = torch.autograd.grad(w64, a64, gw.double())
+    scale = g64.abs().amax(-1, keepdim=True).clamp_min(1e-30)
+
+    def rel(x):
+        return float(((x.double() - g64).abs() / scale).max())
+    rel_k = rel(rw.neus_weights_bwd(a, gw))
+    rel_p = rel(rw.weights_grad_plain(a, gw))
+    check("neus_weights_bwd vs float64 (saturated rows) / row scale", rel_k,
+          1e-5)
+    log(f"  weights_grad_plain vs float64 on those rows: {rel_p:.3e} of "
+        "the row scale")
+    err_w = max_err(rw.neus_weights_fwd(a), w64.detach())
+    check("neus_weights_fwd vs float64 (saturated rows)", err_w, 2e-5)
+    for R, S in ((37, 19), (5, 256), (64, 16), (33, 100), (7, 255), (3, 1),
+                 (9, 130)):
+        x = torch.rand((R, S), generator=g, device=device)
+        x[:, S // 2] = 1.0
+        gx = torch.randn((R, S), generator=g, device=device)
+        ref = rw.weights_grad_plain(x, gx)
+        check(f"neus_weights_bwd ({R} x {S})",
+              max_err(rw.neus_weights_bwd(x, gx), ref),
+              GRAD_RTOL * float(ref.abs().max()) + 1e-7)
+    try:
+        rw.neus_weights_bwd(torch.rand((2, 300), device=device),
+                            torch.rand((2, 300), device=device))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("neus_weights_bwd took S = 300")
+    out = {}
+    for name, by_r in recs.items():
+        rec = dict(by_r[DENSITY_WEIGHTS_RAYS[0]])
+        for k in ("ms", "device_ms", "plain_ms", "bound_ms", "max_abs_err"):
+            rec[f"eval_chunk_{k}"] = by_r[CHUNK][k]
+        rec["max_abs_err"] = max(r["max_abs_err"] for r in by_r.values())
+        out[name] = rec
+    out["neus_weights_bwd"].update(float64_row_rel_err=rel_k,
+                                   plain_float64_row_rel_err=rel_p)
+    out["neus_weights_fwd"]["float64_max_abs_err"] = err_w
+    for name, rec in out.items():
+        log(f"  {name}: " + ", ".join(
+            f"{k} {v:.4g}" for k, v in rec.items()
+            if k.endswith("ms") and v is not None))
+    return out
+
+
+def recipe_eval(device, name, frame_wrappers, off_path, density=False):
+    """Full-width eval of ``name`` with seeded weights on synthetic data:
+    one depth frame through ``eval_depth``'s code path after a cold frame
+    (prepare_s, render_s, peak; the launches of ``frame_wrappers``, each
+    launched, none of ``off_path``; depths finite and in band; a 4096-ray
+    subset against the CPU, ``frame_subset``; the frame's device work under
+    ``set_sync_debug_mode("error")``); then one Occ3D occupancy frame
+    through ``eval_iou``'s (``--occ3d --sem``, with ``density`` also
+    ``--density --thresh 0.5``) after a cold one: prepare_s, query_s,
+    peak, the launches of ``trilinear_cf_fwd`` (both instances) and
+    ``msda_fwd``, finite scores."""
+    import numpy as np
+    import torch
+    from selfocc_tpu_torch import eval_depth, eval_iou
+    from selfocc_tpu_torch.configs.experiments import get_config
+    from selfocc_tpu_torch.ops import interp, msda
+    from selfocc_tpu_torch.ops import render_weights as rw
+    from selfocc_tpu_torch.utils.runtime import (get_dataset, get_logger,
+                                                 to_device)
+    cfg = get_config(name)
+    model = eval_depth.build_model(cfg, SEED, device)
+    ds = get_dataset(cfg, synthetic=True)
+    logger = get_logger()
+    cold = eval_depth.evaluate(cfg, model, [ds[1]], device, 1, CHUNK, logger)
+    reset_counts(frame_wrappers + off_path)
+    torch.cuda.reset_peak_memory_stats()
+    r = eval_depth.evaluate(cfg, model, [ds[0]], device, 1, CHUNK, logger)
+    launches = read_counts(frame_wrappers, f"{name} eval frame")
+    stray = {fn.__name__: fn.launches for fn in off_path if fn.launches}
+    if stray:
+        raise AssertionError(f"the {name} eval frame launched {stray}")
+    frame = {"prepare_s": r["prepare_s"], "render_s": r["render_s"],
+             "rays": r["rays"],
+             "max_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+             "launches": launches,
+             "cold": {k: cold[k] for k in ("prepare_s", "render_s")}}
+    batch = to_device(ds[0], device)
+    origin, direction, dn, near, far = depth_in_band(
+        cfg, batch, r["last_depth"], device)
+    frame.update(frame_device_path(cfg, model, batch))
+    frame["subset_err"] = frame_subset(model, batch, origin, direction, dn,
+                                       near, far, device,
+                                       opacity_normalized=density)
+    log(f"  {name} frame: prepare {r['prepare_s']:.4f}s render "
+        f"{r['render_s']:.4f}s, peak {frame['max_memory_gb']:.2f} GiB")
+    del origin, direction, dn, near, far
+
+    flags = ["--py-config", name, "--synthetic", "--occ3d", "--sem"]
+    if density:
+        flags += ["--density", "--thresh", str(DENSITY_THRESH)]
+    args = eval_iou.parse_args(flags)
+    occ_wrappers = (interp.trilinear_cf_fwd, msda.msda_fwd)
+    occ_off = (interp.trilinear_cf_with_grad_fwd, interp.trilinear_bwd,
+               interp.trilinear_cf_bwd, msda.msda_bwd, rw.neus_render_fwd,
+               rw.neus_weights_fwd)
+    cold = eval_iou.evaluate(cfg, model, OccItems(ds, 1), device, args,
+                             logger)
+    reset_counts(occ_wrappers + occ_off)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    o = eval_iou.evaluate(cfg, model, OccItems(ds, 0), device, args, logger)
+    occ_launches = read_counts(occ_wrappers, f"{name} Occ3D frame",
+                               ("plane", "rows"))
+    stray = {fn.__name__: fn.launches for fn in occ_off if fn.launches}
+    if stray:
+        raise AssertionError(f"the {name} Occ3D frame launched {stray}")
+    scores = {k: o[k] for k in ("iou_miou", "iou_iou", "miou_miou",
+                                "miou_iou") if k in o}
+    if not all(np.isfinite(v) for v in scores.values()):
+        raise AssertionError(f"{name} Occ3D: non-finite scores {scores}")
+    occ = {"prepare_s": o["prepare_s"], "query_s": o["query_s"],
+           "max_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": occ_launches, "scores": scores,
+           "cold": {k: cold[k] for k in ("prepare_s", "query_s")}}
+    log(f"  {name} Occ3D frame: prepare {o['prepare_s']:.4f}s query "
+        f"{o['query_s']:.4f}s, {scores}")
+    del model
+    torch.cuda.empty_cache()
+    return {"frame": frame, "occ3d": occ}
+
+
+def bev_phase(device):
+    """``nuscenes_occ_bev`` at full width: a ``tiny_bev`` step on the card
+    against the CPU; ``msda_fwd`` / ``msda_bwd`` at the BEV self- and
+    cross-attention calls; the values-only pair at the 640,000-point
+    uniform sdf query (C = 25); 3 measured steps, a profiled one and one
+    under the sync check; an eval frame and an Occ3D frame
+    (``recipe_eval``)."""
+    import torch
+    from selfocc_tpu_torch.configs.experiments import get_config
+    from selfocc_tpu_torch.geometry.mappings import make_mapping
+    from selfocc_tpu_torch.ops import interp, msda
+    from selfocc_tpu_torch.ops import render_weights as rw
+    log(f"  card: {card_name()}")
+    g = torch.Generator(device=device).manual_seed(SEED + 3)
+    res = {"tiny_parity": train_parity(device, "tiny_bev"), "msda": {}}
+    for tag, args in BEV_MSDA_CALLS:
+        fwd, bwd = msda_records(g, device, tag, args)
+        res["msda"][tag] = {"msda_fwd": fwd, "msda_bwd": bwd}
+    cfg = get_config("nuscenes_occ_bev")
+    m = make_mapping(**cfg.model.head.mapping_args)
+    pts = uniform_sdf_points(cfg, device,
+                             torch.Generator(device=device).manual_seed(SEED))
+    fwd, bwd = values_pair_records(g, device, (m.size_h, m.size_w, m.size_d),
+                                   pts, "BEV uniform sdf", 10)
+    res["values"] = {"trilinear_cf_fwd": fwd, "trilinear_cf_bwd": bwd}
+    del pts
+    torch.cuda.empty_cache()
+    render = (rw.neus_render_fwd, interp.trilinear_cf_with_grad_fwd)
+    res["train"] = lever_train(
+        device, "nuscenes_occ_bev",
+        render + (rw.neus_render_bwd, interp.trilinear_bwd, msda.msda_fwd,
+                  msda.msda_bwd, interp.trilinear_cf_fwd,
+                  interp.trilinear_cf_bwd),
+        (msda.msda_shared_fwd, msda.msda_shared_bwd, rw.neus_weights_fwd,
+         rw.neus_weights_bwd), instances=("rows",))
+    res["eval"] = recipe_eval(
+        device, "nuscenes_occ_bev", render + (msda.msda_fwd,),
+        (msda.msda_bwd, interp.trilinear_bwd, rw.neus_render_bwd,
+         rw.neus_weights_fwd, interp.trilinear_cf_fwd))
+    return res
+
+
+def density_phase(device):
+    """``nuscenes_occ_density`` at full width: the weights kernels
+    (``weights_kernel_checks``); the values-only pair at the training step's
+    7,372,800-point query (C = 25); a ``tiny_nerfacc`` step on the card
+    against the CPU; 3 measured steps, a profiled one and one under the
+    sync check; an eval frame and an ``eval_iou --density`` Occ3D frame
+    (``recipe_eval``)."""
+    import torch
+    from selfocc_tpu_torch.configs.experiments import get_config
+    from selfocc_tpu_torch.geometry.mappings import make_mapping
+    from selfocc_tpu_torch.ops import interp, msda
+    from selfocc_tpu_torch.ops import render_weights as rw
+    log(f"  card: {card_name()}")
+    g = torch.Generator(device=device).manual_seed(SEED + 4)
+    res = {"kernels": weights_kernel_checks(g, device)}
+    cfg = get_config("nuscenes_occ_density")
+    m = make_mapping(**cfg.model.head.mapping_args)
+    pts = density_step_points(
+        cfg, device, torch.Generator(device=device).manual_seed(SEED))
+    fwd, bwd = values_pair_records(g, device, (m.size_h, m.size_w, m.size_d),
+                                   pts, "density training query", 5)
+    res["values"] = {"trilinear_cf_fwd": fwd, "trilinear_cf_bwd": bwd}
+    del pts
+    torch.cuda.empty_cache()
+    res["tiny_parity"] = train_parity(device, "tiny_nerfacc")
+    res["train"] = lever_train(
+        device, "nuscenes_occ_density",
+        (msda.msda_fwd, msda.msda_bwd, interp.trilinear_cf_fwd,
+         interp.trilinear_cf_bwd, rw.neus_weights_fwd, rw.neus_weights_bwd),
+        (rw.neus_render_fwd, rw.neus_render_bwd,
+         interp.trilinear_cf_with_grad_fwd, interp.trilinear_bwd,
+         msda.msda_shared_fwd, msda.msda_shared_bwd),
+        ("neus_weights_fwd", "neus_weights_bwd"), instances=("rows",))
+    res["eval"] = recipe_eval(
+        device, "nuscenes_occ_density",
+        (msda.msda_fwd, interp.trilinear_cf_fwd, rw.neus_weights_fwd),
+        (rw.neus_render_fwd, interp.trilinear_cf_with_grad_fwd,
+         msda.msda_bwd, interp.trilinear_cf_bwd, rw.neus_weights_bwd,
+         interp.trilinear_bwd), density=True)
     return res
 
 
@@ -4858,7 +5332,9 @@ def main():
             "data": lambda: data_phase(device, phases.get("train")),
             "kitti": lambda: kitti_phase(device),
             "depth": lambda: depth_phase(device),
-            "levers": lambda: levers_phase(device, args.baseline)}
+            "levers": lambda: levers_phase(device, args.baseline),
+            "bev": lambda: bev_phase(device),
+            "density": lambda: density_phase(device)}
     phases = {}
     for tag in PHASES:
         if tag not in wanted:
@@ -4871,13 +5347,24 @@ def main():
         log(f"partial run ({', '.join(phases)}): no result line")
         return
 
-    lres = phases["levers"]
+    lres, bres, denres = phases["levers"], phases["bev"], phases["density"]
     kres = dict(phases["kernels"], gather_rows=phases["gather"],
                 **lres["kernels"])
-    # weights_from_alpha's own path, as gather_rows's: no main path
-    # launches neus_weights_fwd since the render is fused
+    # the alpha-input weights: the NeuS recipes' render is fused, so their
+    # main path is the density head's; [kernels] holds the forward at the
+    # eval chunk and weights_from_alpha's own path counts its launches
     kres["neus_weights_fwd"].update(
-        launches=kres.pop("weights_path_launches"), launches_main_path=0)
+        launches_own_path=kres.pop("weights_path_launches"),
+        **{f"density_{k}": v for k, v in
+           denres["kernels"]["neus_weights_fwd"].items()})
+    kres["neus_weights_bwd"] = denres["kernels"]["neus_weights_bwd"]
+    recipe_launches = {
+        "bev_steps": bres["train"]["launches"],
+        "bev_eval_frame": bres["eval"]["frame"]["launches"],
+        "bev_occ3d_frame": bres["eval"]["occ3d"]["launches"],
+        "density_steps": denres["train"]["launches"],
+        "density_eval_frame": denres["eval"]["frame"]["launches"],
+        "density_occ3d_frame": denres["eval"]["occ3d"]["launches"]}
     fres, tres, ores = phases["frame"], phases["train"], phases["occ"]
     dres, kires, depres = phases["data"], phases["kitti"], phases["depth"]
     data_launches = {
@@ -4908,6 +5395,8 @@ def main():
                             "selfocc_tpu/ops/render_pallas.py:76"),
         "neus_weights_fwd": ("neus_weights.cu",
                              "selfocc_tpu/ops/render_pallas.py:54"),
+        "neus_weights_bwd": ("neus_weights.cu",
+                             "selfocc_tpu/ops/render_pallas.py:76"),
         "trilinear_cf_with_grad_fwd": ("trilinear.cu",
                                        "selfocc_tpu/ops/interp.py:159"),
         "trilinear_bwd": ("trilinear.cu", "selfocc_tpu/ops/interp.py:159"),
@@ -4969,6 +5458,30 @@ def main():
             in_step = fast["profile"]["msda_kernels"][name]
             entry["in_step_ms_per_call"] = in_step["ms_per_call"]
             entry["in_step_calls"] = in_step["calls"]
+        for path, counts in recipe_launches.items():
+            for key, n in counts.items():
+                if key == name or key.startswith(name + "."):
+                    entry["launches_" + path + key[len(name):].replace(
+                        ".", "_")] = n
+        if name in ("msda_fwd", "msda_bwd"):
+            for tag, recs in bres["msda"].items():
+                for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                          "max_abs_err"):
+                    entry[f"{tag}_{k}"] = recs[name][k]
+        if name in ("trilinear_cf_fwd", "trilinear_cf_bwd"):
+            for tag, r in (("bev_uniform", bres), ("density_query", denres)):
+                rec = r["values"][name]
+                for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                          "library_ms", "library_device_ms", "max_abs_err",
+                          "points"):
+                    if k in rec:
+                        entry[f"{tag}_{k}"] = rec[k]
+        if name in ("neus_weights_fwd", "neus_weights_bwd"):
+            # their main path: nuscenes_occ_density training
+            entry["launches"] = denres["train"]["launches"][name]
+            in_step = denres["train"]["profile"]["neus_render_kernels"][name]
+            entry["in_density_step_ms_per_call"] = in_step["ms_per_call"]
+            entry["in_density_step_calls"] = in_step["calls"]
         if name == "trilinear_cf_bwd":
             # its main path is kitti_occ training (values-only gradients)
             entry["launches"] = kires["train"]["launches"][name]
@@ -4997,13 +5510,11 @@ def main():
         "train_parity": phases["train-parity"],
         "train": {k: v for k, v in tres.items() if k != "launches"},
         "data": dres, "kitti": kires, "depth": depres,
-        "levers": {k: v for k, v in lres.items() if k != "kernels"}}),
+        "levers": {k: v for k, v in lres.items() if k != "kernels"},
+        "bev": bres, "density": {k: v for k, v in denres.items()
+                                 if k != "kernels"}}),
         flush=True)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True,
-        timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card_name(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

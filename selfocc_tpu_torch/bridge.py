@@ -7,7 +7,11 @@ variables)`` on the JAX side) and returns a state dict that
 
 The port's module names follow the reference tree, so for ResNet-50, FPN,
 lifter, encoder and field the keys are those of the reference checkpoint
-(and of ``selfocc_tpu/utils/ref_export.py``). Transforms: flax Dense kernel
+(and of ``selfocc_tpu/utils/ref_export.py``; for the BEV path those of
+``selfocc_tpu/utils/ref_import.py``: ``lifter.bev``, the self-attention as
+``attentions.0``, and the image cross-attention, which ``ref_import`` does
+not map, as the reference layer's ``attentions.1``; the density head's
+field is ``head.radiance_field``). Transforms: flax Dense kernel
 ``(in, out)`` -> torch Linear ``(out, in)``; flax conv ``HWIO`` -> ``OIHW``;
 LayerNorm ``scale`` -> ``weight``; the ``nn.scan``-stacked encoder layers are
 unstacked into ``encoder.layers.{n}``. The ``consts`` collection (geometry
@@ -76,18 +80,24 @@ def _deform(sd, key, heads):
     _linear(sd, f"{key}.attention_weights", heads["attention_weights"])
 
 
+def _cross_attn(sd, key, ca):
+    _deform(sd, f"{key}.deformable_attention", ca["heads"])
+    _linear(sd, f"{key}.deformable_attention.value_proj", ca["value_proj"])
+    _linear(sd, f"{key}.output_proj", ca["output_proj"])
+
+
 def _encoder_layer(sd, key, p):
+    """One TPV layer, or a BEV layer (one ``cross_attn``)."""
     sa = p["self_attn"]
     _deform(sd, f"{key}.attentions.0", sa["heads"])
     _linear(sd, f"{key}.attentions.0.value_proj", sa["value_proj"])
     _linear(sd, f"{key}.attentions.0.output_proj", sa["output_proj"])
+    if "cross_attn" in p:
+        _cross_attn(sd, f"{key}.attentions.1", p["cross_attn"])
     for i, plane in enumerate(_PLANES):
-        ca = p[f"cross_attn_{i}"]
-        ckey = f"{key}.attentions.1.attn_{plane}"
-        _deform(sd, f"{ckey}.deformable_attention", ca["heads"])
-        _linear(sd, f"{ckey}.deformable_attention.value_proj",
-                ca["value_proj"])
-        _linear(sd, f"{ckey}.output_proj", ca["output_proj"])
+        if f"cross_attn_{i}" in p:
+            _cross_attn(sd, f"{key}.attentions.1.attn_{plane}",
+                        p[f"cross_attn_{i}"])
     _linear(sd, f"{key}.ffns.0.layers.0.0", p["ffn"]["fc1"])
     _linear(sd, f"{key}.ffns.0.layers.1", p["ffn"]["fc2"])
     for j in range(3):
@@ -104,18 +114,22 @@ def _index(tree, n):
 def _encoder(sd, p):
     sd["encoder.level_embeds"] = _t(p["level_embeds"])
     sd["encoder.cams_embeds"] = _t(p["cams_embeds"])
-    pe = p["positional_encoding"]
-    for plane in _PLANES:
-        _linear(sd, f"encoder.positional_encoding.position_layer_{plane}",
-                pe[f"position_layer_{plane}"])
+    if "position_layer" in p:                       # BEVFormerEncoder
+        _linear(sd, "encoder.positional_encoding.position_layer",
+                p["position_layer"])
+    else:
+        pe = p["positional_encoding"]
+        for plane in _PLANES:
+            _linear(sd,
+                    f"encoder.positional_encoding.position_layer_{plane}",
+                    pe[f"position_layer_{plane}"])
     layers = p["layers"]
     n_layers = np.asarray(layers["ffn"]["fc1"]["kernel"]).shape[0]
     for n in range(n_layers):
         _encoder_layer(sd, f"encoder.layers.{n}", _index(layers, n))
 
 
-def _field(sd, p):
-    key = "head.model.field"
+def _field(sd, p, key):
     hidden = sorted(int(k.split("_")[1]) for k in p
                     if k.startswith("density_") and k != "density_out")
     for i in hidden:
@@ -123,8 +137,9 @@ def _field(sd, p):
     _linear(sd, f"{key}.density_net.{2 * len(hidden) + 1}", p["density_out"])
     if "color_proj" in p:
         _linear(sd, f"{key}.color_proj", p["color_proj"])
-    sd[f"{key}.deviation_network.variance"] = _t(
-        np.asarray(p["deviation"]["variance"]).reshape(1))
+    if "deviation" in p:
+        sd[f"{key}.deviation_network.variance"] = _t(
+            np.asarray(p["deviation"]["variance"]).reshape(1))
 
 
 def from_jax_variables(np_variables: Dict[str, Any]) -> "OrderedDict[str, torch.Tensor]":
@@ -137,8 +152,16 @@ def from_jax_variables(np_variables: Dict[str, Any]) -> "OrderedDict[str, torch.
     for name, p in params["img_neck"].items():
         kind, i = name.rsplit("_", 1)
         _conv(sd, f"img_neck.{kind}_convs.{i}.conv", p)
-    for plane in _PLANES:
-        sd[f"lifter.tpv_{plane}"] = _t(params["lifter"][f"tpv_{plane}"])
+    lifter = params["lifter"]
+    if "bev" in lifter:
+        sd["lifter.bev"] = _t(lifter["bev"])
+    else:
+        for plane in _PLANES:
+            sd[f"lifter.tpv_{plane}"] = _t(lifter[f"tpv_{plane}"])
     _encoder(sd, params["encoder"])
-    _field(sd, params["head"]["field"])
+    head = params["head"]
+    if "radiance_field" in head:                    # NeRFAccHead
+        _field(sd, head["radiance_field"], "head.radiance_field")
+    else:
+        _field(sd, head["field"], "head.model.field")
     return sd

@@ -7,7 +7,9 @@ reference ``config/`` files), and of the recipes built on them: the
 visibility-compaction (``nuscenes_occ_compact*``), fast-tier
 (``*_fast*``: head-shared MSDA locations, bf16 backbone/neck) and bundled
 (``*_bundle``, ``*_pairs``: TPU gather layouts that the port's kernels
-stand in for) variants. The BEV and density-head recipes are not copied.
+stand in for) variants; the BEV recipe (``nuscenes_occ_bev``,
+``tiny_bev``) and the density-head recipes (``_to_nerfacc``,
+``nuscenes_occ_density``, ``tiny_nerfacc``).
 ``get_config(name)`` replaces ``Config.fromfile``.
 """
 from __future__ import annotations
@@ -389,6 +391,81 @@ def tiny_fast() -> Config:
     return dataclasses.replace(cfg, name="tiny_fast", model=model)
 
 
+def nuscenes_occ_bev() -> Config:
+    """reference ``config/nuscenes/nuscenes_occ_bev.py``: the BEV
+    representation variant (BEVQueryLifter + tpv=False head; the encoder
+    runs one plane)."""
+    cfg = nuscenes_occ()
+    loss_cfgs = [
+        dict(type="ReprojLossMonoMultiNewCombine", weight=1.0, no_ssim=False,
+             img_size=list(cfg.img_size), ray_resize=list(cfg.num_rays),
+             input_dict=dict(_REPROJ_INPUTS)),
+        dict(type="RGBLossMS", weight=0.1, img_size=list(cfg.img_size),
+             no_ssim=False, ray_resize=list(cfg.num_rays),
+             input_dict=dict(_RGB_INPUTS)),
+        dict(type="EikonalLoss", weight=0.1),
+        dict(type="SecondGradLoss", weight=0.01),
+        dict(type="SemLossMS", weight=0.1, img_size=list(cfg.img_size),
+             ray_resize=list(cfg.num_rays), input_dict=dict(_SEM_INPUTS)),
+        dict(type="SoftSparsityLoss", weight=0.001,
+             input_dict={"density": "uniform_sdf"}),
+    ]
+    model = dataclasses.replace(
+        cfg.model, lifter_type="BEVQueryLifter", use_bev_encoder=True,
+        head=dataclasses.replace(cfg.model.head, tpv=False,
+                                 return_uniform_sdf=True))
+    convertion = dict(cfg.loss_input_convertion, uniform_sdf="uniform_sdf")
+    return dataclasses.replace(cfg, name="nuscenes_occ_bev", model=model,
+                               loss_cfgs=loss_cfgs,
+                               loss_input_convertion=convertion)
+
+
+def _to_nerfacc(cfg: Config, name: str) -> Config:
+    """Swap a NeuS config's head for the density NeRFAccHead (reference
+    ``model/head/nerfacc_head/nerfacc_head.py:21-475``; no shipped reference
+    config uses it, so the recipe keeps the NeuS ray/field values and drops
+    the SDF-only regularizers: a density field has no eikonal/2nd-grad)."""
+    sdf_only = {"EikonalLoss", "SecondGradLoss", "SparsityLoss",
+                "HardSparsityLoss", "SoftSparsityLoss",
+                "AdaptiveSparsityLoss"}
+    loss_cfgs = [l for l in cfg.loss_cfgs if l["type"] not in sdf_only]
+    head = dataclasses.replace(
+        cfg.model.head, head_type="nerfacc",
+        # density fields composite depth opacity-normalized and need no
+        # second-grad/uniform-sdf outputs
+        return_second_grad=False, return_uniform_sdf=False,
+        return_surface_sdf=False, return_sample_sdf=False)
+    convertion = {k: v for k, v in cfg.loss_input_convertion.items()
+                  if k not in ("eik_grad", "second_grad", "uniform_sdf",
+                               "sample_sdf", "surface_sdf")}
+    model = dataclasses.replace(cfg.model, head=head)
+    return dataclasses.replace(cfg, name=name, model=model,
+                               loss_cfgs=loss_cfgs,
+                               loss_input_convertion=convertion)
+
+
+def tiny_nerfacc() -> Config:
+    """Tiny config on the density (NeRFAcc) head: a CPU-sized drive of the
+    ``eval_iou --density`` pipeline."""
+    return _to_nerfacc(tiny(), "tiny_nerfacc")
+
+
+def tiny_bev() -> Config:
+    """Tiny config on the BEV representation path (BEVQueryLifter +
+    BEVFormerEncoder + tpv=False head): a CPU-sized drive of everything
+    ``nuscenes_occ_bev`` exercises."""
+    cfg = tiny()
+    model = dataclasses.replace(
+        cfg.model, lifter_type="BEVQueryLifter", use_bev_encoder=True,
+        head=dataclasses.replace(cfg.model.head, tpv=False))
+    return dataclasses.replace(cfg, name="tiny_bev", model=model)
+
+
+def nuscenes_occ_density() -> Config:
+    """Flagship-scale density-field variant (NeRFAccHead)."""
+    return _to_nerfacc(nuscenes_occ(), "nuscenes_occ_density")
+
+
 def nuscenes_occ_compact() -> Config:
     """Flagship with cross-attn visibility compaction: the dense computation
     minus (camera, query) pairs that are provably zero, so exact as long as
@@ -584,8 +661,12 @@ _CONFIGS = {
     "kitti_novel_depth_bundle": kitti_novel_depth_bundle,
     "kitti_novel_depth_fast_bundle": kitti_novel_depth_fast_bundle,
     "kitti_raw_depth": kitti_raw_depth,
+    "nuscenes_occ_bev": nuscenes_occ_bev,
     "nuscenes_occ_fast": nuscenes_occ_fast,
     "nuscenes_occ_fast_bundle": nuscenes_occ_fast_bundle,
+    "tiny_nerfacc": tiny_nerfacc,
+    "tiny_bev": tiny_bev,
+    "nuscenes_occ_density": nuscenes_occ_density,
     "nuscenes_occ_compact": nuscenes_occ_compact,
     "nuscenes_occ_compact_train": nuscenes_occ_compact_train,
     "nuscenes_occ_compact_train_bundle": nuscenes_occ_compact_train_bundle,

@@ -1,6 +1,7 @@
 // The NeuS render of one ray, fused: sdf -> alpha -> weights -> composites,
 // forward (neus_render_fwd) and backward (neus_render_bwd), plus the
-// alpha-input entry of the same forward template (neus_weights_fwd).
+// alpha-input entry of the same forward template (neus_weights_fwd) and its
+// backward (neus_weights_bwd), which the density head's render runs.
 //
 // Replaces: selfocc_tpu/ops/render_pallas.py::_weights_kernel (the Pallas
 // TPU kernel behind weights_from_alpha_pallas, render_pallas.py:33/54) and
@@ -503,6 +504,86 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
   if (lane == 0) a.g_inv_s[ray] = g_inv_s;
 }
 
+// The cotangent of alpha for the cotangent g of the weights of
+// neus_weights_fwd (the closed form of render_pallas.py:76-84):
+//   g_alpha_k = g_k T_k - (sum_{i>k} g_i w_i) / (1 - alpha_k + 1e-7),
+// taken as T_k D_k with the recurrence of neus_render_bwd_kernel (D_k =
+// c_k + b_{k+1} D_{k+1}, c_k = (g_k - g_{k+1}) - g_{k+1} ((alpha_{k+1} +
+// b_{k+1}) - 1), D = g at the last sample), so that neither the division
+// by 1 - alpha_k + eps nor the cancelling difference is taken where alpha
+// saturates. One warp per ray, lane l owning samples [l K, (l + 1) K): it
+// loads its alpha and g runs, scans the log-transmittance forward (one
+// shuffle scan over the lanes), composes its samples' affine maps of D
+// backward, joins the lanes' maps with shuffles, and writes its run of
+// g_alpha. Per ray it reads 8 S bytes and writes 4 S: bound by memory.
+template <int K>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+    neus_weights_bwd_kernel(const float* __restrict__ alpha_in,
+                            const float* __restrict__ g_in,
+                            float* __restrict__ g_alpha, int64_t num_rays,
+                            int num_samples, bool whole_runs) {
+  const int lane = threadIdx.x & 31;
+  const int64_t ray = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock +
+                      (threadIdx.x >> 5);
+  if (ray >= num_rays) return;  // uniform per warp
+  const int S = num_samples;
+  const int i0 = lane * K;
+  const int n = max(0, min(K, S - i0));
+  float alpha[K], g[K];
+  load_run<K>(alpha_in + ray * S + i0, n, whole_runs, alpha);
+  load_run<K>(g_in + ray * S + i0, n, whole_runs, g);
+  float la[K], run = 0.f;
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    la[j] = j < n ? logf(1.f - alpha[j] + kEps) : 0.f;
+    run += la[j];
+  }
+  float unused_total;
+  float prefix = lane_prefix(run, lane, &unused_total);
+  float trans[K], b[K], b_err[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    trans[j] = expf(prefix);
+    prefix += la[j];
+    b[j] = 1.f - alpha[j] + kEps;
+    b_err[j] = static_cast<float>(static_cast<double>(alpha[j]) +
+                                  static_cast<double>(b[j]) - 1.0);
+  }
+  const float g_up = __shfl_down_sync(kFull, g[0], 1);
+  const float b_up = __shfl_down_sync(kFull, b[0], 1);
+  const float b_err_up = __shfl_down_sync(kFull, b_err[0], 1);
+  float c[K], beta[K];
+  float lane_a = 0.f, lane_b = 1.f;
+#pragma unroll
+  for (int j = K - 1; j >= 0; --j) {
+    const int i = i0 + j;
+    const int jn = j + 1 < K ? j + 1 : j;
+    const float g_next = j + 1 < K ? g[jn] : g_up;
+    const float b_next = j + 1 < K ? b[jn] : b_up;
+    const float e_next = j + 1 < K ? b_err[jn] : b_err_up;
+    if (i < S - 1) {
+      c[j] = (g[j] - g_next) - g_next * e_next;
+      beta[j] = b_next;
+    } else if (i == S - 1) {
+      c[j] = g[j];
+      beta[j] = 0.f;
+    } else {  // past the ray's end: the identity
+      c[j] = 0.f;
+      beta[j] = 1.f;
+    }
+    lane_a = c[j] + beta[j] * lane_a;
+    lane_b *= beta[j];
+  }
+  float dk = lane_affine_suffix(lane_a, lane_b, lane);
+  float out[K];
+#pragma unroll
+  for (int j = K - 1; j >= 0; --j) {
+    dk = c[j] + beta[j] * dk;
+    out[j] = trans[j] * dk;
+  }
+  store_run<K>(g_alpha + ray * S + i0, n, whole_runs, out);
+}
+
 // The run length K of a lane: the least power of two with 32 K >= S, at
 // most k_max (the forward then walks several tiles).
 int run_length(int num_samples, int k_max) {
@@ -585,6 +666,29 @@ extern "C" int neus_render_bwd(
       case 2: neus_render_bwd_kernel<2><<<grid, block, 0, s>>>(a); break;
       case 4: neus_render_bwd_kernel<4><<<grid, block, 0, s>>>(a); break;
       default: neus_render_bwd_kernel<8><<<grid, block, 0, s>>>(a);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int neus_weights_bwd(const float* alpha, const float* g_weights,
+                                float* g_alpha, int64_t num_rays,
+                                int num_samples, void* stream) {
+  if (num_samples > 32 * 8) return static_cast<int>(cudaErrorInvalidValue);
+  if (num_rays > 0 && num_samples > 0) {
+    const int k = run_length(num_samples, 8);
+    const bool whole = num_samples % (32 * k) == 0;
+    const dim3 grid(num_blocks(num_rays)), block(kWarpsPerBlock * 32);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    switch (k) {
+      case 1: neus_weights_bwd_kernel<1><<<grid, block, 0, s>>>(
+          alpha, g_weights, g_alpha, num_rays, num_samples, whole); break;
+      case 2: neus_weights_bwd_kernel<2><<<grid, block, 0, s>>>(
+          alpha, g_weights, g_alpha, num_rays, num_samples, whole); break;
+      case 4: neus_weights_bwd_kernel<4><<<grid, block, 0, s>>>(
+          alpha, g_weights, g_alpha, num_rays, num_samples, whole); break;
+      default: neus_weights_bwd_kernel<8><<<grid, block, 0, s>>>(
+          alpha, g_weights, g_alpha, num_rays, num_samples, whole);
     }
   }
   return static_cast<int>(cudaGetLastError());

@@ -1,11 +1,14 @@
-"""TPVFormer encoder, TPV path — counterpart of
-``selfocc_tpu/models/encoder.py``.
+"""TPVFormer encoder (TPV path) and BEVFormer encoder (BEV path) —
+counterpart of ``selfocc_tpu/models/encoder.py``.
 
 Module names follow the reference tree so the state-dict keys are the
 reference's ``encoder.*`` keys (``layers.{n}.attentions.0.*`` for the
 cross-view hybrid self-attention, ``layers.{n}.attentions.1.attn_{hw,zh,wz}.*``
 for the per-plane image cross-attention, ``ffns.0.layers.*``,
-``norms.{0,1,2}``). The JAX package's ``nn.scan`` over layers becomes an
+``norms.{0,1,2}``; the BEV path's ``layers.{n}.attentions.0`` for the
+single-plane deformable self-attention and ``layers.{n}.attentions.1`` for
+the image cross-attention, ``encoder.positional_encoding.position_layer``
+for its position embedding). The JAX package's ``nn.scan`` over layers becomes an
 ``nn.ModuleList``; its ``DeformHeads`` submodule becomes ``deform_heads``, a
 function over the attention's own ``sampling_offsets``/``attention_weights``
 Linears (the reference keeps those on the attention module).
@@ -577,3 +580,190 @@ class TPVFormerEncoder(nn.Module):
                            ref_cams_list, masks_list,
                            tuple(img_spatial_shapes), generator)
         return planes
+
+
+# ------------------------------------------------------------------ BEV path
+class DeformableSelfAttention(nn.Module):
+    """Single-plane MSDA self-attention of the BEV path (``encoder.py:545-588``,
+    mmcv ``MultiScaleDeformableAttention``): the value is projected from the
+    query alone, the heads read query + pos; one level, offsets initialised
+    scaled by point index; locations ``ref_2d + offsets / (w, h)``."""
+
+    def __init__(self, embed_dims: int, num_heads: int, num_points: int,
+                 dropout_p: float = 0.0, value_bf16: bool = False):
+        super().__init__()
+        self.num_heads, self.num_points = num_heads, num_points
+        self.dropout_p, self.value_bf16 = dropout_p, value_bf16
+        self.sampling_offsets = nn.Linear(embed_dims,
+                                          num_heads * num_points * 2)
+        self.attention_weights = nn.Linear(embed_dims, num_heads * num_points)
+        self.value_proj = nn.Linear(embed_dims, embed_dims)
+        self.output_proj = nn.Linear(embed_dims, embed_dims)
+
+    def reset_parameters_like_jax(self, generator):
+        _reset_deform_linears(self.sampling_offsets, self.attention_weights,
+                              self.num_heads, 1, self.num_points, True)
+        _reset_xavier(self.value_proj, generator)
+        _reset_xavier(self.output_proj, generator)
+
+    def forward(self, query, query_pos, ref_2d, spatial_shape,
+                generator=None):
+        # query (B, Q, C); ref_2d (Q, 2) normalized; spatial_shape (h, w)
+        B, Q, C = query.shape
+        H = self.num_heads
+        value = self.value_proj(query).reshape(B, Q, H, C // H)
+        if self.value_bf16:
+            value = bf16_rounded(value)
+        offsets, attn = deform_heads(query + query_pos, self.sampling_offsets,
+                                     self.attention_weights, H, 1,
+                                     self.num_points)
+        norm = _normalizer((spatial_shape,), query.device)
+        loc = ref_2d[None, :, None, None, None, :] + \
+            offsets / norm[None, None, None, :, None, :]
+        out = ms_deform_attn(value, (spatial_shape,), loc, attn)
+        out = dropout(self.output_proj(out), self.dropout_p, self.training,
+                      generator)
+        return out + query
+
+
+class BEVFormerLayer(nn.Module):
+    """``self_attn -> norm -> cross_attn -> norm -> ffn -> norm`` on the BEV
+    plane (``encoder.py:591-639``, reference
+    ``bevformer_encoder_layer.py``); the cross-attention is the TPV path's
+    ``BEVCrossAttention`` (dense, or compacted by ``visible_capacity``)."""
+
+    def __init__(self, embed_dims, num_heads, num_levels, num_points_cross,
+                 num_points_self, feedforward_channels, bev_size,
+                 dropout_p: float = 0.0, visible_capacity: float = 1.0,
+                 value_bf16: bool = False):
+        super().__init__()
+        self.bev_size = tuple(bev_size)
+        self.attentions = nn.ModuleList([
+            DeformableSelfAttention(embed_dims, num_heads, num_points_self,
+                                    dropout_p, value_bf16),
+            BEVCrossAttention(embed_dims, num_heads, num_levels,
+                              num_points_cross, dropout_p, False,
+                              visible_capacity, value_bf16)])
+        self.ffns = nn.ModuleList([FFN(embed_dims, feedforward_channels,
+                                       dropout_p)])
+        self.norms = nn.ModuleList(
+            nn.LayerNorm(embed_dims, eps=LN_EPS) for _ in range(3))
+
+    def forward(self, q, value, bev_pos, ref_2d, ref_cams, masks,
+                img_spatial_shapes, generator=None):
+        q = self.norms[0](self.attentions[0](q, bev_pos, ref_2d,
+                                             self.bev_size, generator))
+        q = self.norms[1](self.attentions[1](q, value, ref_cams, masks,
+                                             img_spatial_shapes, generator))
+        return self.norms[2](self.ffns[0](q, generator))
+
+
+class BEVPositionalEncoding(nn.Module):
+    """Fourier features of the BEV cells' metric (x, y), normalised by
+    ``pc_range``, through one Linear (reference
+    ``bevformer_pos_embed.py:7-35``)."""
+
+    def __init__(self, num_freqs: int, embed_dims: int, pc_range, mapping):
+        super().__init__()
+        hw, _, _ = tpv_plane_meters(mapping)
+        x0, y0, _, x1, y1, _ = pc_range
+        hw = torch.stack([(hw[..., 0] - x0) / (x1 - x0),
+                          (hw[..., 1] - y0) / (y1 - y0)], dim=-1)
+        feat = fourier_feat_from_meter(num_freqs, hw)
+        self.register_buffer("fourier", feat, persistent=False)
+        self.position_layer = nn.Linear(feat.shape[-1], embed_dims)
+
+    def forward(self) -> torch.Tensor:
+        return self.position_layer(self.fourier)
+
+
+def bev_ref_3d(mapping, num_points_cross: int) -> torch.Tensor:
+    """(P, H * W, 3) metric pillars over the BEV plane, ``num_points_cross``
+    points along D (``encoder.py:709-718``)."""
+    H, W, D = mapping.size_h, mapping.size_w, mapping.size_d
+    ah = np.arange(H, dtype=np.float32)
+    aw = np.arange(W, dtype=np.float32)
+    ud = np.linspace(0, D - 1, num_points_cross, dtype=np.float32)
+    grid = np.stack(np.broadcast_arrays(
+        ah[:, None, None], aw[None, :, None], ud[None, None, :]), -1)
+    m = mapping.grid2meter(torch.from_numpy(np.ascontiguousarray(grid)))
+    return m.reshape(H * W, num_points_cross, 3).transpose(0, 1).contiguous()
+
+
+def bev_ref_2d(H: int, W: int) -> torch.Tensor:
+    """(H * W, 2) self-attention reference points, stored (h_norm, w_norm)
+    as the reference stores them. MSDA reads ``[..., 0]`` as x, so the
+    reference self-attends at transposed grid locations; kept for
+    checkpoint parity (``encoder.py:724-735``)."""
+    ah = np.arange(H, dtype=np.float32)
+    aw = np.arange(W, dtype=np.float32)
+    gh = np.repeat(ah / max(H - 1, 1), W)
+    gw = np.tile(aw / max(W - 1, 1), H)
+    return torch.from_numpy(np.stack([gh, gw], -1).astype(np.float32))
+
+
+class BEVFormerEncoder(nn.Module):
+    """The single-plane BEVFormer encoder (``encoder.py:642-763``, reference
+    ``bevformer/bevformer_encoder.py:18-224``) of ``nuscenes_occ_bev``:
+    positional encoding, level and camera embeddings, pillar reference
+    points projected into the cameras, then ``num_layers`` layers. The JAX
+    package's ``remat_layers`` (a TPU memory lever) is not copied."""
+
+    def __init__(self, mapping_args: Dict, embed_dims: int = 96,
+                 num_heads: int = 6, num_cams: int = 6,
+                 num_feature_levels: int = 4, num_points_cross: int = 8,
+                 num_points_self: int = 12, num_layers: int = 4,
+                 feedforward_channels: int = 192,
+                 pos_num_freqs: Sequence[int] = (12, 12, 12),
+                 pc_range: Sequence[float] = (-40., -40., -1., 40., 40., 5.4),
+                 dropout_p: float = 0.0, visible_capacity: float = 1.0,
+                 attn_value_bf16: bool = False):
+        super().__init__()
+        self.visible_overflow = None
+        mapping = make_mapping(**mapping_args)
+        H, W = mapping.size_h, mapping.size_w
+        self.positional_encoding = BEVPositionalEncoding(
+            pos_num_freqs[0], embed_dims, tuple(pc_range), mapping)
+        self.level_embeds = nn.Parameter(
+            torch.zeros(num_feature_levels, embed_dims))
+        self.cams_embeds = nn.Parameter(torch.zeros(num_cams, embed_dims))
+        self.layers = nn.ModuleList(
+            BEVFormerLayer(embed_dims, num_heads, num_feature_levels,
+                           num_points_cross, num_points_self,
+                           feedforward_channels, (H, W), dropout_p,
+                           visible_capacity, attn_value_bf16)
+            for _ in range(num_layers))
+        # geometry tables (the JAX package's 'consts'), not in the state dict
+        self.register_buffer("ref_3d", bev_ref_3d(mapping, num_points_cross),
+                             persistent=False)
+        self.register_buffer("ref_2d", bev_ref_2d(H, W), persistent=False)
+
+    def reset_parameters_like_jax(self, generator):
+        normal_(self.level_embeds, 1.0, generator)
+        normal_(self.cams_embeds, 1.0, generator)
+
+    def forward(self, representation, ms_img_feats, lidar2img, img_shape,
+                generator=None, focal_ratios_x=None, focal_ratios_y=None):
+        """representation: the BEV plane (1, H * W, C) (or a one-element
+        list); the rest as ``TPVFormerEncoder.forward``. Returns the plane
+        (1, H * W, C)."""
+        if ms_img_feats[0].shape[0] != 1:
+            raise ValueError("the BEV encoder runs batch size 1")
+        bev_pos = self.positional_encoding()[None]
+        feats, img_spatial_shapes = [], []
+        for lvl, feat in enumerate(ms_img_feats):
+            _, N, h, w, C = feat.shape
+            f = feat.reshape(N, h * w, C) + self.cams_embeds[:, None, :]
+            feats.append(f + self.level_embeds[lvl][None, None, :])
+            img_spatial_shapes.append((h, w))
+        value = torch.cat(feats, dim=1)                    # (N, L, C)
+        rc, m = point_sampling(self.ref_3d, lidar2img, img_shape,
+                               focal_ratios_x, focal_ratios_y)
+        ref_cams, masks = rc[:, 0], m[:, 0]
+        q = representation[0] if isinstance(representation, (list, tuple)) \
+            else representation
+        for layer in self.layers:
+            q = layer(q, value, bev_pos, self.ref_2d, ref_cams, masks,
+                      tuple(img_spatial_shapes), generator)
+        return q
+

@@ -9,7 +9,9 @@ lerps, so on the card they run the trilinear kernels.
 
 State-dict keys follow the reference field: ``density_net.{2i+1}`` for the
 Linears of ``Sequential([Softplus, Linear] x density_layers)``,
-``color_proj`` and ``deviation_network.variance`` (shape (1,)).
+``color_proj`` and, in the NeuS field, ``deviation_network.variance``
+(shape (1,)). ``tpv=False`` decodes the BEV plane instead of the three TPV
+planes.
 The decoded volume has the channel-first shape ``(B, C, H, W, D)`` with
 channels ``[sdf | SH coefficients | sem logits]``, laid out channel-last in
 memory (the layout the trilinear kernels read); everything is fp32.
@@ -48,13 +50,18 @@ class TPVSDFField(nn.Module):
     def __init__(self, mapping_args: Dict, embed_dims: int = 96,
                  color_dims: int = 0, sem_dims: int = 0,
                  density_layers: int = 2, sh_deg: int = 0,
-                 sh_act: str = "relu", beta_init: float = 0.1):
+                 sh_act: str = "relu", beta_init: float = 0.1,
+                 tpv: bool = True, variance: bool = True):
         super().__init__()
         self.mapping = make_mapping(**mapping_args)
         self.embed_dims, self.color_dims, self.sem_dims = (
             embed_dims, color_dims, sem_dims)
         self.sh_deg, self.sh_act = sh_deg, sh_act
+        self.tpv = tpv
         out_dim = 1 + color_dims + sem_dims
+        if not tpv:
+            # the BEV decode: each cell's MLP emits all D depth slices
+            out_dim *= self.mapping.size_d
         layers = []
         for _ in range(density_layers - 1):
             layers += [nn.Softplus(), nn.Linear(embed_dims, embed_dims)]
@@ -64,7 +71,10 @@ class TPVSDFField(nn.Module):
         # SH projection folded into decode (linear, commutes with trilinear)
         self.color_proj = (nn.Linear(color_dims, n_sh)
                            if color_dims > 0 and color_dims != n_sh else None)
-        self.deviation_network = LearnedVariance(beta_init)
+        # the density head's field has no NeuS variance (the JAX package's
+        # LearnedVariance makes its parameter only where it is called)
+        self.deviation_network = (LearnedVariance(beta_init) if variance
+                                  else None)
 
     @property
     def n_sh(self) -> int:
@@ -76,19 +86,28 @@ class TPVSDFField(nn.Module):
         return (m.size_h, m.size_w, m.size_d)
 
     def decode(self, rep) -> torch.Tensor:
-        """Plane features [hw, zh, wz] -> (B, C_out, H, W, D) fp32: the
-        broadcast-sum of the three planes through the MLP, returned as a
-        permuted view of the MLP's channel-last output. The trilinear
-        kernels read that layout as it is, and their channel-last volume
-        gradient flows back through the permute without a transpose."""
+        """Plane features -> (B, C_out, H, W, D) fp32, returned as a
+        permuted view of the MLP's channel-last output. TPV: [hw, zh, wz],
+        the broadcast-sum of the three planes through the MLP. BEV
+        (``tpv=False``): the plane (B, H * W, C) (or a one-element list),
+        whose per-cell MLP emits (D, C_out) channels (``field.py:139-145``).
+        The trilinear kernels read that layout as it is, and their
+        channel-last volume gradient flows back through the permute without
+        a transpose."""
         H, W, D = self.grid_shape
         C = self.embed_dims
-        tpv_hw, tpv_zh, tpv_wz = rep
-        B = tpv_hw.shape[0]
-        hw = tpv_hw.float().reshape(B, H, W, 1, C)
-        zh = tpv_zh.float().reshape(B, D, H, 1, C).permute(0, 2, 3, 1, 4)
-        wz = tpv_wz.float().reshape(B, W, D, C)[:, None]
-        out = self.density_net(hw + zh + wz)                 # B,H,W,D,Cout
+        if self.tpv:
+            tpv_hw, tpv_zh, tpv_wz = rep
+            B = tpv_hw.shape[0]
+            hw = tpv_hw.float().reshape(B, H, W, 1, C)
+            zh = tpv_zh.float().reshape(B, D, H, 1, C).permute(0, 2, 3, 1, 4)
+            wz = tpv_wz.float().reshape(B, W, D, C)[:, None]
+            out = self.density_net(hw + zh + wz)             # B,H,W,D,Cout
+        else:
+            bev = rep[0] if isinstance(rep, (list, tuple)) else rep
+            B = bev.shape[0]
+            out = self.density_net(bev.float().reshape(B, H, W, C))
+            out = out.reshape(B, H, W, D, -1)                # B,H,W,D,Cout
         if self.color_proj is not None:
             sh = self.color_proj(out[..., 1:1 + self.color_dims])
             out = torch.cat([out[..., :1], sh,

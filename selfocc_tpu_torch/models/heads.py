@@ -82,6 +82,65 @@ def max_depth(weights: torch.Tensor, ts: torch.Tensor,
     return torch.gather(ts, -1, idx)[..., 0]
 
 
+class OccupancyQueries:
+    """The occupancy queries of both heads (``heads.py:543-577``,
+    ``density_head.py:183-218``): ``forward_occ``, ``occ_from_volume`` and
+    ``occ_uniform`` return the field's channel 0 through ``occ_value``
+    under the key ``sdf`` (the sdf of the NeuS head, the density of the
+    density head) and, with semantics, the logits and their argmax
+    ``sem``. The head provides ``field``, ``roi_aabb``, ``resolution``,
+    ``return_sem`` and ``sem_dims``."""
+
+    @staticmethod
+    def occ_value(sdf):
+        return sdf
+
+    def _occ_sem(self, outputs):
+        return (self.return_sem and self.sem_dims > 0 and
+                (outputs is None or bool({"sem", "logits"} & set(outputs))))
+
+    def _occ(self, geo, outputs):
+        out = {"sdf": self.occ_value(geo["sdf"])}
+        if self._occ_sem(outputs):
+            out["sem"] = torch.argmax(geo["sem_logits"], dim=-1)
+            out["logits"] = geo["sem_logits"]
+        return out
+
+    @torch.no_grad()
+    def forward_occ(self, representation, aabb=None, resolution=None):
+        """Occupancy eval: decode, then the uniform grid over ``aabb`` at
+        ``resolution`` (the head's by default): its values, ``xyz`` and,
+        with semantics, the logits and their argmax ``sem``."""
+        volume = self.field.decode(representation)[0]
+        aabb = self.roi_aabb if aabb is None else aabb
+        resolution = self.resolution if resolution is None else resolution
+        xs, ys, zs = uniform_axes_on(tuple(aabb), resolution, volume.device)
+        xyz = uniform_grid(xs, ys, zs)
+        return dict(self._occ(self.field.query_geo(volume, xyz), None),
+                    xyz=xyz)
+
+    @torch.no_grad()
+    def occ_from_volume(self, volume, xyz,
+                        outputs: Optional[Collection[str]] = None):
+        """``forward_occ``'s query against a decoded (C, H, W, D) volume at
+        metric points (..., 3). ``outputs``: the keys the caller reads
+        (None: all); without ``sem`` or ``logits`` only the sdf plane is
+        sampled, which computes the same values."""
+        sem = self._occ_sem(outputs)
+        return self._occ(self.field.query_geo(
+            volume if sem else first_channel(volume), xyz), outputs)
+
+    @torch.no_grad()
+    def occ_uniform(self, volume, xs, ys, zs,
+                    outputs: Optional[Collection[str]] = None):
+        """``occ_from_volume`` on the separable grid ``ys`` x ``xs`` x
+        ``zs`` through the per-axis query (``eval_iou --grid-query
+        separable``) -> (H, W, D[, C]) outputs."""
+        sem = self._occ_sem(outputs)
+        return self._occ(self.field.query_geo_uniform(
+            volume if sem else first_channel(volume), xs, ys, zs), outputs)
+
+
 class _FieldHolder(nn.Module):
     """The reference head's ``model`` (its sdfstudio NeuS model), which owns
     the field."""
@@ -91,8 +150,10 @@ class _FieldHolder(nn.Module):
         self.field = field
 
 
-class NeuSHead(nn.Module):
-    """SDF head: decode the field, cast rays, NeuS-composite depth/RGB/sem."""
+class NeuSHead(OccupancyQueries, nn.Module):
+    """SDF head: decode the field, cast rays, NeuS-composite depth/RGB/sem.
+    ``tpv``: the field decodes the three TPV planes, or (False) the BEV
+    plane (``heads.py:157``)."""
 
     def __init__(self, roi_aabb: Sequence[float], mapping_args: Dict[str, Any],
                  near_plane: float = 0.0, far_plane: float = 1e10,
@@ -111,7 +172,7 @@ class NeuSHead(nn.Module):
                  ray_y_dsr_max: Optional[float] = None,
                  train_ray_chunk: int = 0, resolution: float = 0.4,
                  return_max_depth: bool = False,
-                 return_uniform_sdf: bool = False):
+                 return_uniform_sdf: bool = False, tpv: bool = True):
         super().__init__()
         self.roi_aabb = tuple(roi_aabb)
         self.resolution = resolution
@@ -137,7 +198,7 @@ class NeuSHead(nn.Module):
             mapping_args=mapping_args, embed_dims=embed_dims,
             color_dims=color_dims, sem_dims=sem_dims,
             density_layers=density_layers, sh_deg=sh_deg, sh_act=sh_act,
-            beta_init=beta_init))
+            beta_init=beta_init, tpv=tpv))
 
     @property
     def field(self) -> TPVSDFField:
@@ -350,50 +411,6 @@ class NeuSHead(nn.Module):
             xyz = xyz + shift * resolution
         geo = self.field.query_geo(volume, xyz)
         return geo["sdf"], geo["sem_logits"], xyz
-
-    def _occ(self, geo, outputs):
-        out = {"sdf": geo["sdf"]}
-        if self._occ_sem(outputs):
-            out["sem"] = torch.argmax(geo["sem_logits"], dim=-1)
-            out["logits"] = geo["sem_logits"]
-        return out
-
-    def _occ_sem(self, outputs):
-        return (self.return_sem and self.sem_dims > 0 and
-                (outputs is None or bool({"sem", "logits"} & set(outputs))))
-
-    @torch.no_grad()
-    def forward_occ(self, representation, aabb=None, resolution=None):
-        """Occupancy eval (``heads.py:543-554``): decode, then the uniform
-        grid's sdf, ``xyz`` and, with semantics, the logits and their
-        argmax ``sem``."""
-        volume = self.field.decode(representation)[0]
-        aabb = self.roi_aabb if aabb is None else aabb
-        resolution = self.resolution if resolution is None else resolution
-        sdf, sem_logits, xyz = self.get_uniform_sdf(volume, aabb, resolution)
-        return dict(self._occ({"sdf": sdf, "sem_logits": sem_logits}, None),
-                    xyz=xyz)
-
-    @torch.no_grad()
-    def occ_from_volume(self, volume, xyz,
-                        outputs: Optional[Collection[str]] = None):
-        """``forward_occ``'s query against a decoded (C, H, W, D) volume at
-        metric points (..., 3) (``heads.py:556-566``). ``outputs``: the keys
-        the caller reads (None: all); without ``sem`` or ``logits`` only
-        the sdf plane is sampled, which computes the same sdf."""
-        sem = self._occ_sem(outputs)
-        return self._occ(self.field.query_geo(
-            volume if sem else first_channel(volume), xyz), outputs)
-
-    @torch.no_grad()
-    def occ_uniform(self, volume, xs, ys, zs,
-                    outputs: Optional[Collection[str]] = None):
-        """``occ_from_volume`` on the separable grid ``ys`` x ``xs`` x
-        ``zs`` through the per-axis query (``heads.py:568-577``,
-        ``eval_iou --grid-query separable``) -> (H, W, D[, C]) outputs."""
-        sem = self._occ_sem(outputs)
-        return self._occ(self.field.query_geo_uniform(
-            volume if sem else first_channel(volume), xs, ys, zs), outputs)
 
     def _render_chunk(self, volume, origin, direction, inv_s, draws):
         r = self.render_rays(volume, origin, direction, train=True,

@@ -1,6 +1,6 @@
-"""TPV query lifter and the plane-coordinate helpers — counterpart of
-``selfocc_tpu/models/lifter.py`` (``TPVQueryLifter``,
-``fourier_feat_from_meter``, ``tpv_plane_meters``,
+"""TPV and BEV query lifters and the plane-coordinate helpers — counterpart
+of ``selfocc_tpu/models/lifter.py`` (``TPVQueryLifter``,
+``BEVQueryLifter``, ``fourier_feat_from_meter``, ``tpv_plane_meters``,
 ``normalize_plane_meters``)."""
 from __future__ import annotations
 
@@ -31,6 +31,22 @@ class TPVQueryLifter(nn.Module):
         return [p.expand(bs, -1, -1)
                 for p in (self.tpv_hw, self.tpv_zh, self.tpv_wz)]
 
+
+
+class BEVQueryLifter(nn.Module):
+    """One learnable BEV plane (reference ``bev_query_lifter.py:7-26``),
+    normal(1.0) init, broadcast to the batch; its key is the reference's
+    ``lifter.bev``."""
+
+    def __init__(self, bev_h: int, bev_w: int, dim: int):
+        super().__init__()
+        self.bev = nn.Parameter(torch.zeros(1, bev_h * bev_w, dim))
+
+    def reset_parameters_like_jax(self, generator):
+        normal_(self.bev, 1.0, generator)
+
+    def forward(self, ms_img_feats) -> torch.Tensor:
+        return self.bev.expand(ms_img_feats[0].shape[0], -1, -1)
 
 def fourier_feat_from_meter(num_freqs: int, meter: torch.Tensor):
     """freqs = pi * 2^[-1 .. num_freqs-2]; layout (coord, freq, sin/cos)

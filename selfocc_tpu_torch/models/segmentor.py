@@ -7,7 +7,9 @@ eval (``forward_occ``, ``occ_from_volume``, ``occ_uniform``).
 Public tensors keep the JAX package's layouts: images (B, N, H, W, 3) NHWC,
 features (B, N, h, w, C), the decoded volume (C, H, W, D). The TPV NeuS
 model is ported with the encoder's recipe options (head-shared locations,
-visibility compaction, bf16 attention values) and ``compute_dtype``: with
+visibility compaction, bf16 attention values), the BEV path
+(``BEVQueryLifter``, ``BEVFormerEncoder``, the ``tpv=False`` field), the
+density head (``head_type="nerfacc"``) and ``compute_dtype``: with
 ``"bfloat16"`` the ResNet-50 backbone (not ``TinyBackbone``, as in the JAX
 package) and the FPN compute in bf16 with fp32 parameters, and the features
 return to fp32 for the encoder. The constructor refuses the options that
@@ -22,21 +24,20 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..geometry.mappings import make_mapping
-from .encoder import TPVFormerEncoder
+from .density_head import NeRFAccHead
+from .encoder import BEVFormerEncoder, TPVFormerEncoder
 from .fpn import FPN
 from .heads import NeuSHead
-from .lifter import TPVQueryLifter
+from .lifter import BEVQueryLifter, TPVQueryLifter
 from .resnet import ResNet50, TinyBackbone
 
-# (section, option, value the port implements)
+# (section, option, the value or the set of values the port implements)
 _PORTED = (
-    ("model", "lifter_type", "TPVQueryLifter"),
+    ("model", "lifter_type", frozenset({"TPVQueryLifter", "BEVQueryLifter"})),
     ("model", "neck_type", "fpn"),
-    ("model", "use_bev_encoder", False),
     ("encoder", "multi_plane_ffn_norm", False),
     ("encoder", "camera_aware", False),
-    ("head", "head_type", "neus"),
-    ("head", "tpv", True),
+    ("head", "head_type", frozenset({"neus", "nerfacc"})),
     ("head", "use_numerical_gradients", False),
     ("head", "beta_hand_tune", False),
     ("head", "num_samples_importance", 0),
@@ -66,14 +67,17 @@ def check_ported(cfg: ModelConfig):
         if not any(f.name == name for f in dataclasses.fields(obj)):
             continue
         got = getattr(obj, name)
-        if isinstance(want, float) and isinstance(got, (tuple, list)):
+        if isinstance(want, frozenset):
+            ok = got in want
+        elif isinstance(want, float) and isinstance(got, (tuple, list)):
             ok = all(g == want for g in got)
         else:
             ok = got == want
         if not ok:
             raise NotImplementedError(
                 f"selfocc_tpu_torch: {section}.{name}={got!r} is not ported "
-                f"(the port implements {want!r})")
+                f"(the port implements "
+                f"{sorted(want) if isinstance(want, frozenset) else want!r})")
     if cfg.backbone_type not in ("resnet50", "tiny"):
         raise NotImplementedError(f"backbone {cfg.backbone_type!r}")
     if cfg.compute_dtype not in (None, "float32", "bfloat16"):
@@ -83,6 +87,10 @@ def check_ported(cfg: ModelConfig):
 class TPVSegmentor(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
+        if cfg.use_bev_encoder and cfg.encoder.camera_aware:
+            raise ValueError("camera_aware is a TPVFormer module "
+                             "(camera_se_net.py); the BEVFormer encoder "
+                             "variant does not support it")
         check_ported(cfg)
         self.cfg = cfg
         dtype = None if cfg.compute_dtype is None else \
@@ -94,20 +102,48 @@ class TPVSegmentor(nn.Module):
         self.img_neck = FPN(tuple(cfg.fpn_in_channels), cfg.embed_dims, dtype)
         e, h = cfg.encoder, cfg.head
         m = make_mapping(**e.mapping_args)
-        self.lifter = TPVQueryLifter(m.size_h, m.size_w, m.size_d,
-                                     cfg.embed_dims)
-        self.encoder = TPVFormerEncoder(
+        if cfg.lifter_type == "BEVQueryLifter":
+            self.lifter = BEVQueryLifter(m.size_h, m.size_w, cfg.embed_dims)
+        else:
+            self.lifter = TPVQueryLifter(m.size_h, m.size_w, m.size_d,
+                                         cfg.embed_dims)
+        common = dict(
             mapping_args=e.mapping_args, embed_dims=e.embed_dims,
             num_heads=e.num_heads, num_cams=e.num_cams,
             num_feature_levels=e.num_feature_levels,
-            num_points_cross=tuple(e.num_points_cross),
             num_points_self=e.num_points_self, num_layers=e.num_layers,
             feedforward_channels=e.feedforward_channels,
             pos_num_freqs=tuple(e.pos_num_freqs), pc_range=tuple(e.pc_range),
-            dropout_p=e.dropout, shared_locations=e.shared_locations,
-            visible_capacity=e.cross_visible_capacity,
+            dropout_p=e.dropout, visible_capacity=e.cross_visible_capacity,
             attn_value_bf16=e.attn_value_bf16)
-        self.head = NeuSHead(
+        if cfg.use_bev_encoder:
+            # one pillar depth for the single plane (segmentor.py:80-84)
+            self.encoder = BEVFormerEncoder(
+                num_points_cross=min(e.num_points_cross), **common)
+        else:
+            self.encoder = TPVFormerEncoder(
+                num_points_cross=tuple(e.num_points_cross),
+                shared_locations=e.shared_locations, **common)
+        self.head = self._build_head(h)
+
+    @staticmethod
+    def _build_head(h):
+        """The NeuS head, or the density head for ``head_type="nerfacc"``
+        (``segmentor.py:126-143``)."""
+        if h.head_type == "nerfacc":
+            return NeRFAccHead(
+                roi_aabb=tuple(h.roi_aabb), mapping_args=h.mapping_args,
+                resolution=h.resolution, near_plane=h.near_plane,
+                far_plane=h.far_plane, num_samples=h.num_samples,
+                ray_sample_mode=h.ray_sample_mode,
+                ray_number=tuple(h.ray_number),
+                ray_img_size=tuple(h.ray_img_size),
+                ray_upper_crop=h.ray_upper_crop, render_bkgd=h.render_bkgd,
+                embed_dims=h.embed_dims, color_dims=h.color_dims,
+                sem_dims=h.sem_dims, density_layers=h.density_layers,
+                sh_deg=h.sh_deg, sh_act=h.sh_act, tpv=h.tpv,
+                return_sem=h.return_sem)
+        return NeuSHead(
             roi_aabb=tuple(h.roi_aabb), mapping_args=h.mapping_args,
             near_plane=h.near_plane, far_plane=h.far_plane,
             num_samples=h.num_samples, beta_init=h.beta_init,
@@ -124,7 +160,7 @@ class TPVSegmentor(nn.Module):
             ray_y_dsr_max=h.ray_y_dsr_max,
             train_ray_chunk=h.train_ray_chunk, resolution=h.resolution,
             return_max_depth=h.return_max_depth,
-            return_uniform_sdf=h.return_uniform_sdf)
+            return_uniform_sdf=h.return_uniform_sdf, tpv=h.tpv)
 
     def extract_img_feat(self, imgs, flip=False):
         """Backbone + neck. imgs (B, N, H, W, 3) -> list of (B, N, h, w, C).
@@ -147,10 +183,11 @@ class TPVSegmentor(nn.Module):
 
     def get_representation(self, imgs, lidar2img, generator=None, flip=False,
                            focal_ratios_x=None, focal_ratios_y=None):
-        """backbone -> neck -> lifter -> encoder: the three TPV planes
-        (``generator`` draws the encoder's train-mode dropout; ``flip`` see
-        ``extract_img_feat``; ``focal_ratios_x/y`` (N,) scale the projected
-        reference points, see ``geometry.projection.point_sampling``)."""
+        """backbone -> neck -> lifter -> encoder: the three TPV planes, or
+        the BEV plane (``generator`` draws the encoder's train-mode
+        dropout; ``flip`` see ``extract_img_feat``; ``focal_ratios_x/y``
+        (N,) scale the projected reference points, see
+        ``geometry.projection.point_sampling``)."""
         feats = self.extract_img_feat(imgs, flip)
         rep = self.lifter(feats)
         return self.encoder(rep, feats, lidar2img,

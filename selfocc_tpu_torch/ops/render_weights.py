@@ -13,12 +13,12 @@ tensors its forward and backward launch the fused kernels of
 ``_NeuSComposite``); for CPU tensors it runs the plain version
 (``neus_composite_plain``, the head's chain of torch ops) under autograd.
 
-``weights_from_alpha`` is the alpha-input entry (importance sampling and the
-NeRFAcc head of later slices need it): the ``neus_weights_fwd`` instance of
-the same forward kernel for CUDA tensors, ``weights_from_alpha_plain`` for
-CPU tensors, and the closed-form gradient of ``render_pallas.py:76-84`` in
-torch (plain XLA in JAX too), summed without its division by
-``1 - alpha + eps`` (``weights_grad_plain``).
+``weights_from_alpha`` is the alpha-input entry, which the density head's
+render takes: for CUDA tensors the ``neus_weights_fwd`` instance of the same
+forward kernel and the ``neus_weights_bwd`` kernel for the closed-form
+gradient of ``render_pallas.py:76-84``, summed without its division by
+``1 - alpha + eps``; for CPU tensors their plain versions,
+``weights_from_alpha_plain`` and ``weights_grad_plain``.
 """
 from __future__ import annotations
 
@@ -69,6 +69,39 @@ _SIGNATURES = {"neus_weights_fwd": (_build.PTR, _build.PTR, _build.I64,
                                     _build.I32, _build.PTR)}
 
 
+def neus_weights_bwd(alpha: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Launch ``csrc/neus_weights.cu::neus_weights_bwd`` on (R, S) fp32
+    CUDA alpha and the weights' cotangent ``g``: the cotangent of alpha
+    (``weights_grad_plain`` is its plain version). At most
+    ``MAX_BWD_SAMPLES`` samples a ray (a ray's run is held in registers)."""
+    _check(alpha)
+    _build.require_cuda_tensor(alpha, "neus_weights_bwd alpha",
+                               torch.float32, 2)
+    _build.require_cuda_tensor(g, "neus_weights_bwd g", torch.float32, 2)
+    R, S = alpha.shape
+    if tuple(g.shape) != (R, S) or g.device != alpha.device:
+        raise ValueError(f"neus_weights_bwd: g must be {(R, S)} on "
+                         f"{alpha.device}, got {tuple(g.shape)} on "
+                         f"{g.device}")
+    if S > MAX_BWD_SAMPLES:
+        raise ValueError(f"neus_weights_bwd: at most {MAX_BWD_SAMPLES} "
+                         f"samples per ray, got {S}")
+    lib = _build.load("neus_weights", _SIGNATURES)
+    alpha, g = alpha.contiguous(), g.contiguous()
+    out = torch.empty_like(alpha)
+    status = lib.neus_weights_bwd(_build.ptr(alpha), _build.ptr(g),
+                                  _build.ptr(out), R, S,
+                                  _build.stream_ptr(alpha.device))
+    _build.check(status, "neus_weights_bwd")
+    neus_weights_bwd.launches += 1
+    return out
+
+
+neus_weights_bwd.launches = 0
+_SIGNATURES["neus_weights_bwd"] = (_build.PTR, _build.PTR, _build.PTR,
+                                   _build.I64, _build.I32, _build.PTR)
+
+
 def _reverse_logcumsumexp(x):
     return torch.flip(torch.logcumsumexp(torch.flip(x, [-1]), -1), [-1])
 
@@ -108,23 +141,26 @@ def weights_grad_plain(alpha, g):
 
 
 class _WeightsFromAlpha(torch.autograd.Function):
-    """The kernel on CUDA alpha unless ``plain`` (then any float dtype);
-    the closed-form gradient (``weights_grad_plain``)."""
+    """The kernels on CUDA alpha unless ``plain`` (then any float dtype and
+    the plain versions on any device): ``neus_weights_fwd`` forward,
+    ``neus_weights_bwd`` backward."""
 
     @staticmethod
     def forward(ctx, alpha, plain):
         if not plain:
             _check(alpha)
-        if alpha.is_cuda and not plain:
-            w = neus_weights_fwd(alpha.contiguous())
-        else:
-            w = weights_from_alpha_plain(alpha)
+        kernel = alpha.is_cuda and not plain
+        w = neus_weights_fwd(alpha.contiguous()) if kernel else \
+            weights_from_alpha_plain(alpha)
+        ctx.kernel = kernel
         ctx.save_for_backward(alpha)
         return w
 
     @staticmethod
     def backward(ctx, g):
         (alpha,) = ctx.saved_tensors
+        if ctx.kernel:
+            return neus_weights_bwd(alpha.contiguous(), g.float()), None
         return weights_grad_plain(alpha, g), None
 
 

@@ -7,7 +7,9 @@ counterpart: the port refuses camera-aware encoders
 (``models/segmentor.check_ported``), so the prepare takes no camera
 arguments.
 
-``prepare`` decodes the field once per frame (fp32 volume); ``render`` walks
+Both heads, NeuS and density (``head_type="nerfacc"``), are driven through
+the same model methods. ``prepare`` decodes the field once per frame (fp32
+volume); ``render`` walks
 the full ray grid in fixed-size chunks against it and returns host numpy
 arrays of the requested outputs only (``render_device``: the same as tensors
 on the volume's device, with no host synchronisation). ``GridOccEvaluator``
@@ -36,7 +38,7 @@ from .metrics import cal_depth_metric
 # outputs derived from the sdf channel alone: a render that asks only for
 # these samples a 1-channel view of the volume (the JAX ``geo_only``)
 GEO_OUTPUTS = frozenset({"depth", "weights", "acc", "fars", "inv_s", "sdf",
-                         "eik_grad", "ts", "deltas", "normal_vis",
+                         "sigma", "eik_grad", "ts", "deltas", "normal_vis",
                          "max_depth"})
 
 
@@ -241,7 +243,13 @@ def enable_max_depth(cfg: Config) -> Config:
     """``cfg`` with the head's ``return_max_depth`` on (the reference sets it
     in every eval driver that scores the argmax-weight render,
     ``eval_novel_depth.py:70``). An output-only flag: the weights are the
-    same, so checkpoints load as they are."""
+    same, so checkpoints load as they are. The density head has no
+    argmax-weight depth: the driver exits, with the JAX ``eval_depth``'s
+    message (``eval_depth.py:114-117``)."""
+    if cfg.model.head.head_type == "nerfacc":
+        raise SystemExit("--depth-metric-tgt max needs the NeuS head "
+                         "(the nerfacc head has no argmax-weight depth, "
+                         "matching the reference)")
     if cfg.model.head.return_max_depth:
         return cfg
     return dataclasses.replace(cfg, model=dataclasses.replace(

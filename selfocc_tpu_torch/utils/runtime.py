@@ -54,7 +54,8 @@ def add_weights_args(ap):
 
 # keys a reference checkpoint may lack: the reference's colour head is not
 # this projection, so an authentic checkpoint keeps the seeded one
-_OPTIONAL_KEYS = ("head.model.field.color_proj.",)
+_OPTIONAL_KEYS = ("head.model.field.color_proj.",
+                  "head.radiance_field.color_proj.")
 
 
 def load_weights(model, ckpt_path: str = "", torch_ckpt: str = "",

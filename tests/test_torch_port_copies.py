@@ -9,9 +9,9 @@ driver's helpers, the data modules (``transforms``, ``wrapper``,
 ``kitti_raw_dataset``),
 ``build_dataset``'s path and override tables,
 ``utils/openseed_utils.SemTeacher`` and ``utils/scenerf_metric.SSCMetrics``
-(the KITTI configs with the config test, and the encoder's recipe-option
-configs, which ``check_ported`` accepts while it still refuses the BEV and
-density-head recipes), and these
+(the KITTI configs with the config test, the encoder's recipe-option
+configs and the BEV and density-head recipes, which ``check_ported``
+accepts while it still refuses the options that are not ported), and these
 tests fail as soon as a copy and its original drift apart. Extend them with
 each module a later slice copies."""
 import ast
@@ -42,12 +42,15 @@ RECIPE_OPTION_CONFIGS = [
     "nuscenes_occ_compact_bf16_pairs", "nuscenes_novel_depth_bundle",
     "nuscenes_novel_depth_fast_bundle", "kitti_occ_bundle",
     "kitti_novel_depth_bundle", "kitti_novel_depth_fast_bundle"]
+# the BEV path and the density head
+BEV_DENSITY_CONFIGS = ["nuscenes_occ_bev", "tiny_bev", "nuscenes_occ_density",
+                       "tiny_nerfacc"]
 
 
 @pytest.mark.parametrize("name", ["nuscenes_occ", "tiny", "nuscenes_depth",
                                   "nuscenes_novel_depth", "kitti_occ",
                                   "kitti_novel_depth", "kitti_raw_depth"]
-                         + RECIPE_OPTION_CONFIGS)
+                         + RECIPE_OPTION_CONFIGS + BEV_DENSITY_CONFIGS)
 def test_config_copies_equal_their_originals(name):
     ref = dataclasses.asdict(getattr(jexp, name)())
     got = dataclasses.asdict(getattr(texp, name)())
@@ -55,21 +58,29 @@ def test_config_copies_equal_their_originals(name):
     assert dataclasses.asdict(texp.get_config(name)) == ref
 
 
-@pytest.mark.parametrize("name", RECIPE_OPTION_CONFIGS)
+@pytest.mark.parametrize("name", RECIPE_OPTION_CONFIGS
+                         + BEV_DENSITY_CONFIGS)
 def test_recipe_option_configs_are_ported(name):
     from selfocc_tpu_torch.models.segmentor import check_ported
     check_ported(texp.get_config(name).model)
 
 
-@pytest.mark.parametrize("name", ["nuscenes_occ_bev", "tiny_bev",
-                                  "tiny_nerfacc", "nuscenes_occ_density"])
-def test_unported_recipes_are_refused(name):
-    # the BEV path and the density head: the JAX package's configs, which
-    # the port does not copy
+@pytest.mark.parametrize("section,option,value", [
+    ("encoder", "camera_aware", True),
+    ("model", "lifter_type", "TPVPositionLifter"),
+    ("encoder", "multi_plane_ffn_norm", True),
+    ("head", "num_samples_importance", 8)])
+def test_unported_recipes_are_refused(section, option, value):
+    # options that are still not ported, on the JAX package's own configs
     from selfocc_tpu_torch.models.segmentor import check_ported
-    assert name not in texp._CONFIGS
-    with pytest.raises(NotImplementedError):
-        check_ported(getattr(jexp, name)().model)
+    cfg = jexp.get_config("tiny").model
+    if section == "model":
+        cfg = dataclasses.replace(cfg, **{option: value})
+    else:
+        cfg = dataclasses.replace(cfg, **{section: dataclasses.replace(
+            getattr(cfg, section), **{option: value})})
+    with pytest.raises(NotImplementedError, match=option):
+        check_ported(cfg)
 
 
 def _assert_items_equal(got, ref):
