@@ -113,7 +113,9 @@ raises and the exit code is non-zero.
   ``tiny`` step on the card against the CPU (losses rtol 1e-5; gradients,
   SecondGradLoss's apart); ``eval_iou_kitti.main`` on one val frame (256 x
   256 x 32 grid; the kernel path's occupancy against the plain path's,
-  equal but where |sdf| < 1e-5); ``eval_novel_depth_kitti.main`` with
+  equal but where |sdf| < 1e-5); ``eval_depth.main`` on one val frame
+  (its lidar depth: launches, times, a finite table);
+  ``eval_novel_depth_kitti.main`` with
   ``raw`` and ``max`` (two frames, 14 neighbours of 176 x 608 rays) and a
   4096-ray subset on the card against the CPU.
 
@@ -192,12 +194,36 @@ raises and the exit code is non-zero.
   0.5`` Occ3D frame. ``neus_weights_fwd`` / ``neus_weights_bwd``'s
   ``launches`` in the result line are those of the density steps.
 
+- ``[head]``: the rest of the NeuS head at ``nuscenes_occ``'s full width
+  and depth (seeded weights, synthetic data): the three kernels' new
+  instances against their plain versions and timed (device time, events,
+  plain version, bound, ``F.grid_sample``'s backward with a grid that needs
+  a gradient): ``neus_weights_bwd`` above 256 samples (tiles; 4096 and
+  32768 x 320, the rounds' 4096 x 255 .. 303, float64 on saturated rows,
+  off-path S up to 8192), the point instances of ``trilinear_bwd`` (rows C
+  = 25, plane) at 4096 x 320 points and of ``trilinear_cf_bwd`` (the sdf
+  plane read at row stride 25) at the rounds' 4096 x 256 .. 304 points and
+  the six taps of 4096 x 320; each option set's tiny step on the card
+  against the CPU (``train_parity`` with its on-card baseline) and
+  ``two_split``'s outputs; 3 steps (profiled, sync-checked) of the
+  importance recipe (64 samples in 4 rounds, ``return_sample_sdf``,
+  ``AdaptiveSparsityLoss``) and of the options recipe (numerical
+  gradients, ``beta_hand_tune``, ``anneal_aabb``, the surface and uniform
+  sdf with ``SparsityLoss`` and ``HardSparsityLoss``); eval frames of one
+  model with uniform, importance and 64 + 64 skip samples, and the skip
+  and importance frames' depth deviation from the uniform frame's
+  (reported, not bounded: another function). The kernels line lists the
+  new instances as ``neus_weights_bwd.tiled``, ``trilinear_bwd.points``
+  and ``trilinear_cf_bwd.points``, with the importance steps' launches.
+
 ``--phases`` runs a subset (then no result line is printed). Each path's
 launch counts are set to 0 just before it runs and read just after; a
 kernel of the path that was not launched fails the run (the trilinear
-wrappers' counts also by instance: C = 1 ``plane``, C > 1 ``rows``), and so
-does a launch of a kernel that a path must not run (``neus_weights_fwd`` on
-a NeuS path: that render is fused). Prints a
+wrappers' counts also by instance: C = 1 ``plane``, C > 1 ``rows``, and
+where a path needs them the point and tile instances), and so does a
+launch of a kernel that a path must not run (``neus_weights_fwd`` on a
+NeuS path with uniform samples: that render is fused; the fused render on
+the importance and skip paths, which take the alpha-input route). Prints a
 ``{"kernels": [...]}`` line, the card's name and power limit, and as its last
 line ``{"ok": true, "device": {...}}``. Without a CUDA card it exits 2 before
 doing anything. Imports nothing of JAX and nothing of the JAX package.
@@ -205,6 +231,7 @@ doing anything. Imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import json
@@ -245,7 +272,7 @@ MSDA_BWD_OPS = (14, 26, 16)
 RENDER_FWD_OPS = 50
 RENDER_BWD_OPS = 103
 PHASES = ("kernels", "gather", "frame", "occ", "train-parity", "train",
-          "data", "kitti", "depth", "levers", "bev", "density")
+          "data", "kitti", "depth", "levers", "bev", "density", "head")
 OPENOCC_PCR = (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0)   # 512 x 512 x 40 at 0.2
 OCC_SLAB = 1 << 20    # dense-grid points held against the plain version
 # the compact stencil's volume cotangent, card against CPU on one volume:
@@ -1721,23 +1748,45 @@ def kernel_checks(device, baseline=None):
     return res
 
 
+INSTANCE_COUNTS = ("plane", "points", "tiled")
+
+
 def reset_counts(wrappers):
     for fn in wrappers:
         fn.launches = 0
-        if hasattr(fn, "plane_launches"):
-            fn.plane_launches = 0
+        for kind in INSTANCE_COUNTS:
+            if hasattr(fn, f"{kind}_launches"):
+                setattr(fn, f"{kind}_launches", 0)
 
 
-def read_counts(wrappers, path, instances=("plane",)):
+def instance_counts(fn):
+    """A wrapper's launches by kernel instance: the trilinear wrappers'
+    ``plane`` (C = 1) and ``rows`` (C > 1) and, for the backwards,
+    ``points`` (the point-cotangent instance); ``neus_weights_bwd``'s
+    ``tiled`` (more than 256 samples a ray)."""
+    kinds = {}
+    if hasattr(fn, "plane_launches"):
+        kinds.update(plane=fn.plane_launches,
+                     rows=fn.launches - fn.plane_launches)
+    for kind in INSTANCE_COUNTS[1:]:
+        if hasattr(fn, f"{kind}_launches"):
+            kinds[kind] = getattr(fn, f"{kind}_launches")
+    return kinds
+
+
+def read_counts(wrappers, path, instances=("plane",), required=()):
     """Each wrapper's launches in the path; the trilinear wrappers' also by
-    kernel instance (``plane``: C = 1, ``rows``: C > 1). Fails if a wrapper,
-    or one of ``instances`` of the trilinear kernels, was not launched."""
+    kernel instance (``plane``: C = 1, ``rows``: C > 1), and each
+    ``name.instance`` of ``required`` (``instance_counts``). Fails if a
+    wrapper, one of ``instances`` of the trilinear kernels or one of
+    ``required`` was not launched."""
     counts = {fn.__name__: fn.launches for fn in wrappers}
     for fn in wrappers:
+        kinds = instance_counts(fn)
         if hasattr(fn, "plane_launches"):
-            kinds = {"plane": fn.plane_launches,
-                     "rows": fn.launches - fn.plane_launches}
             counts.update({f"{fn.__name__}.{k}": kinds[k] for k in instances})
+        counts.update({key: kinds[key.split(".")[1]] for key in required
+                       if key.split(".")[0] == fn.__name__})
     log(f"  launches in the {path}: {counts}")
     for name, n in counts.items():
         if n <= 0:
@@ -2278,9 +2327,51 @@ def occ_frame(device):
     return res
 
 
-def train_parity(device, name="tiny"):
-    """One ``name`` step (a tiny-width config): kernels on the card vs
-    plain versions on the CPU, same weights and draws, dropout 0."""
+class plain_versions:
+    """Within it, the model code calls the plain PyTorch versions of the
+    port's kernels on any device: the trilinear queries, the taps, the
+    fused NeuS render, the alpha-input weights and MSDA (a check's
+    baseline on the card; no production path runs them there)."""
+
+    def __enter__(self):
+        from selfocc_tpu_torch.models import encoder, field, heads
+        from selfocc_tpu_torch.ops import interp, msda
+        from selfocc_tpu_torch.ops import render_weights as rw
+        def plain_w(alpha):
+            return rw._WeightsFromAlpha.apply(alpha, True)
+        self.saved = [
+            (field, "trilinear_sample_cf", interp.trilinear_sample_cf_plain),
+            (field, "trilinear_sample_cf_with_grad",
+             interp.trilinear_sample_cf_with_grad_plain),
+            (field, "trilinear_sample_taps", interp.trilinear_sample_cf_plain),
+            (heads, "neus_composite",
+             lambda sdf, grad, u, e, dn, s, **kw: rw.neus_composite_plain(
+                 sdf, grad, u, e, dn.reshape(-1), s)),
+            (heads, "weights_from_alpha", plain_w),
+            (rw, "weights_from_alpha", plain_w),
+            (encoder, "ms_deform_attn",
+             lambda v, s, loc, a, shared=False: msda.ms_deform_attn_plain(
+                 v, s, loc, a))]
+        self.saved = [(m, k, getattr(m, k), f) for m, k, f in self.saved]
+        for m, k, _, f in self.saved:
+            setattr(m, k, f)
+        return self
+
+    def __exit__(self, *exc):
+        for m, k, orig, _ in self.saved:
+            setattr(m, k, orig)
+
+
+def train_parity(device, name="tiny", cfg=None, global_iter=None,
+                 baseline=False):
+    """One ``name`` step (a tiny-width config; or ``cfg``): kernels on the
+    card vs plain versions on the CPU, same weights and draws, dropout 0,
+    the model given ``global_iter``. ``baseline``: the step is also taken
+    on the card with the plain versions (``plain_versions``), and a
+    gradient whose card-against-CPU error exceeds GRAD_RTOL of its max
+    passes if it is within twice that baseline's error: the kernels add no
+    more than the card's own PyTorch ops (cuDNN, cuBLAS, CUDA reductions
+    and scans) already move an ill-conditioned step."""
     import torch
     from selfocc_tpu_torch.configs.experiments import get_config
     from selfocc_tpu_torch.losses import MultiLoss
@@ -2289,7 +2380,7 @@ def train_parity(device, name="tiny"):
     from selfocc_tpu_torch.utils.runtime import get_dataset, to_device
     from selfocc_tpu_torch.utils.train_lib import build_loss_inputs
 
-    cfg = get_config(name)
+    cfg = get_config(name) if cfg is None else cfg
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, encoder=dataclasses.replace(cfg.model.encoder,
                                                dropout=0.0)))
@@ -2303,34 +2394,51 @@ def train_parity(device, name="tiny"):
     model = TPVSegmentor(cfg.model)
     init_weights(model, torch.Generator().manual_seed(SEED))
     results = []
-    for dev, chunk in ((device, PARITY_RAY_CHUNK), (torch.device("cpu"), 0)):
+    runs = [(device, PARITY_RAY_CHUNK, False), (torch.device("cpu"), 0, False)]
+    if baseline:
+        runs.append((device, 0, True))
+    for dev, chunk, plain in runs:
         m = copy.deepcopy(model).to(dev).train()
         m.head.train_ray_chunk = chunk
         batch = to_device(item, dev)
-        out = m(batch["imgs"], batch["lidar2img"], batch[h.trans_kw],
-                train=True, draws=draws)
-        tot, ldict = MultiLoss(cfg.loss_cfgs)(
-            build_loss_inputs(cfg, out, batch))
-        tot.backward()
+        with plain_versions() if plain else contextlib.nullcontext():
+            out = m(batch["imgs"], batch["lidar2img"], batch[h.trans_kw],
+                    train=True, draws=draws, global_iter=global_iter)
+            tot, ldict = MultiLoss(cfg.loss_cfgs)(
+                build_loss_inputs(cfg, out, batch))
+            tot.backward()
         results.append((
             {k: float(v.detach()) for k, v in ldict.items()},
             {n: p.grad.detach().cpu() for n, p in m.named_parameters()}))
-    (l_k, g_k), (l_p, g_p) = results
+    (l_k, g_k), (l_p, g_p) = results[:2]
     for k in l_p:
         err = abs(l_k[k] - l_p[k])
         check(f"tiny loss {k}", err, 1e-5 * abs(l_p[k]) + 1e-7)
-    worst = 0.0
-    for n in g_p:
-        err = max_err(g_k[n], g_p[n])
-        tol = GRAD_RTOL * float(g_p[n].abs().max()) + 1e-7
-        if not err <= tol:
-            raise AssertionError(f"tiny grad {n}: {err:.3e} > {tol:.3e}")
-        worst = max(worst, err / tol)
+    tols = {n: GRAD_RTOL * float(g_p[n].abs().max()) + 1e-7 for n in g_p}
+    ratios = sorted(((max_err(g_k[n], g_p[n]) / tols[n], n) for n in g_p),
+                    reverse=True)
+    log("  worst gradients over their tolerance: " + ", ".join(
+        f"{n} {r:.3f}" for r, n in ratios[:6]))
+    res = {}
+    if baseline:
+        g_b = results[2][1]
+        base = {n: max_err(g_b[n], g_p[n]) / tols[n] for n in g_p}
+        log("  the card's plain versions against the CPU, worst: " + ", ".join(
+            f"{n} {r:.3f}" for r, n in sorted(
+                ((r, n) for n, r in base.items()), reverse=True)[:6]))
+        res["plain_on_card_worst_grad_err_over_tol"] = max(base.values())
+        res["losses_plain_on_card"] = results[2][0]
+    for r, n in ratios:
+        bound = max(1.0, 2.0 * base[n]) if baseline else 1.0
+        if not r <= bound:
+            raise AssertionError(f"tiny grad {n}: {r:.3f} of its tolerance "
+                                 f"(bound {bound:.3f})")
+    worst = ratios[0][0]
     log(f"  chunks of {PARITY_RAY_CHUNK} rays on the card vs dense on the "
         f"CPU: {len(g_p)} parameter gradients within tolerance (worst "
         f"{worst:.2f} of its tolerance); losses {l_k}")
-    return {"losses_cuda": l_k, "losses_cpu": l_p,
-            "worst_grad_err_over_tol": worst}
+    return dict(res, losses_cuda=l_k, losses_cpu=l_p,
+                worst_grad_err_over_tol=worst)
 
 
 def full_train(device):
@@ -2496,9 +2604,11 @@ def profile_step(trainer, batch, gen, step_s,
     # the trilinear kernels by instance: in-step ms, calls, ms per call
     tri = {}
     for e in kernels:
-        m = re.search(r"(?:trilinear|values)_\w+_kernel", e.key)
+        m = re.search(r"((?:trilinear|values)_\w+)_kernel(<true>)?", e.key)
         if m:
-            t = tri.setdefault(m.group(0), {"calls": 0, "device_ms": 0.0})
+            # the point-cotangent instances are the <true> ones
+            key = m.group(1) + ("_points" if m.group(2) else "") + "_kernel"
+            t = tri.setdefault(key, {"calls": 0, "device_ms": 0.0})
             t["calls"] += e.count
             t["device_ms"] += e.self_device_time_total / 1e3
     for name, t in sorted(tri.items()):
@@ -2511,7 +2621,8 @@ def profile_step(trainer, batch, gen, step_s,
     # the kernels of csrc/neus_weights.cu: in-step ms per call and calls
     neus = {}
     for e in kernels:
-        m = re.search(r"neus_(render|weights)_(fwd|bwd)_kernel", e.key)
+        m = re.search(r"neus_(render|weights)_(fwd|bwd)(?:_tiled)?_kernel",
+                      e.key)
         if m:
             name = f"neus_{m.group(1)}_{m.group(2)}"
             if name == "neus_render_fwd" and (
@@ -3636,6 +3747,42 @@ def kitti_occupancy(device, root):
             "launches": launches, "kernel_vs_plain": flips}
 
 
+def kitti_eval_depth(device):
+    """``eval_depth.main`` on one fabricated kitti_occ val frame (its lidar
+    depth: ``EVAL_OVERRIDES`` puts ``return_depth`` on the val split) after
+    a cold frame: prepare_s, render_s, launches (the fused render on the
+    plane instance), peak, a finite table."""
+    import numpy as np
+    import torch
+    from selfocc_tpu_torch import eval_depth
+    from selfocc_tpu_torch.ops import interp, msda
+    from selfocc_tpu_torch.ops import render_weights as rw
+    wrappers = (msda.msda_fwd, interp.trilinear_cf_with_grad_fwd,
+                rw.neus_render_fwd)
+    off = (rw.neus_weights_fwd, rw.neus_render_bwd, interp.trilinear_bwd,
+           msda.msda_bwd)
+    args = ["--py-config", "kitti_occ_fab", "--num-samples", "1", "--seed",
+            str(SEED)]
+    eval_depth.main(args)                          # cold
+    reset_counts(wrappers + off)
+    torch.cuda.reset_peak_memory_stats()
+    r = eval_depth.main(args)
+    launches = read_counts(wrappers, "kitti eval_depth frame")
+    stray = {fn.__name__: fn.launches for fn in off if fn.launches}
+    if stray:
+        raise AssertionError(f"the kitti eval_depth frame launched {stray}")
+    table = {k: float(np.mean(v)) for k, v in r["metric"].items()}
+    if not all(np.isfinite(v) for v in table.values()):
+        raise AssertionError(f"kitti eval_depth table: {table}")
+    res = {"prepare_s": r["prepare_s"], "render_s": r["render_s"],
+           "rays": r["rays"],
+           "max_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": launches, "table": table}
+    log(f"  kitti eval_depth frame: prepare {r['prepare_s']:.4f} s, render "
+        f"{r['render_s']:.4f} s, {r['rays']} rays, table {table}")
+    return res
+
+
 def kitti_novel(device):
     """``eval_novel_depth_kitti.main`` on the fabricated sequence 08,
     ``--depth-tgt raw`` then ``max``: two frames (0 and 5, with 9 and 5
@@ -3726,7 +3873,7 @@ def kitti_phase(device):
     """The SemanticKITTI recipe on a fabricated full-size odometry tree (a
     temporary directory, removed after): kitti_occ training from the
     loader, the KITTI-shaped tiny step against the CPU, one occupancy eval
-    frame and the novel-view depth eval."""
+    frame, one eval_depth frame and the novel-view depth eval."""
     import shutil
     import tempfile
     root = tempfile.mkdtemp(prefix="selfocc_kitti_")
@@ -3741,6 +3888,7 @@ def kitti_phase(device):
         res = {"train": kitti_train(device, root)}
         res["train_parity"] = kitti_train_parity(device)
         res["occupancy"] = kitti_occupancy(device, root)
+        res["eval_depth"] = kitti_eval_depth(device)
         res["novel"] = kitti_novel(device)
         return res
     finally:
@@ -4831,20 +4979,23 @@ def compact_grad_parity(device):
 
 def lever_train(device, name, wrappers, off_path=None,
                 render_kernels=("neus_render_fwd", "neus_render_bwd"),
-                instances=("plane",)):
+                instances=("plane",), required=()):
     """``name`` at full width: a cold step, 3 measured steps (forward /
     backward / optimizer split, peak memory, launches of ``wrappers``, each
     launched; none of ``off_path``, by default the MSDA wrappers not in
     ``wrappers``), a profiled warm step (``render_kernels``: see
     ``profile_step``) and a warm step under
     ``torch.cuda.set_sync_debug_mode("error")``; ``instances``: the
-    trilinear kernel instances the steps must launch (``read_counts``)."""
+    trilinear kernel instances the steps must launch, ``required`` other
+    ``name.instance`` counts (``read_counts``). ``name``: a config's name,
+    or the config."""
     import torch
     from selfocc_tpu_torch.configs.experiments import get_config
     from selfocc_tpu_torch.ops import msda
     from selfocc_tpu_torch.train import build_trainer
     from selfocc_tpu_torch.utils.runtime import get_dataset, to_device
-    cfg = get_config(name)
+    cfg = get_config(name) if isinstance(name, str) else name
+    name = cfg.name
     trainer = build_trainer(cfg, SEED, device)
     batch = to_device(get_dataset(cfg, synthetic=True, length=1)[0], device)
     gen = torch.Generator(device=device).manual_seed(SEED)
@@ -4868,7 +5019,8 @@ def lever_train(device, name, wrappers, off_path=None,
         steps.append(dict(step_s=wall, **m["times"],
                           total=float(m["total"]),
                           grad_norm=float(m["grad_norm"])))
-    launches = read_counts(wrappers, f"{name} training steps", instances)
+    launches = read_counts(wrappers, f"{name} training steps", instances,
+                           required)
     stray = {fn.__name__: fn.launches for fn in others if fn.launches}
     if stray:
         raise AssertionError(f"{name} steps launched {stray}")
@@ -5035,7 +5187,9 @@ def weights_kernel_checks(g, device):
     the backward also against a float64 reference on the rows of
     ``saturated_alpha``, each row within 1e-5 of its reference's largest
     magnitude (the plain version's error there is logged); off-path shapes
-    (ragged R and S, S = 1 .. 256) checked, S > 256 refused."""
+    (ragged R and S, S = 1 .. 256) checked, S above
+    ``MAX_WEIGHTS_BWD_SAMPLES`` refused ([head] holds the tiles above
+    256)."""
     import torch
     from selfocc_tpu_torch.ops import render_weights as rw
     recs = {"neus_weights_fwd": {}, "neus_weights_bwd": {}}
@@ -5097,13 +5251,14 @@ def weights_kernel_checks(g, device):
         check(f"neus_weights_bwd ({R} x {S})",
               max_err(rw.neus_weights_bwd(x, gx), ref),
               GRAD_RTOL * float(ref.abs().max()) + 1e-7)
+    S_over = rw.MAX_WEIGHTS_BWD_SAMPLES + 1
     try:
-        rw.neus_weights_bwd(torch.rand((2, 300), device=device),
-                            torch.rand((2, 300), device=device))
+        rw.neus_weights_bwd(torch.rand((2, S_over), device=device),
+                            torch.rand((2, S_over), device=device))
     except ValueError:
         pass
     else:
-        raise AssertionError("neus_weights_bwd took S = 300")
+        raise AssertionError(f"neus_weights_bwd took S = {S_over}")
     out = {}
     for name, by_r in recs.items():
         rec = dict(by_r[DENSITY_WEIGHTS_RAYS[0]])
@@ -5286,6 +5441,472 @@ def density_phase(device):
     return res
 
 
+# ------------------------------------------------------------------ [head]
+# the importance recipe: nuscenes_occ with 64 importance samples in 4
+# rounds (ts per ray before each round, and the merged render's)
+HEAD_IMPORTANCE = 64
+HEAD_ROUND_TS = (256, 272, 288, 304)
+HEAD_SAMPLES = 320
+HEAD_SKIP = (64, 64)          # eval_skip_coarse, eval_skip_fine
+# the tiny parity steps' global_iter: mid-schedule, both schedules live
+HEAD_TINY_ITER = 3516 * 5 + 123
+# fp32 operations per point of the point-cotangent instances beyond their
+# volume's: per in-volume corner the dot with the cotangent (2 C) and the
+# weight derivatives and grad0's mixed terms (20)
+POINTS_OPS_PER_CORNER = 20
+
+
+def head_config(base, kind):
+    """``base`` (``nuscenes_occ`` or ``tiny``) with one of the head's option
+    sets: ``importance`` (``num_samples_importance`` 64 at full width, 8 at
+    tiny, ``return_sample_sdf``, ``AdaptiveSparsityLoss`` on the samples'
+    sdf), ``options`` (numerical gradients, ``beta_hand_tune``,
+    ``anneal_aabb``, ``return_surface_sdf``, ``return_uniform_sdf``;
+    ``SparsityLoss`` on the surface sdf and ``HardSparsityLoss`` on the
+    uniform sdf) or ``skip`` (eval skipping, 64 + 64)."""
+    from selfocc_tpu_torch.configs.experiments import get_config
+    cfg = get_config(base)
+    tiny = base == "tiny"
+    losses, conv = [], {}
+    if kind == "importance":
+        opts = dict(num_samples_importance=8 if tiny else HEAD_IMPORTANCE,
+                    return_sample_sdf=True)
+        losses = [dict(type="AdaptiveSparsityLoss", weight=0.1,
+                       slack=0.3 if tiny else 4.0)]
+        conv = dict(sample_sdf="sdfs")
+    elif kind == "options":
+        opts = dict(use_numerical_gradients=True, beta_hand_tune=True,
+                    anneal_aabb=True, return_surface_sdf=True,
+                    return_uniform_sdf=True)
+        losses = [dict(type="SparsityLoss", weight=0.01, scale=1.0,
+                       input_dict={"density": "surface_sdf"}),
+                  dict(type="HardSparsityLoss", weight=0.1, scale=2.0,
+                       thresh=0.05, crop=((1, 2), (0, 1), (1, 0)),
+                       input_dict={"density": "uniform_sdf"})]
+        conv = dict(surface_sdf="surface_sdf", uniform_sdf="uniform_sdf")
+    else:
+        opts = dict(eval_skip_coarse=HEAD_SKIP[0], eval_skip_fine=HEAD_SKIP[1])
+    head = dataclasses.replace(cfg.model.head, **opts)
+    return dataclasses.replace(
+        cfg, name=f"{base}_{kind}",
+        model=dataclasses.replace(cfg.model, head=head),
+        loss_cfgs=list(cfg.loss_cfgs) + losses,
+        loss_input_convertion=dict(cfg.loss_input_convertion, **conv))
+
+
+def head_points(device, samples):
+    """Ray-major grid points of the first 4096-ray chunk of the [train]
+    step (its batch, cellular rays and a seeded jitter) at each count of
+    ``samples`` uniform samples a ray -> {count: (4096 * count, 3)}: the
+    rounds' sdf queries and the merged render take as many points along
+    the same rays (their positions follow the sdf; these stand in for
+    them)."""
+    import torch
+    from selfocc_tpu_torch.configs.experiments import get_config
+    from selfocc_tpu_torch.geometry.projection import rays_from_img2lidar
+    from selfocc_tpu_torch.models.heads import NeuSHead
+    from selfocc_tpu_torch.utils.runtime import get_dataset, to_device
+    cfg = get_config("nuscenes_occ")
+    h = cfg.model.head
+    head = NeuSHead(roi_aabb=h.roi_aabb, mapping_args=h.mapping_args,
+                    near_plane=h.near_plane, far_plane=h.far_plane,
+                    ray_sample_mode=h.ray_sample_mode,
+                    ray_number=h.ray_number, ray_img_size=h.ray_img_size,
+                    embed_dims=h.embed_dims)
+    batch = to_device(get_dataset(cfg, synthetic=True, length=1)[0], device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    rays = head.ray_sampler(device, gen)
+    origin, direction = rays_from_img2lidar(batch[h.trans_kw], rays)
+    origin = origin[:, :, None, :].expand(direction.shape).reshape(-1, 3)
+    direction = direction.reshape(-1, 3)
+    n = h.train_ray_chunk
+    out = {}
+    for count in samples:
+        head.num_samples = count
+        t_rand = torch.rand((n, count + 1), generator=gen, device=device)
+        out[count] = render_grid_points(head, origin[:n], direction[:n],
+                                        t_rand)
+    return out
+
+
+def grid_sample_points_bwd_of(vol_cf, pts, grad_vals):
+    """``F.grid_sample``'s backward with a grid that needs a gradient: the
+    volume's and the grid's cotangents of the values ``grid_sample_of``
+    computes, on its channel-first copy (made once, outside the call)."""
+    import torch
+    C, H, W, D = vol_cf.shape
+    x = vol_cf.contiguous()[None]
+    grid = torch.stack([2 * pts[:, 2] / (D - 1) - 1,
+                        2 * pts[:, 1] / (W - 1) - 1,
+                        2 * pts[:, 0] / (H - 1) - 1], -1).view(1, 1, 1, -1, 3)
+    gout = grad_vals.T.contiguous().view(1, C, 1, 1, -1)
+
+    def call():
+        return torch.ops.aten.grid_sampler_3d_backward(
+            gout, x, grid, 0, 0, True, [True, True])
+    return call
+
+
+def head_kernel_checks(g, device):
+    """The three kernels' new instances at the importance recipe's shapes
+    against their plain versions, timed (events, device time), beside the
+    plain versions and ``F.grid_sample``'s backward with a grid that needs a
+    gradient: ``neus_weights_bwd`` at the merged render (4096 x 320, a
+    training chunk, and 32768 x 320, an eval chunk) and the up-sample rounds
+    (4096 x 255 .. 303; 256 and above walk tiles), also against float64 on
+    saturated rows and at off-path S; ``trilinear_bwd``'s point instance,
+    rows (C = 25) and plane (C = 1), at 4096 x 320 points;
+    ``trilinear_cf_bwd``'s at 4096 x 256 .. 304 points (the rounds' sdf
+    queries, C = 1 read at row stride 25 in place) and at the six taps of
+    4096 x 320 points. Each also at off-path inputs."""
+    import torch
+    from selfocc_tpu_torch.ops import interp
+    from selfocc_tpu_torch.ops import render_weights as rw
+    recs = {"neus_weights_bwd": {}, "trilinear_bwd": {},
+            "trilinear_cf_bwd": {}}
+
+    # neus_weights_bwd
+    shapes = [(4096, HEAD_SAMPLES), (CHUNK, HEAD_SAMPLES)] + [
+        (4096, s - 1) for s in HEAD_ROUND_TS]
+    for R, S in shapes:
+        alpha = torch.rand((R, S), generator=g, device=device) ** 4
+        alpha[::7, 100:110] = 1.0
+        alpha[::5, :20] = 0.0
+        gw = torch.randn((R, S), generator=g, device=device)
+        got = rw.neus_weights_bwd(alpha, gw)
+        ref = rw.weights_grad_plain(alpha, gw)
+        err = max_err(got, ref)
+        check(f"neus_weights_bwd ({R} x {S})", err,
+              GRAD_RTOL * float(ref.abs().max()) + 1e-7)
+        del got, ref
+        n = alpha.numel()
+        recs["neus_weights_bwd"][f"{R}x{S}"] = kernel_record(
+            err, timed(lambda: rw.neus_weights_bwd(alpha, gw), 20),
+            timed(lambda: rw.weights_grad_plain(alpha, gw), 5),
+            (3 * nbytes(alpha), WEIGHTS_BWD_OPS * n),
+            device_ms=device_ms(lambda: rw.neus_weights_bwd(alpha, gw), 20),
+            shape=f"{R} x {S}", tiled=S > 256)
+        del alpha, gw
+        torch.cuda.empty_cache()
+    a = saturated_alpha(g, device, S=HEAD_SAMPLES)
+    gw = torch.randn(a.shape, generator=g, device=device)
+    a64 = a.double().requires_grad_(True)
+    b = 1.0 - a64 + 1e-7
+    w64 = a64 * torch.cat([torch.ones_like(b[:, :1]),
+                           torch.cumprod(b, -1)[:, :-1]], -1)
+    (g64,) = torch.autograd.grad(w64, a64, gw.double())
+    scale = g64.abs().amax(-1, keepdim=True).clamp_min(1e-30)
+    rel = float(((rw.neus_weights_bwd(a, gw).double() - g64).abs()
+                 / scale).max())
+    check(f"neus_weights_bwd vs float64 (saturated rows, S = "
+          f"{HEAD_SAMPLES}) / row scale", rel, 1e-5)
+    recs["neus_weights_bwd"]["float64_row_rel_err"] = rel
+    for R, S in ((37, 257), (5, 512), (9, 300), (3, 1000), (64, 8192)):
+        x = torch.rand((R, S), generator=g, device=device)
+        x[:, S // 2] = 1.0
+        gx = torch.randn((R, S), generator=g, device=device)
+        ref = rw.weights_grad_plain(x, gx)
+        check(f"neus_weights_bwd ({R} x {S})",
+              max_err(rw.neus_weights_bwd(x, gx), ref),
+              GRAD_RTOL * float(ref.abs().max()) + 1e-7)
+
+    # trilinear_bwd, point instance
+    shape = (257, 257, 25)
+    vol25 = torch.randn(shape + (25,), generator=g,
+                        device=device).permute(3, 0, 1, 2)
+    vol1 = interp.first_channel(vol25)
+    round_pts = head_points(device, HEAD_ROUND_TS + (HEAD_SAMPLES,))
+    pts = round_pts.pop(HEAD_SAMPLES)
+    n = pts.shape[0]
+    voxels = corner_voxels(pts, shape)
+    for tag, vol in (("rows", vol25), ("plane", vol1)):
+        C = vol.shape[0]
+        gv = torch.randn((n, C), generator=g, device=device)
+        gg = torch.randn((n, 3), generator=g, device=device)
+        got = interp.trilinear_bwd(vol, pts, gv, gg, points=True)
+        ref = interp.trilinear_bwd_plain(vol, pts, gv, gg, points=True)
+        err = check_grads(f"trilinear_bwd points ({tag}, C = {C})", got, ref)
+        plain_vol = interp.trilinear_bwd(vol, pts, gv, gg)
+        check(f"trilinear_bwd points ({tag}): volume cotangent as the "
+              "point-free instance's", max_err(got[0], plain_vol),
+              GRAD_RTOL * float(plain_vol.abs().max()) + 1e-7)
+        del got, ref, plain_vol
+        lib = grid_sample_points_bwd_of(vol, pts, gv)
+
+        def kern():
+            return interp.trilinear_bwd(vol, pts, gv, gg, points=True)
+        recs["trilinear_bwd"][tag] = kernel_record(
+            err, timed(kern, 20),
+            timed(lambda: interp.trilinear_bwd_plain(vol, pts, gv, gg,
+                                                     points=True), 3),
+            (nbytes(pts, gv, gg, vol) + voxels * C * 4 + n * 12,
+             n * 8 * (9 + 4 * C + POINTS_OPS_PER_CORNER)),
+            library_ms=timed(lib, 10), library="F.grid_sample backward, "
+            "grid with a gradient (values only)",
+            library_device_ms=device_ms(lib, 10),
+            device_ms=device_ms(kern, 20),
+            point_free_device_ms=device_ms(
+                lambda: interp.trilinear_bwd(vol, pts, gv, gg), 20),
+            shape=f"C={C}, {n} points", points=n, C=C)
+        del gv, gg, lib
+        torch.cuda.empty_cache()
+
+    # trilinear_cf_bwd, point instance: the rounds' sdf queries read
+    # channel 0 of the volume in place (row stride 25)
+    sdf_view = interp.channel0_view(vol25)
+    for ts in HEAD_ROUND_TS + ("taps",):
+        p = (round_pts.pop(ts) if ts != "taps" else
+             (pts[:, None, :] + 0.05 * torch.randn(
+                 (n, 6, 3), generator=g, device=device)).reshape(-1, 3))
+        vol = sdf_view if ts != "taps" else vol1
+        m = p.shape[0]
+        gv = torch.randn((m, 1), generator=g, device=device)
+        got = interp.trilinear_cf_bwd(tuple(vol.shape), p, gv, vol)
+        ref = interp.trilinear_cf_bwd_plain(vol, p, gv, points=True)
+        tag = f"{ts} a ray" if ts != "taps" else "six taps"
+        err = check_grads(f"trilinear_cf_bwd points ({tag})", got, ref)
+        del got, ref
+        lib = grid_sample_points_bwd_of(vol, p, gv)
+
+        def kern():
+            return interp.trilinear_cf_bwd(tuple(vol.shape), p, gv, vol)
+        recs["trilinear_cf_bwd"][str(ts)] = kernel_record(
+            err, timed(kern, 20),
+            timed(lambda: interp.trilinear_cf_bwd_plain(vol, p, gv,
+                                                        points=True), 3),
+            (nbytes(p, gv) + 2 * shape[0] * shape[1] * shape[2] * 4 + m * 12,
+             m * (20 + 16 + 8 * (2 + POINTS_OPS_PER_CORNER))),
+            library_ms=timed(lib, 10), library="F.grid_sample backward, "
+            "grid with a gradient",
+            library_device_ms=device_ms(lib, 10),
+            device_ms=device_ms(kern, 20),
+            point_free_device_ms=device_ms(
+                lambda: interp.trilinear_cf_bwd(tuple(vol.shape), p, gv),
+                20),
+            shape=f"C=1, {m} points ({tag})", points=m, C=1)
+        del p, gv, lib
+        torch.cuda.empty_cache()
+
+    # off-path: every instance on a small volume, rays in and out of it,
+    # knots, a ragged count, a row stride above C, each cotangent alone
+    small = (13, 17, 9)
+    sh = torch.tensor(small, dtype=torch.float32, device=device)
+    uni = torch.rand((5003, 3), generator=g, device=device) * (sh + 3) - 1.5
+    uni[::8] = torch.round(uni[::8])
+    for C in (1, 3, 25, 33):
+        vol = torch.randn(small + (C + 2,), generator=g,
+                          device=device)[..., :C].permute(3, 0, 1, 2)
+        for cots in (("vals", "grad0"), ("vals",), ("grad0",)):
+            gv = (torch.randn((5003, C), generator=g, device=device)
+                  if "vals" in cots else None)
+            gg = (torch.randn((5003, 3), generator=g, device=device)
+                  if "grad0" in cots else None)
+            kvol = interp.kernel_volume(vol)
+            check_grads(f"trilinear_bwd points (C={C}, {cots})",
+                        interp.trilinear_bwd(kvol, uni, gv, gg, points=True),
+                        interp.trilinear_bwd_plain(kvol, uni, gv, gg,
+                                                   points=True))
+        gv = torch.randn((5003, C), generator=g, device=device)
+        check_grads(f"trilinear_cf_bwd points (C={C}, row stride {C + 2})",
+                    interp.trilinear_cf_bwd(tuple(vol.shape), uni, gv, vol),
+                    interp.trilinear_cf_bwd_plain(vol, uni, gv, points=True))
+    del vol25, vol1, sdf_view, pts
+    torch.cuda.empty_cache()
+    for name, by in recs.items():
+        for k, r in by.items():
+            if isinstance(r, dict):
+                log(f"  {name} {k}: " + ", ".join(
+                    f"{x} {v:.4g}" for x, v in r.items()
+                    if x.endswith("ms") and v is not None))
+    return recs
+
+
+def head_eval(device, cfg, model, ds, fused):
+    """One eval frame of ``cfg`` through ``eval_depth``'s code path after a
+    cold one: prepare_s, render_s, rays/s, peak, launches (``fused``: the
+    uniform samples' fused render; else the alpha-input render's kernels
+    and the sdf-only queries that place the samples, and no fused render),
+    and the depth maps."""
+    import torch
+    from selfocc_tpu_torch import eval_depth
+    from selfocc_tpu_torch.ops import interp, msda
+    from selfocc_tpu_torch.ops import render_weights as rw
+    from selfocc_tpu_torch.utils.runtime import get_logger
+    logger = get_logger()
+    eval_depth.evaluate(cfg, model, [ds[1]], device, 1, CHUNK, logger)
+    wrappers = (msda.msda_fwd, interp.trilinear_cf_with_grad_fwd)
+    alpha_route = (interp.trilinear_cf_fwd, rw.neus_weights_fwd)
+    wrappers += (rw.neus_render_fwd,) if fused else alpha_route
+    off = (rw.neus_render_bwd, rw.neus_weights_bwd, interp.trilinear_bwd,
+           interp.trilinear_cf_bwd, msda.msda_bwd)
+    off += alpha_route if fused else (rw.neus_render_fwd,)
+    reset_counts(wrappers + off)
+    torch.cuda.reset_peak_memory_stats()
+    r = eval_depth.evaluate(cfg, model, [ds[0]], device, 1, CHUNK, logger)
+    launches = read_counts(wrappers, f"{cfg.name} eval frame")
+    stray = {fn.__name__: fn.launches for fn in off if fn.launches}
+    if stray:
+        raise AssertionError(f"the {cfg.name} eval frame launched {stray}")
+    depth = torch.as_tensor(r["last_depth"])
+    if not bool(torch.isfinite(depth).all()):
+        raise AssertionError(f"{cfg.name} eval frame: non-finite depth")
+    res = {"prepare_s": r["prepare_s"], "render_s": r["render_s"],
+           "rays": r["rays"], "rays_per_s": r["rays"] / r["render_s"],
+           "max_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": launches}
+    log(f"  {cfg.name} frame: prepare {r['prepare_s']:.4f}s render "
+        f"{r['render_s']:.4f}s ({res['rays_per_s']:.0f} rays/s), peak "
+        f"{res['max_memory_gb']:.2f} GiB")
+    return res, depth
+
+
+def head_split_parity(device):
+    """``two_split`` at tiny width, each option set's head: on the card,
+    the split outputs are the unsplit forward's camera halves exactly (same
+    weights and draws); with the options set (uniform samples), card
+    against CPU, the split depth, opacity and ts within 1e-5 of their
+    scale. (The importance rounds place samples in bins of little
+    probability with the cdf's rounding times the bin's width over its
+    probability, so its forward is held across devices by its losses, in
+    ``train_parity``.) The tiny losses read every camera, so no loss is
+    taken."""
+    import torch
+    from selfocc_tpu_torch.models.heads import split_cams_for_losses
+    from selfocc_tpu_torch.models.initializers import init_weights
+    from selfocc_tpu_torch.models.segmentor import TPVSegmentor
+    from selfocc_tpu_torch.utils.runtime import get_dataset, to_device
+    worst = {}
+    for kind in ("importance", "options"):
+        cfg = head_config("tiny", kind)
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, encoder=dataclasses.replace(cfg.model.encoder,
+                                                   dropout=0.0)))
+        h = cfg.model.head
+        R = cfg.num_cams * h.ray_number[0] * h.ray_number[1]
+        gen = torch.Generator().manual_seed(SEED)
+        draws = {"cellular": torch.rand(4, generator=gen),
+                 "t_rand": torch.rand((R, h.num_samples + 1), generator=gen),
+                 "bkgd": torch.rand((R, 3), generator=gen)}
+        model = TPVSegmentor(cfg.model)
+        init_weights(model, torch.Generator().manual_seed(SEED))
+        item = get_dataset(cfg, synthetic=True)[0]
+        outs = {}
+        for dev, split in ((device, True), (device, False),
+                           (torch.device("cpu"), True)):
+            m = copy.deepcopy(model).to(dev).train()
+            m.head.train_ray_chunk = PARITY_RAY_CHUNK if dev == device else 0
+            m.head.two_split = split
+            batch = to_device(item, dev)
+            with torch.no_grad():
+                outs[(dev.type, split)] = m(
+                    batch["imgs"], batch["lidar2img"], batch[h.trans_kw],
+                    train=True, draws=draws, global_iter=HEAD_TINY_ITER)
+        split = outs[(device.type, True)]
+        ref = split_cams_for_losses(outs[(device.type, False)],
+                                    cfg.num_cams)
+        keys = [k for k in ("ms_depths", "ms_accs", "ms_fars", "ms_colors",
+                            "sem", "weights", "ts", "deltas", "sample_sdf",
+                            "surface_sdf") if k in ref]
+        for k in keys:
+            a, b = split[k], ref[k]
+            a, b = (a[0], b[0]) if isinstance(a, list) else (a, b)
+            if a.shape[1] != cfg.num_cams // 2 or not torch.equal(a, b):
+                raise AssertionError(f"two_split {kind} {k}: not the "
+                                     "unsplit halves")
+        log(f"  two_split {kind}: {len(keys)} outputs the unsplit halves on "
+            "the card")
+        if kind == "options":
+            # depth sums weights times positions: held at the positions'
+            # scale (the annealed band leaves the tiny rays nearly empty)
+            ts_scale = float(outs[("cpu", True)]["ts"].abs().max())
+            for k in ("ms_depths", "ms_accs", "ts"):
+                a, b = split[k], outs[("cpu", True)][k]
+                a, b = (a[0], b[0]) if isinstance(a, list) else (a, b)
+                worst[k] = max_err(a.cpu(), b)
+                scale = ts_scale if k == "ms_depths" else float(
+                    b.abs().max())
+                check(f"two_split options {k} card vs CPU", worst[k],
+                      1e-5 * scale + 1e-7)
+    return worst
+
+
+def head_phase(device):
+    """The NeuS head's options at full width (``nuscenes_occ``'s widths and
+    depth, seeded weights, synthetic data): the new kernel instances
+    against their plain versions (``head_kernel_checks``); (a) 3 steps of
+    the importance recipe (64 importance samples, ``return_sample_sdf``,
+    ``AdaptiveSparsityLoss``), profiled and sync-checked, and its eval
+    frame; (b) 3 steps of the options recipe (numerical gradients,
+    ``beta_hand_tune``, ``anneal_aabb``, the surface and uniform sdf with
+    ``SparsityLoss`` and ``HardSparsityLoss``); (c) a 64 + 64 eval-skip
+    frame and its depth's deviation from the uniform frame's (another
+    function: reported, not bounded); (e) each option set's tiny step on
+    the card against the CPU, and ``two_split``'s outputs."""
+    import torch
+    from selfocc_tpu_torch import eval_depth
+    from selfocc_tpu_torch.ops import interp, msda
+    from selfocc_tpu_torch.ops import render_weights as rw
+    from selfocc_tpu_torch.utils.runtime import get_dataset
+    log(f"  card: {card_name()}")
+    g = torch.Generator(device=device).manual_seed(SEED + 5)
+    res = {"kernels": head_kernel_checks(g, device)}
+    res["tiny_parity"] = {
+        kind: train_parity(device, cfg=head_config("tiny", kind),
+                           global_iter=HEAD_TINY_ITER, baseline=True)
+        for kind in ("importance", "options")}
+    res["tiny_parity"]["two_split"] = head_split_parity(device)
+    shared = (msda.msda_shared_fwd, msda.msda_shared_bwd)
+    imp = head_config("nuscenes_occ", "importance")
+    res["importance_train"] = lever_train(
+        device, imp,
+        (msda.msda_fwd, msda.msda_bwd, interp.trilinear_cf_with_grad_fwd,
+         interp.trilinear_bwd, interp.trilinear_cf_fwd,
+         interp.trilinear_cf_bwd, rw.neus_weights_fwd, rw.neus_weights_bwd),
+        (rw.neus_render_fwd, rw.neus_render_bwd) + shared,
+        ("neus_weights_fwd", "neus_weights_bwd"), instances=(),
+        required=("trilinear_bwd.rows", "trilinear_bwd.plane",
+                  "trilinear_bwd.points", "trilinear_cf_bwd.points",
+                  "trilinear_cf_fwd.plane", "neus_weights_bwd.tiled"))
+    opt = head_config("nuscenes_occ", "options")
+    res["options_train"] = lever_train(
+        device, opt,
+        (msda.msda_fwd, msda.msda_bwd, interp.trilinear_cf_with_grad_fwd,
+         interp.trilinear_bwd, interp.trilinear_cf_fwd,
+         interp.trilinear_cf_bwd, rw.neus_render_fwd, rw.neus_render_bwd),
+        (rw.neus_weights_fwd, rw.neus_weights_bwd) + shared, instances=(),
+        required=("trilinear_cf_fwd.rows", "trilinear_cf_fwd.plane",
+                  "trilinear_cf_bwd.rows", "trilinear_cf_bwd.plane",
+                  "trilinear_cf_bwd.points"))
+    # eval frames on one set of seeded weights: uniform, importance, skip
+    frames, depths = {}, {}
+    base = eval_depth.build_model(head_config("nuscenes_occ", "skip"), SEED,
+                                  device)
+    ds = get_dataset(imp, synthetic=True)
+    for kind in ("uniform", "importance", "skip"):
+        h = base.head
+        h.num_samples_importance = HEAD_IMPORTANCE if kind == "importance" \
+            else 0
+        h.eval_skip_coarse, h.eval_skip_fine = (HEAD_SKIP if kind == "skip"
+                                                else (0, 0))
+        cfg = dataclasses.replace(imp, name=f"nuscenes_occ_{kind}")
+        frames[kind], depths[kind] = head_eval(device, cfg, base, ds,
+                                               fused=kind == "uniform")
+    dev = (depths["skip"] - depths["uniform"]).abs()
+    frames["skip"]["depth_deviation_from_uniform"] = {
+        "max": float(dev.max()), "mean": float(dev.mean()),
+        "median": float(dev.median())}
+    dev = (depths["importance"] - depths["uniform"]).abs()
+    frames["importance"]["depth_deviation_from_uniform"] = {
+        "max": float(dev.max()), "mean": float(dev.mean()),
+        "median": float(dev.median())}
+    log(f"  skip frame depth against the uniform frame: "
+        f"{frames['skip']['depth_deviation_from_uniform']}")
+    res["frames"] = frames
+    del base
+    torch.cuda.empty_cache()
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -5334,7 +5955,8 @@ def main():
             "depth": lambda: depth_phase(device),
             "levers": lambda: levers_phase(device, args.baseline),
             "bev": lambda: bev_phase(device),
-            "density": lambda: density_phase(device)}
+            "density": lambda: density_phase(device),
+            "head": lambda: head_phase(device)}
     phases = {}
     for tag in PHASES:
         if tag not in wanted:
@@ -5348,6 +5970,7 @@ def main():
         return
 
     lres, bres, denres = phases["levers"], phases["bev"], phases["density"]
+    hres = phases["head"]
     kres = dict(phases["kernels"], gather_rows=phases["gather"],
                 **lres["kernels"])
     # the alpha-input weights: the NeuS recipes' render is fused, so their
@@ -5493,6 +6116,30 @@ def main():
             entry.update({f"launches_{t}": v for t, v in occ_l.items()},
                          frame_checks=ores["kernel_vs_plain"])
         kernels.append(entry)
+    # the instances of [head]: their main path is the importance recipe's
+    # step (launches by instance in its 3 measured steps)
+    imp_launches = hres["importance_train"]["launches"]
+    opt_launches = hres["options_train"]["launches"]
+    for name, inst, src, replaces, main in (
+            ("neus_weights_bwd", "tiled", "neus_weights.cu",
+             "selfocc_tpu/ops/render_pallas.py:76", "4096x320"),
+            ("trilinear_bwd", "points", "trilinear.cu",
+             "selfocc_tpu/ops/interp.py:159", "rows"),
+            ("trilinear_cf_bwd", "points", "trilinear.cu",
+             "selfocc_tpu/ops/interp.py:118", "288")):
+        recs = hres["kernels"][name]
+        entry = {"name": f"{name}.{inst}", "route": "cuda",
+                 "source": f"selfocc_tpu_torch/csrc/{src}",
+                 "replaces": replaces,
+                 "launches": imp_launches[f"{name}.{inst}"]}
+        entry.update(recs[main])
+        entry["max_abs_err"] = max(r["max_abs_err"] for r in recs.values()
+                                   if isinstance(r, dict))
+        entry["cases"] = {k: r for k, r in recs.items()
+                          if isinstance(r, dict)}
+        if f"{name}.{inst}" in opt_launches:
+            entry["launches_options_steps"] = opt_launches[f"{name}.{inst}"]
+        kernels.append(entry)
     print(json.dumps({
         "kernels": kernels,
         "frame": {"prepare_s": fres["prepare_s"],
@@ -5512,7 +6159,8 @@ def main():
         "data": dres, "kitti": kires, "depth": depres,
         "levers": {k: v for k, v in lres.items() if k != "kernels"},
         "bev": bres, "density": {k: v for k, v in denres.items()
-                                 if k != "kernels"}}),
+                                 if k != "kernels"},
+        "head": {k: v for k, v in hres.items() if k != "kernels"}}),
         flush=True)
     print(card_name(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -55,8 +55,11 @@
 //
 // Forward samples per ray: any S, in tiles of 32 K samples with the
 // log-transmittance and the composites carried across tiles (K <= 8). The
-// backward keeps a whole ray in registers: S <= 256 (K <= 8; a K = 16
-// instance spilled at 255 registers and came out wrong on the card).
+// fused backward keeps a whole ray in registers: S <= 256 (K <= 8; a K = 16
+// instance spilled at 255 registers and came out wrong on the card). The
+// alpha-input backward does too up to 256 samples, and above walks tiles of
+// 256 (neus_weights_bwd_tiled_kernel): the importance render's 320 samples
+// and its up-sample rounds' 271 to 303.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -584,6 +587,125 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
   store_run<K>(g_alpha + ray * S + i0, n, whole_runs, out);
 }
 
+// neus_weights_bwd for S > 256, up to 32 tiles of 256 samples (kTiles
+// below). A lane's run of K = 8 samples of one tile is what the kernel
+// above holds; the ray goes in two passes over its tiles. The first scans
+// each tile's log-transmittance total forward (one shuffle scan a tile)
+// and keeps the log-transmittance before tile t in lane t. The second
+// walks the tiles from the last to the first, reloads each tile's alpha and
+// g (an L1 / L2 hit: 8 S bytes a ray, 2.5 KB at S = 320), and runs the
+// kernel above on it with two carries from the tile after it: D at that
+// tile's first sample (the input of the top lane's maps), and that sample's
+// g, b and (a + b) - 1 (the top lane's "next sample"). The transmittance
+// within a tile starts from the first pass's prefix, as the forward's tile
+// walk does.
+constexpr int kBwdTileRun = 8;
+constexpr int kTiles = 32;
+
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+    neus_weights_bwd_tiled_kernel(const float* __restrict__ alpha_in,
+                                  const float* __restrict__ g_in,
+                                  float* __restrict__ g_alpha,
+                                  int64_t num_rays, int num_samples,
+                                  bool whole_runs) {
+  constexpr int K = kBwdTileRun;
+  const int lane = threadIdx.x & 31;
+  const int64_t ray = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock +
+                      (threadIdx.x >> 5);
+  if (ray >= num_rays) return;  // uniform per warp
+  const int S = num_samples;
+  const int tiles = (S + 32 * K - 1) / (32 * K);
+  const float* a_row = alpha_in + ray * S;
+  const float* g_row = g_in + ray * S;
+  float start = 0.f, carry = 0.f;  // lane t: the log-T before tile t
+  for (int t = 0; t < tiles; ++t) {
+    const int i0 = t * 32 * K + lane * K;
+    const int n = max(0, min(K, S - i0));
+    float alpha[K];
+    load_run<K>(a_row + i0, n, whole_runs, alpha);
+    float run = 0.f;
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+      run += j < n ? logf(1.f - alpha[j] + kEps) : 0.f;
+    float total;
+    lane_prefix(run, lane, &total);
+    if (lane == t) start = carry;
+    carry += total;
+  }
+  float d_in = 0.f;                       // D at the next tile's first sample
+  float g_nx = 0.f, b_nx = 1.f, e_nx = 0.f;  // that sample's g, b, residual
+  for (int t = tiles - 1; t >= 0; --t) {
+    const int i0 = t * 32 * K + lane * K;
+    const int n = max(0, min(K, S - i0));
+    float alpha[K], g[K];
+    load_run<K>(a_row + i0, n, whole_runs, alpha);
+    load_run<K>(g_row + i0, n, whole_runs, g);
+    float la[K], run = 0.f;
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      la[j] = j < n ? logf(1.f - alpha[j] + kEps) : 0.f;
+      run += la[j];
+    }
+    float unused_total;
+    float prefix = __shfl_sync(kFull, start, t) +
+                   lane_prefix(run, lane, &unused_total);
+    float trans[K], b[K], b_err[K];
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      trans[j] = expf(prefix);
+      prefix += la[j];
+      b[j] = 1.f - alpha[j] + kEps;
+      b_err[j] = static_cast<float>(static_cast<double>(alpha[j]) +
+                                    static_cast<double>(b[j]) - 1.0);
+    }
+    float g_up = __shfl_down_sync(kFull, g[0], 1);
+    float b_up = __shfl_down_sync(kFull, b[0], 1);
+    float b_err_up = __shfl_down_sync(kFull, b_err[0], 1);
+    if (lane == 31) {
+      g_up = g_nx;
+      b_up = b_nx;
+      b_err_up = e_nx;
+    }
+    float c[K], beta[K];
+    float lane_a = 0.f, lane_b = 1.f;
+#pragma unroll
+    for (int j = K - 1; j >= 0; --j) {
+      const int i = i0 + j;
+      const int jn = j + 1 < K ? j + 1 : j;
+      const float g_next = j + 1 < K ? g[jn] : g_up;
+      const float b_next = j + 1 < K ? b[jn] : b_up;
+      const float e_next = j + 1 < K ? b_err[jn] : b_err_up;
+      if (i < S - 1) {
+        c[j] = (g[j] - g_next) - g_next * e_next;
+        beta[j] = b_next;
+      } else if (i == S - 1) {
+        c[j] = g[j];
+        beta[j] = 0.f;
+      } else {  // past the ray's end: the identity
+        c[j] = 0.f;
+        beta[j] = 1.f;
+      }
+      lane_a = c[j] + beta[j] * lane_a;
+      lane_b *= beta[j];
+    }
+    // the top lane's maps take D of the next tile as their input
+    float dk = lane_affine_suffix(lane == 31 ? lane_a + lane_b * d_in : lane_a,
+                                  lane_b, lane);
+    if (lane == 31) dk = d_in;
+    float out[K];
+#pragma unroll
+    for (int j = K - 1; j >= 0; --j) {
+      dk = c[j] + beta[j] * dk;
+      out[j] = trans[j] * dk;
+    }
+    store_run<K>(g_alpha + ray * S + i0, n, whole_runs, out);
+    d_in = __shfl_sync(kFull, dk, 0);
+    g_nx = __shfl_sync(kFull, g[0], 0);
+    b_nx = __shfl_sync(kFull, b[0], 0);
+    e_nx = __shfl_sync(kFull, b_err[0], 0);
+  }
+}
+
 // The run length K of a lane: the least power of two with 32 K >= S, at
 // most k_max (the forward then walks several tiles).
 int run_length(int num_samples, int k_max) {
@@ -671,15 +793,23 @@ extern "C" int neus_render_bwd(
   return static_cast<int>(cudaGetLastError());
 }
 
+// S <= 256: neus_weights_bwd_kernel, a ray in registers; 256 < S <= 8192:
+// neus_weights_bwd_tiled_kernel.
 extern "C" int neus_weights_bwd(const float* alpha, const float* g_weights,
                                 float* g_alpha, int64_t num_rays,
                                 int num_samples, void* stream) {
-  if (num_samples > 32 * 8) return static_cast<int>(cudaErrorInvalidValue);
+  if (num_samples > kTiles * 32 * kBwdTileRun)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (num_rays > 0 && num_samples > 0) {
     const int k = run_length(num_samples, 8);
     const bool whole = num_samples % (32 * k) == 0;
     const dim3 grid(num_blocks(num_rays)), block(kWarpsPerBlock * 32);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (num_samples > 32 * 8) {
+      neus_weights_bwd_tiled_kernel<<<grid, block, 0, s>>>(
+          alpha, g_weights, g_alpha, num_rays, num_samples, whole);
+      return static_cast<int>(cudaGetLastError());
+    }
     switch (k) {
       case 1: neus_weights_bwd_kernel<1><<<grid, block, 0, s>>>(
           alpha, g_weights, g_alpha, num_rays, num_samples, whole); break;

@@ -19,7 +19,11 @@
 // axes of the corner differences along each axis. The backward adds, for
 // every in-volume corner k of a point, gv[c] * w_k to channel c and
 // sum_j gg[j] * dw_k/dx_j to channel 0 (the derivative of the closed-form
-// gradient with respect to the corner value). The points get no cotangent.
+// gradient with respect to the corner value). The point-free instances
+// give the points no cotangent; the point instances (trilinear_bwd_points,
+// trilinear_cf_bwd_points: the NeuS importance rounds place samples whose
+// positions carry a gradient) also write the cotangent of each point's
+// fractional indices, as JAX autodiff gives it (point_cotangent).
 //
 // Layout. The kernels read a channel-last volume, (H, W, D, C) in memory:
 // a corner's C channels are one contiguous row (100 bytes at C = 25). The
@@ -130,6 +134,17 @@
 //   table takes 8 inserts, each an fp32 atomicAdd in shared memory, for
 //   every run of one cell in a warp (chip_smoke.py records the runs per
 //   warp and the voxels touched).
+// The point instances (first, simple designs): the with-grad backward's
+// instances are the kernels above with kPoints, where each point's own
+// lane also reads its 8 corners (rows: channel by channel, with its row of
+// gv) before the walk; the values-only plane backward likewise; C > 1
+// values-only takes one thread per point over its C channels, scalar
+// atomics (no caller on a shipped path). At the importance recipe's
+// 4096 x 320 points the rows instance took 0.673 ms of device time
+// against the point-free 0.285 (bound 0.105), the plane 0.079 against
+// 0.068; the values-only plane 0.053-0.058 a round (1.05-1.25M points,
+// point-free 0.038-0.042) and 0.272 at 7.9M taps (chip_smoke.py [head],
+// H100 80GB HBM3, 700.00 W).
 // Only the chosen designs are built; the ones tried are named above.
 // Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3, 700.00 W (device
 // ms from torch.profiler, ranges over readings; bound: the bytes a call
@@ -219,6 +234,39 @@ __device__ __forceinline__ void add_grad0(const Cell& c, int k, float g,
   g0[0] += ((k & 4) ? 1.f : -1.f) * ww * wd * g;
   g0[1] += ((k & 2) ? 1.f : -1.f) * wh * wd * g;
   g0[2] += ((k & 1) ? 1.f : -1.f) * wh * ww * g;
+}
+
+// The cotangent of a point's fractional (h, w, d) indices, as JAX autodiff
+// of interp.py:118/:159 gives it (the corner masks are constants): s[k] =
+// sum_c gv[c] * v_k[c], the values' cotangent dotted with corner k's row
+// (zero outside the volume); c0[k] channel 0 of corner k (zero outside);
+// (gh, gw, gd) grad0's cotangent. d vals / d x_j = sum_k s[k] dw_k/dx_j,
+// and d grad0_i / d x_j (i != j) = sum_k +-1 * +-1 * (the third weight) *
+// c0[k]; d grad0_i / d x_i = 0.
+__device__ __forceinline__ void point_cotangent(const Cell& c,
+                                                const float (&s)[8],
+                                                const float (&c0)[8],
+                                                float gh, float gw, float gd,
+                                                float (&out)[3]) {
+  float ph = 0.f, pw = 0.f, pd = 0.f, mhw = 0.f, mhd = 0.f, mwd = 0.f;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const float wh = (k & 4) ? c.fh : 1.f - c.fh;
+    const float ww = (k & 2) ? c.fw : 1.f - c.fw;
+    const float wd = (k & 1) ? c.fd : 1.f - c.fd;
+    const float sh = (k & 4) ? 1.f : -1.f;
+    const float sw = (k & 2) ? 1.f : -1.f;
+    const float sd = (k & 1) ? 1.f : -1.f;
+    ph += sh * ww * wd * s[k];
+    pw += sw * wh * wd * s[k];
+    pd += sd * wh * ww * s[k];
+    mhw += sh * sw * wd * c0[k];
+    mhd += sh * ww * sd * c0[k];
+    mwd += sw * wh * sd * c0[k];
+  }
+  out[0] = ph + gw * mhw + gd * mhd;
+  out[1] = pw + gh * mhw + gd * mwd;
+  out[2] = pd + gh * mhd + gw * mwd;
 }
 
 // Writes each lane's 3 floats to out[3 * (tile + lane) + j] through the
@@ -398,12 +446,18 @@ struct ChainTables {
 // it); the chain's first lane, whose previous lane does not touch the
 // voxel, sums it and makes the voxel's one atomic. Unlike a run of one
 // cell, a chain goes on across a step into a neighbouring cell.
+//
+// kPoints: also the points' cotangent (N, 3) into gpts, each point's own
+// lane reading its 8 corners of vol, the (H, W, D) plane.
+template <bool kPoints>
 __global__ void __launch_bounds__(kThreads)
     trilinear_bwd_plane_kernel(const float* __restrict__ hwd,
                                const float* __restrict__ gv,
                                const float* __restrict__ gg,
                                float* __restrict__ grad, int64_t num_points,
-                               int H, int W, int D) {
+                               int H, int W, int D,
+                               const float* __restrict__ vol,
+                               float* __restrict__ gpts) {
   __shared__ ChainTables tables[kWarps];
   const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
   const int64_t tile =
@@ -424,6 +478,20 @@ __global__ void __launch_bounds__(kThreads)
       gd = gg[3 * n + 2];
     }
     if (gv != nullptr) g = gv[n];
+    if constexpr (kPoints) {
+      float v[8], sv[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        v[k] = in_volume(c, k, H, W, D) ? __ldg(vol + voxel(c, k, W, D))
+                                        : 0.f;
+        sv[k] = g * v[k];
+      }
+      float out[3];
+      point_cotangent(c, sv, v, gh, gw, gd, out);
+      gpts[3 * n] = out[0];
+      gpts[3 * n + 1] = out[1];
+      gpts[3 * n + 2] = out[2];
+    }
   }
   t.h0[lane] = c.h0;
   t.w0[lane] = c.w0;
@@ -525,12 +593,19 @@ __device__ __forceinline__ bool fresh(int k, int bit, bool up) {
 // corner); when the cell changes, the corner rows the next cell does not
 // share take one atomic per lane each (all 8 unless it is a unit step
 // away), and the shared ones carry their sums over.
+//
+// kPoints: also the points' cotangent (N, 3) into gpts: before the walk,
+// each point's own lane reads its 8 corner rows of vol (H, W, D, C) and
+// its row of gv, channel by channel.
+template <bool kPoints>
 __global__ void __launch_bounds__(kThreads)
     trilinear_bwd_rows_kernel(const float* __restrict__ hwd,
                               const float* __restrict__ gv,
                               const float* __restrict__ gg,
                               float* __restrict__ grad, int64_t num_points,
-                              int C, int H, int W, int D) {
+                              int C, int H, int W, int D,
+                              const float* __restrict__ vol,
+                              float* __restrict__ gpts) {
   __shared__ PointRec recs[kWarps][kWarp];
   __shared__ float4 exts[kWarps][kWarp][2];  // channel 0's grad0 terms
   const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
@@ -552,6 +627,39 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   recs[warp][lane] = point_rec(c, live, H, W, D);
+  if constexpr (kPoints) {
+    if (live) {
+      const PointRec mine = recs[warp][lane];
+      float sv[8], c0[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        sv[k] = 0.f;
+        c0[k] = (mine.mask >> k) & 1
+                    ? __ldg(vol + static_cast<int64_t>(
+                                      mine.base + corner_offset(k, W, D)) *
+                                      C)
+                    : 0.f;
+      }
+      if (gv != nullptr) {
+        for (int ch = 0; ch < C; ++ch) {
+          const float g = __ldg(gv + n * C + ch);
+#pragma unroll
+          for (int k = 0; k < 8; ++k)
+            if ((mine.mask >> k) & 1)
+              sv[k] += g * __ldg(vol +
+                                 static_cast<int64_t>(
+                                     mine.base + corner_offset(k, W, D)) *
+                                     C +
+                                 ch);
+        }
+      }
+      float out[3];
+      point_cotangent(c, sv, c0, gh, gw, gd, out);
+      gpts[3 * n] = out[0];
+      gpts[3 * n + 1] = out[1];
+      gpts[3 * n + 2] = out[2];
+    }
+  }
   exts[warp][lane][0] =
       make_float4(grad0_term(c, 0, gh, gw, gd), grad0_term(c, 1, gh, gw, gd),
                   grad0_term(c, 2, gh, gw, gd), grad0_term(c, 3, gh, gw, gd));
@@ -839,11 +947,18 @@ __device__ __forceinline__ void table_add(int* keys, float* sums, int vox,
 // flushed with one global atomic per slot. On ray-major points (the six
 // compact taps of a sample, then the next sample) a warp's 32 points
 // mostly span one or two cells.
+//
+// kPoints: also the points' cotangent (N, 3) into gpts, each point's own
+// thread reading its 8 corners of vol (the plane, one value every `row`
+// floats).
+template <bool kPoints>
 __global__ void __launch_bounds__(kThreads)
     values_bwd_plane_seg_kernel(const float* __restrict__ hwd,
                                 const float* __restrict__ gv,
                                 float* __restrict__ grad, int64_t num_points,
-                                int H, int W, int D) {
+                                int H, int W, int D,
+                                const float* __restrict__ vol, int64_t row,
+                                float* __restrict__ gpts) {
   __shared__ int keys[kSlots];
   __shared__ float sums[kSlots];
   for (int i = threadIdx.x; i < kSlots; i += kThreads) {
@@ -865,6 +980,21 @@ __global__ void __launch_bounds__(kThreads)
     if (n < num_points) {
       c = locate(hwd, n);
       g = gv[n];
+      if constexpr (kPoints) {
+        float sv[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          sv[k] = in_volume(c, k, H, W, D)
+                      ? g * __ldg(vol +
+                                  static_cast<int64_t>(voxel(c, k, W, D)) *
+                                      row)
+                      : 0.f;
+        float out[3];
+        point_cotangent(c, sv, sv, 0.f, 0.f, 0.f, out);
+        gpts[3 * n] = out[0];
+        gpts[3 * n + 1] = out[1];
+        gpts[3 * n + 2] = out[2];
+      }
     }
     const int ph = __shfl_up_sync(kFull, c.h0, 1);
     const int pw = __shfl_up_sync(kFull, c.w0, 1);
@@ -934,8 +1064,50 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// C > 1 with the points' cotangent: one thread per point walks its C
+// channels, one scalar atomic per in-volume corner and channel into grad
+// (H, W, D, C), and sums gv[c] * v_k[c] for the point's cotangent (vol:
+// (H, W, D, C) with `row` >= C floats between voxels).
+__global__ void __launch_bounds__(kThreads)
+    values_bwd_rows_points_kernel(const float* __restrict__ hwd,
+                                  const float* __restrict__ gv,
+                                  float* __restrict__ grad,
+                                  int64_t num_points, int C, int H, int W,
+                                  int D, const float* __restrict__ vol,
+                                  int64_t row, float* __restrict__ gpts) {
+  const int64_t n = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (n >= num_points) return;
+  const Cell c = locate(hwd, n);
+  int64_t vox[8];
+  float sv[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    vox[k] = in_volume(c, k, H, W, D) ? voxel(c, k, W, D) : -1;
+    sv[k] = 0.f;
+  }
+  for (int ch = 0; ch < C; ++ch) {
+    const float g = __ldg(gv + n * C + ch);
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (vox[k] >= 0) {
+        sv[k] += g * __ldg(vol + vox[k] * row + ch);
+        atomicAdd(grad + vox[k] * C + ch, weight(c, k) * g);
+      }
+  }
+  float out[3];
+  point_cotangent(c, sv, sv, 0.f, 0.f, 0.f, out);
+  gpts[3 * n] = out[0];
+  gpts[3 * n + 1] = out[1];
+  gpts[3 * n + 2] = out[2];
+}
+
 unsigned blocks_for(int64_t num_points) {
   return static_cast<unsigned>((num_points + kThreads - 1) / kThreads);
+}
+
+unsigned seg_blocks(int64_t num_points) {
+  return static_cast<unsigned>((num_points + kThreads * kSegTiles - 1) /
+                               (kThreads * kSegTiles));
 }
 
 }  // namespace
@@ -1002,12 +1174,10 @@ extern "C" int trilinear_cf_bwd(const float* hwd, const float* gv,
   if (num_points > 0) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (C == 1)
-      values_bwd_plane_seg_kernel<<<static_cast<unsigned>(
-                                        (num_points + kThreads * kSegTiles -
-                                         1) /
-                                        (kThreads * kSegTiles)),
-                                    kThreads, 0, s>>>(hwd, gv, grad,
-                                                      num_points, H, W, D);
+      values_bwd_plane_seg_kernel<false><<<seg_blocks(num_points), kThreads,
+                                           0, s>>>(hwd, gv, grad, num_points,
+                                                   H, W, D, nullptr, 0,
+                                                   nullptr);
     else if (C % 4 == 0 && aligned16(gv) && aligned16(grad))
       values_bwd_rows_kernel<4><<<blocks_for(num_points * (C / 4)), kThreads,
                                   0, s>>>(hwd, gv, grad, num_points, C, H, W,
@@ -1027,11 +1197,56 @@ extern "C" int trilinear_bwd(const float* hwd, const float* gv,
   if (num_points > 0) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (C == 1)
-      trilinear_bwd_plane_kernel<<<blocks_for(num_points), kThreads, 0, s>>>(
-          hwd, gv, gg, grad, num_points, H, W, D);
+      trilinear_bwd_plane_kernel<false><<<blocks_for(num_points), kThreads, 0,
+                                          s>>>(hwd, gv, gg, grad, num_points,
+                                               H, W, D, nullptr, nullptr);
     else
-      trilinear_bwd_rows_kernel<<<blocks_for(num_points), kThreads, 0, s>>>(
-          hwd, gv, gg, grad, num_points, C, H, W, D);
+      trilinear_bwd_rows_kernel<false><<<blocks_for(num_points), kThreads, 0,
+                                         s>>>(hwd, gv, gg, grad, num_points,
+                                              C, H, W, D, nullptr, nullptr);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// trilinear_bwd with the points' cotangent: vol (H, W, D, C) channel-last,
+// the forward's volume; gpts (N, 3), every row written.
+extern "C" int trilinear_bwd_points(const float* vol, const float* hwd,
+                                    const float* gv, const float* gg,
+                                    float* grad, float* gpts,
+                                    int64_t num_points, int C, int H, int W,
+                                    int D, void* stream) {
+  if (num_points > 0) {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (C == 1)
+      trilinear_bwd_plane_kernel<true><<<blocks_for(num_points), kThreads, 0,
+                                         s>>>(hwd, gv, gg, grad, num_points,
+                                              H, W, D, vol, gpts);
+    else
+      trilinear_bwd_rows_kernel<true><<<blocks_for(num_points), kThreads, 0,
+                                        s>>>(hwd, gv, gg, grad, num_points, C,
+                                             H, W, D, vol, gpts);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// trilinear_cf_bwd with the points' cotangent: vol (H, W, D, C), `row`
+// floats between voxels, the forward's volume; gpts (N, 3), every row
+// written.
+extern "C" int trilinear_cf_bwd_points(const float* vol, int64_t row,
+                                       const float* hwd, const float* gv,
+                                       float* grad, float* gpts,
+                                       int64_t num_points, int C, int H,
+                                       int W, int D, void* stream) {
+  if (num_points > 0) {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (C == 1)
+      values_bwd_plane_seg_kernel<true><<<seg_blocks(num_points), kThreads, 0,
+                                          s>>>(hwd, gv, grad, num_points, H,
+                                               W, D, vol, row, gpts);
+    else
+      values_bwd_rows_points_kernel<<<blocks_for(num_points), kThreads, 0,
+                                      s>>>(hwd, gv, grad, num_points, C, H,
+                                           W, D, vol, row, gpts);
   }
   return static_cast<int>(cudaGetLastError());
 }

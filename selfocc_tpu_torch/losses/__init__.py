@@ -2,12 +2,14 @@
 ``nuscenes_occ``, ``kitti_occ``, ``kitti_raw_depth`` and ``nuscenes_depth``
 recipes (``ReprojLossMonoMultiNew`` and its ``Combine`` variant,
 ``RGBLossMS``, ``EikonalLoss``, ``SecondGradLoss``, ``SemCELossMS``,
-``SoftSparsityLoss``, ``EdgeLoss3DMS``) and ``SemLossMS``. The other
-sparsity losses (``SparsityLoss``, ``HardSparsityLoss``,
-``AdaptiveSparsityLoss``) are not ported yet."""
+``SoftSparsityLoss``, ``EdgeLoss3DMS``), ``SemLossMS`` and the sparsity
+losses that read the NeuS head's optional sdf outputs (``SparsityLoss``,
+``HardSparsityLoss``, ``AdaptiveSparsityLoss``): every loss of the JAX
+registry."""
 from .base import OPENOCC_LOSS, BaseLoss, MultiLoss, build_loss, register
-from .regularizers import (EdgeLoss3DMS, EikonalLoss, SecondGradLoss,
-                           SoftSparsityLoss, get_smooth_loss)
+from .regularizers import (AdaptiveSparsityLoss, EdgeLoss3DMS, EikonalLoss,
+                           HardSparsityLoss, SecondGradLoss, SoftSparsityLoss,
+                           SparsityLoss, get_smooth_loss)
 from .reproj import ReprojLossMonoMultiNew, ReprojLossMonoMultiNewCombine
 from .rgb import RGBLossMS, SemCELossMS, SemLossMS
 
@@ -15,5 +17,6 @@ __all__ = [
     "OPENOCC_LOSS", "BaseLoss", "MultiLoss", "build_loss", "register",
     "ReprojLossMonoMultiNew", "ReprojLossMonoMultiNewCombine",
     "RGBLossMS", "SemCELossMS", "SemLossMS", "EikonalLoss", "SecondGradLoss",
-    "SoftSparsityLoss", "EdgeLoss3DMS", "get_smooth_loss",
+    "SoftSparsityLoss", "SparsityLoss", "HardSparsityLoss",
+    "AdaptiveSparsityLoss", "EdgeLoss3DMS", "get_smooth_loss",
 ]

@@ -1,6 +1,8 @@
 """SDF regularizers and the depth smoothness loss — counterpart of
-``EikonalLoss``, ``SecondGradLoss``, ``get_smooth_loss``, ``EdgeLoss3DMS``
-and ``SoftSparsityLoss`` of ``selfocc_tpu/losses/regularizers.py``."""
+``selfocc_tpu/losses/regularizers.py``: ``EikonalLoss``,
+``SecondGradLoss``, ``get_smooth_loss``, ``EdgeLoss3DMS`` and the sparsity
+family (``SparsityLoss``, ``HardSparsityLoss``, ``SoftSparsityLoss``,
+``AdaptiveSparsityLoss``)."""
 from __future__ import annotations
 
 import torch
@@ -104,3 +106,71 @@ class SoftSparsityLoss(BaseLoss):
 
     def loss_func(self, density):
         return torch.relu(-density).mean()
+
+
+@register
+class SparsityLoss(BaseLoss):
+    """StreetSurf sech^2 sparsity, ``sech(density / 2 scale)^2`` averaged
+    (reference ``sparsity_loss.py:7-28``)."""
+
+    def __init__(self, weight=1.0, scale=1.0, input_dict=None, **kwargs):
+        super().__init__(weight, input_dict)
+        if input_dict is None:
+            self.input_dict = {"density": "density"}
+        self.scale = scale
+
+    def loss_func(self, density):
+        return (1.0 / torch.cosh(density / (2.0 * self.scale))) ** 2
+
+    def __call__(self, inputs):
+        actual = {k: inputs[v] for k, v in self.input_dict.items()}
+        return self.weight * self.loss_func(**actual).mean()
+
+
+@register
+class HardSparsityLoss(BaseLoss):
+    """The occupied fraction ``sigmoid(-scale * density).mean()`` beyond
+    ``thresh`` (reference ``sparsity_loss.py:31-62``). ``crop`` ((lo, hi)
+    per axis) sets that many border voxels of each of the first three axes
+    to free space (100) first, out of place as JAX's ``.at[].set``: no
+    gradient reaches them."""
+
+    def __init__(self, weight=1.0, scale=1.0, thresh=0.2,
+                 crop=((0, 0), (0, 0), (0, 0)), input_dict=None, **kwargs):
+        super().__init__(weight, input_dict)
+        if input_dict is None:
+            self.input_dict = {"density": "density"}
+        self.scale = scale
+        self.thresh = thresh
+        self.crop = crop
+
+    def loss_func(self, density):
+        for axis, (lo, hi) in enumerate(self.crop[:3]):
+            for part in ((slice(0, lo),) if lo > 0 else ()) + \
+                    ((slice(-hi, None),) if hi > 0 else ()):
+                idx = [slice(None)] * density.dim()
+                idx[axis] = part
+                density = density.clone()
+                density[tuple(idx)] = 100.0
+        occupied = torch.sigmoid(-self.scale * density).mean()
+        return torch.relu(occupied - self.thresh)
+
+
+@register
+class AdaptiveSparsityLoss(BaseLoss):
+    """``relu(-sdf)`` of the samples behind ``depth + slack`` along each
+    ray, a masked mean (reference ``sparsity_loss.py:83-114``; the JAX
+    package's static-shape form): ``sdfs`` and ``ts`` (B, N, R, S), the
+    head's ``sample_sdf`` and ``ts``."""
+
+    def __init__(self, weight=1.0, input_dict=None, slack=4.0, **kwargs):
+        super().__init__(weight, input_dict)
+        if input_dict is None:
+            self.input_dict = {"sdfs": "sdfs", "ts": "ts",
+                               "ms_depths": "ms_depths"}
+        self.slack = slack
+
+    def loss_func(self, sdfs, ts, ms_depths):
+        mask = ts > (ms_depths[0] + self.slack)[..., None]
+        behind = torch.relu(-sdfs) * mask
+        return behind.sum() / mask.sum().clamp_min(1)

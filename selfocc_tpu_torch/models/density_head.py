@@ -154,12 +154,14 @@ class NeRFAccHead(OccupancyQueries, nn.Module):
         return out
 
     def forward(self, representation, img2lidar, train: bool = True,
-                generator=None, draws: Optional[Dict[str, Any]] = None):
+                generator=None, draws: Optional[Dict[str, Any]] = None,
+                global_iter=None):
         """Training forward (``density_head.py:149-181``): decode, sample
         the ray grid, render every camera's rays at once (no chunking, as in
         JAX) and return the loss inputs (``ms_depths``, ``ms_colors``,
         ``ms_accs``, ``ms_fars``, ``ms_rays``, ``weights``, ``ts``,
-        ``deltas``, and ``sem`` with semantics)."""
+        ``deltas``, and ``sem`` with semantics). ``global_iter`` is taken
+        and not read, as in the JAX head."""
         volume = self.field.decode(representation)[0]
         device = volume.device
         draws = {k: torch.as_tensor(v, dtype=torch.float32, device=device)

@@ -1,11 +1,12 @@
 """TPV-decoded SDF field — counterpart of ``selfocc_tpu/models/field.py``
 (``TPVSDFField.decode``, ``query_geo``, ``query_geo_uniform``,
-``query_geo_grad``, ``sdf``, ``second_grad``, ``second_grad_noncompact``,
-``color``, ``inv_s``). The render's volume queries go through
+``query_geo_grad``, ``sdf``, ``sdf_numerical_grad``, ``second_grad``,
+``second_grad_noncompact``, ``color``, ``inv_s``). The render's volume queries go through
 ``ops.interp.trilinear_sample_cf_with_grad``, the occupancy queries and the
 sdf taps (``sdf``, the compact ``second_grad``) through
-``trilinear_sample_cf`` (values only, differentiable) or the separable
-lerps, so on the card they run the trilinear kernels.
+``trilinear_sample_cf`` (values only, differentiable in the volume and
+the points) or the separable lerps, so on the card they run the trilinear
+kernels.
 
 State-dict keys follow the reference field: ``density_net.{2i+1}`` for the
 Linears of ``Sequential([Softplus, Linear] x density_layers)``,
@@ -172,23 +173,37 @@ class TPVSDFField(nn.Module):
         return trilinear_sample_cf(channel0_view(volume), grid,
                                    "zeros")[..., 0]
 
+    def sdf_taps(self, sdf_vol, xyz, delta: float):
+        """The sdf of a (1, H, W, D) plane at the six taps x+d, x-d along x,
+        then y, then z of each point (..., 3) -> (..., 6): one point-major
+        (..., 6, 3) query, so on the card one trilinear forward and one
+        backward launch for all six. Each tap's coordinates and value are
+        those of a query of its own, bit for bit (on the CPU its cotangents
+        too: ``trilinear_sample_taps``)."""
+        steps = _axis_steps(delta, xyz)
+        offsets = torch.stack([steps, -steps], 1).reshape(6, 3)
+        grid = self.mapping.meter2grid(xyz.float()[..., None, :] + offsets)
+        return trilinear_sample_taps(channel0_view(sdf_vol), grid)[..., 0]
+
+    def sdf_numerical_grad(self, volume, xyz, delta: float):
+        """Central-difference sdf gradient (``use_numerical_gradients``,
+        ``field.py:272-280``): ``(sdf(x + d e_i) - sdf(x - d e_i)) / 2d``
+        per axis, from the six taps' one query of the sdf plane
+        (``sdf_taps``), in the JAX expression's order."""
+        taps = self.sdf_taps(first_channel(volume), xyz, delta)
+        return torch.stack([(taps[..., 2 * a] - taps[..., 2 * a + 1])
+                            / (2 * delta) for a in range(3)], dim=-1)
+
     def second_grad(self, volume, xyz, delta: float, center=None):
         """Compact numerical second derivative along the 3 axes
         (``field.py:282-294``): ``(sdf(x+d) + sdf(x-d) - 2 sdf(x)) / d^2``;
         ``center`` is the SDF at ``xyz`` when the caller has it. The six
-        taps (x+d, x-d along x, then y, then z) are one point-major
-        (..., 6, 3) query of the sdf plane, taken out of the volume once:
-        on the card one trilinear forward and one backward launch for all
-        six. Each tap's coordinates and value are those of a query of its
-        own, bit for bit, and the stencil keeps the JAX expression's order
-        (on the CPU its cotangent's too: ``trilinear_sample_taps``)."""
+        taps are ``sdf_taps``' one query of the sdf plane, taken out of the
+        volume once, and the stencil keeps the JAX expression's order."""
         sdf_vol = first_channel(volume)
         if center is None:
             center = self.sdf(sdf_vol, xyz)
-        steps = _axis_steps(delta, xyz)
-        offsets = torch.stack([steps, -steps], 1).reshape(6, 3)
-        grid = self.mapping.meter2grid(xyz.float()[..., None, :] + offsets)
-        taps = trilinear_sample_taps(channel0_view(sdf_vol), grid)[..., 0]
+        taps = self.sdf_taps(sdf_vol, xyz, delta)
         # per axis, with one 2 * center: its cotangent then sums the three
         # axes' in the per-tap composition's order
         c2 = 2 * center

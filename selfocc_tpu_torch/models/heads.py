@@ -5,14 +5,25 @@ depth ``max_depth``), the training ``forward`` (``heads.py:397-526``)
 with its chunked, checkpointed render, and the occupancy queries
 (``get_uniform_sdf``, ``forward_occ``, ``occ_from_volume``,
 ``occ_uniform``; ``heads.py:528-577``); ``return_uniform_sdf`` puts the
-uniform grid's sdf among the training outputs.
+uniform grid's sdf among the training outputs. Every branch of the JAX
+``render_rays`` is here: the NeuS importance rounds
+(``num_samples_importance``), eval-time empty-space skipping
+(``eval_skip_coarse`` / ``eval_skip_fine``), AABB annealing
+(``anneal_aabb``), the hand-tuned inv_s schedule (``beta_hand_tune``),
+central-difference sdf gradients (``use_numerical_gradients``), the
+``surface_sdf`` and ``sample_sdf`` outputs and ``two_split``.
 
 The field sits at ``head.model.field`` so its state-dict keys are the
 reference's (``head.model.field.*``, the sdfstudio wrapper's naming).
-The NeuS render of the samples (alpha, weights, depth and normal
-composites) goes through ``ops.render_weights.neus_composite`` and the
-volume queries through ``ops.interp``: the hand-written kernels for CUDA
-tensors, their plain versions on the CPU.
+The NeuS render of uniform samples (alpha, weights, depth and normal
+composites) goes through the fused ``ops.render_weights.neus_composite``,
+which takes bin edges. The importance and skip branches place sorted
+samples that no edges express; they take the alpha-input route, as the
+JAX head does: ``neus.neus_alpha`` in torch, ``weights_from_alpha`` (the
+``neus_weights_fwd`` / ``neus_weights_bwd`` kernels on the card) and the
+composites in torch, so that the gradient reaches the sample positions.
+The volume queries go through ``ops.interp``: the hand-written kernels for
+CUDA tensors, their plain versions on the CPU.
 
 Randomness: the JAX head splits a PRNG key for the cellular ray grid, the
 stratified jitter, the random background and the uniform sdf grid's
@@ -35,9 +46,50 @@ from torch.utils.checkpoint import checkpoint
 from ..geometry.projection import rays_from_img2lidar
 from ..geometry.ray_sampler import RaySampler
 from ..ops.interp import first_channel
-from ..ops.render_weights import neus_composite
+from ..ops.render_weights import neus_composite, weights_from_alpha
 from . import neus
 from .field import TPVSDFField
+
+
+def beta_schedule(beta_init: float, beta_max: float, total_iters: int,
+                  it) -> float:
+    """The hand-tuned inv_s of iteration ``it`` (``heads.py:35-41``): beta
+    goes linearly from ``beta_init`` to ``beta_max`` over ``total_iters``,
+    inv_s = 1 / beta; in float32, as JAX computes it from the traced step."""
+    f32 = np.float32
+    frac = np.clip(f32(it) / f32(total_iters), f32(0), f32(1))
+    return float(f32(1) / (f32(beta_init) + f32(beta_max - beta_init) * frac))
+
+
+def annealed_band(it, every: int, total_iters: int, near_plane: float,
+                  min_near: float, min_far_frac: float):
+    """The AABB annealing's scalars at iteration ``it`` (``heads.py:226-
+    240``): the progress ``p``, quantised to ``every`` iterations, the near
+    clamp and the fraction of the band kept, in float32."""
+    f32 = np.float32
+    p = np.clip(np.floor(f32(it) / f32(every)) * f32(every) / f32(total_iters),
+                f32(0), f32(1))
+    near_clamp = f32(min_near) + p * f32(near_plane - min_near)
+    far_frac = f32(min_far_frac) + p * f32(1.0 - min_far_frac)
+    return float(near_clamp), float(far_frac)
+
+
+def split_cams_for_losses(outputs, num_cams):
+    """``two_split`` (``heads.py:580-594``): the first half of the cameras
+    keeps the depth-supervised outputs, the second half the colour and
+    semantic ones."""
+    half = num_cams // 2
+    out = dict(outputs)
+    for k in ("ms_depths", "ms_accs", "ms_fars", "ms_max_depths"):
+        if k in out:
+            out[k] = [x[:, :half] for x in out[k]]
+    for k in ("ms_colors", "sem"):
+        if k in out:
+            out[k] = [x[:, half:] for x in out[k]]
+    for k in ("weights", "ts", "deltas", "sample_sdf", "surface_sdf"):
+        if k in out:
+            out[k] = out[k][:, :half]
+    return out
 
 
 def uniform_axes(aabb: Sequence[float], resolution: float):
@@ -153,17 +205,27 @@ class _FieldHolder(nn.Module):
 class NeuSHead(OccupancyQueries, nn.Module):
     """SDF head: decode the field, cast rays, NeuS-composite depth/RGB/sem.
     ``tpv``: the field decodes the three TPV planes, or (False) the BEV
-    plane (``heads.py:157``)."""
+    plane (``heads.py:157``). The other arguments are the JAX head's
+    fields; with ``beta_hand_tune`` the field has no learned variance (the
+    JAX head never makes that parameter then)."""
 
     def __init__(self, roi_aabb: Sequence[float], mapping_args: Dict[str, Any],
                  near_plane: float = 0.0, far_plane: float = 1e10,
                  num_samples: int = 256, beta_init: float = 0.1,
+                 beta_max: float = 0.195, total_iters: int = 3516 * 11,
+                 beta_hand_tune: bool = False,
+                 use_numerical_gradients: bool = False,
                  return_sem: bool = False, render_bkgd: str = "white",
                  embed_dims: int = 96, color_dims: int = 0,
                  sem_dims: int = 0, density_layers: int = 2, sh_deg: int = 0,
                  sh_act: str = "relu", return_second_grad: bool = False,
                  use_compact_2nd_grad: bool = False,
                  numerical_gradients_delta: float = 0.01,
+                 anneal_aabb: bool = False, aabb_every_iters: int = 3516,
+                 aabb_min_near: float = 10.0, aabb_min_far_frac: float = 0.25,
+                 base_variance: float = 64.0,
+                 num_samples_importance: int = 0, num_upsample_steps: int = 4,
+                 eval_skip_coarse: int = 0, eval_skip_fine: int = 0,
                  ray_sample_mode: str = "fixed",
                  ray_number: Sequence[int] = (192, 400),
                  ray_img_size: Sequence[int] = (768, 1600),
@@ -172,21 +234,40 @@ class NeuSHead(OccupancyQueries, nn.Module):
                  ray_y_dsr_max: Optional[float] = None,
                  train_ray_chunk: int = 0, resolution: float = 0.4,
                  return_max_depth: bool = False,
-                 return_uniform_sdf: bool = False, tpv: bool = True):
+                 return_uniform_sdf: bool = False,
+                 return_surface_sdf: bool = False,
+                 return_sample_sdf: bool = False, two_split: bool = False,
+                 tpv: bool = True):
         super().__init__()
         self.roi_aabb = tuple(roi_aabb)
         self.resolution = resolution
         self.near_plane, self.far_plane = near_plane, far_plane
         self.num_samples = num_samples
+        self.beta_init, self.beta_max = beta_init, beta_max
+        self.total_iters = total_iters
+        self.beta_hand_tune = beta_hand_tune
+        self.use_numerical_gradients = use_numerical_gradients
         self.return_sem = return_sem
         self.render_bkgd = render_bkgd
         self.color_dims, self.sem_dims = color_dims, sem_dims
         self.return_second_grad = return_second_grad
         self.use_compact_2nd_grad = use_compact_2nd_grad
         self.numerical_gradients_delta = numerical_gradients_delta
+        self.anneal_aabb = anneal_aabb
+        self.aabb_every_iters = aabb_every_iters
+        self.aabb_min_near = aabb_min_near
+        self.aabb_min_far_frac = aabb_min_far_frac
+        self.base_variance = base_variance
+        self.num_samples_importance = num_samples_importance
+        self.num_upsample_steps = num_upsample_steps
+        self.eval_skip_coarse, self.eval_skip_fine = (eval_skip_coarse,
+                                                      eval_skip_fine)
         self.train_ray_chunk = train_ray_chunk
         self.return_max_depth = return_max_depth
         self.return_uniform_sdf = return_uniform_sdf
+        self.return_surface_sdf = return_surface_sdf
+        self.return_sample_sdf = return_sample_sdf
+        self.two_split = two_split
         self.ray_sampler = RaySampler(
             ray_sample_mode=ray_sample_mode, ray_number=tuple(ray_number),
             ray_img_size=tuple(ray_img_size), ray_upper_crop=ray_upper_crop,
@@ -198,7 +279,7 @@ class NeuSHead(OccupancyQueries, nn.Module):
             mapping_args=mapping_args, embed_dims=embed_dims,
             color_dims=color_dims, sem_dims=sem_dims,
             density_layers=density_layers, sh_deg=sh_deg, sh_act=sh_act,
-            beta_init=beta_init, tpv=tpv))
+            beta_init=beta_init, tpv=tpv, variance=not beta_hand_tune))
 
     @property
     def field(self) -> TPVSDFField:
@@ -208,10 +289,58 @@ class NeuSHead(OccupancyQueries, nn.Module):
         """Decode the field volume once: (C, H, W, D) for bs = 1."""
         return self.field.decode(representation)[0]
 
+    def inv_s(self, global_iter=None, device=None):
+        """The NeuS sharpness (``heads.py:189-194``): the field's learned
+        one, or with ``beta_hand_tune`` the schedule's at ``global_iter``
+        (iteration 0 when None: the eval paths pass none), a 0-dim fp32
+        tensor on ``device`` made by a fill, not a copy from the host."""
+        if not self.beta_hand_tune:
+            return self.field.inv_s()
+        it = 0 if global_iter is None else global_iter
+        return torch.full((), beta_schedule(self.beta_init, self.beta_max,
+                                            self.total_iters, it),
+                          dtype=torch.float32, device=device)
+
+    def _annealed(self, near, far, global_iter):
+        near_clamp, far_frac = annealed_band(
+            0 if global_iter is None else global_iter, self.aabb_every_iters,
+            self.total_iters, self.near_plane, self.aabb_min_near,
+            self.aabb_min_far_frac)
+        ann_near = near.clamp_min(near_clamp)
+        ann_far = near + far_frac * (far - near)
+        # the band stays non-degenerate whatever the box intersection
+        near = torch.minimum(ann_near, ann_far - 1e-3)
+        far = torch.maximum(ann_far, near + 1e-3)
+        return near, far
+
+    def _skip_samples(self, volume, origin, unit_dir, near, far, inv_s):
+        """The eval-time skip (``heads.py:245-270``): a coarse sdf-only
+        query at ``eval_skip_coarse`` uniform samples, one up-sample round
+        of ``eval_skip_fine`` positions at ``inv_s``, sorted."""
+        ts_c = neus.sample_uniform(near, far, self.eval_skip_coarse).mids
+        sdf_c = self.field.sdf(volume, origin[:, None, :] +
+                               unit_dir[:, None, :] * ts_c[..., None])
+        return torch.sort(neus.upsample_ts(ts_c, sdf_c, self.eval_skip_fine,
+                                           inv_s), dim=-1, stable=True)[0]
+
+    def _importance_samples(self, volume, origin, unit_dir, ts):
+        """The NeuS up-sample rounds (``heads.py:276-295``):
+        ``num_upsample_steps`` rounds of ``num_samples_importance // steps``
+        positions at inv_s ``base_variance * 2**i``, each merged into the
+        sorted set; differentiable in the volume and the positions."""
+        n_per = max(self.num_samples_importance // self.num_upsample_steps, 1)
+        for i in range(self.num_upsample_steps):
+            sdf = self.field.sdf(volume, origin[:, None, :] +
+                                 unit_dir[:, None, :] * ts[..., None])
+            ts = neus.merge_ts(ts, neus.upsample_ts(
+                ts, sdf, n_per, self.base_variance * 2 ** i))
+        return ts
+
     def render_rays(self, volume, origin, direction, geo_only: bool = False,
                     train: bool = False, generator=None,
                     draws: Optional[Dict[str, torch.Tensor]] = None,
-                    inv_s=None, outputs: Optional[Collection[str]] = None):
+                    inv_s=None, outputs: Optional[Collection[str]] = None,
+                    global_iter=None):
         """Render (R,) rays against a decoded (C, H, W, D) volume.
 
         ``direction`` is unnormalized; ``depth``, ``ts`` and ``deltas`` come
@@ -222,7 +351,10 @@ class NeuSHead(OccupancyQueries, nn.Module):
         eval render draws nothing, and a random background falls back to
         white there, as in the JAX head without a key. ``normal_vis`` and
         (with ``return_second_grad``, not ``geo_only``) ``second_grad`` come
-        with every call, as in the JAX head.
+        with every call, as in the JAX head. ``global_iter``: the training
+        step, read by ``anneal_aabb`` (training only) and ``beta_hand_tune``
+        (None: iteration 0). With importance samples or eval skipping the
+        per-ray sample count is theirs (S + Si, or ``eval_skip_fine``).
 
         ``outputs``: the keys the caller reads (None: every key the JAX head
         returns). The JAX ``ChunkedRenderer`` returns only its outputs from
@@ -240,30 +372,52 @@ class NeuSHead(OccupancyQueries, nn.Module):
         unit_dir = direction / direction_norm
         near, far = neus.ray_aabb_near_far(origin, unit_dir, self.roi_aabb,
                                            self.near_plane, self.far_plane)
+        if self.anneal_aabb and train:
+            near, far = self._annealed(near, far, global_iter)
+        if inv_s is None:
+            inv_s = self.inv_s(global_iter, origin.device)
         R, S = origin.shape[0], self.num_samples
-        t_rand = None
-        if train:
-            t_rand = draws.get("t_rand")
-            if t_rand is None:
-                t_rand = torch.rand((R, S + 1), generator=generator,
-                                    device=origin.device)
-        segs = neus.sample_uniform(near, far, S, t_rand)
+        edges = None
+        if not train and self.eval_skip_coarse > 0 and self.eval_skip_fine > 0:
+            mids = self._skip_samples(volume, origin, unit_dir, near, far,
+                                      inv_s)
+        else:
+            t_rand = None
+            if train:
+                t_rand = draws.get("t_rand")
+                if t_rand is None:
+                    t_rand = torch.rand((R, S + 1), generator=generator,
+                                        device=origin.device)
+            segs = neus.sample_uniform(near, far, S, t_rand)
+            mids, edges = segs.mids, segs.edges
+        if self.num_samples_importance > 0 and mids.shape[-1] == S:
+            mids = self._importance_samples(volume, origin, unit_dir, mids)
+            edges = None
         positions = origin[:, None, :] + unit_dir[:, None, :] * \
-            segs.mids[..., None]
+            mids[..., None]
 
         qvol = first_channel(volume) if geo_only else volume
-        geo, grad = self.field.query_geo_grad(qvol, positions)
+        if self.use_numerical_gradients:
+            geo = self.field.query_geo(qvol, positions)
+            grad = self.field.sdf_numerical_grad(
+                volume, positions, self.numerical_gradients_delta)
+        else:
+            geo, grad = self.field.query_geo_grad(qvol, positions)
         sdf = geo["sdf"]
-        if inv_s is None:
-            inv_s = self.field.inv_s()
         rgb_wanted = self.color_dims > 0 and not geo_only and want("rgb")
         sem_wanted = (self.return_sem and self.sem_dims > 0 and not geo_only
                       and want("sem"))
         max_wanted = self.return_max_depth and want("max_depth")
-        weights, acc, depth, normal_vis, ts, deltas = neus_composite(
-            sdf, grad, unit_dir, segs.edges, direction_norm, inv_s,
-            weights=want("weights") or rgb_wanted or sem_wanted or max_wanted,
-            geometry=want("ts", "deltas") or max_wanted)
+        if edges is not None:
+            weights, acc, depth, normal_vis, ts, deltas = neus_composite(
+                sdf, grad, unit_dir, edges, direction_norm, inv_s,
+                weights=(want("weights") or rgb_wanted or sem_wanted or
+                         max_wanted),
+                geometry=want("ts", "deltas") or max_wanted)
+        else:
+            weights, acc, depth, normal_vis, ts, deltas = self._composite(
+                sdf, grad, unit_dir, mids, neus.section_deltas(mids, far),
+                direction_norm, inv_s)
         out = {"acc": acc, "fars": far, "inv_s": inv_s, "sdf": sdf,
                "eik_grad": grad, "depth": depth, "normal_vis": normal_vis}
         if want("weights"):
@@ -295,7 +449,29 @@ class NeuSHead(OccupancyQueries, nn.Module):
             else:
                 out["second_grad"] = self.field.second_grad_noncompact(
                     volume, positions, delta)
+        if self.return_surface_sdf and want("surface_sdf"):
+            # the JAX head scales its euclidean depth by |d| once more
+            # (heads.py:376): copied as it is
+            surf = origin + unit_dir * (depth * direction_norm[:, 0])[
+                ..., None] * direction_norm
+            out["surface_sdf"] = self.field.sdf(volume, surf)
         return out
+
+    @staticmethod
+    def _composite(sdf, grad, unit_dir, mids, deltas, direction_norm, inv_s):
+        """The alpha-input render of sorted samples (``heads.py:315-366``):
+        alpha, ``weights_from_alpha`` and the composites in torch;
+        differentiable in every input. Returns ``neus_composite``'s six
+        outputs."""
+        alpha = neus.neus_alpha(sdf, grad, unit_dir, deltas, inv_s)
+        weights = weights_from_alpha(alpha.contiguous())
+        dn = direction_norm[:, 0]
+        depth = neus.composite(weights, mids[..., None])[..., 0] / dn
+        norm = grad / torch.linalg.norm(grad, dim=-1,
+                                        keepdim=True).clamp_min(1e-6)
+        normal_vis = neus.composite(weights, (norm + 1.0) / 2.0)
+        return (weights, weights.sum(-1), depth, normal_vis,
+                mids / direction_norm, deltas / direction_norm)
 
     def _train_draws(self, R: int, device, generator, draws):
         """The jitter and background uniforms of R rays, drawn up front so
@@ -313,7 +489,8 @@ class NeuSHead(OccupancyQueries, nn.Module):
         return out
 
     def forward(self, representation, img2lidar, train: bool = True,
-                generator=None, draws: Optional[Dict[str, Any]] = None):
+                generator=None, draws: Optional[Dict[str, Any]] = None,
+                global_iter=None):
         """Training forward (``heads.py:397-526``): decode, sample the
         cellular ray grid, render every camera's rays (in checkpointed chunks
         of ``train_ray_chunk`` rays when that is smaller than the ray count,
@@ -323,7 +500,14 @@ class NeuSHead(OccupancyQueries, nn.Module):
         caller's ``trans_kw`` matrix. With ``return_uniform_sdf`` it also
         returns ``uniform_sdf``, the sdf on the jittered uniform grid over
         ``roi_aabb`` at ``resolution`` (``get_uniform_sdf``), which
-        ``SoftSparsityLoss`` reads; its gradient flows into the volume."""
+        ``SoftSparsityLoss`` reads; its gradient flows into the volume.
+        ``global_iter``: the step count before this step's update (the
+        JAX step's ``state.step``), for ``anneal_aabb`` and
+        ``beta_hand_tune``. ``return_sample_sdf`` / ``return_surface_sdf``
+        add ``sample_sdf`` (the samples' sdf, which
+        ``AdaptiveSparsityLoss`` reads) / ``surface_sdf`` (at the rendered
+        depth); ``two_split`` then splits the cameras
+        (``split_cams_for_losses``)."""
         volume = self.field.decode(representation)[0]
         device = volume.device
         draws = {k: torch.as_tensor(v, dtype=torch.float32, device=device)
@@ -340,7 +524,7 @@ class NeuSHead(OccupancyQueries, nn.Module):
         R_tot = origin_flat.shape[0]
         chunk = self.train_ray_chunk
         if train and chunk and chunk < R_tot:
-            inv_s = self.field.inv_s()
+            inv_s = self.inv_s(global_iter, device)
             pad = (-R_tot) % chunk
             o = F.pad(origin_flat, (0, 0, 0, pad))
             d = F.pad(dir_flat, (0, 0, 0, pad), value=1.0)
@@ -351,7 +535,8 @@ class NeuSHead(OccupancyQueries, nn.Module):
                 sl = slice(i * chunk, (i + 1) * chunk)
                 parts.append(checkpoint(
                     self._render_chunk, volume, o[sl], d[sl], inv_s,
-                    {k: v[sl] for k, v in rd.items()}, use_reentrant=False))
+                    {k: v[sl] for k, v in rd.items()}, global_iter,
+                    use_reentrant=False))
             r = {k: parts[0][k] if parts[0][k].dim() == 0 else
                  torch.cat([p[k] for p in parts])[:R_tot] for k in parts[0]}
         else:
@@ -359,7 +544,8 @@ class NeuSHead(OccupancyQueries, nn.Module):
                 draws.update(self._train_draws(R_tot, device, generator,
                                                draws))
             r = self.render_rays(volume, origin_flat, dir_flat, train=train,
-                                 generator=generator, draws=draws)
+                                 generator=generator, draws=draws,
+                                 global_iter=global_iter)
 
         def cams(x, extra=()):
             return x.reshape((bs, num_cams, num_rays) + tuple(extra))
@@ -383,6 +569,10 @@ class NeuSHead(OccupancyQueries, nn.Module):
             outputs["sem"] = [cams(r["sem"], (self.sem_dims,))]
         if "second_grad" in r:
             outputs["second_grad"] = r["second_grad"].reshape(-1, 3)
+        if self.return_sample_sdf:
+            outputs["sample_sdf"] = cams(r["sdf"], (S,))
+        if self.return_surface_sdf:
+            outputs["surface_sdf"] = cams(r["surface_sdf"])
         if "max_depth" in r:
             outputs["ms_max_depths"] = [cams(r["max_depth"])]
         if self.return_uniform_sdf:
@@ -392,6 +582,8 @@ class NeuSHead(OccupancyQueries, nn.Module):
             outputs["uniform_sdf"] = self.get_uniform_sdf(
                 volume, self.roi_aabb, self.resolution, generator=generator,
                 shift=draws.get("uniform_shift"))[0]
+        if self.two_split:
+            outputs = split_cams_for_losses(outputs, num_cams)
         return outputs
 
     def get_uniform_sdf(self, volume, aabb, resolution, generator=None,
@@ -412,8 +604,11 @@ class NeuSHead(OccupancyQueries, nn.Module):
         geo = self.field.query_geo(volume, xyz)
         return geo["sdf"], geo["sem_logits"], xyz
 
-    def _render_chunk(self, volume, origin, direction, inv_s, draws):
+    def _render_chunk(self, volume, origin, direction, inv_s, draws,
+                      global_iter):
         r = self.render_rays(volume, origin, direction, train=True,
-                             draws=draws, inv_s=inv_s)
-        r.pop("sdf")
+                             draws=draws, inv_s=inv_s,
+                             global_iter=global_iter)
+        if not self.return_sample_sdf:
+            r.pop("sdf")
         return r

@@ -9,7 +9,8 @@ features (B, N, h, w, C), the decoded volume (C, H, W, D). The TPV NeuS
 model is ported with the encoder's recipe options (head-shared locations,
 visibility compaction, bf16 attention values), the BEV path
 (``BEVQueryLifter``, ``BEVFormerEncoder``, the ``tpv=False`` field), the
-density head (``head_type="nerfacc"``) and ``compute_dtype``: with
+density head (``head_type="nerfacc"``), every option of the NeuS head but
+the flow head (``estimate_flow``), and ``compute_dtype``: with
 ``"bfloat16"`` the ResNet-50 backbone (not ``TinyBackbone``, as in the JAX
 package) and the FPN compute in bf16 with fp32 parameters, and the features
 return to fp32 for the encoder. The constructor refuses the options that
@@ -38,16 +39,7 @@ _PORTED = (
     ("encoder", "multi_plane_ffn_norm", False),
     ("encoder", "camera_aware", False),
     ("head", "head_type", frozenset({"neus", "nerfacc"})),
-    ("head", "use_numerical_gradients", False),
-    ("head", "beta_hand_tune", False),
-    ("head", "num_samples_importance", 0),
-    ("head", "eval_skip_coarse", 0),
-    ("head", "eval_skip_fine", 0),
-    ("head", "return_surface_sdf", False),
     ("head", "estimate_flow", False),
-    ("head", "anneal_aabb", False),
-    ("head", "two_split", False),
-    ("head", "return_sample_sdf", False),
 )
 
 
@@ -147,6 +139,9 @@ class TPVSegmentor(nn.Module):
             roi_aabb=tuple(h.roi_aabb), mapping_args=h.mapping_args,
             near_plane=h.near_plane, far_plane=h.far_plane,
             num_samples=h.num_samples, beta_init=h.beta_init,
+            beta_max=h.beta_max, total_iters=h.total_iters,
+            beta_hand_tune=h.beta_hand_tune,
+            use_numerical_gradients=h.use_numerical_gradients,
             return_sem=h.return_sem, render_bkgd=h.render_bkgd,
             embed_dims=h.embed_dims, color_dims=h.color_dims,
             sem_dims=h.sem_dims, density_layers=h.density_layers,
@@ -154,13 +149,24 @@ class TPVSegmentor(nn.Module):
             return_second_grad=h.return_second_grad,
             use_compact_2nd_grad=h.use_compact_2nd_grad,
             numerical_gradients_delta=h.numerical_gradients_delta,
+            anneal_aabb=h.anneal_aabb, aabb_every_iters=h.aabb_every_iters,
+            aabb_min_near=h.aabb_min_near,
+            aabb_min_far_frac=h.aabb_min_far_frac,
+            base_variance=h.base_variance,
+            num_samples_importance=h.num_samples_importance,
+            num_upsample_steps=h.num_upsample_steps,
+            eval_skip_coarse=h.eval_skip_coarse,
+            eval_skip_fine=h.eval_skip_fine,
             ray_sample_mode=h.ray_sample_mode, ray_number=tuple(h.ray_number),
             ray_img_size=tuple(h.ray_img_size),
             ray_upper_crop=h.ray_upper_crop, ray_x_dsr_max=h.ray_x_dsr_max,
             ray_y_dsr_max=h.ray_y_dsr_max,
             train_ray_chunk=h.train_ray_chunk, resolution=h.resolution,
             return_max_depth=h.return_max_depth,
-            return_uniform_sdf=h.return_uniform_sdf, tpv=h.tpv)
+            return_uniform_sdf=h.return_uniform_sdf,
+            return_surface_sdf=h.return_surface_sdf,
+            return_sample_sdf=h.return_sample_sdf, two_split=h.two_split,
+            tpv=h.tpv)
 
     def extract_img_feat(self, imgs, flip=False):
         """Backbone + neck. imgs (B, N, H, W, 3) -> list of (B, N, h, w, C).
@@ -196,18 +202,21 @@ class TPVSegmentor(nn.Module):
 
     def forward(self, imgs, lidar2img, img2lidar, train: bool = True,
                 generator=None, draws=None, flip=False, focal_ratios_x=None,
-                focal_ratios_y=None):
+                focal_ratios_y=None, global_iter=None):
         """Training forward -> the head's loss inputs
         (``selfocc_tpu/models/segmentor.py:236``). BatchNorm and dropout
         follow the module's mode (``model.train()``); ``train`` selects the
         head's training render. Random numbers come from ``generator`` (a
         ``torch.Generator`` on the model's device) unless ``draws`` fixes
         the head's (see ``NeuSHead``). ``flip`` and ``focal_ratios_x/y``:
-        the batch's augmentation record (``get_representation``)."""
+        the batch's augmentation record (``get_representation``).
+        ``global_iter``: the step count before this step's update, which
+        the NeuS head's ``anneal_aabb`` and ``beta_hand_tune`` read (the
+        density head takes it and reads nothing)."""
         rep = self.get_representation(imgs, lidar2img, generator, flip,
                                       focal_ratios_x, focal_ratios_y)
         return self.head(rep, img2lidar, train=train, generator=generator,
-                         draws=draws)
+                         draws=draws, global_iter=global_iter)
 
     def prepare(self, imgs, lidar2img, flip=False):
         """Decode the field volume once per frame: (C, H, W, D) fp32

@@ -12,7 +12,9 @@ launch the values-only kernel ``trilinear_cf_fwd`` for a CUDA volume and
 take ``trilinear_sample_cf_plain`` for a CPU one. Where the CUDA volume
 needs a gradient, ``_TrilinearValues`` pairs that forward with the
 values-only backward ``trilinear_cf_bwd``; on the CPU autograd runs through
-the plain version.
+the plain version. Points that need a gradient (the importance rounds'
+sdf queries, the surface sdf) get the cotangent JAX autodiff gives the
+fractional indices, from the backward's point instance.
 ``lerp_axis_cf`` and ``separable_grid_resample_cf`` (the separable
 occupancy query) are plain torch ops.
 
@@ -22,7 +24,9 @@ differentiable with respect to the volume, from both of its outputs
 ``csrc/trilinear.cu`` (``trilinear_cf_with_grad_fwd``, ``trilinear_bwd``,
 zeros padding); for a CPU volume they take the plain versions
 (``trilinear_sample_cf_with_grad_plain`` and ``trilinear_bwd_plain``,
-autograd through it). The points get no gradient.
+autograd through it). Points that need a gradient (the samples placed by
+the importance rounds) get theirs from both outputs: ``trilinear_bwd``'s
+point instance on the card, the plain version's autograd on the CPU.
 
 The kernels read a channel-last volume: ``(H, W, D, C)`` in memory, seen as
 ``(C, H, W, D)`` through a permute, so that a corner's channels are one
@@ -114,7 +118,7 @@ def trilinear_sample_cf(vol_cf: torch.Tensor, hwd: torch.Tensor,
                         padding: str = "zeros") -> torch.Tensor:
     """Values-only trilinear sampling (``interp.py:118``): vol (C, H, W, D),
     hwd (..., 3) fractional indices -> (..., C) fp32, differentiable with
-    respect to the volume (the points get no gradient). A CUDA volume
+    respect to the volume and the points. A CUDA volume
     launches ``trilinear_cf_fwd`` (zeros padding), reading a channel-last
     volume in place, rows of a wider channel-last tensor included
     (``row_stride``), and copying any other layout; where it needs a
@@ -350,29 +354,40 @@ _SIGNATURES["trilinear_cf_fwd"] = (
 
 
 def trilinear_bwd_plain(vol_cf, hwd, grad_vals, grad_grad0,
-                        padding: str = "zeros"):
+                        padding: str = "zeros", points: bool = False):
     """Plain PyTorch version of ``trilinear_bwd``: autograd through
-    ``trilinear_sample_cf_with_grad_plain``; either cotangent may be None."""
+    ``trilinear_sample_cf_with_grad_plain``; either cotangent may be None.
+    With ``points``, (the volume's cotangent, the points' (N, 3))."""
     with torch.enable_grad():
         vol = vol_cf.detach().requires_grad_(True)
-        vals, grad0 = trilinear_sample_cf_with_grad_plain(vol, hwd, padding)
+        pts = hwd.detach().requires_grad_(points)
+        vals, grad0 = trilinear_sample_cf_with_grad_plain(vol, pts, padding)
         outs = [(o, g) for o, g in ((vals, grad_vals), (grad0, grad_grad0))
                 if g is not None]
+        leaves = (vol, pts) if points else (vol,)
         if not outs:
-            return torch.zeros_like(vol_cf)
-        return torch.autograd.grad([o for o, _ in outs], vol,
-                                   [g for _, g in outs])[0]
+            got = tuple(torch.zeros_like(t) for t in leaves)
+        else:
+            got = torch.autograd.grad([o for o, _ in outs], leaves,
+                                      [g for _, g in outs],
+                                      allow_unused=True)
+            got = tuple(torch.zeros_like(t) if g is None else g
+                        for g, t in zip(got, leaves))
+        return got if points else got[0]
 
 
 def trilinear_bwd(vol_cf: torch.Tensor, hwd: torch.Tensor, grad_vals,
-                  grad_grad0) -> torch.Tensor:
+                  grad_grad0, points: bool = False):
     """Launch ``csrc/trilinear.cu::trilinear_bwd``: the (C, H, W, D)
     cotangent of a volume in the kernels' layout, in that layout, for
     cotangents ``grad_vals`` (N, C) and ``grad_grad0`` (N, 3) of
     ``trilinear_cf_with_grad_fwd`` (either may be None; with neither, zeros
     and no launch), zeros padding. The kernel accumulates into the
     zero-filled result itself; C = 1 takes the plane kernel
-    (``plane_launches``), any other C the rows kernel."""
+    (``plane_launches``), any other C the rows kernel. ``points``: the
+    point instance (``trilinear_bwd_points``, ``points_launches``), which
+    also reads the volume's corner rows and returns (the volume's
+    cotangent, the points' (N, 3))."""
     _require_kernel_volume(vol_cf, "trilinear_bwd")
     _build.require_cuda_tensor(hwd, "trilinear_bwd points", torch.float32, 2)
     C, H, W, D = vol_cf.shape
@@ -387,15 +402,26 @@ def trilinear_bwd(vol_cf: torch.Tensor, hwd: torch.Tensor, grad_vals,
                                  f"{width}), got {tuple(g.shape)}")
     grad = torch.zeros((H, W, D, C), dtype=torch.float32, device=hwd.device)
     if grad_vals is None and grad_grad0 is None:
-        return grad.permute(3, 0, 1, 2)
+        grad = grad.permute(3, 0, 1, 2)
+        return (grad, torch.zeros_like(hwd)) if points else grad
     lib = _build.load("trilinear", _SIGNATURES)
-    status = lib.trilinear_bwd(
-        _build.ptr(hwd), _optional_ptr(grad_vals), _optional_ptr(grad_grad0),
-        _build.ptr(grad), N, C, H, W, D, _build.stream_ptr(hwd.device))
+    if points:
+        gpts = torch.empty((N, 3), dtype=torch.float32, device=hwd.device)
+        status = lib.trilinear_bwd_points(
+            _build.ptr(vol_cf), _build.ptr(hwd), _optional_ptr(grad_vals),
+            _optional_ptr(grad_grad0), _build.ptr(grad), _build.ptr(gpts), N,
+            C, H, W, D, _build.stream_ptr(hwd.device))
+    else:
+        status = lib.trilinear_bwd(
+            _build.ptr(hwd), _optional_ptr(grad_vals),
+            _optional_ptr(grad_grad0), _build.ptr(grad), N, C, H, W, D,
+            _build.stream_ptr(hwd.device))
     _build.check(status, "trilinear_bwd")
     trilinear_bwd.launches += 1
     trilinear_bwd.plane_launches += C == 1
-    return grad.permute(3, 0, 1, 2)
+    trilinear_bwd.points_launches += points
+    grad = grad.permute(3, 0, 1, 2)
+    return (grad, gpts) if points else grad
 
 
 def _optional_ptr(t):
@@ -404,22 +430,30 @@ def _optional_ptr(t):
 
 trilinear_bwd.launches = 0
 trilinear_bwd.plane_launches = 0
+trilinear_bwd.points_launches = 0
 _SIGNATURES["trilinear_bwd"] = (
     _build.PTR, _build.PTR, _build.PTR, _build.PTR, _build.I64, _build.I32,
     _build.I32, _build.I32, _build.I32, _build.PTR)
+_SIGNATURES["trilinear_bwd_points"] = (
+    _build.PTR, _build.PTR, _build.PTR, _build.PTR, _build.PTR, _build.PTR,
+    _build.I64, _build.I32, _build.I32, _build.I32, _build.I32, _build.PTR)
 
 
-def trilinear_cf_bwd_plain(vol_cf, hwd, grad_vals):
+def trilinear_cf_bwd_plain(vol_cf, hwd, grad_vals, points: bool = False):
     """Plain PyTorch version of ``trilinear_cf_bwd``: autograd through
-    ``trilinear_sample_cf_plain``."""
+    ``trilinear_sample_cf_plain``. With ``points``, (the volume's
+    cotangent, the points' cotangent, shaped as ``hwd``)."""
     with torch.enable_grad():
         vol = vol_cf.detach().requires_grad_(True)
-        vals = trilinear_sample_cf_plain(vol, hwd)
+        pts = hwd.detach().requires_grad_(points)
+        vals = trilinear_sample_cf_plain(vol, pts)
+        if points:
+            return torch.autograd.grad(vals, (vol, pts), grad_vals)
         return torch.autograd.grad(vals, vol, grad_vals)[0]
 
 
-def trilinear_cf_bwd(vol_shape, hwd: torch.Tensor,
-                     grad_vals: torch.Tensor) -> torch.Tensor:
+def trilinear_cf_bwd(vol_shape, hwd: torch.Tensor, grad_vals: torch.Tensor,
+                     vol_cf=None):
     """Launch ``csrc/trilinear.cu::trilinear_cf_bwd``, the backward of
     ``trilinear_cf_fwd``: ``vol_shape`` (C, H, W, D), (N, 3) fractional
     indices and ``grad_vals`` (N, C), zeros padding -> the volume's
@@ -428,7 +462,12 @@ def trilinear_cf_bwd(vol_shape, hwd: torch.Tensor,
     row-strided forward (channel 0 of a wider volume, ``channel0_view``)
     gets this gradient of its C channels; autograd's backward of the slice
     scatters it into the wider volume's channel-last gradient. C = 1 takes
-    the plane kernel (``plane_launches``), any other C a rows kernel."""
+    the plane kernel (``plane_launches``), any other C a rows kernel.
+
+    ``vol_cf``: the forward's volume (fp32, CUDA, ``row_stride``), for the
+    point instance (``trilinear_cf_bwd_points``, ``points_launches``):
+    it reads each point's corners and returns (the volume's cotangent, the
+    points' (N, 3))."""
     C, H, W, D = vol_shape
     _build.require_cuda_tensor(hwd, "trilinear_cf_bwd points", torch.float32,
                                2)
@@ -442,40 +481,59 @@ def trilinear_cf_bwd(vol_shape, hwd: torch.Tensor,
                          f"{tuple(hwd.shape)} / {tuple(grad_vals.shape)}")
     grad = torch.zeros((H, W, D, C), dtype=torch.float32, device=hwd.device)
     lib = _build.load("trilinear", _SIGNATURES)
-    status = lib.trilinear_cf_bwd(
-        _build.ptr(hwd), _build.ptr(grad_vals), _build.ptr(grad), N, C, H, W,
-        D, _build.stream_ptr(hwd.device))
+    if vol_cf is not None:
+        row = row_stride(vol_cf)
+        if row is None or tuple(vol_cf.shape) != tuple(vol_shape) or \
+                not vol_cf.is_cuda or vol_cf.dtype != torch.float32:
+            raise ValueError("trilinear_cf_bwd: the points' cotangent needs "
+                             "the forward's fp32 CUDA volume, channel-last")
+        gpts = torch.empty((N, 3), dtype=torch.float32, device=hwd.device)
+        status = lib.trilinear_cf_bwd_points(
+            _build.ptr(vol_cf), row, _build.ptr(hwd), _build.ptr(grad_vals),
+            _build.ptr(grad), _build.ptr(gpts), N, C, H, W, D,
+            _build.stream_ptr(hwd.device))
+    else:
+        status = lib.trilinear_cf_bwd(
+            _build.ptr(hwd), _build.ptr(grad_vals), _build.ptr(grad), N, C,
+            H, W, D, _build.stream_ptr(hwd.device))
     _build.check(status, "trilinear_cf_bwd")
     trilinear_cf_bwd.launches += 1
     trilinear_cf_bwd.plane_launches += C == 1
-    return grad.permute(3, 0, 1, 2)
+    trilinear_cf_bwd.points_launches += vol_cf is not None
+    grad = grad.permute(3, 0, 1, 2)
+    return (grad, gpts) if vol_cf is not None else grad
 
 
 trilinear_cf_bwd.launches = 0
 trilinear_cf_bwd.plane_launches = 0
+trilinear_cf_bwd.points_launches = 0
+_SIGNATURES["trilinear_cf_bwd_points"] = (
+    _build.PTR, _build.I64, _build.PTR, _build.PTR, _build.PTR, _build.PTR,
+    _build.I64, _build.I32, _build.I32, _build.I32, _build.I32, _build.PTR)
 _SIGNATURES["trilinear_cf_bwd"] = (
     _build.PTR, _build.PTR, _build.PTR, _build.I64, _build.I32, _build.I32,
     _build.I32, _build.I32, _build.PTR)
 
 
 class _TrilinearValues(torch.autograd.Function):
-    """``trilinear_cf_fwd`` and ``trilinear_cf_bwd`` on a CUDA volume that
-    needs a gradient; (N, 3) points that need none."""
+    """``trilinear_cf_fwd`` and ``trilinear_cf_bwd`` on a CUDA volume or
+    (N, 3) points that need a gradient; points that do get theirs from the
+    backward's point instance."""
 
     @staticmethod
     def forward(ctx, vol_cf, hwd):
-        if hwd.requires_grad:
-            raise NotImplementedError(
-                "trilinear_sample_cf: no gradient with respect to the "
-                "points is ported (detach them)")
         ctx.vol_shape = tuple(vol_cf.shape)
-        ctx.save_for_backward(hwd)
+        ctx.points = hwd.requires_grad
+        ctx.save_for_backward(hwd, vol_cf if ctx.points else None)
         return trilinear_cf_fwd(vol_cf, hwd)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad_vals):
-        (hwd,) = ctx.saved_tensors
+        hwd, vol_cf = ctx.saved_tensors
+        if ctx.points:
+            return trilinear_cf_bwd(ctx.vol_shape, hwd,
+                                    grad_vals.contiguous(), vol_cf)
         return trilinear_cf_bwd(ctx.vol_shape, hwd,
                                 grad_vals.contiguous()), None
 
@@ -497,24 +555,24 @@ class _TapsPlain(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad):
         vol_cf, hwd = ctx.saved_tensors
-        total = None
+        points = ctx.needs_input_grad[1]
+        total, g_pts = None, [None] * hwd.shape[-2]
         for t in reversed(range(hwd.shape[-2])):
             g = trilinear_cf_bwd_plain(vol_cf, hwd[..., t, :],
-                                       grad[..., t, :])
+                                       grad[..., t, :], points)
+            if points:
+                g, g_pts[t] = g
             total = g if total is None else total + g
-        return total, None
+        return total, torch.stack(g_pts, -2) if points else None
 
 
 class _TrilinearWithGrad(torch.autograd.Function):
     """The kernels on a CUDA volume, the plain versions on a CPU volume;
-    (N, 3) points that need no gradient."""
+    (N, 3) points that need a gradient get theirs from the backward's point
+    instance (on the CPU, the plain version's autograd)."""
 
     @staticmethod
     def forward(ctx, vol_cf, hwd, padding):
-        if hwd.requires_grad:
-            raise NotImplementedError(
-                "trilinear_sample_cf_with_grad: no gradient with respect to "
-                "the points is ported (detach them)")
         ctx.padding = padding
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(vol_cf, hwd)
@@ -526,15 +584,18 @@ class _TrilinearWithGrad(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad_vals, grad_grad0):
         vol_cf, hwd = ctx.saved_tensors
+        points = ctx.needs_input_grad[1]
         if vol_cf.is_cuda:
-            grad_vol = trilinear_bwd(
+            got = trilinear_bwd(
                 vol_cf, hwd,
                 None if grad_vals is None else grad_vals.contiguous(),
-                None if grad_grad0 is None else grad_grad0.contiguous())
+                None if grad_grad0 is None else grad_grad0.contiguous(),
+                points)
         else:
-            grad_vol = trilinear_bwd_plain(vol_cf, hwd, grad_vals,
-                                           grad_grad0, ctx.padding)
-        return grad_vol, None, None
+            got = trilinear_bwd_plain(vol_cf, hwd, grad_vals, grad_grad0,
+                                      ctx.padding, points)
+        grad_vol, grad_pts = got if points else (got, None)
+        return grad_vol, grad_pts, None
 
 
 def trilinear_sample_cf_with_grad(vol_cf: torch.Tensor, hwd: torch.Tensor,
@@ -543,7 +604,7 @@ def trilinear_sample_cf_with_grad(vol_cf: torch.Tensor, hwd: torch.Tensor,
     channel 0. vol (C, H, W, D) in any layout (a channel-last one is read
     as it is, any other copied: ``kernel_volume``), hwd (..., 3) -> vals
     (..., C) fp32, grad0 (..., 3) fp32 (d channel0 / d(h, w, d)); both
-    differentiable with respect to the volume."""
+    differentiable with respect to the volume and the points."""
     if vol_cf.dim() != 4 or hwd.shape[-1] != 3:
         raise ValueError("trilinear_sample_cf_with_grad: expected a (C, H, W,"
                          f" D) volume and (..., 3) points, got "

@@ -14,7 +14,8 @@ tensors its forward and backward launch the fused kernels of
 (``neus_composite_plain``, the head's chain of torch ops) under autograd.
 
 ``weights_from_alpha`` is the alpha-input entry, which the density head's
-render takes: for CUDA tensors the ``neus_weights_fwd`` instance of the same
+render, the NeuS head's importance and skip renders and its up-sample
+rounds take: for CUDA tensors the ``neus_weights_fwd`` instance of the same
 forward kernel and the ``neus_weights_bwd`` kernel for the closed-form
 gradient of ``render_pallas.py:76-84``, summed without its division by
 ``1 - alpha + eps``; for CPU tensors their plain versions,
@@ -30,8 +31,11 @@ from .. import _build
 from ..models import neus
 
 EPS = 1e-7
-# the backward keeps a whole ray in registers: 32 lanes x at most 8 samples
+# the fused backward keeps a whole ray in registers: 32 lanes x at most 8
+# samples
 MAX_BWD_SAMPLES = 256
+# the alpha-input backward walks tiles of 256 samples above that, at most 32
+MAX_WEIGHTS_BWD_SAMPLES = 32 * 256
 
 
 def weights_from_alpha_plain(alpha: torch.Tensor) -> torch.Tensor:
@@ -73,7 +77,8 @@ def neus_weights_bwd(alpha: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Launch ``csrc/neus_weights.cu::neus_weights_bwd`` on (R, S) fp32
     CUDA alpha and the weights' cotangent ``g``: the cotangent of alpha
     (``weights_grad_plain`` is its plain version). At most
-    ``MAX_BWD_SAMPLES`` samples a ray (a ray's run is held in registers)."""
+    ``MAX_WEIGHTS_BWD_SAMPLES`` samples a ray: up to 256 the kernel holds a
+    ray in registers, above it walks the ray in tiles of 256."""
     _check(alpha)
     _build.require_cuda_tensor(alpha, "neus_weights_bwd alpha",
                                torch.float32, 2)
@@ -83,9 +88,9 @@ def neus_weights_bwd(alpha: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"neus_weights_bwd: g must be {(R, S)} on "
                          f"{alpha.device}, got {tuple(g.shape)} on "
                          f"{g.device}")
-    if S > MAX_BWD_SAMPLES:
-        raise ValueError(f"neus_weights_bwd: at most {MAX_BWD_SAMPLES} "
-                         f"samples per ray, got {S}")
+    if S > MAX_WEIGHTS_BWD_SAMPLES:
+        raise ValueError(f"neus_weights_bwd: at most "
+                         f"{MAX_WEIGHTS_BWD_SAMPLES} samples per ray, got {S}")
     lib = _build.load("neus_weights", _SIGNATURES)
     alpha, g = alpha.contiguous(), g.contiguous()
     out = torch.empty_like(alpha)
@@ -94,10 +99,12 @@ def neus_weights_bwd(alpha: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
                                   _build.stream_ptr(alpha.device))
     _build.check(status, "neus_weights_bwd")
     neus_weights_bwd.launches += 1
+    neus_weights_bwd.tiled_launches += S > 256
     return out
 
 
 neus_weights_bwd.launches = 0
+neus_weights_bwd.tiled_launches = 0
 _SIGNATURES["neus_weights_bwd"] = (_build.PTR, _build.PTR, _build.PTR,
                                    _build.I64, _build.I32, _build.PTR)
 

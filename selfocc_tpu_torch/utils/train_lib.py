@@ -151,6 +151,8 @@ class Trainer:
              sync: Optional[Callable[[], None]] = None) -> Dict:
         """One optimizer step on a device batch (its ``flip`` and focal
         ratios, where it has them, go to the model: ``aug_kwargs``).
+        The model gets ``global_step``, the count of steps before this one
+        (the JAX step's ``state.step``; resume restores it).
         Returns the weighted loss dict, ``total``, ``grad_norm`` (of the
         trainable parameters, before clipping) and ``lr`` as tensors, plus
         the host seconds of forward, backward and optimizer (each ended by
@@ -161,7 +163,7 @@ class Trainer:
         out = self.model(batch["imgs"], batch["lidar2img"],
                          batch[self.cfg.model.head.trans_kw], train=True,
                          generator=generator, draws=draws,
-                         **aug_kwargs(batch))
+                         global_iter=self.global_step, **aug_kwargs(batch))
         tot, ldict = self.loss_fn(build_loss_inputs(self.cfg, out, batch))
         sync()
         t1 = time.perf_counter()

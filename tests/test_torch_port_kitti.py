@@ -1,7 +1,8 @@
 """The SemanticKITTI recipe of the port against the JAX package on the CPU:
 the values-only trilinear query's volume gradient, ``SoftSparsityLoss``, a
 KITTI-shaped training step, ``build_dataset`` on a fabricated odometry
-tree, and the ``eval_iou_kitti`` / ``eval_novel_depth_kitti`` drivers.
+tree, and the ``eval_iou_kitti``, ``eval_depth`` and
+``eval_novel_depth_kitti`` drivers.
 
 The KITTI-shaped model is ``tiny`` with ``kitti_occ``'s options, built here
 from each package's ``tiny`` with ``dataclasses.replace`` (neither config
@@ -155,9 +156,18 @@ def test_values_query_gradient_matches_jax(case):
 
 
 def test_values_query_refuses_point_gradients():
+    # the kernels' Function takes CUDA volumes only; on the CPU the values
+    # query gives the points the plain version's cotangent (the importance
+    # rounds' sdf queries need it)
     vol, pts = _query_case(1, 4)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         tinterp._TrilinearValues.apply(T(vol), T(pts).requires_grad_())
+    p = T(pts).requires_grad_()
+    g = torch.randn(len(pts), vol.shape[0],
+                    generator=torch.Generator().manual_seed(0))
+    (tinterp.trilinear_sample_cf(T(vol), p) * g).sum().backward()
+    _, ref = tinterp.trilinear_cf_bwd_plain(T(vol), T(pts), g, points=True)
+    assert torch.equal(p.grad, ref)
 
 
 # ----------------------------------------------------------- the sparsity
@@ -286,11 +296,17 @@ def test_kitti_model_has_no_colour_projection_or_semantics():
 
 
 def test_kitti_recipes_build_and_refuse_only_the_sample_sdf():
+    # the sample sdf is ported now; the KITTI recipes still refuse an
+    # option that is not (the reference's NonLinearMapping)
     for name in ("kitti_occ", "kitti_novel_depth"):
         TPVSegmentor(texp.get_config(name).model)
     cfg = texp.kitti_occ()
     head = dataclasses.replace(cfg.model.head, return_sample_sdf=True)
-    with pytest.raises(NotImplementedError, match="return_sample_sdf"):
+    TPVSegmentor(dataclasses.replace(cfg.model, head=head))
+    mapping = dict(cfg.model.head.mapping_args,
+                   nonlinear_mode="linear_upscale")
+    head = dataclasses.replace(cfg.model.head, mapping_args=mapping)
+    with pytest.raises(NotImplementedError, match="NonLinearMapping"):
         TPVSegmentor(dataclasses.replace(cfg.model, head=head))
 
 
@@ -401,6 +417,62 @@ def test_eval_iou_kitti_matches_jax(kitti_root, kitti_weights, tmp_path,
             assert res["stats"][k] == ref[k], k
         np.testing.assert_array_equal(res["stats"]["iou_ssc"],
                                       ref["iou_ssc"])
+
+
+def test_eval_depth_kitti_matches_jax(kitti_root, kitti_weights, tmp_path,
+                                     monkeypatch):
+    # eval_depth on a SemanticKITTI val frame: its lidar depth (the val
+    # split's return_depth), the same bridged weights, the JAX driver handed
+    # an as_arrays that keeps the item's strings
+    import eval_depth as jdriver
+    import train as jtrain_driver
+    from selfocc_tpu.utils import metrics as jmetrics
+    from selfocc_tpu_torch import eval_depth
+    tpth, jpth = kitti_weights
+    jcfg = kitti_tiny(jexp, kitti_root)
+    seen = {"table": [], "depth": []}
+    orig_epoch = jmetrics.DepthMetric._after_epoch
+    orig_render = jeval.ChunkedRenderer.render
+
+    def epoch(self, logger=None):
+        seen["table"].append(orig_epoch(self, logger))
+        return seen["table"][-1]
+
+    def render(self, *a, **kw):
+        out = orig_render(self, *a, **kw)
+        seen["depth"].append(np.asarray(out["depth"]))
+        return out
+    monkeypatch.setattr(jmetrics.DepthMetric, "_after_epoch", epoch)
+    monkeypatch.setattr(jeval.ChunkedRenderer, "render", render)
+    monkeypatch.setattr(jeval, "load_model_for_eval",
+                        lambda name, ckpt="": (jcfg,
+                                               JSegmentor(cfg=jcfg.model)))
+    monkeypatch.setattr(jtrain_driver, "as_arrays", lambda item: {
+        k: (v if isinstance(v, str) else jnp.asarray(v))
+        for k, v in item.items() if not isinstance(v, dict)})
+    monkeypatch.setattr(sys, "argv", [
+        "eval_depth.py", "--py-config", "kitti_tiny", "--num-samples", "2",
+        "--batch", str(CHUNK), "--no-shard", "--torch-ckpt", jpth,
+        "--work-dir", str(tmp_path / "j")])
+    jdriver.main()
+    monkeypatch.setattr(eval_depth, "get_config",
+                        lambda name: kitti_tiny(texp, kitti_root))
+    res = eval_depth.main(["--py-config", "kitti_tiny", "--num-samples", "2",
+                           "--batch", str(CHUNK), "--device", "cpu",
+                           "--torch-ckpt", tpth])
+    np.testing.assert_allclose(res["last_depth"].numpy().reshape(-1),
+                               seen["depth"][-1], rtol=1e-4, atol=1e-5)
+    (ref,) = seen["table"]
+    got = res["metric"]
+    assert set(got) == set(ref) and ref
+    for k in ref:
+        g, r = np.asarray(got[k], np.float64), np.asarray(ref[k], np.float64)
+        if k.endswith(("a1", "a2", "a3")):
+            np.testing.assert_array_equal(g, r, err_msg=k)
+        else:
+            np.testing.assert_allclose(g, r, rtol=1e-4, atol=1e-6,
+                                       err_msg=k)
+    assert res["rays"] == 2 * 8 * 12
 
 
 def test_eval_novel_depth_kitti_matches_jax(kitti_root, kitti_weights,

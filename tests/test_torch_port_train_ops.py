@@ -284,10 +284,15 @@ def test_first_channel_plane_and_gradient_layout(layout):
 
 
 def test_trilinear_function_refuses_point_gradients():
-    vol, pts, _, _ = _vol_points(4, 2)
-    with pytest.raises(NotImplementedError):
-        tinterp.trilinear_sample_cf_with_grad(
-            T(vol), T(pts).requires_grad_(True))
+    # points that need a gradient get the plain version's cotangent of
+    # both outputs on the CPU (the CUDA kernel's point instance on the card)
+    vol, pts, gv, gg = _vol_points(4, 2)
+    p = T(pts).requires_grad_(True)
+    vals, grad0 = tinterp.trilinear_sample_cf_with_grad(T(vol), p)
+    ((vals * T(gv)).sum() + (grad0 * T(gg)).sum()).backward()
+    _, ref = tinterp.trilinear_bwd_plain(T(vol), T(pts), T(gv), T(gg),
+                                         points=True)
+    assert torch.equal(p.grad, ref)
 
 
 def _jax_composite_vjp(inputs, cots, pallas):
