@@ -407,6 +407,30 @@ def check_grads(name, got, ref):
     return worst
 
 
+def float64_check(name, got, plain, ref64):
+    """Each cotangent of a kernel (``got``) and of its plain version in
+    fp32 (``plain``) against the plain version run in float64 on the same
+    inputs (``ref64``): the kernel may sit no farther from float64 than
+    twice the fp32 plain version's distance plus 1e-7 of the float64
+    result's scale. Returns the distances by cotangent."""
+    out, far = {}, []
+    for which, k, pl, r in zip(("volume", "points"), got, plain, ref64):
+        d_k, d_p = max_err(k, r), max_err(pl, r)
+        scale = float(r.abs().max())
+        tol = 2.0 * d_p + 1e-7 * scale
+        log(f"  {name} {which} cotangent against float64: kernel "
+            f"{d_k:.3e}, fp32 plain {d_p:.3e} (bound {tol:.3e}, scale "
+            f"{scale:.3e})")
+        if not d_k <= tol:
+            far.append(f"{which} {d_k:.3e} > {tol:.3e}")
+        out[which] = {"kernel": d_k, "plain_fp32": d_p, "scale": scale}
+    if far:
+        raise AssertionError(f"{name}: the kernel sits farther from float64 "
+                             "than twice the fp32 plain version: "
+                             + "; ".join(far))
+    return out
+
+
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -722,14 +746,20 @@ def trilinear_checks(g, device, baseline=None):
 
 def trilinear_ab(base, this, vol25, train_pts, frame_pts, g):
     """Median ms of the two checkouts' trilinear kernels at the main paths'
-    points, in turns: baseline, this, this, baseline. Each gets the volume
-    in the layout its own decode produces (the baseline's kernels read
-    channel-first, ``kernel_volume`` marks this one's)."""
+    points, in turns: baseline, this, this, baseline (the backward's rows
+    point instance at the importance recipe's 4096 x 320 points). Each
+    gets the volume in the layout its own decode produces (the baseline's
+    kernels read channel-first, ``kernel_volume`` marks this one's)."""
     import torch
     n = train_pts.shape[0]
     gv25 = torch.randn((n, 25), generator=g, device=train_pts.device)
     gv1 = torch.randn((n, 1), generator=g, device=train_pts.device)
     gg = torch.randn((n, 3), generator=g, device=train_pts.device)
+    head = head_points(train_pts.device, (HEAD_SAMPLES,))[HEAD_SAMPLES]
+    gv_h = torch.randn((head.shape[0], 25), generator=g,
+                       device=train_pts.device)
+    gg_h = torch.randn((head.shape[0], 3), generator=g,
+                       device=train_pts.device)
 
     def calls(mod):
         layout = getattr(mod, "kernel_volume", torch.Tensor.contiguous)
@@ -745,7 +775,9 @@ def trilinear_ab(base, this, vol25, train_pts, frame_pts, g):
             "bwd_c25_train": lambda: mod.trilinear_bwd(v25, train_pts, gv25,
                                                        gg),
             "bwd_c1_train": lambda: mod.trilinear_bwd(v1, train_pts, gv1,
-                                                      gg)}
+                                                      gg),
+            "bwd_points_c25_head": lambda: mod.trilinear_bwd(
+                v25, head, gv_h, gg_h, points=True)}
 
     runs = {"baseline": [], "this": []}
     for side in ("baseline", "this", "this", "baseline"):
@@ -767,10 +799,26 @@ def values_ab(base, this, g, device):
     at their main-path shapes, in turns: baseline, this, this, baseline.
     Each gets the same inputs: the dense occupancy query (C = 25), the
     kitti_occ uniform grid (C = 4) and the compact taps' one query on the
-    plane, forward and backward."""
+    plane, forward and backward; the backward also at C = 25 on the
+    density step's 7,372,800 ray samples, the first training chunk's
+    1,048,576 (the options step's query) and the BEV step's 640,000
+    jittered uniform sdf points (there also with the step's cotangent, the
+    sdf channel alone live)."""
     import torch
     from selfocc_tpu_torch.configs.experiments import get_config
     dense = dense_grid_points(get_config("nuscenes_occ"), device)
+    c25 = {"density": density_step_points(
+               get_config("nuscenes_occ_density"), device,
+               torch.Generator(device=device).manual_seed(SEED)),
+           "options": step_points(device)[0],
+           "bev": uniform_sdf_points(
+               get_config("nuscenes_occ_bev"), device,
+               torch.Generator(device=device).manual_seed(SEED))}
+    gv25 = {k: torch.randn((p.shape[0], 25), generator=g, device=device)
+            for k, p in c25.items()}
+    # the BEV step's own cotangent: the sdf channel alone is live
+    sdf_only = torch.cat([gv25["bev"][:, :1],
+                          torch.zeros_like(gv25["bev"][:, 1:])], 1)
     vol25 = torch.randn((257, 257, 25, 25), generator=g,
                         device=device).permute(3, 0, 1, 2)
     shape, uniform, taps = kitti_points(device)[:3]
@@ -788,7 +836,11 @@ def values_ab(base, this, g, device):
             "bwd_uniform_c4": lambda: mod.trilinear_cf_bwd(
                 vol4.shape, uniform, gv4),
             "bwd_taps_c1": lambda: mod.trilinear_cf_bwd(plane.shape, taps,
-                                                        gv1)}
+                                                        gv1),
+            **{f"bwd_{k}_c25": (lambda k=k: mod.trilinear_cf_bwd(
+                vol25.shape, c25[k], gv25[k])) for k in c25},
+            "bwd_bev_c25_sdf_only": lambda: mod.trilinear_cf_bwd(
+                vol25.shape, c25["bev"], sdf_only)}
 
     runs = {"baseline": [], "this": []}
     for side in ("baseline", "this", "this", "baseline"):
@@ -801,7 +853,7 @@ def values_ab(base, this, g, device):
     for k in out["this"]:
         log(f"  A/B {k} (event ms, device ms): baseline {out['baseline'][k]}"
             f", this {out['this'][k]}")
-    del vol25, vol4, plane, dense, uniform, taps, gv4, gv1
+    del vol25, vol4, plane, dense, uniform, taps, gv4, gv1, c25, gv25, sdf_only
     torch.cuda.empty_cache()
     return out
 
@@ -1127,10 +1179,13 @@ def values_bwd_checks(g, device):
     time, with ``F.grid_sample``'s backward on the same values (the
     backward alone, and with the channel-first copy it needs and the
     gradient copied back). Bound: the cotangent and the points read once,
-    the dense gradient written once; 20 + 16 C operations per point. Then
-    off-path inputs, checked only: C = 1, 2, 3, 4, 5, 8, 25 at the points
-    of ``edge_points``, and at C = 4 a cotangent 4 bytes off 16-byte
-    alignment (the scalar lanes)."""
+    the dense gradient written once; 20 + 16 C operations per point. Also
+    at C = 25 the first training chunk's 1,048,576 ray samples
+    (``step_points``: the numerical-gradient options step queries the
+    decoded volume there, the walk instance), with the channel-0-only
+    cotangent too. Then off-path inputs, checked only: C = 1, 2, 3, 4, 5,
+    8, 25 at the points of ``edge_points``, and at C = 4 and 25 a
+    cotangent 4 bytes off 16-byte alignment (the walk)."""
     import torch
     from selfocc_tpu_torch.ops import interp
     shape, uniform, taps = kitti_points(device)[:3]
@@ -1149,6 +1204,9 @@ def values_bwd_checks(g, device):
         rec[f"uniform_{k}"] = recs["uniform"][k]
     del uniform, taps
     torch.cuda.empty_cache()
+    rec["options_chunk"] = values_bwd_c25_record(
+        g, device, (257, 257, 25), step_points(device)[0],
+        "options chunk", 20)
 
     small = (13, 17, 9)
     sets = edge_points(g, device, small)
@@ -1161,13 +1219,14 @@ def values_bwd_checks(g, device):
                   max_err(interp.trilinear_cf_bwd(vol.shape, p, gv), ref),
                   GRAD_RTOL * float(ref.abs().max()) + 1e-7)
     p = sets["rays"]
-    buf = torch.randn(p.shape[0] * 4 + 1, generator=g, device=device)
-    gv = buf[1:].view(-1, 4)
-    ref = interp.trilinear_cf_bwd_plain(torch.zeros((4,) + small,
-                                                    device=device), p, gv)
-    check("trilinear_cf_bwd (C=4, rays, grad_vals 4 bytes off)",
-          max_err(interp.trilinear_cf_bwd((4,) + small, p, gv), ref),
-          GRAD_RTOL * float(ref.abs().max()) + 1e-7)
+    for C in (4, 25):
+        buf = torch.randn(p.shape[0] * C + 1, generator=g, device=device)
+        gv = buf[1:].view(-1, C)
+        ref = interp.trilinear_cf_bwd_plain(torch.zeros((C,) + small,
+                                                        device=device), p, gv)
+        check(f"trilinear_cf_bwd (C={C}, rays, grad_vals 4 bytes off)",
+              max_err(interp.trilinear_cf_bwd((C,) + small, p, gv), ref),
+              GRAD_RTOL * float(ref.abs().max()) + 1e-7)
     return {"trilinear_cf_bwd": rec}
 
 
@@ -1748,7 +1807,7 @@ def kernel_checks(device, baseline=None):
     return res
 
 
-INSTANCE_COUNTS = ("plane", "points", "tiled")
+INSTANCE_COUNTS = ("plane", "points", "tiled", "walk", "points_walk")
 
 
 def reset_counts(wrappers):
@@ -1762,7 +1821,9 @@ def reset_counts(wrappers):
 def instance_counts(fn):
     """A wrapper's launches by kernel instance: the trilinear wrappers'
     ``plane`` (C = 1) and ``rows`` (C > 1) and, for the backwards,
-    ``points`` (the point-cotangent instance); ``neus_weights_bwd``'s
+    ``points`` (the point-cotangent instances); ``trilinear_cf_bwd``'s
+    ``walk`` (C > 1 but for the float4 rows) and ``trilinear_bwd``'s
+    ``points_walk`` (its point instance at C > 1); ``neus_weights_bwd``'s
     ``tiled`` (more than 256 samples a ray)."""
     kinds = {}
     if hasattr(fn, "plane_launches"):
@@ -2367,11 +2428,14 @@ def train_parity(device, name="tiny", cfg=None, global_iter=None,
     """One ``name`` step (a tiny-width config; or ``cfg``): kernels on the
     card vs plain versions on the CPU, same weights and draws, dropout 0,
     the model given ``global_iter``. ``baseline``: the step is also taken
-    on the card with the plain versions (``plain_versions``), and a
-    gradient whose card-against-CPU error exceeds GRAD_RTOL of its max
-    passes if it is within twice that baseline's error: the kernels add no
-    more than the card's own PyTorch ops (cuDNN, cuBLAS, CUDA reductions
-    and scans) already move an ill-conditioned step."""
+    on the card with the plain versions (``plain_versions``) at the kernel
+    run's chunking (``PARITY_RAY_CHUNK``), and a gradient whose
+    card-against-CPU error exceeds GRAD_RTOL of its max passes if it is
+    within twice that baseline's error: the kernels add no more than the
+    card's own PyTorch ops (cuDNN, cuBLAS, CUDA reductions and scans)
+    already move an ill-conditioned step. Logged beside it: the kernel run
+    against that plain run (one device, one chunking: what the kernels
+    alone add) and the plain run without chunks against the CPU."""
     import torch
     from selfocc_tpu_torch.configs.experiments import get_config
     from selfocc_tpu_torch.losses import MultiLoss
@@ -2396,7 +2460,7 @@ def train_parity(device, name="tiny", cfg=None, global_iter=None,
     results = []
     runs = [(device, PARITY_RAY_CHUNK, False), (torch.device("cpu"), 0, False)]
     if baseline:
-        runs.append((device, 0, True))
+        runs += [(device, PARITY_RAY_CHUNK, True), (device, 0, True)]
     for dev, chunk, plain in runs:
         m = copy.deepcopy(model).to(dev).train()
         m.head.train_ray_chunk = chunk
@@ -2421,12 +2485,21 @@ def train_parity(device, name="tiny", cfg=None, global_iter=None,
         f"{n} {r:.3f}" for r, n in ratios[:6]))
     res = {}
     if baseline:
-        g_b = results[2][1]
+        (g_b, g_d) = (results[2][1], results[3][1])
         base = {n: max_err(g_b[n], g_p[n]) / tols[n] for n in g_p}
-        log("  the card's plain versions against the CPU, worst: " + ", ".join(
-            f"{n} {r:.3f}" for r, n in sorted(
-                ((r, n) for n, r in base.items()), reverse=True)[:6]))
-        res["plain_on_card_worst_grad_err_over_tol"] = max(base.values())
+        for key, what, r in (
+                ("plain_on_card", "the card's plain versions in chunks of "
+                 f"{PARITY_RAY_CHUNK} rays against the CPU", base),
+                ("plain_on_card_unchunked", "the card's plain versions "
+                 "without chunks against the CPU",
+                 {n: max_err(g_d[n], g_p[n]) / tols[n] for n in g_p}),
+                ("kernels_vs_plain_on_card", "the kernels against the card's "
+                 "plain versions, both in chunks",
+                 {n: max_err(g_k[n], g_b[n]) / tols[n] for n in g_p})):
+            log(f"  {what}, worst: " + ", ".join(
+                f"{n} {x:.3f}" for x, n in sorted(
+                    ((x, n) for n, x in r.items()), reverse=True)[:6]))
+            res[f"{key}_worst_grad_err_over_tol"] = max(r.values())
         res["losses_plain_on_card"] = results[2][0]
     for r, n in ratios:
         bound = max(1.0, 2.0 * base[n]) if baseline else 1.0
@@ -5137,14 +5210,22 @@ def values_pair_records(g, device, grid_shape, pts, tag, reps):
     import torch
     from selfocc_tpu_torch.ops import interp
     C = 25
-    vol_shape = (C,) + tuple(grid_shape)
     vol = torch.randn(tuple(grid_shape) + (C,), generator=g,
                       device=device).permute(3, 0, 1, 2)
     fwd = values_fwd_record(interp, vol, pts,
                             f"{tag}, C={C}, {pts.shape[0]} points", reps)
     del vol
     torch.cuda.empty_cache()
-    gv = torch.randn((pts.shape[0], C), generator=g, device=device)
+    return fwd, values_bwd_c25_record(g, device, grid_shape, pts, tag, reps)
+
+
+def values_bwd_c25_record(g, device, grid_shape, pts, tag, reps):
+    """``values_bwd_record`` at C = 25 for a random cotangent, then the
+    cotangent with only the sdf channel live (checked)."""
+    import torch
+    from selfocc_tpu_torch.ops import interp
+    vol_shape = (25,) + tuple(grid_shape)
+    gv = torch.randn((pts.shape[0], 25), generator=g, device=device)
     bwd = values_bwd_record(interp, vol_shape, pts, gv, tag, reps)
     gv[:, 1:] = 0.0
     ref = interp.trilinear_cf_bwd_plain(torch.zeros(vol_shape, device=device),
@@ -5155,7 +5236,7 @@ def values_pair_records(g, device, grid_shape, pts, tag, reps):
     bwd["channel0_live_max_abs_err"] = err
     del gv, ref
     torch.cuda.empty_cache()
-    return fwd, bwd
+    return bwd
 
 
 def saturated_alpha(g, device, R=512, S=256):
@@ -5391,7 +5472,8 @@ def bev_phase(device):
                   msda.msda_bwd, interp.trilinear_cf_fwd,
                   interp.trilinear_cf_bwd),
         (msda.msda_shared_fwd, msda.msda_shared_bwd, rw.neus_weights_fwd,
-         rw.neus_weights_bwd), instances=("rows",))
+         rw.neus_weights_bwd), instances=("rows",),
+        required=("trilinear_cf_bwd.walk",))
     res["eval"] = recipe_eval(
         device, "nuscenes_occ_bev", render + (msda.msda_fwd,),
         (msda.msda_bwd, interp.trilinear_bwd, rw.neus_render_bwd,
@@ -5431,7 +5513,8 @@ def density_phase(device):
         (rw.neus_render_fwd, rw.neus_render_bwd,
          interp.trilinear_cf_with_grad_fwd, interp.trilinear_bwd,
          msda.msda_shared_fwd, msda.msda_shared_bwd),
-        ("neus_weights_fwd", "neus_weights_bwd"), instances=("rows",))
+        ("neus_weights_fwd", "neus_weights_bwd"), instances=("rows",),
+        required=("trilinear_cf_bwd.walk",))
     res["eval"] = recipe_eval(
         device, "nuscenes_occ_density",
         (msda.msda_fwd, interp.trilinear_cf_fwd, rw.neus_weights_fwd),
@@ -5558,7 +5641,9 @@ def head_kernel_checks(g, device):
     rows (C = 25) and plane (C = 1), at 4096 x 320 points;
     ``trilinear_cf_bwd``'s at 4096 x 256 .. 304 points (the rounds' sdf
     queries, C = 1 read at row stride 25 in place) and at the six taps of
-    4096 x 320 points. Each also at off-path inputs."""
+    4096 x 320 points. The point instances' two cotangents also against
+    their plain versions in float64 (``float64_check``). Each also at
+    off-path inputs."""
     import torch
     from selfocc_tpu_torch.ops import interp
     from selfocc_tpu_torch.ops import render_weights as rw
@@ -5626,11 +5711,17 @@ def head_kernel_checks(g, device):
         got = interp.trilinear_bwd(vol, pts, gv, gg, points=True)
         ref = interp.trilinear_bwd_plain(vol, pts, gv, gg, points=True)
         err = check_grads(f"trilinear_bwd points ({tag}, C = {C})", got, ref)
+        f64 = float64_check(
+            f"trilinear_bwd points ({tag}, C = {C})", got, ref,
+            interp.trilinear_bwd_plain(vol.double(), pts.double(),
+                                       gv.double(), gg.double(),
+                                       points=True))
         plain_vol = interp.trilinear_bwd(vol, pts, gv, gg)
         check(f"trilinear_bwd points ({tag}): volume cotangent as the "
               "point-free instance's", max_err(got[0], plain_vol),
               GRAD_RTOL * float(plain_vol.abs().max()) + 1e-7)
         del got, ref, plain_vol
+        torch.cuda.empty_cache()
         lib = grid_sample_points_bwd_of(vol, pts, gv)
 
         def kern():
@@ -5647,7 +5738,7 @@ def head_kernel_checks(g, device):
             device_ms=device_ms(kern, 20),
             point_free_device_ms=device_ms(
                 lambda: interp.trilinear_bwd(vol, pts, gv, gg), 20),
-            shape=f"C={C}, {n} points", points=n, C=C)
+            shape=f"C={C}, {n} points", points=n, C=C, float64=f64)
         del gv, gg, lib
         torch.cuda.empty_cache()
 
@@ -5665,6 +5756,10 @@ def head_kernel_checks(g, device):
         ref = interp.trilinear_cf_bwd_plain(vol, p, gv, points=True)
         tag = f"{ts} a ray" if ts != "taps" else "six taps"
         err = check_grads(f"trilinear_cf_bwd points ({tag})", got, ref)
+        f64 = float64_check(
+            f"trilinear_cf_bwd points ({tag})", got, ref,
+            interp.trilinear_cf_bwd_plain(vol.double(), p.double(),
+                                          gv.double(), points=True))
         del got, ref
         lib = grid_sample_points_bwd_of(vol, p, gv)
 
@@ -5683,7 +5778,7 @@ def head_kernel_checks(g, device):
             point_free_device_ms=device_ms(
                 lambda: interp.trilinear_cf_bwd(tuple(vol.shape), p, gv),
                 20),
-            shape=f"C=1, {m} points ({tag})", points=m, C=1)
+            shape=f"C=1, {m} points ({tag})", points=m, C=1, float64=f64)
         del p, gv, lib
         torch.cuda.empty_cache()
 
@@ -5865,8 +5960,9 @@ def head_phase(device):
         (rw.neus_render_fwd, rw.neus_render_bwd) + shared,
         ("neus_weights_fwd", "neus_weights_bwd"), instances=(),
         required=("trilinear_bwd.rows", "trilinear_bwd.plane",
-                  "trilinear_bwd.points", "trilinear_cf_bwd.points",
-                  "trilinear_cf_fwd.plane", "neus_weights_bwd.tiled"))
+                  "trilinear_bwd.points", "trilinear_bwd.points_walk",
+                  "trilinear_cf_bwd.points", "trilinear_cf_fwd.plane",
+                  "neus_weights_bwd.tiled"))
     opt = head_config("nuscenes_occ", "options")
     res["options_train"] = lever_train(
         device, opt,
@@ -5875,8 +5971,8 @@ def head_phase(device):
          interp.trilinear_cf_bwd, rw.neus_render_fwd, rw.neus_render_bwd),
         (rw.neus_weights_fwd, rw.neus_weights_bwd) + shared, instances=(),
         required=("trilinear_cf_fwd.rows", "trilinear_cf_fwd.plane",
-                  "trilinear_cf_bwd.rows", "trilinear_cf_bwd.plane",
-                  "trilinear_cf_bwd.points"))
+                  "trilinear_cf_bwd.rows", "trilinear_cf_bwd.walk",
+                  "trilinear_cf_bwd.plane", "trilinear_cf_bwd.points"))
     # eval frames on one set of seeded weights: uniform, importance, skip
     frames, depths = {}, {}
     base = eval_depth.build_model(head_config("nuscenes_occ", "skip"), SEED,
@@ -6117,29 +6213,60 @@ def main():
                          frame_checks=ores["kernel_vs_plain"])
         kernels.append(entry)
     # the instances of [head]: their main path is the importance recipe's
-    # step (launches by instance in its 3 measured steps)
+    # step (launches by instance in its 3 measured steps); the point
+    # instance of trilinear_bwd at C > 1 (points_walk) has a line of its
+    # own, trilinear_bwd.points holds the plane's
     imp_launches = hres["importance_train"]["launches"]
     opt_launches = hres["options_train"]["launches"]
-    for name, inst, src, replaces, main in (
+    imp_step = hres["importance_train"]["profile"]["trilinear_kernels"]
+    for name, inst, src, replaces, main, cases in (
             ("neus_weights_bwd", "tiled", "neus_weights.cu",
-             "selfocc_tpu/ops/render_pallas.py:76", "4096x320"),
+             "selfocc_tpu/ops/render_pallas.py:76", "4096x320", None),
             ("trilinear_bwd", "points", "trilinear.cu",
-             "selfocc_tpu/ops/interp.py:159", "rows"),
+             "selfocc_tpu/ops/interp.py:159", "plane", ("plane",)),
+            ("trilinear_bwd", "points_walk", "trilinear.cu",
+             "selfocc_tpu/ops/interp.py:159", "rows", ("rows",)),
             ("trilinear_cf_bwd", "points", "trilinear.cu",
-             "selfocc_tpu/ops/interp.py:118", "288")):
-        recs = hres["kernels"][name]
+             "selfocc_tpu/ops/interp.py:118", "288", None)):
+        recs = {k: r for k, r in hres["kernels"][name].items()
+                if isinstance(r, dict) and (cases is None or k in cases)}
         entry = {"name": f"{name}.{inst}", "route": "cuda",
                  "source": f"selfocc_tpu_torch/csrc/{src}",
                  "replaces": replaces,
                  "launches": imp_launches[f"{name}.{inst}"]}
         entry.update(recs[main])
-        entry["max_abs_err"] = max(r["max_abs_err"] for r in recs.values()
-                                   if isinstance(r, dict))
-        entry["cases"] = {k: r for k, r in recs.items()
-                          if isinstance(r, dict)}
+        entry["max_abs_err"] = max(r["max_abs_err"] for r in recs.values())
+        entry["cases"] = recs
         if f"{name}.{inst}" in opt_launches:
             entry["launches_options_steps"] = opt_launches[f"{name}.{inst}"]
+        if inst == "points_walk":
+            entry["in_step_ms_per_call"] = imp_step[
+                "trilinear_bwd_rows_points_kernel"]["ms_per_call"]
         kernels.append(entry)
+    # trilinear_cf_bwd's walk instance (C = 25 here): its main path is the
+    # density step's one query; the BEV step's uniform sdf grid and the
+    # options step's chunks launch it too
+    walk = {"name": "trilinear_cf_bwd.walk", "route": "cuda",
+            "source": "selfocc_tpu_torch/csrc/trilinear.cu",
+            "replaces": "selfocc_tpu/ops/interp.py:118",
+            "launches": denres["train"]["launches"]["trilinear_cf_bwd.walk"],
+            "launches_bev_steps": bres["train"]["launches"][
+                "trilinear_cf_bwd.walk"],
+            "launches_options_steps": opt_launches["trilinear_cf_bwd.walk"]}
+    walk.update(denres["values"]["trilinear_cf_bwd"])
+    walk["cases"] = {
+        "density_query": denres["values"]["trilinear_cf_bwd"],
+        "bev_uniform": bres["values"]["trilinear_cf_bwd"],
+        "options_chunk": kres["trilinear_cf_bwd"]["options_chunk"]}
+    walk["max_abs_err"] = max(r["max_abs_err"]
+                              for r in walk["cases"].values())
+    for path, r in (("density", denres["train"]), ("bev", bres["train"]),
+                    ("options", hres["options_train"])):
+        k = r["profile"]["trilinear_kernels"].get("values_bwd_walk_kernel")
+        if k is not None:
+            walk[f"in_{path}_step_ms_per_call"] = k["ms_per_call"]
+            walk[f"in_{path}_step_calls"] = k["calls"]
+    kernels.append(walk)
     print(json.dumps({
         "kernels": kernels,
         "frame": {"prepare_s": fres["prepare_s"],

@@ -113,11 +113,19 @@
 //   uniform grid has a cell of its own).
 // - Plane forward: one thread per point, its 8 loads issued before the
 //   sum; a sample's taps on neighbouring lanes read their corners from L1.
-// - Rows backward: one thread per (point, 4 channels) with one float4
+// - Rows backward, C a multiple of 4 with 16-byte-aligned cotangent and
+//   gradient (vec4): one thread per (point, 4 channels), one float4
 //   atomicAdd per in-volume corner row (8 a point at C = 4, compute
-//   capability 9.x), chosen by the launcher when C is a multiple of 4 and
-//   the cotangent and gradient are 16-byte aligned; else one lane per
-//   (point, channel) and scalar atomics.
+//   capability 9.x).
+// - Rows backward, any other C > 1 (walk): as the render's rows backward,
+//   lanes over channels walk the warp's 32 points, sum each run of one
+//   cell in 8 registers and carry the 4 shared corner rows across a unit
+//   step; each row it leaves takes one scalar atomic a lane, none where
+//   the lane's sum is an exact zero. Its callers are C = 25: the density
+//   step's one query (7,372,800 ray samples), the options step's
+//   numerical-gradient query (a 1,048,576-sample chunk, 9 a step) and the
+//   BEV step's uniform sdf grid (640,000 jittered points, the sdf channel
+//   alone live); see "The two C = 25 scatters" below.
 // - Plane backward (segments): no serial walk. A warp's lanes whose points
 //   lie in one cell (consecutive lanes) sum their 8 contributions by a
 //   segmented scan of 5 shuffle steps; each segment's last lane puts the
@@ -134,21 +142,59 @@
 //   table takes 8 inserts, each an fp32 atomicAdd in shared memory, for
 //   every run of one cell in a warp (chip_smoke.py records the runs per
 //   warp and the voxels touched).
-// The point instances (first, simple designs): the with-grad backward's
-// instances are the kernels above with kPoints, where each point's own
-// lane also reads its 8 corners (rows: channel by channel, with its row of
-// gv) before the walk; the values-only plane backward likewise; C > 1
-// values-only takes one thread per point over its C channels, scalar
-// atomics (no caller on a shipped path). At the importance recipe's
-// 4096 x 320 points the rows instance took 0.673 ms of device time
-// against the point-free 0.285 (bound 0.105), the plane 0.079 against
-// 0.068; the values-only plane 0.053-0.058 a round (1.05-1.25M points,
-// point-free 0.038-0.042) and 0.272 at 7.9M taps (chip_smoke.py [head],
-// H100 80GB HBM3, 700.00 W).
-// Only the chosen designs are built; the ones tried are named above.
-// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3, 700.00 W (device
-// ms from torch.profiler, ranges over readings; bound: the bytes a call
-// must move over 3.35 TB/s):
+// The point instances (kPoints) also give the points their cotangent: the
+// plane kernels (C = 1, the with-grad and the values-only one) from each
+// point's own lane, which reads its 8 corners; C > 1 from the walks, as
+// below (values-only: the walk above, no caller on a shipped path).
+// The two C = 25 scatters. Both put 25-channel cotangent rows (100 bytes,
+// 16-byte aligned only at every fourth voxel) into the (H, W, D, 25)
+// gradient of the decoded volume. What bounds them is the atomics: a
+// warp's scalar atomic on a corner row touches its 4-5 sectors whatever
+// the width of the lanes' values, and a sector missed in L2 is read from
+// and written back to HBM.
+// - trilinear_cf_bwd at C % 4 != 0 (until then one thread per (point,
+//   channel), 8 scalar atomics each, 200 a point, nothing summed across
+//   the ~5 consecutive ray samples that share a cell): the walk above,
+//   4.1x faster at the density step's points. Tried and dropped (tools/
+//   trilinear_scatter_variants.py rebuilds them): a flush through shared
+//   memory, each row as a scalar head, float4 atomics and a scalar tail,
+//   all 32 lanes sharing 2 vector and 2 scalar atomic instructions for the
+//   8 rows (fewer instructions, as many sectors, and 1.7x the walk's time
+//   at the density points); a warp whose 32 points make 30 runs or more
+//   (the BEV grid) taking its (point, channel) pairs by a ballot, in the
+//   walk's kernel (slower than the walk: a warp keeps its 32 points in
+//   flight for all of them) or in a second kernel over a list of such
+//   warps (slower still; and a kernel over every pair, leaving at once
+//   where the walk took the group, cost ~0.5 ms at the density points in
+//   chip_smoke.py's values_ab).
+//   The walk loses to the old kernel on the BEV grid's runs of one with a
+//   random cotangent, and wins on the step's own, whose zero channels
+//   make no atomics.
+// - trilinear_bwd_points at C > 1 (until then each point's own lane read
+//   its 8 corner rows channel by channel, 200 scalar loads, before the
+//   walk): the walk loads a cell's 8 corner rows once, as coalesced rows,
+//   when the cell changes; at each point a reduce-scatter over the warp (9
+//   shuffles) gives its 8 dots gv . v_k, kept in shared memory, and the
+//   point's own lane finishes point_cotangent after the walk. The warp's
+//   32 cotangent rows are staged in shared memory before the walk (one
+//   load a point in flight, not one at each step). The volume's cotangent
+//   stays the walk's.
+// The point instances' volume cotangent on crowded cells (all of them):
+// where thousands of rays pass one cell (around a camera), a chain of
+// thousands of fp32 atomics on one address drifts ~3x farther from a
+// float64 sum than the plain version's sorted sums do (chip_smoke.py
+// [head], float64_check). A pre-pass counts the points in each cell; a
+// flush from a cell of more than kHotPoints points goes to its voxel's
+// fp64 row in a small table, added to the gradient after the kernel
+// (hot_add). Tried and slower: the exact rounding error of each atomic
+// (from its returned old value, TwoSum) kept in a table, where every warp
+// waits for its atomics' returns on the crowded addresses; the whole
+// volume in fp64, a 330 MB zero fill and conversion at C = 25. Thresholds
+// of 32 and 512 points: tools/trilinear_scatter_variants.py.
+// Only the chosen designs are built.
+// Measured by chip_smoke.py and tools/trilinear_scatter_variants.py on an
+// NVIDIA H100 80GB HBM3, 700.00 W (device ms from torch.profiler, ranges
+// over readings; bound: the bytes a call must move over 3.35 TB/s):
 // - forward, dense query, C = 25 (walk): 0.817-0.919 ms, bound 0.384;
 // - forward, uniform grid, C = 4 (vec4): 0.0103-0.0118, bound 0.0091;
 // - forward, the six taps of 1,048,576 samples (plane): 0.0466-0.0523,
@@ -157,7 +203,15 @@
 //   with each corner read as a whole 32-byte sector;
 // - backward, the six taps (segments): 0.205-0.208, bound 0.0327;
 // - backward, uniform grid, C = 4 (float4 atomics): 0.0531-0.0540, bound
-//   0.0126.
+//   0.0126;
+// - backward, C = 25 (walk), in one call with the old kernel: the density
+//   step's 7,372,800 points 1.257-1.275 (old 5.098-5.260), bound 0.296;
+//   a 1,048,576-sample chunk 0.240-0.241 (old 0.716-0.739), bound 0.0843;
+//   the BEV grid 0.463-0.469 with a random cotangent (old 0.375), 0.271-
+//   0.277 with the sdf channel alone (old 0.374-0.376), bound 0.0699;
+// - trilinear_bwd_points, C = 25, 4096 x 320 points: 0.6417-0.6423 (old
+//   0.6605-0.6662), bound 0.1046; its volume cotangent 2.9e-5 from float64
+//   where the fp32 plain version is 9.3e-5.
 // Sums are taken in another order than the plain version's (per run or
 // chain, then atomics in any order); the fp32 results agree within the
 // tolerances chip_smoke.py states.
@@ -328,6 +382,117 @@ __device__ __forceinline__ int corner_offset(int k, int W, int D) {
   return (k >> 2) * W * D + ((k >> 1) & 1) * D + (k & 1);
 }
 
+constexpr unsigned kFull = 0xffffffffu;
+
+// x[0..7] summed over the warp's 32 lanes, each sum left in the lanes
+// whose lane >> 2 is its corner: a butterfly that halves the values it
+// carries at each of the first three steps (4 + 2 + 1 + 1 + 1 shuffles,
+// against 8 x 5 for eight separate reductions).
+__device__ __forceinline__ float reduce_scatter8(const float (&x)[8],
+                                                 int lane) {
+  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4;
+  float y[4], z[2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    y[i] = (b4 ? x[i + 4] : x[i]) +
+           __shfl_xor_sync(kFull, b4 ? x[i] : x[i + 4], 16);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    z[i] = (b3 ? y[i + 2] : y[i]) +
+           __shfl_xor_sync(kFull, b3 ? y[i] : y[i + 2], 8);
+  float w = (b2 ? z[1] : z[0]) + __shfl_xor_sync(kFull, b2 ? z[0] : z[1], 4);
+  w += __shfl_xor_sync(kFull, w, 2);
+  return w + __shfl_xor_sync(kFull, w, 1);
+}
+
+// The point instances' volume cotangent on hot voxels. A chain of fp32
+// atomics on one address rounds at every link: where thousands of rays
+// pass one cell (the cells around a camera), it drifts several times
+// farther from the exact sum than a sorted tree sum does. So a pre-pass
+// (hot_count_kernel) counts the points in each cell, and a flush from a
+// cell of more than kHotPoints points goes to its voxel's row in a small
+// table of fp64 sums (keys: the voxel, -1 while free; found by plain loads,
+// claimed by one atomicCAS), with fire-and-forget fp64 atomics; the other
+// flushes stay fp32 atomics on the gradient, and hot_fold_kernel adds the
+// table's rows to them, rounding once. A full table (kHotSlots rows)
+// leaves the rest on the fp32 chain.
+constexpr int kHotSlots = 1 << 15;  // ops/interp.py: HOT_SLOTS
+constexpr int kHotProbes = 32;
+constexpr int kHotPoints = 128;
+
+struct Hot {
+  const int* counts;  // points in each cell, by base voxel (nvox)
+  int* keys;
+  double* sums;       // kHotSlots x C
+  int nvox;
+};
+
+__device__ __forceinline__ bool hot_cell(const Hot& hot, int base) {
+  return static_cast<unsigned>(base) < static_cast<unsigned>(hot.nvox) &&
+         __ldg(hot.counts + base) > kHotPoints;
+}
+
+// grad[vox * C + ch] += x: if `is_hot`, into the voxel's fp64 row of the
+// table, else (or where kHotProbes slots hold other voxels) an fp32
+// atomic on grad. Keys are read by plain loads: a key, once set, never
+// changes, so a stale read of -1 only leads to an atomicCAS that returns
+// it.
+__device__ __forceinline__ void hot_add(const Hot& hot, bool is_hot,
+                                        float* grad, int vox, int C, int ch,
+                                        float x) {
+  if (is_hot) {
+    unsigned h = (static_cast<unsigned>(vox) * 2654435761u) & (kHotSlots - 1);
+    for (int probe = 0; probe < kHotProbes; ++probe) {
+      int key = hot.keys[h];
+      if (key == -1) key = atomicCAS(hot.keys + h, -1, vox);
+      if (key == -1 || key == vox) {
+        atomicAdd(hot.sums + static_cast<int64_t>(h) * C + ch,
+                  static_cast<double>(x));
+        return;
+      }
+      h = (h + 1) & (kHotSlots - 1);
+    }
+  }
+  atomicAdd(grad + static_cast<int64_t>(vox) * C + ch, x);
+}
+
+// counts[cell] += its points: one atomic a run of one cell in a warp
+__global__ void __launch_bounds__(kThreads)
+    hot_count_kernel(const float* __restrict__ hwd, int64_t num_points,
+                     int H, int W, int D, int* __restrict__ counts) {
+  const int64_t n = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int lane = threadIdx.x % kWarp;
+  int base = -1;
+  if (n < num_points) {
+    const Cell c = locate(hwd, n);
+    if (static_cast<unsigned>(c.h0) < static_cast<unsigned>(H) &&
+        static_cast<unsigned>(c.w0) < static_cast<unsigned>(W) &&
+        static_cast<unsigned>(c.d0) < static_cast<unsigned>(D))
+      base = (c.h0 * W + c.w0) * D + c.d0;
+  }
+  const int prev = __shfl_up_sync(kFull, base, 1);
+  const unsigned heads = __ballot_sync(kFull, lane == 0 || base != prev);
+  if (base >= 0 && ((heads >> lane) & 1)) {
+    const unsigned later = heads & ~((2u << lane) - 1u);
+    const int end = later ? __ffs(later) - 1 : kWarp;
+    atomicAdd(counts + base, end - lane);
+  }
+}
+
+// grad (H, W, D, C) += the table's rows, one thread a (slot, channel)
+__global__ void __launch_bounds__(kThreads)
+    hot_fold_kernel(const int* __restrict__ keys,
+                    const double* __restrict__ sums, float* __restrict__ grad,
+                    int C) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= static_cast<int64_t>(kHotSlots) * C) return;
+  const int vox = keys[i / C];
+  if (vox >= 0) {
+    float* g = grad + static_cast<int64_t>(vox) * C + i % C;
+    *g = static_cast<float>(static_cast<double>(*g) + sums[i]);
+  }
+}
+
 // ---------------------------------------------------------------- forward
 
 // C = 1: vol is the contiguous (H, W, D) plane. One lane per point.
@@ -448,7 +613,8 @@ struct ChainTables {
 // cell, a chain goes on across a step into a neighbouring cell.
 //
 // kPoints: also the points' cotangent (N, 3) into gpts, each point's own
-// lane reading its 8 corners of vol, the (H, W, D) plane.
+// lane reading its 8 corners of vol, the (H, W, D) plane; a hot cell's
+// voxels summed in fp64 (hot_add).
 template <bool kPoints>
 __global__ void __launch_bounds__(kThreads)
     trilinear_bwd_plane_kernel(const float* __restrict__ hwd,
@@ -457,7 +623,7 @@ __global__ void __launch_bounds__(kThreads)
                                float* __restrict__ grad, int64_t num_points,
                                int H, int W, int D,
                                const float* __restrict__ vol,
-                               float* __restrict__ gpts) {
+                               float* __restrict__ gpts, Hot hot) {
   __shared__ ChainTables tables[kWarps];
   const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
   const int64_t tile =
@@ -530,6 +696,8 @@ __global__ void __launch_bounds__(kThreads)
     t.next[k][lane] = static_cast<signed char>(nxt);
   }
   __syncwarp();
+  bool is_hot = false;
+  if constexpr (kPoints) is_hot = live && hot_cell(hot, voxel(c, 0, W, D));
   while (heads) {
     const int k = __ffs(heads) - 1;
     heads &= heads - 1;
@@ -540,7 +708,10 @@ __global__ void __launch_bounds__(kThreads)
       kk = t.next[kk][q];
       ++q;
     } while (kk >= 0);
-    atomicAdd(grad + t.vox[k][lane], acc);
+    if constexpr (kPoints)
+      hot_add(hot, is_hot, grad, t.vox[k][lane], 1, 0, acc);
+    else
+      atomicAdd(grad + t.vox[k][lane], acc);
   }
 }
 
@@ -594,9 +765,16 @@ __device__ __forceinline__ bool fresh(int k, int bit, bool up) {
 // share take one atomic per lane each (all 8 unless it is a unit step
 // away), and the shared ones carry their sums over.
 //
-// kPoints: also the points' cotangent (N, 3) into gpts: before the walk,
-// each point's own lane reads its 8 corner rows of vol (H, W, D, C) and
-// its row of gv, channel by channel.
+// kPoints: also the points' cotangent (N, 3) into gpts. The walk's lanes
+// load the current cell's 8 corner rows of vol (H, W, D, C) when the cell
+// changes (8 coalesced row loads); at each point they multiply them by
+// their channel of gv, and a reduce-scatter over the warp gives the
+// point's 8 dots gv . v_k, which go to shared memory. After the walk each
+// point's own lane reads its dots and channel 0 of its corners and
+// finishes point_cotangent. The cotangent rows of the warp's 32 points are
+// staged in dynamic shared memory (32 x 32 floats a warp) by one load per
+// point before the walk, not one at each step of it, and a hot cell's
+// rows are summed in fp64 (hot_add).
 template <bool kPoints>
 __global__ void __launch_bounds__(kThreads)
     trilinear_bwd_rows_kernel(const float* __restrict__ hwd,
@@ -605,9 +783,12 @@ __global__ void __launch_bounds__(kThreads)
                               float* __restrict__ grad, int64_t num_points,
                               int C, int H, int W, int D,
                               const float* __restrict__ vol,
-                              float* __restrict__ gpts) {
+                              float* __restrict__ gpts, Hot hot) {
   __shared__ PointRec recs[kWarps][kWarp];
   __shared__ float4 exts[kWarps][kWarp][2];  // channel 0's grad0 terms
+  extern __shared__ float staged[];  // kPoints: [kWarps][kWarp][kWarp]
+  // kPoints: each point's dots gv . v_k with its 8 corner rows
+  __shared__ float dots[kPoints ? kWarps : 1][kWarp][8];
   const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
   const int64_t tile =
       (static_cast<int64_t>(blockIdx.x) * kWarps + warp) * kWarp;
@@ -628,37 +809,8 @@ __global__ void __launch_bounds__(kThreads)
   }
   recs[warp][lane] = point_rec(c, live, H, W, D);
   if constexpr (kPoints) {
-    if (live) {
-      const PointRec mine = recs[warp][lane];
-      float sv[8], c0[8];
 #pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        sv[k] = 0.f;
-        c0[k] = (mine.mask >> k) & 1
-                    ? __ldg(vol + static_cast<int64_t>(
-                                      mine.base + corner_offset(k, W, D)) *
-                                      C)
-                    : 0.f;
-      }
-      if (gv != nullptr) {
-        for (int ch = 0; ch < C; ++ch) {
-          const float g = __ldg(gv + n * C + ch);
-#pragma unroll
-          for (int k = 0; k < 8; ++k)
-            if ((mine.mask >> k) & 1)
-              sv[k] += g * __ldg(vol +
-                                 static_cast<int64_t>(
-                                     mine.base + corner_offset(k, W, D)) *
-                                     C +
-                                 ch);
-        }
-      }
-      float out[3];
-      point_cotangent(c, sv, c0, gh, gw, gd, out);
-      gpts[3 * n] = out[0];
-      gpts[3 * n + 1] = out[1];
-      gpts[3 * n + 2] = out[2];
-    }
+    for (int k = 0; k < 8; ++k) dots[warp][lane][k] = 0.f;
   }
   exts[warp][lane][0] =
       make_float4(grad0_term(c, 0, gh, gw, gd), grad0_term(c, 1, gh, gw, gd),
@@ -675,10 +827,18 @@ __global__ void __launch_bounds__(kThreads)
     // this lane's channel takes updates: every channel from grad_vals,
     // channel 0 also from grad_grad0
     const bool active = ch < C && (gv != nullptr || ch == 0);
-    float acc[8];
+    float* stage = staged + warp * kWarp * kWarp;  // kPoints: [p][lane]
+    if constexpr (kPoints) {
+      for (int p = 0; p < count; ++p)
+        stage[p * kWarp + lane] =
+            gv != nullptr && ch < C ? __ldg(gv + (tile + p) * C + ch) : 0.f;
+      __syncwarp();
+    }
+    float acc[8], rowv[8];
     PointRec cur;
     cur.key = -1;
     cur.base = cur.mask = 0;
+    bool cur_hot = false;
     for (int p = 0; p <= count; ++p) {  // warp-uniform; p == count flushes
       const PointRec r = recs[warp][p < count ? p : 0];
       const int key = p < count ? r.key : -2;
@@ -688,12 +848,17 @@ __global__ void __launch_bounds__(kThreads)
         if (cur.key != -1 && active) {
 #pragma unroll
           for (int k = 0; k < 8; ++k)
-            if (((cur.mask >> k) & 1) && fresh(k, bit, !up))
-              atomicAdd(grad + static_cast<int64_t>(
-                                   cur.base + corner_offset(k, W, D)) *
-                                   C +
-                            ch,
-                        acc[k]);
+            if (((cur.mask >> k) & 1) && fresh(k, bit, !up)) {
+              if constexpr (kPoints)
+                hot_add(hot, cur_hot, grad, cur.base + corner_offset(k, W, D),
+                        C, ch, acc[k]);
+              else
+                atomicAdd(grad + static_cast<int64_t>(
+                                     cur.base + corner_offset(k, W, D)) *
+                                     C +
+                              ch,
+                          acc[k]);
+            }
         }
         carry(acc, bit, up);
 #pragma unroll
@@ -701,10 +866,27 @@ __global__ void __launch_bounds__(kThreads)
           if (fresh(k, bit, up)) acc[k] = 0.f;
         cur = r;
         cur.key = key;
+        if constexpr (kPoints) {
+          cur_hot = key >= 0 && hot_cell(hot, r.base);
+          if (gv != nullptr && key >= 0) {
+#pragma unroll
+            for (int k = 0; k < 8; ++k)
+              rowv[k] = ((r.mask >> k) & 1) && ch < C
+                            ? __ldg(vol +
+                                    static_cast<int64_t>(
+                                        r.base + corner_offset(k, W, D)) *
+                                        C +
+                                    ch)
+                            : 0.f;
+          }
+        }
       }
       if (p == count || key == -1) continue;
-      const float g =
-          gv != nullptr && ch < C ? __ldg(gv + (tile + p) * C + ch) : 0.f;
+      float g;
+      if constexpr (kPoints)
+        g = stage[p * kWarp + lane];
+      else
+        g = gv != nullptr && ch < C ? __ldg(gv + (tile + p) * C + ch) : 0.f;
       const Cell rc = rec_cell(r);
 #pragma unroll
       for (int k = 0; k < 8; ++k) acc[k] += weight(rc, k) * g;
@@ -719,6 +901,36 @@ __global__ void __launch_bounds__(kThreads)
         acc[6] += e1.z;
         acc[7] += e1.w;
       }
+      if constexpr (kPoints) {
+        if (gv != nullptr) {
+          float x[8];
+#pragma unroll
+          for (int k = 0; k < 8; ++k) x[k] = g * rowv[k];
+          const float s = reduce_scatter8(x, lane);
+          if ((lane & 3) == 0) dots[warp][p][lane >> 2] += s;
+        }
+      }
+    }
+  }
+  if constexpr (kPoints) {
+    __syncwarp();
+    if (live) {
+      const PointRec mine = recs[warp][lane];
+      float s[8], c0[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        s[k] = dots[warp][lane][k];
+        c0[k] = gg != nullptr && ((mine.mask >> k) & 1)
+                    ? __ldg(vol + static_cast<int64_t>(
+                                      mine.base + corner_offset(k, W, D)) *
+                                      C)
+                    : 0.f;
+      }
+      float out[3];
+      point_cotangent(c, s, c0, gh, gw, gd, out);
+      gpts[3 * n] = out[0];
+      gpts[3 * n + 1] = out[1];
+      gpts[3 * n + 2] = out[2];
     }
   }
 }
@@ -731,7 +943,6 @@ constexpr int kSlotBits = 10;
 constexpr int kSlots = 1 << kSlotBits;  // plane backward's table
 constexpr int kProbes = 8;          // slots tried before a global atomic
 constexpr int kEmpty = -1;
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kSegTiles = 4;  // 256-point tiles per block
 
 bool aligned16(const void* p) {
@@ -923,9 +1134,12 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // x into voxel vox's slot of the block's table (open addressing, linear
-// probing); where kProbes slots hold other voxels, straight into grad.
+// probing); where kProbes slots hold other voxels, straight into grad
+// (with kPoints, in fp64 on a hot cell: hot_add).
+template <bool kPoints>
 __device__ __forceinline__ void table_add(int* keys, float* sums, int vox,
-                                          float x, float* grad) {
+                                          float x, float* grad,
+                                          const Hot& hot) {
   unsigned h = (static_cast<unsigned>(vox) * 2654435761u) >> (32 - kSlotBits);
   for (int probe = 0; probe < kProbes; ++probe) {
     int key = *reinterpret_cast<volatile int*>(keys + h);
@@ -936,7 +1150,10 @@ __device__ __forceinline__ void table_add(int* keys, float* sums, int vox,
     }
     h = (h + 1) & (kSlots - 1);
   }
-  atomicAdd(grad + vox, x);
+  if constexpr (kPoints)
+    hot_add(hot, hot_cell(hot, vox), grad, vox, 1, 0, x);
+  else
+    atomicAdd(grad + vox, x);
 }
 
 // C = 1: grad is the (H, W, D) plane. A block takes kSegTiles tiles of 256 consecutive
@@ -950,7 +1167,7 @@ __device__ __forceinline__ void table_add(int* keys, float* sums, int vox,
 //
 // kPoints: also the points' cotangent (N, 3) into gpts, each point's own
 // thread reading its 8 corners of vol (the plane, one value every `row`
-// floats).
+// floats); a global atomic on a hot cell's voxel in fp64 (hot_add).
 template <bool kPoints>
 __global__ void __launch_bounds__(kThreads)
     values_bwd_plane_seg_kernel(const float* __restrict__ hwd,
@@ -958,7 +1175,7 @@ __global__ void __launch_bounds__(kThreads)
                                 float* __restrict__ grad, int64_t num_points,
                                 int H, int W, int D,
                                 const float* __restrict__ vol, int64_t row,
-                                float* __restrict__ gpts) {
+                                float* __restrict__ gpts, Hot hot) {
   __shared__ int keys[kSlots];
   __shared__ float sums[kSlots];
   for (int i = threadIdx.x; i < kSlots; i += kThreads) {
@@ -1019,86 +1236,180 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int k = 0; k < 8; ++k)
         if (in_volume(c, k, H, W, D))
-          table_add(keys, sums, voxel(c, k, W, D), x[k], grad);
+          table_add<kPoints>(keys, sums, voxel(c, k, W, D), x[k], grad,
+                             hot);
     }
   }
   __syncthreads();
   for (int i = threadIdx.x; i < kSlots; i += kThreads)
-    if (keys[i] != kEmpty) atomicAdd(grad + keys[i], sums[i]);
+    if (keys[i] != kEmpty) {
+      if constexpr (kPoints)
+        hot_add(hot, hot_cell(hot, keys[i]), grad, keys[i], 1, 0, sums[i]);
+      else
+        atomicAdd(grad + keys[i], sums[i]);
+    }
 }
 
-// C > 1: grad is (H, W, D, C). One thread per (point, group of V
-// channels); V = 4 (C a multiple of 4, gv and grad 16-byte aligned): one
-// float4 atomic per in-volume corner row, 8 per point at C = 4; V = 1:
-// lanes over channels, one scalar atomic per corner.
-template <int V>
+// C a multiple of 4, gv and grad 16-byte aligned: grad is (H, W, D, C).
+// One thread per (point, group of 4 channels), one float4 atomic per
+// in-volume corner row, 8 per point at C = 4 (compute capability 9.x).
 __global__ void __launch_bounds__(kThreads)
     values_bwd_rows_kernel(const float* __restrict__ hwd,
                            const float* __restrict__ gv,
                            float* __restrict__ grad, int64_t num_points,
                            int C, int H, int W, int D) {
-  const int groups = C / V;
+  const int groups = C / 4;
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= num_points * groups) return;
   const int64_t n = i / groups;
   const int j = static_cast<int>(i - n * groups);
   const Cell c = locate(hwd, n);
-  if constexpr (V == 4) {
-    const float4 g = __ldg(reinterpret_cast<const float4*>(gv + n * C) + j);
+  const float4 g = __ldg(reinterpret_cast<const float4*>(gv + n * C) + j);
 #pragma unroll
-    for (int k = 0; k < 8; ++k)
-      if (in_volume(c, k, H, W, D)) {
-        const float w = weight(c, k);
-        atomicAdd(reinterpret_cast<float4*>(
-                      grad + static_cast<int64_t>(voxel(c, k, W, D)) * C) +
-                      j,
-                  make_float4(w * g.x, w * g.y, w * g.z, w * g.w));
-      }
-  } else {
-    const float g = __ldg(gv + n * C + j);
-#pragma unroll
-    for (int k = 0; k < 8; ++k)
-      if (in_volume(c, k, H, W, D))
-        atomicAdd(grad + static_cast<int64_t>(voxel(c, k, W, D)) * C + j,
-                  weight(c, k) * g);
-  }
+  for (int k = 0; k < 8; ++k)
+    if (in_volume(c, k, H, W, D)) {
+      const float w = weight(c, k);
+      atomicAdd(reinterpret_cast<float4*>(
+                    grad + static_cast<int64_t>(voxel(c, k, W, D)) * C) +
+                    j,
+                make_float4(w * g.x, w * g.y, w * g.z, w * g.w));
+    }
 }
 
-// C > 1 with the points' cotangent: one thread per point walks its C
-// channels, one scalar atomic per in-volume corner and channel into grad
-// (H, W, D, C), and sums gv[c] * v_k[c] for the point's cotangent (vol:
-// (H, W, D, C) with `row` >= C floats between voxels).
+// C > 1 (any C not taken by values_bwd_rows_kernel): grad is (H, W, D, C).
+// A warp takes 32 consecutive points; each point's own lane computes its
+// cell record and 8 weights into shared memory, once. Then the lanes over
+// channels (32 at a time) walk the points in order and sum each run of
+// points in one cell into 8 registers, one per corner; when the cell
+// changes, the corner rows the next cell does not share take one atomic
+// per lane (all 8 unless it is a unit step away; none for a sum of exact
+// zeros, so that a cotangent with one live channel, as the uniform sdf
+// grid's, makes one atomic a row) and the shared ones carry their sums
+// over.
+//
+// kPoints (always walks): also the points' cotangent (N, 3) into gpts.
+// The lanes load the current cell's 8 corner rows of vol (H, W, D, C with
+// `row` >= C floats between voxels) when the cell changes, and at each
+// point a reduce-scatter over the warp gives its 8 dots gv . v_k, kept in
+// shared memory; after the walk each point's own lane finishes
+// point_cotangent. A hot cell's rows are summed in fp64 (hot_add).
+template <bool kPoints>
 __global__ void __launch_bounds__(kThreads)
-    values_bwd_rows_points_kernel(const float* __restrict__ hwd,
-                                  const float* __restrict__ gv,
-                                  float* __restrict__ grad,
-                                  int64_t num_points, int C, int H, int W,
-                                  int D, const float* __restrict__ vol,
-                                  int64_t row, float* __restrict__ gpts) {
-  const int64_t n = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (n >= num_points) return;
-  const Cell c = locate(hwd, n);
-  int64_t vox[8];
-  float sv[8];
+    values_bwd_walk_kernel(const float* __restrict__ hwd,
+                           const float* __restrict__ gv,
+                           float* __restrict__ grad, int64_t num_points,
+                           int C, int H, int W, int D,
+                           const float* __restrict__ vol, int64_t row,
+                           float* __restrict__ gpts, Hot hot) {
+  __shared__ PointRec recs[kWarps][kWarp];
+  __shared__ float4 wts[kWarps][kWarp][2];
+  __shared__ float dots[kPoints ? kWarps : 1][kWarp][8];
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int64_t tile =
+      (static_cast<int64_t>(blockIdx.x) * kWarps + warp) * kWarp;
+  if (tile >= num_points) return;  // the whole warp
+  const int64_t n = tile + lane;
+  const bool live = n < num_points;
+  Cell c;
+  c.h0 = c.w0 = c.d0 = -2;
+  c.fh = c.fw = c.fd = 0.f;
+  if (live) c = locate(hwd, n);
+  recs[warp][lane] = point_rec(c, live, H, W, D);
+  wts[warp][lane][0] = make_float4(weight(c, 0), weight(c, 1), weight(c, 2),
+                                   weight(c, 3));
+  wts[warp][lane][1] = make_float4(weight(c, 4), weight(c, 5), weight(c, 6),
+                                   weight(c, 7));
+  if constexpr (kPoints) {
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    vox[k] = in_volume(c, k, H, W, D) ? voxel(c, k, W, D) : -1;
-    sv[k] = 0.f;
+    for (int k = 0; k < 8; ++k) dots[warp][lane][k] = 0.f;
   }
-  for (int ch = 0; ch < C; ++ch) {
-    const float g = __ldg(gv + n * C + ch);
+  __syncwarp();
+
+  const int count = static_cast<int>(
+      num_points - tile < kWarp ? num_points - tile : kWarp);
+  for (int c0 = 0; c0 < C; c0 += kWarp) {
+    const int ch = c0 + lane;
+    float acc[8], rowv[8];
+    PointRec cur;
+    cur.key = -1;
+    cur.base = cur.mask = 0;
+    bool cur_hot = false;
+    for (int p = 0; p <= count; ++p) {  // warp-uniform; p == count flushes
+      const PointRec r = recs[warp][p < count ? p : 0];
+      const int key = p < count ? r.key : -2;
+      if (key != cur.key) {
+        bool up;
+        const int bit = unit_step(cur.key, key, W, D, up);
+        if (cur.key != -1 && ch < C) {
 #pragma unroll
-    for (int k = 0; k < 8; ++k)
-      if (vox[k] >= 0) {
-        sv[k] += g * __ldg(vol + vox[k] * row + ch);
-        atomicAdd(grad + vox[k] * C + ch, weight(c, k) * g);
+          for (int k = 0; k < 8; ++k)
+            if (((cur.mask >> k) & 1) && fresh(k, bit, !up) &&
+                acc[k] != 0.f) {
+              if constexpr (kPoints)
+                hot_add(hot, cur_hot, grad, cur.base + corner_offset(k, W, D),
+                        C, ch, acc[k]);
+              else
+                atomicAdd(grad + static_cast<int64_t>(
+                                     cur.base + corner_offset(k, W, D)) *
+                                     C +
+                              ch,
+                          acc[k]);
+            }
+        }
+        carry(acc, bit, up);
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          if (fresh(k, bit, up)) acc[k] = 0.f;
+        cur = r;
+        cur.key = key;
+        if constexpr (kPoints) {
+          cur_hot = key >= 0 && hot_cell(hot, r.base);
+          if (key >= 0) {
+#pragma unroll
+            for (int k = 0; k < 8; ++k)
+              rowv[k] = ((r.mask >> k) & 1) && ch < C
+                            ? __ldg(vol +
+                                    static_cast<int64_t>(
+                                        r.base + corner_offset(k, W, D)) *
+                                        row +
+                                    ch)
+                            : 0.f;
+          }
+        }
       }
+      if (p == count || key == -1) continue;
+      const float g = ch < C ? __ldg(gv + (tile + p) * C + ch) : 0.f;
+      const float4 w0 = wts[warp][p][0], w1 = wts[warp][p][1];
+      acc[0] += w0.x * g;
+      acc[1] += w0.y * g;
+      acc[2] += w0.z * g;
+      acc[3] += w0.w * g;
+      acc[4] += w1.x * g;
+      acc[5] += w1.y * g;
+      acc[6] += w1.z * g;
+      acc[7] += w1.w * g;
+      if constexpr (kPoints) {
+        float x[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) x[k] = g * rowv[k];
+        const float s = reduce_scatter8(x, lane);
+        if ((lane & 3) == 0) dots[warp][p][lane >> 2] += s;
+      }
+    }
   }
-  float out[3];
-  point_cotangent(c, sv, sv, 0.f, 0.f, 0.f, out);
-  gpts[3 * n] = out[0];
-  gpts[3 * n + 1] = out[1];
-  gpts[3 * n + 2] = out[2];
+  if constexpr (kPoints) {
+    __syncwarp();
+    if (live) {
+      float s[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) s[k] = dots[warp][lane][k];
+      float out[3];
+      point_cotangent(c, s, s, 0.f, 0.f, 0.f, out);
+      gpts[3 * n] = out[0];
+      gpts[3 * n + 1] = out[1];
+      gpts[3 * n + 2] = out[2];
+    }
+  }
 }
 
 unsigned blocks_for(int64_t num_points) {
@@ -1173,18 +1484,19 @@ extern "C" int trilinear_cf_bwd(const float* hwd, const float* gv,
                                 int W, int D, void* stream) {
   if (num_points > 0) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const Hot none{nullptr, nullptr, nullptr, 0};
     if (C == 1)
       values_bwd_plane_seg_kernel<false><<<seg_blocks(num_points), kThreads,
                                            0, s>>>(hwd, gv, grad, num_points,
                                                    H, W, D, nullptr, 0,
-                                                   nullptr);
+                                                   nullptr, none);
     else if (C % 4 == 0 && aligned16(gv) && aligned16(grad))
-      values_bwd_rows_kernel<4><<<blocks_for(num_points * (C / 4)), kThreads,
-                                  0, s>>>(hwd, gv, grad, num_points, C, H, W,
-                                          D);
+      values_bwd_rows_kernel<<<blocks_for(num_points * (C / 4)), kThreads, 0,
+                               s>>>(hwd, gv, grad, num_points, C, H, W, D);
     else
-      values_bwd_rows_kernel<1><<<blocks_for(num_points * C), kThreads, 0,
-                                  s>>>(hwd, gv, grad, num_points, C, H, W, D);
+      values_bwd_walk_kernel<false><<<blocks_for(num_points), kThreads, 0,
+                                      s>>>(hwd, gv, grad, num_points, C, H,
+                                           W, D, nullptr, 0, nullptr, none);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1196,57 +1508,92 @@ extern "C" int trilinear_bwd(const float* hwd, const float* gv,
                              int C, int H, int W, int D, void* stream) {
   if (num_points > 0) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const Hot none{nullptr, nullptr, nullptr, 0};
     if (C == 1)
       trilinear_bwd_plane_kernel<false><<<blocks_for(num_points), kThreads, 0,
                                           s>>>(hwd, gv, gg, grad, num_points,
-                                               H, W, D, nullptr, nullptr);
+                                               H, W, D, nullptr, nullptr,
+                                               none);
     else
       trilinear_bwd_rows_kernel<false><<<blocks_for(num_points), kThreads, 0,
                                          s>>>(hwd, gv, gg, grad, num_points,
-                                              C, H, W, D, nullptr, nullptr);
+                                              C, H, W, D, nullptr, nullptr,
+                                              none);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+// The hot cells' counts before a point instance, and its fp64 rows added
+// to grad after it.
+static void hot_count(const Hot& hot, const float* hwd, int64_t num_points,
+                      int H, int W, int D, cudaStream_t s) {
+  hot_count_kernel<<<blocks_for(num_points), kThreads, 0, s>>>(
+      hwd, num_points, H, W, D, const_cast<int*>(hot.counts));
+}
+
+static void hot_fold(const Hot& hot, float* grad, int C, cudaStream_t s) {
+  hot_fold_kernel<<<static_cast<unsigned>(
+                        (static_cast<int64_t>(kHotSlots) * C + kThreads - 1) /
+                        kThreads),
+                    kThreads, 0, s>>>(hot.keys, hot.sums, grad, C);
+}
+
 // trilinear_bwd with the points' cotangent: vol (H, W, D, C) channel-last,
-// the forward's volume; gpts (N, 3), every row written.
+// the forward's volume; gpts (N, 3), every row written. hot_counts (H W D
+// int32, 0), hot_keys (kHotSlots int32, -1) and hot_sums (kHotSlots x C
+// doubles, 0): the hot cells' counts and fp64 rows (hot_add).
 extern "C" int trilinear_bwd_points(const float* vol, const float* hwd,
                                     const float* gv, const float* gg,
                                     float* grad, float* gpts,
                                     int64_t num_points, int C, int H, int W,
-                                    int D, void* stream) {
+                                    int D, int* hot_counts, int* hot_keys,
+                                    double* hot_sums, void* stream) {
   if (num_points > 0) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (C == 1)
+    const Hot hot{hot_counts, hot_keys, hot_sums, H * W * D};
+    hot_count(hot, hwd, num_points, H, W, D, s);
+    if (C == 1) {
       trilinear_bwd_plane_kernel<true><<<blocks_for(num_points), kThreads, 0,
                                          s>>>(hwd, gv, gg, grad, num_points,
-                                              H, W, D, vol, gpts);
-    else
-      trilinear_bwd_rows_kernel<true><<<blocks_for(num_points), kThreads, 0,
-                                        s>>>(hwd, gv, gg, grad, num_points, C,
-                                             H, W, D, vol, gpts);
+                                              H, W, D, vol, gpts, hot);
+    } else {
+      // the staged cotangent rows: 32 KB, beside 20 KB of static memory
+      const int staged = kWarps * kWarp * kWarp * 4;
+      cudaFuncSetAttribute(trilinear_bwd_rows_kernel<true>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           staged);
+      trilinear_bwd_rows_kernel<true><<<blocks_for(num_points), kThreads,
+                                        staged, s>>>(
+          hwd, gv, gg, grad, num_points, C, H, W, D, vol, gpts, hot);
+    }
+    hot_fold(hot, grad, C, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // trilinear_cf_bwd with the points' cotangent: vol (H, W, D, C), `row`
 // floats between voxels, the forward's volume; gpts (N, 3), every row
-// written.
+// written; hot_counts, hot_keys, hot_sums: as trilinear_bwd_points'.
 extern "C" int trilinear_cf_bwd_points(const float* vol, int64_t row,
                                        const float* hwd, const float* gv,
                                        float* grad, float* gpts,
                                        int64_t num_points, int C, int H,
-                                       int W, int D, void* stream) {
+                                       int W, int D, int* hot_counts,
+                                       int* hot_keys, double* hot_sums,
+                                       void* stream) {
   if (num_points > 0) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const Hot hot{hot_counts, hot_keys, hot_sums, H * W * D};
+    hot_count(hot, hwd, num_points, H, W, D, s);
     if (C == 1)
       values_bwd_plane_seg_kernel<true><<<seg_blocks(num_points), kThreads, 0,
                                           s>>>(hwd, gv, grad, num_points, H,
-                                               W, D, vol, row, gpts);
+                                               W, D, vol, row, gpts, hot);
     else
-      values_bwd_rows_points_kernel<<<blocks_for(num_points), kThreads, 0,
-                                      s>>>(hwd, gv, grad, num_points, C, H,
-                                           W, D, vol, row, gpts);
+      values_bwd_walk_kernel<true><<<blocks_for(num_points), kThreads, 0,
+                                     s>>>(hwd, gv, grad, num_points, C, H, W,
+                                          D, vol, row, gpts, hot);
+    hot_fold(hot, grad, C, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -387,7 +387,10 @@ def trilinear_bwd(vol_cf: torch.Tensor, hwd: torch.Tensor, grad_vals,
     (``plane_launches``), any other C the rows kernel. ``points``: the
     point instance (``trilinear_bwd_points``, ``points_launches``), which
     also reads the volume's corner rows and returns (the volume's
-    cotangent, the points' (N, 3))."""
+    cotangent, the points' (N, 3)); at C > 1 its dots with the corner rows
+    are taken in the rows kernel's walk (``points_walk_launches``). The
+    point instances sum the volume's cotangent on cells that many points
+    share in fp64 (``_hot_rows``), and add those sums to the result."""
     _require_kernel_volume(vol_cf, "trilinear_bwd")
     _build.require_cuda_tensor(hwd, "trilinear_bwd points", torch.float32, 2)
     C, H, W, D = vol_cf.shape
@@ -407,10 +410,11 @@ def trilinear_bwd(vol_cf: torch.Tensor, hwd: torch.Tensor, grad_vals,
     lib = _build.load("trilinear", _SIGNATURES)
     if points:
         gpts = torch.empty((N, 3), dtype=torch.float32, device=hwd.device)
+        hot = _hot_rows(C, H, W, D, hwd.device)
         status = lib.trilinear_bwd_points(
             _build.ptr(vol_cf), _build.ptr(hwd), _optional_ptr(grad_vals),
             _optional_ptr(grad_grad0), _build.ptr(grad), _build.ptr(gpts), N,
-            C, H, W, D, _build.stream_ptr(hwd.device))
+            C, H, W, D, *map(_build.ptr, hot), _build.stream_ptr(hwd.device))
     else:
         status = lib.trilinear_bwd(
             _build.ptr(hwd), _optional_ptr(grad_vals),
@@ -420,6 +424,7 @@ def trilinear_bwd(vol_cf: torch.Tensor, hwd: torch.Tensor, grad_vals,
     trilinear_bwd.launches += 1
     trilinear_bwd.plane_launches += C == 1
     trilinear_bwd.points_launches += points
+    trilinear_bwd.points_walk_launches += points and C > 1
     grad = grad.permute(3, 0, 1, 2)
     return (grad, gpts) if points else grad
 
@@ -428,15 +433,30 @@ def _optional_ptr(t):
     return _build.ptr(t) if t is not None else None
 
 
+HOT_SLOTS = 1 << 15   # csrc/trilinear.cu: kHotSlots
+
+
+def _hot_rows(C, H, W, D, device):
+    """The point instances' scratch for hot cells (``hot_add`` in
+    ``csrc/trilinear.cu``): the points in each cell (H W D int32, zero),
+    HOT_SLOTS voxel keys (-1 while free) and as many rows of C fp64 sums
+    (zero)."""
+    return (torch.zeros((H, W, D), dtype=torch.int32, device=device),
+            torch.full((HOT_SLOTS,), -1, dtype=torch.int32, device=device),
+            torch.zeros((HOT_SLOTS, C), dtype=torch.float64, device=device))
+
+
 trilinear_bwd.launches = 0
 trilinear_bwd.plane_launches = 0
 trilinear_bwd.points_launches = 0
+trilinear_bwd.points_walk_launches = 0
 _SIGNATURES["trilinear_bwd"] = (
     _build.PTR, _build.PTR, _build.PTR, _build.PTR, _build.I64, _build.I32,
     _build.I32, _build.I32, _build.I32, _build.PTR)
 _SIGNATURES["trilinear_bwd_points"] = (
     _build.PTR, _build.PTR, _build.PTR, _build.PTR, _build.PTR, _build.PTR,
-    _build.I64, _build.I32, _build.I32, _build.I32, _build.I32, _build.PTR)
+    _build.I64, _build.I32, _build.I32, _build.I32, _build.I32, _build.PTR,
+    _build.PTR, _build.PTR, _build.PTR)
 
 
 def trilinear_cf_bwd_plain(vol_cf, hwd, grad_vals, points: bool = False):
@@ -462,12 +482,15 @@ def trilinear_cf_bwd(vol_shape, hwd: torch.Tensor, grad_vals: torch.Tensor,
     row-strided forward (channel 0 of a wider volume, ``channel0_view``)
     gets this gradient of its C channels; autograd's backward of the slice
     scatters it into the wider volume's channel-last gradient. C = 1 takes
-    the plane kernel (``plane_launches``), any other C a rows kernel.
+    the plane kernel (``plane_launches``); a C that is a multiple of 4,
+    with 16-byte-aligned ``grad_vals``, the float4 rows kernel; any other
+    C > 1 the walk kernel (``walk_launches``), which sums each run of
+    points in one cell before its atomics.
 
     ``vol_cf``: the forward's volume (fp32, CUDA, ``row_stride``), for the
     point instance (``trilinear_cf_bwd_points``, ``points_launches``):
     it reads each point's corners and returns (the volume's cotangent, the
-    points' (N, 3))."""
+    points' (N, 3)); at C > 1 that is the walk kernel too."""
     C, H, W, D = vol_shape
     _build.require_cuda_tensor(hwd, "trilinear_cf_bwd points", torch.float32,
                                2)
@@ -488,10 +511,11 @@ def trilinear_cf_bwd(vol_shape, hwd: torch.Tensor, grad_vals: torch.Tensor,
             raise ValueError("trilinear_cf_bwd: the points' cotangent needs "
                              "the forward's fp32 CUDA volume, channel-last")
         gpts = torch.empty((N, 3), dtype=torch.float32, device=hwd.device)
+        hot = _hot_rows(C, H, W, D, hwd.device)
         status = lib.trilinear_cf_bwd_points(
             _build.ptr(vol_cf), row, _build.ptr(hwd), _build.ptr(grad_vals),
             _build.ptr(grad), _build.ptr(gpts), N, C, H, W, D,
-            _build.stream_ptr(hwd.device))
+            *map(_build.ptr, hot), _build.stream_ptr(hwd.device))
     else:
         status = lib.trilinear_cf_bwd(
             _build.ptr(hwd), _build.ptr(grad_vals), _build.ptr(grad), N, C,
@@ -500,6 +524,10 @@ def trilinear_cf_bwd(vol_shape, hwd: torch.Tensor, grad_vals: torch.Tensor,
     trilinear_cf_bwd.launches += 1
     trilinear_cf_bwd.plane_launches += C == 1
     trilinear_cf_bwd.points_launches += vol_cf is not None
+    # the launcher's choice in csrc/trilinear.cu::trilinear_cf_bwd
+    trilinear_cf_bwd.walk_launches += C > 1 and (
+        vol_cf is not None or C % 4 != 0
+        or grad_vals.data_ptr() % 16 != 0 or grad.data_ptr() % 16 != 0)
     grad = grad.permute(3, 0, 1, 2)
     return (grad, gpts) if vol_cf is not None else grad
 
@@ -507,9 +535,11 @@ def trilinear_cf_bwd(vol_shape, hwd: torch.Tensor, grad_vals: torch.Tensor,
 trilinear_cf_bwd.launches = 0
 trilinear_cf_bwd.plane_launches = 0
 trilinear_cf_bwd.points_launches = 0
+trilinear_cf_bwd.walk_launches = 0
 _SIGNATURES["trilinear_cf_bwd_points"] = (
     _build.PTR, _build.I64, _build.PTR, _build.PTR, _build.PTR, _build.PTR,
-    _build.I64, _build.I32, _build.I32, _build.I32, _build.I32, _build.PTR)
+    _build.I64, _build.I32, _build.I32, _build.I32, _build.I32, _build.PTR,
+    _build.PTR, _build.PTR, _build.PTR)
 _SIGNATURES["trilinear_cf_bwd"] = (
     _build.PTR, _build.PTR, _build.PTR, _build.I64, _build.I32, _build.I32,
     _build.I32, _build.I32, _build.PTR)

@@ -1,0 +1,341 @@
+"""Build variants of ``csrc/trilinear.cu`` on the card and time the two
+C = 25 cotangent scatters beside the shipped kernels, at their main-path
+points.
+
+The scatters are ``trilinear_cf_bwd`` at C = 25 (the values-only backward's
+walk: the density step's one query, the options step's training chunks,
+the BEV step's uniform sdf grid, with a random cotangent and with the
+step's, whose sdf channel alone is live) and ``trilinear_bwd``'s point
+instance at
+C = 25 (the importance recipe's merged render, 4096 x 320 points). This
+script rebuilds the source with one design choice undone at a time:
+
+- ``shipped``: the source as it is;
+- ``vector_flush``: the values-only walk flushes its corner rows through
+  shared memory, each row a scalar head up to its first 16-byte boundary,
+  float4 atomics and a scalar tail, shared by all 32 lanes (2 vector and 2
+  scalar atomic instructions for 8 rows), in place of one scalar atomic a
+  lane per row;
+- ``pairs_without_runs``: a warp whose 32 points make 30 runs of one cell
+  or more (a ballot) takes its (point, channel) pairs, 8 scalar atomics
+  each, in place of the walk;
+- ``unstaged``: the rows point instance loads each point's cotangent row
+  at its step of the walk, not all 32 before it;
+- ``fp32_chain``: no cell hot: the point instances' flushes from crowded
+  cells as fp32 atomics on the gradient, like every other flush;
+- ``hot_points_32``, ``hot_points_512``: a cell hot from 32 or 512
+  points (kHotPoints; shipped: 128).
+
+Each variant is swapped in for the port's own library, so the public
+wrappers of ``ops/interp.py`` call it; each call is held against its plain
+version (GRAD_RTOL of ``chip_smoke.py``) and timed by device time
+(``chip_smoke.device_ms``) in two rounds, the variants in one order and
+then the other; the point instances' cotangents are also held against
+their plain versions in float64 (``chip_smoke.float64_check``'s distances;
+the C = 1 instances at the importance points, the values-only one at the
+six taps of 4096 x 320 samples). Results go to ``OUT/variants.json``.
+
+    python3 selfocc_tpu_torch/tools/trilinear_scatter_variants.py [OUT]
+
+Run from the repository root on a machine with a CUDA card and ``nvcc``;
+OUT defaults to ``work_dirs/trilinear_scatter_variants`` (git-ignored).
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+SOURCE = os.path.join(ROOT, "selfocc_tpu_torch", "csrc", "trilinear.cu")
+
+# the values-only walk's point-free flush, and the shared-memory float4
+# flush that replaces it in ``vector_flush``
+SCALAR_FLUSH = """              else
+                atomicAdd(grad + static_cast<int64_t>(
+                                     cur.base + corner_offset(k, W, D)) *
+                                     C +
+                              ch,
+                          acc[k]);
+            }
+        }"""
+VECTOR_FLUSH = """              else
+                out |= 1u << k;
+            }
+        }
+        if constexpr (!kPoints)
+          if (cur.key != -1 && __any_sync(0xffffffffu, out != 0))
+            flush_rows(flush[warp], grad, acc, out, cur.base, W, D, C, c0,
+                       C - c0 < kWarp ? C - c0 : kWarp, lane);"""
+FLUSH_DECL = """        if (cur.key != -1 && ch < C) {
+#pragma unroll
+          for (int k = 0; k < 8; ++k)
+            if (((cur.mask >> k) & 1) && fresh(k, bit, !up) &&
+                acc[k] != 0.f) {
+              if constexpr (kPoints)
+                hot_add(hot, cur_hot, grad, cur.base + corner_offset(k, W, D),
+                        C, ch, acc[k]);"""
+FLUSH_ROWS = r"""
+struct alignas(16) FlushRows {
+  float v[8][36];  // a row at its offset mod 4 in grad: < 4 + 32 floats
+};
+
+__device__ __forceinline__ void flush_rows(FlushRows& f,
+                                           float* __restrict__ grad,
+                                           const float (&acc)[8],
+                                           unsigned rows, int base, int W,
+                                           int D, int C, int c0, int width,
+                                           int lane) {
+  rows = __reduce_or_sync(0xffffffffu, rows);
+  const int64_t g0 = static_cast<int64_t>(
+      (reinterpret_cast<uintptr_t>(grad) >> 2) & 3);
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    if (((rows >> k) & 1) && lane < width) {
+      const int64_t first =
+          static_cast<int64_t>(base + corner_offset(k, W, D)) * C + c0;
+      f.v[k][static_cast<int>((g0 + first) & 3) + lane] = acc[k];
+    }
+  __syncwarp();
+#pragma unroll
+  for (int i = lane; i < 64; i += kWarp) {
+    const int k = i >> 3, q = i & 7;
+    if (!((rows >> k) & 1)) continue;
+    const int64_t first =
+        static_cast<int64_t>(base + corner_offset(k, W, D)) * C + c0;
+    const int o = static_cast<int>((g0 + first) & 3);
+    const int lead = (4 - o) & 3;
+    const int head = lead < width ? lead : width;
+    const int body = (width - head) >> 2;
+    const int tail = width - head - 4 * body;
+    if (q < body)
+      atomicAdd(reinterpret_cast<float4*>(grad + first + head + 4 * q),
+                *reinterpret_cast<const float4*>(&f.v[k][o + head + 4 * q]));
+    const int ch = q < head ? q : q - head < tail ? head + 4 * body + q - head
+                                                  : -1;
+    if (ch >= 0) atomicAdd(grad + first + ch, f.v[k][o + ch]);
+  }
+  __syncwarp();
+}
+
+constexpr int kHotPoints"""
+# the warp's walk, and a path that takes a warp without runs (30 or more
+# runs of one cell in its 32 points) by its (point, channel) pairs instead
+WALK = """  const int count = static_cast<int>(
+      num_points - tile < kWarp ? num_points - tile : kWarp);
+  for (int c0 = 0; c0 < C; c0 += kWarp) {
+    const int ch = c0 + lane;
+    float acc[8], rowv[8];"""
+PAIRS = """  const int count = static_cast<int>(
+      num_points - tile < kWarp ? num_points - tile : kWarp);
+  if constexpr (!kPoints) {
+    const int key = recs[warp][lane].key;
+    const int prev = __shfl_up_sync(0xffffffffu, key, 1);
+    const int runs = __popc(__ballot_sync(
+        0xffffffffu, lane < count && (lane == 0 || key != prev)));
+    if (runs >= 30) {
+      int off[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) off[k] = corner_offset(k, W, D) * C;
+      const int dp = kWarp / C, dc = kWarp - dp * C;
+      int p = lane / C, ch = lane - p * C;
+      for (int i = lane; i < count * C; i += kWarp) {
+        const PointRec r = recs[warp][p];
+        if (r.key != -1) {
+          const float g = __ldg(gv + tile * C + i);
+          const float4 w0 = wts[warp][p][0], w1 = wts[warp][p][1];
+          const float w[8] = {w0.x, w0.y, w0.z, w0.w,
+                              w1.x, w1.y, w1.z, w1.w};
+          const int64_t first = static_cast<int64_t>(r.base) * C + ch;
+#pragma unroll
+          for (int k = 0; k < 8; ++k)
+            if ((r.mask >> k) & 1)
+              atomicAdd(grad + (first + off[k]), w[k] * g);
+        }
+        p += dp;
+        ch += dc;
+        if (ch >= C) {
+          ch -= C;
+          ++p;
+        }
+      }
+      return;
+    }
+  }
+  for (int c0 = 0; c0 < C; c0 += kWarp) {
+    const int ch = c0 + lane;
+    float acc[8], rowv[8];"""
+STAGED = "        g = stage[p * kWarp + lane];"
+UNSTAGED = ("        g = gv != nullptr && ch < C ? __ldg(gv + (tile + p) * C"
+            " + ch) : 0.f;")
+HOT = "__ldg(hot.counts + base) > kHotPoints;"
+
+
+def variants(src: str) -> dict:
+    for s, n in ((FLUSH_DECL, 1), (STAGED, 1), (HOT, 1), (WALK, 1),
+                 ("constexpr int kHotPoints = 128;", 1),
+                 ("  __shared__ float dots[kPoints ? kWarps : 1][kWarp][8];\n"
+                  "  const int lane", 2)):
+        assert src.count(s) == n, f"source changed: {s!r}"
+    # the walk's flush: the first scalar flush after its declaration (the
+    # rows kernel before it flushes with the same lines)
+    at = src.index(FLUSH_DECL)
+    assert src.find(SCALAR_FLUSH, at) == at + len(FLUSH_DECL) + 1, \
+        "source changed: the walk's flush"
+    vec = (src[:at] + "        unsigned out = 0;\n" + FLUSH_DECL + "\n"
+           + VECTOR_FLUSH + src[at + len(FLUSH_DECL) + 1
+                                + len(SCALAR_FLUSH):])
+    vec = vec.replace("\nconstexpr int kHotPoints", FLUSH_ROWS, 1)
+    # the walk kernel's declarations come second in the source
+    head, sep, tail = vec.rpartition(
+        "  __shared__ float dots[kPoints ? kWarps : 1][kWarp][8];\n"
+        "  const int lane")
+    vec = head + "  __shared__ FlushRows flush[kWarps];\n" + sep + tail
+    return {"shipped": src,
+            "vector_flush": vec,
+            "pairs_without_runs": src.replace(WALK, PAIRS),
+            "unstaged": src.replace(STAGED, UNSTAGED),
+            "fp32_chain": src.replace(HOT, "__ldg(hot.counts + base) < 0;"),
+            **{f"hot_points_{t}": src.replace(
+                "constexpr int kHotPoints = 128;",
+                f"constexpr int kHotPoints = {t};") for t in (32, 512)}}
+
+
+def build(out_dir: str) -> dict:
+    from selfocc_tpu_torch import _build
+    from selfocc_tpu_torch.ops import interp
+    nvcc = _build.nvcc_path()
+    procs = {}
+    for name, text in variants(open(SOURCE).read()).items():
+        cu = os.path.join(out_dir, f"{name}.cu")
+        with open(cu, "w") as f:
+            f.write(text)
+        procs[name] = subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, "-o", cu[:-3] + ".so", cu],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    libs = {}
+    for name, proc in procs.items():
+        log = proc.communicate()[0].decode()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        lib = ctypes.CDLL(os.path.abspath(os.path.join(out_dir,
+                                                       f"{name}.so")))
+        for fn, argt in interp._SIGNATURES.items():
+            getattr(lib, fn).argtypes = list(argt)
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
+def main():
+    sys.path.insert(0, ROOT)
+    import torch
+    import chip_smoke as cs
+    from selfocc_tpu_torch import _build
+    from selfocc_tpu_torch.configs.experiments import get_config
+    from selfocc_tpu_torch.ops import interp
+    if not torch.cuda.is_available():
+        sys.exit("trilinear_scatter_variants: needs a CUDA card")
+    out_dir = sys.argv[1] if len(sys.argv) > 1 else os.path.join(
+        ROOT, "work_dirs", "trilinear_scatter_variants")
+    os.makedirs(out_dir, exist_ok=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    libs = build(out_dir)
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(cs.SEED)
+    seeded = lambda: torch.Generator(device=dev).manual_seed(cs.SEED)
+    shape = (257, 257, 25)
+    vshape = (25,) + shape
+    vol = torch.randn(shape + (25,), generator=g,
+                      device=dev).permute(3, 0, 1, 2)
+    head = cs.head_points(dev, (cs.HEAD_SAMPLES,))[cs.HEAD_SAMPLES]
+    n = head.shape[0]
+    taps = (head[:, None, :] + 0.05 * torch.randn(
+        (n, 6, 3), generator=g, device=dev)).reshape(-1, 3)
+    cases = {}
+    for tag, pts in (
+            ("density", cs.density_step_points(
+                get_config("nuscenes_occ_density"), dev, seeded())),
+            ("options", cs.step_points(dev)[0]),
+            ("bev", cs.uniform_sdf_points(get_config("nuscenes_occ_bev"),
+                                          dev, seeded()))):
+        gv = torch.randn((pts.shape[0], 25), generator=g, device=dev)
+        cases[f"values_c25_{tag}"] = (
+            (lambda p=pts, v=gv: interp.trilinear_cf_bwd(vshape, p, v)),
+            (lambda p=pts, v=gv: interp.trilinear_cf_bwd_plain(
+                torch.zeros(vshape, device=dev), p, v)), None)
+        if tag == "bev":  # the step's cotangent: the sdf channel alone
+            sdf = torch.cat([gv[:, :1], torch.zeros_like(gv[:, 1:])], 1)
+            cases["values_c25_bev_sdf"] = (
+                lambda p=pts, v=sdf: interp.trilinear_cf_bwd(vshape, p, v),
+                lambda p=pts, v=sdf: interp.trilinear_cf_bwd_plain(
+                    torch.zeros(vshape, device=dev), p, v), None)
+    vol1 = interp.first_channel(vol)
+    for tag, v in (("c25", vol), ("c1", vol1)):
+        C = v.shape[0]
+        gv = torch.randn((n, C), generator=g, device=dev)
+        gg = torch.randn((n, 3), generator=g, device=dev)
+        cases[f"points_{tag}_head"] = (
+            (lambda v=v, a=gv, b=gg: interp.trilinear_bwd(v, head,
+                                                          a, b, points=True)),
+            (lambda v=v, a=gv, b=gg: interp.trilinear_bwd_plain(
+                v, head, a, b, points=True)),
+            (lambda v=v, a=gv, b=gg: interp.trilinear_bwd_plain(
+                v.double(), head.double(), a.double(), b.double(),
+                points=True)))
+    gt = torch.randn((taps.shape[0], 1), generator=g, device=dev)
+    cases["values_points_c1_taps"] = (
+        lambda: interp.trilinear_cf_bwd(tuple(vol1.shape), taps, gt, vol1),
+        lambda: interp.trilinear_cf_bwd_plain(vol1, taps, gt, points=True),
+        lambda: interp.trilinear_cf_bwd_plain(vol1.double(), taps.double(),
+                                              gt.double(), points=True))
+    res = {name: {} for name in libs}
+    order = list(libs) + list(libs)[::-1]
+    for tag, (kern, plain, f64) in cases.items():
+        ref = plain()
+        ref64 = f64() if f64 is not None else None
+        refs = ref if isinstance(ref, tuple) else (ref,)
+        for name in order:
+            _build._LIBS["trilinear"] = libs[name]
+            rec = res[name].setdefault(tag, {"device_ms": []})
+            if "max_abs_err" not in rec:
+                got = kern()
+                got = got if isinstance(got, tuple) else (got,)
+                errs = [cs.max_err(a, b) for a, b in zip(got, refs)]
+                tols = [cs.GRAD_RTOL * float(b.abs().max()) + 1e-7
+                        for b in refs]
+                if any(e > t for e, t in zip(errs, tols)):
+                    raise AssertionError(f"{name} {tag}: {errs} > {tols}")
+                rec["max_abs_err"] = max(errs)
+                if ref64 is not None:
+                    rec["float64"] = {
+                        which: {"kernel": cs.max_err(a, r),
+                                "plain_fp32": cs.max_err(b, r)}
+                        for which, a, b, r in zip(("volume", "points"), got,
+                                                  refs, ref64)}
+                del got
+            rec["device_ms"].append(cs.device_ms(kern, 10))
+        del ref, ref64, refs
+        torch.cuda.empty_cache()
+        print(f"{tag}: " + ", ".join(
+            f"{name} {sorted(res[name][tag]['device_ms'])}"
+            + (f" float64 {res[name][tag]['float64']}"
+               if "float64" in res[name][tag] else "")
+            for name in libs), flush=True)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    print(card)
+    with open(os.path.join(out_dir, "variants.json"), "w") as f:
+        json.dump({"card": card, "device_ms": res}, f, indent=1)
+
+
+if __name__ == "__main__":
+    start = time.time()
+    main()
+    print(f"done in {time.time() - start:.1f} s")

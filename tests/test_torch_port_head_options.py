@@ -101,7 +101,7 @@ def _query_case(rng, C, N=400):
     return vol, pts.astype(np.float32)
 
 
-@pytest.mark.parametrize("C", [1, 4])
+@pytest.mark.parametrize("C", [1, 4, 25])
 @pytest.mark.parametrize("fn", ["values", "with_grad"])
 def test_point_cotangents_match_jax(fn, C):
     rng = np.random.RandomState(11 + C)

@@ -195,6 +195,28 @@ def test_trilinear_with_grad_plain_vjp_matches_jax(C, points):
     assert_grad_close(tv.grad, g_ref, "volume")
 
 
+@pytest.mark.parametrize("C,points", [(4, "uniform"), (25, "uniform"),
+                                      (4, "rays"), (25, "rays")],
+                         ids=["4", "25", "4-rays", "25-rays"])
+def test_values_plain_vjp_matches_jax(C, points):
+    # the volume cotangent of the values-only query, which the card's walk
+    # instance of trilinear_cf_bwd (C = 25) is held against
+    make = _vol_points if points == "uniform" else _ray_points
+    vol, pts, gv, _ = make(40 + C, C)
+    rv, vjp = jax.vjp(
+        lambda v: jinterp.trilinear_sample_cf(v, jnp.asarray(pts)),
+        jnp.asarray(vol))
+    (g_ref,) = vjp(jnp.asarray(gv))
+    (tv,) = leaves(vol)
+    vals = tinterp.trilinear_sample_cf_plain(tv, T(pts))
+    np.testing.assert_allclose(vals.detach().numpy(), np.asarray(rv),
+                               atol=1e-5)
+    (vals * T(gv)).sum().backward()
+    assert_grad_close(tv.grad, g_ref, "volume")
+    assert_grad_close(tinterp.trilinear_cf_bwd_plain(T(vol), T(pts), T(gv)),
+                      g_ref, "trilinear_cf_bwd_plain")
+
+
 @pytest.mark.parametrize("which", ["both", "vals", "grad0",
                                    "both-channel-last"])
 def test_trilinear_function_cpu_path_equals_plain_autograd(which):
