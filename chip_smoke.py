@@ -5531,6 +5531,7 @@ HEAD_IMPORTANCE = 64
 HEAD_ROUND_TS = (256, 272, 288, 304)
 HEAD_SAMPLES = 320
 HEAD_SKIP = (64, 64)          # eval_skip_coarse, eval_skip_fine
+HOT_POINTS = 128              # csrc/trilinear.cu: kHotPoints
 # the tiny parity steps' global_iter: mid-schedule, both schedules live
 HEAD_TINY_ITER = 3516 * 5 + 123
 # fp32 operations per point of the point-cotangent instances beyond their
@@ -5612,6 +5613,182 @@ def head_points(device, samples):
     return out
 
 
+class _StepPointsCaught(Exception):
+    """Ends the capturing forward once it holds the first chunk's points."""
+
+
+def importance_step_points(device, base="nuscenes_occ"):
+    """The C = 1 point instances' points in the importance recipe's step:
+    one forward of ``nuscenes_occ`` with the importance option set (seeded
+    weights, its synthetic batch, draws from a seeded generator, iteration
+    0), stopped after the first 4096-ray chunk's calls. Its fractional
+    indices (grid space) are caught at the trilinear queries whose points
+    need a gradient on a one-channel volume: the up-sample rounds' sdf
+    queries after the first (``field.sdf``, the sdf channel read in place at
+    row stride 25; 4096 x 272, 288, 304 points, ``trilinear_cf_bwd``'s
+    point instance) and the merged 320-sample render's second-derivative
+    taps (``second_grad_noncompact``: x + d, x - d along each axis,
+    ``trilinear_bwd``'s plane point instance; 4096 x 320 points each) ->
+    {"rounds": {count: (4096 * count, 3)}, "taps": [6 x (4096 * 320, 3)]}.
+    The points are caught where ``models/field.py`` hands them to the
+    trilinear queries."""
+    import torch
+    from selfocc_tpu_torch.models import field
+    from selfocc_tpu_torch.models.initializers import init_weights
+    from selfocc_tpu_torch.models.segmentor import TPVSegmentor
+    from selfocc_tpu_torch.utils.runtime import get_dataset, to_device
+    cfg = head_config(base, "importance")
+    h = cfg.model.head
+    model = TPVSegmentor(cfg.model)
+    init_weights(model, torch.Generator().manual_seed(SEED))
+    model = model.to(device).train()
+    batch = to_device(get_dataset(cfg, synthetic=True, length=1)[0], device)
+    torch.manual_seed(SEED)     # the encoder's dropout
+    got = {"rounds": [], "taps": []}
+    want = {"rounds": h.num_upsample_steps - 1, "taps": 6}
+    saved = field.trilinear_sample_cf, field.trilinear_sample_cf_with_grad
+
+    def catch(fn, key):
+        def query(vol, hwd, *rest):
+            if hwd.requires_grad and vol.shape[0] == 1 and \
+                    len(got[key]) < want[key]:
+                got[key].append(hwd.detach().reshape(-1, 3).clone())
+                if all(len(got[k]) == n for k, n in want.items()):
+                    raise _StepPointsCaught()
+            return fn(vol, hwd, *rest)
+        return query
+
+    field.trilinear_sample_cf = catch(saved[0], "rounds")
+    field.trilinear_sample_cf_with_grad = catch(saved[1], "taps")
+    try:
+        model(batch["imgs"], batch["lidar2img"], batch[h.trans_kw],
+              train=True, generator=torch.Generator(
+                  device=device).manual_seed(SEED))
+        raise AssertionError("the importance forward ended before its first "
+                             "chunk's point queries were caught")
+    except _StepPointsCaught:
+        pass
+    finally:
+        field.trilinear_sample_cf, field.trilinear_sample_cf_with_grad = saved
+    del model, batch
+    torch.cuda.empty_cache()
+    chunk = h.train_ray_chunk
+    rounds = {p.shape[0] // chunk: p for p in got["rounds"]}
+    if sorted(rounds) != list(HEAD_ROUND_TS[1:]) or any(
+            p.shape[0] != chunk * HEAD_SAMPLES for p in got["taps"]):
+        raise AssertionError(
+            f"importance step points: rounds {sorted(rounds)}, taps "
+            f"{[p.shape[0] for p in got['taps']]}")
+    return {"rounds": rounds, "taps": got["taps"]}
+
+
+def point_stats(pts, shape):
+    """How a point set meets the C = 1 point instances: its runs (stretches
+    of consecutive points in one cell) per warp of 32, the voxels its
+    corners touch, the most points in one cell and the cells holding more
+    than HOT_POINTS (the C > 1 instances' fp64 threshold, kHotPoints)."""
+    import torch
+    H, W, D = shape
+    base = torch.floor(pts).long()
+    inside = ((base >= 0) & (base < torch.tensor(shape, device=pts.device))
+              ).all(-1)
+    key = torch.where(inside, (base[:, 0] * W + base[:, 1]) * D + base[:, 2],
+                      -1 - torch.arange(pts.shape[0], device=pts.device))
+    n = pts.shape[0]
+    k = torch.cat([key, key.new_full(((-n) % 32,), -2 - n)]).view(-1, 32)
+    runs = 1 + (k[:, 1:] != k[:, :-1]).sum(1)
+    counts = torch.bincount(key[inside], minlength=H * W * D)
+    return {"points": n, "runs_per_warp_mean": float(runs.float().mean()),
+            "runs_per_warp_median": float(runs.float().median()),
+            "warps_of_one_run": float((runs == 1).float().mean()),
+            "voxels_touched": corner_voxels(pts, shape),
+            "cells": int((counts > 0).sum()),
+            "max_points_in_a_cell": int(counts.max()),
+            "cells_over_hot_points": int((counts > HOT_POINTS).sum())}
+
+
+def call_kernels(fn, reps=5):
+    """The device kernels a warm call of ``fn()`` launches, by short name
+    -> [launches a call, device ms a call], from torch.profiler over
+    ``reps`` calls: what the launcher took (fill kernels included; the
+    profile shows no memsets). A profile that recorded no device kernel
+    (seen often for profiles of a call or two) is taken again, at most
+    three times; an empty dict if all three were empty."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    out = {}
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.count:
+                m = re.search(r"(\w+_kernel)(<[\w, ]*>)?", e.key)
+                name = m.group(1) + (m.group(2) or "") if m else e.key[:40]
+                t = out.setdefault(name, [0, 0.0])
+                t[0] += e.count / reps
+                t[1] += e.self_device_time_total / 1e3 / reps
+        if out:
+            break
+        log(f"    call_kernels: profile {attempt + 1} recorded no kernel")
+    return out
+
+
+def points_design(census):
+    """The backward kernels among ``call_kernels``' names: the design the
+    wrapper's launcher took (fills, pre-passes and folds left out)."""
+    return ", ".join(k for k in census
+                     if re.match(r"(trilinear|values)_bwd_\w+_kernel", k))
+
+
+def head_ab(base, this, vol25, sets, sets_cf, g):
+    """Median ms (events, device) of the two checkouts' C = 1 point
+    instances, in turns: baseline, this, this, baseline. Each gets the same
+    inputs: ``trilinear_bwd``'s plane point instance (both cotangents) on
+    ``sets`` (the uniform stand-ins, the importance step's first tap) and
+    ``trilinear_cf_bwd``'s (the sdf channel of ``vol25`` read at row stride
+    25) on ``sets_cf`` (the uniform rounds, the step's own)."""
+    import torch
+    sdf_view = this.channel0_view(vol25)
+    cots = {}
+    for tag, (vol, p) in sets.items():
+        cots[tag] = (torch.randn((p.shape[0], 1), generator=g,
+                                 device=p.device),
+                     torch.randn((p.shape[0], 3), generator=g,
+                                 device=p.device))
+    gv_cf = {tag: torch.randn((p.shape[0], 1), generator=g, device=p.device)
+             for tag, p in sets_cf.items()}
+
+    def calls(mod):
+        out = {f"bwd_points_{tag}": (
+            lambda v=vol, p=p, c=cots[tag]: mod.trilinear_bwd(
+                v, p, c[0], c[1], points=True))
+            for tag, (vol, p) in sets.items()}
+        out.update({f"cf_bwd_points_{tag}": (
+            lambda p=p, c=gv_cf[tag]: mod.trilinear_cf_bwd(
+                tuple(sdf_view.shape), p, c, sdf_view))
+            for tag, p in sets_cf.items()})
+        return out
+
+    runs = {"baseline": [], "this": []}
+    for side in ("baseline", "this", "this", "baseline"):
+        fns = calls(base if side == "baseline" else this)
+        runs[side].append({k: (timed(f, 20), device_ms(f, 20))
+                           for k, f in fns.items()})
+        del fns
+        torch.cuda.empty_cache()
+    out = {side: {k: sorted(r[k] for r in rs) for k in rs[0]}
+           for side, rs in runs.items()}
+    for k in out["this"]:
+        log(f"  A/B {k} (event ms, device ms): baseline {out['baseline'][k]}"
+            f", this {out['this'][k]}")
+    return out
+
+
 def grid_sample_points_bwd_of(vol_cf, pts, grad_vals):
     """``F.grid_sample``'s backward with a grid that needs a gradient: the
     volume's and the grid's cotangents of the values ``grid_sample_of``
@@ -5630,7 +5807,7 @@ def grid_sample_points_bwd_of(vol_cf, pts, grad_vals):
     return call
 
 
-def head_kernel_checks(g, device):
+def head_kernel_checks(g, device, baseline=None):
     """The three kernels' new instances at the importance recipe's shapes
     against their plain versions, timed (events, device time), beside the
     plain versions and ``F.grid_sample``'s backward with a grid that needs a
@@ -5643,7 +5820,13 @@ def head_kernel_checks(g, device):
     queries, C = 1 read at row stride 25 in place) and at the six taps of
     4096 x 320 points. The point instances' two cotangents also against
     their plain versions in float64 (``float64_check``). Each also at
-    off-path inputs."""
+    off-path inputs. The C = 1 point instances also at the importance
+    step's own points (``importance_step_points``), each point set with its
+    runs and crowding (``point_stats``), each call with the kernels it
+    launched (``call_kernels``). With ``baseline`` (a checkout of another
+    commit), that checkout's C = 1 point instances in turns with this one's
+    on both point sets (``head_ab``)."""
+    import importlib
     import torch
     from selfocc_tpu_torch.ops import interp
     from selfocc_tpu_torch.ops import render_weights as rw
@@ -5695,60 +5878,74 @@ def head_kernel_checks(g, device):
               max_err(rw.neus_weights_bwd(x, gx), ref),
               GRAD_RTOL * float(ref.abs().max()) + 1e-7)
 
-    # trilinear_bwd, point instance
+    # trilinear_bwd, point instance: rows (C = 25) and plane (C = 1) on the
+    # uniform stand-ins; the plane also at the importance step's own taps
     shape = (257, 257, 25)
     vol25 = torch.randn(shape + (25,), generator=g,
                         device=device).permute(3, 0, 1, 2)
     vol1 = interp.first_channel(vol25)
     round_pts = head_points(device, HEAD_ROUND_TS + (HEAD_SAMPLES,))
     pts = round_pts.pop(HEAD_SAMPLES)
-    n = pts.shape[0]
-    voxels = corner_voxels(pts, shape)
-    for tag, vol in (("rows", vol25), ("plane", vol1)):
-        C = vol.shape[0]
+    step = importance_step_points(device)
+    sets = {"plane": (vol1, pts), "plane_step": (vol1, step["taps"][0])}
+    sets_cf = {str(ts): p for ts, p in round_pts.items()}
+    sets_cf.update({f"{ts}_step": p for ts, p in step["rounds"].items()})
+    for tag, (vol, p) in [("rows", (vol25, pts))] + list(sets.items()):
+        C, n = vol.shape[0], p.shape[0]
         gv = torch.randn((n, C), generator=g, device=device)
         gg = torch.randn((n, 3), generator=g, device=device)
-        got = interp.trilinear_bwd(vol, pts, gv, gg, points=True)
-        ref = interp.trilinear_bwd_plain(vol, pts, gv, gg, points=True)
+        got = interp.trilinear_bwd(vol, p, gv, gg, points=True)
+        ref = interp.trilinear_bwd_plain(vol, p, gv, gg, points=True)
         err = check_grads(f"trilinear_bwd points ({tag}, C = {C})", got, ref)
         f64 = float64_check(
             f"trilinear_bwd points ({tag}, C = {C})", got, ref,
-            interp.trilinear_bwd_plain(vol.double(), pts.double(),
+            interp.trilinear_bwd_plain(vol.double(), p.double(),
                                        gv.double(), gg.double(),
                                        points=True))
-        plain_vol = interp.trilinear_bwd(vol, pts, gv, gg)
+        plain_vol = interp.trilinear_bwd(vol, p, gv, gg)
         check(f"trilinear_bwd points ({tag}): volume cotangent as the "
               "point-free instance's", max_err(got[0], plain_vol),
               GRAD_RTOL * float(plain_vol.abs().max()) + 1e-7)
         del got, ref, plain_vol
         torch.cuda.empty_cache()
-        lib = grid_sample_points_bwd_of(vol, pts, gv)
+        lib = grid_sample_points_bwd_of(vol, p, gv)
 
         def kern():
-            return interp.trilinear_bwd(vol, pts, gv, gg, points=True)
+            return interp.trilinear_bwd(vol, p, gv, gg, points=True)
+        census = call_kernels(kern)
+        extra = {}
+        if C == 1:
+            extra["points_set"] = point_stats(p, shape)
+            log(f"  trilinear_bwd points ({tag}): {extra['points_set']}; "
+                f"kernels a call {census}")
         recs["trilinear_bwd"][tag] = kernel_record(
             err, timed(kern, 20),
-            timed(lambda: interp.trilinear_bwd_plain(vol, pts, gv, gg,
+            timed(lambda: interp.trilinear_bwd_plain(vol, p, gv, gg,
                                                      points=True), 3),
-            (nbytes(pts, gv, gg, vol) + voxels * C * 4 + n * 12,
-             n * 8 * (9 + 4 * C + POINTS_OPS_PER_CORNER)),
+            (nbytes(p, gv, gg, vol) + corner_voxels(p, shape) * C * 4
+             + n * 12, n * 8 * (9 + 4 * C + POINTS_OPS_PER_CORNER)),
             library_ms=timed(lib, 10), library="F.grid_sample backward, "
             "grid with a gradient (values only)",
             library_device_ms=device_ms(lib, 10),
             device_ms=device_ms(kern, 20),
             point_free_device_ms=device_ms(
-                lambda: interp.trilinear_bwd(vol, pts, gv, gg), 20),
-            shape=f"C={C}, {n} points", points=n, C=C, float64=f64)
+                lambda: interp.trilinear_bwd(vol, p, gv, gg), 20),
+            launches_per_call=sum(c for c, _ in census.values()),
+            kernels_per_call=census,
+            design=points_design(census),
+            shape=f"C={C}, {n} points", points=n, C=C, float64=f64, **extra)
         del gv, gg, lib
         torch.cuda.empty_cache()
 
     # trilinear_cf_bwd, point instance: the rounds' sdf queries read
-    # channel 0 of the volume in place (row stride 25)
+    # channel 0 of the volume in place (row stride 25), on the uniform
+    # stand-ins and at the importance step's own rounds
     sdf_view = interp.channel0_view(vol25)
-    for ts in HEAD_ROUND_TS + ("taps",):
-        p = (round_pts.pop(ts) if ts != "taps" else
+    for ts in list(sets_cf) + ["taps"]:
+        p = (sets_cf[ts] if ts != "taps" else
              (pts[:, None, :] + 0.05 * torch.randn(
-                 (n, 6, 3), generator=g, device=device)).reshape(-1, 3))
+                 (pts.shape[0], 6, 3), generator=g,
+                 device=device)).reshape(-1, 3))
         vol = sdf_view if ts != "taps" else vol1
         m = p.shape[0]
         gv = torch.randn((m, 1), generator=g, device=device)
@@ -5765,7 +5962,11 @@ def head_kernel_checks(g, device):
 
         def kern():
             return interp.trilinear_cf_bwd(tuple(vol.shape), p, gv, vol)
-        recs["trilinear_cf_bwd"][str(ts)] = kernel_record(
+        census = call_kernels(kern)
+        stats = point_stats(p, shape)
+        log(f"  trilinear_cf_bwd points ({tag}): {stats}; kernels a call "
+            f"{census}")
+        recs["trilinear_cf_bwd"][ts] = kernel_record(
             err, timed(kern, 20),
             timed(lambda: interp.trilinear_cf_bwd_plain(vol, p, gv,
                                                         points=True), 3),
@@ -5778,9 +5979,17 @@ def head_kernel_checks(g, device):
             point_free_device_ms=device_ms(
                 lambda: interp.trilinear_cf_bwd(tuple(vol.shape), p, gv),
                 20),
+            launches_per_call=sum(c for c, _ in census.values()),
+            kernels_per_call=census,
+            design=points_design(census), points_set=stats,
             shape=f"C=1, {m} points ({tag})", points=m, C=1, float64=f64)
         del p, gv, lib
         torch.cuda.empty_cache()
+    if baseline is not None:
+        recs["head_ab"] = head_ab(
+            importlib.import_module(f"{load_baseline(baseline)}.ops.interp"),
+            interp, vol25, sets, sets_cf, g)
+    del sets, sets_cf, step, round_pts
 
     # off-path: every instance on a small volume, rays in and out of it,
     # knots, a ragged count, a row stride above C, each cotangent alone
@@ -5925,7 +6134,7 @@ def head_split_parity(device):
     return worst
 
 
-def head_phase(device):
+def head_phase(device, baseline=None):
     """The NeuS head's options at full width (``nuscenes_occ``'s widths and
     depth, seeded weights, synthetic data): the new kernel instances
     against their plain versions (``head_kernel_checks``); (a) 3 steps of
@@ -5944,7 +6153,9 @@ def head_phase(device):
     from selfocc_tpu_torch.utils.runtime import get_dataset
     log(f"  card: {card_name()}")
     g = torch.Generator(device=device).manual_seed(SEED + 5)
-    res = {"kernels": head_kernel_checks(g, device)}
+    res = {"kernels": head_kernel_checks(g, device, baseline)}
+    if baseline is not None:
+        res["head_ab"] = res["kernels"].pop("head_ab")
     res["tiny_parity"] = {
         kind: train_parity(device, cfg=head_config("tiny", kind),
                            global_iter=HEAD_TINY_ITER, baseline=True)
@@ -6010,9 +6221,10 @@ def main():
     ap.add_argument("--baseline", default=None, metavar="DIR",
                     help="a checkout of another commit: [kernels] also times "
                     "its trilinear kernels at the main paths' points, "
-                    "[frame] profiles its eval frame and [levers] times its "
-                    "head-shared MSDA kernels, in turns with this "
-                    "checkout's")
+                    "[frame] profiles its eval frame, [levers] times its "
+                    "head-shared MSDA kernels and [head] its C = 1 point "
+                    "instances of the trilinear backwards, in turns with "
+                    "this checkout's")
     args = ap.parse_args()
     wanted = args.phases.split(",")
     if set(wanted) - set(PHASES):
@@ -6052,7 +6264,7 @@ def main():
             "levers": lambda: levers_phase(device, args.baseline),
             "bev": lambda: bev_phase(device),
             "density": lambda: density_phase(device),
-            "head": lambda: head_phase(device)}
+            "head": lambda: head_phase(device, args.baseline)}
     phases = {}
     for tag in PHASES:
         if tag not in wanted:
@@ -6223,11 +6435,12 @@ def main():
             ("neus_weights_bwd", "tiled", "neus_weights.cu",
              "selfocc_tpu/ops/render_pallas.py:76", "4096x320", None),
             ("trilinear_bwd", "points", "trilinear.cu",
-             "selfocc_tpu/ops/interp.py:159", "plane", ("plane",)),
+             "selfocc_tpu/ops/interp.py:159", "plane_step",
+             ("plane", "plane_step")),
             ("trilinear_bwd", "points_walk", "trilinear.cu",
              "selfocc_tpu/ops/interp.py:159", "rows", ("rows",)),
             ("trilinear_cf_bwd", "points", "trilinear.cu",
-             "selfocc_tpu/ops/interp.py:118", "288", None)):
+             "selfocc_tpu/ops/interp.py:118", "288_step", None)):
         recs = {k: r for k, r in hres["kernels"][name].items()
                 if isinstance(r, dict) and (cases is None or k in cases)}
         entry = {"name": f"{name}.{inst}", "route": "cuda",
@@ -6239,9 +6452,18 @@ def main():
         entry["cases"] = recs
         if f"{name}.{inst}" in opt_launches:
             entry["launches_options_steps"] = opt_launches[f"{name}.{inst}"]
-        if inst == "points_walk":
-            entry["in_step_ms_per_call"] = imp_step[
-                "trilinear_bwd_rows_points_kernel"]["ms_per_call"]
+        # the instance's kernel in the profiled importance step (the C = 1
+        # point instances also launch the fold, which both share)
+        step_kernel = {"points_walk": "trilinear_bwd_rows_points_kernel",
+                       "points": name.replace("trilinear_cf", "values")
+                       + "_plane_points_kernel"}.get(inst)
+        if step_kernel in imp_step:
+            entry["in_step_ms_per_call"] = imp_step[step_kernel]["ms_per_call"]
+            entry["in_step_calls"] = imp_step[step_kernel]["calls"]
+        if inst == "points" and "trilinear_plane_fold_kernel" in imp_step:
+            fold = imp_step["trilinear_plane_fold_kernel"]
+            entry["in_step_fold_ms_per_call"] = fold["ms_per_call"]
+            entry["in_step_fold_calls"] = fold["calls"]
         kernels.append(entry)
     # trilinear_cf_bwd's walk instance (C = 25 here): its main path is the
     # density step's one query; the BEV step's uniform sdf grid and the

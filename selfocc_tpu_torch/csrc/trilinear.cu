@@ -142,10 +142,34 @@
 //   table takes 8 inserts, each an fp32 atomicAdd in shared memory, for
 //   every run of one cell in a warp (chip_smoke.py records the runs per
 //   warp and the voxels touched).
-// The point instances (kPoints) also give the points their cotangent: the
-// plane kernels (C = 1, the with-grad and the values-only one) from each
-// point's own lane, which reads its 8 corners; C > 1 from the walks, as
-// below (values-only: the walk above, no caller on a shipped path).
+// The point instances also give the points their cotangent: at C = 1
+// (both the with-grad and the values-only one) from each point's own lane,
+// which reads its 8 corners (below); C > 1 from the walks, as below
+// (values-only: the walk above, no caller on a shipped path).
+// The C = 1 point instances (trilinear_plane_points_bwd), one design for
+// both: the importance step's merged render (its six second-derivative
+// taps, with grad0, on the contiguous sdf plane) and its rounds' sdf
+// queries (values only, channel 0 read in place at row stride 25), 4096 x
+// 272 .. 320 ray-major points a call. The segments above (plane_seg), each
+// lane loading its own 8 corners for the point's cotangent (lanes of one
+// cell load the same words in one request), the sums flushed with fp64
+// atomics into one zeroed fp64 (H, W, D) plane (13.2 MB at 257 x 257 x 25,
+// L2-resident), which trilinear_plane_fold_kernel rounds into the fp32
+// gradient once: a fill and two kernels a call, where the fp32 chains and
+// segments with fp64 rows for crowded cells that the C > 1 instances keep
+// took 7 launches (a count pre-pass over the points, an int32 count per
+// voxel, key and row fills, a fold). The
+// step's own points hold cells of 60,000-190,000 points around the camera;
+// the plane holds their sums in fp64 with no count or probe. Tried and
+// slower at those points and at uniform stand-ins (chip_smoke.py [head],
+// tools/trilinear_scatter_variants.py): the with-grad instance by the
+// point-free kernel's chains (1.33x on the stand-ins, 1.62x on the step's
+// taps: a run of 32 points in one cell makes one lane walk 8 chains of
+// 32), the segment's first lane loading the corners and shuffling them to
+// the rest (1.06-1.12x), blocks sized to one wave of resident blocks by
+// the occupancy calculator (1.08-1.15x) or taking 1, 2 or 8 tiles
+// (1.01-1.20x), and fp64 atomics straight from the segments without the
+// block's table (1.55-1.73x).
 // The two C = 25 scatters. Both put 25-channel cotangent rows (100 bytes,
 // 16-byte aligned only at every fourth voxel) into the (H, W, D, 25)
 // gradient of the decoded volume. What bounds them is the atomics: a
@@ -179,7 +203,7 @@
 //   32 cotangent rows are staged in shared memory before the walk (one
 //   load a point in flight, not one at each step). The volume's cotangent
 //   stays the walk's.
-// The point instances' volume cotangent on crowded cells (all of them):
+// The C > 1 point instances' volume cotangent on crowded cells:
 // where thousands of rays pass one cell (around a camera), a chain of
 // thousands of fp32 atomics on one address drifts ~3x farther from a
 // float64 sum than the plain version's sorted sums do (chip_smoke.py
@@ -211,7 +235,16 @@
 //   0.277 with the sdf channel alone (old 0.374-0.376), bound 0.0699;
 // - trilinear_bwd_points, C = 25, 4096 x 320 points: 0.6417-0.6423 (old
 //   0.6605-0.6662), bound 0.1046; its volume cotangent 2.9e-5 from float64
-//   where the fp32 plain version is 9.3e-5.
+//   where the fp32 plain version is 9.3e-5;
+// - the C = 1 point instances, whole calls (fill, segments, fold), in one
+//   call with those 7-launch ones (chip_smoke.py --phases head
+//   --baseline): the plane one at 4096 x 320 uniform stand-ins
+//   0.0675-0.0692 (7-launch: 0.1043),
+//   at the importance step's taps 0.0612-0.0684 (0.1269-0.1270), bound
+//   0.0177; the rounds' at 4096 x 256 .. 304, 0.0658-0.0696 (0.0814-
+//   0.0910) / the step's 272 .. 304, 0.0680-0.0691 (0.0902-0.0952), bound
+//   0.0127-0.0144; the six taps 0.286 (7-launch, another call: 0.360), bound
+//   0.0697. Of a call, the fp64 fill takes 0.0044 and the fold 0.0083.
 // Sums are taken in another order than the plain version's (per run or
 // chain, then atomics in any order); the fp32 results agree within the
 // tolerances chip_smoke.py states.
@@ -613,8 +646,10 @@ struct ChainTables {
 // cell, a chain goes on across a step into a neighbouring cell.
 //
 // kPoints: also the points' cotangent (N, 3) into gpts, each point's own
-// lane reading its 8 corners of vol, the (H, W, D) plane; a hot cell's
-// voxels summed in fp64 (hot_add).
+// lane reading its 8 corners of vol, the (H, W, D) plane, and the chains'
+// sums into the fp64 plane acc. Only the point-free instance is built: the
+// point instance launches plane_points_kernel<true> (its chains are the
+// with-grad design that tools/trilinear_scatter_variants.py rebuilds).
 template <bool kPoints>
 __global__ void __launch_bounds__(kThreads)
     trilinear_bwd_plane_kernel(const float* __restrict__ hwd,
@@ -623,7 +658,8 @@ __global__ void __launch_bounds__(kThreads)
                                float* __restrict__ grad, int64_t num_points,
                                int H, int W, int D,
                                const float* __restrict__ vol,
-                               float* __restrict__ gpts, Hot hot) {
+                               float* __restrict__ gpts,
+                               double* __restrict__ acc) {
   __shared__ ChainTables tables[kWarps];
   const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
   const int64_t tile =
@@ -696,22 +732,20 @@ __global__ void __launch_bounds__(kThreads)
     t.next[k][lane] = static_cast<signed char>(nxt);
   }
   __syncwarp();
-  bool is_hot = false;
-  if constexpr (kPoints) is_hot = live && hot_cell(hot, voxel(c, 0, W, D));
   while (heads) {
     const int k = __ffs(heads) - 1;
     heads &= heads - 1;
-    float acc = 0.f;
+    float sum = 0.f;
     int q = lane, kk = k;
     do {
-      acc += t.con[kk][q];
+      sum += t.con[kk][q];
       kk = t.next[kk][q];
       ++q;
     } while (kk >= 0);
     if constexpr (kPoints)
-      hot_add(hot, is_hot, grad, t.vox[k][lane], 1, 0, acc);
+      atomicAdd(acc + t.vox[k][lane], static_cast<double>(sum));
     else
-      atomicAdd(grad + t.vox[k][lane], acc);
+      atomicAdd(grad + t.vox[k][lane], sum);
   }
 }
 
@@ -1134,12 +1168,11 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // x into voxel vox's slot of the block's table (open addressing, linear
-// probing); where kProbes slots hold other voxels, straight into grad
-// (with kPoints, in fp64 on a hot cell: hot_add).
-template <bool kPoints>
+// probing); where kProbes slots hold other voxels, straight into out (the
+// gradient plane, or the point instances' fp64 plane).
+template <typename T>
 __device__ __forceinline__ void table_add(int* keys, float* sums, int vox,
-                                          float x, float* grad,
-                                          const Hot& hot) {
+                                          float x, T* out) {
   unsigned h = (static_cast<unsigned>(vox) * 2654435761u) >> (32 - kSlotBits);
   for (int probe = 0; probe < kProbes; ++probe) {
     int key = *reinterpret_cast<volatile int*>(keys + h);
@@ -1150,104 +1183,163 @@ __device__ __forceinline__ void table_add(int* keys, float* sums, int vox,
     }
     h = (h + 1) & (kSlots - 1);
   }
-  if constexpr (kPoints)
-    hot_add(hot, hot_cell(hot, vox), grad, vox, 1, 0, x);
-  else
-    atomicAdd(grad + vox, x);
+  atomicAdd(out + vox, static_cast<T>(x));
 }
 
-// C = 1: grad is the (H, W, D) plane. A block takes kSegTiles tiles of 256 consecutive
-// points, one point per thread. The lanes of a warp whose points lie in
-// one cell, consecutive lanes, form a segment; a segmented scan (5 shuffle
-// steps for each corner) sums each segment's 8 contributions into its last
-// lane, which puts the in-volume ones into the block's table. The table is
-// flushed with one global atomic per slot. On ray-major points (the six
-// compact taps of a sample, then the next sample) a warp's 32 points
-// mostly span one or two cells.
+// The C = 1 backward by segments. A block takes `tiles` tiles of 256
+// consecutive points, one point per thread. The lanes of a warp whose points
+// lie in one cell, consecutive lanes, form a segment; a segmented scan (5
+// shuffle steps for each corner) sums each segment's 8 contributions into
+// its last lane, which puts the in-volume ones into the block's table. The
+// table is flushed into out with one global atomic per slot after every
+// kSegTiles tiles. On ray-major points (the six compact taps of a sample,
+// then the next sample; the importance samples gathered around a surface) a
+// warp's 32 points mostly span one or two cells.
 //
-// kPoints: also the points' cotangent (N, 3) into gpts, each point's own
-// thread reading its 8 corners of vol (the plane, one value every `row`
-// floats); a global atomic on a hot cell's voxel in fp64 (hot_add).
-template <bool kPoints>
+// kPoints: also the points' cotangent (N, 3) into gpts, from the 8 corners
+// of vol (the plane, one value every `row` floats) that each lane loads
+// (lanes of one cell load the same words, one request), stored through the
+// warp's staging buffer; out is the fp64 plane. kGrad0: the with-grad
+// instance: a point's contribution adds the grad0 term of gg (N, 3), and
+// its cotangent the grad0 part.
+template <bool kPoints, bool kGrad0, typename T>
+__device__ __forceinline__ void plane_seg(const float* __restrict__ hwd,
+                                          const float* __restrict__ gv,
+                                          const float* __restrict__ gg,
+                                          T* __restrict__ out,
+                                          int64_t num_points, int H, int W,
+                                          int D, const float* __restrict__ vol,
+                                          int64_t row,
+                                          float* __restrict__ gpts,
+                                          int tiles) {
+  __shared__ int keys[kSlots];
+  __shared__ float sums[kSlots];
+  __shared__ float stage[kPoints ? kWarps : 1][3 * kWarp];
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const unsigned upto = (2u << lane) - 1u;  // lanes 0 .. lane
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * tiles;
+  for (int t0 = 0; t0 < tiles; t0 += kSegTiles) {
+    for (int i = threadIdx.x; i < kSlots; i += kThreads) {
+      keys[i] = kEmpty;
+      sums[i] = 0.f;
+    }
+    __syncthreads();
+    const int t1 = t0 + kSegTiles < tiles ? t0 + kSegTiles : tiles;
+    for (int t = t0; t < t1; ++t) {
+      const int64_t tile = (first + t) * kThreads + warp * kWarp;
+      if (tile >= num_points) break;  // the whole warp
+      const int64_t n = tile + lane;
+      const bool live = n < num_points;
+      // points past the end: a cell with no corner in the volume
+      Cell c;
+      c.h0 = c.w0 = c.d0 = -2;
+      c.fh = c.fw = c.fd = 0.f;
+      float g = 0.f, gh = 0.f, gw = 0.f, gd = 0.f;
+      if (live) {
+        c = locate(hwd, n);
+        if (gv != nullptr) g = gv[n];
+        if constexpr (kGrad0)
+          if (gg != nullptr) {
+            gh = gg[3 * n];
+            gw = gg[3 * n + 1];
+            gd = gg[3 * n + 2];
+          }
+      }
+      const int ph = __shfl_up_sync(kFull, c.h0, 1);
+      const int pw = __shfl_up_sync(kFull, c.w0, 1);
+      const int pd = __shfl_up_sync(kFull, c.d0, 1);
+      const unsigned heads = __ballot_sync(
+          kFull, lane == 0 || c.h0 != ph || c.w0 != pw || c.d0 != pd);
+      const int start = 31 - __clz(heads & upto);
+      const unsigned later = heads & ~upto;
+      const bool last = later ? __ffs(later) - 2 == lane : lane == kWarp - 1;
+      if constexpr (kPoints) {
+        float v[8], sv[8], cot[3];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          v[k] = in_volume(c, k, H, W, D)
+                     ? __ldg(vol + static_cast<int64_t>(voxel(c, k, W, D)) *
+                                       row)
+                     : 0.f;
+          sv[k] = g * v[k];
+        }
+        point_cotangent(c, sv, v, gh, gw, gd, cot);
+        store_rows3(stage[warp], gpts, tile, num_points, lane, cot);
+        __syncwarp();  // the staging buffer is written again next tile
+      }
+      float x[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        x[k] = weight(c, k) * g;
+        if constexpr (kGrad0) x[k] += grad0_term(c, k, gh, gw, gd);
+      }
+#pragma unroll
+      for (int d = 1; d < kWarp; d <<= 1) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const float y = __shfl_up_sync(kFull, x[k], d);
+          if (lane - d >= start) x[k] += y;
+        }
+      }
+      if (last) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          if (in_volume(c, k, H, W, D))
+            table_add(keys, sums, voxel(c, k, W, D), x[k], out);
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < kSlots; i += kThreads)
+      if (keys[i] != kEmpty) atomicAdd(out + keys[i], static_cast<T>(sums[i]));
+    __syncthreads();  // the table is cleared for the next tiles
+  }
+}
+
+// C = 1, point-free: grad is the (H, W, D) plane; kSegTiles tiles a block.
 __global__ void __launch_bounds__(kThreads)
     values_bwd_plane_seg_kernel(const float* __restrict__ hwd,
                                 const float* __restrict__ gv,
                                 float* __restrict__ grad, int64_t num_points,
-                                int H, int W, int D,
-                                const float* __restrict__ vol, int64_t row,
-                                float* __restrict__ gpts, Hot hot) {
-  __shared__ int keys[kSlots];
-  __shared__ float sums[kSlots];
-  for (int i = threadIdx.x; i < kSlots; i += kThreads) {
-    keys[i] = kEmpty;
-    sums[i] = 0.f;
-  }
-  __syncthreads();
-  const int lane = threadIdx.x % kWarp;
-  const unsigned upto = (2u << lane) - 1u;  // lanes 0 .. lane
-  for (int t = 0; t < kSegTiles; ++t) {
-    const int64_t n =
-        (static_cast<int64_t>(blockIdx.x) * kSegTiles + t) * kThreads +
-        threadIdx.x;
-    // points past the end: a cell with no corner in the volume
-    Cell c;
-    c.h0 = c.w0 = c.d0 = -2;
-    c.fh = c.fw = c.fd = 0.f;
-    float g = 0.f;
-    if (n < num_points) {
-      c = locate(hwd, n);
-      g = gv[n];
-      if constexpr (kPoints) {
-        float sv[8];
-#pragma unroll
-        for (int k = 0; k < 8; ++k)
-          sv[k] = in_volume(c, k, H, W, D)
-                      ? g * __ldg(vol +
-                                  static_cast<int64_t>(voxel(c, k, W, D)) *
-                                      row)
-                      : 0.f;
-        float out[3];
-        point_cotangent(c, sv, sv, 0.f, 0.f, 0.f, out);
-        gpts[3 * n] = out[0];
-        gpts[3 * n + 1] = out[1];
-        gpts[3 * n + 2] = out[2];
-      }
-    }
-    const int ph = __shfl_up_sync(kFull, c.h0, 1);
-    const int pw = __shfl_up_sync(kFull, c.w0, 1);
-    const int pd = __shfl_up_sync(kFull, c.d0, 1);
-    const unsigned heads = __ballot_sync(
-        kFull, lane == 0 || c.h0 != ph || c.w0 != pw || c.d0 != pd);
-    const int start = 31 - __clz(heads & upto);
-    const unsigned later = heads & ~upto;
-    const bool last = later ? __ffs(later) - 2 == lane : lane == kWarp - 1;
-    float x[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) x[k] = weight(c, k) * g;
-#pragma unroll
-    for (int d = 1; d < kWarp; d <<= 1) {
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const float y = __shfl_up_sync(kFull, x[k], d);
-        if (lane - d >= start) x[k] += y;
-      }
-    }
-    if (last) {
-#pragma unroll
-      for (int k = 0; k < 8; ++k)
-        if (in_volume(c, k, H, W, D))
-          table_add<kPoints>(keys, sums, voxel(c, k, W, D), x[k], grad,
-                             hot);
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kSlots; i += kThreads)
-    if (keys[i] != kEmpty) {
-      if constexpr (kPoints)
-        hot_add(hot, hot_cell(hot, keys[i]), grad, keys[i], 1, 0, sums[i]);
-      else
-        atomicAdd(grad + keys[i], sums[i]);
-    }
+                                int H, int W, int D) {
+  plane_seg<false, false>(hwd, gv, nullptr, grad, num_points, H, W, D,
+                          nullptr, 0, nullptr, kSegTiles);
+}
+
+// The C = 1 point instances (trilinear_bwd's with grad0, trilinear_cf_bwd's
+// values only, at row stride `row`): the volume's cotangent summed into acc,
+// the zeroed fp64 (H, W, D) plane, which plane_fold_kernel rounds into the
+// fp32 gradient once. A crowded cell's sums (thousands of rays through one
+// cell around a camera) then take no chain of fp32 roundings; the plane,
+// 13.2 MB at 257 x 257 x 25, stays in L2.
+__global__ void __launch_bounds__(kThreads)
+    trilinear_bwd_plane_points_kernel(const float* __restrict__ hwd,
+                                      const float* __restrict__ gv,
+                                      const float* __restrict__ gg,
+                                      double* __restrict__ acc,
+                                      int64_t num_points, int H, int W, int D,
+                                      const float* __restrict__ vol,
+                                      float* __restrict__ gpts, int tiles) {
+  plane_seg<true, true>(hwd, gv, gg, acc, num_points, H, W, D, vol, 1, gpts,
+                        tiles);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    values_bwd_plane_points_kernel(const float* __restrict__ hwd,
+                                   const float* __restrict__ gv,
+                                   double* __restrict__ acc,
+                                   int64_t num_points, int H, int W, int D,
+                                   const float* __restrict__ vol, int64_t row,
+                                   float* __restrict__ gpts, int tiles) {
+  plane_seg<true, false>(hwd, gv, nullptr, acc, num_points, H, W, D, vol,
+                         row, gpts, tiles);
+}
+
+// grad[i] = acc[i] rounded to fp32, every element
+__global__ void __launch_bounds__(kThreads)
+    trilinear_plane_fold_kernel(const double* __restrict__ acc,
+                                float* __restrict__ grad, int64_t count) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i < count) grad[i] = static_cast<float>(acc[i]);
 }
 
 // C a multiple of 4, gv and grad 16-byte aligned: grad is (H, W, D, C).
@@ -1486,10 +1578,8 @@ extern "C" int trilinear_cf_bwd(const float* hwd, const float* gv,
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     const Hot none{nullptr, nullptr, nullptr, 0};
     if (C == 1)
-      values_bwd_plane_seg_kernel<false><<<seg_blocks(num_points), kThreads,
-                                           0, s>>>(hwd, gv, grad, num_points,
-                                                   H, W, D, nullptr, 0,
-                                                   nullptr, none);
+      values_bwd_plane_seg_kernel<<<seg_blocks(num_points), kThreads, 0, s>>>(
+          hwd, gv, grad, num_points, H, W, D);
     else if (C % 4 == 0 && aligned16(gv) && aligned16(grad))
       values_bwd_rows_kernel<<<blocks_for(num_points * (C / 4)), kThreads, 0,
                                s>>>(hwd, gv, grad, num_points, C, H, W, D);
@@ -1513,7 +1603,7 @@ extern "C" int trilinear_bwd(const float* hwd, const float* gv,
       trilinear_bwd_plane_kernel<false><<<blocks_for(num_points), kThreads, 0,
                                           s>>>(hwd, gv, gg, grad, num_points,
                                                H, W, D, nullptr, nullptr,
-                                               none);
+                                               nullptr);
     else
       trilinear_bwd_rows_kernel<false><<<blocks_for(num_points), kThreads, 0,
                                          s>>>(hwd, gv, gg, grad, num_points,
@@ -1538,10 +1628,11 @@ static void hot_fold(const Hot& hot, float* grad, int C, cudaStream_t s) {
                     kThreads, 0, s>>>(hot.keys, hot.sums, grad, C);
 }
 
-// trilinear_bwd with the points' cotangent: vol (H, W, D, C) channel-last,
-// the forward's volume; gpts (N, 3), every row written. hot_counts (H W D
-// int32, 0), hot_keys (kHotSlots int32, -1) and hot_sums (kHotSlots x C
-// doubles, 0): the hot cells' counts and fp64 rows (hot_add).
+// trilinear_bwd with the points' cotangent at C > 1: vol (H, W, D, C)
+// channel-last, the forward's volume; gpts (N, 3), every row written.
+// hot_counts (H W D int32, 0), hot_keys (kHotSlots int32, -1) and hot_sums
+// (kHotSlots x C doubles, 0): the hot cells' counts and fp64 rows
+// (hot_add). C = 1 is trilinear_plane_points_bwd.
 extern "C" int trilinear_bwd_points(const float* vol, const float* hwd,
                                     const float* gv, const float* gg,
                                     float* grad, float* gpts,
@@ -1552,28 +1643,22 @@ extern "C" int trilinear_bwd_points(const float* vol, const float* hwd,
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     const Hot hot{hot_counts, hot_keys, hot_sums, H * W * D};
     hot_count(hot, hwd, num_points, H, W, D, s);
-    if (C == 1) {
-      trilinear_bwd_plane_kernel<true><<<blocks_for(num_points), kThreads, 0,
-                                         s>>>(hwd, gv, gg, grad, num_points,
-                                              H, W, D, vol, gpts, hot);
-    } else {
-      // the staged cotangent rows: 32 KB, beside 20 KB of static memory
-      const int staged = kWarps * kWarp * kWarp * 4;
-      cudaFuncSetAttribute(trilinear_bwd_rows_kernel<true>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           staged);
-      trilinear_bwd_rows_kernel<true><<<blocks_for(num_points), kThreads,
-                                        staged, s>>>(
-          hwd, gv, gg, grad, num_points, C, H, W, D, vol, gpts, hot);
-    }
+    // the staged cotangent rows: 32 KB, beside 20 KB of static memory
+    const int staged = kWarps * kWarp * kWarp * 4;
+    cudaFuncSetAttribute(trilinear_bwd_rows_kernel<true>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, staged);
+    trilinear_bwd_rows_kernel<true><<<blocks_for(num_points), kThreads,
+                                      staged, s>>>(
+        hwd, gv, gg, grad, num_points, C, H, W, D, vol, gpts, hot);
     hot_fold(hot, grad, C, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// trilinear_cf_bwd with the points' cotangent: vol (H, W, D, C), `row`
-// floats between voxels, the forward's volume; gpts (N, 3), every row
-// written; hot_counts, hot_keys, hot_sums: as trilinear_bwd_points'.
+// trilinear_cf_bwd with the points' cotangent at C > 1: vol (H, W, D, C),
+// `row` floats between voxels, the forward's volume; gpts (N, 3), every row
+// written; hot_counts, hot_keys, hot_sums: as trilinear_bwd_points'. C = 1
+// is trilinear_plane_points_bwd.
 extern "C" int trilinear_cf_bwd_points(const float* vol, int64_t row,
                                        const float* hwd, const float* gv,
                                        float* grad, float* gpts,
@@ -1585,15 +1670,40 @@ extern "C" int trilinear_cf_bwd_points(const float* vol, int64_t row,
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     const Hot hot{hot_counts, hot_keys, hot_sums, H * W * D};
     hot_count(hot, hwd, num_points, H, W, D, s);
-    if (C == 1)
-      values_bwd_plane_seg_kernel<true><<<seg_blocks(num_points), kThreads, 0,
-                                          s>>>(hwd, gv, grad, num_points, H,
-                                               W, D, vol, row, gpts, hot);
-    else
-      values_bwd_walk_kernel<true><<<blocks_for(num_points), kThreads, 0,
-                                     s>>>(hwd, gv, grad, num_points, C, H, W,
-                                          D, vol, row, gpts, hot);
+    values_bwd_walk_kernel<true><<<blocks_for(num_points), kThreads, 0, s>>>(
+        hwd, gv, grad, num_points, C, H, W, D, vol, row, gpts, hot);
     hot_fold(hot, grad, C, s);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The C = 1 point instances, both cotangents of trilinear_bwd (gg (N, 3) or
+// null; row 1) or of trilinear_cf_bwd (gg null): vol the forward's (H, W, D)
+// plane, `row` floats between voxels; acc H W D doubles, zeroed by the
+// caller; grad the (H, W, D) plane, every element written; gpts (N, 3),
+// every row written. Three launches in all with the caller's fill: the
+// segments (kSegTiles tiles a block) and the fold.
+extern "C" int trilinear_plane_points_bwd(const float* vol, int64_t row,
+                                          const float* hwd, const float* gv,
+                                          const float* gg, double* acc,
+                                          float* grad, float* gpts,
+                                          int64_t num_points, int H, int W,
+                                          int D, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (num_points > 0) {
+    const int tiles = kSegTiles;
+    const unsigned blocks = static_cast<unsigned>(
+        (num_points + kThreads * tiles - 1) / (kThreads * tiles));
+    if (gg != nullptr)
+      trilinear_bwd_plane_points_kernel<<<blocks, kThreads, 0, s>>>(
+          hwd, gv, gg, acc, num_points, H, W, D, vol, gpts, tiles);
+    else
+      values_bwd_plane_points_kernel<<<blocks, kThreads, 0, s>>>(
+          hwd, gv, acc, num_points, H, W, D, vol, row, gpts, tiles);
+  }
+  const int64_t voxels = static_cast<int64_t>(H) * W * D;
+  if (voxels > 0)
+    trilinear_plane_fold_kernel<<<blocks_for(voxels), kThreads, 0, s>>>(
+        acc, grad, voxels);
   return static_cast<int>(cudaGetLastError());
 }

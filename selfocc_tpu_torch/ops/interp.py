@@ -385,12 +385,13 @@ def trilinear_bwd(vol_cf: torch.Tensor, hwd: torch.Tensor, grad_vals,
     and no launch), zeros padding. The kernel accumulates into the
     zero-filled result itself; C = 1 takes the plane kernel
     (``plane_launches``), any other C the rows kernel. ``points``: the
-    point instance (``trilinear_bwd_points``, ``points_launches``), which
-    also reads the volume's corner rows and returns (the volume's
-    cotangent, the points' (N, 3)); at C > 1 its dots with the corner rows
-    are taken in the rows kernel's walk (``points_walk_launches``). The
-    point instances sum the volume's cotangent on cells that many points
-    share in fp64 (``_hot_rows``), and add those sums to the result."""
+    point instance (``points_launches``), which also reads the volume's
+    corner rows and returns (the volume's cotangent, the points' (N, 3)).
+    At C = 1 it is ``_plane_points`` (segments into an fp64 plane); at
+    C > 1 (``trilinear_bwd_points``) its dots with the corner rows are
+    taken in the rows kernel's walk (``points_walk_launches``), which sums
+    the volume's cotangent on cells that many points share in fp64
+    (``_hot_rows``) and adds those sums to the result."""
     _require_kernel_volume(vol_cf, "trilinear_bwd")
     _build.require_cuda_tensor(hwd, "trilinear_bwd points", torch.float32, 2)
     C, H, W, D = vol_cf.shape
@@ -403,24 +404,31 @@ def trilinear_bwd(vol_cf: torch.Tensor, hwd: torch.Tensor, grad_vals,
             if tuple(g.shape) != (N, width):
                 raise ValueError(f"trilinear_bwd: {name} must be ({N}, "
                                  f"{width}), got {tuple(g.shape)}")
-    grad = torch.zeros((H, W, D, C), dtype=torch.float32, device=hwd.device)
     if grad_vals is None and grad_grad0 is None:
-        grad = grad.permute(3, 0, 1, 2)
+        grad = torch.zeros((H, W, D, C), dtype=torch.float32,
+                           device=hwd.device).permute(3, 0, 1, 2)
         return (grad, torch.zeros_like(hwd)) if points else grad
-    lib = _build.load("trilinear", _SIGNATURES)
-    if points:
-        gpts = torch.empty((N, 3), dtype=torch.float32, device=hwd.device)
-        hot = _hot_rows(C, H, W, D, hwd.device)
-        status = lib.trilinear_bwd_points(
-            _build.ptr(vol_cf), _build.ptr(hwd), _optional_ptr(grad_vals),
-            _optional_ptr(grad_grad0), _build.ptr(grad), _build.ptr(gpts), N,
-            C, H, W, D, *map(_build.ptr, hot), _build.stream_ptr(hwd.device))
+    if points and C == 1:
+        grad, gpts = _plane_points(vol_cf, 1, hwd, grad_vals, grad_grad0,
+                                   "trilinear_bwd")
     else:
-        status = lib.trilinear_bwd(
-            _build.ptr(hwd), _optional_ptr(grad_vals),
-            _optional_ptr(grad_grad0), _build.ptr(grad), N, C, H, W, D,
-            _build.stream_ptr(hwd.device))
-    _build.check(status, "trilinear_bwd")
+        grad = torch.zeros((H, W, D, C), dtype=torch.float32,
+                           device=hwd.device)
+        lib = _build.load("trilinear", _SIGNATURES)
+        if points:
+            gpts = torch.empty((N, 3), dtype=torch.float32, device=hwd.device)
+            hot = _hot_rows(C, H, W, D, hwd.device)
+            status = lib.trilinear_bwd_points(
+                _build.ptr(vol_cf), _build.ptr(hwd),
+                _optional_ptr(grad_vals), _optional_ptr(grad_grad0),
+                _build.ptr(grad), _build.ptr(gpts), N, C, H, W, D,
+                *map(_build.ptr, hot), _build.stream_ptr(hwd.device))
+        else:
+            status = lib.trilinear_bwd(
+                _build.ptr(hwd), _optional_ptr(grad_vals),
+                _optional_ptr(grad_grad0), _build.ptr(grad), N, C, H, W, D,
+                _build.stream_ptr(hwd.device))
+        _build.check(status, "trilinear_bwd")
     trilinear_bwd.launches += 1
     trilinear_bwd.plane_launches += C == 1
     trilinear_bwd.points_launches += points
@@ -437,13 +445,38 @@ HOT_SLOTS = 1 << 15   # csrc/trilinear.cu: kHotSlots
 
 
 def _hot_rows(C, H, W, D, device):
-    """The point instances' scratch for hot cells (``hot_add`` in
+    """The C > 1 point instances' scratch for hot cells (``hot_add`` in
     ``csrc/trilinear.cu``): the points in each cell (H W D int32, zero),
     HOT_SLOTS voxel keys (-1 while free) and as many rows of C fp64 sums
-    (zero)."""
+    (zero). The C = 1 instances take ``_plane_points``' one fp64 plane."""
     return (torch.zeros((H, W, D), dtype=torch.int32, device=device),
             torch.full((HOT_SLOTS,), -1, dtype=torch.int32, device=device),
             torch.zeros((HOT_SLOTS, C), dtype=torch.float64, device=device))
+
+
+def _plane_points(vol_cf, row, hwd, grad_vals, grad_grad0, name):
+    """The C = 1 point instances (``csrc/trilinear.cu::
+    trilinear_plane_points_bwd``): the volume's cotangent, a (1, H, W, D)
+    view of an (H, W, D, 1) tensor, and the points' (N, 3), for the plane
+    ``vol_cf`` read at ``row`` floats between voxels, (N, 3) points and the
+    cotangents of the values (N, 1) and of grad0 (N, 3; None for the
+    values-only instance), either of which may be None. Per call one fill
+    (the zeroed fp64 plane that the kernel sums into) and two kernels: the
+    segments and the fold into the fp32 gradient, which writes every
+    element."""
+    _, H, W, D = vol_cf.shape
+    N = hwd.shape[0]
+    dev = hwd.device
+    acc = torch.zeros((H, W, D), dtype=torch.float64, device=dev)
+    grad = torch.empty((H, W, D, 1), dtype=torch.float32, device=dev)
+    gpts = torch.empty((N, 3), dtype=torch.float32, device=dev)
+    lib = _build.load("trilinear", _SIGNATURES)
+    status = lib.trilinear_plane_points_bwd(
+        _build.ptr(vol_cf), row, _build.ptr(hwd), _optional_ptr(grad_vals),
+        _optional_ptr(grad_grad0), _build.ptr(acc), _build.ptr(grad),
+        _build.ptr(gpts), N, H, W, D, _build.stream_ptr(dev))
+    _build.check(status, name)
+    return grad, gpts
 
 
 trilinear_bwd.launches = 0
@@ -453,6 +486,10 @@ trilinear_bwd.points_walk_launches = 0
 _SIGNATURES["trilinear_bwd"] = (
     _build.PTR, _build.PTR, _build.PTR, _build.PTR, _build.I64, _build.I32,
     _build.I32, _build.I32, _build.I32, _build.PTR)
+_SIGNATURES["trilinear_plane_points_bwd"] = (
+    _build.PTR, _build.I64, _build.PTR, _build.PTR, _build.PTR, _build.PTR,
+    _build.PTR, _build.PTR, _build.I64, _build.I32, _build.I32, _build.I32,
+    _build.PTR)
 _SIGNATURES["trilinear_bwd_points"] = (
     _build.PTR, _build.PTR, _build.PTR, _build.PTR, _build.PTR, _build.PTR,
     _build.I64, _build.I32, _build.I32, _build.I32, _build.I32, _build.PTR,
@@ -488,9 +525,10 @@ def trilinear_cf_bwd(vol_shape, hwd: torch.Tensor, grad_vals: torch.Tensor,
     points in one cell before its atomics.
 
     ``vol_cf``: the forward's volume (fp32, CUDA, ``row_stride``), for the
-    point instance (``trilinear_cf_bwd_points``, ``points_launches``):
-    it reads each point's corners and returns (the volume's cotangent, the
-    points' (N, 3)); at C > 1 that is the walk kernel too."""
+    point instance (``points_launches``): it reads each point's corners and
+    returns (the volume's cotangent, the points' (N, 3)); at C = 1 that is
+    ``_plane_points``, at C > 1 the walk kernel
+    (``trilinear_cf_bwd_points``)."""
     C, H, W, D = vol_shape
     _build.require_cuda_tensor(hwd, "trilinear_cf_bwd points", torch.float32,
                                2)
@@ -502,25 +540,32 @@ def trilinear_cf_bwd(vol_shape, hwd: torch.Tensor, grad_vals: torch.Tensor,
         raise ValueError(f"trilinear_cf_bwd: expected (N, 3) points and "
                          f"({N}, {C}) grad_vals on one device, got "
                          f"{tuple(hwd.shape)} / {tuple(grad_vals.shape)}")
-    grad = torch.zeros((H, W, D, C), dtype=torch.float32, device=hwd.device)
-    lib = _build.load("trilinear", _SIGNATURES)
     if vol_cf is not None:
         row = row_stride(vol_cf)
         if row is None or tuple(vol_cf.shape) != tuple(vol_shape) or \
                 not vol_cf.is_cuda or vol_cf.dtype != torch.float32:
             raise ValueError("trilinear_cf_bwd: the points' cotangent needs "
                              "the forward's fp32 CUDA volume, channel-last")
-        gpts = torch.empty((N, 3), dtype=torch.float32, device=hwd.device)
-        hot = _hot_rows(C, H, W, D, hwd.device)
-        status = lib.trilinear_cf_bwd_points(
-            _build.ptr(vol_cf), row, _build.ptr(hwd), _build.ptr(grad_vals),
-            _build.ptr(grad), _build.ptr(gpts), N, C, H, W, D,
-            *map(_build.ptr, hot), _build.stream_ptr(hwd.device))
+    if vol_cf is not None and C == 1:
+        grad, gpts = _plane_points(vol_cf, row, hwd, grad_vals, None,
+                                   "trilinear_cf_bwd")
     else:
-        status = lib.trilinear_cf_bwd(
-            _build.ptr(hwd), _build.ptr(grad_vals), _build.ptr(grad), N, C,
-            H, W, D, _build.stream_ptr(hwd.device))
-    _build.check(status, "trilinear_cf_bwd")
+        grad = torch.zeros((H, W, D, C), dtype=torch.float32,
+                           device=hwd.device)
+        lib = _build.load("trilinear", _SIGNATURES)
+        if vol_cf is not None:
+            gpts = torch.empty((N, 3), dtype=torch.float32, device=hwd.device)
+            hot = _hot_rows(C, H, W, D, hwd.device)
+            status = lib.trilinear_cf_bwd_points(
+                _build.ptr(vol_cf), row, _build.ptr(hwd),
+                _build.ptr(grad_vals), _build.ptr(grad), _build.ptr(gpts), N,
+                C, H, W, D, *map(_build.ptr, hot),
+                _build.stream_ptr(hwd.device))
+        else:
+            status = lib.trilinear_cf_bwd(
+                _build.ptr(hwd), _build.ptr(grad_vals), _build.ptr(grad), N,
+                C, H, W, D, _build.stream_ptr(hwd.device))
+        _build.check(status, "trilinear_cf_bwd")
     trilinear_cf_bwd.launches += 1
     trilinear_cf_bwd.plane_launches += C == 1
     trilinear_cf_bwd.points_launches += vol_cf is not None

@@ -1,6 +1,6 @@
 """Build variants of ``csrc/trilinear.cu`` on the card and time the two
-C = 25 cotangent scatters beside the shipped kernels, at their main-path
-points.
+C = 25 cotangent scatters and the C = 1 point instances beside the shipped
+kernels, at their main-path points.
 
 The scatters are ``trilinear_cf_bwd`` at C = 25 (the values-only backward's
 walk: the density step's one query, the options step's training chunks,
@@ -24,7 +24,29 @@ script rebuilds the source with one design choice undone at a time:
 - ``fp32_chain``: no cell hot: the point instances' flushes from crowded
   cells as fp32 atomics on the gradient, like every other flush;
 - ``hot_points_32``, ``hot_points_512``: a cell hot from 32 or 512
-  points (kHotPoints; shipped: 128).
+  points (kHotPoints; shipped: 128);
+- ``plane_chains``: ``trilinear_bwd``'s C = 1 point instance by the
+  point-free plane kernel's chains (``trilinear_bwd_plane_kernel<true>``,
+  one lane walking each voxel's chain, flushed into the same fp64 plane) in
+  place of the segments;
+- ``shared_corners``: in the C = 1 point instances a segment's first lane
+  loads the 8 corners and shuffles them to the rest, in place of each lane
+  loading its own;
+- ``occupancy_tiles``: the C = 1 point instances' blocks sized to one wave
+  of resident blocks (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+  each taking as many tiles of 256 points as that leaves it, in place of
+  kSegTiles (4) a block;
+- ``tiles_1``, ``tiles_2``, ``tiles_8``: 1, 2 or 8 tiles a block (the
+  table flushed after each 4);
+- ``no_table``: the segments' sums as fp64 atomics straight into the
+  plane, without the block's table in shared memory.
+
+The C = 1 point instances (the shipped segments into an fp64 plane, and the
+variants above) are timed on the uniform stand-ins of ``chip_smoke.py``'s
+``head_points`` and on the importance step's own points
+(``chip_smoke.importance_step_points``): the plane instance at 4096 x 320
+taps, the values-only one at the rounds' 4096 x 288 sdf queries (the sdf
+channel read at row stride 25).
 
 Each variant is swapped in for the port's own library, so the public
 wrappers of ``ops/interp.py`` call it; each call is held against its plain
@@ -35,10 +57,12 @@ their plain versions in float64 (``chip_smoke.float64_check``'s distances;
 the C = 1 instances at the importance points, the values-only one at the
 six taps of 4096 x 320 samples). Results go to ``OUT/variants.json``.
 
-    python3 selfocc_tpu_torch/tools/trilinear_scatter_variants.py [OUT]
+    python3 selfocc_tpu_torch/tools/trilinear_scatter_variants.py [OUT [CASES]]
 
 Run from the repository root on a machine with a CUDA card and ``nvcc``;
-OUT defaults to ``work_dirs/trilinear_scatter_variants`` (git-ignored).
+OUT defaults to ``work_dirs/trilinear_scatter_variants`` (git-ignored);
+CASES, comma-separated prefixes of the cases' names (``points_c1``,
+``values_points_c1``, ``values_c25``, ...), times only those.
 """
 from __future__ import annotations
 
@@ -173,10 +197,74 @@ STAGED = "        g = stage[p * kWarp + lane];"
 UNSTAGED = ("        g = gv != nullptr && ch < C ? __ldg(gv + (tile + p) * C"
             " + ch) : 0.f;")
 HOT = "__ldg(hot.counts + base) > kHotPoints;"
+SEGMENTS = """    if (gg != nullptr)
+      trilinear_bwd_plane_points_kernel<<<blocks, kThreads, 0, s>>>(
+          hwd, gv, gg, acc, num_points, H, W, D, vol, gpts, tiles);"""
+CHAINS = """    if (gg != nullptr)
+      trilinear_bwd_plane_kernel<true><<<blocks_for(num_points), kThreads, 0,
+                                         s>>>(hwd, gv, gg, nullptr,
+                                              num_points, H, W, D, vol, gpts,
+                                              acc);"""
+OWN_LOAD = """          v[k] = in_volume(c, k, H, W, D)
+                     ? __ldg(vol + static_cast<int64_t>(voxel(c, k, W, D)) *
+                                       row)
+                     : 0.f;
+"""
+SHARED_LOAD = """          v[k] = lane == start && in_volume(c, k, H, W, D)
+                     ? __ldg(vol + static_cast<int64_t>(voxel(c, k, W, D)) *
+                                       row)
+                     : 0.f;
+          v[k] = __shfl_sync(kFull, v[k], start);
+"""
+TILES = "    const int tiles = kSegTiles;\n"
+# one wave of resident blocks (the occupancy calculator), each taking as
+# many tiles as that leaves it
+RESIDENT = r"""// The blocks of `kernel` (kThreads threads, static shared memory only) that
+// the card holds at once: SMs times resident blocks per SM, from the
+// occupancy calculator, remembered by (device, slot): it costs host time.
+int resident_blocks(const void* kernel, int slot, int* blocks) {
+  constexpr int kDevices = 64, kSlotsCached = 2;
+  static int known[kDevices][kSlotsCached] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < kDevices && known[dev][slot] > 0) {
+    *blocks = known[dev][slot];
+    return 0;
+  }
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *blocks = sms * (per_sm > 0 ? per_sm : 1);
+  if (dev < kDevices) known[dev][slot] = *blocks;
+  return 0;
+}
+"""
+OCCUPANCY_TILES = """    int slots = 0;
+    const int err =
+        gg != nullptr
+            ? resident_blocks(reinterpret_cast<const void*>(
+                                  trilinear_bwd_plane_points_kernel),
+                              0, &slots)
+            : resident_blocks(reinterpret_cast<const void*>(
+                                  values_bwd_plane_points_kernel),
+                              1, &slots);
+    if (err) return err;
+    const int64_t count = (num_points + kThreads - 1) / kThreads;
+    const int tiles = static_cast<int>((count + slots - 1) / slots);
+"""
+TABLE_ADD = "            table_add(keys, sums, voxel(c, k, W, D), x[k], out);"
+DIRECT_ADD = ("            atomicAdd(out + voxel(c, k, W, D), "
+              "static_cast<T>(x[k]));")
 
 
 def variants(src: str) -> dict:
     for s, n in ((FLUSH_DECL, 1), (STAGED, 1), (HOT, 1), (WALK, 1),
+                 (SEGMENTS, 1), (OWN_LOAD, 1), (TILES, 1), (TABLE_ADD, 1),
+                 ("}  // namespace", 1),
                  ("constexpr int kHotPoints = 128;", 1),
                  ("  __shared__ float dots[kPoints ? kWarps : 1][kWarp][8];\n"
                   "  const int lane", 2)):
@@ -202,7 +290,15 @@ def variants(src: str) -> dict:
             "fp32_chain": src.replace(HOT, "__ldg(hot.counts + base) < 0;"),
             **{f"hot_points_{t}": src.replace(
                 "constexpr int kHotPoints = 128;",
-                f"constexpr int kHotPoints = {t};") for t in (32, 512)}}
+                f"constexpr int kHotPoints = {t};") for t in (32, 512)},
+            "plane_chains": src.replace(SEGMENTS, CHAINS),
+            "shared_corners": src.replace(OWN_LOAD, SHARED_LOAD),
+            "occupancy_tiles": src.replace(
+                "}  // namespace", RESIDENT + "\n}  // namespace").replace(
+                TILES, OCCUPANCY_TILES),
+            **{f"tiles_{t}": src.replace(
+                TILES, f"    const int tiles = {t};\n") for t in (1, 2, 8)},
+            "no_table": src.replace(TABLE_ADD, DIRECT_ADD)}
 
 
 def build(out_dir: str) -> dict:
@@ -276,24 +372,40 @@ def main():
                 lambda p=pts, v=sdf: interp.trilinear_cf_bwd_plain(
                     torch.zeros(vshape, device=dev), p, v), None)
     vol1 = interp.first_channel(vol)
-    for tag, v in (("c25", vol), ("c1", vol1)):
+    sdf_view = interp.channel0_view(vol)
+    step = cs.importance_step_points(dev)
+    rounds = cs.head_points(dev, (288,))[288]
+    for tag, v, p in (("c25_head", vol, head), ("c1_head", vol1, head),
+                      ("c1_step", vol1, step["taps"][0])):
         C = v.shape[0]
-        gv = torch.randn((n, C), generator=g, device=dev)
-        gg = torch.randn((n, 3), generator=g, device=dev)
-        cases[f"points_{tag}_head"] = (
-            (lambda v=v, a=gv, b=gg: interp.trilinear_bwd(v, head,
-                                                          a, b, points=True)),
-            (lambda v=v, a=gv, b=gg: interp.trilinear_bwd_plain(
-                v, head, a, b, points=True)),
-            (lambda v=v, a=gv, b=gg: interp.trilinear_bwd_plain(
-                v.double(), head.double(), a.double(), b.double(),
+        gv = torch.randn((p.shape[0], C), generator=g, device=dev)
+        gg = torch.randn((p.shape[0], 3), generator=g, device=dev)
+        cases[f"points_{tag}"] = (
+            (lambda v=v, p=p, a=gv, b=gg: interp.trilinear_bwd(
+                v, p, a, b, points=True)),
+            (lambda v=v, p=p, a=gv, b=gg: interp.trilinear_bwd_plain(
+                v, p, a, b, points=True)),
+            (lambda v=v, p=p, a=gv, b=gg: interp.trilinear_bwd_plain(
+                v.double(), p.double(), a.double(), b.double(),
                 points=True)))
+    for tag, p in (("288", rounds), ("288_step", step["rounds"][288])):
+        gr = torch.randn((p.shape[0], 1), generator=g, device=dev)
+        cases[f"values_points_c1_{tag}"] = (
+            lambda p=p, a=gr: interp.trilinear_cf_bwd(
+                tuple(sdf_view.shape), p, a, sdf_view),
+            lambda p=p, a=gr: interp.trilinear_cf_bwd_plain(
+                sdf_view, p, a, points=True),
+            lambda p=p, a=gr: interp.trilinear_cf_bwd_plain(
+                sdf_view.double(), p.double(), a.double(), points=True))
     gt = torch.randn((taps.shape[0], 1), generator=g, device=dev)
     cases["values_points_c1_taps"] = (
         lambda: interp.trilinear_cf_bwd(tuple(vol1.shape), taps, gt, vol1),
         lambda: interp.trilinear_cf_bwd_plain(vol1, taps, gt, points=True),
         lambda: interp.trilinear_cf_bwd_plain(vol1.double(), taps.double(),
                                               gt.double(), points=True))
+    if len(sys.argv) > 2:
+        wanted = tuple(sys.argv[2].split(","))
+        cases = {k: v for k, v in cases.items() if k.startswith(wanted)}
     res = {name: {} for name in libs}
     order = list(libs) + list(libs)[::-1]
     for tag, (kern, plain, f64) in cases.items():

@@ -44,6 +44,7 @@ from selfocc_tpu_torch.ops.interp import row_stride
 from selfocc_tpu_torch.utils import eval_lib as teval
 from selfocc_tpu_torch.utils import train_lib as ttrain
 from test_torch_port_threads import share_cores_with_xdist_workers
+from torch_port_jax import jit_vjp, memoised_jax_init  # noqa: F401
 from test_torch_port_train import (assert_grad_close, jax_draws, no_dropout,
                                    perturb)
 
@@ -96,15 +97,16 @@ def test_deformable_self_attention_matches_jax(hw):
     ref_2d = bev_ref_2d(h, w).numpy()
     cot = rng.randn(1, Q, C).astype(np.float32)
     jmod = JSelfAttention(C, H, P, dropout=0.0)
-    params = perturb(jax.tree_util.tree_map(np.asarray, jmod.init(
-        jax.random.PRNGKey(0), jnp.asarray(query), jnp.asarray(pos),
-        jnp.asarray(ref_2d), (h, w))["params"]), rng, scale=0.5)
+    params = perturb(jax.tree_util.tree_map(np.asarray, jax.jit(
+        lambda q, p, r: jmod.init(jax.random.PRNGKey(0), q, p, r, (h, w)))(
+        jnp.asarray(query), jnp.asarray(pos), jnp.asarray(ref_2d))[
+            "params"]), rng, scale=0.5)
 
     def f(q, p):
         return jmod.apply({"params": params}, q, p, jnp.asarray(ref_2d),
                           (h, w))
-    ref, vjp = jax.vjp(f, jnp.asarray(query), jnp.asarray(pos))
-    g_q, g_p = vjp(jnp.asarray(cot))
+    ref, (g_q, g_p) = jit_vjp(f, (jnp.asarray(query), jnp.asarray(pos)),
+                              jnp.asarray(cot))
     tmod = DeformableSelfAttention(C, H, P)
     tmod.load_state_dict(_self_attn_sd(params), strict=True)
     tq, tp = (T(x.copy()).requires_grad_(True) for x in (query, pos))

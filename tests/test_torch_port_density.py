@@ -44,6 +44,7 @@ from selfocc_tpu_torch.utils import eval_lib as teval
 from selfocc_tpu_torch.utils import train_lib as ttrain
 from test_torch_port_bev import _batch, assert_scaled_close
 from test_torch_port_threads import share_cores_with_xdist_workers
+from torch_port_jax import memoised_jax_init  # noqa: F401
 from test_torch_port_train import (assert_grad_close, jax_draws, no_dropout,
                                    perturb)
 

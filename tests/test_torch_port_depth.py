@@ -64,6 +64,7 @@ from test_torch_port_novel import (CHUNK, RTOL, ATOL, TABLE_ATOL, TABLE_RTOL,
 from test_torch_port_train import (assert_grad_close, jax_draws, no_dropout,
                                    perturb)
 from test_torch_port_threads import share_cores_with_xdist_workers
+from torch_port_jax import memoised_jax_init  # noqa: F401
 
 share_cores_with_xdist_workers()
 

@@ -46,6 +46,7 @@ from selfocc_tpu_torch.ops import interp as tinterp
 from selfocc_tpu_torch.utils import train_lib as ttrain
 from test_torch_port_bev import _batch, assert_scaled_close
 from test_torch_port_threads import share_cores_with_xdist_workers
+from torch_port_jax import jit_vjp, memoised_jax_init  # noqa: F401
 from test_torch_port_train import (assert_grad_close, jax_draws, no_dropout,
                                    perturb)
 
@@ -131,6 +132,74 @@ def test_point_cotangents_match_jax(fn, C):
     outs = outs if isinstance(outs, tuple) else (outs,)
     sum((o * T(c)).sum() for o, c in zip(outs, cots)).backward()
     assert_scaled_close(p.grad.numpy(), ref, f"{fn} C={C} public")
+
+
+def _crowded_rays(rng, R=64, S=48, near=24):
+    """Ray-major points of R rays from one camera inside a cell of a
+    9 x 9 x 9 grid: each ray's first ``near`` samples lie within 0.25 of the
+    camera, so R * near of them share its cell (samples converging near a
+    camera); the rest spread out to 5 cells away."""
+    origin = np.array([4.3, 3.4, 4.6])
+    d = rng.randn(R, 3)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t = np.concatenate([np.sort(rng.uniform(0.0, 0.25, (R, near)), 1),
+                        np.sort(rng.uniform(0.3, 5.0, (R, S - near)), 1)], 1)
+    pts = (origin + d[:, None] * t[..., None]).reshape(-1, 3)
+    frac = pts - np.floor(pts)
+    pts = np.where(np.minimum(frac, 1 - frac) < 1e-3, pts + 0.01, pts)
+    return pts.astype(np.float32)
+
+
+@pytest.mark.parametrize("layout", ["plane", "row_stride_25"])
+@pytest.mark.parametrize("fn", ["values", "with_grad"])
+def test_crowded_cell_cotangents_match_jax(fn, layout):
+    # more than 1,000 points in one cell at C = 1, read from a plane or as
+    # channel 0 of a channel-last 25-channel volume (channel0_view, as the
+    # importance rounds read the sdf): both plain versions' cotangents (the
+    # volume's, the points') against JAX's vjp; and their float64 runs,
+    # which chip_smoke.py's float64_check takes as its reference, lie as
+    # close to JAX's fp32 result as to the fp32 plain version's, within
+    # that check's bound (twice the fp32 plain version's distance + 1e-7 of
+    # the scale)
+    rng = np.random.RandomState(17)
+    pts = _crowded_rays(rng)
+    cell = np.floor(pts).astype(np.int64)
+    assert (cell == [4, 3, 4]).all(-1).sum() > 1000
+    wide = rng.randn(9, 9, 9, 25).astype(np.float32)
+    vol = np.ascontiguousarray(wide[..., 0])[None]
+    tvol = (T(vol) if layout == "plane" else
+            tinterp.channel0_view(T(wide).permute(3, 0, 1, 2)))
+    assert tinterp.row_stride(tvol) == (1 if layout == "plane" else 25)
+    gv = rng.randn(len(pts), 1).astype(np.float32)
+    gg = rng.randn(len(pts), 3).astype(np.float32)
+    if fn == "values":
+        _, refs = jit_vjp(jinterp.trilinear_sample_cf,
+                          (jnp.asarray(vol), jnp.asarray(pts)),
+                          jnp.asarray(gv))
+
+        def plain(v, p, dtype):
+            return tinterp.trilinear_cf_bwd_plain(
+                v.to(dtype), p.to(dtype), T(gv).to(dtype), points=True)
+    else:
+        _, refs = jit_vjp(jinterp.trilinear_sample_cf_with_grad,
+                          (jnp.asarray(vol), jnp.asarray(pts)),
+                          (jnp.asarray(gv), jnp.asarray(gg)))
+
+        def plain(v, p, dtype):
+            return tinterp.trilinear_bwd_plain(
+                v.to(dtype), p.to(dtype), T(gv).to(dtype), T(gg).to(dtype),
+                points=True)
+    got = plain(tvol, T(pts), torch.float32)
+    got64 = plain(tvol, T(pts), torch.float64)
+    for which, g, g64, r in zip(("volume", "points"), got, got64, refs):
+        r = np.asarray(r, np.float64)
+        assert_scaled_close(g.numpy(), r, f"{fn} {layout} {which}")
+        d_jax = float(np.abs(r - g64.numpy()).max())
+        d_plain = float(np.abs(g.double().numpy() - g64.numpy()).max())
+        scale = float(np.abs(g64.numpy()).max())
+        assert d_jax <= 2.0 * d_plain + 1e-7 * scale, (
+            f"{fn} {layout} {which}: JAX fp32 {d_jax:.3e} from float64, "
+            f"fp32 plain {d_plain:.3e}")
 
 
 def test_taps_point_cotangent_matches_per_tap_queries():

@@ -65,6 +65,7 @@ from test_kitti_dataset import _make_mini_kitti
 from test_torch_port_novel import CHUNK, assert_tables_close, jax_weights
 from test_torch_port_train import assert_grad_close, jax_draws, perturb
 from test_torch_port_threads import share_cores_with_xdist_workers
+from torch_port_jax import memoised_jax_init  # noqa: F401
 
 share_cores_with_xdist_workers()
 

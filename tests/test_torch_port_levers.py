@@ -50,6 +50,7 @@ from test_torch_port_models import jax_variable_shapes, random_variables
 from test_torch_port_train import perturb
 from utils_tiny import make_cameras, tiny_config
 from test_torch_port_threads import share_cores_with_xdist_workers
+from torch_port_jax import memoised_jax_init  # noqa: F401
 
 share_cores_with_xdist_workers()
 

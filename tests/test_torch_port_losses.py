@@ -17,6 +17,7 @@ from selfocc_tpu.configs.experiments import get_config
 from selfocc_tpu_torch import losses as tlosses
 from selfocc_tpu_torch.data.synthetic import SyntheticDataset
 from test_torch_port_threads import share_cores_with_xdist_workers
+from torch_port_jax import memoised_jax_init  # noqa: F401
 
 share_cores_with_xdist_workers()
 

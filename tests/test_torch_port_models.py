@@ -24,6 +24,7 @@ from selfocc_tpu_torch.bridge import from_jax_variables
 from selfocc_tpu_torch.models import encoder as tenc
 from selfocc_tpu_torch.models.segmentor import TPVSegmentor
 from test_torch_port_threads import share_cores_with_xdist_workers
+from torch_port_jax import jit_apply, memoised_jax_init  # noqa: F401
 
 share_cores_with_xdist_workers()
 
@@ -100,8 +101,8 @@ def tiny2():
 
 def test_tiny_backbone_fpn_matches_jax(tiny2):
     cfg, jmodel, variables, tmodel, batch = tiny2
-    ref = jmodel.apply(variables, jnp.asarray(batch["imgs"]),
-                       method="extract_img_feat")
+    ref = jit_apply(jmodel, variables, jnp.asarray(batch["imgs"]),
+                    method="extract_img_feat")
     with torch.no_grad():
         got = tmodel.extract_img_feat(T(batch["imgs"]))
     assert len(got) == len(ref) == 4
@@ -135,8 +136,8 @@ def test_resnet50_fpn_matches_jax():
     rng = np.random.RandomState(1)
     np_vars = random_variables(jax_variable_shapes(jmodel, cfg), rng)
     imgs = rng.randn(1, 1, 64, 96, 3).astype(np.float32)
-    ref = jmodel.apply(jax.tree_util.tree_map(jnp.asarray, np_vars),
-                       jnp.asarray(imgs), method="extract_img_feat")
+    ref = jit_apply(jmodel, jax.tree_util.tree_map(jnp.asarray, np_vars),
+                    jnp.asarray(imgs), method="extract_img_feat")
     tmodel = TPVSegmentor(cfg.model).eval()
     tmodel.load_state_dict(from_jax_variables(np_vars), strict=True)
     with torch.no_grad():
@@ -152,9 +153,9 @@ def test_resnet50_fpn_matches_jax():
 def test_encoder_two_layers_matches_jax(tiny2):
     # exercises the scan-axis unstacking of the bridge (2 stacked layers)
     cfg, jmodel, variables, tmodel, batch = tiny2
-    ref = jmodel.apply(variables, jnp.asarray(batch["imgs"]),
-                       jnp.asarray(batch["lidar2img"]),
-                       method="get_representation")
+    ref = jit_apply(jmodel, variables, jnp.asarray(batch["imgs"]),
+                    jnp.asarray(batch["lidar2img"]),
+                    method="get_representation")
     with torch.no_grad():
         got = tmodel.get_representation(T(batch["imgs"]),
                                         T(batch["lidar2img"]))
@@ -206,9 +207,9 @@ def test_neus_head_render_rays_matches_jax(tiny2, geo_only):
     direction = rng.randn(R, 3).astype(np.float32)
     direction[:, 2] = -np.abs(direction[:, 2]) - 0.2      # looking down
     direction[0] = [1.0, 0.0, 0.0]                         # axis-parallel
-    ref = jmodel.apply(variables, jnp.asarray(vol), jnp.asarray(origin),
-                       jnp.asarray(direction), geo_only=geo_only,
-                       method="render_rays")
+    ref = jit_apply(jmodel, variables, jnp.asarray(vol),
+                    jnp.asarray(origin), jnp.asarray(direction),
+                    geo_only=geo_only, method="render_rays")
     with torch.no_grad():
         got = tmodel.render_rays(T(vol), T(origin), T(direction),
                                  geo_only=geo_only)

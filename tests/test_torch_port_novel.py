@@ -59,6 +59,7 @@ from test_torch_port_data import novel_cfg, nusc_cfg, write_sem_maps
 from test_torch_port_occ import _tiny_pth
 from test_torch_port_slice import _noisy
 from test_torch_port_threads import share_cores_with_xdist_workers
+from torch_port_jax import memoised_jax_init  # noqa: F401
 
 share_cores_with_xdist_workers()
 

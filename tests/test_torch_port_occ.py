@@ -37,6 +37,7 @@ from selfocc_tpu_torch.utils import eval_lib as teval
 from selfocc_tpu_torch.utils.runtime import get_logger, load_weights
 from test_torch_port_slice import _noisy
 from test_torch_port_threads import share_cores_with_xdist_workers
+from torch_port_jax import memoised_jax_init  # noqa: F401
 
 share_cores_with_xdist_workers()
 

@@ -29,6 +29,7 @@ from selfocc_tpu_torch.ops import render_weights
 from selfocc_tpu_torch.ops.msda import ms_deform_attn as t_msda
 from torch_render_cases import RENDER_CASES, jax_composite, render_case
 from test_torch_port_threads import share_cores_with_xdist_workers
+from torch_port_jax import memoised_jax_init  # noqa: F401
 
 share_cores_with_xdist_workers()
 
@@ -58,8 +59,8 @@ def _msda_case(seed, bs=2, q=37, heads=3, d=4, shapes=((6, 8), (3, 4)), p=5):
 def test_ms_deform_attn_matches_jax(seed, kw):
     # fp32 sums in another order: atol 1e-5
     value, loc, att, shapes = _msda_case(seed, **kw)
-    ref = np.asarray(j_msda(jnp.asarray(value), shapes, jnp.asarray(loc),
-                            jnp.asarray(att)))
+    ref = np.asarray(jax.jit(j_msda, static_argnums=1)(
+        jnp.asarray(value), shapes, jnp.asarray(loc), jnp.asarray(att)))
     got = t_msda(T(value), shapes, T(loc), T(att)).numpy()
     assert got.shape == ref.shape
     np.testing.assert_allclose(got, ref, atol=1e-5)

@@ -23,6 +23,7 @@ from selfocc_tpu_torch.bridge import from_jax_variables
 from selfocc_tpu_torch.models.segmentor import TPVSegmentor
 from selfocc_tpu_torch.utils import eval_lib as teval
 from test_torch_port_threads import share_cores_with_xdist_workers
+from torch_port_jax import jit_apply, memoised_jax_init  # noqa: F401
 
 share_cores_with_xdist_workers()
 
@@ -110,9 +111,9 @@ def test_eval_forward_returns_vis_normal_and_second_grad(tiny_frame):
     # normal_vis and second_grad included, for the fixed eval ray grid
     cfg, batch, jmodel, variables, np_params = tiny_frame
     kw = cfg.model.head.trans_kw
-    ref = jmodel.apply(variables, jnp.asarray(batch["imgs"]),
-                       jnp.asarray(batch["lidar2img"]), jnp.asarray(batch[kw]),
-                       train=False)
+    ref = jit_apply(jmodel, variables, jnp.asarray(batch["imgs"]),
+                    jnp.asarray(batch["lidar2img"]), jnp.asarray(batch[kw]),
+                    train=False)
     tmodel = TPVSegmentor(cfg.model).eval()
     tmodel.load_state_dict(from_jax_variables({"params": np_params}),
                            strict=True)

@@ -37,6 +37,7 @@ from selfocc_tpu_torch.models import resnet as tresnet
 from selfocc_tpu_torch.models.segmentor import TPVSegmentor
 from selfocc_tpu_torch.utils import train_lib as ttrain
 from test_torch_port_threads import share_cores_with_xdist_workers
+from torch_port_jax import memoised_jax_init  # noqa: F401
 
 share_cores_with_xdist_workers()
 

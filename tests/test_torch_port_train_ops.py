@@ -27,6 +27,7 @@ from selfocc_tpu_torch.ops.ssim import ssim as t_ssim
 from torch_render_cases import (COTANGENTS, RENDER_CASES, jax_composite,
                                 render_case)
 from test_torch_port_threads import share_cores_with_xdist_workers
+from torch_port_jax import jit_vjp, memoised_jax_init  # noqa: F401
 
 share_cores_with_xdist_workers()
 
@@ -108,9 +109,9 @@ MSDA_CASES = [
 @pytest.mark.parametrize("seed,kw", MSDA_CASES)
 def test_msda_plain_grad_matches_jax_vjp(seed, kw):
     value, loc, att, shapes, cot = _msda_case(seed, **kw)
-    ref, vjp = jax.vjp(lambda v, lc, a: j_msda(v, shapes, lc, a),
-                       jnp.asarray(value), jnp.asarray(loc), jnp.asarray(att))
-    refs = vjp(jnp.asarray(cot))
+    ref, refs = jit_vjp(lambda v, lc, a: j_msda(v, shapes, lc, a),
+                        (jnp.asarray(value), jnp.asarray(loc),
+                         jnp.asarray(att)), jnp.asarray(cot))
     tv, tl, ta = leaves(value, loc, att)
     got = tmsda.ms_deform_attn_plain(tv, shapes, tl, ta)
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref),
@@ -181,10 +182,9 @@ def test_trilinear_with_grad_plain_vjp_matches_jax(C, points):
     if points == "rays":  # some samples leave the volume
         assert not ((pts >= 0) & (pts <= np.asarray(vol.shape[1:]) - 1)
                     ).all()
-    (rv, rg), vjp = jax.vjp(
+    (rv, rg), (g_ref,) = jit_vjp(
         lambda v: jinterp.trilinear_sample_cf_with_grad(v, jnp.asarray(pts)),
-        jnp.asarray(vol))
-    (g_ref,) = vjp((jnp.asarray(gv), jnp.asarray(gg)))
+        (jnp.asarray(vol),), (jnp.asarray(gv), jnp.asarray(gg)))
     (tv,) = leaves(vol)
     vals, grad0 = tinterp.trilinear_sample_cf_with_grad_plain(tv, T(pts))
     np.testing.assert_allclose(vals.detach().numpy(), np.asarray(rv),

@@ -29,6 +29,7 @@ from selfocc_tpu_torch.ops.interp import (channel0_view, first_channel,
 
 from test_torch_port_train import assert_grad_close
 from test_torch_port_threads import share_cores_with_xdist_workers
+from torch_port_jax import memoised_jax_init  # noqa: F401
 
 share_cores_with_xdist_workers()
 
