@@ -81,9 +81,14 @@ raises and the exit code is non-zero.
   fabricated in a temporary directory (one scene of 8 keyframes, 6 cameras
   of 900x1600 JPEGs, 34,000-point lidar sweeps, the sweeps and temporal_v2
   infos, Occ3D labels for keyframe 0, offline teacher maps), registered as
-  the configs ``nuscenes_occ_fab`` / ``nuscenes_novel_depth_fab``: the
-  host seconds per train item of ``build_dataset`` (with a cProfile of two
-  items) and ``BatchPrefetcher``'s items/s at depth 2; 4 ``nuscenes_occ``
+  the configs ``nuscenes_occ_fab`` / ``nuscenes_novel_depth_fab``: which
+  image decoder the loaders run (``selfocc_tpu_torch.native`` or, where it
+  did not build, cv2, with the reason), the native decode of 24 of its
+  JPEGs against cv2's (within 2 LSBs on each image's mean) and both
+  decodes' host seconds; the host seconds per train item of
+  ``build_dataset`` (with a cProfile of two items) and
+  ``BatchPrefetcher``'s items/s at depth 2, with the native decoder and
+  again on the loaders' cv2 path; 4 ``nuscenes_occ``
   steps from the loader through ``train.main`` with ``--ckpt-freq-iters
   2``, a ``--iter-resume`` run from the step-2 checkpoint (the same items;
   losses within rtol 1e-5, bit-equality reported; the two runs' weights;
@@ -104,7 +109,8 @@ raises and the exit code is non-zero.
   fabricated in a temporary directory (sequences 00 and 08, 12 and 11
   frames 1.03 m apart, 1226x370 PNGs, 120,000-point scans, sequence 00's
   calibration, 256x256x32 labels every 5th val frame), registered as
-  ``kitti_occ_fab`` / ``kitti_novel_depth_fab``: 5 ``kitti_occ`` steps at
+  ``kitti_occ_fab`` / ``kitti_novel_depth_fab``: the loaders' image
+  decoder and its PNG decode against cv2's (exact); 5 ``kitti_occ`` steps at
   full width from the loader through ``train.main`` (the five losses and
   ``grad_norm`` finite; 8 synchronised warm steps for the median and
   spread; a profiled warm step with its launches, the values-only kernels
@@ -124,10 +130,12 @@ raises and the exit code is non-zero.
   of 12 frames 1.0123 m apart, 1242x375 PNGs with per-frame texture,
   120,000-point scans, KITTI-like calibration, ORB-SLAM poses, eigen_zhou
   split files) registered as ``kitti_raw_depth_fab``, and the ``[data]``
-  nuScenes tree registered as ``nuscenes_depth_fab``: 5 ``kitti_raw_depth``
+  nuScenes tree registered as ``nuscenes_depth_fab``: the loaders' image
+  decoder and its PNG decode against cv2's (exact); 5 ``kitti_raw_depth``
   steps at full width from the loader through ``train.main`` (the three
   losses and ``grad_norm`` finite, step times, waits, peak, host seconds
-  per item; on one loader batch, its focal ratios checked, warm steps, a
+  per item, with the native decoder and on the cv2 path; on one loader
+  batch, its focal ratios checked, warm steps, a
   profiled step and one under ``set_sync_debug_mode("error")``); a
   KITTI-raw-shaped ``tiny`` step from a loader batch with its focal ratios
   on the card against the CPU; ``eval_depth.main`` on 2 val frames raw,
@@ -198,9 +206,12 @@ raises and the exit code is non-zero.
   and depth (seeded weights, synthetic data): the three kernels' new
   instances against their plain versions and timed (device time, events,
   plain version, bound, ``F.grid_sample``'s backward with a grid that needs
-  a gradient): ``neus_weights_bwd`` above 256 samples (tiles; 4096 and
-  32768 x 320, the rounds' 4096 x 255 .. 303, float64 on saturated rows,
-  off-path S up to 8192), the point instances of ``trilinear_bwd`` (rows C
+  a gradient): ``neus_weights_bwd`` above 256 samples (rows staged
+  through shared memory: one pass up to 512 samples, tiles of 512 above;
+  4096 and 32768 x 320, the rounds' 4096 x 255 .. 303, float64 on
+  saturated rows at S = 320 and 271, off-path S up to 8192; with
+  ``--baseline``, another checkout's beside it in turns), the point
+  instances of ``trilinear_bwd`` (rows C
   = 25, plane) at 4096 x 320 points and of ``trilinear_cf_bwd`` (the sdf
   plane read at row stride 25) at the rounds' 4096 x 256 .. 304 points and
   the six taps of 4096 x 320; each option set's tiny step on the card
@@ -2694,8 +2705,8 @@ def profile_step(trainer, batch, gen, step_s,
     # the kernels of csrc/neus_weights.cu: in-step ms per call and calls
     neus = {}
     for e in kernels:
-        m = re.search(r"neus_(render|weights)_(fwd|bwd)(?:_tiled)?_kernel",
-                      e.key)
+        m = re.search(r"neus_(render|weights)_(fwd|bwd)(?:_staged)?"
+                      r"(?:_tiles)?_kernel", e.key)
         if m:
             name = f"neus_{m.group(1)}_{m.group(2)}"
             if name == "neus_render_fwd" and (
@@ -2914,34 +2925,144 @@ def fabricated_configs(paths):
     return occ(), novel()
 
 
+class cv2_decode:
+    """The port's training loaders on their cv2 path inside the block:
+    ``selfocc_tpu_torch.native.get_shared_loader`` returns None there, as
+    it does where the native decoder did not build (the decoder itself is
+    untouched)."""
+
+    def __enter__(self):
+        from selfocc_tpu_torch import native
+        self.native, self.saved = native, native.get_shared_loader
+        native.get_shared_loader = lambda: None
+        return self
+
+    def __exit__(self, *exc):
+        self.native.get_shared_loader = self.saved
+
+
+def host_cores():
+    import os
+    return len(os.sched_getaffinity(0))
+
+
+def decoder_check(tag, paths, crop_hw, rounds=3):
+    """Which decoder the port's loaders run (one line, with the reason when
+    it is cv2) and, where the native decoder built, its decode of ``paths``
+    (one phase's fabricated images, cropped to ``crop_hw`` as the loaders
+    crop) against the loaders' cv2 path: PNG exact, JPEG within 2 LSBs on
+    each image's mean (``tests/test_native_loader.py``'s bound); and the
+    host seconds of decoding the set both ways, in turns (native, cv2, cv2,
+    native, ... over ``rounds`` pairs): the native pool's batch against the
+    loaders' ``cv2.imread(...).astype(np.float32)`` loop; and once a round
+    on a pool of one thread, the decoder's own cost an image."""
+    import cv2
+    import numpy as np
+    from selfocc_tpu_torch import native
+    st = native.native_status()
+    log(f"  [{tag}] image decoder of the loaders: {st['decoder']}"
+        + (f" (cv2 because: {st['reason']})" if st["reason"] else
+           f" ({st['library']})") + f"; host cores {host_cores()}")
+    res = {"decoder": st["decoder"], "reason": st["reason"],
+           "host_cores": host_cores()}
+    if not native.native_available():
+        return res
+    loader = native.get_shared_loader()
+    h, w = crop_hw
+
+    def nat():
+        return loader.decode_batch(paths, crop_hw=crop_hw)
+
+    def cv():
+        return [cv2.imread(p, cv2.IMREAD_UNCHANGED).astype(np.float32)[:h, :w]
+                for p in paths]
+    worst_mean = worst_max = 0.0
+    for p, got, ref in zip(paths, nat(), cv()):
+        d = np.abs(got - ref)
+        worst_mean, worst_max = max(worst_mean, float(d.mean())), max(
+            worst_max, float(d.max()))
+        if p.endswith(".png") and d.max() != 0:
+            raise AssertionError(f"native PNG decode of {p} differs from "
+                                 f"cv2's by up to {d.max()}")
+        if not d.mean() < 2.0:
+            raise AssertionError(f"native decode of {p} differs from cv2's "
+                                 f"by {d.mean():.3f} on the mean")
+    one = native.NativeImageLoader(num_threads=1)
+    secs = {"native": [], "cv2": [], "native_1_thread": []}
+    for _ in range(rounds):
+        for which, fn in (("native", nat), ("cv2", cv), ("cv2", cv),
+                          ("native", nat), ("native_1_thread", lambda: (
+                              one.decode_batch(paths, crop_hw=crop_hw)))):
+            t0 = time.perf_counter()
+            fn()
+            secs[which].append(time.perf_counter() - t0)
+    res.update(images=len(paths), crop_hw=list(crop_hw),
+               mean_abs_lsb_max=worst_mean, max_abs_lsb=worst_max,
+               decode_s=secs)
+    med = {k: sorted(v)[len(v) // 2] for k, v in secs.items()}
+    log(f"  [{tag}] native decode against cv2 on {len(paths)} "
+        f"{paths[0].rsplit('.', 1)[-1].upper()}s of {h}x{w}: mean |d| <= "
+        f"{worst_mean:.4f}, max |d| {worst_max:g}; the set in "
+        f"{med['native']:.4f} s native, {med['cv2']:.4f} s cv2 (medians of "
+        f"{len(secs['cv2'])}; {min(secs['native']):.4f}-"
+        f"{max(secs['native']):.4f} / {min(secs['cv2']):.4f}-"
+        f"{max(secs['cv2']):.4f}); a pool of one thread "
+        f"{med['native_1_thread']:.4f} s")
+    return res
+
+
 def loader_rates(cfg):
     """Host seconds per train item of ``build_dataset(cfg, "train")`` (as
-    ``train.py`` builds it: seeded, labels dropped) and the items per second
-    of ``BatchPrefetcher`` at depth 2 over the epoch."""
-    from selfocc_tpu_torch import train
+    ``train.py`` builds it: seeded, labels dropped), the items per second
+    of ``BatchPrefetcher`` at depth 2 over the epoch and a cProfile of two
+    items, with the decoder the loaders run; where that is the native
+    decoder, the same on the loaders' cv2 path too (``cv2_decode``), under
+    ``"cv2"``: each item built both ways in turn (the order swapped from
+    one item to the next), then each decoder's prefetch pass and
+    profile."""
+    from selfocc_tpu_torch import native, train
     from selfocc_tpu_torch.data import build_dataset
     from selfocc_tpu_torch.data.prefetch import BatchPrefetcher
     ds = build_dataset(cfg, "train")
-    secs = []
+    decoders = [native.native_status()["decoder"]]
+    if native.native_available():
+        decoders.append("cv2")
+
+    def path(decoder):
+        return cv2_decode() if decoder == "cv2" and len(decoders) > 1 \
+            else contextlib.nullcontext()
+    secs = {d: [] for d in decoders}
     for pos in range(len(ds)):
-        t0 = time.perf_counter()
-        item = train.host_batch(ds, pos, SEED, 0, pos)
-        secs.append(time.perf_counter() - t0)
+        for d in decoders if pos % 2 == 0 else decoders[::-1]:
+            with path(d):
+                t0 = time.perf_counter()
+                item = train.host_batch(ds, pos, SEED, 0, pos)
+                secs[d].append(time.perf_counter() - t0)
     shapes = {k: tuple(v.shape) for k, v in item.items()}
-    t0 = time.perf_counter()
-    n = sum(1 for _ in BatchPrefetcher(
-        lambda pos: train.host_batch(ds, pos, SEED, 1, pos),
-        range(len(ds)), depth=2))
-    rate = n / (time.perf_counter() - t0)
-    med = sorted(secs)[len(secs) // 2]
-    log("  loader profile, per item (cProfile, 2 items):")
-    top = loader_profile(ds)
-    log(f"  loader: {len(ds)} train items, {med:.3f} s per item (median; "
-        f"{min(secs):.3f}-{max(secs):.3f}), prefetch depth 2: {rate:.2f} "
-        f"items/s; imgs {shapes['imgs']}, curr_imgs {shapes['curr_imgs']}, "
-        f"sem_gt {shapes['sem_gt']}")
-    return {"items": len(ds), "item_s": secs, "item_s_median": med,
-            "prefetch_items_per_s": rate, "shapes": shapes, "profile": top}
+    out = {}
+    for d in decoders:
+        with path(d):
+            t0 = time.perf_counter()
+            n = sum(1 for _ in BatchPrefetcher(
+                lambda pos: train.host_batch(ds, pos, SEED, 1, pos),
+                range(len(ds)), depth=2))
+            rate = n / (time.perf_counter() - t0)
+            log(f"  loader profile, per item (cProfile, 2 items, {d} "
+                "decoder):")
+            top = loader_profile(ds)
+        med = sorted(secs[d])[len(secs[d]) // 2]
+        log(f"  loader ({d} decoder, {host_cores()} host cores): "
+            f"{len(ds)} train items, {med:.3f} s per item (median; "
+            f"{min(secs[d]):.3f}-{max(secs[d]):.3f}), prefetch depth 2: "
+            f"{rate:.2f} items/s; imgs {shapes['imgs']}, curr_imgs "
+            f"{shapes['curr_imgs']}, sem_gt {shapes['sem_gt']}")
+        out[d] = {"decoder": d, "items": len(ds), "item_s": secs[d],
+                  "item_s_median": med, "prefetch_items_per_s": rate,
+                  "shapes": shapes, "profile": top}
+    res = out[decoders[0]]
+    if len(decoders) > 1:
+        res["cv2"] = out["cv2"]
+    return res
 
 
 def train_from_loader(work, synthetic_step_s, step_kernel_ms, device):
@@ -3311,6 +3432,8 @@ def data_phase(device, train_res=None):
     loader with a mid-epoch resume, the val frames and the novel-view
     frame. ``train_res``: the [train] phase's result (the synthetic step and
     its kernel time) when it ran in this call."""
+    import glob
+    import os
     import shutil
     import tempfile
     root = tempfile.mkdtemp(prefix="selfocc_nusc_")
@@ -3321,7 +3444,10 @@ def data_phase(device, train_res=None):
         log(f"  fabricated {FAB_SAMPLES} keyframes x 6 cameras of "
             f"{FAB_IMG[0]}x{FAB_IMG[1]} JPEGs, {FAB_LIDAR_POINTS} lidar "
             f"points each, in {time.time() - t0:.1f}s")
-        res = {"loader": loader_rates(occ_cfg)}
+        res = {"decoder": decoder_check(
+            "data", sorted(glob.glob(os.path.join(root, "samples",
+                                                  "*.jpg")))[:24], FAB_IMG)}
+        res["loader"] = loader_rates(occ_cfg)
         syn = kms = None
         if train_res is not None:
             syn = train_res["median"]["step_s"]
@@ -3947,6 +4073,8 @@ def kitti_phase(device):
     temporary directory, removed after): kitti_occ training from the
     loader, the KITTI-shaped tiny step against the CPU, one occupancy eval
     frame, one eval_depth frame and the novel-view depth eval."""
+    import glob
+    import os
     import shutil
     import tempfile
     root = tempfile.mkdtemp(prefix="selfocc_kitti_")
@@ -3958,7 +4086,10 @@ def kitti_phase(device):
             f"frames) and 08 ({KITTI_VAL_FRAMES}) of {KITTI_IMG[1]}x"
             f"{KITTI_IMG[0]} PNGs and {KITTI_LIDAR_POINTS}-point scans in "
             f"{time.time() - t0:.1f}s")
-        res = {"train": kitti_train(device, root)}
+        res = {"decoder": decoder_check("kitti", sorted(glob.glob(
+            os.path.join(root, "dataset", "sequences", "00", "image_2",
+                         "*.png")))[:8], KITTI_IMG)}
+        res["train"] = kitti_train(device, root)
         res["train_parity"] = kitti_train_parity(device)
         res["occupancy"] = kitti_occupancy(device, root)
         res["eval_depth"] = kitti_eval_depth(device)
@@ -4250,14 +4381,25 @@ def raw_depth_train(device):
     res = depth_train(device, "kitti_raw_depth_fab", 5,
                       ("ReprojLossMonoMultiNew", "EikonalLoss",
                        "EdgeLoss3DMS"))
+    from selfocc_tpu_torch import native
     ds = build_dataset(get_config("kitti_raw_depth_fab"), "train")
-    secs = []
-    for pos in range(6):
-        t0 = time.perf_counter()
-        train.host_batch(ds, pos, SEED, 0, pos)
-        secs.append(time.perf_counter() - t0)
-    res["item_s"] = secs
-    log(f"  kitti_raw_depth: host s per item {[round(s, 4) for s in secs]}")
+
+    def item_s():
+        secs = []
+        for pos in range(6):
+            t0 = time.perf_counter()
+            train.host_batch(ds, pos, SEED, 0, pos)
+            secs.append(time.perf_counter() - t0)
+        return secs
+    res["item_s"] = item_s()
+    log(f"  kitti_raw_depth: host s per item "
+        f"({native.native_status()['decoder']} decoder) "
+        f"{[round(s, 4) for s in res['item_s']]}")
+    if native.native_available():
+        with cv2_decode():
+            res["item_s_cv2"] = item_s()
+        log(f"  kitti_raw_depth: host s per item (cv2 decoder) "
+            f"{[round(s, 4) for s in res['item_s_cv2']]}")
     return res
 
 
@@ -4486,6 +4628,7 @@ def depth_phase(device):
     KITTI-raw loader, the KITTI-raw-shaped tiny step against the CPU,
     ``eval_depth`` on its val split (raw, flip, max, saved maps), then
     nuscenes_depth training from a fabricated nuScenes tree."""
+    import glob
     import os
     import shutil
     import tempfile
@@ -4500,7 +4643,10 @@ def depth_phase(device):
             f"PNGs, {RAW_LIDAR_POINTS}-point scans) and nuScenes "
             f"({FAB_SAMPLES} keyframes x 6 cameras) in "
             f"{time.time() - t0:.1f}s")
-        res = {"kitti_raw_train": raw_depth_train(device)}
+        res = {"decoder": decoder_check("depth", sorted(glob.glob(
+            os.path.join(tree[0], RAW_DAY, RAW_DRIVES[0], "image_02", "data",
+                         "*.png")))[:8], RAW_IMG)}
+        res["kitti_raw_train"] = raw_depth_train(device)
         res["train_parity"] = raw_train_parity(device,
                                                os.path.join(root, "tiny"))
         res["kitti_raw_eval"] = raw_eval(device)
@@ -5789,6 +5935,45 @@ def head_ab(base, this, vol25, sets, sets_cf, g):
     return out
 
 
+WEIGHTS_AB_SHAPES = ((4096, 320), (4096, 271), (4096, 287), (4096, 303),
+                     (CHUNK, 320))   # the merged render, rounds, eval chunk
+
+
+def weights_ab(base, this, g, device):
+    """Median ms (events, device) of the two checkouts' ``neus_weights_bwd``
+    above 256 samples, in turns: baseline, this, this, baseline, each on
+    the same inputs at ``WEIGHTS_AB_SHAPES`` (alpha with saturated and zero
+    samples, as ``head_kernel_checks``'), with each side's kernels a call
+    (``call_kernels``) on the first turn."""
+    import torch
+    inputs = {}
+    for R, S in WEIGHTS_AB_SHAPES:
+        alpha = torch.rand((R, S), generator=g, device=device) ** 4
+        alpha[::7, 100:110] = 1.0
+        alpha[::5, :20] = 0.0
+        inputs[f"{R}x{S}"] = (alpha, torch.randn((R, S), generator=g,
+                                                 device=device))
+    runs = {"baseline": [], "this": []}
+    census = {}
+    for side in ("baseline", "this", "this", "baseline"):
+        mod = base if side == "baseline" else this
+        fns = {k: (lambda a=a, gw=gw: mod.neus_weights_bwd(a, gw))
+               for k, (a, gw) in inputs.items()}
+        if side not in census:
+            census[side] = {k: call_kernels(f) for k, f in fns.items()}
+        runs[side].append({k: (timed(f, 20), device_ms(f, 20))
+                           for k, f in fns.items()})
+    out = {side: {k: sorted(r[k] for r in rs) for k in rs[0]}
+           for side, rs in runs.items()}
+    for k in out["this"]:
+        log(f"  A/B neus_weights_bwd {k} (event ms, device ms): baseline "
+            f"{out['baseline'][k]}, this {out['this'][k]}")
+    for side, by in census.items():
+        log(f"  A/B neus_weights_bwd kernels a call, {side}: {by}")
+    out["kernels_per_call"] = census
+    return out
+
+
 def grid_sample_points_bwd_of(vol_cf, pts, grad_vals):
     """``F.grid_sample``'s backward with a grid that needs a gradient: the
     volume's and the grid's cotangents of the values ``grid_sample_of``
@@ -5813,8 +5998,9 @@ def head_kernel_checks(g, device, baseline=None):
     plain versions and ``F.grid_sample``'s backward with a grid that needs a
     gradient: ``neus_weights_bwd`` at the merged render (4096 x 320, a
     training chunk, and 32768 x 320, an eval chunk) and the up-sample rounds
-    (4096 x 255 .. 303; 256 and above walk tiles), also against float64 on
-    saturated rows and at off-path S; ``trilinear_bwd``'s point instance,
+    (4096 x 255 .. 303; above 256 the staged instances), each call with
+    the kernels it launched, also against float64 on saturated rows (S =
+    320 and 271) and at off-path S; ``trilinear_bwd``'s point instance,
     rows (C = 25) and plane (C = 1), at 4096 x 320 points;
     ``trilinear_cf_bwd``'s at 4096 x 256 .. 304 points (the rounds' sdf
     queries, C = 1 read at row stride 25 in place) and at the six taps of
@@ -5825,7 +6011,8 @@ def head_kernel_checks(g, device, baseline=None):
     runs and crowding (``point_stats``), each call with the kernels it
     launched (``call_kernels``). With ``baseline`` (a checkout of another
     commit), that checkout's C = 1 point instances in turns with this one's
-    on both point sets (``head_ab``)."""
+    on both point sets (``head_ab``) and its ``neus_weights_bwd`` above 256
+    samples (``weights_ab``)."""
     import importlib
     import torch
     from selfocc_tpu_torch.ops import interp
@@ -5848,27 +6035,38 @@ def head_kernel_checks(g, device, baseline=None):
               GRAD_RTOL * float(ref.abs().max()) + 1e-7)
         del got, ref
         n = alpha.numel()
+        census = call_kernels(lambda: rw.neus_weights_bwd(alpha, gw))
+        log(f"  neus_weights_bwd ({R} x {S}): kernels a call {census}")
         recs["neus_weights_bwd"][f"{R}x{S}"] = kernel_record(
             err, timed(lambda: rw.neus_weights_bwd(alpha, gw), 20),
             timed(lambda: rw.weights_grad_plain(alpha, gw), 5),
             (3 * nbytes(alpha), WEIGHTS_BWD_OPS * n),
             device_ms=device_ms(lambda: rw.neus_weights_bwd(alpha, gw), 20),
-            shape=f"{R} x {S}", tiled=S > 256)
+            kernels_per_call=census, shape=f"{R} x {S}", tiled=S > 256)
         del alpha, gw
         torch.cuda.empty_cache()
-    a = saturated_alpha(g, device, S=HEAD_SAMPLES)
-    gw = torch.randn(a.shape, generator=g, device=device)
-    a64 = a.double().requires_grad_(True)
-    b = 1.0 - a64 + 1e-7
-    w64 = a64 * torch.cat([torch.ones_like(b[:, :1]),
-                           torch.cumprod(b, -1)[:, :-1]], -1)
-    (g64,) = torch.autograd.grad(w64, a64, gw.double())
-    scale = g64.abs().amax(-1, keepdim=True).clamp_min(1e-30)
-    rel = float(((rw.neus_weights_bwd(a, gw).double() - g64).abs()
-                 / scale).max())
-    check(f"neus_weights_bwd vs float64 (saturated rows, S = "
-          f"{HEAD_SAMPLES}) / row scale", rel, 1e-5)
-    recs["neus_weights_bwd"]["float64_row_rel_err"] = rel
+    # float64 on saturated rows: at S = 320 (float4 rows) and at 271 (no
+    # row 16-byte aligned: scalar staging)
+    for S in (HEAD_SAMPLES, HEAD_ROUND_TS[1] - 1):
+        a = saturated_alpha(g, device, S=S)
+        gw = torch.randn(a.shape, generator=g, device=device)
+        a64 = a.double().requires_grad_(True)
+        b = 1.0 - a64 + 1e-7
+        w64 = a64 * torch.cat([torch.ones_like(b[:, :1]),
+                               torch.cumprod(b, -1)[:, :-1]], -1)
+        (g64,) = torch.autograd.grad(w64, a64, gw.double())
+        scale = g64.abs().amax(-1, keepdim=True).clamp_min(1e-30)
+        rel = float(((rw.neus_weights_bwd(a, gw).double() - g64).abs()
+                     / scale).max())
+        check(f"neus_weights_bwd vs float64 (saturated rows, S = {S}) / "
+              "row scale", rel, 1e-5)
+        key = "float64_row_rel_err" + ("" if S == HEAD_SAMPLES else f"_{S}")
+        recs["neus_weights_bwd"][key] = rel
+    if baseline is not None:
+        recs["weights_ab"] = weights_ab(
+            importlib.import_module(
+                f"{load_baseline(baseline)}.ops.render_weights"), rw, g,
+            device)
     for R, S in ((37, 257), (5, 512), (9, 300), (3, 1000), (64, 8192)):
         x = torch.rand((R, S), generator=g, device=device)
         x[:, S // 2] = 1.0
@@ -6156,6 +6354,7 @@ def head_phase(device, baseline=None):
     res = {"kernels": head_kernel_checks(g, device, baseline)}
     if baseline is not None:
         res["head_ab"] = res["kernels"].pop("head_ab")
+        res["weights_ab"] = res["kernels"].pop("weights_ab")
     res["tiny_parity"] = {
         kind: train_parity(device, cfg=head_config("tiny", kind),
                            global_iter=HEAD_TINY_ITER, baseline=True)
@@ -6223,7 +6422,8 @@ def main():
                     "its trilinear kernels at the main paths' points, "
                     "[frame] profiles its eval frame, [levers] times its "
                     "head-shared MSDA kernels and [head] its C = 1 point "
-                    "instances of the trilinear backwards, in turns with "
+                    "instances of the trilinear backwards and its "
+                    "neus_weights_bwd above 256 samples, in turns with "
                     "this checkout's")
     args = ap.parse_args()
     wanted = args.phases.split(",")
@@ -6249,6 +6449,19 @@ def main():
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    # the loaders' image decoder (selfocc_tpu_torch/native: g++ at first
+    # import), built from the checkout's source as the kernels are; a
+    # library another run left in the build directory goes first
+    import os
+    t0 = time.time()
+    stale = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "selfocc_tpu_torch", "_build", "libselfocc_loader.so")
+    if os.path.exists(stale):
+        os.remove(stale)
+    from selfocc_tpu_torch import native
+    st = native.native_status()
+    log(f"[build] image decoder: {st['decoder']} in {time.time() - t0:.1f}s"
+        + (f" (cv2 because: {st['reason']})" if st["reason"] else ""))
 
     runs = {"kernels": lambda: dict(
                 kernel_checks(device, args.baseline),

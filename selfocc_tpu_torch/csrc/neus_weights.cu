@@ -57,9 +57,19 @@
 // log-transmittance and the composites carried across tiles (K <= 8). The
 // fused backward keeps a whole ray in registers: S <= 256 (K <= 8; a K = 16
 // instance spilled at 255 registers and came out wrong on the card). The
-// alpha-input backward does too up to 256 samples, and above walks tiles of
-// 256 (neus_weights_bwd_tiled_kernel): the importance render's 320 samples
-// and its up-sample rounds' 271 to 303.
+// alpha-input backward does too up to 256 samples. Above, it stages each
+// row through shared memory (neus_weights_bwd_staged_kernel): one pass over
+// a ray up to 512 samples (the importance render's 320 and its up-sample
+// rounds' 271 to 303), tiles of 512 above (..._staged_tiles_kernel).
+//
+// The earlier neus_weights_bwd_tiled_kernel, which these replace, walked tiles
+// of 256 in two passes with the register kernel's loads: at S = 320 and the
+// rounds' S, no multiple of 256, every lane took 8 scalar loads 32 bytes
+// from its neighbour's, so each warp-wide load used 4 bytes of each of its
+// 32 sectors, and pass 2 loaded alpha and took its logs again. On an H100
+// at 700 W it took 0.0135 ms (device) at 4096 x 320, 0.0125-0.0139 at the
+// rounds' 4096 x 271 / 287 / 303 and 0.0864 at 32768 x 320, 31-44% of the
+// byte bound (PERF.md section 6).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -587,123 +597,364 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
   store_run<K>(g_alpha + ray * S + i0, n, whole_runs, out);
 }
 
-// neus_weights_bwd for S > 256, up to 32 tiles of 256 samples (kTiles
-// below). A lane's run of K = 8 samples of one tile is what the kernel
-// above holds; the ray goes in two passes over its tiles. The first scans
-// each tile's log-transmittance total forward (one shuffle scan a tile)
-// and keeps the log-transmittance before tile t in lane t. The second
-// walks the tiles from the last to the first, reloads each tile's alpha and
-// g (an L1 / L2 hit: 8 S bytes a ray, 2.5 KB at S = 320), and runs the
-// kernel above on it with two carries from the tile after it: D at that
-// tile's first sample (the input of the top lane's maps), and that sample's
-// g, b and (a + b) - 1 (the top lane's "next sample"). The transmittance
-// within a tile starts from the first pass's prefix, as the forward's tile
-// walk does.
-constexpr int kBwdTileRun = 8;
-constexpr int kTiles = 32;
+// neus_weights_bwd above 256 samples: rows staged through shared memory.
+//
+// What bounds it: bytes, 12 S a ray (alpha and g read, g_alpha written;
+// 15.7 MB at 4096 x 320, 4.7 us at 3.35 TB/s). The register kernel's run
+// layout (lane l owns samples [l K, (l + 1) K)) keeps the scans to one
+// shuffle scan and one affine scan a ray, but loading it straight from
+// device memory spreads a warp-wide load over 32 sectors at K > 8 (no
+// float4 when S is no multiple of 32 K). So a warp loads its ray's alpha
+// and g rows coalesced (consecutive lanes on consecutive words, float4 when
+// the launcher found every row 16-byte aligned: S % 4 == 0 and aligned
+// bases), writes them to its own part of shared memory in the run layout,
+// and each lane reads its run from there. A run's stride in shared memory
+// is K | 1, odd, so the 32 lanes' j-th samples fall in 32 banks. g_alpha
+// goes back the same way: each lane writes its run over its own alpha
+// run, and the warp stores the row coalesced.
+//
+// Up to 512 samples (K <= 16) a ray is one pass (neus_weights_bwd_staged_
+// kernel, one instance per K of 9, 10, 12 and 16). Its blocks are as many
+// as fit the card at once (the occupancy calculator), and each warp walks
+// rays a grid apart: it issues the next ray's loads into registers before
+// it scans this one, so the loads of a warp's next ray are in flight while
+// it computes. Above 512 (neus_weights_bwd_staged_tiles_kernel, one warp a
+// ray) it walks tiles of 512 twice, staged the same way: first the tiles'
+// log-transmittance totals forward (lane t keeps the log-T before tile t),
+// then the tiles from the last to the first with four carries from the tile
+// after: D at its first sample (the input of the top lane's maps) and that
+// sample's g, b and (a + b) - 1 (the top lane's "next sample").
+//
+// Measured on an H100 80GB HBM3 at 700 W (tools/neus_bwd_variants.py,
+// device ms at 4096 x 320 / the rounds' 4096 x 271, 287, 303 / 32768 x
+// 320): this design 0.0072 / 0.0068-0.0080 / 0.0462-0.0473 (bound 0.0047
+// / 0.0040-0.0044 / 0.0376). Dropped: one K = 16 instance for every S,
+// its lanes' tails masked, 0.0101-0.0110 / 0.0122-0.0124 / 0.0757-0.0780;
+// a block every 8 rays, no loads ahead, 0.0078-0.0080 / 0.0070-0.0085 /
+// 0.0603-0.0609; __launch_bounds__ asking for 3 blocks an SM (80
+// registers, 24-208 bytes of stack) 0.0106 / 0.0076-0.0107 / 0.0604-
+// 0.0609. ptxas -v: 86 (K = 9) to 128 registers, no spills, 18-35 KB of
+// shared memory a block: 2 blocks an SM.
+constexpr int kStagedMaxRun = 16;               // one pass up to 32 x 16
+constexpr int kWeightsBwdMaxSamples = 8192;     // 16 tiles of 512
 
+// Where sample i of a tile sits in shared memory: run i / K at stride K | 1.
+template <int K>
+__device__ __forceinline__ int staged_pos(int i) {
+  return (i / K) * (K | 1) + i % K;
+}
+
+// Floats a lane holds of a coalesced tile of 32 K samples: K words, or
+// ceil(K / 4) float4s.
+template <int K>
+constexpr int kStagedSlots = 4 * ((K + 3) / 4);
+
+// The first n (<= 32 K) floats of row, coalesced, into the lane's slots:
+// word q * 32 + lane, or float4 q * 32 + lane when vec4.
+template <int K>
+__device__ __forceinline__ void fetch_tile(const float* __restrict__ row,
+                                           int n, bool vec4, int lane,
+                                           float (&r)[kStagedSlots<K>]) {
+  if (vec4) {
+#pragma unroll
+    for (int q = 0; q < (K + 3) / 4; ++q) {
+      const int i = 4 * (q * 32 + lane);
+      const float4 x =
+          i < n ? __ldg(reinterpret_cast<const float4*>(row + i))
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+      r[4 * q] = x.x;
+      r[4 * q + 1] = x.y;
+      r[4 * q + 2] = x.z;
+      r[4 * q + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      const int i = q * 32 + lane;
+      r[q] = i < n ? __ldg(row + i) : 0.f;
+    }
+  }
+}
+
+// fetch_tile's slots to their places in the run layout of s.
+template <int K>
+__device__ __forceinline__ void put_tile(float* s, int n, bool vec4,
+                                         int lane,
+                                         const float (&r)[kStagedSlots<K>]) {
+  if (vec4) {
+#pragma unroll
+    for (int q = 0; q < (K + 3) / 4; ++q) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * (q * 32 + lane) + e;
+        if (i < n) s[staged_pos<K>(i)] = r[4 * q + e];
+      }
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      const int i = q * 32 + lane;
+      if (i < n) s[staged_pos<K>(i)] = r[q];
+    }
+  }
+}
+
+// The first n floats of the run layout of s to row, coalesced.
+template <int K>
+__device__ __forceinline__ void store_tile(float* __restrict__ row,
+                                           const float* s, int n, bool vec4,
+                                           int lane) {
+  if (vec4) {
+#pragma unroll
+    for (int q = 0; q < (K + 3) / 4; ++q) {
+      const int i = 4 * (q * 32 + lane);
+      if (i < n)
+        *reinterpret_cast<float4*>(row + i) = make_float4(
+            s[staged_pos<K>(i)], s[staged_pos<K>(i + 1)],
+            s[staged_pos<K>(i + 2)], s[staged_pos<K>(i + 3)]);
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      const int i = q * 32 + lane;
+      if (i < n) row[i] = s[staged_pos<K>(i)];
+    }
+  }
+}
+
+// A lane's run of a staged tile: samples lane K + j, 0 past n.
+template <int K>
+__device__ __forceinline__ void read_run(const float* s, int n, int lane,
+                                         float (&v)[K]) {
+#pragma unroll
+  for (int j = 0; j < K; ++j)
+    v[j] = lane * K + j < n ? s[lane * (K | 1) + j] : 0.f;
+}
+
+// D's carry from the tile after: D at its first sample, and that sample's
+// g, b and (a + b) - 1. The last tile's: D = 0 and the identity's b.
+struct WeightsCarry {
+  float d = 0.f, g = 0.f, b = 1.f, e = 0.f;
+};
+
+// g_alpha of one tile of 32 K samples, lane l holding alpha and g of
+// samples [l K, (l + 1) K) of it: the closed form of neus_weights_bwd_kernel
+// with the log-transmittance before the tile (log_t0) and the carry from
+// the tile after it (c, replaced by this tile's). S counts the samples from
+// the tile's first to the ray's last.
+template <int K>
+__device__ __forceinline__ void weights_bwd_tile(const float (&alpha)[K],
+                                                 const float (&g)[K],
+                                                 int lane, int S,
+                                                 float log_t0,
+                                                 WeightsCarry& carry,
+                                                 float (&out)[K]) {
+  const int i0 = lane * K;
+  float la[K], run = 0.f;
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    la[j] = i0 + j < S ? logf(1.f - alpha[j] + kEps) : 0.f;
+    run += la[j];
+  }
+  float unused_total;
+  float prefix = log_t0 + lane_prefix(run, lane, &unused_total);
+  float trans[K], b[K], b_err[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    trans[j] = expf(prefix);
+    prefix += la[j];
+    b[j] = 1.f - alpha[j] + kEps;
+    b_err[j] = static_cast<float>(static_cast<double>(alpha[j]) +
+                                  static_cast<double>(b[j]) - 1.0);
+  }
+  float g_up = __shfl_down_sync(kFull, g[0], 1);
+  float b_up = __shfl_down_sync(kFull, b[0], 1);
+  float b_err_up = __shfl_down_sync(kFull, b_err[0], 1);
+  if (lane == 31) {
+    g_up = carry.g;
+    b_up = carry.b;
+    b_err_up = carry.e;
+  }
+  float c[K], beta[K];
+  float lane_a = 0.f, lane_b = 1.f;
+#pragma unroll
+  for (int j = K - 1; j >= 0; --j) {
+    const int i = i0 + j;
+    const int jn = j + 1 < K ? j + 1 : j;
+    const float g_next = j + 1 < K ? g[jn] : g_up;
+    const float b_next = j + 1 < K ? b[jn] : b_up;
+    const float e_next = j + 1 < K ? b_err[jn] : b_err_up;
+    if (i < S - 1) {
+      c[j] = (g[j] - g_next) - g_next * e_next;
+      beta[j] = b_next;
+    } else if (i == S - 1) {
+      c[j] = g[j];
+      beta[j] = 0.f;
+    } else {  // past the ray's end: the identity
+      c[j] = 0.f;
+      beta[j] = 1.f;
+    }
+    lane_a = c[j] + beta[j] * lane_a;
+    lane_b *= beta[j];
+  }
+  // the top lane's maps take D of the tile after as their input
+  float dk = lane_affine_suffix(
+      lane == 31 ? lane_a + lane_b * carry.d : lane_a, lane_b, lane);
+  if (lane == 31) dk = carry.d;
+#pragma unroll
+  for (int j = K - 1; j >= 0; --j) {
+    dk = c[j] + beta[j] * dk;
+    out[j] = trans[j] * dk;
+  }
+  carry.d = __shfl_sync(kFull, dk, 0);
+  carry.g = __shfl_sync(kFull, g[0], 0);
+  carry.b = __shfl_sync(kFull, b[0], 0);
+  carry.e = __shfl_sync(kFull, b_err[0], 0);
+}
+
+template <int K>
+struct WeightsStage {
+  float alpha[kWarpsPerBlock][32 * (K | 1)];  // g_alpha on the way out
+  float g[kWarpsPerBlock][32 * (K | 1)];
+};
+
+// 32 (K - 1) < S <= 32 K: one pass over each ray, rays a grid apart.
+template <int K>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-    neus_weights_bwd_tiled_kernel(const float* __restrict__ alpha_in,
-                                  const float* __restrict__ g_in,
-                                  float* __restrict__ g_alpha,
-                                  int64_t num_rays, int num_samples,
-                                  bool whole_runs) {
-  constexpr int K = kBwdTileRun;
+    neus_weights_bwd_staged_kernel(const float* __restrict__ alpha_in,
+                                   const float* __restrict__ g_in,
+                                   float* __restrict__ g_alpha,
+                                   int64_t num_rays, int num_samples,
+                                   bool vec4) {
+  __shared__ WeightsStage<K> stage;
   const int lane = threadIdx.x & 31;
-  const int64_t ray = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock +
-                      (threadIdx.x >> 5);
-  if (ray >= num_rays) return;  // uniform per warp
+  const int warp = threadIdx.x >> 5;
+  float* sa = stage.alpha[warp];
+  float* sg = stage.g[warp];
   const int S = num_samples;
-  const int tiles = (S + 32 * K - 1) / (32 * K);
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kWarpsPerBlock;
+  int64_t ray = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + warp;
+  float ra[kStagedSlots<K>], rg[kStagedSlots<K>];
+  if (ray < num_rays) {
+    fetch_tile<K>(alpha_in + ray * S, S, vec4, lane, ra);
+    fetch_tile<K>(g_in + ray * S, S, vec4, lane, rg);
+  }
+  for (; ray < num_rays; ray += step) {  // uniform per warp
+    __syncwarp();  // the last ray's row is out of shared memory
+    put_tile<K>(sa, S, vec4, lane, ra);
+    put_tile<K>(sg, S, vec4, lane, rg);
+    __syncwarp();
+    if (ray + step < num_rays) {  // the next ray's loads, in flight
+      fetch_tile<K>(alpha_in + (ray + step) * S, S, vec4, lane, ra);
+      fetch_tile<K>(g_in + (ray + step) * S, S, vec4, lane, rg);
+    }
+    float alpha[K], g[K], out[K];
+    read_run<K>(sa, S, lane, alpha);
+    read_run<K>(sg, S, lane, g);
+    WeightsCarry carry;
+    weights_bwd_tile<K>(alpha, g, lane, S, 0.f, carry, out);
+#pragma unroll
+    for (int j = 0; j < K; ++j) sa[lane * (K | 1) + j] = out[j];
+    __syncwarp();
+    store_tile<K>(g_alpha + ray * S, sa, S, vec4, lane);
+  }
+}
+
+// S > 512: one warp a ray, tiles of 512 in two passes (see above).
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+    neus_weights_bwd_staged_tiles_kernel(const float* __restrict__ alpha_in,
+                                         const float* __restrict__ g_in,
+                                         float* __restrict__ g_alpha,
+                                         int64_t num_rays, int num_samples,
+                                         bool vec4) {
+  constexpr int K = kStagedMaxRun, kTile = 32 * K;
+  __shared__ WeightsStage<K> stage;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t ray = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock +
+                      warp;
+  if (ray >= num_rays) return;  // uniform per warp
+  float* sa = stage.alpha[warp];
+  float* sg = stage.g[warp];
+  const int S = num_samples;
+  const int tiles = (S + kTile - 1) / kTile;
   const float* a_row = alpha_in + ray * S;
   const float* g_row = g_in + ray * S;
-  float start = 0.f, carry = 0.f;  // lane t: the log-T before tile t
+  float r[kStagedSlots<K>], alpha[K], g[K], out[K];
+  float start = 0.f, total_before = 0.f;  // lane t: the log-T before tile t
   for (int t = 0; t < tiles; ++t) {
-    const int i0 = t * 32 * K + lane * K;
-    const int n = max(0, min(K, S - i0));
-    float alpha[K];
-    load_run<K>(a_row + i0, n, whole_runs, alpha);
+    const int left = S - t * kTile;  // samples from the tile's first on
+    fetch_tile<K>(a_row + t * kTile, left, vec4, lane, r);
+    __syncwarp();
+    put_tile<K>(sa, left, vec4, lane, r);
+    __syncwarp();
+    read_run<K>(sa, left, lane, alpha);
     float run = 0.f;
 #pragma unroll
     for (int j = 0; j < K; ++j)
-      run += j < n ? logf(1.f - alpha[j] + kEps) : 0.f;
+      run += lane * K + j < left ? logf(1.f - alpha[j] + kEps) : 0.f;
     float total;
     lane_prefix(run, lane, &total);
-    if (lane == t) start = carry;
-    carry += total;
+    if (lane == t) start = total_before;
+    total_before += total;
   }
-  float d_in = 0.f;                       // D at the next tile's first sample
-  float g_nx = 0.f, b_nx = 1.f, e_nx = 0.f;  // that sample's g, b, residual
+  WeightsCarry carry;
   for (int t = tiles - 1; t >= 0; --t) {
-    const int i0 = t * 32 * K + lane * K;
-    const int n = max(0, min(K, S - i0));
-    float alpha[K], g[K];
-    load_run<K>(a_row + i0, n, whole_runs, alpha);
-    load_run<K>(g_row + i0, n, whole_runs, g);
-    float la[K], run = 0.f;
+    const int left = S - t * kTile;
+    __syncwarp();
+    fetch_tile<K>(a_row + t * kTile, left, vec4, lane, r);
+    put_tile<K>(sa, left, vec4, lane, r);
+    fetch_tile<K>(g_row + t * kTile, left, vec4, lane, r);
+    put_tile<K>(sg, left, vec4, lane, r);
+    __syncwarp();
+    read_run<K>(sa, left, lane, alpha);
+    read_run<K>(sg, left, lane, g);
+    weights_bwd_tile<K>(alpha, g, lane, left, __shfl_sync(kFull, start, t),
+                        carry, out);
 #pragma unroll
-    for (int j = 0; j < K; ++j) {
-      la[j] = j < n ? logf(1.f - alpha[j] + kEps) : 0.f;
-      run += la[j];
-    }
-    float unused_total;
-    float prefix = __shfl_sync(kFull, start, t) +
-                   lane_prefix(run, lane, &unused_total);
-    float trans[K], b[K], b_err[K];
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      trans[j] = expf(prefix);
-      prefix += la[j];
-      b[j] = 1.f - alpha[j] + kEps;
-      b_err[j] = static_cast<float>(static_cast<double>(alpha[j]) +
-                                    static_cast<double>(b[j]) - 1.0);
-    }
-    float g_up = __shfl_down_sync(kFull, g[0], 1);
-    float b_up = __shfl_down_sync(kFull, b[0], 1);
-    float b_err_up = __shfl_down_sync(kFull, b_err[0], 1);
-    if (lane == 31) {
-      g_up = g_nx;
-      b_up = b_nx;
-      b_err_up = e_nx;
-    }
-    float c[K], beta[K];
-    float lane_a = 0.f, lane_b = 1.f;
-#pragma unroll
-    for (int j = K - 1; j >= 0; --j) {
-      const int i = i0 + j;
-      const int jn = j + 1 < K ? j + 1 : j;
-      const float g_next = j + 1 < K ? g[jn] : g_up;
-      const float b_next = j + 1 < K ? b[jn] : b_up;
-      const float e_next = j + 1 < K ? b_err[jn] : b_err_up;
-      if (i < S - 1) {
-        c[j] = (g[j] - g_next) - g_next * e_next;
-        beta[j] = b_next;
-      } else if (i == S - 1) {
-        c[j] = g[j];
-        beta[j] = 0.f;
-      } else {  // past the ray's end: the identity
-        c[j] = 0.f;
-        beta[j] = 1.f;
-      }
-      lane_a = c[j] + beta[j] * lane_a;
-      lane_b *= beta[j];
-    }
-    // the top lane's maps take D of the next tile as their input
-    float dk = lane_affine_suffix(lane == 31 ? lane_a + lane_b * d_in : lane_a,
-                                  lane_b, lane);
-    if (lane == 31) dk = d_in;
-    float out[K];
-#pragma unroll
-    for (int j = K - 1; j >= 0; --j) {
-      dk = c[j] + beta[j] * dk;
-      out[j] = trans[j] * dk;
-    }
-    store_run<K>(g_alpha + ray * S + i0, n, whole_runs, out);
-    d_in = __shfl_sync(kFull, dk, 0);
-    g_nx = __shfl_sync(kFull, g[0], 0);
-    b_nx = __shfl_sync(kFull, b[0], 0);
-    e_nx = __shfl_sync(kFull, b_err[0], 0);
+    for (int j = 0; j < K; ++j) sa[lane * (K | 1) + j] = out[j];
+    __syncwarp();
+    store_tile<K>(g_alpha + ray * S + t * kTile, sa, left, vec4, lane);
   }
+}
+
+// Streaming multiprocessors of the current device, remembered.
+int multiprocessors(int* sms) {
+  static int known[64] = {0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!known[dev]) {
+    err = cudaDeviceGetAttribute(&known[dev], cudaDevAttrMultiProcessorCount,
+                                 dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  *sms = known[dev];
+  return 0;
+}
+
+// One pass at run length K: as many blocks as the card holds at once (the
+// occupancy calculator's count, remembered), at most one warp a ray.
+template <int K>
+int launch_staged(const float* alpha, const float* g, float* g_alpha,
+                  int64_t num_rays, int num_samples, bool vec4,
+                  cudaStream_t s) {
+  static int per_sm = 0;
+  int sms = 0;
+  int err = multiprocessors(&sms);
+  if (err != 0) return err;
+  if (per_sm == 0) {
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, neus_weights_bwd_staged_kernel<K>, kWarpsPerBlock * 32, 0);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int64_t want = (num_rays + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const int64_t fit = static_cast<int64_t>(per_sm > 0 ? per_sm : 1) * sms;
+  const dim3 grid(static_cast<unsigned>(want < fit ? want : fit));
+  neus_weights_bwd_staged_kernel<K><<<grid, kWarpsPerBlock * 32, 0, s>>>(
+      alpha, g, g_alpha, num_rays, num_samples, vec4);
+  return 0;
 }
 
 // The run length K of a lane: the least power of two with 32 K >= S, at
@@ -734,6 +985,14 @@ void launch_fwd(FwdArgs a, cudaStream_t stream) {
     default:
       neus_render_fwd_kernel<8, kFused><<<grid, block, 0, stream>>>(a);
   }
+}
+
+// The run length of a one-pass staged instance: the least of 9, 10, 12
+// and 16 with 32 K >= S (256 < S <= 512; the on-path S of 271 to 320 take
+// 9 and 10).
+int staged_run(int num_samples) {
+  const int k = (num_samples + 31) / 32;
+  return k <= 10 ? k : (k <= 12 ? 12 : 16);
 }
 
 }  // namespace
@@ -793,23 +1052,44 @@ extern "C" int neus_render_bwd(
   return static_cast<int>(cudaGetLastError());
 }
 
-// S <= 256: neus_weights_bwd_kernel, a ray in registers; 256 < S <= 8192:
-// neus_weights_bwd_tiled_kernel.
+// S <= 256: neus_weights_bwd_kernel, a ray in registers; 256 < S <= 512:
+// neus_weights_bwd_staged_kernel, one pass; 512 < S <= 8192: its tiles.
+// Rows take float4 loads and stores when every row is 16-byte aligned.
 extern "C" int neus_weights_bwd(const float* alpha, const float* g_weights,
                                 float* g_alpha, int64_t num_rays,
                                 int num_samples, void* stream) {
-  if (num_samples > kTiles * 32 * kBwdTileRun)
+  if (num_samples > kWeightsBwdMaxSamples)
     return static_cast<int>(cudaErrorInvalidValue);
   if (num_rays > 0 && num_samples > 0) {
-    const int k = run_length(num_samples, 8);
-    const bool whole = num_samples % (32 * k) == 0;
     const dim3 grid(num_blocks(num_rays)), block(kWarpsPerBlock * 32);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (num_samples > 32 * 8) {
-      neus_weights_bwd_tiled_kernel<<<grid, block, 0, s>>>(
-          alpha, g_weights, g_alpha, num_rays, num_samples, whole);
-      return static_cast<int>(cudaGetLastError());
+      const bool vec4 = num_samples % 4 == 0 &&
+                        ((reinterpret_cast<uintptr_t>(alpha) |
+                          reinterpret_cast<uintptr_t>(g_weights) |
+                          reinterpret_cast<uintptr_t>(g_alpha)) & 15) == 0;
+      int err = 0;
+      if (num_samples > 32 * kStagedMaxRun) {
+        neus_weights_bwd_staged_tiles_kernel<<<grid, block, 0, s>>>(
+            alpha, g_weights, g_alpha, num_rays, num_samples, vec4);
+      } else {
+        switch (staged_run(num_samples)) {
+          case 9: err = launch_staged<9>(alpha, g_weights, g_alpha, num_rays,
+                                         num_samples, vec4, s); break;
+          case 10: err = launch_staged<10>(alpha, g_weights, g_alpha,
+                                           num_rays, num_samples, vec4, s);
+            break;
+          case 12: err = launch_staged<12>(alpha, g_weights, g_alpha,
+                                           num_rays, num_samples, vec4, s);
+            break;
+          default: err = launch_staged<16>(alpha, g_weights, g_alpha,
+                                           num_rays, num_samples, vec4, s);
+        }
+      }
+      return err != 0 ? err : static_cast<int>(cudaGetLastError());
     }
+    const int k = run_length(num_samples, 8);
+    const bool whole = num_samples % (32 * k) == 0;
     switch (k) {
       case 1: neus_weights_bwd_kernel<1><<<grid, block, 0, s>>>(
           alpha, g_weights, g_alpha, num_rays, num_samples, whole); break;

@@ -7,8 +7,9 @@ train / 5-frame val steps), cam0/cam2 chain matrices with the axis-swap
 ``transxy`` that maps KITTI camera axes into the front-only lidar grid frame,
 lidar depth GT, optional precomputed 2D semantic maps.
 
-Images are decoded with cv2; the JAX package's optional native C++ decoder
-is not ported.
+Images are decoded by the port's native C++ decoder
+(``selfocc_tpu_torch/native``) when it built, with cv2 otherwise, as in the
+JAX package.
 """
 from __future__ import annotations
 
@@ -261,6 +262,11 @@ class Kitti_One_Frame:
         return np.load(sem_path)[None]
 
     def read_surround_imgs(self, paths):
+        from ..native import get_shared_loader
+        loader = get_shared_loader()
+        if loader is not None:
+            return list(loader.decode_batch(
+                paths, crop_hw=(self.img_H, self.img_W)))
         imgs = []
         for p in paths:
             img = cv2.imread(p, cv2.IMREAD_UNCHANGED).astype(np.float32)

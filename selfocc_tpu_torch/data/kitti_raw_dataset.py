@@ -1,6 +1,7 @@
 """KITTI-raw monocular/stereo temporal dataset (eigen splits, ORB-SLAM poses)
 — the port's copy of ``selfocc_tpu/data/kitti_raw_dataset.py``; images are
-decoded with cv2 (the JAX module's optional native decoder is not copied).
+decoded by the port's native C++ decoder (``selfocc_tpu_torch/native``) when
+it built, with cv2 otherwise, as in the JAX package.
 
 Behavioral rewrite of ``dataset/kitti_raw/kitti_raw_dataset_stereo.py``
 (625 LoC; ``Kitti_Raw`` is its monocular subset): per-day cam/velo calib
@@ -277,6 +278,11 @@ class Kitti_Raw_Stereo:
         return img_points, depth, mask
 
     def read_surround_imgs(self, paths):
+        from ..native import get_shared_loader
+        loader = get_shared_loader()
+        if loader is not None:
+            return list(loader.decode_batch(
+                paths, crop_hw=(self.img_H, self.img_W)))
         imgs = []
         for p in paths:
             img = cv2.imread(p, cv2.IMREAD_UNCHANGED).astype(np.float32)

@@ -10,7 +10,8 @@ rebase, lidar-projected sparse depth GT. Consumes the same
 ``examine_sweeps.py``).
 
 Dependencies: numpy + cv2 only (quaternion math inlined). Images are decoded
-with cv2; the JAX package's optional native C++ decoder is not ported.
+by the port's native C++ decoder (``selfocc_tpu_torch/native``) when it
+built, with cv2 otherwise, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -249,6 +250,13 @@ class nuScenes_One_Frame_Sweeps_Dist:
         return dict(image_paths=paths, img2temImg=np.asarray(mats))
 
     def read_surround_imgs(self, paths, crop_size):
+        # batched decode on the native C++ thread pool when built
+        # (selfocc_tpu_torch/native/loader.cpp); cv2 fallback otherwise
+        from ..native import get_shared_loader
+        loader = get_shared_loader()
+        if loader is not None:
+            return list(loader.decode_batch(
+                paths, crop_hw=(crop_size[0], crop_size[1])))
         imgs = []
         for p in paths:
             img = cv2.imread(p, cv2.IMREAD_UNCHANGED).astype(np.float32)

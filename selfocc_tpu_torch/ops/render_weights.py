@@ -34,8 +34,9 @@ EPS = 1e-7
 # the fused backward keeps a whole ray in registers: 32 lanes x at most 8
 # samples
 MAX_BWD_SAMPLES = 256
-# the alpha-input backward walks tiles of 256 samples above that, at most 32
-MAX_WEIGHTS_BWD_SAMPLES = 32 * 256
+# the alpha-input backward stages rows through shared memory above that: one
+# pass up to 512 samples, tiles of 512 above, at most 16
+MAX_WEIGHTS_BWD_SAMPLES = 16 * 512
 
 
 def weights_from_alpha_plain(alpha: torch.Tensor) -> torch.Tensor:
@@ -78,7 +79,9 @@ def neus_weights_bwd(alpha: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     CUDA alpha and the weights' cotangent ``g``: the cotangent of alpha
     (``weights_grad_plain`` is its plain version). At most
     ``MAX_WEIGHTS_BWD_SAMPLES`` samples a ray: up to 256 the kernel holds a
-    ray in registers, above it walks the ray in tiles of 256."""
+    ray in registers; above, it stages each row through shared memory, one
+    pass up to 512 samples and tiles of 512 beyond (``tiled_launches``
+    counts the calls above 256)."""
     _check(alpha)
     _build.require_cuda_tensor(alpha, "neus_weights_bwd alpha",
                                torch.float32, 2)

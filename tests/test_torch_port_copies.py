@@ -6,7 +6,8 @@ originals: the port imports nothing of ``selfocc_tpu``, so it keeps its own
 driver's helpers, the data modules (``transforms``, ``wrapper``,
 ``nuscenes_dataset``, ``nuscenes_eval_dataset``, ``sampler``, ``prefetch``,
 ``semantic_kitti_io``, ``kitti_dataset``, ``kitti_eval_dataset``,
-``kitti_raw_dataset``),
+``kitti_raw_dataset``; their ``read_surround_imgs`` decode through the
+port's native decoder, ``selfocc_tpu_torch/native``),
 ``build_dataset``'s path and override tables,
 ``utils/openseed_utils.SemTeacher`` and ``utils/scenerf_metric.SSCMetrics``
 (the KITTI configs with the config test, the encoder's recipe-option
@@ -258,16 +259,14 @@ def _source_tree(modname):
 
 
 # every function, method, class and module constant equal but these: the
-# JAX package's optional native decoder, and the JAX module's online
-# teacher (not ported)
+# JAX module's online teacher (not ported)
 _COPIES = {
     "data.transforms": (), "data.wrapper": (), "data.sampler": (),
     "data.prefetch": (), "data.nuscenes_eval_dataset": (),
-    "data.nuscenes_dataset": ("nuScenes_One_Frame_Sweeps_Dist."
-                              "read_surround_imgs",),
+    "data.nuscenes_dataset": (),
     "data.semantic_kitti_io": (), "data.kitti_eval_dataset": (),
-    "data.kitti_dataset": ("Kitti_One_Frame.read_surround_imgs",),
-    "data.kitti_raw_dataset": ("Kitti_Raw_Stereo.read_surround_imgs",),
+    "data.kitti_dataset": (),
+    "data.kitti_raw_dataset": (),
     "utils.openseed_utils": ("JaxSemTeacher",),
     "utils.scenerf_metric": (),
 }
@@ -312,24 +311,51 @@ def test_kitti_metric_copies_equal_their_originals():
         np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
 
 
-def test_read_surround_imgs_is_the_cv2_path(tmp_path):
+def _surround_cases():
+    """The three training loaders' ``read_surround_imgs`` in both packages,
+    each with a stand-in ``self`` and its crop arguments."""
+    import types
+    from selfocc_tpu.data import kitti_dataset as jk
+    from selfocc_tpu.data import kitti_raw_dataset as jr
+    from selfocc_tpu.data import nuscenes_dataset as jn
+    from selfocc_tpu_torch.data import kitti_dataset as tk
+    from selfocc_tpu_torch.data import kitti_raw_dataset as tr
+    from selfocc_tpu_torch.data import nuscenes_dataset as tn
+    hw = types.SimpleNamespace(img_H=32, img_W=48)
+    return {"nuscenes": (jn.nuScenes_One_Frame_Sweeps_Dist,
+                         tn.nuScenes_One_Frame_Sweeps_Dist, None, (32, 48)),
+            "kitti": (jk.Kitti_One_Frame, tk.Kitti_One_Frame, hw),
+            "kitti_raw": (jr.Kitti_Raw_Stereo, tr.Kitti_Raw_Stereo, hw)}
+
+
+@pytest.mark.parametrize("loader", ["nuscenes", "kitti", "kitti_raw"])
+def test_read_surround_imgs_native_as_jax_and_cv2_without_it(
+        tmp_path, monkeypatch, loader):
+    # the port's loaders decode through its own native decoder: bit for bit
+    # the JAX loaders' (native on both sides, one source), JPEG and PNG;
+    # with no native library, cv2's decode exactly
     import cv2
-    from selfocc_tpu.data.nuscenes_dataset import \
-        nuScenes_One_Frame_Sweeps_Dist as J
-    from selfocc_tpu_torch.data.nuscenes_dataset import \
-        nuScenes_One_Frame_Sweeps_Dist as T
+    from selfocc_tpu.native import native_available as jax_native
+    from selfocc_tpu_torch import native
+    J, T, this, *crop = _surround_cases()[loader]
+    assert native.native_available() and jax_native(), \
+        native.native_status()
     rng = np.random.RandomState(4)
     paths = []
-    for i in range(3):
-        paths.append(str(tmp_path / f"cam{i}.jpg"))
+    for i, ext in enumerate((".jpg", ".png", ".jpg")):
+        paths.append(str(tmp_path / f"cam{i}{ext}"))
         cv2.imwrite(paths[-1], (rng.rand(40, 56, 3) * 255).astype(np.uint8))
-    got = T.read_surround_imgs(None, paths, (32, 48))
+    got = T.read_surround_imgs(this, paths, *crop)
+    ref = J.read_surround_imgs(this, paths, *crop)
+    assert len(got) == len(ref) == 3
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype == np.float32
+        np.testing.assert_array_equal(g, r)
+    monkeypatch.setattr(native, "get_shared_loader", lambda: None)
+    got = T.read_surround_imgs(this, paths, *crop)
     for p, g in zip(paths, got):
         ref = cv2.imread(p, cv2.IMREAD_UNCHANGED).astype(np.float32)
         np.testing.assert_array_equal(g, ref[:32, :48])
-    ref = J.read_surround_imgs(None, paths, (32, 48))
-    for g, r in zip(got, ref):
-        assert g.shape == r.shape and np.abs(g - r).max() <= 1.0
 
 
 def test_build_dataset_tables_equal_their_originals():

@@ -177,6 +177,7 @@ def test_eval_depth_runs_without_jax(tmp_path):
         " nuscenes_eval_dataset, prefetch, sampler, semantic_kitti_io,"
         " transforms, wrapper)\n"
         "from selfocc_tpu_torch.losses import EdgeLoss3DMS\n"
+        "from selfocc_tpu_torch.native import get_shared_loader\n"
         "from selfocc_tpu_torch.utils import (checkpoint, openseed_utils,"
         " scenerf_metric)\n"
         "eval_depth.main(['--py-config', 'tiny', '--synthetic',"
@@ -242,6 +243,8 @@ def test_port_sources_import_nothing_of_the_jax_package():
     for root, _, names in os.walk(os.path.join(REPO, "selfocc_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
+    assert os.path.join(REPO, "selfocc_tpu_torch", "native",
+                        "__init__.py") in files
     bad = []
     for path in files:
         with open(path) as f:
