@@ -76,7 +76,14 @@ raises and the exit code is non-zero.
   in-step ms per call), a warm step under
   ``torch.cuda.set_sync_debug_mode("error")`` without ``sync`` (as
   ``train.py`` runs it), then the same step with one dense render
-  (``train_ray_chunk = 0``): one warm-up step and one measured step.
+  (``train_ray_chunk = 0``): one warm-up step and one measured step;
+  then ``train.main`` itself at that width with the driver's options
+  (``--gradient-accumulation 2 --profile --eval-every-epoch
+  --eval-samples 2 --max-steps 12``: the run log with the per-epoch depth
+  table, ``scalars.jsonl``, a profiler trace that names the port's
+  kernels, the checkpoint's micro-step and update counts) and, on one
+  batch, K = 2 against one step on the mean of the same two gradients
+  (parameters bitwise unchanged after micro-step 1).
 - ``[data]``: the nuScenes data path on a full-size nuScenes-format dataset
   fabricated in a temporary directory (one scene of 8 keyframes, 6 cameras
   of 900x1600 JPEGs, 34,000-point lidar sweeps, the sweeps and temporal_v2
@@ -227,6 +234,18 @@ raises and the exit code is non-zero.
   new instances as ``neus_weights_bwd.tiled``, ``trilinear_bwd.points``
   and ``trilinear_cf_bwd.points``, with the importance steps' launches.
 
+- ``[variants]``: ``nuscenes_occ`` at full width and depth with the model
+  options no shipped config sets, all at once (``variant_config``:
+  ``TPVPositionLifter``, ``CameraAwareSE``, ``multi_plane_ffn_norm``,
+  random rays, ``NonLinearMapping`` at its defaults, a 321 x 321 x 31
+  field): its tiny twin's step on the card against the CPU, 3 measured
+  steps (profiled, sync-checked), an eval frame and an Occ3D frame with
+  the cameras (a 4096-ray subset against the CPU); then the BEV flow head
+  at ``nuscenes_occ_bev``'s width (flows and warped samples against the
+  CPU, the lookups' launches) and ``trilinear_cf_fwd`` / ``_bwd`` at C = 3
+  on its 7,372,800 clipped samples against their plain versions and
+  ``F.grid_sample`` with border padding.
+
 ``--phases`` runs a subset (then no result line is printed). Each path's
 launch counts are set to 0 just before it runs and read just after; a
 kernel of the path that was not launched fails the run (the trilinear
@@ -283,7 +302,8 @@ MSDA_BWD_OPS = (14, 26, 16)
 RENDER_FWD_OPS = 50
 RENDER_BWD_OPS = 103
 PHASES = ("kernels", "gather", "frame", "occ", "train-parity", "train",
-          "data", "kitti", "depth", "levers", "bev", "density", "head")
+          "data", "kitti", "depth", "levers", "bev", "density", "head",
+          "variants")
 OPENOCC_PCR = (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0)   # 512 x 512 x 40 at 0.2
 OCC_SLAB = 1 << 20    # dense-grid points held against the plain version
 # the compact stencil's volume cotangent, card against CPU on one volume:
@@ -878,10 +898,10 @@ def channel_close(got, ref):
     return float((d / (1e-5 * scale)).max()), float(d.max())
 
 
-def grid_sample_of(vol_cf, pts):
+def grid_sample_of(vol_cf, pts, padding="zeros"):
     """``F.grid_sample`` computing trilinear values of a (C, H, W, D)
     volume at (N, 3) fractional (h, w, d) indices: a 5-D channel-first
-    input (its own contiguous copy), align_corners=True, zeros padding; x
+    input (its own contiguous copy), align_corners=True, ``padding``; x
     <-> d, y <-> w, z <-> h, normalised as 2 i / (n - 1) - 1. Returns
     (call, copy) where call() gives (N, C) and copy() makes the input."""
     import torch
@@ -893,7 +913,7 @@ def grid_sample_of(vol_cf, pts):
                         2 * pts[:, 0] / (H - 1) - 1], -1).view(1, 1, 1, -1, 3)
 
     def call():
-        return F.grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
+        return F.grid_sample(x, grid, mode="bilinear", padding_mode=padding,
                              align_corners=True).view(C, -1).T
 
     return call, vol_cf.contiguous
@@ -909,20 +929,21 @@ def dense_grid_points(cfg, device):
         xyz.reshape(-1, 3)).contiguous()
 
 
-def values_fwd_record(interp, vol, pts, shape, reps):
+def values_fwd_record(interp, vol, pts, shape, reps, padding="zeros"):
     """``trilinear_cf_fwd`` on one input: against its plain version (each
-    channel within 1e-5 of its max) and ``F.grid_sample``; timed by events
-    and device time beside its plain version and ``F.grid_sample`` (the
-    channel-first copy that it needs timed apart). Bound: the distinct
-    corner rows its points touch read once, the points read once, the
-    values written once; 20 + 16 C operations per point."""
+    channel within 1e-5 of its max) and ``F.grid_sample`` (``padding``:
+    points clipped to the volume take ``"border"``, the same function);
+    timed by events and device time beside its plain version and
+    ``F.grid_sample`` (the channel-first copy that it needs timed apart).
+    Bound: the distinct corner rows its points touch read once, the points
+    read once, the values written once; 20 + 16 C operations per point."""
     import torch
     n, C = pts.shape[0], vol.shape[0]
     got = interp.trilinear_cf_fwd(vol, pts)
     ref = interp.trilinear_sample_cf_plain(vol, pts)
     rel, err = channel_close(got, ref)
     check(f"trilinear_cf_fwd ({shape}) / channel tolerance", rel, 1.0)
-    lib, copy = grid_sample_of(vol, pts)
+    lib, copy = grid_sample_of(vol, pts, padding)
     lib_rel, lib_err = channel_close(lib(), ref)
     del got, ref
     torch.cuda.empty_cache()
@@ -1100,9 +1121,9 @@ def kitti_points(device):
     return head.field.grid_shape, uniform, taps, head.field, pos
 
 
-def grid_sample_bwd_of(shape, pts, grad_vals):
+def grid_sample_bwd_of(shape, pts, grad_vals, padding="zeros"):
     """``F.grid_sample``'s backward computing the same volume cotangent as
-    ``trilinear_cf_bwd`` (align_corners=True, zeros padding; see
+    ``trilinear_cf_bwd`` (align_corners=True, ``padding``; see
     ``grid_sample_of``): ``call()`` runs the backward alone on a
     channel-first (1, C, H, W, D) input; ``with_copy()`` also makes that
     channel-first copy of the channel-last volume and copies the gradient
@@ -1118,7 +1139,8 @@ def grid_sample_bwd_of(shape, pts, grad_vals):
 
     def call(inp=x):
         return torch.ops.aten.grid_sampler_3d_backward(
-            gout, inp, grid, 0, 0, True, [True, False])[0]
+            gout, inp, grid, 0, {"zeros": 0, "border": 1}[padding], True,
+            [True, False])[0]
 
     def with_copy():
         g = call(vol_cl.permute(3, 0, 1, 2).contiguous()[None])
@@ -1127,7 +1149,8 @@ def grid_sample_bwd_of(shape, pts, grad_vals):
     return call, with_copy
 
 
-def values_bwd_record(interp, vol_shape, pts, gv, tag, reps):
+def values_bwd_record(interp, vol_shape, pts, gv, tag, reps,
+                      padding="zeros"):
     """``trilinear_cf_bwd`` for the cotangent ``gv`` (N, C) at (N, 3)
     points of a ``vol_shape`` (C, H, W, D) volume: against its plain version
     (GRAD_RTOL), timed by events and device time beside its plain version
@@ -1146,7 +1169,7 @@ def values_bwd_record(interp, vol_shape, pts, gv, tag, reps):
           err, GRAD_RTOL * float(ref.abs().max()) + 1e-7)
     del got, ref
     torch.cuda.empty_cache()
-    lib, lib_copy = grid_sample_bwd_of(vol_shape, pts, gv)
+    lib, lib_copy = grid_sample_bwd_of(vol_shape, pts, gv, padding)
     # the locality the plane backward's segments use: runs of one cell
     # in a warp's 32 consecutive points, and the voxels touched
     cells = torch.floor(pts[: pts.shape[0] // 32 * 32]).long()
@@ -1973,7 +1996,8 @@ def frame_subset(model, batch, origin, direction, dn, near, far, device,
                          device=device).long()
     o_s, d_s = origin[idx], direction[idx]
     outputs = ("depth", "acc")
-    volume = ChunkedRenderer(model).prepare(batch["imgs"], batch["lidar2img"])
+    volume = ChunkedRenderer(model).prepare(batch["imgs"], batch["lidar2img"],
+                                            **cameras_of(model, batch))
     gpu = ChunkedRenderer(model, chunk=SUBSET_RAYS,
                           outputs=outputs).render(volume, o_s, d_s)
     cpu_model = copy.deepcopy(model).cpu()
@@ -2000,6 +2024,14 @@ def frame_subset(model, batch, origin, direction, dn, near, far, device,
     del cpu_model, volume
     torch.cuda.empty_cache()
     return sub_err
+
+
+def cameras_of(model, batch):
+    """The ``intrinsic`` / ``cam2ego`` of ``batch`` where ``model``'s
+    encoder is camera-aware (``utils/eval_lib.camera_kwargs``), else {}."""
+    if not model.cfg.encoder.camera_aware:
+        return {}
+    return {k: batch[k] for k in ("intrinsic", "cam2ego")}
 
 
 def depth_in_band(cfg, batch, depth, device):
@@ -2042,6 +2074,7 @@ def frame_device_path(cfg, model, batch):
     out)."""
     import torch
     from selfocc_tpu_torch.utils.eval_lib import (ChunkedRenderer,
+                                                  camera_kwargs,
                                                   eval_ray_grid,
                                                   eval_trans_mats,
                                                   rays_for_cams)
@@ -2049,7 +2082,8 @@ def frame_device_path(cfg, model, batch):
     rays = eval_ray_grid(cfg, device=batch["imgs"].device)
 
     def frame():
-        volume = renderer.prepare(batch["imgs"], batch["lidar2img"])
+        volume = renderer.prepare(batch["imgs"], batch["lidar2img"],
+                                  **camera_kwargs(cfg, batch))
         origin, direction = rays_for_cams(eval_trans_mats(batch, cfg), rays)
         return renderer.render_device(volume, origin, direction)
 
@@ -2453,7 +2487,7 @@ def train_parity(device, name="tiny", cfg=None, global_iter=None,
     from selfocc_tpu_torch.models.initializers import init_weights
     from selfocc_tpu_torch.models.segmentor import TPVSegmentor
     from selfocc_tpu_torch.utils.runtime import get_dataset, to_device
-    from selfocc_tpu_torch.utils.train_lib import build_loss_inputs
+    from selfocc_tpu_torch.utils.train_lib import aug_kwargs, build_loss_inputs
 
     cfg = get_config(name) if cfg is None else cfg
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(
@@ -2466,6 +2500,8 @@ def train_parity(device, name="tiny", cfg=None, global_iter=None,
     draws = {"cellular": torch.rand(4, generator=g),
              "t_rand": torch.rand((R, h.num_samples + 1), generator=g),
              "bkgd": torch.rand((R, 3), generator=g)}
+    if h.ray_sample_mode == "random":
+        draws["random"] = torch.rand((R // cfg.num_cams, 2), generator=g)
     model = TPVSegmentor(cfg.model)
     init_weights(model, torch.Generator().manual_seed(SEED))
     results = []
@@ -2478,7 +2514,8 @@ def train_parity(device, name="tiny", cfg=None, global_iter=None,
         batch = to_device(item, dev)
         with plain_versions() if plain else contextlib.nullcontext():
             out = m(batch["imgs"], batch["lidar2img"], batch[h.trans_kw],
-                    train=True, draws=draws, global_iter=global_iter)
+                    train=True, draws=draws, global_iter=global_iter,
+                    **aug_kwargs(batch, cfg.model.encoder.camera_aware))
             tot, ldict = MultiLoss(cfg.loss_cfgs)(
                 build_loss_inputs(cfg, out, batch))
             tot.backward()
@@ -4557,7 +4594,8 @@ def raw_eval(device):
                 f"render {r['render_s']:.4f} s for {r['rays']} rays "
                 f"({res[tag]['rays_per_s']:.0f} rays/s), peak "
                 f"{res[tag]['max_memory_gb']:.2f} GiB, table {table}")
-        saved = sorted(os.listdir(work))
+        # the maps, beside the driver's run log <time>.log
+        saved = sorted(n for n in os.listdir(work) if not n.endswith(".log"))
         if saved != ["depth_0000.npy", "depth_0001.npy"] or not np.array_equal(
                 np.load(os.path.join(work, "depth_0001.npy")),
                 r["last_depth"].numpy()):
@@ -5504,7 +5542,8 @@ def weights_kernel_checks(g, device):
 
 
 def recipe_eval(device, name, frame_wrappers, off_path, density=False):
-    """Full-width eval of ``name`` with seeded weights on synthetic data:
+    """Full-width eval of ``name`` (a config's name, or the config) with
+    seeded weights on synthetic data:
     one depth frame through ``eval_depth``'s code path after a cold frame
     (prepare_s, render_s, peak; the launches of ``frame_wrappers``, each
     launched, none of ``off_path``; depths finite and in band; a 4096-ray
@@ -5522,7 +5561,8 @@ def recipe_eval(device, name, frame_wrappers, off_path, density=False):
     from selfocc_tpu_torch.ops import render_weights as rw
     from selfocc_tpu_torch.utils.runtime import (get_dataset, get_logger,
                                                  to_device)
-    cfg = get_config(name)
+    cfg = get_config(name) if isinstance(name, str) else name
+    name = cfg.name
     model = eval_depth.build_model(cfg, SEED, device)
     ds = get_dataset(cfg, synthetic=True)
     logger = get_logger()
@@ -6413,6 +6453,337 @@ def head_phase(device, baseline=None):
     return res
 
 
+# [variants]: nuscenes_occ with the model options no shipped config sets.
+# The grid is NonLinearMapping at make_mapping's defaults (the reference
+# GridMeterMapping's: 128 inner cells over 51.2 m and 32 growing ones to
+# 80 m a side, z from -4 m over 20 + 10 cells to 12 m): 321 x 321 x 31.
+VARIANT_MAPPING = {"nonlinear_mode": "linear_upscale"}
+VARIANT_PC = (-80.0, -80.0, -4.0, 80.0, 80.0, 12.0)
+# the tiny twin's grid: 17 x 17 x 9, 6 inner cells a side and 2 growing
+TINY_VARIANT_MAPPING = dict(
+    nonlinear_mode="linear_upscale", h_size=[6, 2], h_range=[6.0, 4.0],
+    h_half=False, w_size=[6, 2], w_range=[6.0, 4.0], w_half=False,
+    d_size=[6, 2], d_range=[-1.0, 1.4, 3.0])
+TRAIN_DRIVER_STEPS = 12
+PORT_KERNEL_NAMES = re.compile(r"msda_|trilinear|values_|neus_render_")
+
+
+def variant_config(base="nuscenes_occ"):
+    """``base`` with every model option the port added last on at once, as
+    a user's variant config is built (``dataclasses.replace`` of a shipped
+    config): ``TPVPositionLifter`` (``tot_range`` the point-cloud range,
+    ``num_freqs`` the encoder's ``pos_num_freqs``, the same mapping),
+    ``camera_aware``, ``multi_plane_ffn_norm``, ``ray_sample_mode
+    "random"`` and ``NonLinearMapping``; ``nuscenes_occ`` at
+    ``VARIANT_MAPPING`` over ``VARIANT_PC`` (the pc range and the
+    ``roi_aabb``), ``tiny`` at ``TINY_VARIANT_MAPPING``."""
+    from selfocc_tpu_torch.configs.experiments import get_config
+    cfg = get_config(base)
+    if base == "nuscenes_occ":
+        mapping, pc = dict(VARIANT_MAPPING), VARIANT_PC
+    else:
+        mapping, pc = dict(TINY_VARIANT_MAPPING), \
+            tuple(cfg.model.encoder.pc_range)
+    m = cfg.model
+    enc = dataclasses.replace(m.encoder, mapping_args=mapping, pc_range=pc,
+                              camera_aware=True, multi_plane_ffn_norm=True)
+    head = dataclasses.replace(m.head, mapping_args=mapping, roi_aabb=pc,
+                               ray_sample_mode="random")
+    model = dataclasses.replace(
+        m, encoder=enc, head=head, lifter_type="TPVPositionLifter",
+        lifter_args=dict(tot_range=pc, num_freqs=tuple(enc.pos_num_freqs),
+                         mapping_args=mapping))
+    return dataclasses.replace(cfg, name=f"{base}_variants", model=model)
+
+
+def flow_head_path(device):
+    """The BEV flow head (``estimate_flow``) at ``nuscenes_occ_bev``'s full
+    width: the head with seeded weights takes random (1, 257 x 257, 96)
+    current, previous and next planes and renders one training forward on
+    the card (28,800 random-grid rays x 256 samples); its four (1, 257,
+    257, 25, 3) flows and the two warped sample sets go into a backward.
+    The lookups at the samples must launch ``trilinear_cf_fwd`` (rows, C =
+    3) and ``trilinear_cf_bwd`` (its walk) twice each (the forward once
+    more for the recipe's uniform sdf grid). Held against the
+    plain path on the CPU: the four flows (GRAD_RTOL of their max) and the
+    warps of 4096 rays (1e-5 of their max). Then both kernels at the
+    step's own 7,372,800 clipped points of ``curr2prev_flow``
+    (``values_fwd_record`` / ``values_bwd_record``: against their plain
+    versions, timed beside ``F.grid_sample`` with border padding and its
+    backward)."""
+    import torch
+    from selfocc_tpu_torch.configs.experiments import get_config
+    from selfocc_tpu_torch.geometry.projection import rays_from_img2lidar
+    from selfocc_tpu_torch.models.initializers import init_weights
+    from selfocc_tpu_torch.models.segmentor import TPVSegmentor
+    from selfocc_tpu_torch.ops import interp
+    from selfocc_tpu_torch.utils.runtime import get_dataset, to_device
+    cfg = get_config("nuscenes_occ_bev")
+    h = cfg.model.head
+    flow_cfg = dataclasses.make_dataclass(
+        "FlowHeadConfig", [("estimate_flow", bool, True)],
+        bases=(type(h),), frozen=True)(**dataclasses.asdict(h))
+    head = TPVSegmentor._build_head(flow_cfg)
+    init_weights(head, torch.Generator().manual_seed(SEED))
+    cpu_head = copy.deepcopy(head).train()
+    head = head.to(device).train()
+    g = torch.Generator(device=device).manual_seed(SEED + 5)
+    H, W = head.field.mapping.size_h, head.field.mapping.size_w
+    reps = [0.5 * torch.randn((1, H * W, h.embed_dims), generator=g,
+                              device=device) for _ in range(3)]
+    batch = to_device(get_dataset(cfg, synthetic=True, length=1)[0], device)
+    img2lidar = batch[h.trans_kw]
+    wrappers = (interp.trilinear_cf_fwd, interp.trilinear_cf_bwd)
+    reset_counts(wrappers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = head(reps[0], img2lidar, train=True, generator=g,
+               prev_rep=reps[1], next_rep=reps[2])
+    keys = ("prev_warp", "next_warp", "curr2prev_flow", "curr2next_flow",
+            "prev2curr_flow", "next2curr_flow")
+    cots = [torch.randn(out[k].shape, generator=g, device=device)
+            for k in keys]
+    torch.autograd.backward([out[k] for k in keys], cots)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = read_counts(wrappers, "flow head", ("rows",),
+                           ("trilinear_cf_bwd.walk",))
+    # the two lookups, and the recipe's uniform sdf query (C = 25; the
+    # backward above leaves its output out)
+    if launches["trilinear_cf_fwd.rows"] != 2 + h.return_uniform_sdf or \
+            launches["trilinear_cf_bwd.walk"] != 2:
+        raise AssertionError(f"the flow lookups launched {launches}")
+    res = {"forward_backward_s": step_s, "launches": launches,
+           "flow_shape": list(out["curr2prev_flow"].shape)}
+    with torch.no_grad():
+        cpu_flows = cpu_head.flows(*(r.cpu() for r in reps))
+        err = {}
+        for k, ref in cpu_flows.items():
+            e = max_err(out[k].detach().cpu(), ref)
+            check(f"flow head {k}, card against CPU", e,
+                  GRAD_RTOL * float(ref.abs().max()) + 1e-7)
+            err[k] = e
+        rays = out["ms_rays"]
+        origin, direction = rays_from_img2lidar(img2lidar, rays)
+        n_cams, n_rays = direction.shape[1:3]
+        origin = origin[0, :, None, :].expand(n_cams, n_rays, 3).reshape(
+            -1, 3)
+        direction = direction[0].reshape(-1, 3)
+        S = out["ts"].shape[-1]
+        idx = torch.linspace(0, origin.shape[0] - 1, SUBSET_RAYS,
+                             device=device).long()
+        ts = out["ts"].reshape(-1, S)[idx]
+        warps = cpu_head.warped_samples(cpu_flows, origin[idx].cpu(),
+                                        direction[idx].cpu(), ts.cpu())
+        for k, ref in warps.items():
+            e = max_err(out[k].detach().reshape(-1, S, 3)[idx].cpu(), ref)
+            check(f"flow head {k} (4096 rays), card against CPU", e,
+                  1e-5 * float(ref.abs().max()))
+            err[k] = e
+        res["max_abs_err"] = err
+        # the lookup's own points and volume, clipped as the head clips
+        positions = origin[:, None, :] + (
+            direction / direction.norm(dim=-1, keepdim=True))[:, None, :] \
+            * (out["ts"].reshape(-1, S)
+               * direction.norm(dim=-1, keepdim=True))[..., None]
+        pts = head.field.mapping.meter2grid(positions.reshape(-1, 3))
+        vol = out["curr2prev_flow"][0].detach().contiguous()
+        hi = torch.tensor([n - 1.0 for n in vol.shape[:3]], device=device)
+        pts = torch.minimum(torch.maximum(pts, torch.zeros_like(hi)),
+                            hi).contiguous()
+    del out, cots, cpu_head, positions
+    torch.cuda.empty_cache()
+    vol_cf = vol.permute(3, 0, 1, 2)
+    tag = f"flow lookup, C=3, {pts.shape[0]} points"
+    res["trilinear_cf_fwd"] = values_fwd_record(interp, vol_cf, pts, tag, 10,
+                                                padding="border")
+    gv = torch.randn((pts.shape[0], 3), generator=g, device=device)
+    res["trilinear_cf_bwd"] = values_bwd_record(
+        interp, tuple(vol_cf.shape), pts, gv, "flow lookup", 10,
+        padding="border")
+    del vol, vol_cf, pts, gv, head, reps
+    torch.cuda.empty_cache()
+    return res
+
+
+def variants_phase(device):
+    """``nuscenes_occ`` at full width and depth with every model option the
+    port added last (``variant_config``): its tiny twin's step on the card
+    against the CPU (``train_parity``), 3 measured steps (profiled,
+    sync-checked: ``lever_train``), one eval frame and one Occ3D frame
+    (``recipe_eval``: prepare with the cameras, a 4096-ray subset against
+    the CPU), and the BEV flow head (``flow_head_path``)."""
+    import torch
+    from selfocc_tpu_torch.ops import interp, msda
+    from selfocc_tpu_torch.ops import render_weights as rw
+    log(f"  card: {card_name()}")
+    res = {"tiny_parity": train_parity(device, cfg=variant_config("tiny"))}
+    cfg = variant_config()
+    m = cfg.model
+    log(f"  {cfg.name}: lifter {m.lifter_type}, mapping "
+        f"{m.encoder.mapping_args}, camera_aware {m.encoder.camera_aware}, "
+        f"multi_plane_ffn_norm {m.encoder.multi_plane_ffn_norm}, rays "
+        f"{m.head.ray_sample_mode}")
+    render = (rw.neus_render_fwd, interp.trilinear_cf_with_grad_fwd)
+    off = (msda.msda_shared_fwd, msda.msda_shared_bwd, rw.neus_weights_fwd,
+           rw.neus_weights_bwd)
+    res["train"] = lever_train(
+        device, cfg, render + (rw.neus_render_bwd, interp.trilinear_bwd,
+                               msda.msda_fwd, msda.msda_bwd),
+        off, instances=("plane", "rows"))
+    res["eval"] = recipe_eval(
+        device, cfg, render + (msda.msda_fwd,),
+        off + (msda.msda_bwd, interp.trilinear_bwd, rw.neus_render_bwd))
+    torch.cuda.empty_cache()
+    res["flow"] = flow_head_path(device)
+    return res
+
+
+def train_driver_run(device):
+    """``selfocc_tpu_torch.train.main`` at ``nuscenes_occ``'s full width
+    with the driver's options: ``--gradient-accumulation 2 --profile
+    --eval-every-epoch --eval-samples 2 --max-steps 12`` on synthetic data,
+    in a temporary work dir. Fails unless the run log (with the per-epoch
+    depth table, which it logs), ``scalars.jsonl`` and the profiler's trace
+    are there, the trace names the port's kernels (``msda_*``,
+    ``trilinear*`` / ``values_*``, ``neus_render_*``), every kernel of the
+    step was launched, and the last checkpoint counts 12 micro-steps and 6
+    updates. Then ``accumulation_check``."""
+    import glob
+    import os
+    import tempfile
+    import torch
+    from selfocc_tpu_torch import train
+    from selfocc_tpu_torch.ops import interp, msda
+    from selfocc_tpu_torch.ops import render_weights as rw
+    wrappers = (rw.neus_render_fwd, rw.neus_render_bwd,
+                interp.trilinear_cf_with_grad_fwd, interp.trilinear_bwd,
+                msda.msda_fwd, msda.msda_bwd)
+    with tempfile.TemporaryDirectory() as work:
+        reset_counts(wrappers)
+        t0 = time.time()
+        out = train.main(["--py-config", "nuscenes_occ", "--synthetic",
+                          "--gradient-accumulation", "2", "--profile",
+                          "--eval-every-epoch", "--eval-samples", "2",
+                          "--max-steps", str(TRAIN_DRIVER_STEPS),
+                          "--work-dir", work])
+        wall = time.time() - t0
+        launches = read_counts(wrappers, "train driver run",
+                               ("plane", "rows"))
+        logs = glob.glob(os.path.join(work, "*.log"))
+        if len(logs) != 1:
+            raise AssertionError(f"run logs in the work dir: {logs}")
+        with open(logs[0]) as f:
+            text = f.read()
+        for want in ("=== epoch 0 depth eval ===", "profiler trace written",
+                     f"[e0 i{TRAIN_DRIVER_STEPS - 1}]"):
+            if want not in text:
+                raise AssertionError(f"the run log lacks {want!r}")
+        with open(os.path.join(work, "scalars.jsonl")) as f:
+            scalars = [json.loads(line) for line in f]
+        if not scalars or not all(math.isfinite(r["value"])
+                                  for r in scalars):
+            raise AssertionError(f"scalars.jsonl: {scalars[:4]}")
+        trace_path = os.path.join(work, "profile", "trace.json")
+        trace_mb = os.path.getsize(trace_path) / 2**20
+        with open(trace_path) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = {}
+        for e in events:
+            if e.get("cat") == "kernel" and \
+                    PORT_KERNEL_NAMES.search(e.get("name", "")):
+                m = PORT_KERNEL_NAMES.search(e["name"])
+                kernels[m.group(0)] = kernels.get(m.group(0), 0) + 1
+        del events
+        missing = [want for want, names in (
+            ("msda", ("msda_",)), ("trilinear", ("trilinear", "values_")),
+            ("neus_render", ("neus_render_",)))
+            if not any(k in kernels for k in names)]
+        if missing:
+            raise AssertionError(f"the trace names no {missing} kernel: "
+                                 f"{kernels}")
+        state = torch.load(os.path.join(work, "ckpts", "latest.pt"),
+                           map_location="cpu")
+        counts = (state["step"], state["updates"], state["mini_step"])
+        if counts != (TRAIN_DRIVER_STEPS, TRAIN_DRIVER_STEPS // 2, 0):
+            raise AssertionError(f"checkpoint step, updates, mini_step "
+                                 f"{counts}")
+        del state
+    table = {k: [[float(x) for x in row] for row in v]
+             for k, v in out["epoch_evals"][0].items()}
+    waits = sorted(out["data_wait_s"])
+    log(f"  train.main: {TRAIN_DRIVER_STEPS} micro-steps in {wall:.1f}s "
+        f"(build, profile and eval included; the wait for a synthetic "
+        f"batch: median {waits[len(waits) // 2]:.2f}s, total "
+        f"{sum(waits):.1f}s); trace {trace_mb:.1f} MiB, "
+        f"port kernel events {kernels}; epoch-0 depth table "
+        f"abs_rel {table['abs_rel']}, rmse {table['rmse']}")
+    torch.cuda.empty_cache()
+    return {"wall_s": wall, "launches": launches, "scalars": len(scalars),
+            "trace_mib": trace_mb, "trace_port_kernel_events": kernels,
+            "epoch_eval": table, "step_s": out["step_s"],
+            "data_wait_s": out["data_wait_s"],
+            "accumulation": accumulation_check(device)}
+
+
+def accumulation_check(device):
+    """Gradient accumulation at ``nuscenes_occ``'s full width, on one
+    batch: with K = 2 the parameters are bitwise unchanged after micro-step
+    1, and after micro-step 2 they equal one K = 1 optimizer step of
+    another trainer on the same initial weights on the mean of the two
+    micro-steps' gradients (the very gradients the K = 2 trainer took:
+    the kernels' atomics make a recomputed gradient differ in its last
+    bits, which AdamW's first step magnifies where a gradient is near
+    eps), within GRAD_RTOL of each tensor's largest update."""
+    import torch
+    from selfocc_tpu_torch.configs.experiments import get_config
+    from selfocc_tpu_torch.train import build_trainer
+    from selfocc_tpu_torch.utils.runtime import get_dataset, to_device
+    from selfocc_tpu_torch.utils.train_lib import optimizer_step
+    cfg = get_config("nuscenes_occ")
+    batch = to_device(get_dataset(cfg, synthetic=True, length=1)[0], device)
+    acc = build_trainer(cfg, SEED, device, 2)
+    p0 = {n: p.detach().clone() for n, p in acc.model.named_parameters()}
+    grads = []
+    apply = acc.apply_gradients
+
+    def caught():
+        grads.append({n: p.grad.clone() for n, p in
+                      acc.model.named_parameters() if p.grad is not None})
+        return apply()
+
+    acc.apply_gradients = caught
+    acc.step(batch, torch.Generator(device=device).manual_seed(SEED))
+    same = all(torch.equal(p, p0[n]) for n, p in
+               acc.model.named_parameters())
+    if not same:
+        raise AssertionError("K = 2: parameters moved at micro-step 1")
+    acc.step(batch, torch.Generator(device=device).manual_seed(SEED + 1))
+    ref = build_trainer(cfg, SEED, device, 1)
+    for n, p in ref.model.named_parameters():
+        if n in grads[0]:
+            p.grad = grads[0][n] + (grads[1][n] - grads[0][n]) / 2
+    optimizer_step(ref.optimizer, ref.sched, 0, cfg.grad_max_norm)
+    worst, bitwise = 0.0, True
+    refs = dict(ref.model.named_parameters())
+    for n, p in acc.model.named_parameters():
+        upd = float((refs[n].detach() - p0[n]).abs().max())
+        err = max_err(p.detach(), refs[n].detach())
+        bitwise &= err == 0.0
+        ratio = err / (GRAD_RTOL * upd + 1e-30)
+        if not ratio <= 1.0:
+            raise AssertionError(f"K = 2 after micro-step 2, {n}: "
+                                 f"{ratio:.3f} of its tolerance")
+        worst = max(worst, ratio)
+    log(f"  accumulation (K = 2, full width): parameters bitwise unchanged "
+        f"after micro-step 1; after micro-step 2 one step on the mean "
+        f"gradient (bit for bit: {bitwise}; worst {worst:.3g} of GRAD_RTOL "
+        f"of the update)")
+    del acc, ref, p0, grads
+    torch.cuda.empty_cache()
+    return {"unchanged_after_micro_step_1": same,
+            "mean_step_bitwise": bitwise, "worst_err_over_tol": worst}
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -6470,14 +6841,16 @@ def main():
             "frame": lambda: full_frame(device, args.baseline),
             "occ": lambda: occ_frame(device),
             "train-parity": lambda: train_parity(device),
-            "train": lambda: full_train(device),
+            "train": lambda: dict(full_train(device),
+                                  driver=train_driver_run(device)),
             "data": lambda: data_phase(device, phases.get("train")),
             "kitti": lambda: kitti_phase(device),
             "depth": lambda: depth_phase(device),
             "levers": lambda: levers_phase(device, args.baseline),
             "bev": lambda: bev_phase(device),
             "density": lambda: density_phase(device),
-            "head": lambda: head_phase(device, args.baseline)}
+            "head": lambda: head_phase(device, args.baseline),
+            "variants": lambda: variants_phase(device)}
     phases = {}
     for tag in PHASES:
         if tag not in wanted:
@@ -6491,7 +6864,7 @@ def main():
         return
 
     lres, bres, denres = phases["levers"], phases["bev"], phases["density"]
-    hres = phases["head"]
+    hres, vres = phases["head"], phases["variants"]
     kres = dict(phases["kernels"], gather_rows=phases["gather"],
                 **lres["kernels"])
     # the alpha-input weights: the NeuS recipes' render is fused, so their
@@ -6508,7 +6881,12 @@ def main():
         "bev_occ3d_frame": bres["eval"]["occ3d"]["launches"],
         "density_steps": denres["train"]["launches"],
         "density_eval_frame": denres["eval"]["frame"]["launches"],
-        "density_occ3d_frame": denres["eval"]["occ3d"]["launches"]}
+        "density_occ3d_frame": denres["eval"]["occ3d"]["launches"],
+        "variants_steps": vres["train"]["launches"],
+        "variants_eval_frame": vres["eval"]["frame"]["launches"],
+        "variants_occ3d_frame": vres["eval"]["occ3d"]["launches"],
+        "variants_flow_head": vres["flow"]["launches"],
+        "train_driver": phases["train"]["driver"]["launches"]}
     fres, tres, ores = phases["frame"], phases["train"], phases["occ"]
     dres, kires, depres = phases["data"], phases["kitti"], phases["depth"]
     data_launches = {
@@ -6613,8 +6991,11 @@ def main():
                           "max_abs_err"):
                     entry[f"{tag}_{k}"] = recs[name][k]
         if name in ("trilinear_cf_fwd", "trilinear_cf_bwd"):
-            for tag, r in (("bev_uniform", bres), ("density_query", denres)):
-                rec = r["values"][name]
+            # the values-only pair's other calls; the flow lookup is C = 3
+            for tag, recs in (("bev_uniform", bres["values"]),
+                              ("density_query", denres["values"]),
+                              ("flow_lookup", vres["flow"])):
+                rec = recs[name]
                 for k in ("ms", "device_ms", "plain_ms", "bound_ms",
                           "library_ms", "library_device_ms", "max_abs_err",
                           "points"):
@@ -6687,12 +7068,15 @@ def main():
             "launches": denres["train"]["launches"]["trilinear_cf_bwd.walk"],
             "launches_bev_steps": bres["train"]["launches"][
                 "trilinear_cf_bwd.walk"],
-            "launches_options_steps": opt_launches["trilinear_cf_bwd.walk"]}
+            "launches_options_steps": opt_launches["trilinear_cf_bwd.walk"],
+            "launches_variants_flow_head": vres["flow"]["launches"][
+                "trilinear_cf_bwd.walk"]}
     walk.update(denres["values"]["trilinear_cf_bwd"])
     walk["cases"] = {
         "density_query": denres["values"]["trilinear_cf_bwd"],
         "bev_uniform": bres["values"]["trilinear_cf_bwd"],
-        "options_chunk": kres["trilinear_cf_bwd"]["options_chunk"]}
+        "options_chunk": kres["trilinear_cf_bwd"]["options_chunk"],
+        "flow_lookup": vres["flow"]["trilinear_cf_bwd"]}
     walk["max_abs_err"] = max(r["max_abs_err"]
                               for r in walk["cases"].values())
     for path, r in (("density", denres["train"]), ("bev", bres["train"]),
@@ -6722,7 +7106,8 @@ def main():
         "levers": {k: v for k, v in lres.items() if k != "kernels"},
         "bev": bres, "density": {k: v for k, v in denres.items()
                                  if k != "kernels"},
-        "head": {k: v for k, v in hres.items() if k != "kernels"}}),
+        "head": {k: v for k, v in hres.items() if k != "kernels"},
+        "variants": vres}),
         flush=True)
     print(card_name(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,6 +16,18 @@ field is ``head.radiance_field``). Transforms: flax Dense kernel
 LayerNorm ``scale`` -> ``weight``; the ``nn.scan``-stacked encoder layers are
 unstacked into ``encoder.layers.{n}``. The ``consts`` collection (geometry
 tables) is not carried: the port rebuilds those from the config.
+
+The model options: ``TPVPositionLifter``'s ``lifter.position_layer_{hw,zh,wz}``
+and the flow head's ``head.flow_net.{0,1,3,4,6}`` (conv, BatchNorm, conv,
+BatchNorm, output conv) are the reference's keys (``ref_import.py:11,
+161-164, 171-173``). The reference's import map has no keys for
+``CameraAwareSE`` or the per-plane norms and FFNs of
+``multi_plane_ffn_norm``; the port names the former after the JAX module,
+``encoder.camera_se_net.{bn, context_mlp_fc1, context_mlp_fc2,
+context_conv, reduce_conv, reduce_bn}``, and the latter
+``encoder.layers.{n}.norms.{j}.{i}`` (JAX ``norm{j+1}_{i}``) and
+``encoder.layers.{n}.ffns.{i}`` (JAX ``ffn_{i}``), i the plane (hw, zh,
+wz). Every BatchNorm's running statistics come from ``batch_stats``.
 """
 from __future__ import annotations
 
@@ -51,9 +63,12 @@ def _layer_norm(sd, key, p):
 
 
 def _batch_norm(sd, key, p, s):
+    """Scale and bias, and the running statistics where ``s`` has them (a
+    gradient tree has none)."""
     _layer_norm(sd, key, p)
-    sd[f"{key}.running_mean"] = _t(s["mean"])
-    sd[f"{key}.running_var"] = _t(s["var"])
+    if s:
+        sd[f"{key}.running_mean"] = _t(s["mean"])
+        sd[f"{key}.running_var"] = _t(s["var"])
 
 
 def _backbone(sd, params, stats):
@@ -98,6 +113,13 @@ def _encoder_layer(sd, key, p):
         if f"cross_attn_{i}" in p:
             _cross_attn(sd, f"{key}.attentions.1.attn_{plane}",
                         p[f"cross_attn_{i}"])
+    if "ffn" not in p:                              # multi_plane_ffn_norm
+        for i in range(3):
+            _linear(sd, f"{key}.ffns.{i}.layers.0.0", p[f"ffn_{i}"]["fc1"])
+            _linear(sd, f"{key}.ffns.{i}.layers.1", p[f"ffn_{i}"]["fc2"])
+            for j in range(3):
+                _layer_norm(sd, f"{key}.norms.{j}.{i}", p[f"norm{j + 1}_{i}"])
+        return
     _linear(sd, f"{key}.ffns.0.layers.0.0", p["ffn"]["fc1"])
     _linear(sd, f"{key}.ffns.0.layers.1", p["ffn"]["fc2"])
     for j in range(3):
@@ -111,8 +133,22 @@ def _index(tree, n):
     return np.asarray(tree)[n]
 
 
-def _encoder(sd, p):
+def _camera_se(sd, p, s):
+    key = "encoder.camera_se_net"
+    _batch_norm(sd, f"{key}.bn", p["bn"], s.get("bn"))
+    _linear(sd, f"{key}.context_mlp_fc1", p["context_mlp_fc1"])
+    _linear(sd, f"{key}.context_mlp_fc2", p["context_mlp_fc2"])
+    if "reduce_conv" in p:
+        _conv(sd, f"{key}.reduce_conv", p["reduce_conv"])
+        _batch_norm(sd, f"{key}.reduce_bn", p["reduce_bn"],
+                    s.get("reduce_bn"))
+    _conv(sd, f"{key}.context_conv", p["context_conv"])
+
+
+def _encoder(sd, p, stats):
     sd["encoder.level_embeds"] = _t(p["level_embeds"])
+    if "camera_se_net" in p:
+        _camera_se(sd, p["camera_se_net"], stats.get("camera_se_net", {}))
     sd["encoder.cams_embeds"] = _t(p["cams_embeds"])
     if "position_layer" in p:                       # BEVFormerEncoder
         _linear(sd, "encoder.positional_encoding.position_layer",
@@ -124,7 +160,8 @@ def _encoder(sd, p):
                     f"encoder.positional_encoding.position_layer_{plane}",
                     pe[f"position_layer_{plane}"])
     layers = p["layers"]
-    n_layers = np.asarray(layers["ffn"]["fc1"]["kernel"]).shape[0]
+    n_layers = np.asarray(
+        layers["self_attn"]["value_proj"]["kernel"]).shape[0]
     for n in range(n_layers):
         _encoder_layer(sd, f"encoder.layers.{n}", _index(layers, n))
 
@@ -142,6 +179,23 @@ def _field(sd, p, key):
             np.asarray(p["deviation"]["variance"]).reshape(1))
 
 
+def _head(sd, head, stats):
+    """The NeuS head (``head.model.field``, and ``head.flow_net`` with the
+    flow head) or the density head (``head.radiance_field``)."""
+    if "radiance_field" in head:                    # NeRFAccHead
+        _field(sd, head["radiance_field"], "head.radiance_field")
+        return
+    _field(sd, head["field"], "head.model.field")
+    if "flow_net" in head:
+        fp, fs = head["flow_net"], stats.get("flow_net", {})
+        for i, (conv, norm) in enumerate((("conv0", "norm0"),
+                                          ("conv1", "norm1"))):
+            _conv(sd, f"head.flow_net.{3 * i}", fp[conv])
+            _batch_norm(sd, f"head.flow_net.{3 * i + 1}", fp[norm],
+                        fs.get(norm))
+        _conv(sd, "head.flow_net.6", fp["out"])
+
+
 def from_jax_variables(np_variables: Dict[str, Any]) -> "OrderedDict[str, torch.Tensor]":
     """flax ``{"params", "batch_stats", ...}`` of a ``TPVSegmentor`` (numpy
     leaves) -> the port's state dict."""
@@ -155,13 +209,13 @@ def from_jax_variables(np_variables: Dict[str, Any]) -> "OrderedDict[str, torch.
     lifter = params["lifter"]
     if "bev" in lifter:
         sd["lifter.bev"] = _t(lifter["bev"])
+    elif "position_layer_hw" in lifter:             # TPVPositionLifter
+        for plane in _PLANES:
+            _linear(sd, f"lifter.position_layer_{plane}",
+                    lifter[f"position_layer_{plane}"])
     else:
         for plane in _PLANES:
             sd[f"lifter.tpv_{plane}"] = _t(lifter[f"tpv_{plane}"])
-    _encoder(sd, params["encoder"])
-    head = params["head"]
-    if "radiance_field" in head:                    # NeRFAccHead
-        _field(sd, head["radiance_field"], "head.radiance_field")
-    else:
-        _field(sd, head["field"], "head.model.field")
+    _encoder(sd, params["encoder"], stats.get("encoder", {}))
+    _head(sd, params["head"], stats.get("head", {}))
     return sd

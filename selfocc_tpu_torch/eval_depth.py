@@ -23,7 +23,8 @@ the images mirrored along W with the features mirrored back
 argmax-weight depth (the head's ``return_max_depth``); ``median`` exits, as
 the JAX driver does. ``--save-depth`` writes each frame's (N_cams, H, W)
 depth to ``<work-dir>/depth_{i:04d}.npy`` (and with ``max``
-``depth_max_{i:04d}.npy``).
+``depth_max_{i:04d}.npy``). The run log goes to stdout and
+``<work-dir>/<time>.log``.
 Weights are drawn from seeded initialisers that mirror the JAX package's
 (``--seed``), or loaded from the port's own ``train.py`` checkpoint
 (``--ckpt-path``) or a reference-SelfOcc ``.pth`` (``--torch-ckpt``). Runs
@@ -45,8 +46,8 @@ from .configs.experiments import get_config
 from .models.initializers import init_weights
 from .models.segmentor import TPVSegmentor
 from .ops.interp import bilinear_sample
-from .utils.eval_lib import (ChunkedRenderer, enable_max_depth, eval_ray_grid,
-                             eval_trans_mats, rays_for_cams)
+from .utils.eval_lib import (ChunkedRenderer, camera_kwargs, enable_max_depth,
+                             eval_ray_grid, eval_trans_mats, rays_for_cams)
 from .utils.metrics import DepthMetric
 from .utils.runtime import (add_device_arg, add_weights_args, get_dataset,
                             get_logger, load_weights, resolve_device,
@@ -130,7 +131,10 @@ def evaluate(cfg, model, ds, device, num_samples: int, chunk: int,
             imgs = batch["imgs"].flip(3) if mirrored else batch["imgs"]
             sync()
             t0 = time.perf_counter()
-            volume = renderer.prepare(imgs, batch["lidar2img"], flip=mirrored)
+            # the camera parameters stay unmirrored: the flip pass mirrors
+            # the features back before the encoder (eval_depth.py:123-129)
+            volume = renderer.prepare(imgs, batch["lidar2img"], flip=mirrored,
+                                      **camera_kwargs(cfg, batch))
             sync()
             t1 = time.perf_counter()
             outs.append(maps(renderer.render(volume, origin, direction)))
@@ -173,7 +177,7 @@ def main(argv=None):
     if args.depth_metric_tgt == "max":
         cfg = enable_max_depth(cfg)
     ds = get_dataset(cfg, args.synthetic, phase="val")
-    logger = get_logger()
+    logger = get_logger(args.work_dir)
     model = build_model(cfg, args.seed, device)
     load_weights(model, args.ckpt_path, args.torch_ckpt, logger)
     if args.save_depth:

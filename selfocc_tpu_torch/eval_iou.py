@@ -3,6 +3,10 @@ of the repository's ``eval_iou.py`` on one device.
 
     python -m selfocc_tpu_torch.eval_iou --py-config nuscenes_occ \\
         [--synthetic] --num-samples 1 --occ3d --use-mask --sem [--device cpu]
+        [--work-dir DIR]
+
+The run log goes to stdout and ``<--work-dir>/<time>.log``
+(``work_dirs/eval_iou`` by default, as the JAX driver's).
 
 Real data: the nuScenes val split (``data.build_dataset(cfg, "val")``,
 ``data/nuscenes_infos_val_sweeps.pkl`` and ``data/nuscenes/``); its items
@@ -50,7 +54,7 @@ import torch
 from .configs.experiments import get_config
 from .eval_depth import build_model
 from .ops.interp import trilinear_sample
-from .utils.eval_lib import GridOccEvaluator
+from .utils.eval_lib import GridOccEvaluator, camera_kwargs
 from .utils.metrics import IoU, MeanIoU, openseed2nuscenes
 from .utils.runtime import (add_device_arg, add_weights_args, get_dataset,
                             get_logger, load_weights, resolve_device,
@@ -79,6 +83,8 @@ NUSC_LABELS = [
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--py-config", required=True)
+    ap.add_argument("--work-dir", default="work_dirs/eval_iou",
+                    help="where the run log <time>.log goes")
     ap.add_argument("--resolution", type=float, default=0.2)
     ap.add_argument("--thresh", type=float, default=0.0)
     ap.add_argument("--occ3d", action="store_true")
@@ -233,7 +239,8 @@ def evaluate(cfg, model, ds, device, args, logger) -> Dict:
         batch = to_device(item, device)
         sync()
         t0 = time.perf_counter()
-        volume = evaluator.prepare(batch["imgs"], batch["lidar2img"])
+        volume = evaluator.prepare(batch["imgs"], batch["lidar2img"],
+                                   **camera_kwargs(cfg, batch))
         sync()
         t1 = time.perf_counter()
         t_prep += t1 - t0
@@ -348,7 +355,7 @@ def main(argv=None):
     device = resolve_device(args.device)
     cfg = get_config(args.py_config)
     ds = get_dataset(cfg, args.synthetic, phase="val")
-    logger = get_logger()
+    logger = get_logger(args.work_dir)
     model = build_model(cfg, args.seed, device)
     load_weights(model, args.ckpt_path, args.torch_ckpt, logger)
     return evaluate(cfg, model, ds, device, args, logger)

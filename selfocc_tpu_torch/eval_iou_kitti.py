@@ -3,7 +3,10 @@ counterpart of the repository's ``eval_iou_kitti.py`` on one device.
 
     python -m selfocc_tpu_torch.eval_iou_kitti [--py-config kitti_occ] \\
         [--kitti-root data/kitti] [--num-samples N] [--sem] [--synthetic] \\
-        [--device cpu]
+        [--device cpu] [--work-dir DIR]
+
+The run log goes to stdout and ``<--work-dir>/<time>.log``
+(``work_dirs/eval_iou_kitti`` by default, as the JAX driver's).
 
 Real data: the SemanticKITTI val split (``data.build_dataset(cfg, "val")``,
 ``Kitti_One_Frame`` over ``<data_path>/dataset``, sequence 08, indexed by
@@ -44,7 +47,7 @@ import torch
 from .configs.experiments import get_config
 from .data.semantic_kitti_io import read_semantic_kitti_voxels
 from .eval_depth import build_model
-from .utils.eval_lib import GridOccEvaluator
+from .utils.eval_lib import GridOccEvaluator, camera_kwargs
 from .utils.metrics import IoU, MeanIoU, cityscapes2semantickitti
 from .utils.runtime import (add_device_arg, add_weights_args, get_dataset,
                             get_logger, load_weights, resolve_device,
@@ -58,6 +61,8 @@ KITTI_AABB = (-25.6, 0.0, -2.0, 25.6, 51.2, 4.4)
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--py-config", default="kitti_occ")
+    ap.add_argument("--work-dir", default="work_dirs/eval_iou_kitti",
+                    help="where the run log <time>.log goes")
     ap.add_argument("--kitti-root", default="data/kitti",
                     help="the SemanticKITTI root holding dataset/sequences/"
                          "<seq>/voxels/<frame>.label and .invalid")
@@ -116,7 +121,8 @@ def evaluate(cfg, model, ds, device, args, logger) -> Dict:
         batch = to_device(item, device)
         sync()
         t0 = time.perf_counter()
-        volume = evaluator.prepare(batch["imgs"], batch["lidar2img"])
+        volume = evaluator.prepare(batch["imgs"], batch["lidar2img"],
+                                   **camera_kwargs(cfg, batch))
         sync()
         t1 = time.perf_counter()
         out = evaluator.query_grid(volume, KITTI_AABB, args.resolution,
@@ -170,7 +176,7 @@ def main(argv=None):
     device = resolve_device(args.device)
     cfg = get_config(args.py_config)
     ds = get_dataset(cfg, args.synthetic, phase="val")
-    logger = get_logger()
+    logger = get_logger(args.work_dir)
     model = build_model(cfg, args.seed, device)
     load_weights(model, args.ckpt_path, args.torch_ckpt, logger)
     return evaluate(cfg, model, ds, device, args, logger)

@@ -3,7 +3,7 @@ the repository's ``eval_novel_depth.py`` (the paper's novel-depth table).
 
     python -m selfocc_tpu_torch.eval_novel_depth \\
         --py-config nuscenes_novel_depth [--depth-tgt raw|max] \\
-        [--num-samples N] [--synthetic] [--device cpu]
+        [--num-samples N] [--synthetic] [--device cpu] [--work-dir DIR]
 
 Per sample: decode the field once (``prepare``), then for each temporal
 neighbour render the 450 x 800-per-camera ray grid from the neighbour's
@@ -19,7 +19,9 @@ offsets ``--offsets`` (``SyntheticDataset.novel_view_sample``).
 Weights are seeded (``--seed``), or loaded from ``--ckpt-path`` /
 ``--torch-ckpt``. Runs on the first CUDA device unless ``--device cpu``
 asks for the kernels' plain versions on the CPU; with no card and no
-``--device cpu`` it exits non-zero.
+``--device cpu`` it exits non-zero. The run log goes to stdout and
+``<--work-dir>/<time>.log`` (``work_dirs/eval_novel_depth``, or
+``work_dirs/eval_novel_depth_kitti`` for the KITTI driver, by default).
 """
 from __future__ import annotations
 
@@ -38,6 +40,10 @@ def parse_args(argv=None, default_config=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--py-config", required=default_config is None,
                     default=default_config)
+    ap.add_argument("--work-dir", default="work_dirs/" + (
+                        "eval_novel_depth_kitti" if default_config
+                        else "eval_novel_depth"),
+                    help="where the run log <time>.log goes")
     ap.add_argument("--batch", type=int, default=32768,
                     help="rays per render chunk")
     ap.add_argument("--synthetic", action="store_true")
@@ -63,7 +69,7 @@ def main(argv=None, default_config=None) -> Dict:
         cfg = enable_max_depth(cfg)
     real = not args.synthetic
     ds = get_dataset(cfg, args.synthetic, phase="novel_eval")
-    logger = get_logger()
+    logger = get_logger(args.work_dir)
     sample = novel_eval_first_sample(ds, cfg, real)
     logger.info(f"config {cfg.name} on {device}; {len(ds)} samples, input "
                 f"{tuple(sample['imgs'].shape)}")

@@ -167,7 +167,7 @@ class NeRFAccHead(OccupancyQueries, nn.Module):
         draws = {k: torch.as_tensor(v, dtype=torch.float32, device=device)
                  for k, v in (draws or {}).items()}
         sampler = self.ray_sampler if train else self.ray_sampler_eval
-        rays = sampler(device, generator, draws.get("cellular"))
+        rays = sampler(device, generator, draws.get(sampler.ray_sample_mode))
         origin, direction = rays_from_img2lidar(img2lidar, rays)
         bs, num_cams, num_rays = direction.shape[:3]
         if bs != 1:

@@ -13,6 +13,16 @@ for its position embedding). The JAX package's ``nn.scan`` over layers becomes a
 function over the attention's own ``sampling_offsets``/``attention_weights``
 Linears (the reference keeps those on the attention module).
 
+``CameraAwareSE`` (``camera_aware``) gates the image features by the
+cameras' intrinsics and poses before the encoder flattens them; the
+reference's import map has no keys for it, so its parameters carry the
+JAX module's names under ``encoder.camera_se_net.`` (``bn``,
+``context_mlp_fc1``, ``context_mlp_fc2``, ``context_conv``, and
+``reduce_conv`` / ``reduce_bn`` where its mid width is not
+``embed_dims``). ``multi_plane_ffn_norm`` gives each plane its own
+LayerNorms and FFN (the reference's MultiPlaneNorm / MultiPlaneFFN),
+``norms.{j}.{plane}`` and ``ffns.{plane}`` (plane 0, 1, 2 = hw, zh, wz).
+
 The encoder's recipe options are ported: head-shared sampling locations
 (``shared_locations``, ``DeformHeads`` averages the offsets over heads and
 the shared MSDA op reads one set), visibility compaction of the image
@@ -39,7 +49,8 @@ from ..geometry.mappings import make_mapping
 from ..geometry.projection import point_sampling
 from ..ops.msda import ms_deform_attn
 from .initializers import normal_, xavier_uniform_
-from .lifter import (fourier_feat_from_meter, normalize_plane_meters,
+from .resnet import BatchNorm2d
+from .lifter import (TPVPositionalEncoding, fourier_feat_from_meter,
                      tpv_plane_meters)
 
 LN_EPS = 1e-6   # flax nn.LayerNorm default
@@ -435,16 +446,69 @@ class FFN(nn.Module):
         return y + x
 
 
+class CameraAwareSE(nn.Module):
+    """Camera-conditioned SE gating of the image features
+    (``encoder.py:170-231``, reference ``camera_se_net.py:52-131``): per
+    camera the 16 numbers [fx, fy, cx, cy, cam2ego[:3, :]] -> BatchNorm ->
+    Linear, ReLU, Linear -> sigmoid gate; per level (the convs and the
+    BatchNorm shared across levels) the reduce conv (3x3, BatchNorm, ReLU;
+    only where ``in_channels != mid_channels``) -> gated -> 1x1 conv. The
+    second Linear starts at zero weights and bias 10, so the gate starts
+    near 1. BatchNorm is flax's (momentum 0.99): batch statistics in train
+    mode. Features are (B, N, h, w, C) channel-last, in and out."""
+
+    def __init__(self, in_channels: int, mid_channels: int,
+                 out_channels: int):
+        super().__init__()
+        self.bn = BatchNorm2d(16, momentum=0.99)
+        self.context_mlp_fc1 = nn.Linear(16, mid_channels)
+        self.context_mlp_fc2 = nn.Linear(mid_channels, mid_channels)
+        if in_channels != mid_channels:
+            self.reduce_conv = nn.Conv2d(in_channels, mid_channels, 3,
+                                         padding=1)
+            self.reduce_bn = BatchNorm2d(mid_channels, momentum=0.99)
+        else:
+            self.reduce_conv = self.reduce_bn = None
+        self.context_conv = nn.Conv2d(mid_channels, out_channels, 1)
+
+    def reset_parameters_like_jax(self, generator):
+        self.context_mlp_fc2.weight.data.zero_()
+        self.context_mlp_fc2.bias.data.fill_(10.0)
+
+    def forward(self, ms_img_feats, intrinsic, cam2ego):
+        B, N = intrinsic.shape[:2]
+        mlp_in = torch.cat([
+            torch.stack([intrinsic[..., 0, 0], intrinsic[..., 1, 1],
+                         intrinsic[..., 0, 2], intrinsic[..., 1, 2]], -1),
+            cam2ego[..., :3, :].reshape(B, N, 12)], -1).float()
+        mlp_in = self.bn(mlp_in.reshape(B * N, 16, 1, 1)).reshape(B * N, 16)
+        h = torch.relu(self.context_mlp_fc1(mlp_in))
+        gate = torch.sigmoid(self.context_mlp_fc2(h))[:, :, None, None]
+        outputs = []
+        for f in ms_img_feats:
+            x = f.reshape((B * N,) + f.shape[2:]).permute(0, 3, 1, 2)
+            if self.reduce_conv is not None:
+                x = torch.relu(self.reduce_bn(self.reduce_conv(x)))
+            x = self.context_conv(x * gate)
+            outputs.append(x.permute(0, 2, 3, 1).reshape(
+                (B, N) + x.shape[2:] + (x.shape[1],)))
+        return outputs
+
+
 class TPVFormerLayer(nn.Module):
     """``self_attn -> norm -> cross_attn -> norm -> ffn -> norm``
-    (post-norm, reference ``tpvformer_encoder_layer.py:123-219``)."""
+    (post-norm, reference ``tpvformer_encoder_layer.py:123-219``); with
+    ``multi_plane`` (``multi_plane_ffn_norm``) each plane has its own
+    LayerNorms (``norms.{j}.{plane}``) and FFN (``ffns.{plane}``)."""
 
     def __init__(self, embed_dims, num_heads, num_levels, num_points_cross,
                  num_points_self, feedforward_channels, tpv_size,
                  dropout_p: float = 0.0, shared_locations: bool = False,
-                 visible_capacity=1.0, value_bf16: bool = False):
+                 visible_capacity=1.0, value_bf16: bool = False,
+                 multi_plane: bool = False):
         super().__init__()
         self.tpv_size = tuple(tpv_size)
+        self.multi_plane = multi_plane
         self.attentions = nn.ModuleList([
             CrossViewHybridAttention(embed_dims, num_heads, num_points_self,
                                      dropout_p, shared_locations, value_bf16),
@@ -452,10 +516,17 @@ class TPVFormerLayer(nn.Module):
                                    num_points_cross, dropout_p,
                                    shared_locations, visible_capacity,
                                    value_bf16)])
-        self.ffns = nn.ModuleList([FFN(embed_dims, feedforward_channels,
-                                       dropout_p)])
-        self.norms = nn.ModuleList(
-            nn.LayerNorm(embed_dims, eps=LN_EPS) for _ in range(3))
+        n = 3 if multi_plane else 1
+        self.ffns = nn.ModuleList(
+            FFN(embed_dims, feedforward_channels, dropout_p)
+            for _ in range(n))
+        if multi_plane:
+            self.norms = nn.ModuleList(
+                nn.ModuleList(nn.LayerNorm(embed_dims, eps=LN_EPS)
+                              for _ in range(3)) for _ in range(3))
+        else:
+            self.norms = nn.ModuleList(
+                nn.LayerNorm(embed_dims, eps=LN_EPS) for _ in range(3))
 
     def forward(self, planes, value, tpv_pos, cross_view_ref, ref_cams_list,
                 masks_list, img_spatial_shapes, generator=None):
@@ -464,32 +535,19 @@ class TPVFormerLayer(nn.Module):
         plane_shapes = ((H, W), (D, H), (W, D))
         q = self.attentions[0](torch.cat(planes, 1), torch.cat(tpv_pos, 1),
                                cross_view_ref, plane_shapes, generator)
-        planes = list(self.norms[0](q).split(sizes, dim=1))
+        if self.multi_plane:
+            planes = [n(p) for n, p in zip(self.norms[0],
+                                           q.split(sizes, dim=1))]
+        else:
+            planes = list(self.norms[0](q).split(sizes, dim=1))
         planes = self.attentions[1](planes, value, ref_cams_list, masks_list,
                                     img_spatial_shapes, generator)
+        if self.multi_plane:
+            return [n3(ffn(n2(p), generator)) for n2, ffn, n3, p in zip(
+                self.norms[1], self.ffns, self.norms[2], planes)]
         q = self.norms[1](torch.cat(planes, 1))
         q = self.norms[2](self.ffns[0](q, generator))
         return list(q.split(sizes, dim=1))
-
-
-class TPVPositionalEncoding(nn.Module):
-    """Fourier features of normalized plane meters -> per-plane Linear
-    (reference ``tpvformer_pos_embed.py:17-58``)."""
-
-    def __init__(self, num_freqs, embed_dims, tot_range, mapping):
-        super().__init__()
-        hw, zh, wz = tpv_plane_meters(mapping)
-        hw, zh, wz = normalize_plane_meters(hw, zh, wz, list(tot_range))
-        for name, f, m in zip(("hw", "zh", "wz"), num_freqs, (hw, zh, wz)):
-            feat = fourier_feat_from_meter(f, m)
-            self.register_buffer(f"fourier_{name}", feat, persistent=False)
-            self.add_module(f"position_layer_{name}",
-                            nn.Linear(feat.shape[-1], embed_dims))
-
-    def forward(self) -> List[torch.Tensor]:
-        return [getattr(self, f"position_layer_{n}")(
-                    getattr(self, f"fourier_{n}"))
-                for n in ("hw", "zh", "wz")]
 
 
 class TPVFormerEncoder(nn.Module):
@@ -513,9 +571,17 @@ class TPVFormerEncoder(nn.Module):
                  pos_num_freqs: Sequence[int] = (12, 12, 12),
                  pc_range: Sequence[float] = (-40., -40., -1., 40., 40., 5.4),
                  dropout_p: float = 0.0, shared_locations: bool = False,
-                 visible_capacity=1.0, attn_value_bf16: bool = False):
+                 visible_capacity=1.0, attn_value_bf16: bool = False,
+                 multi_plane_ffn_norm: bool = False,
+                 camera_aware: bool = False,
+                 camera_aware_mid_channels=None):
         super().__init__()
         self.visible_capacity = plane_capacities(visible_capacity)
+        # the reference encoder's default mid width is embed_dims, which
+        # skips CameraAwareSE's reduce conv (encoder.py:867-880)
+        self.camera_se_net = CameraAwareSE(
+            embed_dims, camera_aware_mid_channels or embed_dims,
+            embed_dims) if camera_aware else None
         self.visible_overflow = None
         mapping = make_mapping(**mapping_args)
         self.tpv_size = (mapping.size_h, mapping.size_w, mapping.size_d)
@@ -530,7 +596,7 @@ class TPVFormerEncoder(nn.Module):
                            tuple(num_points_cross), num_points_self,
                            feedforward_channels, self.tpv_size, dropout_p,
                            shared_locations, visible_capacity,
-                           attn_value_bf16)
+                           attn_value_bf16, multi_plane_ffn_norm)
             for _ in range(num_layers))
         # geometry tables (the JAX package's 'consts' collection): derived
         # from the config alone, so not part of the state dict
@@ -547,15 +613,24 @@ class TPVFormerEncoder(nn.Module):
         normal_(self.cams_embeds, 1.0, generator)
 
     def forward(self, representation, ms_img_feats, lidar2img, img_shape,
-                generator=None, focal_ratios_x=None, focal_ratios_y=None):
+                generator=None, focal_ratios_x=None, focal_ratios_y=None,
+                intrinsic=None, cam2ego=None):
         """representation: [hw (1,HW,C), zh (1,DH,C), wz (1,WD,C)];
         ms_img_feats: list of (1, N, h, w, C); lidar2img (1, N, 4, 4);
         img_shape: (H, W) of the network input; ``generator`` draws the
         train-mode dropout masks; ``focal_ratios_x/y``: optional (N,)
-        scales of the projected reference points (``point_sampling``)."""
+        scales of the projected reference points (``point_sampling``);
+        ``intrinsic`` / ``cam2ego`` (1, N, 4, 4): the cameras that a
+        camera-aware encoder gates the features by (required then)."""
         if ms_img_feats[0].shape[0] != 1:
             raise ValueError("the TPV encoder runs batch size 1")
         tpv_pos = [p[None] for p in self.positional_encoding()]
+        if self.camera_se_net is not None:
+            if intrinsic is None or cam2ego is None:
+                raise ValueError("camera_aware=True needs intrinsic/cam2ego "
+                                 "in the batch")
+            ms_img_feats = self.camera_se_net(ms_img_feats, intrinsic,
+                                              cam2ego)
         feats, img_spatial_shapes = [], []
         for lvl, feat in enumerate(ms_img_feats):
             _, N, h, w, C = feat.shape

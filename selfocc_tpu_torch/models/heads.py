@@ -11,7 +11,16 @@ uniform grid's sdf among the training outputs. Every branch of the JAX
 (``eval_skip_coarse`` / ``eval_skip_fine``), AABB annealing
 (``anneal_aabb``), the hand-tuned inv_s schedule (``beta_hand_tune``),
 central-difference sdf gradients (``use_numerical_gradients``), the
-``surface_sdf`` and ``sample_sdf`` outputs and ``two_split``.
+``surface_sdf`` and ``sample_sdf`` outputs and ``two_split``, and the BEV
+flow head (``estimate_flow``, ``FlowNet``; ``heads.py:44-67, 412-431,
+507-523``): given the neighbouring frames' BEV planes (``prev_rep`` /
+``next_rep``) the training forward predicts four flow volumes and warps
+the ray samples by two of them. No segmentor path passes neighbours and no
+loss reads the flows, as in the JAX package; the head's forward takes
+them. The flow lookup at the samples is ``trilinear_sample_cf``'s
+``"border"`` padding: the points clipped to the volume in torch, then the
+values-only query (on the card ``trilinear_cf_fwd`` / ``trilinear_cf_bwd``
+at C = 3).
 
 The field sits at ``head.model.field`` so its state-dict keys are the
 reference's (``head.model.field.*``, the sdfstudio wrapper's naming).
@@ -28,9 +37,10 @@ CUDA tensors, their plain versions on the CPU.
 Randomness: the JAX head splits a PRNG key for the cellular ray grid, the
 stratified jitter, the random background and the uniform sdf grid's
 jitter. Here those come from an explicit ``torch.Generator``, or from a
-``draws`` dict that fixes them (``cellular`` (4,), ``t_rand`` (R, S + 1),
-``bkgd`` (R, 3), ``uniform_shift`` (H, W, D, 3)), which is how the parity
-tests hand the JAX draws to the port.
+``draws`` dict that fixes them (``cellular`` (4,) or ``random`` (R, 2) by
+the sampler's mode, ``t_rand`` (R, S + 1), ``bkgd`` (R, 3),
+``uniform_shift`` (H, W, D, 3)), which is how the parity tests hand the
+JAX draws to the port.
 """
 from __future__ import annotations
 
@@ -45,10 +55,12 @@ from torch.utils.checkpoint import checkpoint
 
 from ..geometry.projection import rays_from_img2lidar
 from ..geometry.ray_sampler import RaySampler
-from ..ops.interp import first_channel
+from ..ops.interp import first_channel, trilinear_sample_cf
 from ..ops.render_weights import neus_composite, weights_from_alpha
 from . import neus
 from .field import TPVSDFField
+from .initializers import normal_
+from .resnet import BatchNorm2d
 
 
 def beta_schedule(beta_init: float, beta_max: float, total_iters: int,
@@ -193,6 +205,45 @@ class OccupancyQueries:
             volume if sem else first_channel(volume), xs, ys, zs), outputs)
 
 
+class FlowNet(nn.Sequential):
+    """BEV flow head (``heads.py:44-67``, reference ``neus_head.py:215-235``
+    Sequential, whose keys ``head.flow_net.{0,1,3,4,6}`` these are): two
+    3x3 convs without bias, each with flax's BatchNorm (momentum 0.99) and
+    a ReLU, then a 1x1 conv to ``z_size * 3`` channels (normal(1e-2)
+    weights). (B, H, W, 2C) channel-last -> (B, H, W, z_size, 3)."""
+
+    def __init__(self, embed_dims: int, z_size: int):
+        super().__init__(
+            nn.Conv2d(2 * embed_dims, embed_dims, 3, padding=1, bias=False),
+            BatchNorm2d(embed_dims, momentum=0.99), nn.ReLU(),
+            nn.Conv2d(embed_dims, embed_dims, 3, padding=1, bias=False),
+            BatchNorm2d(embed_dims, momentum=0.99), nn.ReLU(),
+            nn.Conv2d(embed_dims, z_size * 3, 1))
+        self.z_size = z_size
+
+    def reset_parameters_like_jax(self, generator):
+        normal_(self[6].weight, 1e-2, generator)
+        self[6].bias.data.zero_()
+
+    def forward(self, x):
+        B, H, W, _ = x.shape
+        y = super().forward(x.permute(0, 3, 1, 2))
+        return y.permute(0, 2, 3, 1).reshape(B, H, W, self.z_size, 3)
+
+
+def sample_border(vol: torch.Tensor, hwd: torch.Tensor) -> torch.Tensor:
+    """A channel-last (H, W, D, C) volume at (..., 3) fractional indices
+    with ``"border"`` padding (``interp.py:131-134``): the indices clipped
+    to the volume (``minimum`` / ``maximum``, whose gradient splits a tie
+    as ``jnp.clip``'s does), then the values-only query, which reads no
+    corner outside the volume after the clip."""
+    clipped = torch.stack([
+        torch.minimum(torch.maximum(hwd[..., i], hwd.new_zeros(())),
+                      hwd.new_full((), n - 1.0))
+        for i, n in enumerate(vol.shape[:3])], -1)
+    return trilinear_sample_cf(vol.permute(3, 0, 1, 2), clipped, "zeros")
+
+
 class _FieldHolder(nn.Module):
     """The reference head's ``model`` (its sdfstudio NeuS model), which owns
     the field."""
@@ -237,7 +288,7 @@ class NeuSHead(OccupancyQueries, nn.Module):
                  return_uniform_sdf: bool = False,
                  return_surface_sdf: bool = False,
                  return_sample_sdf: bool = False, two_split: bool = False,
-                 tpv: bool = True):
+                 tpv: bool = True, estimate_flow: bool = False):
         super().__init__()
         self.roi_aabb = tuple(roi_aabb)
         self.resolution = resolution
@@ -280,6 +331,9 @@ class NeuSHead(OccupancyQueries, nn.Module):
             color_dims=color_dims, sem_dims=sem_dims,
             density_layers=density_layers, sh_deg=sh_deg, sh_act=sh_act,
             beta_init=beta_init, tpv=tpv, variance=not beta_hand_tune))
+        self.embed_dims = embed_dims
+        self.flow_net = FlowNet(embed_dims, self.field.mapping.size_d) \
+            if estimate_flow else None
 
     @property
     def field(self) -> TPVSDFField:
@@ -488,9 +542,37 @@ class NeuSHead(OccupancyQueries, nn.Module):
                                       device=device))
         return out
 
+    def flows(self, representation, prev_rep, next_rep):
+        """The four BEV flow volumes (``heads.py:412-431``), each (1, H, W,
+        D, 3): FlowNet on the channel-concatenated (prev, curr),
+        (next, curr), (curr, prev) and (curr, next) planes."""
+        if isinstance(representation, (list, tuple)):
+            raise ValueError("the flow head takes a BEV representation "
+                             "(neus_head.py:489)")
+        H, W = self.field.mapping.size_h, self.field.mapping.size_w
+        curr, prev, nxt = (r.reshape(1, H, W, self.embed_dims)
+                           for r in (representation, prev_rep, next_rep))
+        return {"curr2prev_flow": self.flow_net(torch.cat([prev, curr], -1)),
+                "curr2next_flow": self.flow_net(torch.cat([nxt, curr], -1)),
+                "prev2curr_flow": self.flow_net(torch.cat([curr, prev], -1)),
+                "next2curr_flow": self.flow_net(torch.cat([curr, nxt], -1))}
+
+    def warped_samples(self, flows, origin, direction, ts):
+        """The ray samples (R, S) at metric positions ``origin + unit *
+        ts * |direction|`` moved by the curr2prev / curr2next flows looked
+        up there (``heads.py:507-523``): ``prev_warp`` / ``next_warp``
+        (R, S, 3)."""
+        norm = torch.linalg.norm(direction, dim=-1, keepdim=True)
+        positions = origin[:, None, :] + (direction / norm)[:, None, :] * \
+            (ts * norm)[..., None]
+        grids = self.field.mapping.meter2grid(positions)
+        return {tgt: positions + sample_border(flows[key][0], grids)
+                for key, tgt in (("curr2prev_flow", "prev_warp"),
+                                 ("curr2next_flow", "next_warp"))}
+
     def forward(self, representation, img2lidar, train: bool = True,
                 generator=None, draws: Optional[Dict[str, Any]] = None,
-                global_iter=None):
+                global_iter=None, prev_rep=None, next_rep=None):
         """Training forward (``heads.py:397-526``): decode, sample the
         cellular ray grid, render every camera's rays (in checkpointed chunks
         of ``train_ray_chunk`` rays when that is smaller than the ray count,
@@ -507,13 +589,20 @@ class NeuSHead(OccupancyQueries, nn.Module):
         add ``sample_sdf`` (the samples' sdf, which
         ``AdaptiveSparsityLoss`` reads) / ``surface_sdf`` (at the rendered
         depth); ``two_split`` then splits the cameras
-        (``split_cams_for_losses``)."""
+        (``split_cams_for_losses``). With ``estimate_flow`` and both
+        neighbouring BEV planes ``prev_rep`` / ``next_rep`` given, it also
+        returns the four flow volumes (``flows``) and the samples warped by
+        them, ``prev_warp`` / ``next_warp`` (``warped_samples``)."""
         volume = self.field.decode(representation)[0]
         device = volume.device
+        flows = None
+        if self.flow_net is not None and prev_rep is not None \
+                and next_rep is not None:
+            flows = self.flows(representation, prev_rep, next_rep)
         draws = {k: torch.as_tensor(v, dtype=torch.float32, device=device)
                  for k, v in (draws or {}).items()}
         sampler = self.ray_sampler if train else self.ray_sampler_eval
-        rays = sampler(device, generator, draws.get("cellular"))
+        rays = sampler(device, generator, draws.get(sampler.ray_sample_mode))
         origin, direction = rays_from_img2lidar(img2lidar, rays)
         bs, num_cams, num_rays = direction.shape[:3]
         if bs != 1:
@@ -582,6 +671,10 @@ class NeuSHead(OccupancyQueries, nn.Module):
             outputs["uniform_sdf"] = self.get_uniform_sdf(
                 volume, self.roi_aabb, self.resolution, generator=generator,
                 shift=draws.get("uniform_shift"))[0]
+        if flows is not None:
+            warps = self.warped_samples(flows, origin_flat, dir_flat, r["ts"])
+            outputs.update({k: cams(v, (S, 3)) for k, v in warps.items()})
+            outputs.update(flows)
         if self.two_split:
             outputs = split_cams_for_losses(outputs, num_cams)
         return outputs

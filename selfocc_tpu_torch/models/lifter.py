@@ -1,7 +1,8 @@
 """TPV and BEV query lifters and the plane-coordinate helpers — counterpart
 of ``selfocc_tpu/models/lifter.py`` (``TPVQueryLifter``,
-``BEVQueryLifter``, ``fourier_feat_from_meter``, ``tpv_plane_meters``,
-``normalize_plane_meters``)."""
+``BEVQueryLifter``, ``TPVPositionLifter``, ``fourier_feat_from_meter``,
+``tpv_plane_meters``, ``normalize_plane_meters``) and the encoder's
+``TPVPositionalEncoding``, which the position lifter is."""
 from __future__ import annotations
 
 import math
@@ -10,6 +11,7 @@ from typing import List
 import torch
 from torch import nn
 
+from ..geometry.mappings import make_mapping
 from .initializers import normal_
 
 
@@ -88,3 +90,39 @@ def normalize_plane_meters(hw, zh, wz, pc_range):
     wz = torch.stack([(wz[..., 0] - x0) / (x1 - x0),
                       (wz[..., 1] - z0) / (z1 - z0)], dim=-1)
     return hw, zh, wz
+
+
+class TPVPositionalEncoding(nn.Module):
+    """Fourier features of normalized plane meters -> per-plane Linear
+    (reference ``tpvformer_pos_embed.py:17-58``)."""
+
+    def __init__(self, num_freqs, embed_dims, tot_range, mapping):
+        super().__init__()
+        hw, zh, wz = tpv_plane_meters(mapping)
+        hw, zh, wz = normalize_plane_meters(hw, zh, wz, list(tot_range))
+        for name, f, m in zip(("hw", "zh", "wz"), num_freqs, (hw, zh, wz)):
+            feat = fourier_feat_from_meter(f, m)
+            self.register_buffer(f"fourier_{name}", feat, persistent=False)
+            self.add_module(f"position_layer_{name}",
+                            nn.Linear(feat.shape[-1], embed_dims))
+
+    def forward(self) -> List[torch.Tensor]:
+        return [getattr(self, f"position_layer_{n}")(
+                    getattr(self, f"fourier_{n}"))
+                for n in ("hw", "zh", "wz")]
+
+
+class TPVPositionLifter(TPVPositionalEncoding):
+    """Queries from Fourier features of the plane cells' metric coordinates,
+    no learned queries (reference ``tpv_pos_lifter.py:18-86``): the
+    encoder's positional encoding over ``tot_range`` (per plane a Linear
+    ``position_layer_{hw,zh,wz}``, the reference's keys), broadcast to the
+    batch."""
+
+    def __init__(self, embed_dims: int, tot_range, num_freqs, mapping_args):
+        super().__init__(tuple(num_freqs), embed_dims, tuple(tot_range),
+                         make_mapping(**mapping_args))
+
+    def forward(self, ms_img_feats) -> List[torch.Tensor]:
+        bs = ms_img_feats[0].shape[0]
+        return [p[None].expand(bs, -1, -1) for p in super().forward()]

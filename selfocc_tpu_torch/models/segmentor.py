@@ -7,18 +7,21 @@ eval (``forward_occ``, ``occ_from_volume``, ``occ_uniform``).
 Public tensors keep the JAX package's layouts: images (B, N, H, W, 3) NHWC,
 features (B, N, h, w, C), the decoded volume (C, H, W, D). The TPV NeuS
 model is ported with the encoder's recipe options (head-shared locations,
-visibility compaction, bf16 attention values), the BEV path
-(``BEVQueryLifter``, ``BEVFormerEncoder``, the ``tpv=False`` field), the
-density head (``head_type="nerfacc"``), every option of the NeuS head but
-the flow head (``estimate_flow``), and ``compute_dtype``: with
+visibility compaction, bf16 attention values, ``multi_plane_ffn_norm``,
+``camera_aware``), the three lifters (``TPVQueryLifter``,
+``BEVQueryLifter``, ``TPVPositionLifter``), both grid mappings (``linear``
+and ``linear_upscale``), the BEV path (``BEVFormerEncoder``, the
+``tpv=False`` field), the density head (``head_type="nerfacc"``), every
+option of the NeuS head (the flow head ``estimate_flow`` included: a custom
+head config that has the field), and ``compute_dtype``: with
 ``"bfloat16"`` the ResNet-50 backbone (not ``TinyBackbone``, as in the JAX
 package) and the FPN compute in bf16 with fp32 parameters, and the features
 return to fp32 for the encoder. The constructor refuses the options that
-are not ported yet.
+are not ported yet: ``neck_type="identity"`` and backbones other than
+``resnet50`` and ``tiny``. A camera-aware encoder takes the batch's
+``intrinsic`` / ``cam2ego`` (``utils/eval_lib.camera_kwargs``).
 """
 from __future__ import annotations
-
-import dataclasses
 
 import torch
 from torch import nn
@@ -29,17 +32,15 @@ from .density_head import NeRFAccHead
 from .encoder import BEVFormerEncoder, TPVFormerEncoder
 from .fpn import FPN
 from .heads import NeuSHead
-from .lifter import BEVQueryLifter, TPVQueryLifter
+from .lifter import BEVQueryLifter, TPVPositionLifter, TPVQueryLifter
 from .resnet import ResNet50, TinyBackbone
 
 # (section, option, the value or the set of values the port implements)
 _PORTED = (
-    ("model", "lifter_type", frozenset({"TPVQueryLifter", "BEVQueryLifter"})),
+    ("model", "lifter_type", frozenset({"TPVQueryLifter", "BEVQueryLifter",
+                                        "TPVPositionLifter"})),
     ("model", "neck_type", "fpn"),
-    ("encoder", "multi_plane_ffn_norm", False),
-    ("encoder", "camera_aware", False),
     ("head", "head_type", frozenset({"neus", "nerfacc"})),
-    ("head", "estimate_flow", False),
 )
 
 
@@ -55,17 +56,8 @@ def check_ported(cfg: ModelConfig):
     """Raise for a config option whose code path is not ported yet."""
     sections = {"model": cfg, "encoder": cfg.encoder, "head": cfg.head}
     for section, name, want in _PORTED:
-        obj = sections[section]
-        if not any(f.name == name for f in dataclasses.fields(obj)):
-            continue
-        got = getattr(obj, name)
-        if isinstance(want, frozenset):
-            ok = got in want
-        elif isinstance(want, float) and isinstance(got, (tuple, list)):
-            ok = all(g == want for g in got)
-        else:
-            ok = got == want
-        if not ok:
+        got = getattr(sections[section], name)
+        if not (got in want if isinstance(want, frozenset) else got == want):
             raise NotImplementedError(
                 f"selfocc_tpu_torch: {section}.{name}={got!r} is not ported "
                 f"(the port implements "
@@ -96,6 +88,8 @@ class TPVSegmentor(nn.Module):
         m = make_mapping(**e.mapping_args)
         if cfg.lifter_type == "BEVQueryLifter":
             self.lifter = BEVQueryLifter(m.size_h, m.size_w, cfg.embed_dims)
+        elif cfg.lifter_type == "TPVPositionLifter":
+            self.lifter = TPVPositionLifter(cfg.embed_dims, **cfg.lifter_args)
         else:
             self.lifter = TPVQueryLifter(m.size_h, m.size_w, m.size_d,
                                          cfg.embed_dims)
@@ -115,7 +109,11 @@ class TPVSegmentor(nn.Module):
         else:
             self.encoder = TPVFormerEncoder(
                 num_points_cross=tuple(e.num_points_cross),
-                shared_locations=e.shared_locations, **common)
+                shared_locations=e.shared_locations,
+                multi_plane_ffn_norm=e.multi_plane_ffn_norm,
+                camera_aware=e.camera_aware,
+                camera_aware_mid_channels=e.camera_aware_mid_channels,
+                **common)
         self.head = self._build_head(h)
 
     @staticmethod
@@ -166,7 +164,7 @@ class TPVSegmentor(nn.Module):
             return_uniform_sdf=h.return_uniform_sdf,
             return_surface_sdf=h.return_surface_sdf,
             return_sample_sdf=h.return_sample_sdf, two_split=h.two_split,
-            tpv=h.tpv)
+            tpv=h.tpv, estimate_flow=getattr(h, "estimate_flow", False))
 
     def extract_img_feat(self, imgs, flip=False):
         """Backbone + neck. imgs (B, N, H, W, 3) -> list of (B, N, h, w, C).
@@ -188,21 +186,27 @@ class TPVSegmentor(nn.Module):
             B, N, *f.shape[2:], f.shape[1]).float() for f in feats]
 
     def get_representation(self, imgs, lidar2img, generator=None, flip=False,
-                           focal_ratios_x=None, focal_ratios_y=None):
+                           focal_ratios_x=None, focal_ratios_y=None,
+                           intrinsic=None, cam2ego=None):
         """backbone -> neck -> lifter -> encoder: the three TPV planes, or
         the BEV plane (``generator`` draws the encoder's train-mode
         dropout; ``flip`` see ``extract_img_feat``; ``focal_ratios_x/y``
         (N,) scale the projected reference points, see
-        ``geometry.projection.point_sampling``)."""
+        ``geometry.projection.point_sampling``; ``intrinsic`` / ``cam2ego``
+        (1, N, 4, 4): the camera-aware encoder's inputs, read only
+        there)."""
         feats = self.extract_img_feat(imgs, flip)
         rep = self.lifter(feats)
+        cams = dict(intrinsic=intrinsic, cam2ego=cam2ego) \
+            if self.cfg.encoder.camera_aware else {}
         return self.encoder(rep, feats, lidar2img,
                             (imgs.shape[2], imgs.shape[3]), generator,
-                            focal_ratios_x, focal_ratios_y)
+                            focal_ratios_x, focal_ratios_y, **cams)
 
     def forward(self, imgs, lidar2img, img2lidar, train: bool = True,
                 generator=None, draws=None, flip=False, focal_ratios_x=None,
-                focal_ratios_y=None, global_iter=None):
+                focal_ratios_y=None, global_iter=None, intrinsic=None,
+                cam2ego=None):
         """Training forward -> the head's loss inputs
         (``selfocc_tpu/models/segmentor.py:236``). BatchNorm and dropout
         follow the module's mode (``model.train()``); ``train`` selects the
@@ -212,24 +216,30 @@ class TPVSegmentor(nn.Module):
         the batch's augmentation record (``get_representation``).
         ``global_iter``: the step count before this step's update, which
         the NeuS head's ``anneal_aabb`` and ``beta_hand_tune`` read (the
-        density head takes it and reads nothing)."""
+        density head takes it and reads nothing). ``intrinsic`` /
+        ``cam2ego``: see ``get_representation``."""
         rep = self.get_representation(imgs, lidar2img, generator, flip,
-                                      focal_ratios_x, focal_ratios_y)
+                                      focal_ratios_x, focal_ratios_y,
+                                      intrinsic, cam2ego)
         return self.head(rep, img2lidar, train=train, generator=generator,
                          draws=draws, global_iter=global_iter)
 
-    def prepare(self, imgs, lidar2img, flip=False):
+    def prepare(self, imgs, lidar2img, flip=False, intrinsic=None,
+                cam2ego=None):
         """Decode the field volume once per frame: (C, H, W, D) fp32
         (``flip``: the flip-TTA pass on W-mirrored images)."""
-        return self.head.prepare(self.get_representation(imgs, lidar2img,
-                                                         flip=flip))
+        return self.head.prepare(self.get_representation(
+            imgs, lidar2img, flip=flip, intrinsic=intrinsic, cam2ego=cam2ego))
 
     @torch.no_grad()
-    def forward_occ(self, imgs, lidar2img, aabb=None, resolution=None):
+    def forward_occ(self, imgs, lidar2img, aabb=None, resolution=None,
+                    intrinsic=None, cam2ego=None):
         """Occupancy eval (``segmentor.py:248-253``): the representation,
         then the head's uniform-grid sdf (+ semantics)."""
-        return self.head.forward_occ(self.get_representation(imgs, lidar2img),
-                                     aabb=aabb, resolution=resolution)
+        return self.head.forward_occ(
+            self.get_representation(imgs, lidar2img, intrinsic=intrinsic,
+                                    cam2ego=cam2ego),
+            aabb=aabb, resolution=resolution)
 
     def occ_from_volume(self, volume, xyz, outputs=None):
         """The occupancy query against a prepared volume at metric points

@@ -2,10 +2,9 @@
 (``ChunkedRenderer``, ``GridOccEvaluator``, ``eval_ray_grid``,
 ``eval_trans_mats``, ``rays_for_cams``, and the novel-view depth eval:
 ``enable_max_depth``, ``prep_input_imgs``, ``novel_eval_first_sample``,
-``run_novel_depth_eval``). The JAX module's ``camera_kwargs`` has no
-counterpart: the port refuses camera-aware encoders
-(``models/segmentor.check_ported``), so the prepare takes no camera
-arguments.
+``run_novel_depth_eval``, ``camera_kwargs``). A camera-aware encoder's
+``intrinsic`` / ``cam2ego`` reach each prepare through ``camera_kwargs``,
+as in every JAX eval path.
 
 Both heads, NeuS and density (``head_type="nerfacc"``), are driven through
 the same model methods. ``prepare`` decodes the field once per frame (fp32
@@ -42,6 +41,28 @@ GEO_OUTPUTS = frozenset({"depth", "weights", "acc", "fars", "inv_s", "sdf",
                          "max_depth"})
 
 
+def camera_kwargs(cfg: Config, batch: Dict) -> Dict:
+    """The ``intrinsic`` / ``cam2ego`` a camera-aware encoder takes
+    (``eval_lib.py:99-121``): {} unless ``cfg.model.encoder.camera_aware``;
+    then the batch (or a raw item's metas) must carry both, batched (1, N,
+    4, 4) or per frame (N, 4, 4), as fp32 tensors or arrays. Tensors keep
+    their device; arrays become CPU tensors (the caller's ``to_device``
+    moves a batch)."""
+    if not cfg.model.encoder.camera_aware:
+        return {}
+    missing = [k for k in ("intrinsic", "cam2ego") if k not in batch]
+    if missing:
+        raise KeyError(
+            f"camera_aware=True but the dataset item carries no {missing}; "
+            "camera-aware eval needs intrinsic+cam2ego in the batch/metas "
+            "(data/wrapper.py forwards them when the dataset provides them)")
+    out = {}
+    for k in ("intrinsic", "cam2ego"):
+        v = torch.as_tensor(batch[k]).float()
+        out[k] = v[None] if v.dim() == 3 else v
+    return out
+
+
 class ChunkedRenderer:
     """Renders a full fixed ray grid in chunks against a prepared volume."""
 
@@ -54,12 +75,15 @@ class ChunkedRenderer:
 
     @torch.no_grad()
     def prepare(self, imgs: torch.Tensor, lidar2img: torch.Tensor,
-                flip: bool = False):
+                flip: bool = False, intrinsic=None, cam2ego=None):
         """Backbone -> encoder -> decoded (C, H, W, D) fp32 volume;
         ``flip=True``: the flip-TTA pass, ``imgs`` mirrored along W and the
         features mirrored back before the encoder (``eval_lib.py:187-230``).
-        No focal ratios, as in the JAX eval drivers."""
-        return self.model.prepare(imgs, lidar2img, flip=flip).float()
+        No focal ratios, as in the JAX eval drivers; ``intrinsic`` /
+        ``cam2ego``: ``camera_kwargs``."""
+        return self.model.prepare(imgs, lidar2img, flip=flip,
+                                  intrinsic=intrinsic,
+                                  cam2ego=cam2ego).float()
 
     def render(self, volume, origin, direction) -> Dict[str, np.ndarray]:
         """origin/direction (R, 3) on the volume's device -> host dict of
@@ -121,8 +145,9 @@ class GridOccEvaluator:
         self.query = query
         self._prep = ChunkedRenderer(model)
 
-    def prepare(self, imgs, lidar2img):
-        return self._prep.prepare(imgs, lidar2img)
+    def prepare(self, imgs, lidar2img, intrinsic=None, cam2ego=None):
+        return self._prep.prepare(imgs, lidar2img, intrinsic=intrinsic,
+                                  cam2ego=cam2ego)
 
     @staticmethod
     def _flat_grid(aabb, resolution, device):
@@ -207,11 +232,12 @@ class GridOccEvaluator:
                 if k in out}
 
     def forward_occ(self, imgs, lidar2img, aabb, resolution,
-                    keys: Optional[Sequence[str]] = None
-                    ) -> Dict[str, np.ndarray]:
+                    keys: Optional[Sequence[str]] = None, intrinsic=None,
+                    cam2ego=None) -> Dict[str, np.ndarray]:
         """prepare + query_grid."""
-        return self.query_grid(self.prepare(imgs, lidar2img), aabb,
-                               resolution, keys=keys)
+        return self.query_grid(self.prepare(imgs, lidar2img, intrinsic,
+                                            cam2ego), aabb, resolution,
+                               keys=keys)
 
 
 def eval_ray_grid(cfg: Config, device=None) -> torch.Tensor:
@@ -315,10 +341,12 @@ def run_novel_depth_eval(ds, real: bool, cfg: Config, renderer, logger,
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     stats = {"prepare_s": [], "render_s": [], "rays": 0}
 
-    def prepare(imgs, lidar2img):
+    def prepare(imgs, lidar2img, cams):
         sync()
         t0 = time.perf_counter()
-        volume = renderer.prepare(imgs, lidar2img)
+        volume = renderer.prepare(
+            imgs, lidar2img, **{k: v.to(device) for k, v in
+                                camera_kwargs(cfg, cams).items()})
         sync()
         stats["prepare_s"].append(time.perf_counter() - t0)
         return volume
@@ -354,7 +382,7 @@ def run_novel_depth_eval(ds, real: bool, cfg: Config, renderer, logger,
             lidar2img = torch.as_tensor(
                 np.asarray(metas["lidar2img"]), dtype=torch.float32,
                 device=device)[None]
-            volume = prepare(imgs, lidar2img)
+            volume = prepare(imgs, lidar2img, metas)
             for j, tem in enumerate(metas["temImg2lidars"]):
                 depth = render(volume, np.asarray(tem)[None])
                 score(depth, metas["depth_loc"][j], metas["depth_gt"][j],
@@ -366,7 +394,7 @@ def run_novel_depth_eval(ds, real: bool, cfg: Config, renderer, logger,
         item = ds[i]
         batch = {k: torch.as_tensor(np.asarray(v)).to(device)
                  for k, v in item.items() if not isinstance(v, (str, dict))}
-        volume = prepare(batch["imgs"], batch["lidar2img"])
+        volume = prepare(batch["imgs"], batch["lidar2img"], batch)
         if not hasattr(ds, "novel_view_sample"):
             continue
         for off in offsets:

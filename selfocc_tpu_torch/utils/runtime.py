@@ -1,19 +1,22 @@
 """What the port's drivers (``eval_depth``, ``eval_iou``,
 ``eval_iou_kitti``, ``eval_novel_depth``, ``eval_novel_depth_kitti``,
 ``train``) share:
-the device flag, the weights flags, the dataset factory, the logger and
-host-to-device batches."""
+the device flag, the weights flags, the dataset factory, the logger (the
+JAX package's ``utils/logging_util``, copied: stdout plus
+``<work-dir>/<time>.log``) and host-to-device batches."""
 from __future__ import annotations
 
 import logging
 import os
 import sys
+from typing import Optional
 from typing import Dict
 
 import numpy as np
 import torch
 
 from ..data.synthetic import SyntheticDataset
+from . import logging_util
 
 
 def add_device_arg(ap):
@@ -142,12 +145,8 @@ def to_device(item, device) -> Dict[str, torch.Tensor]:
             for k, v in host_arrays(item).items()}
 
 
-def get_logger() -> logging.Logger:
-    logger = logging.getLogger("selfocc_tpu_torch")
-    logger.setLevel(logging.INFO)
-    logger.propagate = False
-    if not logger.handlers:
-        h = logging.StreamHandler(sys.stdout)
-        h.setFormatter(logging.Formatter("%(asctime)s %(message)s"))
-        logger.addHandler(h)
-    return logger
+def get_logger(work_dir: Optional[str] = None) -> logging.Logger:
+    """The drivers' logger: stdout, and with ``work_dir`` also a run log
+    ``<work_dir>/<time>.log`` (``logging_util.get_logger``; a later
+    driver in the same process adds its own work dir's file)."""
+    return logging_util.get_logger(work_dir, name="selfocc_tpu_torch")

@@ -1,7 +1,8 @@
 """Training library — counterpart of ``selfocc_tpu/utils/train_lib.py``
 (single-device path): the LR schedule, AdamW with the backbone LR multiplier
-and frozen subtrees, the global-norm clip, the loss inputs and one train
-step. Gradient accumulation, data and model parallelism are not ported.
+and frozen subtrees, the global-norm clip, gradient accumulation
+(``optax.MultiSteps``), the loss inputs and one train step. Data and model
+parallelism are not ported.
 """
 from __future__ import annotations
 
@@ -121,41 +122,102 @@ def build_loss_inputs(cfg: Config, out: Dict, batch: Dict) -> Dict:
     return inputs
 
 
-def aug_kwargs(batch: Dict) -> Dict:
+def aug_kwargs(batch: Dict, camera_aware: bool = False) -> Dict:
     """The augmentation record the model takes from a batch, where the
-    batch has it (``train_lib.py:132-140``): ``flip``, and the per-camera
+    batch has it (``train_lib.py:132-142``): ``flip``, the per-camera
     ``focal_ratios_x`` / ``focal_ratios_y`` of a ``pad_scale_rate``
-    resize."""
+    resize, and for a ``camera_aware`` encoder the batch's ``intrinsic``
+    and ``cam2ego``."""
     kw = {}
     if "flip" in batch:
         kw["flip"] = batch["flip"]
     if "focal_ratios_x" in batch:
         kw["focal_ratios_x"] = batch["focal_ratios_x"]
         kw["focal_ratios_y"] = batch["focal_ratios_y"]
+    if camera_aware:
+        kw["intrinsic"] = batch["intrinsic"]
+        kw["cam2ego"] = batch["cam2ego"]
     return kw
 
 
 class Trainer:
     """Model, optimizer, schedule, loss and step count of one run; ``step``
-    is ``selfocc_tpu/utils/train_lib.py``'s ``make_train_step`` body."""
+    is ``selfocc_tpu/utils/train_lib.py``'s ``make_train_step`` body.
 
-    def __init__(self, cfg: Config, model: torch.nn.Module):
+    ``grad_accumulation`` K > 1 is ``optax.MultiSteps(tx,
+    every_k_schedule=K)`` around the optimizer chain (``train_lib.py:
+    106-107``): each micro-step's gradients go into a running mean (the
+    Welford update ``acc + (g - acc) / (n + 1)``, as optax's); at the K-th
+    the clip, AdamW and its weight decay act once on the mean and the
+    mean is reset; at the others the parameters do not change. The LR
+    schedule and AdamW's step count advance with the optimizer updates
+    (``updates``), the model's ``global_iter`` with the micro-steps
+    (``global_step``, the JAX ``TrainState.step``). K = 1 is the plain
+    step, with no copy of the gradients."""
+
+    def __init__(self, cfg: Config, model: torch.nn.Module,
+                 grad_accumulation: int = 1):
+        if grad_accumulation < 1:
+            raise ValueError("grad_accumulation must be >= 1")
         self.cfg = cfg
         self.model = model
         self.loss_fn = MultiLoss(cfg.loss_cfgs)
         self.optimizer, self.sched = make_optimizer(cfg, model)
-        self.global_step = 0
+        self.grad_accumulation = grad_accumulation
+        self.global_step = 0        # micro-steps (the model's global_iter)
+        self.updates = 0            # optimizer updates (the LR schedule's)
+        self.mini_step = 0          # micro-steps into the current window
+        self.acc_grads = None       # their running mean (K > 1)
+
+    def apply_gradients(self):
+        """The optimizer's part of a micro-step, on the parameters'
+        ``.grad``: returns (the gradients' global norm before clipping,
+        the LR of this update). K = 1: ``optimizer_step``. K > 1: the
+        running mean takes the gradients (a trainable parameter without
+        one takes zeros, as JAX's gradient of an unused parameter is), and
+        on the window's last micro-step the optimizer steps on it."""
+        lr = self.sched(self.updates)
+        K = self.grad_accumulation
+        if K == 1:
+            norm = optimizer_step(self.optimizer, self.sched, self.updates,
+                                  self.cfg.grad_max_norm)
+            self.updates += 1
+            return norm, lr
+        named = [(n, p) for n, p in self.model.named_parameters()
+                 if p.requires_grad]
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for _, p in named]
+        norm = torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+        if self.acc_grads is None:
+            self.acc_grads = {n: torch.zeros_like(p) for n, p in named}
+        acc = [self.acc_grads[n] for n, _ in named]
+        delta = torch._foreach_sub(grads, acc)
+        torch._foreach_div_(delta, float(self.mini_step + 1))
+        torch._foreach_add_(acc, delta)
+        self.mini_step += 1
+        if self.mini_step == K:
+            for (_, p), mean in zip(named, acc):
+                p.grad = mean
+            optimizer_step(self.optimizer, self.sched, self.updates,
+                           self.cfg.grad_max_norm)
+            self.updates += 1
+            self.mini_step = 0
+            self.acc_grads = None
+        return norm, lr
 
     def step(self, batch: Dict[str, torch.Tensor], generator,
              draws: Optional[Dict] = None,
              sync: Optional[Callable[[], None]] = None) -> Dict:
-        """One optimizer step on a device batch (its ``flip`` and focal
-        ratios, where it has them, go to the model: ``aug_kwargs``).
-        The model gets ``global_step``, the count of steps before this one
-        (the JAX step's ``state.step``; resume restores it).
-        Returns the weighted loss dict, ``total``, ``grad_norm`` (of the
-        trainable parameters, before clipping) and ``lr`` as tensors, plus
-        the host seconds of forward, backward and optimizer (each ended by
+        """One micro-step on a device batch (with K = 1 one optimizer
+        step; its ``flip``, focal ratios and, for a camera-aware encoder,
+        cameras go to the model: ``aug_kwargs``). The model gets
+        ``global_step``, the count of micro-steps before this one (the JAX
+        step's ``state.step``; resume restores it). Returns the weighted
+        loss dict, ``total``, ``grad_norm`` (of this micro-step's
+        gradients of the trainable parameters, before clipping) and ``lr``
+        (of the update this micro-step belongs to) as tensors, plus the
+        host seconds of forward, backward and optimizer (each ended by
         ``sync`` when given)."""
         sync = sync or (lambda: None)
         self.model.train()
@@ -163,7 +225,9 @@ class Trainer:
         out = self.model(batch["imgs"], batch["lidar2img"],
                          batch[self.cfg.model.head.trans_kw], train=True,
                          generator=generator, draws=draws,
-                         global_iter=self.global_step, **aug_kwargs(batch))
+                         global_iter=self.global_step,
+                         **aug_kwargs(batch,
+                                      self.cfg.model.encoder.camera_aware))
         tot, ldict = self.loss_fn(build_loss_inputs(self.cfg, out, batch))
         sync()
         t1 = time.perf_counter()
@@ -171,9 +235,7 @@ class Trainer:
         tot.backward()
         sync()
         t2 = time.perf_counter()
-        lr = self.sched(self.global_step)
-        norm = optimizer_step(self.optimizer, self.sched, self.global_step,
-                              self.cfg.grad_max_norm)
+        norm, lr = self.apply_gradients()
         sync()
         t3 = time.perf_counter()
         self.global_step += 1
@@ -186,11 +248,25 @@ class Trainer:
         return metrics
 
     def state_dict(self) -> Dict:
-        return {"model": self.model.state_dict(),
-                "optimizer": self.optimizer.state_dict(),
-                "step": self.global_step}
+        """Model, optimizer and step counts; with K > 1 also the window's
+        position and its running mean (by parameter name), so that a
+        resume mid-window continues it."""
+        state = {"model": self.model.state_dict(),
+                 "optimizer": self.optimizer.state_dict(),
+                 "step": self.global_step, "updates": self.updates}
+        if self.grad_accumulation > 1:
+            state["mini_step"] = self.mini_step
+            state["acc_grads"] = dict(self.acc_grads or {})
+        return state
 
     def load_state_dict(self, state: Dict):
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
         self.global_step = int(state["step"])
+        self.updates = int(state.get("updates", self.global_step))
+        if self.grad_accumulation > 1:
+            self.mini_step = int(state.get("mini_step", 0))
+            params = dict(self.model.named_parameters())
+            self.acc_grads = {n: v.to(params[n].device).clone() for n, v in
+                              state["acc_grads"].items()} \
+                if state.get("acc_grads") else None

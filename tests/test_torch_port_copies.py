@@ -9,10 +9,11 @@ driver's helpers, the data modules (``transforms``, ``wrapper``,
 ``kitti_raw_dataset``; their ``read_surround_imgs`` decode through the
 port's native decoder, ``selfocc_tpu_torch/native``),
 ``build_dataset``'s path and override tables,
-``utils/openseed_utils.SemTeacher`` and ``utils/scenerf_metric.SSCMetrics``
-(the KITTI configs with the config test, the encoder's recipe-option
-configs and the BEV and density-head recipes, which ``check_ported``
-accepts while it still refuses the options that are not ported), and these
+``utils/openseed_utils.SemTeacher``, ``utils/scenerf_metric.SSCMetrics``
+and ``utils/logging_util`` (the KITTI configs with the config test, the
+encoder's recipe-option configs and the BEV and density-head recipes,
+which ``check_ported`` accepts while it still refuses the options that are
+not ported), and these
 tests fail as soon as a copy and its original drift apart. Extend them with
 each module a later slice copies."""
 import ast
@@ -67,9 +68,7 @@ def test_recipe_option_configs_are_ported(name):
 
 
 @pytest.mark.parametrize("section,option,value", [
-    ("encoder", "camera_aware", True),
-    ("model", "lifter_type", "TPVPositionLifter"),
-    ("encoder", "multi_plane_ffn_norm", True),
+    ("model", "neck_type", "identity"),
     ("model", "backbone_type", "unet2d")])
 def test_unported_recipes_are_refused(section, option, value):
     # options that are still not ported, on the JAX package's own configs
@@ -83,6 +82,23 @@ def test_unported_recipes_are_refused(section, option, value):
     with pytest.raises(NotImplementedError,
                        match=value if option == "backbone_type" else option):
         check_ported(cfg)
+
+
+@pytest.mark.parametrize("section,option,value", [
+    ("encoder", "camera_aware", True),
+    ("model", "lifter_type", "TPVPositionLifter"),
+    ("encoder", "multi_plane_ffn_norm", True)])
+def test_ported_recipe_options_are_accepted(section, option, value):
+    # model options the port implements, set on the JAX package's own
+    # configs: check_ported lets them through
+    from selfocc_tpu_torch.models.segmentor import check_ported
+    cfg = jexp.get_config("tiny").model
+    if section == "model":
+        cfg = dataclasses.replace(cfg, **{option: value})
+    else:
+        cfg = dataclasses.replace(cfg, **{section: dataclasses.replace(
+            getattr(cfg, section), **{option: value})})
+    check_ported(cfg)
 
 
 def _assert_items_equal(got, ref):
@@ -259,7 +275,9 @@ def _source_tree(modname):
 
 
 # every function, method, class and module constant equal but these: the
-# JAX module's online teacher (not ported)
+# JAX module's online teacher (not ported), and the scalar writer's
+# constructor, which leaves TensorBoard out where TensorFlow is installed
+# (TensorFlow imports JAX)
 _COPIES = {
     "data.transforms": (), "data.wrapper": (), "data.sampler": (),
     "data.prefetch": (), "data.nuscenes_eval_dataset": (),
@@ -269,6 +287,7 @@ _COPIES = {
     "data.kitti_raw_dataset": (),
     "utils.openseed_utils": ("JaxSemTeacher",),
     "utils.scenerf_metric": (),
+    "utils.logging_util": ("ScalarWriter.__init__",),
 }
 
 

@@ -297,8 +297,10 @@ def test_kitti_model_has_no_colour_projection_or_semantics():
 
 
 def test_kitti_recipes_build_and_refuse_only_the_sample_sdf():
-    # the sample sdf is ported now; the KITTI recipes still refuse an
-    # option that is not (the reference's NonLinearMapping)
+    # the sample sdf is ported now; the reference's NonLinearMapping is
+    # ported too, but it has one symmetric h / w axis, so on KITTI's half
+    # axes both packages refuse it
+    from selfocc_tpu.geometry.mappings import make_mapping as jmake_mapping
     for name in ("kitti_occ", "kitti_novel_depth"):
         TPVSegmentor(texp.get_config(name).model)
     cfg = texp.kitti_occ()
@@ -307,8 +309,10 @@ def test_kitti_recipes_build_and_refuse_only_the_sample_sdf():
     mapping = dict(cfg.model.head.mapping_args,
                    nonlinear_mode="linear_upscale")
     head = dataclasses.replace(cfg.model.head, mapping_args=mapping)
-    with pytest.raises(NotImplementedError, match="NonLinearMapping"):
+    with pytest.raises(ValueError, match="linear_upscale"):
         TPVSegmentor(dataclasses.replace(cfg.model, head=head))
+    with pytest.raises(AssertionError):
+        jmake_mapping(**mapping)
 
 
 # -------------------------------------------------------------- the data

@@ -413,35 +413,11 @@ def test_chunked_render_equals_dense(tiny_step):
         assert_grad_close(g_chunked[n].numpy(), g.numpy(), n)
 
 
-def _flow_head(head):
-    """``head`` with the JAX head's ``estimate_flow`` set: no config field
-    sets it, so a custom config is a subclass that has one."""
-    cls = dataclasses.make_dataclass(
-        "FlowHeadConfig", [("estimate_flow", bool, True)],
-        bases=(type(head),), frozen=True)
-    return cls(**dataclasses.asdict(head))
-
-
 @pytest.mark.parametrize("option,value", [
-    ("estimate_flow", True), ("lifter_type", "TPVPositionLifter"),
-    ("camera_aware", True), ("nonlinear_mode", "linear_upscale"),
-    ("backbone_type", "unet2d")])
+    ("backbone_type", "unet2d"), ("neck_type", "identity")])
 def test_unported_head_options_are_refused(option, value):
     # the options a custom config can still set that the port lacks: the
-    # flow head, the position lifter, the camera-aware encoder, the
-    # reference's NonLinearMapping and the EfficientNet UNet2D backbone
-    model = get_config("tiny").model
-    if option == "estimate_flow":
-        model = dataclasses.replace(model, head=_flow_head(model.head))
-    elif option == "camera_aware":
-        model = dataclasses.replace(model, encoder=dataclasses.replace(
-            model.encoder, camera_aware=True))
-    elif option == "nonlinear_mode":
-        mapping = dict(model.head.mapping_args, nonlinear_mode=value)
-        model = dataclasses.replace(
-            model, head=dataclasses.replace(model.head, mapping_args=mapping),
-            encoder=dataclasses.replace(model.encoder, mapping_args=mapping))
-    else:
-        model = dataclasses.replace(model, **{option: value})
+    # EfficientNet UNet2D backbone and the identity neck that goes with it
+    model = dataclasses.replace(get_config("tiny").model, **{option: value})
     with pytest.raises(NotImplementedError):
         TPVSegmentor(model)
