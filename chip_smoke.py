@@ -79,7 +79,7 @@ raises and the exit code is non-zero.
   (``train_ray_chunk = 0``): one warm-up step and one measured step;
   then ``train.main`` itself at that width with the driver's options
   (``--gradient-accumulation 2 --profile --eval-every-epoch
-  --eval-samples 2 --max-steps 12``: the run log with the per-epoch depth
+  --eval-samples 1 --max-steps 6``: the run log with the per-epoch depth
   table, ``scalars.jsonl``, a profiler trace that names the port's
   kernels, the checkpoint's micro-step and update counts) and, on one
   batch, K = 2 against one step on the mean of the same two gradients
@@ -246,6 +246,31 @@ raises and the exit code is non-zero.
   on its 7,372,800 clipped samples against their plain versions and
   ``F.grid_sample`` with border padding.
 
+- ``[unet]``: ``nuscenes_occ`` on the UNet2D backbone (EfficientNet-B7,
+  ``unet_scaling`` (2.0, 3.1), the AdaBins decoder) with the identity neck
+  (``unet_config``: 96 channels at strides 2..16 of the 384 x 800 input),
+  seeded weights, synthetic batches: its tiny twin (``(0.25, 0.35)``) on
+  the card against the CPU, as ``[train-parity]``; ``msda_fwd`` /
+  ``msda_bwd`` at the image cross-attention's calls on the UNet's levels
+  (192 x 400, 96 x 200, 48 x 100, 24 x 50; hw 66,049 queries, 8 points;
+  zh / wz 6,425 queries, 48 points) against their plain versions, timed,
+  with bounds; 3 measured steps (median, spread, forward / backward /
+  optimizer split, peak, launches), a profiled step (kernels, kernel ms,
+  busy share, the top kernels, MSDA ms per call) and one under
+  ``set_sync_debug_mode("error")``; one eval frame (prepare_s, render_s,
+  a 4096-ray subset against the CPU, the device work sync-checked).
+- ``[teacher]``: the online semantic teacher of ``train.py
+  --teacher-ckpt``: a random Swin-T (embed 96, depths 2/2/6/2, window 7)
+  under a 512-channel UperNet with 21 classes, written in HF's keys as
+  ``.pt`` and ``.safetensors`` in a temporary directory and loaded from
+  both (the same weights); its logits and maps on the card against the
+  CPU on one 96 x 160 image; its ms a call on 6 x 768 x 1600 (events,
+  device time, peak, top kernels); ``nuscenes_occ`` steps on one synthetic
+  batch with its ``sem_gt`` and with the teacher's maps in its place, in
+  turns; then ``train.main --teacher-ckpt`` for 2 steps from the loader
+  on a fabricated nuScenes tree whose config reads no offline maps (it
+  fails unless the teacher fills ``sem_gt``: the semantic loss reads it).
+
 ``--phases`` runs a subset (then no result line is printed). Each path's
 launch counts are set to 0 just before it runs and read just after; a
 kernel of the path that was not launched fails the run (the trilinear
@@ -303,7 +328,7 @@ RENDER_FWD_OPS = 50
 RENDER_BWD_OPS = 103
 PHASES = ("kernels", "gather", "frame", "occ", "train-parity", "train",
           "data", "kitti", "depth", "levers", "bev", "density", "head",
-          "variants")
+          "variants", "unet", "teacher")
 OPENOCC_PCR = (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0)   # 512 x 512 x 40 at 0.2
 OCC_SLAB = 1 << 20    # dense-grid points held against the plain version
 # the compact stencil's volume cotangent, card against CPU on one volume:
@@ -5541,7 +5566,8 @@ def weights_kernel_checks(g, device):
     return out
 
 
-def recipe_eval(device, name, frame_wrappers, off_path, density=False):
+def recipe_eval(device, name, frame_wrappers, off_path, density=False,
+                occ3d=True):
     """Full-width eval of ``name`` (a config's name, or the config) with
     seeded weights on synthetic data:
     one depth frame through ``eval_depth``'s code path after a cold frame
@@ -5552,7 +5578,7 @@ def recipe_eval(device, name, frame_wrappers, off_path, density=False):
     through ``eval_iou``'s (``--occ3d --sem``, with ``density`` also
     ``--density --thresh 0.5``) after a cold one: prepare_s, query_s,
     peak, the launches of ``trilinear_cf_fwd`` (both instances) and
-    ``msda_fwd``, finite scores."""
+    ``msda_fwd``, finite scores (``occ3d=False``: the depth frame only)."""
     import numpy as np
     import torch
     from selfocc_tpu_torch import eval_depth, eval_iou
@@ -5589,6 +5615,10 @@ def recipe_eval(device, name, frame_wrappers, off_path, density=False):
     log(f"  {name} frame: prepare {r['prepare_s']:.4f}s render "
         f"{r['render_s']:.4f}s, peak {frame['max_memory_gb']:.2f} GiB")
     del origin, direction, dn, near, far
+    if not occ3d:
+        del model
+        torch.cuda.empty_cache()
+        return {"frame": frame}
 
     flags = ["--py-config", name, "--synthetic", "--occ3d", "--sem"]
     if density:
@@ -6390,8 +6420,16 @@ def head_phase(device, baseline=None):
     from selfocc_tpu_torch.ops import render_weights as rw
     from selfocc_tpu_torch.utils.runtime import get_dataset
     log(f"  card: {card_name()}")
+    t0 = time.time()
+
+    def lap(what):
+        nonlocal t0
+        log(f"  [head] {what}: {time.time() - t0:.1f}s")
+        t0 = time.time()
+
     g = torch.Generator(device=device).manual_seed(SEED + 5)
     res = {"kernels": head_kernel_checks(g, device, baseline)}
+    lap("kernel checks")
     if baseline is not None:
         res["head_ab"] = res["kernels"].pop("head_ab")
         res["weights_ab"] = res["kernels"].pop("weights_ab")
@@ -6400,6 +6438,7 @@ def head_phase(device, baseline=None):
                            global_iter=HEAD_TINY_ITER, baseline=True)
         for kind in ("importance", "options")}
     res["tiny_parity"]["two_split"] = head_split_parity(device)
+    lap("tiny steps")
     shared = (msda.msda_shared_fwd, msda.msda_shared_bwd)
     imp = head_config("nuscenes_occ", "importance")
     res["importance_train"] = lever_train(
@@ -6413,6 +6452,7 @@ def head_phase(device, baseline=None):
                   "trilinear_bwd.points", "trilinear_bwd.points_walk",
                   "trilinear_cf_bwd.points", "trilinear_cf_fwd.plane",
                   "neus_weights_bwd.tiled"))
+    lap("importance steps")
     opt = head_config("nuscenes_occ", "options")
     res["options_train"] = lever_train(
         device, opt,
@@ -6423,6 +6463,7 @@ def head_phase(device, baseline=None):
         required=("trilinear_cf_fwd.rows", "trilinear_cf_fwd.plane",
                   "trilinear_cf_bwd.rows", "trilinear_cf_bwd.walk",
                   "trilinear_cf_bwd.plane", "trilinear_cf_bwd.points"))
+    lap("options steps")
     # eval frames on one set of seeded weights: uniform, importance, skip
     frames, depths = {}, {}
     base = eval_depth.build_model(head_config("nuscenes_occ", "skip"), SEED,
@@ -6448,6 +6489,7 @@ def head_phase(device, baseline=None):
     log(f"  skip frame depth against the uniform frame: "
         f"{frames['skip']['depth_deviation_from_uniform']}")
     res["frames"] = frames
+    lap("eval frames")
     del base
     torch.cuda.empty_cache()
     return res
@@ -6464,7 +6506,9 @@ TINY_VARIANT_MAPPING = dict(
     nonlinear_mode="linear_upscale", h_size=[6, 2], h_range=[6.0, 4.0],
     h_half=False, w_size=[6, 2], w_range=[6.0, 4.0], w_half=False,
     d_size=[6, 2], d_range=[-1.0, 1.4, 3.0])
-TRAIN_DRIVER_STEPS = 12
+# train.main's run in [train]: micro-step 5 is the one --profile traces; a
+# full-size synthetic batch takes ~6.3 s on the host (12 steps until PR 19)
+TRAIN_DRIVER_STEPS = 6
 PORT_KERNEL_NAMES = re.compile(r"msda_|trilinear|values_|neus_render_")
 
 
@@ -6642,12 +6686,12 @@ def variants_phase(device):
 def train_driver_run(device):
     """``selfocc_tpu_torch.train.main`` at ``nuscenes_occ``'s full width
     with the driver's options: ``--gradient-accumulation 2 --profile
-    --eval-every-epoch --eval-samples 2 --max-steps 12`` on synthetic data,
+    --eval-every-epoch --eval-samples 1 --max-steps 6`` on synthetic data,
     in a temporary work dir. Fails unless the run log (with the per-epoch
     depth table, which it logs), ``scalars.jsonl`` and the profiler's trace
     are there, the trace names the port's kernels (``msda_*``,
     ``trilinear*`` / ``values_*``, ``neus_render_*``), every kernel of the
-    step was launched, and the last checkpoint counts 12 micro-steps and 6
+    step was launched, and the last checkpoint counts 6 micro-steps and 3
     updates. Then ``accumulation_check``."""
     import glob
     import os
@@ -6664,7 +6708,7 @@ def train_driver_run(device):
         t0 = time.time()
         out = train.main(["--py-config", "nuscenes_occ", "--synthetic",
                           "--gradient-accumulation", "2", "--profile",
-                          "--eval-every-epoch", "--eval-samples", "2",
+                          "--eval-every-epoch", "--eval-samples", "1",
                           "--max-steps", str(TRAIN_DRIVER_STEPS),
                           "--work-dir", work])
         wall = time.time() - t0
@@ -6784,6 +6828,291 @@ def accumulation_check(device):
     return {"unchanged_after_micro_step_1": same,
             "mean_step_bitwise": bitwise, "worst_err_over_tol": worst}
 
+# the UNet2D recipe: nuscenes_occ on the EfficientNet-B7 UNet2D (the
+# reference's tf_efficientnet_b7, unet_scaling (2.0, 3.1)) with the identity
+# neck; its pyramid is at strides 2..16 of the 384 x 800 input
+UNET_SHAPES = ((192, 400), (96, 200), (48, 100), (24, 50))
+UNET_MSDA_CALLS = (("unet_cross", (6, 66049, UNET_SHAPES, 8)),
+                   ("unet_zh", (6, 6425, UNET_SHAPES, 48)))
+TINY_UNET_SCALING = (0.25, 0.35)
+
+
+def unet_config(base="nuscenes_occ"):
+    """``base`` on the UNet2D backbone with the identity neck, as a user's
+    variant config builds it (``dataclasses.replace``): ``out_feature`` =
+    ``embed_dims`` at every level; ``nuscenes_occ`` at B7's scaling (the
+    ``ModelConfig`` default), ``tiny`` at ``TINY_UNET_SCALING``."""
+    from selfocc_tpu_torch.configs.experiments import get_config
+    cfg = get_config(base)
+    m = dataclasses.replace(
+        cfg.model, backbone_type="unet2d", neck_type="identity",
+        fpn_in_channels=(cfg.model.embed_dims,) * 4,
+        unet_scaling=cfg.model.unet_scaling if base == "nuscenes_occ"
+        else TINY_UNET_SCALING)
+    return dataclasses.replace(cfg, name=f"{base}_unet", model=m)
+
+
+def unet_phase(device):
+    """``nuscenes_occ`` on the B7 UNet2D with the identity neck
+    (``unet_config``), synthetic batches, seeded weights: its tiny twin's
+    step on the card against the CPU (``train_parity``); ``msda_fwd`` /
+    ``msda_bwd`` at the image cross-attention's calls on the UNet's levels
+    (192 x 400 .. 24 x 50) against their plain versions, timed; 3 measured
+    steps (median, spread, split, peak, launches), a profiled step and one
+    under the sync check (``lever_train``); one eval frame
+    (``recipe_eval``: prepare_s, render_s, a 4096-ray subset against the
+    CPU)."""
+    import torch
+    from selfocc_tpu_torch.ops import interp, msda
+    from selfocc_tpu_torch.ops import render_weights as rw
+    log(f"  card: {card_name()}")
+    res = {"tiny_parity": train_parity(device, cfg=unet_config("tiny")),
+           "msda": {}}
+    g = torch.Generator(device=device).manual_seed(SEED + 5)
+    for tag, args in UNET_MSDA_CALLS:
+        fwd, bwd = msda_records(g, device, tag, args)
+        res["msda"][tag] = {"msda_fwd": fwd, "msda_bwd": bwd}
+        for name, rec in res["msda"][tag].items():
+            log(f"  {name} ({tag}): " + ", ".join(
+                f"{k} {rec[k]:.4g}" for k in ("device_ms", "ms", "plain_ms",
+                                              "bound_ms")
+                if rec.get(k) is not None))
+    cfg = unet_config()
+    log(f"  {cfg.name}: EfficientNet scaling {cfg.model.unet_scaling}, "
+        f"levels {UNET_SHAPES}, neck {cfg.model.neck_type}")
+    render = (rw.neus_render_fwd, interp.trilinear_cf_with_grad_fwd)
+    off = (msda.msda_shared_fwd, msda.msda_shared_bwd, rw.neus_weights_fwd,
+           rw.neus_weights_bwd)
+    res["train"] = lever_train(
+        device, cfg, render + (rw.neus_render_bwd, interp.trilinear_bwd,
+                               msda.msda_fwd, msda.msda_bwd),
+        off, instances=("plane", "rows"))
+    res["eval"] = recipe_eval(
+        device, cfg, render + (msda.msda_fwd,),
+        off + (msda.msda_bwd, interp.trilinear_bwd, rw.neus_render_bwd),
+        occ3d=False)
+    return res
+
+
+# the teacher: Swin-T (embed 96, depths 2/2/6/2, window 7) under a
+# 512-channel UperNet with OpenSeeD's 21 classes, random weights
+TEACHER_CLASSES, TEACHER_CHANNELS = 21, 512
+TEACHER_IMGS = (6, 768, 1600)     # nuscenes_occ's curr_imgs at img_size
+
+
+def random_teacher_state_dict():
+    """A seeded Swin-T UperNet's state dict in HF's keys, its BatchNorm
+    statistics and relative-position tables off their init."""
+    import torch
+    from selfocc_tpu_torch.models.initializers import init_weights
+    from selfocc_tpu_torch.models.swin import SwinConfig
+    from selfocc_tpu_torch.models.upernet import SwinUperNet
+    model = SwinUperNet(TEACHER_CLASSES, SwinConfig(), TEACHER_CHANNELS)
+    init_weights(model, torch.Generator().manual_seed(SEED))
+    g = torch.Generator().manual_seed(SEED + 1)
+    sd = model.state_dict()
+    with torch.no_grad():
+        for k, t in sd.items():
+            if k.endswith("running_var"):
+                t.copy_(0.5 + torch.rand(t.shape, generator=g))
+            elif k.endswith(("running_mean", "bias_table")):
+                t.copy_(0.1 * torch.randn(t.shape, generator=g))
+    return sd
+
+
+def teacher_maps_agree(got, ref, logits, what):
+    """Class maps equal wherever the two largest logits differ by more
+    than 1e-4; the share of such pixels."""
+    top2 = logits.topk(2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-4
+    bad = int(((got != ref) & clear).sum())
+    if bad:
+        raise AssertionError(f"{what}: {bad} pixels differ off near-ties")
+    return float(clear.float().mean())
+
+
+def teacher_phase(device):
+    """The online semantic teacher (``TorchSemTeacher``, ``--teacher-ckpt``)
+    with a random Swin-T UperNet written in HF's keys as ``.pt`` and
+    ``.safetensors`` in a temporary directory: both load to the same
+    weights; logits and maps on the card against the CPU on one 96 x 160
+    image (logits within 1e-4 of their scale, maps equal off near-ties);
+    its ms a call on 6 x 768 x 1600 (events and device time, peak, top
+    kernels); ``nuscenes_occ`` steps on one synthetic batch with its
+    ``sem_gt`` and with the teacher's in its place (3 measured each,
+    synchronised); then ``train.main --teacher-ckpt`` for 2 steps on a
+    fabricated nuScenes tree with no offline maps (``teacher_train_run``)."""
+    import os
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from selfocc_tpu_torch.configs.experiments import get_config
+    from selfocc_tpu_torch.train import build_trainer
+    from selfocc_tpu_torch.utils.openseed_utils import TorchSemTeacher
+    from selfocc_tpu_torch.utils.runtime import get_dataset, to_device
+    from selfocc_tpu_torch.utils.swin_import import write_safetensors
+    log(f"  card: {card_name()}")
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        sd = random_teacher_state_dict()
+        pt = os.path.join(tmp, "teacher.pt")
+        st = os.path.join(tmp, "teacher.safetensors")
+        torch.save(sd, pt)
+        write_safetensors(st, sd)
+        del sd
+        teacher = TorchSemTeacher.from_checkpoint(st, device=device)
+        cpu = TorchSemTeacher.from_checkpoint(pt, device="cpu")
+        a, b = teacher.model.state_dict(), cpu.model.state_dict()
+        if set(a) != set(b) or not all(torch.equal(a[k].cpu(), b[k])
+                                       for k in a):
+            raise AssertionError("the .pt and .safetensors teachers differ")
+        cfg_s = teacher.model.backbone.cfg
+        log(f"  teacher from .safetensors and .pt: Swin {cfg_s}, "
+            f"{sum(t.numel() for t in a.values()) / 1e6:.2f}M values")
+        img = torch.rand((1, 96, 160, 3),
+                         generator=torch.Generator().manual_seed(SEED)) * 255
+        lc = teacher.logits(img.to(device)).cpu()
+        lp = cpu.logits(img)
+        scale = float(lp.abs().max())
+        err = max_err(lc, lp)
+        check("teacher logits, 96 x 160 (card vs CPU)", err, 1e-4 * scale)
+        share = teacher_maps_agree(teacher(img.to(device)).cpu(), cpu(img),
+                                   lp, "teacher maps (card vs CPU)")
+        res["card_vs_cpu"] = {"logits_max_abs_err": err,
+                              "logits_scale": scale,
+                              "maps_compared_share": share}
+        del cpu
+        imgs = torch.rand(TEACHER_IMGS + (3,), device=device) * 255
+        size = TEACHER_IMGS[1:]
+        maps = teacher(imgs, size=size)
+        if maps.shape != TEACHER_IMGS or maps.dtype != torch.uint8:
+            raise AssertionError(f"teacher maps {maps.shape} {maps.dtype}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = timed(lambda: teacher(imgs, size=size), 3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        dev = device_ms(lambda: teacher(imgs, size=size), 2)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            teacher(imgs, size=size)
+            torch.cuda.synchronize()
+        kernels = sorted((e for e in prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CUDA),
+                         key=lambda e: -e.self_device_time_total)
+        total = sum(e.self_device_time_total for e in kernels)
+        top = [{"name": e.key[:90], "calls": e.count,
+                "device_ms": e.self_device_time_total / 1e3}
+               for e in kernels[:8]]
+        log(f"  teacher on {TEACHER_IMGS[0]} x {size[0]}x{size[1]}: "
+            f"{ms:.2f} ms (events), {dev} ms device, {len(kernels)} kernel "
+            f"kinds, {total / 1e3:.2f} ms profiled, peak {peak:.2f} GiB")
+        for t in top:
+            log(f"    {t['device_ms']:9.2f} ms x{t['calls']:<4d} {t['name']}")
+        res["teacher"] = {"ms": ms, "device_ms": dev, "max_memory_gb": peak,
+                          "profiled_kernel_ms": total / 1e3, "top": top,
+                          "imgs": list(TEACHER_IMGS)}
+        del imgs, maps
+
+        cfg = get_config("nuscenes_occ")
+        trainer = build_trainer(cfg, SEED, device)
+        batch = to_device(get_dataset(cfg, synthetic=True, length=1)[0],
+                          device)
+        bare = {k: v for k, v in batch.items() if k != "sem_gt"}
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        sync = torch.cuda.synchronize
+
+        def with_teacher():
+            b = dict(bare)
+            b["sem_gt"] = teacher(b["curr_imgs"][0] * 256.0,
+                                  size=cfg.img_size)[None]
+            return trainer.step(b, gen, sync=sync)
+
+        times = {"given": [], "teacher": []}
+        check_finite_metrics(with_teacher(), "teacher step")
+        for _ in range(3):
+            for key, fn in (("given", lambda: trainer.step(batch, gen,
+                                                           sync=sync)),
+                            ("teacher", with_teacher)):
+                sync()
+                t0 = time.perf_counter()
+                check_finite_metrics(fn(), f"{key} step")
+                times[key].append(time.perf_counter() - t0)
+        med = {k: sorted(v)[1] for k, v in times.items()}
+        log(f"  nuscenes_occ step, sem_gt given: median {med['given']:.4f}s "
+            f"{times['given']}; from the teacher: {med['teacher']:.4f}s "
+            f"{times['teacher']} (+{med['teacher'] - med['given']:.4f}s)")
+        res["step"] = {"median_s": med, "steps_s": times}
+        del trainer, batch, bare, teacher
+        torch.cuda.empty_cache()
+        res["train_main"] = teacher_train_run(device, st)
+    return res
+
+
+def teacher_train_run(device, ckpt):
+    """``train.main --teacher-ckpt`` for 2 ``nuscenes_occ`` steps from the
+    loader on a fabricated nuScenes tree (``fabricate_nuscenes``) whose
+    config reads no offline maps: its items carry no ``sem_gt`` and the
+    semantic loss needs one, so the run fails unless the teacher filled
+    it; the teacher's calls are counted (one a step) and the logged
+    losses finite."""
+    import shutil
+    import tempfile
+    import torch
+    from selfocc_tpu_torch import train
+    from selfocc_tpu_torch.configs import experiments as ex
+    from selfocc_tpu_torch.data import build_dataset
+    from selfocc_tpu_torch.ops import interp, msda
+    from selfocc_tpu_torch.ops import render_weights as rw
+    from selfocc_tpu_torch.utils.openseed_utils import TorchSemTeacher
+    root = tempfile.mkdtemp(prefix="selfocc_teacher_")
+    try:
+        paths = fabricate_nuscenes(root)
+        base, _ = fabricated_configs(paths)
+        cfg = dataclasses.replace(base, name="nuscenes_occ_fab_teacher",
+                                  wrapper_args={})
+        ex.register_config(cfg.name, lambda: cfg)
+        if "sem_gt" in build_dataset(cfg, "train")[0]:
+            raise AssertionError("the fabricated items carry sem_gt")
+        calls = []
+        call = TorchSemTeacher.__call__
+
+        def counted(self, imgs, size=None):
+            out = call(self, imgs, size)
+            calls.append(tuple(out.shape))
+            return out
+
+        wrappers = (rw.neus_render_fwd, rw.neus_render_bwd,
+                    interp.trilinear_cf_with_grad_fwd, interp.trilinear_bwd,
+                    msda.msda_fwd, msda.msda_bwd)
+        TorchSemTeacher.__call__ = counted
+        reset_counts(wrappers)
+        t0 = time.time()
+        try:
+            with tempfile.TemporaryDirectory() as work:
+                out = train.main(["--py-config", cfg.name, "--max-steps",
+                                  "2", "--print-freq", "1", "--work-dir",
+                                  work, "--teacher-ckpt", ckpt])
+        finally:
+            TorchSemTeacher.__call__ = call
+        wall = time.time() - t0
+        launches = read_counts(wrappers, "train.main --teacher-ckpt",
+                               ("plane", "rows"))
+        if calls != [(1 * cfg.num_cams,) + tuple(cfg.img_size)] * 2:
+            raise AssertionError(f"teacher calls {calls}")
+        sem = {step: v["SemCELossMS"] for step, v in out["logged"].items()}
+        if len(sem) != 2 or not all(math.isfinite(x) for x in sem.values()):
+            raise AssertionError(f"SemCELossMS of the steps: {sem}")
+        log(f"  train.main --teacher-ckpt: 2 steps from the fabricated "
+            f"loader in {wall:.1f}s, the teacher's maps {calls[0]} a step, "
+            f"SemCELossMS {sem}, step_s {out['step_s']}")
+        torch.cuda.empty_cache()
+        return {"wall_s": wall, "teacher_calls": len(calls),
+                "sem_loss": sem, "step_s": out["step_s"],
+                "data_wait_s": out["data_wait_s"], "launches": launches}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -6850,7 +7179,9 @@ def main():
             "bev": lambda: bev_phase(device),
             "density": lambda: density_phase(device),
             "head": lambda: head_phase(device, args.baseline),
-            "variants": lambda: variants_phase(device)}
+            "variants": lambda: variants_phase(device),
+            "unet": lambda: unet_phase(device),
+            "teacher": lambda: teacher_phase(device)}
     phases = {}
     for tag in PHASES:
         if tag not in wanted:
@@ -6865,6 +7196,7 @@ def main():
 
     lres, bres, denres = phases["levers"], phases["bev"], phases["density"]
     hres, vres = phases["head"], phases["variants"]
+    ures, teres = phases["unet"], phases["teacher"]
     kres = dict(phases["kernels"], gather_rows=phases["gather"],
                 **lres["kernels"])
     # the alpha-input weights: the NeuS recipes' render is fused, so their
@@ -6886,7 +7218,10 @@ def main():
         "variants_eval_frame": vres["eval"]["frame"]["launches"],
         "variants_occ3d_frame": vres["eval"]["occ3d"]["launches"],
         "variants_flow_head": vres["flow"]["launches"],
-        "train_driver": phases["train"]["driver"]["launches"]}
+        "train_driver": phases["train"]["driver"]["launches"],
+        "unet_steps": ures["train"]["launches"],
+        "unet_eval_frame": ures["eval"]["frame"]["launches"],
+        "teacher_train_driver": teres["train_main"]["launches"]}
     fres, tres, ores = phases["frame"], phases["train"], phases["occ"]
     dres, kires, depres = phases["data"], phases["kitti"], phases["depth"]
     data_launches = {
@@ -6986,7 +7321,8 @@ def main():
                     entry["launches_" + path + key[len(name):].replace(
                         ".", "_")] = n
         if name in ("msda_fwd", "msda_bwd"):
-            for tag, recs in bres["msda"].items():
+            for tag, recs in list(bres["msda"].items()) + list(
+                    ures["msda"].items()):
                 for k in ("ms", "device_ms", "plain_ms", "bound_ms",
                           "max_abs_err"):
                     entry[f"{tag}_{k}"] = recs[name][k]
@@ -7107,7 +7443,7 @@ def main():
         "bev": bres, "density": {k: v for k, v in denres.items()
                                  if k != "kernels"},
         "head": {k: v for k, v in hres.items() if k != "kernels"},
-        "variants": vres}),
+        "variants": vres, "unet": ures, "teacher": teres}),
         flush=True)
     print(card_name(), flush=True)
     print(json.dumps({"ok": True, "device": {

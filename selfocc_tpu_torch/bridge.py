@@ -28,6 +28,14 @@ context_conv, reduce_conv, reduce_bn}``, and the latter
 ``encoder.layers.{n}.norms.{j}.{i}`` (JAX ``norm{j+1}_{i}``) and
 ``encoder.layers.{n}.ffns.{i}`` (JAX ``ffn_{i}``), i the plane (hw, zh,
 wz). Every BatchNorm's running statistics come from ``batch_stats``.
+
+The UNet2D backbone (``backbone_type="unet2d"``) goes to
+``img_backbone.encoder.*`` under HF ``EfficientNetModel``'s keys (JAX
+``stem_conv`` -> ``embeddings.convolution``, ``block{n}.se_reduce`` ->
+``encoder.blocks.{n}.squeeze_excite.reduce``, ...) and
+``img_backbone.decoder.*`` under the reference's (``up16.conv0`` ->
+``up16._net.0``, ``up16.bn0`` -> ``up16._net.1``, ...). The identity neck
+has no parameters.
 """
 from __future__ import annotations
 
@@ -71,7 +79,57 @@ def _batch_norm(sd, key, p, s):
         sd[f"{key}.running_var"] = _t(s["var"])
 
 
+_MBCONV = (("expand_conv", "expansion.expand_conv"),
+           ("depthwise_conv", "depthwise_conv.depthwise_conv"),
+           ("se_reduce", "squeeze_excite.reduce"),
+           ("se_expand", "squeeze_excite.expand"),
+           ("project_conv", "projection.project_conv"))
+_MBCONV_BN = (("expand_bn", "expansion.expand_bn"),
+              ("depthwise_norm", "depthwise_conv.depthwise_norm"),
+              ("project_bn", "projection.project_bn"))
+
+
+def efficientnet(sd, key, p, s):
+    """An EfficientNet encoder's flax params ``p`` and statistics ``s`` under
+    HF's names at ``key`` (a depthwise kernel ``(kh, kw, 1, C)`` becomes
+    ``(C, 1, kh, kw)`` as any other ``HWIO`` kernel does)."""
+    _conv(sd, f"{key}.embeddings.convolution", p["stem_conv"])
+    _batch_norm(sd, f"{key}.embeddings.batchnorm", p["stem_bn"],
+                s.get("stem_bn"))
+    blocks = sorted(int(k[len("block"):]) for k in p if k.startswith("block"))
+    for n in blocks:
+        bp, bs = p[f"block{n}"], s.get(f"block{n}", {})
+        bkey = f"{key}.encoder.blocks.{n}"
+        for name, sub in _MBCONV:
+            if name in bp:
+                _conv(sd, f"{bkey}.{sub}", bp[name])
+        for name, sub in _MBCONV_BN:
+            if name in bp:
+                _batch_norm(sd, f"{bkey}.{sub}", bp[name], bs.get(name))
+    _conv(sd, f"{key}.encoder.top_conv", p["top_conv"])
+    _batch_norm(sd, f"{key}.encoder.top_bn", p["top_bn"], s.get("top_bn"))
+
+
+def adabins_decoder(sd, key, p, s):
+    """An AdaBins ``DecoderBN``'s flax params and statistics under the
+    reference's names at ``key``."""
+    for name, q in p.items():
+        if not name.startswith("up"):
+            _conv(sd, f"{key}.{name}", q)           # conv2, resize_output_*
+            continue
+        for i in (0, 1):
+            _conv(sd, f"{key}.{name}._net.{3 * i}", q[f"conv{i}"])
+            _batch_norm(sd, f"{key}.{name}._net.{3 * i + 1}", q[f"bn{i}"],
+                        s.get(name, {}).get(f"bn{i}"))
+
+
 def _backbone(sd, params, stats):
+    if "encoder" in params:                         # UNet2D
+        efficientnet(sd, "img_backbone.encoder", params["encoder"],
+                     stats.get("encoder", {}))
+        adabins_decoder(sd, "img_backbone.decoder", params["decoder"],
+                        stats.get("decoder", {}))
+        return
     if "bn1" not in params:                         # TinyBackbone
         for name in sorted(params):
             _conv(sd, f"img_backbone.{name}", params[name])
@@ -203,7 +261,7 @@ def from_jax_variables(np_variables: Dict[str, Any]) -> "OrderedDict[str, torch.
     stats = np_variables.get("batch_stats", {})
     sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
     _backbone(sd, params["img_backbone"], stats.get("img_backbone", {}))
-    for name, p in params["img_neck"].items():
+    for name, p in params.get("img_neck", {}).items():   # none: identity
         kind, i = name.rsplit("_", 1)
         _conv(sd, f"img_neck.{kind}_convs.{i}.conv", p)
     lifter = params["lifter"]

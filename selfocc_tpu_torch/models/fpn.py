@@ -3,6 +3,7 @@
 State-dict keys follow mmdet: ``lateral_convs.{i}.conv.*`` and
 ``fpn_convs.{i}.conv.*``. Only ``num_outs == len(in_channels)`` (every shipped
 config) is ported: no extra output levels. Modules take and return NCHW.
+``IdentityNeck`` is the passthrough of ``neck_type="identity"``.
 ``FPN(dtype=torch.bfloat16)`` computes in bf16 on fp32 parameters, as the
 JAX package's ``dtype=`` (``fpn.py:31-48``): the inputs are cast, the
 convolutions and the top-down adds run in bf16.
@@ -50,3 +51,12 @@ class FPN(nn.Module):
             h, w = laterals[i - 1].shape[-2:]
             laterals[i - 1] = laterals[i - 1] + up[..., :h, :w]
         return [conv(x) for conv, x in zip(self.fpn_convs, laterals)]
+
+
+class IdentityNeck(nn.Module):
+    """Passthrough neck (reference ``model/neck/identity_neck.py:6-13``),
+    for backbones that already emit the encoder's ``embed_dims`` channels
+    (UNet2D with ``out_feature=embed_dims``); no parameters."""
+
+    def forward(self, inputs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        return list(inputs)

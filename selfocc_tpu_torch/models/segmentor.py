@@ -8,17 +8,21 @@ Public tensors keep the JAX package's layouts: images (B, N, H, W, 3) NHWC,
 features (B, N, h, w, C), the decoded volume (C, H, W, D). The TPV NeuS
 model is ported with the encoder's recipe options (head-shared locations,
 visibility compaction, bf16 attention values, ``multi_plane_ffn_norm``,
-``camera_aware``), the three lifters (``TPVQueryLifter``,
-``BEVQueryLifter``, ``TPVPositionLifter``), both grid mappings (``linear``
-and ``linear_upscale``), the BEV path (``BEVFormerEncoder``, the
-``tpv=False`` field), the density head (``head_type="nerfacc"``), every
+``camera_aware``), the three backbones (``resnet50``, ``tiny`` and
+``unet2d``: the EfficientNet UNet2D at ``unet_scaling``, emitting
+``fpn_in_channels[0]`` channels, ``models/unet2d.py``), both necks
+(``fpn``, and ``identity`` for the UNet2D), the three lifters
+(``TPVQueryLifter``, ``BEVQueryLifter``, ``TPVPositionLifter``), both
+grid mappings (``linear`` and ``linear_upscale``), the BEV path
+(``BEVFormerEncoder``, the ``tpv=False`` field), the density head
+(``head_type="nerfacc"``), every
 option of the NeuS head (the flow head ``estimate_flow`` included: a custom
 head config that has the field), and ``compute_dtype``: with
 ``"bfloat16"`` the ResNet-50 backbone (not ``TinyBackbone``, as in the JAX
 package) and the FPN compute in bf16 with fp32 parameters, and the features
-return to fp32 for the encoder. The constructor refuses the options that
-are not ported yet: ``neck_type="identity"`` and backbones other than
-``resnet50`` and ``tiny``. A camera-aware encoder takes the batch's
+return to fp32 for the encoder (the UNet2D computes in fp32, as the JAX
+package's does). The constructor refuses a backbone or neck that the JAX
+package does not have either. A camera-aware encoder takes the batch's
 ``intrinsic`` / ``cam2ego`` (``utils/eval_lib.camera_kwargs``).
 """
 from __future__ import annotations
@@ -30,16 +34,18 @@ from ..configs.base import ModelConfig
 from ..geometry.mappings import make_mapping
 from .density_head import NeRFAccHead
 from .encoder import BEVFormerEncoder, TPVFormerEncoder
-from .fpn import FPN
+from .efficientnet import EfficientNetConfig
+from .fpn import FPN, IdentityNeck
 from .heads import NeuSHead
 from .lifter import BEVQueryLifter, TPVPositionLifter, TPVQueryLifter
 from .resnet import ResNet50, TinyBackbone
+from .unet2d import UNet2D
 
 # (section, option, the value or the set of values the port implements)
 _PORTED = (
     ("model", "lifter_type", frozenset({"TPVQueryLifter", "BEVQueryLifter",
                                         "TPVPositionLifter"})),
-    ("model", "neck_type", "fpn"),
+    ("model", "neck_type", frozenset({"fpn", "identity"})),
     ("head", "head_type", frozenset({"neus", "nerfacc"})),
 )
 
@@ -62,7 +68,7 @@ def check_ported(cfg: ModelConfig):
                 f"selfocc_tpu_torch: {section}.{name}={got!r} is not ported "
                 f"(the port implements "
                 f"{sorted(want) if isinstance(want, frozenset) else want!r})")
-    if cfg.backbone_type not in ("resnet50", "tiny"):
+    if cfg.backbone_type not in ("resnet50", "tiny", "unet2d"):
         raise NotImplementedError(f"backbone {cfg.backbone_type!r}")
     if cfg.compute_dtype not in (None, "float32", "bfloat16"):
         raise NotImplementedError(f"compute_dtype {cfg.compute_dtype!r}")
@@ -81,9 +87,18 @@ class TPVSegmentor(nn.Module):
             getattr(torch, cfg.compute_dtype)
         if cfg.backbone_type == "tiny":
             self.img_backbone = TinyBackbone(tuple(cfg.fpn_in_channels))
+        elif cfg.backbone_type == "unet2d":
+            self.img_backbone = UNet2D(
+                cfg.fpn_in_channels[0],
+                EfficientNetConfig(width_coefficient=cfg.unet_scaling[0],
+                                   depth_coefficient=cfg.unet_scaling[1]))
         else:
             self.img_backbone = ResNet50(dtype)
-        self.img_neck = FPN(tuple(cfg.fpn_in_channels), cfg.embed_dims, dtype)
+        if cfg.neck_type == "identity":
+            self.img_neck = IdentityNeck()
+        else:
+            self.img_neck = FPN(tuple(cfg.fpn_in_channels), cfg.embed_dims,
+                                dtype)
         e, h = cfg.encoder, cfg.head
         m = make_mapping(**e.mapping_args)
         if cfg.lifter_type == "BEVQueryLifter":

@@ -6,7 +6,7 @@
         [--work-dir DIR] [--ckpt-freq-iters N] \\
         [--resume-from CKPT [--iter-resume]] [--resnet-pth PTH] [--amp] \\
         [--gradient-accumulation K] [--profile] \\
-        [--eval-every-epoch [--eval-samples N]]
+        [--eval-every-epoch [--eval-samples N]] [--teacher-ckpt CKPT]
 
 Data: the nuScenes train split (``data.build_dataset(cfg, "train")``:
 ``data/nuscenes_infos_train_sweeps.pkl``, images and sweeps under
@@ -62,8 +62,14 @@ first item. Runs on the first CUDA device unless ``--device
 cpu`` asks for the kernels' plain versions on the CPU; with no card and no
 ``--device cpu`` it exits non-zero. ``--amp`` sets the config's
 ``compute_dtype`` to bf16 (backbone and neck), as the JAX driver does
-(``train.py:39-41, 165-169``). ``--dp``, ``--mp`` and ``--teacher-ckpt``
-are not ported.
+(``train.py:39-41, 165-169``). ``--teacher-ckpt``: an HF Swin-UperNet
+checkpoint (``.pt``, ``.bin``, ``.safetensors``) for the online semantic
+teacher (``utils/openseed_utils.TorchSemTeacher``, on the step's device):
+where the config trains semantics (``cfg.sem``) and a batch carries no
+``sem_gt``, the teacher's maps of ``curr_imgs[0] * 256`` at
+``cfg.img_size`` become its ``sem_gt``, as the JAX driver does
+(``train.py:215-219, 272-286``; the reference's ``train.py:213-215``).
+``--dp`` and ``--mp`` are not ported.
 """
 from __future__ import annotations
 
@@ -89,6 +95,7 @@ from .utils.checkpoint import load_torch_resnet50, save_checkpoint
 from .utils.eval_lib import ChunkedRenderer, camera_kwargs, rays_for_cams
 from .utils.logging_util import ScalarWriter
 from .utils.metrics import DepthMetric
+from .utils.openseed_utils import TorchSemTeacher
 from .utils.runtime import (add_device_arg, checkpoint_path, get_dataset,
                             get_logger, host_arrays, resolve_device,
                             to_device)
@@ -133,6 +140,10 @@ def parse_args(argv=None):
     ap.add_argument("--eval-every-epoch", action="store_true",
                     help="a depth eval after each epoch's checkpoint")
     ap.add_argument("--eval-samples", type=int, default=4)
+    ap.add_argument("--teacher-ckpt", default="",
+                    help="HF Swin-UperNet checkpoint for the online "
+                         "semantic teacher: sem_gt from curr_imgs where a "
+                         "batch carries none")
     add_device_arg(ap)
     return ap.parse_args(argv)
 
@@ -263,7 +274,8 @@ def train(cfg, trainer: Trainer, ds, device, max_steps: int, seed: int,
           checkpoint: Optional[Callable[[str, int, int], None]] = None,
           ckpt_freq_iters: int = 0, writer: Optional[ScalarWriter] = None,
           profiler: Optional[StepProfiler] = None,
-          epoch_eval: Optional[Callable[[int], Dict]] = None) -> Dict:
+          epoch_eval: Optional[Callable[[int], Dict]] = None,
+          teacher=None) -> Dict:
     """Steps over ``ds`` from item ``start_pos`` of epoch ``start_epoch``,
     in the sampler's order, up to ``max_steps`` (micro-)steps in all (0:
     no limit) or the end of epoch ``epochs`` (0: ``cfg.max_epochs``).
@@ -271,7 +283,9 @@ def train(cfg, trainer: Trainer, ds, device, max_steps: int, seed: int,
     ``ckpt_freq_iters`` steps, at each epoch's end and where ``max_steps``
     ends the run, and ``epoch_eval(epoch)`` after the last two. The logged
     steps' scalars also go to ``writer`` as ``loss/<name>``; ``profiler``
-    sees each step's count before it runs. Returns the last step's
+    sees each step's count before it runs. ``teacher`` (a
+    ``TorchSemTeacher``) fills a batch's missing ``sem_gt`` where
+    ``cfg.sem``. Returns the last step's
     ``metrics``, the ``items`` trained on, the logged steps' scalars
     (``logged``: step -> losses, ``grad_norm``, ``lr``), per step the host
     seconds spent waiting for its batch (``data_wait_s``) and from that
@@ -309,6 +323,11 @@ def train(cfg, trainer: Trainer, ds, device, max_steps: int, seed: int,
                 step = trainer.global_step
                 res["data_wait_s"].append(time.perf_counter() - t_wait)
                 batch = to_device(host, device)
+                if teacher is not None and cfg.sem and "sem_gt" not in batch:
+                    # the reference feeds curr_imgs[0] * 256 at img_size
+                    # (train.py:214)
+                    batch["sem_gt"] = teacher(batch["curr_imgs"][0] * 256.0,
+                                              size=cfg.img_size)[None]
                 gen = torch.Generator(device=device).manual_seed(seed + step)
                 if profiler is not None:
                     profiler.before_step(step)
@@ -392,6 +411,11 @@ def main(argv=None) -> Dict:
         return run_epoch_eval(trainer.model, cfg, ds, logger,
                               args.eval_samples, epoch, device)
 
+    teacher = None
+    if args.teacher_ckpt:
+        teacher = TorchSemTeacher.from_checkpoint(args.teacher_ckpt,
+                                                  device=device)
+        logger.info(f"online semantic teacher: {args.teacher_ckpt}")
     writer = ScalarWriter(args.work_dir)
     profiler = StepProfiler(args.work_dir, device, logger) \
         if args.profile else None
@@ -403,7 +427,7 @@ def main(argv=None) -> Dict:
                     ckpt_freq_iters=args.ckpt_freq_iters, writer=writer,
                     profiler=profiler,
                     epoch_eval=epoch_eval if args.eval_every_epoch
-                    else None)
+                    else None, teacher=teacher)
     finally:
         if profiler is not None:
             profiler.close()

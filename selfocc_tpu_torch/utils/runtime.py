@@ -61,16 +61,34 @@ _OPTIONAL_KEYS = ("head.model.field.color_proj.",
                   "head.radiance_field.color_proj.")
 
 
+def rename_keys(sd, extra) -> Dict:
+    """``sd`` with the keys of ``extra`` renamed: ``{fork_key: port_key}``
+    or ``{fork_key: (port_key, transform)}``, ``transform`` applied to the
+    value (the port's counterpart of the JAX package's
+    ``convert_reference_state_dict(extra=)``, ``ref_import.py:184-216``,
+    whose entries name a flax path and a layout transform; the port's keys
+    and layouts are the reference's, so most entries are a rename)."""
+    out = {}
+    for k, v in sd.items():
+        if k in extra:
+            to = extra[k]
+            k, v = (to, v) if isinstance(to, str) else (to[0], to[1](v))
+        out[k] = v
+    return out
+
+
 def load_weights(model, ckpt_path: str = "", torch_ckpt: str = "",
-                 logger=None):
+                 logger=None, extra=None):
     """Load ``--ckpt-path`` or ``--torch-ckpt`` into ``model`` (seeded
     weights stay where neither is given). A reference ``.pth`` (the JAX
     package's ``ref_import`` steps, ``restore_eval_variables``): the
     ``state_dict`` entry when there is one, ``module.`` prefixes stripped,
-    ``num_batches_tracked`` dropped; the port's keys are the reference's,
-    so nothing is transposed. A checkpoint without ``color_proj`` keeps the
-    seeded one; keys the model does not have are logged; any other model
-    key that the checkpoint lacks is an error."""
+    ``num_batches_tracked`` dropped, then the keys of ``extra`` renamed to
+    the port's (``rename_keys``: a fork that names a module otherwise);
+    the port's keys are the reference's, so nothing else is transposed. A
+    checkpoint without ``color_proj`` keeps the seeded one; keys the model
+    does not have are logged; any other model key that the checkpoint lacks
+    is an error."""
     if ckpt_path and torch_ckpt:
         raise SystemExit("give --ckpt-path or --torch-ckpt, not both")
     if ckpt_path:
@@ -85,6 +103,8 @@ def load_weights(model, ckpt_path: str = "", torch_ckpt: str = "",
     sd = sd.get("state_dict", sd)
     sd = {k[len("module."):] if k.startswith("module.") else k: v
           for k, v in sd.items() if not k.endswith("num_batches_tracked")}
+    if extra:
+        sd = rename_keys(sd, extra)
     own = model.state_dict()
     missing = sorted(k for k in own if k not in sd
                      and not k.startswith(_OPTIONAL_KEYS))

@@ -44,7 +44,8 @@ from selfocc_tpu_torch.ops.interp import row_stride
 from selfocc_tpu_torch.utils import eval_lib as teval
 from selfocc_tpu_torch.utils import train_lib as ttrain
 from test_torch_port_threads import share_cores_with_xdist_workers
-from torch_port_jax import jit_vjp, memoised_jax_init  # noqa: F401
+from torch_port_jax import (jit_vjp, memoised_jax_init,  # noqa: F401
+                            quick_jit)
 from test_torch_port_train import (assert_grad_close, jax_draws, no_dropout,
                                    perturb)
 
@@ -177,9 +178,9 @@ def bev_step():
                 "sem": out["sem"][0], "eik_grad": out["eik_grad"],
                 "second_grad": out["second_grad"]}
         return tot, (ldict, keep)
-    (tot, (ldict, outs)), grads = jax.jit(jax.value_and_grad(
-        compute, has_aux=True))(jax.tree_util.tree_map(jnp.asarray,
-                                                       np_params))
+    (tot, (ldict, outs)), grads = quick_jit(
+        jax.value_and_grad(compute, has_aux=True),
+        jax.tree_util.tree_map(jnp.asarray, np_params))
     jres = {"total": float(tot),
             "losses": {k: float(v) for k, v in ldict.items()},
             "outs": {k: np.asarray(v) for k, v in outs.items()},

@@ -12,8 +12,8 @@ port's native decoder, ``selfocc_tpu_torch/native``),
 ``utils/openseed_utils.SemTeacher``, ``utils/scenerf_metric.SSCMetrics``
 and ``utils/logging_util`` (the KITTI configs with the config test, the
 encoder's recipe-option configs and the BEV and density-head recipes,
-which ``check_ported`` accepts while it still refuses the options that are
-not ported), and these
+which ``check_ported`` accepts), ``EfficientNetConfig``'s rounding and
+``SwinConfig``, and these
 tests fail as soon as a copy and its original drift apart. Extend them with
 each module a later slice copies."""
 import ast
@@ -67,21 +67,27 @@ def test_recipe_option_configs_are_ported(name):
     check_ported(texp.get_config(name).model)
 
 
-@pytest.mark.parametrize("section,option,value", [
-    ("model", "neck_type", "identity"),
-    ("model", "backbone_type", "unet2d")])
-def test_unported_recipes_are_refused(section, option, value):
-    # options that are still not ported, on the JAX package's own configs
-    from selfocc_tpu_torch.models.segmentor import check_ported
-    cfg = jexp.get_config("tiny").model
-    if section == "model":
-        cfg = dataclasses.replace(cfg, **{option: value})
-    else:
-        cfg = dataclasses.replace(cfg, **{section: dataclasses.replace(
-            getattr(cfg, section), **{option: value})})
-    with pytest.raises(NotImplementedError,
-                       match=value if option == "backbone_type" else option):
-        check_ported(cfg)
+@pytest.mark.parametrize("scaling", [(1.0, 1.0), (2.0, 3.1), (0.5, 0.5),
+                                     (0.25, 0.35), (1.6, 2.2)])
+def test_efficientnet_config_copy_equals_its_original(scaling):
+    # the port's EfficientNetConfig: the same fields, and the same channel
+    # and repeat rounding (B0, B7, the tests' widths, B5)
+    from selfocc_tpu.models.efficientnet import EfficientNetConfig as J
+    from selfocc_tpu_torch.models.efficientnet import EfficientNetConfig as P
+    ref, got = J(*scaling), P(*scaling)
+    assert dataclasses.asdict(got) == dataclasses.asdict(ref)
+    for c in (16, 24, 32, 40, 80, 112, 192, 320, 1280, 3, 7):
+        assert got.round_filters(c) == ref.round_filters(c), c
+    for r in range(1, 6):
+        assert got.round_repeats(r) == ref.round_repeats(r), r
+
+
+def test_swin_config_copy_equals_its_original():
+    from selfocc_tpu.models.swin import SwinConfig as J
+    from selfocc_tpu_torch.models.swin import SwinConfig as P
+    assert dataclasses.asdict(P()) == dataclasses.asdict(J())
+    assert [f.name for f in dataclasses.fields(P)] == \
+        [f.name for f in dataclasses.fields(J)]
 
 
 @pytest.mark.parametrize("section,option,value", [
@@ -275,9 +281,9 @@ def _source_tree(modname):
 
 
 # every function, method, class and module constant equal but these: the
-# JAX module's online teacher (not ported), and the scalar writer's
-# constructor, which leaves TensorBoard out where TensorFlow is installed
-# (TensorFlow imports JAX)
+# online teachers (the JAX module's runs flax, the port's torch), and the
+# scalar writer's constructor, which leaves TensorBoard out where
+# TensorFlow is installed (TensorFlow imports JAX)
 _COPIES = {
     "data.transforms": (), "data.wrapper": (), "data.sampler": (),
     "data.prefetch": (), "data.nuscenes_eval_dataset": (),
@@ -285,7 +291,7 @@ _COPIES = {
     "data.semantic_kitti_io": (), "data.kitti_eval_dataset": (),
     "data.kitti_dataset": (),
     "data.kitti_raw_dataset": (),
-    "utils.openseed_utils": ("JaxSemTeacher",),
+    "utils.openseed_utils": ("JaxSemTeacher", "TorchSemTeacher"),
     "utils.scenerf_metric": (),
     "utils.logging_util": ("ScalarWriter.__init__",),
 }
@@ -295,8 +301,8 @@ _COPIES = {
 def test_data_module_copies_equal_their_originals(name):
     ref = _code(_source_tree(f"selfocc_tpu.{name}"))
     got = _code(_source_tree(f"selfocc_tpu_torch.{name}"))
-    skip = {k for k in ref if k.split(".")[0] in _COPIES[name]
-            or k in _COPIES[name]}
+    skip = {k for k in set(ref) | set(got)
+            if k.split(".")[0] in _COPIES[name] or k in _COPIES[name]}
     assert set(got) - skip == set(ref) - skip
     for k in set(got) - skip:
         assert got[k] == ref[k], k

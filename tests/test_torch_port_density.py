@@ -44,7 +44,7 @@ from selfocc_tpu_torch.utils import eval_lib as teval
 from selfocc_tpu_torch.utils import train_lib as ttrain
 from test_torch_port_bev import _batch, assert_scaled_close
 from test_torch_port_threads import share_cores_with_xdist_workers
-from torch_port_jax import memoised_jax_init  # noqa: F401
+from torch_port_jax import memoised_jax_init, quick_jit  # noqa: F401
 from test_torch_port_train import (assert_grad_close, jax_draws, no_dropout,
                                    perturb)
 
@@ -162,9 +162,9 @@ def density_step():
                 "ts": out["ts"], "deltas": out["deltas"],
                 "sem": out["sem"][0]}
         return tot, (ldict, keep)
-    (tot, (ldict, outs)), grads = jax.jit(jax.value_and_grad(
-        compute, has_aux=True))(jax.tree_util.tree_map(jnp.asarray,
-                                                       np_params))
+    (tot, (ldict, outs)), grads = quick_jit(
+        jax.value_and_grad(compute, has_aux=True),
+        jax.tree_util.tree_map(jnp.asarray, np_params))
     jres = {"total": float(tot),
             "losses": {k: float(v) for k, v in ldict.items()},
             "outs": {k: np.asarray(v) for k, v in outs.items()},

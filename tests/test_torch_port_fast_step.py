@@ -29,7 +29,7 @@ from selfocc_tpu_torch.models.segmentor import TPVSegmentor
 from test_torch_port_models import jax_variable_shapes, random_variables
 from test_torch_port_train import assert_grad_close
 from test_torch_port_threads import share_cores_with_xdist_workers
-from torch_port_jax import memoised_jax_init  # noqa: F401
+from torch_port_jax import memoised_jax_init, quick_jit  # noqa: F401
 
 share_cores_with_xdist_workers()
 
@@ -65,7 +65,8 @@ def tiny_fast_grads():
         planes = planes_of(params)
         return sum((p * c).sum() for p, c in zip(planes, cots)), planes
 
-    (tot, planes), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+    (tot, planes), grads = quick_jit(
+        jax.value_and_grad(loss, has_aux=True),
         jax.tree_util.tree_map(jnp.asarray, np_vars["params"]))
     jres = {"total": float(tot), "planes": [np.asarray(p) for p in planes],
             "grads": from_jax_variables(

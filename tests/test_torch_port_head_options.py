@@ -46,7 +46,8 @@ from selfocc_tpu_torch.ops import interp as tinterp
 from selfocc_tpu_torch.utils import train_lib as ttrain
 from test_torch_port_bev import _batch, assert_scaled_close
 from test_torch_port_threads import share_cores_with_xdist_workers
-from torch_port_jax import jit_vjp, memoised_jax_init  # noqa: F401
+from torch_port_jax import (jit_vjp, memoised_jax_init,  # noqa: F401
+                            quick_jit)
 from test_torch_port_train import (assert_grad_close, jax_draws, no_dropout,
                                    perturb)
 
@@ -341,8 +342,8 @@ def _step(jcfg, tcfg, extra_draws=None):
         tot, (ldict, bs) = compute(params, {}, variables["consts"], jbatch,
                                    rng, it)
         return tot, ldict
-    (tot, ldict), grads = jax.jit(jax.value_and_grad(
-        with_outputs, has_aux=True))(
+    (tot, ldict), grads = quick_jit(
+        jax.value_and_grad(with_outputs, has_aux=True),
         jax.tree_util.tree_map(jnp.asarray, np_params),
         jnp.asarray(MID_ITER, jnp.int32))
     jres = {"total": float(tot),

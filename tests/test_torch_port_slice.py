@@ -178,9 +178,12 @@ def test_eval_depth_runs_without_jax(tmp_path):
         " transforms, wrapper)\n"
         "from selfocc_tpu_torch.losses import EdgeLoss3DMS\n"
         "from selfocc_tpu_torch.native import get_shared_loader\n"
-        "from selfocc_tpu_torch.utils import (checkpoint, logging_util,"
-        " openseed_utils, scenerf_metric)\n"
+        "from selfocc_tpu_torch.utils import (checkpoint, effnet_import,"
+        " logging_util, openseed_utils, scenerf_metric, swin_import)\n"
         "from selfocc_tpu_torch.geometry.mappings import NonLinearMapping\n"
+        "from selfocc_tpu_torch.models import (efficientnet, swin, unet2d,"
+        " upernet)\n"
+        "from selfocc_tpu_torch.models.fpn import IdentityNeck\n"
         "from selfocc_tpu_torch.models.encoder import CameraAwareSE\n"
         "from selfocc_tpu_torch.models.heads import FlowNet\n"
         "from selfocc_tpu_torch.models.lifter import TPVPositionLifter\n"

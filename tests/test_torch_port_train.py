@@ -37,7 +37,7 @@ from selfocc_tpu_torch.models import resnet as tresnet
 from selfocc_tpu_torch.models.segmentor import TPVSegmentor
 from selfocc_tpu_torch.utils import train_lib as ttrain
 from test_torch_port_threads import share_cores_with_xdist_workers
-from torch_port_jax import memoised_jax_init  # noqa: F401
+from torch_port_jax import memoised_jax_init, quick_jit  # noqa: F401
 
 share_cores_with_xdist_workers()
 
@@ -112,10 +112,10 @@ def tiny_step():
                         np.random.RandomState(0))
     rng = jax.random.PRNGKey(3)
     compute = jtrain.make_loss_fn(jmodel, cfg)
-    (tot, (ldict, _)), grads = jax.jit(jax.value_and_grad(
-        compute, has_aux=True), static_argnums=5)(
+    (tot, (ldict, _)), grads = quick_jit(
+        lambda *a: jax.value_and_grad(compute, has_aux=True)(*a, 0),
         jax.tree_util.tree_map(jnp.asarray, np_params), {},
-        variables["consts"], jbatch, rng, 0)
+        variables["consts"], jbatch, rng)
     jres = {"total": float(tot),
             "losses": {k: float(v) for k, v in ldict.items()},
             "grads": from_jax_variables(
@@ -411,13 +411,3 @@ def test_chunked_render_equals_dense(tiny_step):
     np.testing.assert_allclose(chunked, dense, rtol=1e-6)
     for n, g in g_dense.items():
         assert_grad_close(g_chunked[n].numpy(), g.numpy(), n)
-
-
-@pytest.mark.parametrize("option,value", [
-    ("backbone_type", "unet2d"), ("neck_type", "identity")])
-def test_unported_head_options_are_refused(option, value):
-    # the options a custom config can still set that the port lacks: the
-    # EfficientNet UNet2D backbone and the identity neck that goes with it
-    model = dataclasses.replace(get_config("tiny").model, **{option: value})
-    with pytest.raises(NotImplementedError):
-        TPVSegmentor(model)

@@ -47,7 +47,8 @@ from selfocc_tpu_torch.models.segmentor import TPVSegmentor
 from selfocc_tpu_torch.utils import train_lib as ttrain
 from test_torch_port_threads import share_cores_with_xdist_workers
 from test_torch_port_train import (assert_grad_close, no_dropout, perturb)
-from torch_port_jax import jit_apply, jit_vjp, memoised_jax_init  # noqa
+from torch_port_jax import (jit_apply, jit_vjp,  # noqa: F401
+                            memoised_jax_init, quick_jit)
 
 share_cores_with_xdist_workers()
 
@@ -325,20 +326,19 @@ def all_options_step():
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     jmodel = JSegmentor(cfg=cfg.model)
     key = jax.random.PRNGKey(42)
-    variables = jax.jit(lambda b: jmodel.init(
+    variables = quick_jit(lambda b: jmodel.init(
         {"params": key, "dropout": jax.random.fold_in(key, 1)},
         b["imgs"], b["lidar2img"], b[cfg.model.head.trans_kw], key, 0, True,
-        intrinsic=b["intrinsic"], cam2ego=b["cam2ego"]))(
-            jbatch)
+        intrinsic=b["intrinsic"], cam2ego=b["cam2ego"]), jbatch)
     rng = np.random.RandomState(0)
     np_vars = {"params": perturb(to_np(variables["params"]), rng),
                "batch_stats": perturb(to_np(variables["batch_stats"]), rng)}
     jkey = jax.random.PRNGKey(3)
     compute = jtrain.make_loss_fn(jmodel, cfg)
-    (tot, (ldict, new_bs)), grads = jax.jit(jax.value_and_grad(
-        compute, has_aux=True), static_argnums=5)(
+    (tot, (ldict, new_bs)), grads = quick_jit(
+        lambda *a: jax.value_and_grad(compute, has_aux=True)(*a, 0),
         to_jnp(np_vars["params"]), to_jnp(np_vars["batch_stats"]),
-        variables.get("consts"), jbatch, jkey, 0)
+        variables.get("consts"), jbatch, jkey)
     jres = {"total": float(tot),
             "losses": {k: float(v) for k, v in ldict.items()},
             "grads": from_jax_variables({"params": to_np(grads)}),
