@@ -270,6 +270,30 @@ raises and the exit code is non-zero.
   turns; then ``train.main --teacher-ckpt`` for 2 steps from the loader
   on a fabricated nuScenes tree whose config reads no offline maps (it
   fails unless the teacher fills ``sem_gt``: the semantic loss reads it).
+- ``[vis]``: the vis tools at ``nuscenes_occ``'s full width, seeded
+  weights, synthetic data (the card's name and power limit logged first):
+  ``vis_pics.main`` on one frame from the pose offset by ``--novel-view
+  1.0123 0.5 0.3 10`` (off voxel knots; 6 x 450 x 800 rays, depth and RGB,
+  so every channel is sampled: ``msda_fwd`` 16 times, ``neus_render_fwd``
+  and the C = 25 rows instance of ``trilinear_cf_with_grad_fwd`` once per
+  32768-ray chunk), its prepare, render and PNG seconds, rays/s, peak and
+  the share of RGB channels that JAX's 256 * 255 scale saturates; on the
+  same seeded weights and frame the depths in band, a 4096-ray subset
+  against the plain versions on the CPU (depth 1e-3 m, acc and rgb 1e-4),
+  ``msda_fwd`` at the prepare's own calls and the C = 25 forward at the
+  render's first chunk (8,388,608 points) against their plain versions,
+  timed with their bounds; ``vis_3d.main --gt`` (the 200 x 200 x 16 grid
+  at 0.4 m: ``trilinear_cf_fwd`` once at C = 25), its seconds and voxel
+  count, then on one volume the kernel occupancy against the plain one
+  (equal but where |sdf - thresh| < 1e-5) and ``trilinear_cf_fwd`` at the
+  grid's 640,000 points timed beside ``F.grid_sample``, at the threshold
+  that splits the grid (the seeded weights put every voxel below 0);
+  ``vis_3d_scene.main --imageset`` over 2 keyframes of a fabricated
+  full-size nuScenes tree (``scene.ply``'s points are the frames' voxels);
+  ``generate_videos.main`` on ``vis_pics``'s PNGs (a non-empty mp4). Each
+  path's launch counts (every kernel's, by instance) are set to 0 just
+  before it and read just after; a count other than the path's expected
+  one, or a kernel off the path, fails the run.
 
 ``--phases`` runs a subset (then no result line is printed). Each path's
 launch counts are set to 0 just before it runs and read just after; a
@@ -291,6 +315,7 @@ import copy
 import dataclasses
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -328,7 +353,7 @@ RENDER_FWD_OPS = 50
 RENDER_BWD_OPS = 103
 PHASES = ("kernels", "gather", "frame", "occ", "train-parity", "train",
           "data", "kitti", "depth", "levers", "bev", "density", "head",
-          "variants", "unet", "teacher")
+          "variants", "unet", "teacher", "vis")
 OPENOCC_PCR = (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0)   # 512 x 512 x 40 at 0.2
 OCC_SLAB = 1 << 20    # dense-grid points held against the plain version
 # the compact stencil's volume cotangent, card against CPU on one volume:
@@ -2008,19 +2033,22 @@ def full_frame(device, baseline=None):
     return res
 
 
+SUBSET_TOLS = {"depth": 1e-3, "acc": 1e-4, "rgb": 1e-4}
+
+
 def frame_subset(model, batch, origin, direction, dn, near, far, device,
-                 opacity_normalized=False):
+                 opacity_normalized=False, outputs=("depth", "acc")):
     """A 4096-ray subset of a frame's rays: the kernels on the card against
-    the plain versions on the CPU (depth within 1e-3 m, acc within 1e-4) on
-    one prepared volume, and each depth in its band: [acc near, acc far]
-    per |d| for the NeuS head, [near, far] per |d| where acc > 0 for the
-    density head's opacity-normalised depth. Returns the errors."""
+    the plain versions on the CPU (``outputs``: depth within 1e-3 m, acc
+    and rgb within 1e-4) on one prepared volume, and each depth in its
+    band: [acc near, acc far] per |d| for the NeuS head, [near, far] per
+    |d| where acc > 0 for the density head's opacity-normalised depth.
+    Returns the errors."""
     import torch
     from selfocc_tpu_torch.utils.eval_lib import ChunkedRenderer
     idx = torch.linspace(0, origin.shape[0] - 1, SUBSET_RAYS,
                          device=device).long()
     o_s, d_s = origin[idx], direction[idx]
-    outputs = ("depth", "acc")
     volume = ChunkedRenderer(model).prepare(batch["imgs"], batch["lidar2img"],
                                             **cameras_of(model, batch))
     gpu = ChunkedRenderer(model, chunk=SUBSET_RAYS,
@@ -2031,7 +2059,7 @@ def frame_subset(model, batch, origin, direction, dn, near, far, device,
     sub_err = {k: float(abs(gpu[k].astype("float64") - cpu[k]).max())
                for k in outputs}
     log(f"  4096-ray subset, kernels vs plain (CPU): {sub_err}")
-    if not (sub_err["depth"] <= 1e-3 and sub_err["acc"] <= 1e-4):
+    if not all(sub_err[k] <= SUBSET_TOLS[k] for k in outputs):
         raise AssertionError(f"subset render disagrees: {sub_err}")
     acc = torch.from_numpy(gpu["acc"]).to(device)
     d_sub = torch.from_numpy(gpu["depth"]).to(device)
@@ -2059,17 +2087,22 @@ def cameras_of(model, batch):
     return {k: batch[k] for k in ("intrinsic", "cam2ego")}
 
 
-def depth_in_band(cfg, batch, depth, device):
+def depth_in_band(cfg, batch, depth, device, novel_view=None):
     """Fails unless the eval frame's depths are finite and 0 <= depth <=
     far in z-depth units per ray; returns the frame's rays (origin,
-    direction), their direction norms and near / far."""
+    direction; from the pose offset by ``novel_view``, ``vis_pics
+    --novel-view``, where given), their direction norms and near / far."""
     import torch
+    from selfocc_tpu_torch.geometry.projection import apply_novel_view
     from selfocc_tpu_torch.models import neus
     from selfocc_tpu_torch.utils.eval_lib import (eval_ray_grid,
                                                   eval_trans_mats,
                                                   rays_for_cams)
     rays = eval_ray_grid(cfg, device=device)
-    origin, direction = rays_for_cams(eval_trans_mats(batch, cfg), rays)
+    mats = eval_trans_mats(batch, cfg)
+    if novel_view is not None:
+        mats = apply_novel_view(mats, novel_view)
+    origin, direction = rays_for_cams(mats, rays)
     dn = torch.linalg.norm(direction, dim=-1)
     near, far = neus.ray_aabb_near_far(origin, direction / dn[:, None],
                                        cfg.model.head.roi_aabb)
@@ -2832,17 +2865,18 @@ def rotmat_to_quat(m):
     return q
 
 
-def fabricate_nuscenes(root):
+def fabricate_nuscenes(root, samples=FAB_SAMPLES):
     """A full-size nuScenes-format mini dataset under ``root``, in the
     layouts of the JAX tests' fixtures (``tests/test_nuscenes_dataset.py::
     _make_mini_nuscenes``, ``tests/test_novel_eval_datasets.py::
     make_nuscenes_eval_fixture``; copied here, since the card has no JAX
-    tests): one scene of 8 keyframes 1.5 m apart, 6 cameras of 900 x 1600
-    JPEGs (the procedural ground scene, smooth), a lidar sweep of 34,000
-    points (x, y, z, intensity, ring) per keyframe on the ground and on
-    walls around the ego, the train / val sweeps infos, the temporal_v2
-    infos, Occ3D ``labels.npz`` for keyframe 0 and offline teacher maps
-    (768 x 1600, 21 classes) for every image. Returns the paths."""
+    tests): one scene of ``samples`` keyframes (8) 1.5 m apart, 6 cameras
+    of 900 x 1600 JPEGs (the procedural ground scene, smooth), a lidar
+    sweep of 34,000 points (x, y, z, intensity, ring) per keyframe on the
+    ground and on walls around the ego, the train / val sweeps infos, the
+    temporal_v2 infos, Occ3D ``labels.npz`` for keyframe 0 and offline
+    teacher maps (768 x 1600, 21 classes) for every image. Returns the
+    paths."""
     import math
     import os
     import pickle
@@ -2876,10 +2910,10 @@ def fabricate_nuscenes(root):
         return name
 
     with ThreadPoolExecutor(8) as pool:
-        list(pool.map(write_view, [(i, c) for i in range(FAB_SAMPLES)
+        list(pool.map(write_view, [(i, c) for i in range(samples)
                                    for c in range(6)]))
     scene, temporal = [], []
-    for i in range(FAB_SAMPLES):
+    for i in range(samples):
         ego_t = [FAB_STEP * i, 0.0, 0.0]
         # lidar: 3/4 of the points on the ground 2-60 m out, 1/4 on walls
         # 12-40 m out up to 4 m high (ego frame), in the lidar frame
@@ -2927,9 +2961,9 @@ def fabricate_nuscenes(root):
             "ego2global_rotation": ident, "ego2global_translation": ego_t,
             "cams": cams, "lidar_path": os.path.join(root, lidar_name),
             "nice_neighbor_prev": [i - 1] if i > 0 else [],
-            "nice_neighbor_next": [i + 1] if i < FAB_SAMPLES - 1 else [],
+            "nice_neighbor_next": [i + 1] if i < samples - 1 else [],
             "prev_dists": [FAB_STEP] if i > 0 else [],
-            "next_dists": [FAB_STEP] if i < FAB_SAMPLES - 1 else []})
+            "next_dists": [FAB_STEP] if i < samples - 1 else []})
     # Occ3D labels of keyframe 0: the ground layer occupied (class 11,
     # driveable surface), the rest free (17)
     sem = np.full((200, 200, 16), 17, np.uint8)
@@ -2947,11 +2981,11 @@ def fabricate_nuscenes(root):
              "sem_from": os.path.join(root, "sem")}
     with open(paths["sweeps"], "wb") as f:
         pickle.dump({"infos": {"scene0": scene},
-                     "metadata": [("scene0", i) for i in range(FAB_SAMPLES)]},
+                     "metadata": [("scene0", i) for i in range(samples)]},
                     f)
     with open(paths["temporal"], "wb") as f:
         pickle.dump({"infos": temporal,
-                     "scene_info": {"scene-0001": (0, FAB_SAMPLES - 1)}}, f)
+                     "scene_info": {"scene-0001": (0, samples - 1)}}, f)
     return paths
 
 
@@ -7113,6 +7147,352 @@ def teacher_train_run(device, ckpt):
         shutil.rmtree(root, ignore_errors=True)
 
 
+VIS_NOVEL = (1.0123, 0.5, 0.3, 10.0)   # vis_pics --novel-view, off knots
+VIS_SCENE_FRAMES = 2                   # keyframes of the scene walk
+
+
+def kernel_wrappers():
+    """Every kernel wrapper of the port, with a launch count each."""
+    from selfocc_tpu_torch.ops import gather_rows, interp, msda
+    from selfocc_tpu_torch.ops import render_weights as rw
+    return (msda.msda_fwd, msda.msda_bwd, msda.msda_shared_fwd,
+            msda.msda_shared_bwd, rw.neus_render_fwd, rw.neus_render_bwd,
+            rw.neus_weights_fwd, rw.neus_weights_bwd,
+            interp.trilinear_cf_with_grad_fwd, interp.trilinear_bwd,
+            interp.trilinear_cf_fwd, interp.trilinear_cf_bwd,
+            gather_rows.gather_rows_fwd)
+
+
+def vis_path(what, run, expect):
+    """``run()`` with every kernel's launch count set to 0 just before it
+    and read just after (each wrapper's and, as ``name.kind``, each
+    instance's; ``instance_counts``). Fails if a count differs from
+    ``expect`` ({key: launches}, positive for the path's kernels) or a
+    kernel outside ``expect`` was launched. Returns (result, counts,
+    seconds, peak GiB)."""
+    import torch
+    wrappers = kernel_wrappers()
+    reset_counts(wrappers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = {}
+    for fn in wrappers:
+        counts[fn.__name__] = fn.launches
+        counts.update({f"{fn.__name__}.{k}": n
+                       for k, n in instance_counts(fn).items()})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  launches in the {what}: "
+        f"{ {k: n for k, n in counts.items() if n} }")
+    wrong = {k: (counts[k], n) for k, n in expect.items() if counts[k] != n}
+    stray = {k: n for k, n in counts.items() if n and k not in expect
+             and k.split(".")[0] not in expect}
+    if wrong or stray:
+        raise AssertionError(f"{what}: launches (got, expected) {wrong}, "
+                             f"kernels off its path {stray}")
+    return out, counts, wall, peak
+
+
+def captured_msda_calls(model, batch):
+    """The arguments of each distinct MSDA call (by value and location
+    shape) of one prepare of ``model`` on ``batch``: the encoder's own
+    inputs."""
+    import torch
+    from selfocc_tpu_torch.models import encoder
+    calls, orig = {}, encoder.ms_deform_attn
+
+    def record(value, shapes, loc, attn, shared=False):
+        key = (tuple(value.shape), tuple(loc.shape))
+        if key not in calls and not shared:
+            calls[key] = tuple(t.float().contiguous().clone() if i != 1
+                               else tuple(t)
+                               for i, t in enumerate((value, shapes, loc,
+                                                      attn)))
+        return orig(value, shapes, loc, attn, shared)
+
+    encoder.ms_deform_attn = record
+    try:
+        with torch.no_grad():
+            model.prepare(batch["imgs"], batch["lidar2img"])
+    finally:
+        encoder.ms_deform_attn = orig
+    return list(calls.values())
+
+
+def msda_real_records(model, batch):
+    """``msda_fwd`` at the prepare's own calls (the TPV self-attention and
+    the hw, zh / wz cross-attention on the model's values and locations)
+    against its plain version (within 1e-5 of the output's scale), timed
+    beside it (events, device ms) with its bound."""
+    import torch
+    from selfocc_tpu_torch.ops import msda
+    recs = {}
+    for case in captured_msda_calls(model, batch):
+        value, shapes, loc, att = case
+        tag = f"Q{loc.shape[1]}_L{len(shapes)}_P{loc.shape[-2]}"
+        out = msda.msda_fwd(*case)
+        ref = msda.ms_deform_attn_plain(*case)
+        err = max_err(out, ref)
+        check(f"msda_fwd at the vis prepare's {tag} call", err,
+              1e-5 * max(1.0, float(ref.abs().max())))
+        pts_n, D = msda_points(case)
+        recs[tag] = kernel_record(
+            err, timed(lambda: msda.msda_fwd(*case), 5),
+            timed(lambda: msda.ms_deform_attn_plain(*case), 3),
+            (nbytes(value, loc, att, out),
+             pts_n * (MSDA_FWD_OPS[0] + D * MSDA_FWD_OPS[1])),
+            device_ms=device_ms(lambda: msda.msda_fwd(*case), 5),
+            value=list(value.shape), loc=list(loc.shape))
+        del out, ref
+    torch.cuda.empty_cache()
+    return recs
+
+
+def c25_frame_record(model, volume, origin, direction):
+    """The C = 25 instance (rows kernel) of ``trilinear_cf_with_grad_fwd``
+    at the first 32768-ray chunk of the novel-view render (8,388,608
+    points on the decoded volume) against its plain version (each channel
+    and the gradient within 1e-5 of its scale), timed with its bound."""
+    import torch
+    from selfocc_tpu_torch.ops import interp
+    pts = render_grid_points(model.head, origin[:CHUNK], direction[:CHUNK])
+    n, C = pts.shape[0], volume.shape[0]
+    v_k, g_k = interp.trilinear_cf_with_grad_fwd(volume, pts)
+    v_p, g_p = interp.trilinear_sample_cf_with_grad_plain(volume, pts)
+    rel = max(channel_close(v_k, v_p)[0], channel_close(g_k, g_p)[0])
+    err = max(max_err(v_k, v_p), max_err(g_k, g_p))
+    check(f"trilinear_cf_with_grad_fwd (C={C}, vis chunk) / channel "
+          "tolerance", rel, 1.0)
+    del v_k, g_k, v_p, g_p
+    torch.cuda.empty_cache()
+    voxels = corner_voxels(pts, tuple(volume.shape[1:]))
+
+    def kern():
+        return interp.trilinear_cf_with_grad_fwd(volume, pts)
+    rec = kernel_record(
+        err, timed(kern, 10),
+        timed(lambda: interp.trilinear_sample_cf_with_grad_plain(volume,
+                                                                 pts), 3),
+        (voxels * C * 4 + nbytes(pts) + n * (C + 3) * 4,
+         n * (20 + 16 * C + 96)),
+        device_ms=device_ms(kern, 10), points=n, C=C, corner_voxels=voxels,
+        channel_rel_err=rel, shape=f"C={C}, {n} vis-chunk points")
+    log(f"  trilinear_cf_with_grad_fwd C={C} vis chunk: ms {rec['ms']:.4g}, "
+        f"device_ms {rec['device_ms']}, plain_ms {rec['plain_ms']:.4g}, "
+        f"bound_ms {rec['bound_ms']:.4g} ({rec['bound_by']})")
+    del pts
+    torch.cuda.empty_cache()
+    return rec
+
+
+def vis_pics_path(device, work):
+    """``vis_pics.main`` on one full-width ``nuscenes_occ`` frame from the
+    novel pose, its launches counted; then, on the same seeded weights and
+    frame, the depths in band, a 4096-ray subset (depth, acc, rgb) against
+    the plain versions on the CPU, MSDA at the prepare's calls and the
+    C = 25 forward at the render's first chunk against theirs."""
+    import numpy as np
+    import torch
+    from selfocc_tpu_torch import vis_pics
+    from selfocc_tpu_torch.configs.experiments import get_config
+    from selfocc_tpu_torch.eval_depth import build_model
+    from selfocc_tpu_torch.utils.runtime import get_dataset, to_device
+    cfg = get_config("nuscenes_occ")
+    rh, rw = cfg.eval_num_rays
+    chunks = -(-cfg.num_cams * rh * rw // CHUNK)
+    r, counts, wall, peak = vis_path(
+        "vis_pics frame",
+        lambda: vis_pics.main(["--py-config", "nuscenes_occ", "--synthetic",
+                               "--num-samples", "1", "--seed", str(SEED),
+                               "--novel-view", *map(str, VIS_NOVEL),
+                               "--work-dir", work]),
+        {"msda_fwd": 16, "neus_render_fwd": chunks,
+         "trilinear_cf_with_grad_fwd": chunks,
+         "trilinear_cf_with_grad_fwd.rows": chunks,
+         "trilinear_cf_with_grad_fwd.plane": 0})
+    pngs = sorted(f for f in os.listdir(work) if f.endswith(".png"))
+    if len(pngs) != 2 * cfg.num_cams:
+        raise AssertionError(f"vis_pics wrote {pngs}")
+    rgb = r["last_rgb"]
+    if not np.isfinite(rgb).all():
+        raise AssertionError("non-finite rgb")
+    saturated = float((np.clip(rgb * 256 * 255, 0, 255) >= 255).mean())
+    res = {"wall_s": wall, "prepare_s": r["prepare_s"],
+           "render_s": r["render_s"], "png_write_s": r["write_s"],
+           "rays": r["rays"], "rays_per_s": r["rays"] / r["render_s"],
+           "max_memory_gb": peak, "chunks": chunks, "launches": counts,
+           "rgb_saturated_share": saturated}
+    log(f"  vis_pics: prepare {r['prepare_s']:.3f}s, render "
+        f"{r['render_s']:.3f}s ({res['rays_per_s']:.0f} rays/s), PNGs "
+        f"{r['write_s']:.3f}s, peak {peak:.2f} GiB, wall {wall:.1f}s; RGB "
+        f"channels saturated by the 256 * 255 scale: {saturated:.4f}")
+
+    model = build_model(cfg, SEED, device)
+    batch = to_device(get_dataset(cfg, True, "val")[0], device)
+    origin, direction, dn, near, far = depth_in_band(
+        cfg, batch, torch.from_numpy(r["last_depth"]), device,
+        novel_view=VIS_NOVEL)
+    res["subset_err"] = frame_subset(model, batch, origin, direction, dn,
+                                     near, far, device,
+                                     outputs=("depth", "acc", "rgb"))
+    res["msda_fwd"] = msda_real_records(model, batch)
+    with torch.no_grad():
+        volume = model.prepare(batch["imgs"], batch["lidar2img"]).float()
+    res["trilinear_c25"] = c25_frame_record(model, volume, origin, direction)
+    del model, volume, origin, direction
+    torch.cuda.empty_cache()
+    return res
+
+
+def vis_3d_path(device, work):
+    """On one full-width ``nuscenes_occ`` frame (the 200 x 200 x 16 grid at
+    0.4 m): the model's query on its volume, kernel against plain version
+    (the plain versions on the card), at the threshold that splits the
+    grid in half (the seeded weights put every voxel below 0, where the
+    check would hold nothing): the occupancies may differ only at voxels
+    with |sdf - thresh| < 1e-5; ``trilinear_cf_fwd`` at the grid's points
+    timed (``values_fwd_record``); then ``vis_3d.main --gt`` at that
+    ``--thresh``, its launches counted and its occupancy against the
+    check's. Returns the results and the threshold."""
+    import numpy as np
+    import torch
+    from selfocc_tpu_torch import vis_3d
+    from selfocc_tpu_torch.configs.experiments import get_config
+    from selfocc_tpu_torch.eval_depth import build_model
+    from selfocc_tpu_torch.models.heads import uniform_axes_on, uniform_grid
+    from selfocc_tpu_torch.ops import interp
+    from selfocc_tpu_torch.utils.runtime import get_dataset, to_device
+    cfg = get_config("nuscenes_occ")
+    xyz = uniform_grid(*uniform_axes_on(tuple(cfg.model.head.roi_aabb), 0.4,
+                                        device))
+    grid = tuple(xyz.shape[:3])
+    model = build_model(cfg, SEED, device)
+    batch = to_device(get_dataset(cfg, True, "val")[0], device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        volume = model.prepare(batch["imgs"], batch["lidar2img"])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    field = model.head.field
+    with torch.no_grad():
+        sdf_k = field.query_geo(volume, xyz)["sdf"]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        with plain_versions():
+            sdf_p = field.query_geo(volume, xyz)["sdf"]
+    thresh = float(sdf_k.median())
+    occ_k = sdf_k <= thresh
+    differ = occ_k != (sdf_p <= thresh)
+    bad = differ & ~(((sdf_k - thresh).abs() < 1e-5)
+                     | ((sdf_p - thresh).abs() < 1e-5))
+    flips = {"voxels": int(differ.numel()), "differ": int(differ.sum()),
+             "sdf_max_abs_err": max_err(sdf_k, sdf_p),
+             "occupied": int(occ_k.sum()),
+             "occupied_at_0": int((sdf_k <= 0).sum())}
+    if int(bad.sum()):
+        raise AssertionError(f"vis_3d occupancy: {int(bad.sum())} voxels "
+                             "differ outside |sdf - thresh| < 1e-5")
+    pts = field.mapping.meter2grid(xyz.reshape(-1, 3)).contiguous()
+    rec = values_fwd_record(interp, volume, pts, "vis_3d "
+                            + "x".join(map(str, grid)) + " grid", 20)
+    del model, volume, xyz, pts, sdf_p
+    torch.cuda.empty_cache()
+
+    r, counts, wall, peak = vis_path(
+        "vis_3d frame",
+        lambda: vis_3d.main(["--py-config", "nuscenes_occ", "--synthetic",
+                             "--num-samples", "1", "--gt", "--thresh",
+                             repr(thresh), "--seed", str(SEED),
+                             "--work-dir", work]),
+        {"msda_fwd": 16, "trilinear_cf_fwd": 1, "trilinear_cf_fwd.rows": 1,
+         "trilinear_cf_fwd.plane": 0})
+    if tuple(r["last"]["sdf"].shape) != grid or not {
+            "occ_000.ply", "gt_000.ply"} <= set(os.listdir(work)):
+        raise AssertionError(f"vis_3d: grid {r['last']['sdf'].shape}, "
+                             f"{os.listdir(work)}")
+    occ_main = np.load(os.path.join(work, "occ_000.npy"))
+    flips["driver_occupied"] = int(occ_main.sum())
+    flips["driver_vs_check_differ"] = int(
+        (occ_main != occ_k.cpu().numpy()).sum())
+    res = {"wall_s": wall, "occ_s": r["occ_s"], "write_s": r["write_s"],
+           "prepare_s": t1 - t0, "query_s": t2 - t1, "thresh": thresh,
+           "voxel_count": r["voxels"][0], "grid": list(grid),
+           "max_memory_gb": peak, "launches": counts,
+           "kernel_vs_plain": flips, "trilinear_cf_fwd": rec}
+    log(f"  vis_3d: thresh {thresh:.6g} (the check's median sdf), "
+        f"forward_occ {r['occ_s']:.3f}s (prepare {t1 - t0:.4f}s, query "
+        f"{t2 - t1:.4f}s on the check's volume), npy + PLY + GT writes "
+        f"{r['write_s']:.3f}s, {r['voxels'][0]} occupied voxels of "
+        f"{np.prod(grid)}, peak {peak:.2f} GiB; kernel vs plain {flips}")
+    return res, thresh
+
+
+def vis_scene_path(device, work, tmp, thresh):
+    """``vis_3d_scene.main --imageset`` over ``VIS_SCENE_FRAMES`` keyframes
+    of a fabricated full-size nuScenes tree (``fabricate_nuscenes``) at
+    ``--thresh thresh``, its launches counted: the scene cloud holds every
+    frame's voxels."""
+    from selfocc_tpu_torch import vis_3d_scene
+    t0 = time.time()
+    paths = fabricate_nuscenes(os.path.join(tmp, "nusc"), VIS_SCENE_FRAMES)
+    fab_s = time.time() - t0
+    n = VIS_SCENE_FRAMES
+    r, counts, wall, peak = vis_path(
+        "vis_3d_scene walk",
+        lambda: vis_3d_scene.main(
+            ["--py-config", "nuscenes_occ", "--imageset", paths["sweeps"],
+             "--data-path", paths["data_path"], "--num-samples", str(n),
+             "--thresh", repr(thresh), "--seed", str(SEED), "--work-dir",
+             work]),
+        {"msda_fwd": 16 * n, "trilinear_cf_fwd": n,
+         "trilinear_cf_fwd.rows": n, "trilinear_cf_fwd.plane": 0})
+    with open(os.path.join(work, "scene.ply")) as f:
+        header = [f.readline() for _ in range(3)][2].split()
+    if len(r["voxels"]) != n or int(header[-1]) != sum(r["voxels"]) or \
+            r["points"] != sum(r["voxels"]):
+        raise AssertionError(f"scene.ply {header}, frames {r['voxels']}, "
+                             f"points {r['points']}")
+    log(f"  vis_3d_scene: {n} keyframes (fabricated in {fab_s:.1f}s), "
+        f"voxels {r['voxels']} = scene.ply's {header[-1]}; forward_occ "
+        f"{r['occ_s']:.3f}s, writes {r['write_s']:.3f}s, wall {wall:.1f}s, "
+        f"peak {peak:.2f} GiB")
+    return {"wall_s": wall, "fabricate_s": fab_s, "voxels": r["voxels"],
+            "points": r["points"], "occ_s": r["occ_s"],
+            "write_s": r["write_s"], "max_memory_gb": peak,
+            "launches": counts}
+
+
+def vis_phase(device):
+    """The vis tools at ``nuscenes_occ``'s full width, seeded weights:
+    ``vis_pics`` (novel view), ``vis_3d --gt``, ``vis_3d_scene`` on a
+    fabricated scene walk and ``generate_videos`` on ``vis_pics``'s PNGs,
+    in a temporary directory (removed after)."""
+    import tempfile
+    from selfocc_tpu_torch import generate_videos
+    log(f"  card: {card_name()}")
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="selfocc_vis_") as tmp:
+        pics = os.path.join(tmp, "pics")
+        res["vis_pics"] = vis_pics_path(device, pics)
+        res["vis_3d"], thresh = vis_3d_path(device, os.path.join(tmp, "occ"))
+        res["vis_3d_scene"] = vis_scene_path(
+            device, os.path.join(tmp, "scene"), tmp, thresh)
+        video = os.path.join(tmp, "demo.mp4")
+        t0 = time.time()
+        r = generate_videos.main(["--src-dir", pics, "--out", video])
+        size = os.path.getsize(video)
+        if r["frames"] != 1 or size <= 0:
+            raise AssertionError(f"generate_videos: {r}, {size} bytes")
+        res["generate_videos"] = dict(r, bytes=size,
+                                      wall_s=time.time() - t0)
+        log(f"  generate_videos: {r['frames']} frame {r['size']} -> "
+            f"{size} bytes in {res['generate_videos']['wall_s']:.2f}s")
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -7181,7 +7561,8 @@ def main():
             "head": lambda: head_phase(device, args.baseline),
             "variants": lambda: variants_phase(device),
             "unet": lambda: unet_phase(device),
-            "teacher": lambda: teacher_phase(device)}
+            "teacher": lambda: teacher_phase(device),
+            "vis": lambda: vis_phase(device)}
     phases = {}
     for tag in PHASES:
         if tag not in wanted:
@@ -7422,6 +7803,31 @@ def main():
             walk[f"in_{path}_step_ms_per_call"] = k["ms_per_call"]
             walk[f"in_{path}_step_calls"] = k["calls"]
     kernels.append(walk)
+    # the vis tools' launches ([vis]) on every entry, and the [vis] records
+    # of its kernels at the vis paths' own inputs
+    visres = phases["vis"]
+    for entry in kernels:
+        key = {"gather_rows": "gather_rows_fwd"}.get(entry["name"],
+                                                      entry["name"])
+        for path in ("vis_pics", "vis_3d", "vis_3d_scene"):
+            counts = visres[path]["launches"]
+            entry[f"launches_{path}"] = counts.get(key, 0)
+            for kind in ("plane", "rows"):
+                if f"{key}.{kind}" in counts:
+                    entry[f"launches_{path}_{kind}"] = counts[f"{key}.{kind}"]
+        vis_recs = {
+            "msda_fwd": visres["vis_pics"]["msda_fwd"],
+            "trilinear_cf_with_grad_fwd": {
+                "c25_chunk": visres["vis_pics"]["trilinear_c25"]},
+            "trilinear_cf_fwd": {"grid": visres["vis_3d"]["trilinear_cf_fwd"]},
+        }.get(entry["name"], {})
+        for tag, rec in vis_recs.items():
+            for k in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
+                      "max_abs_err", "points"):
+                if k in rec:
+                    entry[f"vis_{tag}_{k}"] = rec[k]
+        if entry["name"] == "neus_render_fwd":
+            entry["vis_subset_max_abs_err"] = visres["vis_pics"]["subset_err"]
     print(json.dumps({
         "kernels": kernels,
         "frame": {"prepare_s": fres["prepare_s"],
@@ -7443,7 +7849,7 @@ def main():
         "bev": bres, "density": {k: v for k, v in denres.items()
                                  if k != "kernels"},
         "head": {k: v for k, v in hres.items() if k != "kernels"},
-        "variants": vres, "unet": ures, "teacher": teres}),
+        "variants": vres, "unet": ures, "teacher": teres, "vis": visres}),
         flush=True)
     print(card_name(), flush=True)
     print(json.dumps({"ok": True, "device": {

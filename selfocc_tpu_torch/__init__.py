@@ -12,5 +12,8 @@ Hand-written Hopper kernels live in ``csrc/`` and are built on first use by
 tensors and launches the kernel (or raises) for CUDA tensors.
 
 Drivers: ``python -m selfocc_tpu_torch.train``, ``.eval_depth``,
-``.eval_iou`` and ``.eval_novel_depth`` (``--device cuda`` by default).
+``.eval_iou``, ``.eval_novel_depth``, ``.eval_iou_kitti``,
+``.eval_novel_depth_kitti``, ``.vis_pics``, ``.vis_3d`` and
+``.vis_3d_scene`` (``--device cuda`` by default); ``.generate_videos`` and
+``.examine_sweeps`` run on the host.
 """

@@ -1,6 +1,6 @@
 """Camera projection geometry — counterpart of
 ``selfocc_tpu/geometry/projection.py`` (``point_sampling``, ``cal_pixel``,
-``rays_from_img2lidar``). All are fp32 islands: inputs are cast to float32
+``rays_from_img2lidar``, ``apply_novel_view``). All are fp32 islands: inputs are cast to float32
 whatever the caller's dtype, as in the JAX package and the reference
 (``@autocast(enabled=False)``)."""
 from __future__ import annotations
@@ -52,6 +52,27 @@ def rays_from_img2lidar(img2lidar, rays):
     rays_pad = torch.cat([rays, torch.ones_like(rays[..., :1])], dim=-1)
     direction = torch.einsum("bnij,rj->bnri", m[..., :3, :3], rays_pad)
     return origin, direction
+
+
+def apply_novel_view(img2lidar, novel_view):
+    """Offset camera poses for novel-view demo rendering
+    (``projection.py:89-100``, reference ``img2lidar.py:51-61``):
+    ``novel_view = [dx, dy, dz, yaw_deg]``. (B, N, 4, 4) -> a new fp32
+    tensor whose 3x3 blocks are rotated by the yaw about z (from the left)
+    and whose translations have ``dx, dy, dz`` added; the rotation is built
+    on the matrices' device."""
+    dx, dy, dz, z_r = novel_view
+    m = img2lidar.float().clone()
+    yaw = torch.full((), z_r, dtype=torch.float32, device=m.device)
+    c, s = torch.cos(torch.deg2rad(yaw)), torch.sin(torch.deg2rad(yaw))
+    zero, one = torch.zeros_like(c), torch.ones_like(c)
+    rot = torch.stack([torch.stack([c, -s, zero]), torch.stack([s, c, zero]),
+                       torch.stack([zero, zero, one])])
+    m[..., :3, :3] = torch.einsum("ij,bnjk->bnik", rot, m[..., :3, :3])
+    m[..., 0, 3] += dx
+    m[..., 1, 3] += dy
+    m[..., 2, 3] += dz
+    return m
 
 
 def cal_pixel(trans, coords, img_size):

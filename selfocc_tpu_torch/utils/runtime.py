@@ -1,6 +1,6 @@
 """What the port's drivers (``eval_depth``, ``eval_iou``,
 ``eval_iou_kitti``, ``eval_novel_depth``, ``eval_novel_depth_kitti``,
-``train``) share:
+``train``, ``vis_pics``, ``vis_3d``, ``vis_3d_scene``) share:
 the device flag, the weights flags, the dataset factory, the logger (the
 JAX package's ``utils/logging_util``, copied: stdout plus
 ``<work-dir>/<time>.log``) and host-to-device batches."""

@@ -9,8 +9,10 @@ driver's helpers, the data modules (``transforms``, ``wrapper``,
 ``kitti_raw_dataset``; their ``read_surround_imgs`` decode through the
 port's native decoder, ``selfocc_tpu_torch/native``),
 ``build_dataset``'s path and override tables,
-``utils/openseed_utils.SemTeacher``, ``utils/scenerf_metric.SSCMetrics``
-and ``utils/logging_util`` (the KITTI configs with the config test, the
+``utils/openseed_utils.SemTeacher``, ``utils/scenerf_metric.SSCMetrics``,
+``utils/logging_util``, the scene-walk ``data/vis_dataset`` and
+``utils/temporal_pkl``, the vis and index drivers' palettes and helpers
+(the KITTI configs with the config test, the
 encoder's recipe-option configs and the BEV and density-head recipes,
 which ``check_ported`` accepts), ``EfficientNetConfig``'s rounding and
 ``SwinConfig``, and these
@@ -294,6 +296,7 @@ _COPIES = {
     "utils.openseed_utils": ("JaxSemTeacher", "TorchSemTeacher"),
     "utils.scenerf_metric": (),
     "utils.logging_util": ("ScalarWriter.__init__",),
+    "data.vis_dataset": (), "utils.temporal_pkl": (),
 }
 
 
@@ -388,3 +391,78 @@ def test_build_dataset_tables_equal_their_originals():
     import selfocc_tpu_torch.data as tdata
     assert tdata.DEFAULT_PATHS == jdata.DEFAULT_PATHS
     assert tdata.EVAL_OVERRIDES == jdata.EVAL_OVERRIDES
+
+
+# the root vis and index drivers' helpers that the port's drivers copy:
+# (JAX script, port module, the names pinned)
+_DRIVER_COPIES = [
+    ("vis_3d", "selfocc_tpu_torch.vis_3d",
+     ("NUSC_COLORS", "SEMKITTI_COLORS", "write_ply")),
+    ("generate_videos", "selfocc_tpu_torch.generate_videos",
+     ("cat_images",)),
+    ("examine_sweeps", "selfocc_tpu_torch.examine_sweeps",
+     ("SENSOR_TYPES", "build_sweep_infos"))]
+
+
+@pytest.mark.parametrize("script,port,names", _DRIVER_COPIES,
+                         ids=[c[0] for c in _DRIVER_COPIES])
+def test_driver_helper_copies_equal_their_originals(script, port, names):
+    ref, got = _code(_source_tree(script)), _code(_source_tree(port))
+    for name in names:
+        key = name if name in ref else ast.dump(
+            ast.Name(id=name, ctx=ast.Store()))
+        assert key in ref and got.get(key) == ref[key], name
+    ref_mod, got_mod = (importlib.import_module(m) for m in (script, port))
+    for name in names:
+        value = getattr(ref_mod, name)
+        if isinstance(value, np.ndarray):
+            got_value = getattr(got_mod, name)
+            assert got_value.dtype == value.dtype
+            np.testing.assert_array_equal(got_value, value)
+
+
+def test_scene_walk_items_equal_the_jax_items(tmp_path):
+    # nuScenes_Scene_Vis + VisDatasetWrapper of both packages on the mini
+    # tree (one decoder, cv2, on both sides), plain and ego-centric: the
+    # same keys, dtypes and bits
+    from selfocc_tpu.data.vis_dataset import VisDatasetWrapper as JWrap
+    from selfocc_tpu.data.vis_dataset import nuScenes_Scene_Vis as JVis
+    from selfocc_tpu_torch.data.vis_dataset import VisDatasetWrapper
+    from selfocc_tpu_torch.data.vis_dataset import nuScenes_Scene_Vis
+    from test_nuscenes_dataset import _make_mini_nuscenes
+    data_path, pkl, _ = _make_mini_nuscenes(tmp_path, n_samples=3)
+    for ego_centric, num_cams in ((False, 6), (True, 2)):
+        kw = dict(data_path=data_path, imageset=pkl, crop_size=(48, 80),
+                  ego_centric=ego_centric, num_cams=num_cams)
+        cfg, jcfg = texp.get_config("tiny"), jexp.get_config("tiny")
+        got = VisDatasetWrapper(nuScenes_Scene_Vis(**kw), cfg)
+        ref = JWrap(JVis(**kw), jcfg)
+        assert len(got) == len(ref) == 3
+        for i in range(len(ref)):
+            g, r = got[i], ref[i]
+            assert set(g) == set(r) and g["token"] == r["token"] == f"tok{i}"
+            for k in r:
+                if k != "token":
+                    assert isinstance(g[k], np.ndarray), k
+                    assert g[k].dtype == np.asarray(r[k]).dtype, k
+                    assert np.array_equal(g[k], np.asarray(r[k])), k
+            assert g["imgs"].shape == (1, num_cams, 32, 64, 3)
+
+
+def test_temporal_pkl_copy_equals_its_original(tmp_path):
+    import pickle
+    from selfocc_tpu.utils import temporal_pkl as jt
+    from selfocc_tpu_torch.utils import temporal_pkl as tt
+    rng = np.random.RandomState(14)
+    infos = [{"scene_token": f"s{rng.randint(3)}", "timestamp": float(t),
+              "token": f"tok{k}"}
+             for k, t in enumerate(rng.permutation(12))]
+    src = str(tmp_path / "src.pkl")
+    with open(src, "wb") as f:
+        pickle.dump({"infos": infos, "metadata": {"version": "x"}}, f)
+    for mod, dst in ((tt, "t.pkl"), (jt, "j.pkl")):
+        mod.rewrite_pkl(src, str(tmp_path / dst))
+    with open(tmp_path / "t.pkl", "rb") as f, open(tmp_path / "j.pkl",
+                                                   "rb") as g:
+        got, ref = pickle.load(f), pickle.load(g)
+    assert got == ref and set(got["scene_info"]) == {"s0", "s1", "s2"}

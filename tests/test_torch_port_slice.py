@@ -1,7 +1,8 @@
 """The ported slice end to end, against the JAX package, on the CPU: one
 ``tiny`` synthetic frame through ``ChunkedRenderer`` prepare + render, the
 bridge's state-dict keys against the reference export, and the port's
-``eval_depth`` driver running without JAX in a subprocess."""
+drivers (the eval, train and vis ones) running without JAX in a
+subprocess."""
 import dataclasses
 import os
 import re
@@ -187,6 +188,10 @@ def test_eval_depth_runs_without_jax(tmp_path):
         "from selfocc_tpu_torch.models.encoder import CameraAwareSE\n"
         "from selfocc_tpu_torch.models.heads import FlowNet\n"
         "from selfocc_tpu_torch.models.lifter import TPVPositionLifter\n"
+        "from selfocc_tpu_torch import (examine_sweeps, generate_videos,"
+        " vis_3d, vis_3d_scene, vis_pics)\n"
+        "from selfocc_tpu_torch.data import vis_dataset\n"
+        "from selfocc_tpu_torch.utils import magma, temporal_pkl\n"
         "eval_depth.main(['--py-config', 'tiny', '--synthetic',"
         " '--num-samples', '1', '--batch', '256', '--device', 'cpu'])\n"
         "eval_depth.main(['--py-config', 'tiny', '--synthetic',"
@@ -206,6 +211,19 @@ def test_eval_depth_runs_without_jax(tmp_path):
         "eval_novel_depth_kitti.main(['--py-config', 'tiny', '--synthetic',"
         " '--num-samples', '1', '--batch', '256', '--offsets', '1.1',"
         " '--device', 'cpu'])\n"
+        "vis_pics.main(['--py-config', 'tiny', '--synthetic',"
+        " '--num-samples', '1', '--batch', '256', '--novel-view', '1.0123',"
+        " '0.5', '0.3', '10', '--device', 'cpu', '--work-dir',"
+        f" {str(tmp_path / 'vis')!r}])\n"
+        "vis_3d.main(['--py-config', 'tiny', '--synthetic', '--num-samples',"
+        " '1', '--resolution', '1.0', '--gt', '--device', 'cpu',"
+        f" '--work-dir', {str(tmp_path / 'vis3d')!r}])\n"
+        "vis_3d_scene.main(['--py-config', 'tiny', '--synthetic',"
+        " '--num-samples', '2', '--resolution', '1.0', '--device', 'cpu',"
+        f" '--work-dir', {str(tmp_path / 'scene')!r}])\n"
+        "generate_videos.main(['--src-dir',"
+        f" {str(tmp_path / 'vis')!r}, '--out',"
+        f" {str(tmp_path / 'demo.mp4')!r}, '--num-cams', '2'])\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'flax', 'selfocc_tpu'))\n"
         "assert not bad, bad\n"
@@ -222,11 +240,16 @@ def test_eval_depth_runs_without_jax(tmp_path):
     assert "rendered 4 novel views" in proc.stdout
     assert "SceneRF iou:" in proc.stdout and "mIoU:" in proc.stdout
     assert "rendered 1 novel views" in proc.stdout
+    assert "[0] wrote 2 depth/rgb maps" in proc.stdout
+    assert "GT voxels exported" in proc.stdout
+    assert "scene cloud:" in proc.stdout
+    assert "wrote 1 frames to" in proc.stdout
 
 
 @pytest.mark.parametrize("module", ["eval_depth", "eval_iou", "train",
                                     "eval_novel_depth", "eval_iou_kitti",
-                                    "eval_novel_depth_kitti"])
+                                    "eval_novel_depth_kitti", "vis_pics",
+                                    "vis_3d", "vis_3d_scene"])
 def test_drivers_need_a_card_or_device_cpu_and_synthetic(module):
     env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
     base = [sys.executable, "-m", f"selfocc_tpu_torch.{module}",
