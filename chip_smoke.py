@@ -294,6 +294,25 @@ raises and the exit code is non-zero.
   path's launch counts (every kernel's, by instance) are set to 0 just
   before it and read just after; a count other than the path's expected
   one, or a kernel off the path, fails the run.
+- ``[dp]``: data-parallel training and the sharded eval at
+  ``nuscenes_occ``'s full width, synthetic data. Two gloo ranks share the
+  card (NCCL refuses two ranks on one device; the phase prints the
+  backend), spawned by ``parallel.mesh.spawn``; each takes one step on its
+  own item (0 or 1) with its launch counts set to 0 just before and read
+  after (every kernel of the step on every rank), then ``DP_STEPS`` timed
+  steps. The ranks' parameters must be bit-equal after the step and
+  within 1e-5 of each tensor's max of one process's optimizer step on the
+  mean of the ranks' own gradients, the averaged losses the mean of the
+  ranks' own (rtol 1e-5), the BatchNorm statistics the mean of their own
+  updates. The one-rank step is timed beside them and run in a one-rank
+  NCCL group under ``set_sync_debug_mode("error")``; ``train.main --dp``
+  runs 2 steps over NCCL on every visible card (one card: the plain step,
+  launches counted); one eval frame and one 512 x 512 x 40 occupancy
+  query on ``[cuda:0, cuda:0]`` and on every visible card (the prepare's
+  cameras split, the render's rays and the query's points) must equal the
+  one-device frame within 1e-6 of its largest value. Prints step seconds
+  (median, spread), all-reduce ms and bytes a step, peak GiB per rank, the
+  card count, render seconds sharded and not.
 
 ``--phases`` runs a subset (then no result line is printed). Each path's
 launch counts are set to 0 just before it runs and read just after; a
@@ -353,7 +372,7 @@ RENDER_FWD_OPS = 50
 RENDER_BWD_OPS = 103
 PHASES = ("kernels", "gather", "frame", "occ", "train-parity", "train",
           "data", "kitti", "depth", "levers", "bev", "density", "head",
-          "variants", "unet", "teacher", "vis")
+          "variants", "unet", "teacher", "vis", "dp")
 OPENOCC_PCR = (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0)   # 512 x 512 x 40 at 0.2
 OCC_SLAB = 1 << 20    # dense-grid points held against the plain version
 # the compact stencil's volume cotangent, card against CPU on one volume:
@@ -7493,6 +7512,390 @@ def vis_phase(device):
     return res
 
 
+DP_STEPS = 4          # timed steps after [dp]'s checked one
+
+
+def dp_wrappers():
+    from selfocc_tpu_torch.ops import interp, msda
+    from selfocc_tpu_torch.ops import render_weights as rw
+    return (rw.neus_render_fwd, rw.neus_render_bwd,
+            interp.trilinear_cf_with_grad_fwd, interp.trilinear_bwd,
+            msda.msda_fwd, msda.msda_bwd)
+
+
+def dp_step_times(trainer, batch, gen, steps):
+    """Host seconds (synchronised) of ``steps`` training steps, with each
+    step's split; the peak GiB allocated by this process in them."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    out = []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        m = trainer.step(batch, gen(i), sync=torch.cuda.synchronize)
+        check_finite_metrics(m)
+        out.append(dict(step_s=time.perf_counter() - t0, **m["times"]))
+    return out, torch.cuda.max_memory_allocated() / 2**30
+
+
+def dp_rank_run(group):
+    """One rank of [dp]'s data-parallel step at ``nuscenes_occ``'s full
+    width (run by ``parallel.mesh.spawn``): rank 0's weights broadcast as
+    the driver does, item ``rank`` of the synthetic set, one step with the
+    counts set to 0 just before it and read after (each kernel of the step
+    must launch on every rank), the tensors this rank gave
+    ``all_reduce_mean`` (its own gradients, losses and BatchNorm
+    statistics) caught, then ``DP_STEPS`` timed steps."""
+    import torch
+    from selfocc_tpu_torch.configs.experiments import get_config
+    from selfocc_tpu_torch.parallel.mesh import broadcast_
+    from selfocc_tpu_torch.train import build_trainer, step_seed
+    from selfocc_tpu_torch.utils import train_lib
+    from selfocc_tpu_torch.utils.runtime import (get_dataset, resolve_device,
+                                                 to_device)
+    device = resolve_device("cuda", group.device.index)
+    cfg = get_config("nuscenes_occ")
+    trainer = build_trainer(cfg, SEED, device, group=group)
+    broadcast_(list(trainer.model.parameters()) + trainer.running_stats(),
+               group)
+    batch = to_device(get_dataset(cfg, synthetic=True, length=2)[group.rank],
+                      device)
+    caught = {"reduce_s": []}
+    reduce = train_lib.all_reduce_mean
+
+    def catching(tensors, grp, *args, **kwargs):
+        if "local" not in caught:
+            caught["local"] = [t.detach().cpu().clone() for t in tensors]
+        caught["bytes"] = sum(t.numel() * t.element_size() for t in tensors)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reduce(tensors, grp, *args, **kwargs)
+        torch.cuda.synchronize()
+        caught["reduce_s"].append(time.perf_counter() - t0)
+    train_lib.all_reduce_mean = catching
+
+    def gen(step):
+        return torch.Generator(device=device).manual_seed(
+            step_seed(SEED, step, group.rank))
+    wrappers = dp_wrappers()
+    reset_counts(wrappers)
+    m = trainer.step(batch, gen(0), sync=torch.cuda.synchronize)
+    check_finite_metrics(m)
+    launches = read_counts(wrappers, f"rank {group.rank}'s data-parallel "
+                           "step", ("plane", "rows"))
+    params = [p for p in trainer.model.parameters() if p.requires_grad]
+    res = {"launches": launches, "local": caught["local"],
+           "n_params": len(params),
+           "losses": ["total"] + sorted(k for k in m if k not in (
+               "total", "grad_norm", "lr", "times")),
+           "metrics": {k: float(v) for k, v in m.items() if k != "times"},
+           "params": [p.detach().cpu().clone() for p in params],
+           "stats": [s.cpu().clone() for s in trainer.running_stats()]}
+    res["steps"], res["max_memory_gb"] = dp_step_times(
+        trainer, batch, lambda i: gen(i + 1), DP_STEPS)
+    res["reduce_s"], res["reduce_bytes"] = caught["reduce_s"][1:], \
+        caught["bytes"]
+    return res
+
+
+def spread(xs):
+    xs = sorted(xs)
+    return {"median": xs[len(xs) // 2], "min": xs[0], "max": xs[-1]}
+
+
+def dp_reference(device, r0, r1):
+    """The checks of [dp]'s two-rank step against one process: both ranks'
+    parameters bit-equal, and within 1e-5 of each tensor's max of one
+    optimizer step on the mean of the ranks' own gradients; the averaged
+    losses the mean of the ranks' own (rtol 1e-5); the statistics the mean
+    of the ranks' own updates. Returns the reference trainer (its step
+    taken) and the errors."""
+    import torch
+    from selfocc_tpu_torch.configs.experiments import get_config
+    from selfocc_tpu_torch.train import build_trainer
+    n = r0["n_params"]
+    differ = [i for i, (a, b) in enumerate(zip(r0["params"], r1["params"]))
+              if not torch.equal(a, b)]
+    if differ or n != r1["n_params"]:
+        raise AssertionError(f"the ranks' parameters differ after the step "
+                             f"(tensors {differ[:8]} of {n})")
+    trainer = build_trainer(get_config("nuscenes_occ"), SEED, device)
+    params = [p for p in trainer.model.parameters() if p.requires_grad]
+    for p, g0, g1 in zip(params, r0["local"][:n], r1["local"][:n]):
+        p.grad = (g0.to(device) + g1.to(device)) / 2
+    norm, _ = trainer.apply_gradients()
+    param_err, bitwise = 0.0, True
+    for p, got in zip(params, r0["params"]):
+        ref = p.detach().cpu()
+        err = max_err(got, ref) / max(float(ref.abs().max()), 1e-30)
+        param_err = max(param_err, err)
+        bitwise = bitwise and torch.equal(got, ref)
+    if param_err > 1e-5:
+        raise AssertionError(f"two-rank step against one process's step on "
+                             f"the mean gradient: {param_err:.3e} of a "
+                             "tensor's max > 1e-5")
+    loss_err = 0.0
+    for k, l0, l1 in zip(r0["losses"], r0["local"][n + 1], r1["local"][
+            n + 1]):
+        mean = float((l0 + l1) / 2)
+        loss_err = max(loss_err, abs(r0["metrics"][k] - mean) / abs(mean))
+    if loss_err > 1e-5:
+        raise AssertionError(f"averaged losses vs the ranks' mean: "
+                             f"{loss_err:.3e} > rtol 1e-5")
+    norm_err = abs(float(norm) - r0["metrics"]["grad_norm"]) / float(norm)
+    if norm_err > 1e-5:
+        raise AssertionError(f"grad_norm {r0['metrics']['grad_norm']} vs "
+                             f"the mean gradient's {float(norm)}")
+    stats_err = 0.0
+    for got, s0, s1 in zip(r0["stats"], r0["local"][n + 2:],
+                           r1["local"][n + 2:]):
+        stats_err = max(stats_err, max_err(got, (s0 + s1) / 2))
+    if stats_err > 0 or not all(torch.equal(a, b) for a, b in
+                                zip(r0["stats"], r1["stats"])):
+        raise AssertionError(f"BatchNorm statistics: the ranks' mean "
+                             f"{stats_err:.3e} away, or ranks differ")
+    log(f"  two ranks, one step on items 0 and 1: parameters bit-equal "
+        f"across ranks; against one process's step on the mean gradient "
+        f"{param_err:.3e} of a tensor's max"
+        + (" (bit-equal)" if bitwise else "")
+        + f"; averaged losses vs the ranks' mean {loss_err:.3e}; grad_norm "
+        f"{norm_err:.3e}; {len(r0['stats'])} BatchNorm statistics the "
+        "ranks' mean, bit for bit")
+    return trainer, {"param_rel_err": param_err, "param_bitwise": bitwise,
+                     "loss_rel_err": loss_err, "grad_norm_rel_err": norm_err,
+                     "stats_max_abs_err": stats_err}
+
+
+def dp_sync_check(trainer, batch, gen, device):
+    """A warm step of ``trainer`` in a one-rank NCCL group under
+    ``set_sync_debug_mode("error")``."""
+    import tempfile
+    import torch
+    from selfocc_tpu_torch.parallel.mesh import close, init_group
+    with tempfile.TemporaryDirectory() as tmp:
+        group = init_group("nccl", 0, 1, device,
+                           f"file://{os.path.join(tmp, 'store')}")
+        trainer.group = group
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                m = trainer.step(batch, gen)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            check_finite_metrics(m)
+        finally:
+            trainer.group = None
+            close(group)
+    log("  a one-rank NCCL group's warm step under "
+        "set_sync_debug_mode('error'): no synchronising call")
+
+
+def dp_train_main(device):
+    """``train.main --dp`` for 2 steps at ``nuscenes_occ``'s full width
+    (synthetic): NCCL over every visible card, one a rank; with one card
+    the plain step in this process, whose launches are counted. Fails
+    unless the checkpoint counts 2 steps and, with several cards, the
+    ranks ended bit-equal."""
+    import tempfile
+    import torch
+    from selfocc_tpu_torch import train
+    n = torch.cuda.device_count()
+    wrappers = dp_wrappers()
+    with tempfile.TemporaryDirectory() as work:
+        reset_counts(wrappers)
+        t0 = time.time()
+        out = train.main(["--py-config", "nuscenes_occ", "--synthetic",
+                          "--dp", "--max-steps", "2", "--print-freq", "1",
+                          "--work-dir", work])
+        wall = time.time() - t0
+        state = torch.load(os.path.join(work, "ckpts", "latest.pt"),
+                           map_location="cpu")
+        if state["step"] != 2 or state["last_iter"] != 2 * n:
+            raise AssertionError(f"--dp checkpoint: step {state['step']}, "
+                                 f"item {state['last_iter']}")
+        del state
+    res = {"cards": n, "wall_s": wall, "step_s": out["step_s"]}
+    if n == 1:
+        res["launches"] = read_counts(wrappers, "train.main --dp run",
+                                      ("plane", "rows"))
+    elif out.get("replicas_equal") is not True:
+        raise AssertionError(f"train.main --dp over {n} cards: ranks not "
+                             "bit-equal")
+    log(f"  train.main --dp: {n} card(s), "
+        + ("the plain step (one card)" if n == 1 else
+           f"{n} NCCL ranks, bit-equal at the end")
+        + f"; 2 steps in {wall:.1f}s (build and items included)")
+    torch.cuda.empty_cache()
+    return res
+
+
+def dp_eval(device):
+    """One ``nuscenes_occ`` eval frame and one occupancy query (the
+    512 x 512 x 40 grid at 0.2 m, sdf and logits) on one device, on
+    ``[cuda:0, cuda:0]`` and on every visible card: the prepare with its
+    cameras split, then the render and the query of the one-device volume,
+    each within 1e-6 of the largest one-device value (bit-equal where
+    said), with the sharded frame's launches counted; then the same frame
+    again, timed warm (the first call on another card copies the model
+    there and loads its kernels): render seconds sharded and not."""
+    import torch
+    from selfocc_tpu_torch.configs.experiments import get_config
+    from selfocc_tpu_torch.eval_depth import build_model
+    from selfocc_tpu_torch.ops import interp, msda
+    from selfocc_tpu_torch.ops import render_weights as rw
+    from selfocc_tpu_torch.utils.eval_lib import (ChunkedRenderer,
+                                                  GridOccEvaluator,
+                                                  eval_ray_grid,
+                                                  eval_trans_mats,
+                                                  rays_for_cams)
+    from selfocc_tpu_torch.utils.runtime import get_dataset, to_device
+    cfg = get_config("nuscenes_occ")
+    model = build_model(cfg, SEED, device)
+    batch = to_device(get_dataset(cfg, synthetic=True, phase="val",
+                                  length=1)[0], device)
+    origin, direction = rays_for_cams(eval_trans_mats(batch, cfg),
+                                      eval_ray_grid(cfg, device=device))
+    sync = torch.cuda.synchronize
+
+    def sharded(devices):
+        """prepare, then the render and the query of ``volume`` (default:
+        the prepared one) on ``devices``, timed"""
+        r = ChunkedRenderer(model, chunk=CHUNK, outputs=("depth",),
+                            devices=devices, prepare_shard=True)
+        ev = GridOccEvaluator(model, devices=devices)
+
+        def frame(volume=None):
+            sync()
+            t0 = time.perf_counter()
+            vol = r.prepare(batch["imgs"], batch["lidar2img"])
+            sync()
+            t1 = time.perf_counter()
+            volume = vol if volume is None else volume
+            depth = r.render_device(volume, origin, direction)["depth"]
+            sync()
+            t2 = time.perf_counter()
+            grid = ev.query_grid_device(volume, OPENOCC_PCR, 0.2,
+                                        keys=("sdf", "logits"))
+            sync()
+            return vol, depth, grid, {"prepare_s": t1 - t0,
+                                      "render_s": t2 - t1,
+                                      "query_s": time.perf_counter() - t2}
+        return frame
+
+    one = sharded(None)
+    one()                                          # warm
+    vol, depth, grid, one_s = one()
+    cards = [torch.device("cuda", i)
+             for i in range(torch.cuda.device_count())]
+    res = {"one_device": one_s}
+    wrappers = (rw.neus_render_fwd, interp.trilinear_cf_with_grad_fwd,
+                interp.trilinear_cf_fwd, msda.msda_fwd)
+    for tag, devices in (("cuda0_twice", [device, device]),
+                         ("all_cards", cards)):
+        frame = sharded(devices)
+        reset_counts(wrappers)
+        svol, sdepth, sgrid, cold = frame(volume=vol)
+        launches = read_counts(
+            wrappers, f"sharded frame ({tag})", (),
+            ("trilinear_cf_with_grad_fwd.plane", "trilinear_cf_fwd.rows"))
+        errs = {"prepare": max_err(svol, vol) / float(vol.abs().max()),
+                "render": max_err(sdepth, depth) / float(depth.abs().max())}
+        bits = {"prepare": torch.equal(svol, vol),
+                "render": torch.equal(sdepth, depth)}
+        for k in grid:
+            errs[f"query_{k}"] = max_err(sgrid[k], grid[k]) / float(
+                grid[k].abs().max())
+            bits[f"query_{k}"] = torch.equal(sgrid[k], grid[k])
+        del svol, sdepth, sgrid
+        secs = frame(volume=vol)[3]
+        bad = {k: e for k, e in errs.items() if e > 1e-6}
+        log(f"  sharded eval over {[str(d) for d in devices]}: largest "
+            "difference from one device, over its largest value: "
+            + ", ".join(f"{k} {e:.3e}" + (" (bit-equal)" if bits[k] else "")
+                        for k, e in errs.items())
+            + f"; warm: prepare {secs['prepare_s']:.3f}s, render "
+            f"{secs['render_s']:.3f}s, query {secs['query_s']:.3f}s "
+            f"sharded; {one_s['prepare_s']:.3f}s, {one_s['render_s']:.3f}s, "
+            f"{one_s['query_s']:.3f}s on one device (first call: render "
+            f"{cold['render_s']:.3f}s, query {cold['query_s']:.3f}s)")
+        if bad:
+            raise AssertionError(f"sharded eval ({tag}) differs beyond 1e-6 "
+                                 f"relative: {bad}")
+        res[tag] = {"devices": [str(d) for d in devices], "rel_err": errs,
+                    "bitwise": bits, "launches": launches, "first": cold,
+                    **secs}
+    del model, vol, depth, grid
+    torch.cuda.empty_cache()
+    return res
+
+
+def dp_phase(device):
+    """[dp]: data-parallel training at ``nuscenes_occ``'s full width and
+    the sharded eval. Two gloo ranks on the one card (NCCL refuses two
+    ranks on one device) take one step on items 0 and 1 and are held to
+    one process (``dp_reference``), then time ``DP_STEPS`` steps; the
+    one-rank step is timed beside them and sync-checked in a one-rank NCCL
+    group; ``train.main --dp`` runs 2 steps over NCCL on every visible
+    card; ``dp_eval``."""
+    import torch
+    from selfocc_tpu_torch.configs.experiments import get_config
+    from selfocc_tpu_torch.parallel.mesh import spawn
+    from selfocc_tpu_torch.train import step_seed
+    from selfocc_tpu_torch.utils.runtime import get_dataset, to_device
+    log(f"  card: {card_name()}; {torch.cuda.device_count()} visible")
+    log("  backend: gloo (two ranks on one card; NCCL refuses two ranks on "
+        "one device)")
+    torch.cuda.empty_cache()
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    t0 = time.time()
+    r0, r1 = spawn(dp_rank_run, 2, "gloo", [device, device])
+    spawn_s = time.time() - t0
+    log(f"  two ranks spawned, built, stepped {DP_STEPS + 1} times and "
+        f"joined in {spawn_s:.1f}s")
+    trainer, checks = dp_reference(device, r0, r1)
+    batch = to_device(get_dataset(get_config("nuscenes_occ"), synthetic=True,
+                                  length=1)[0], device)
+
+    def gen(step):
+        return torch.Generator(device=device).manual_seed(
+            step_seed(SEED, step))
+    one, one_peak = dp_step_times(trainer, batch, gen, DP_STEPS + 1)
+    one = one[1:]
+    dp_sync_check(trainer, batch, gen(DP_STEPS + 1), device)
+    del trainer
+    torch.cuda.empty_cache()
+    two = [s for r in (r0, r1) for s in r["steps"]]
+    reduce_s = [t for r in (r0, r1) for t in r["reduce_s"]]
+    res = {
+        "backend_one_card": "gloo", "cards": torch.cuda.device_count(),
+        "spawn_wall_s": spawn_s, "checks": checks,
+        "one_rank_step_s": spread([s["step_s"] for s in one]),
+        "two_rank_step_s": spread([s["step_s"] for s in two]),
+        "all_reduce_s": spread(reduce_s),
+        "all_reduce_bytes": r0["reduce_bytes"],
+        "peak_gb": {"one_rank": one_peak, "rank0": r0["max_memory_gb"],
+                    "rank1": r1["max_memory_gb"]},
+        "launches_rank0": r0["launches"], "launches_rank1": r1["launches"],
+        "steps_one_rank": one, "steps_two_ranks": two}
+    log(f"  step s (median, min-max): one rank "
+        f"{res['one_rank_step_s']['median']:.3f} "
+        f"({res['one_rank_step_s']['min']:.3f}-"
+        f"{res['one_rank_step_s']['max']:.3f}); two gloo ranks on one card "
+        f"{res['two_rank_step_s']['median']:.3f} "
+        f"({res['two_rank_step_s']['min']:.3f}-"
+        f"{res['two_rank_step_s']['max']:.3f}); all-reduce "
+        f"{res['all_reduce_s']['median'] * 1e3:.1f} ms "
+        f"({res['all_reduce_s']['min'] * 1e3:.1f}-"
+        f"{res['all_reduce_s']['max'] * 1e3:.1f}) of "
+        f"{res['all_reduce_bytes'] / 2**20:.1f} MiB a step; peak GiB: "
+        f"one rank {one_peak:.2f}, ranks {r0['max_memory_gb']:.2f} / "
+        f"{r1['max_memory_gb']:.2f}")
+    res["train_main"] = dp_train_main(device)
+    res["eval"] = dp_eval(device)
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -7562,7 +7965,8 @@ def main():
             "variants": lambda: variants_phase(device),
             "unet": lambda: unet_phase(device),
             "teacher": lambda: teacher_phase(device),
-            "vis": lambda: vis_phase(device)}
+            "vis": lambda: vis_phase(device),
+            "dp": lambda: dp_phase(device)}
     phases = {}
     for tag in PHASES:
         if tag not in wanted:
@@ -7828,6 +8232,18 @@ def main():
                     entry[f"vis_{tag}_{k}"] = rec[k]
         if entry["name"] == "neus_render_fwd":
             entry["vis_subset_max_abs_err"] = visres["vis_pics"]["subset_err"]
+    # [dp]: each rank's data-parallel step, train.main --dp (one card: in
+    # this process) and the sharded eval frame on [cuda:0, cuda:0]
+    dpres = phases["dp"]
+    for entry in kernels:
+        for path, counts in (
+                ("dp_rank0", dpres["launches_rank0"]),
+                ("dp_rank1", dpres["launches_rank1"]),
+                ("dp_train_main", dpres["train_main"].get("launches", {})),
+                ("dp_sharded_frame",
+                 dpres["eval"]["cuda0_twice"]["launches"])):
+            if entry["name"] in counts:
+                entry[f"launches_{path}"] = counts[entry["name"]]
     print(json.dumps({
         "kernels": kernels,
         "frame": {"prepare_s": fres["prepare_s"],
@@ -7849,7 +8265,8 @@ def main():
         "bev": bres, "density": {k: v for k, v in denres.items()
                                  if k != "kernels"},
         "head": {k: v for k, v in hres.items() if k != "kernels"},
-        "variants": vres, "unet": ures, "teacher": teres, "vis": visres}),
+        "variants": vres, "unet": ures, "teacher": teres, "vis": visres,
+        "dp": dpres}),
         flush=True)
     print(card_name(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,8 @@ bilinear lookup of the predicted depth at the sparse GT pixels ->
 
     python -m selfocc_tpu_torch.eval_depth --py-config nuscenes_occ \
         [--synthetic] --num-samples 1 [--flip] [--depth-metric-tgt max] \
-        [--save-depth --work-dir DIR] [--device cpu]
+        [--save-depth --work-dir DIR] [--device cpu] [--no-shard]
+        [--prepare-shard]
 
 Real data: the config's val split (``data.build_dataset(cfg, "val")``:
 nuScenes reads ``data/nuscenes_infos_val_sweeps.pkl`` with images and lidar
@@ -30,7 +31,10 @@ Weights are drawn from seeded initialisers that mirror the JAX package's
 (``--ckpt-path``) or a reference-SelfOcc ``.pth`` (``--torch-ckpt``). Runs
 on the first CUDA device (kernels built on first use) unless ``--device
 cpu`` asks for the kernels' plain versions on the CPU; with no card and no
-``--device cpu`` it exits non-zero.
+``--device cpu`` it exits non-zero. On cards the render's chunks split
+their rays over every visible card (``utils/eval_lib.ChunkedRenderer``;
+the JAX driver's mesh); ``--no-shard`` keeps it on the first,
+``--prepare-shard`` also splits the prepare's cameras.
 """
 from __future__ import annotations
 
@@ -49,9 +53,9 @@ from .ops.interp import bilinear_sample
 from .utils.eval_lib import (ChunkedRenderer, camera_kwargs, enable_max_depth,
                              eval_ray_grid, eval_trans_mats, rays_for_cams)
 from .utils.metrics import DepthMetric
-from .utils.runtime import (add_device_arg, add_weights_args, get_dataset,
-                            get_logger, load_weights, resolve_device,
-                            to_device)
+from .utils.runtime import (add_device_arg, add_shard_args, add_weights_args,
+                            get_dataset, get_logger, load_weights,
+                            resolve_device, shard_devices, to_device)
 
 
 def parse_args(argv=None):
@@ -75,6 +79,7 @@ def parse_args(argv=None):
     ap.add_argument("--save-depth", action="store_true",
                     help="save each frame's (N_cams, H, W) depth map to "
                          "<work-dir>/depth_{i:04d}.npy")
+    add_shard_args(ap)
     add_weights_args(ap)
     add_device_arg(ap)
     return ap.parse_args(argv)
@@ -101,14 +106,17 @@ def sample_depth_at(depth_map: torch.Tensor, loc: np.ndarray, rh: int,
 
 def evaluate(cfg, model, ds, device, num_samples: int, chunk: int,
              logger, flip: bool = False, tgt: str = "raw",
-             save_dir: str = "") -> Dict:
+             save_dir: str = "", devices=None,
+             prepare_shard: bool = False) -> Dict:
     """The eval loop. ``flip``: flip-TTA; ``tgt``: the scored render
     (``raw`` or ``max``, the model built with ``return_max_depth``);
-    ``save_dir``: where the depth maps go (none when empty). Returns the
+    ``save_dir``: where the depth maps go (none when empty); ``devices``,
+    ``prepare_shard``: the renderer's sharding. Returns the
     metric table, timings (seconds, synchronised on the device; the flip
     pass's in them) and the last frame's depth maps."""
     outputs = ("depth",) if tgt == "raw" else ("depth", "max_depth")
-    renderer = ChunkedRenderer(model, chunk=chunk, outputs=outputs)
+    renderer = ChunkedRenderer(model, chunk=chunk, outputs=outputs,
+                               devices=devices, prepare_shard=prepare_shard)
     rays = eval_ray_grid(cfg, device=device)
     rh, rw = cfg.eval_num_rays
     metric = DepthMetric(camera_names=[f"cam{i}" for i in range(cfg.num_cams)],
@@ -184,7 +192,9 @@ def main(argv=None):
         os.makedirs(args.work_dir, exist_ok=True)
     return evaluate(cfg, model, ds, device, args.num_samples, args.batch,
                     logger, flip=args.flip, tgt=args.depth_metric_tgt,
-                    save_dir=args.work_dir if args.save_depth else "")
+                    save_dir=args.work_dir if args.save_depth else "",
+                    devices=shard_devices(device, args.no_shard),
+                    prepare_shard=args.prepare_shard)
 
 
 if __name__ == "__main__":

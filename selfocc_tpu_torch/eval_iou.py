@@ -1,9 +1,9 @@
 """Occupancy IoU / mIoU evaluation driver on the PyTorch port — counterpart
-of the repository's ``eval_iou.py`` on one device.
+of the repository's ``eval_iou.py``.
 
     python -m selfocc_tpu_torch.eval_iou --py-config nuscenes_occ \\
         [--synthetic] --num-samples 1 --occ3d --use-mask --sem [--device cpu]
-        [--work-dir DIR]
+        [--work-dir DIR] [--no-shard] [--prepare-shard]
 
 The run log goes to stdout and ``<--work-dir>/<time>.log``
 (``work_dirs/eval_iou`` by default, as the JAX driver's).
@@ -38,8 +38,10 @@ point. Weights are seeded (``--seed``), or loaded with ``--ckpt-path`` (the
 port's ``train.py`` checkpoint) or ``--torch-ckpt`` (a reference-SelfOcc
 ``.pth``). Runs on the first CUDA device unless ``--device cpu`` asks for
 the kernels' plain versions on the CPU; with no card and no ``--device
-cpu`` it exits non-zero. The JAX driver's mesh options
-(``--no-shard``, ``--prepare-shard``) have no counterpart on one device.
+cpu`` it exits non-zero. On cards the grid's points split over every
+visible card (``GridOccEvaluator``; the JAX driver's mesh, the separable
+query excepted, as there); ``--no-shard`` keeps the query on the first,
+``--prepare-shard`` also splits the prepare's cameras.
 """
 from __future__ import annotations
 
@@ -56,9 +58,9 @@ from .eval_depth import build_model
 from .ops.interp import trilinear_sample
 from .utils.eval_lib import GridOccEvaluator, camera_kwargs
 from .utils.metrics import IoU, MeanIoU, openseed2nuscenes
-from .utils.runtime import (add_device_arg, add_weights_args, get_dataset,
-                            get_logger, load_weights, resolve_device,
-                            to_device)
+from .utils.runtime import (add_device_arg, add_shard_args, add_weights_args,
+                            get_dataset, get_logger, load_weights,
+                            resolve_device, shard_devices, to_device)
 
 # reference eval_iou.py:174-196 — (point_cloud_range, expansion) per
 # --scene-size under --occ3d; expansion always equals the full range.
@@ -107,6 +109,7 @@ def parse_args(argv=None):
                          "of every grid point, the parity default) or "
                          "'separable' (three per-axis lerps: the same "
                          "interpolant, ~1 ulp fp32 rounding difference)")
+    add_shard_args(ap)
     add_weights_args(ap)
     add_device_arg(ap)
     return ap.parse_args(argv)
@@ -217,7 +220,10 @@ def evaluate(cfg, model, ds, device, args, logger) -> Dict:
     final numbers and the seconds spent in prepare and in the grid queries
     (synchronised on the device)."""
     pcr, expansion = scene(args)
-    evaluator = GridOccEvaluator(model, query=args.grid_query)
+    evaluator = GridOccEvaluator(
+        model, query=args.grid_query,
+        devices=shard_devices(device, args.no_shard),
+        prepare_shard=args.prepare_shard)
     # both metrics are MeanIoU instances, dataset_empty_label=0
     # (reference eval_iou.py:138-149)
     iou_metric = MeanIoU([1], 0, ["occupied"], args.use_mask, 0, name="iou")

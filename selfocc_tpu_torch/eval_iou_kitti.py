@@ -1,9 +1,9 @@
 """SemanticKITTI occupancy evaluation driver on the PyTorch port —
-counterpart of the repository's ``eval_iou_kitti.py`` on one device.
+counterpart of the repository's ``eval_iou_kitti.py``.
 
     python -m selfocc_tpu_torch.eval_iou_kitti [--py-config kitti_occ] \\
         [--kitti-root data/kitti] [--num-samples N] [--sem] [--synthetic] \\
-        [--device cpu] [--work-dir DIR]
+        [--device cpu] [--work-dir DIR] [--no-shard]
 
 The run log goes to stdout and ``<--work-dir>/<time>.log``
 (``work_dirs/eval_iou_kitti`` by default, as the JAX driver's).
@@ -31,8 +31,10 @@ this driver reads them from the item. Weights are seeded (``--seed``), or
 loaded with ``--ckpt-path`` (the port's ``train.py`` checkpoint) or
 ``--torch-ckpt`` (a reference-SelfOcc ``.pth``). Runs on the first CUDA
 device unless ``--device cpu`` asks for the kernels' plain versions on the
-CPU; with no card and no ``--device cpu`` it exits non-zero. The JAX
-driver's ``--no-shard`` has no counterpart on one device.
+CPU; with no card and no ``--device cpu`` it exits non-zero. On cards
+the grid's points split over every visible card (``GridOccEvaluator``, as
+the JAX driver's mesh); ``--no-shard`` keeps the query on the first (the
+JAX driver has no ``--prepare-shard``).
 """
 from __future__ import annotations
 
@@ -49,9 +51,9 @@ from .data.semantic_kitti_io import read_semantic_kitti_voxels
 from .eval_depth import build_model
 from .utils.eval_lib import GridOccEvaluator, camera_kwargs
 from .utils.metrics import IoU, MeanIoU, cityscapes2semantickitti
-from .utils.runtime import (add_device_arg, add_weights_args, get_dataset,
-                            get_logger, load_weights, resolve_device,
-                            to_device)
+from .utils.runtime import (add_device_arg, add_shard_args, add_weights_args,
+                            get_dataset, get_logger, load_weights,
+                            resolve_device, shard_devices, to_device)
 from .utils.scenerf_metric import SSCMetrics
 
 # reference eval_iou_kitti.py:163 — the fixed front-only scoring AABB
@@ -72,6 +74,7 @@ def parse_args(argv=None):
     ap.add_argument("--synthetic", action="store_true")
     ap.add_argument("--num-samples", type=int, default=0)
     ap.add_argument("--seed", type=int, default=42)
+    add_shard_args(ap, prepare=False)
     add_weights_args(ap)
     add_device_arg(ap)
     return ap.parse_args(argv)
@@ -102,7 +105,8 @@ def evaluate(cfg, model, ds, device, args, logger) -> Dict:
     binary ``iou``, the SceneRF ``stats``, ``miou`` with ``--sem``, the
     last frame's ``pred_occ`` and ``sdf``, and the seconds spent in prepare
     and in the grid queries (synchronised on the device)."""
-    evaluator = GridOccEvaluator(model)
+    evaluator = GridOccEvaluator(
+        model, devices=shard_devices(device, args.no_shard))
     if args.sem and not model.head._occ_sem(("sem",)):
         raise SystemExit(f"--sem: the {cfg.name} model has no semantic "
                          "head (return_sem with sem_dims > 0)")

@@ -19,7 +19,9 @@ offsets ``--offsets`` (``SyntheticDataset.novel_view_sample``).
 Weights are seeded (``--seed``), or loaded from ``--ckpt-path`` /
 ``--torch-ckpt``. Runs on the first CUDA device unless ``--device cpu``
 asks for the kernels' plain versions on the CPU; with no card and no
-``--device cpu`` it exits non-zero. The run log goes to stdout and
+``--device cpu`` it exits non-zero; on cards the render's chunks split
+their rays over every visible card, as the JAX driver's mesh does (it has
+no flag for it). The run log goes to stdout and
 ``<--work-dir>/<time>.log`` (``work_dirs/eval_novel_depth``, or
 ``work_dirs/eval_novel_depth_kitti`` for the KITTI driver, by default).
 """
@@ -33,7 +35,8 @@ from .eval_depth import build_model
 from .utils.eval_lib import (ChunkedRenderer, enable_max_depth,
                              novel_eval_first_sample, run_novel_depth_eval)
 from .utils.runtime import (add_device_arg, add_weights_args, get_dataset,
-                            get_logger, load_weights, resolve_device)
+                            get_logger, load_weights, resolve_device,
+                            shard_devices)
 
 
 def parse_args(argv=None, default_config=None):
@@ -75,7 +78,8 @@ def main(argv=None, default_config=None) -> Dict:
                 f"{tuple(sample['imgs'].shape)}")
     model = build_model(cfg, args.seed, device)
     load_weights(model, args.ckpt_path, args.torch_ckpt, logger)
-    renderer = ChunkedRenderer(model, chunk=args.batch, outputs=(depth_key,))
+    renderer = ChunkedRenderer(model, chunk=args.batch, outputs=(depth_key,),
+                               devices=shard_devices(device))
     return run_novel_depth_eval(ds, real, cfg, renderer, logger, device,
                                 num_samples=args.num_samples,
                                 offsets=tuple(args.offsets),

@@ -202,15 +202,17 @@ class TPVSegmentor(nn.Module):
 
     def get_representation(self, imgs, lidar2img, generator=None, flip=False,
                            focal_ratios_x=None, focal_ratios_y=None,
-                           intrinsic=None, cam2ego=None):
+                           intrinsic=None, cam2ego=None, feats=None):
         """backbone -> neck -> lifter -> encoder: the three TPV planes, or
         the BEV plane (``generator`` draws the encoder's train-mode
         dropout; ``flip`` see ``extract_img_feat``; ``focal_ratios_x/y``
         (N,) scale the projected reference points, see
         ``geometry.projection.point_sampling``; ``intrinsic`` / ``cam2ego``
         (1, N, 4, 4): the camera-aware encoder's inputs, read only
-        there)."""
-        feats = self.extract_img_feat(imgs, flip)
+        there; ``feats``: ``extract_img_feat(imgs, flip)`` computed by the
+        caller, as the camera-sharded eval prepare does)."""
+        if feats is None:
+            feats = self.extract_img_feat(imgs, flip)
         rep = self.lifter(feats)
         cams = dict(intrinsic=intrinsic, cam2ego=cam2ego) \
             if self.cfg.encoder.camera_aware else {}
@@ -240,11 +242,13 @@ class TPVSegmentor(nn.Module):
                          draws=draws, global_iter=global_iter)
 
     def prepare(self, imgs, lidar2img, flip=False, intrinsic=None,
-                cam2ego=None):
+                cam2ego=None, feats=None):
         """Decode the field volume once per frame: (C, H, W, D) fp32
-        (``flip``: the flip-TTA pass on W-mirrored images)."""
+        (``flip``: the flip-TTA pass on W-mirrored images; ``feats``: see
+        ``get_representation``)."""
         return self.head.prepare(self.get_representation(
-            imgs, lidar2img, flip=flip, intrinsic=intrinsic, cam2ego=cam2ego))
+            imgs, lidar2img, flip=flip, intrinsic=intrinsic, cam2ego=cam2ego,
+            feats=feats))
 
     @torch.no_grad()
     def forward_occ(self, imgs, lidar2img, aabb=None, resolution=None,

@@ -69,12 +69,37 @@ where the config trains semantics (``cfg.sem``) and a batch carries no
 ``sem_gt``, the teacher's maps of ``curr_imgs[0] * 256`` at
 ``cfg.img_size`` become its ``sem_gt``, as the JAX driver does
 (``train.py:215-219, 272-286``; the reference's ``train.py:213-215``).
-``--dp`` and ``--mp`` are not ported.
+
+``--dp``: data-parallel training, one rank per card, as the reference
+trains (one process per GPU, ``train.py:400-403``) with the JAX
+``make_dp_train_step``'s numbers (``utils/train_lib.Trainer`` with a
+group). With more than one visible card (``--dp-ranks N``: the first N)
+it spawns one process per card over NCCL; under a launcher that sets
+``WORLD_SIZE`` / ``RANK`` / ``LOCAL_RANK`` (``torchrun``) each process
+joins that group instead (``env://``; card ``LOCAL_RANK``). With one card
+it runs the plain step and logs that, as the JAX driver does with one
+device (``train.py:202``). It never falls back to fewer ranks, to gloo or
+to the CPU: asking for more ranks than visible cards exits non-zero.
+``--device cpu --dp --dp-ranks N``: N gloo ranks on the CPU. A step takes
+``world`` consecutive items of the shared epoch order, the last group
+wrapping to its start (``item_groups``, ``train.py:243-250``); rank r
+takes the group's r-th and draws from a generator of (``--seed``, step,
+rank) (``step_seed``; rank 0's is the plain step's). The step count
+counts data-parallel steps, a resume's item offset counts items. Every
+rank loads the checkpoint and takes rank 0's parameters and BatchNorm
+statistics; rank 0 alone writes the run log, ``scalars.jsonl``,
+checkpoints and ``--profile``, and runs ``--eval-every-epoch`` while the
+others wait at a barrier (the group's timeout, ``DP_TIMEOUT``, covers
+it). At the end every rank's parameters are checked bit-equal to rank
+0's. The online teacher labels each rank's own items. ``--mp`` (the
+model-parallel step) is not ported: it exits non-zero.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import datetime
+import logging
 import os
 import random
 import sys
@@ -91,6 +116,8 @@ from .geometry.ray_sampler import RaySampler
 from .models.initializers import init_weights
 from .models.segmentor import TPVSegmentor
 from .ops.interp import bilinear_sample
+from .parallel.mesh import (Group, broadcast_, close, init_group,
+                            launcher_env, replicas_equal, spawn)
 from .utils.checkpoint import load_torch_resnet50, save_checkpoint
 from .utils.eval_lib import ChunkedRenderer, camera_kwargs, rays_for_cams
 from .utils.logging_util import ScalarWriter
@@ -102,6 +129,9 @@ from .utils.runtime import (add_device_arg, checkpoint_path, get_dataset,
 from .utils.train_lib import Trainer
 
 RESNET_PTH = "ckpts/resnet50-0676ba61.pth"
+# a --dp group's collective timeout: long enough for rank 0's per-epoch
+# eval while the other ranks wait at the barrier
+DP_TIMEOUT = datetime.timedelta(hours=6)
 
 
 def parse_args(argv=None):
@@ -144,6 +174,15 @@ def parse_args(argv=None):
                     help="HF Swin-UperNet checkpoint for the online "
                          "semantic teacher: sem_gt from curr_imgs where a "
                          "batch carries none")
+    ap.add_argument("--dp", action="store_true",
+                    help="data-parallel: one rank per visible card (NCCL), "
+                         "or per --dp-ranks")
+    ap.add_argument("--dp-ranks", type=int, default=0,
+                    help="--dp ranks: the first N cards (0: all visible); "
+                         "with --device cpu, N gloo ranks on the CPU (0: 1)")
+    ap.add_argument("--mp", action="store_true",
+                    help="the JAX driver's model-parallel step: not ported "
+                         "(exits non-zero)")
     add_device_arg(ap)
     return ap.parse_args(argv)
 
@@ -157,14 +196,30 @@ def config_of(args):
     return cfg
 
 
-def build_trainer(cfg, seed: int, device,
-                  grad_accumulation: int = 1) -> Trainer:
+def build_trainer(cfg, seed: int, device, grad_accumulation: int = 1,
+                  group: Optional[Group] = None) -> Trainer:
     """The port's segmentor with seeded JAX-like initial weights on
-    ``device``, and its optimizer (``grad_accumulation``: see
+    ``device``, and its optimizer (``grad_accumulation``, ``group``: see
     ``Trainer``)."""
     model = TPVSegmentor(cfg.model)
     init_weights(model, torch.Generator().manual_seed(seed))
-    return Trainer(cfg, model.to(device), grad_accumulation)
+    return Trainer(cfg, model.to(device), grad_accumulation, group)
+
+
+def item_groups(order, world: int):
+    """The items of each step (``train.py:243-250``): ``world`` consecutive
+    items of the epoch order ``order`` (after a resume's skip), the last
+    group wrapping around to its start; one item a step when ``world`` is
+    1."""
+    order = [int(i) for i in order]
+    return [[order[(j + k) % len(order)] for k in range(world)]
+            for j in range(0, len(order), world)]
+
+
+def step_seed(seed: int, step: int, rank: int = 0) -> int:
+    """The seed of a rank's generator at ``step``: ``seed + step`` on rank
+    0 (the plain step's), the rank in the high 32 bits."""
+    return seed + step + (rank << 32)
 
 
 @torch.no_grad()
@@ -275,7 +330,7 @@ def train(cfg, trainer: Trainer, ds, device, max_steps: int, seed: int,
           ckpt_freq_iters: int = 0, writer: Optional[ScalarWriter] = None,
           profiler: Optional[StepProfiler] = None,
           epoch_eval: Optional[Callable[[int], Dict]] = None,
-          teacher=None) -> Dict:
+          teacher=None, group: Optional[Group] = None) -> Dict:
     """Steps over ``ds`` from item ``start_pos`` of epoch ``start_epoch``,
     in the sampler's order, up to ``max_steps`` (micro-)steps in all (0:
     no limit) or the end of epoch ``epochs`` (0: ``cfg.max_epochs``).
@@ -285,14 +340,22 @@ def train(cfg, trainer: Trainer, ds, device, max_steps: int, seed: int,
     steps' scalars also go to ``writer`` as ``loss/<name>``; ``profiler``
     sees each step's count before it runs. ``teacher`` (a
     ``TorchSemTeacher``) fills a batch's missing ``sem_gt`` where
-    ``cfg.sem``. Returns the last step's
+    ``cfg.sem``. With a ``group`` each step is a data-parallel one on
+    ``item_groups``' r-th item (positions count items: a step moves
+    ``world`` on); only rank 0 logs its steps, and each epoch's end waits
+    at a barrier (rank 0 checkpoints and evaluates there: the callbacks
+    are given to rank 0 only). Returns the last step's
     ``metrics``, the ``items`` trained on, the logged steps' scalars
     (``logged``: step -> losses, ``grad_norm``, ``lr``), per step the host
     seconds spent waiting for its batch (``data_wait_s``) and from that
     wait's start to the step's end (``step_s``: the step's time where it
     is logged, since reading the losses waits for the card; else its host
     dispatch), and ``epoch_evals`` (epoch -> ``epoch_eval``'s table)."""
+    # every rank builds the same full epoch order and takes its item of
+    # each step's group from it (a DistributedSampler over the ranks would
+    # yield other items after a resume's offset)
     sampler = DistributedSampler(len(ds), 1, 0, shuffle=True, seed=seed)
+    world, rank = (group.world, group.rank) if group is not None else (1, 0)
     res = {"metrics": None, "items": [], "logged": {}, "data_wait_s": [],
            "step_s": [], "epoch_evals": {}}
     if max_steps and trainer.global_step >= max_steps:
@@ -303,6 +366,8 @@ def train(cfg, trainer: Trainer, ds, device, max_steps: int, seed: int,
             checkpoint(name, next_epoch, pos)
         if epoch_eval is not None:
             res["epoch_evals"][epoch] = epoch_eval(epoch)
+        if world > 1:
+            group.barrier()
     for epoch in range(start_epoch, epochs or cfg.max_epochs):
         sampler.set_epoch(epoch)
         offset = start_pos if epoch == start_epoch else 0
@@ -311,9 +376,11 @@ def train(cfg, trainer: Trainer, ds, device, max_steps: int, seed: int,
 
         def build(job):
             pos, index = job
-            return host_batch(ds, index, seed, epoch, pos)
+            return host_batch(ds, index, seed, epoch, pos + rank)
 
-        jobs = list(enumerate(order, offset))
+        # (epoch position of the step's first item, this rank's item)
+        jobs = [(offset + g * world, items[rank]) for g, items in
+                enumerate(item_groups(order, world))]
         batches = (BatchPrefetcher(build, jobs, depth=prefetch)
                    if prefetch > 0 else map(build, jobs))
         pos, done = offset, False
@@ -328,7 +395,8 @@ def train(cfg, trainer: Trainer, ds, device, max_steps: int, seed: int,
                     # (train.py:214)
                     batch["sem_gt"] = teacher(batch["curr_imgs"][0] * 256.0,
                                               size=cfg.img_size)[None]
-                gen = torch.Generator(device=device).manual_seed(seed + step)
+                gen = torch.Generator(device=device).manual_seed(
+                    step_seed(seed, step, rank))
                 if profiler is not None:
                     profiler.before_step(step)
                 t0 = time.perf_counter()
@@ -336,9 +404,9 @@ def train(cfg, trainer: Trainer, ds, device, max_steps: int, seed: int,
                 dispatch_s = time.perf_counter() - t0
                 res["metrics"] = metrics
                 res["items"].append(index)
-                pos += 1
+                pos += world
                 done = bool(max_steps) and trainer.global_step >= max_steps
-                if step % print_freq == 0 or done:
+                if rank == 0 and (step % print_freq == 0 or done):
                     res["logged"][step] = {k: float(v) for k, v in
                                            metrics.items() if k != "times"}
                     if writer is not None:
@@ -366,12 +434,79 @@ def train(cfg, trainer: Trainer, ds, device, max_steps: int, seed: int,
     return res
 
 
+def dp_plan(args):
+    """(world, backend, devices) of ``--dp``: on cards NCCL over the first
+    ``--dp-ranks`` (all visible by default), one card a rank, exiting
+    non-zero where fewer are visible; on the CPU ``--dp-ranks`` gloo
+    ranks (1 by default)."""
+    if args.device == "cpu":
+        world = args.dp_ranks or 1
+        return world, "gloo", ["cpu"] * world
+    resolve_device(args.device)           # exits without a card
+    n = torch.cuda.device_count()
+    world = args.dp_ranks or n
+    if world > n:
+        sys.exit(f"selfocc_tpu_torch: --dp-ranks {world} but {n} CUDA "
+                 "device(s) visible; --dp runs one rank per card (NCCL)")
+    return world, "nccl", [f"cuda:{r}" for r in range(world)]
+
+
 def main(argv=None) -> Dict:
+    """The driver: ``run`` in this process, or with ``--dp`` one rank per
+    device (``dp_plan``: spawned, or joining a launcher's group), which
+    returns rank 0's result."""
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    if args.mp:
+        sys.exit("selfocc_tpu_torch: --mp (the JAX driver's model-parallel "
+                 "step, the encoder's TPV-query axis sharded over the "
+                 "devices) is not ported; --dp trains one sample a card")
+    if not args.dp:
+        return run(args)
+    launched = launcher_env()
+    if launched is not None:
+        rank, world, local = launched
+        device = resolve_device(args.device, local)
+        group = init_group("gloo" if args.device == "cpu" else "nccl", rank,
+                           world, device, "env://", DP_TIMEOUT)
+        try:
+            return run(args, group)
+        finally:
+            close(group)
+    world, backend, devices = dp_plan(args)
+    if world == 1:
+        return run(args)
+    from .train import dp_rank       # by its import path, not __main__'s
+    return spawn(dp_rank, world, backend, devices, args=(args,),
+                 timeout=DP_TIMEOUT)[0]
+
+
+def dp_rank(group: Group, args) -> Dict:
+    """One spawned ``--dp`` rank: ``run`` with its group, the result on the
+    host."""
+    res = run(args, group)
+    res["metrics"] = {k: v if k == "times" else float(v)
+                      for k, v in (res["metrics"] or {}).items()}
+    return res
+
+
+def run(args, group: Optional[Group] = None) -> Dict:
+    """Build, resume and train as the arguments say; with a ``group`` as
+    one data-parallel rank (rank 0's parameters and statistics broadcast
+    first, rank 0 alone writing; ``replicas_equal`` checked at the end)."""
+    lead = group is None or group.rank == 0
+    device = resolve_device(args.device, 0 if group is None
+                            else group.device.index or 0)
     cfg = config_of(args)
     ds = get_dataset(cfg, args.synthetic, phase="train")
-    logger = get_logger(args.work_dir)
+    logger = get_logger(args.work_dir if lead else None)
+    if not lead:
+        logger.setLevel(logging.WARNING)
+    if group is not None:
+        logger.info(f"data-parallel: {group.world} ranks over "
+                    f"{group.backend}")
+    elif args.dp:
+        logger.info("--dp with one device: the plain step (the JAX driver "
+                    "with one device)")
     logger.info(f"config {cfg.name} on {device}; {len(ds)} items")
     resnet_pth = args.resnet_pth if cfg.model.backbone_type == "resnet50" \
         and args.resnet_pth and os.path.exists(args.resnet_pth) else ""
@@ -380,7 +515,7 @@ def main(argv=None) -> Dict:
         sys.exit(f"selfocc_tpu_torch: --resnet-pth {args.resnet_pth!r} "
                  "not found")
     trainer = build_trainer(cfg, args.seed, device,
-                            args.gradient_accumulation)
+                            args.gradient_accumulation, group)
     n_params = sum(p.numel() for p in trainer.model.parameters())
     logger.info(f"params: {n_params / 1e6:.2f}M")
     if resnet_pth:
@@ -400,6 +535,9 @@ def main(argv=None) -> Dict:
             start_pos = int(state.get("last_iter", 0))
         logger.info(f"resumed from {path} at step {trainer.global_step}, "
                     f"epoch {start_epoch}, item {start_pos} of the epoch")
+    replicated = list(trainer.model.parameters()) + trainer.running_stats()
+    if group is not None:
+        broadcast_(replicated, group)
 
     def checkpoint(name, epoch, pos):
         path = save_checkpoint(ckpt_dir, name, dict(
@@ -416,22 +554,31 @@ def main(argv=None) -> Dict:
         teacher = TorchSemTeacher.from_checkpoint(args.teacher_ckpt,
                                                   device=device)
         logger.info(f"online semantic teacher: {args.teacher_ckpt}")
-    writer = ScalarWriter(args.work_dir)
+    writer = ScalarWriter(args.work_dir) if lead else None
     profiler = StepProfiler(args.work_dir, device, logger) \
-        if args.profile else None
+        if args.profile and lead else None
     try:
         res = train(cfg, trainer, ds, device, args.max_steps, args.seed,
                     args.print_freq, logger, epochs=args.epochs,
                     start_epoch=start_epoch, start_pos=start_pos,
-                    prefetch=args.prefetch, checkpoint=checkpoint,
+                    prefetch=args.prefetch,
+                    checkpoint=checkpoint if lead else None,
                     ckpt_freq_iters=args.ckpt_freq_iters, writer=writer,
                     profiler=profiler,
-                    epoch_eval=epoch_eval if args.eval_every_epoch
-                    else None, teacher=teacher)
+                    epoch_eval=epoch_eval if args.eval_every_epoch and lead
+                    else None, teacher=teacher, group=group)
     finally:
         if profiler is not None:
             profiler.close()
-        writer.close()
+        if writer is not None:
+            writer.close()
+    if group is not None:
+        res["replicas_equal"] = replicas_equal(replicated, group)
+        if not res["replicas_equal"]:
+            raise RuntimeError("data-parallel ranks ended with parameters "
+                               "or statistics that differ from rank 0's")
+        logger.info(f"all {group.world} ranks hold rank 0's parameters "
+                    "and statistics, bit for bit")
     logger.info("training complete")
     return res
 

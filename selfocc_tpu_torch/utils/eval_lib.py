@@ -14,14 +14,28 @@ arrays of the requested outputs only (``render_device``: the same as tensors
 on the volume's device, with no host synchronisation). ``GridOccEvaluator``
 queries the uniform occupancy grid against the same volume, likewise in a
 numpy form and a ``*_device`` form.
+
+Both shard over several devices (``devices``; the JAX ``shard=True`` over
+the mesh, ``eval_lib.py:126-183, 259-300``): the volume is copied to each
+device once a frame, each chunk's rays or the grid's points are split into
+contiguous slices, one per device (``parallel.mesh.split_rows``), each
+rendered or queried by a copy of the model there, and the results are
+concatenated in their order on the first device, which holds the model.
+Each ray's and each point's arithmetic is the one-device path's.
+``prepare_shard`` also splits the cameras of the prepare's backbone and
+neck over the devices (the JAX ``prepare_shard``, ``eval_lib.py:131-141,
+201-230``); their features are gathered on the first device, where the
+lifter, encoder and decode run.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import math
 import time
 from collections import defaultdict
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -32,6 +46,7 @@ from ..geometry.projection import rays_from_img2lidar
 from ..geometry.ray_sampler import RaySampler
 from ..models.heads import uniform_axes, uniform_axes_on, uniform_grid
 from ..ops.interp import bilinear_sample, first_channel, trilinear_sample
+from ..parallel.mesh import split_rows
 from .metrics import cal_depth_metric
 
 # outputs derived from the sdf channel alone: a render that asks only for
@@ -63,15 +78,75 @@ def camera_kwargs(cfg: Config, batch: Dict) -> Dict:
     return out
 
 
+def on_device(device: torch.device):
+    """The context in which work on ``device`` runs: a card becomes the
+    current device (the kernels launch on the current device's stream)."""
+    return torch.cuda.device(device) if device.type == "cuda" \
+        else contextlib.nullcontext()
+
+
 class ChunkedRenderer:
-    """Renders a full fixed ray grid in chunks against a prepared volume."""
+    """Renders a full fixed ray grid in chunks against a prepared volume;
+    with more than one of ``devices`` each chunk's rays are split over them
+    (the module docstring). The model lives on ``devices[0]`` (default: its
+    own device, no sharding)."""
 
     def __init__(self, model, chunk: int = 32768,
-                 outputs: Sequence[str] = ("depth", "rgb", "acc", "sem")):
+                 outputs: Sequence[str] = ("depth", "rgb", "acc", "sem"),
+                 devices: Optional[Sequence] = None,
+                 prepare_shard: bool = False):
         self.model = model
         self.chunk = chunk
         self.outputs = tuple(outputs)
         self.geo_only = set(self.outputs) <= GEO_OUTPUTS
+        home = next(model.parameters()).device
+        self.devices = [torch.device(d) for d in devices] if devices \
+            else [home]
+        if self.devices[0] != home:
+            raise ValueError(f"the model is on {home}; the first of the "
+                             f"devices {self.devices} must hold it")
+        self.prepare_shard = prepare_shard
+        self._models = {home: model}
+        self._frame = {}       # geo_only -> (volume, {device: its copy})
+
+    def _model_on(self, device: torch.device):
+        """The model on ``device``: itself on the first device, else an
+        eval-mode copy made at first use."""
+        if device not in self._models:
+            self._models[device] = copy.deepcopy(self.model).to(
+                device).eval()
+        return self._models[device]
+
+    def volumes(self, volume, geo_only: bool) -> Dict:
+        """device -> the volume each device queries (``geo_only``: its sdf
+        plane, ``first_channel``). With several devices the copies are made
+        once for each volume (kept until the next one)."""
+        if len(self.devices) == 1:
+            return {self.devices[0]:
+                    first_channel(volume) if geo_only else volume}
+        held = self._frame.get(geo_only)
+        if held is None or held[0] is not volume:
+            v = first_channel(volume) if geo_only else volume
+            held = (volume, {d: v if d == v.device else v.to(d)
+                             for d in self.devices})
+            self._frame[geo_only] = held
+        return held[1]
+
+    def shard_rows(self, vols: Dict, fn: Callable, *rows) -> Dict:
+        """``fn(model, volume, *rows)`` -> a dict of row-major outputs, run
+        on each device's contiguous slice of ``rows`` (their leading axis)
+        against ``vols[device]`` (``volumes``); the slices' outputs
+        concatenated in order on the first device."""
+        if len(self.devices) == 1:
+            return fn(self.model, vols[self.devices[0]], *rows)
+        home, parts = self.devices[0], []
+        for (a, b), dev in zip(split_rows(rows[0].shape[0],
+                                          len(self.devices)), self.devices):
+            with on_device(dev):
+                parts.append(fn(self._model_on(dev), vols[dev],
+                                *[r[a:b].to(dev) for r in rows]))
+        return {k: torch.cat([p[k].to(home) for p in parts])
+                for k in parts[0]}
 
     @torch.no_grad()
     def prepare(self, imgs: torch.Tensor, lidar2img: torch.Tensor,
@@ -80,10 +155,30 @@ class ChunkedRenderer:
         ``flip=True``: the flip-TTA pass, ``imgs`` mirrored along W and the
         features mirrored back before the encoder (``eval_lib.py:187-230``).
         No focal ratios, as in the JAX eval drivers; ``intrinsic`` /
-        ``cam2ego``: ``camera_kwargs``."""
+        ``cam2ego``: ``camera_kwargs``. ``prepare_shard`` with several
+        devices: the backbone and neck run on each device's contiguous
+        share of the cameras (``models/segmentor.extract_img_feat``)."""
+        feats = None
+        if self.prepare_shard and len(self.devices) > 1:
+            feats = self._sharded_features(imgs, flip)
         return self.model.prepare(imgs, lidar2img, flip=flip,
-                                  intrinsic=intrinsic,
-                                  cam2ego=cam2ego).float()
+                                  intrinsic=intrinsic, cam2ego=cam2ego,
+                                  feats=feats).float()
+
+    def _sharded_features(self, imgs, flip) -> List[torch.Tensor]:
+        """``extract_img_feat(imgs, flip)`` with the camera axis split over
+        the devices, each level gathered on the first device."""
+        home, parts = self.devices[0], []
+        for (a, b), dev in zip(split_rows(imgs.shape[1], len(self.devices)),
+                               self.devices):
+            if a == b:
+                continue
+            f = flip.to(dev) if torch.is_tensor(flip) else flip
+            with on_device(dev):
+                feats = self._model_on(dev).extract_img_feat(
+                    imgs[:, a:b].to(dev), f)
+            parts.append([x.to(home) for x in feats])
+        return [torch.cat(level, dim=1) for level in zip(*parts)]
 
     def render(self, volume, origin, direction) -> Dict[str, np.ndarray]:
         """origin/direction (R, 3) on the volume's device -> host dict of
@@ -99,19 +194,20 @@ class ChunkedRenderer:
         padded rays stay finite); each chunk renders only ``outputs``. A
         geo-only render takes the sdf plane out of the volume once, not once
         per chunk."""
-        if self.geo_only:
-            volume = first_channel(volume)
+        vols = self.volumes(volume, self.geo_only)
         R = origin.shape[0]
         pad = (-R) % self.chunk
         o = F.pad(origin, (0, 0, 0, pad))
         d = F.pad(direction, (0, 0, 0, pad), value=1.0)
+
+        def render(model, vol, oo, dd):
+            r = model.render_rays(vol, oo, dd, geo_only=self.geo_only,
+                                  outputs=self.outputs)
+            return {k: r[k] for k in self.outputs if k in r}
         outs = []
         for i in range(o.shape[0] // self.chunk):
             sl = slice(i * self.chunk, (i + 1) * self.chunk)
-            r = self.model.render_rays(volume, o[sl], d[sl],
-                                       geo_only=self.geo_only,
-                                       outputs=self.outputs)
-            outs.append({k: r[k] for k in self.outputs if k in r})
+            outs.append(self.shard_rows(vols, render, o[sl], d[sl]))
         return {k: torch.cat([x[k] for x in outs])[:R] for k in outs[0]}
 
 
@@ -128,22 +224,27 @@ def occ3d_indices(pts: np.ndarray, pcr, expansion, grid_shape) -> np.ndarray:
 
 
 class GridOccEvaluator:
-    """``GridOccEvaluator`` (``eval_lib.py:257-450``) on one card: decode
-    the field once per frame (an fp32 volume), then query the uniform
-    occupancy grid over an AABB against it, either as one trilinear query
-    of the flattened grid's points (``query="gather"``, the parity default)
-    or as three per-axis lerps (``"separable"``: the same interpolant, ~1
-    ulp apart). The ``*_device`` methods return tensors on the volume's
-    device without a host synchronisation; the others call them and copy
-    once to numpy."""
+    """``GridOccEvaluator`` (``eval_lib.py:257-450``): decode the field
+    once per frame (an fp32 volume), then query the uniform occupancy grid
+    over an AABB against it, either as one trilinear query of the flattened
+    grid's points (``query="gather"``, the parity default; with several
+    ``devices`` the points split over them, as ``ChunkedRenderer``'s rays
+    do) or as three per-axis lerps (``"separable"``: the same interpolant,
+    ~1 ulp apart; on the first device, as the JAX evaluator's separable
+    query runs replicated). ``prepare_shard``: see ``ChunkedRenderer``.
+    The ``*_device`` methods return tensors on the volume's device without
+    a host synchronisation; the others call them and copy once to numpy."""
 
-    def __init__(self, model, query: str = "gather"):
+    def __init__(self, model, query: str = "gather",
+                 devices: Optional[Sequence] = None,
+                 prepare_shard: bool = False):
         if query not in ("gather", "separable"):
             raise ValueError(f"query must be gather or separable, got "
                              f"{query!r}")
         self.model = model
         self.query = query
-        self._prep = ChunkedRenderer(model)
+        self._prep = ChunkedRenderer(model, devices=devices,
+                                     prepare_shard=prepare_shard)
 
     def prepare(self, imgs, lidar2img, intrinsic=None, cam2ego=None):
         return self._prep.prepare(imgs, lidar2img, intrinsic=intrinsic,
@@ -164,7 +265,10 @@ class GridOccEvaluator:
                                          volume.device)
             return self.model.occ_uniform(volume, xs, ys, zs, outputs=outputs)
         flat, shape = self._flat_grid(aabb, resolution, volume.device)
-        out = self.model.occ_from_volume(volume, flat, outputs=outputs)
+        out = self._prep.shard_rows(
+            self._prep.volumes(volume, False),
+            lambda model, vol, pts: model.occ_from_volume(
+                vol, pts, outputs=outputs), flat)
         return {k: v.reshape(shape + tuple(v.shape[1:]))
                 for k, v in out.items()}
 

@@ -1,7 +1,7 @@
 """What the port's drivers (``eval_depth``, ``eval_iou``,
 ``eval_iou_kitti``, ``eval_novel_depth``, ``eval_novel_depth_kitti``,
 ``train``, ``vis_pics``, ``vis_3d``, ``vis_3d_scene``) share:
-the device flag, the weights flags, the dataset factory, the logger (the
+the device flag, the eval drivers' shard flags, the weights flags, the dataset factory, the logger (the
 JAX package's ``utils/logging_util``, copied: stdout plus
 ``<work-dir>/<time>.log``) and host-to-device batches."""
 from __future__ import annotations
@@ -19,15 +19,38 @@ from ..data.synthetic import SyntheticDataset
 from . import logging_util
 
 
+def add_shard_args(ap, prepare: bool = True):
+    """The JAX eval drivers' mesh flags: ``--no-shard`` and (``prepare``)
+    ``--prepare-shard`` (``shard_devices``, ``utils/eval_lib``)."""
+    ap.add_argument("--no-shard", action="store_true",
+                    help="render / query on the first card only (by "
+                         "default each chunk's rays or the grid's points "
+                         "split over every visible card)")
+    if prepare:
+        ap.add_argument("--prepare-shard", action="store_true",
+                        help="also split the prepare's cameras (backbone "
+                             "and neck) over the visible cards")
+
+
+def shard_devices(device: torch.device, no_shard: bool = False):
+    """The devices an eval driver shards over: every visible card, the
+    first (``device``) holding the model, unless ``no_shard``; on the CPU
+    the CPU alone. One card: no sharding."""
+    if device.type != "cuda" or no_shard:
+        return [device]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
 def add_device_arg(ap):
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="cuda (default; the hand-written kernels) or cpu "
                          "(their plain PyTorch versions)")
 
 
-def resolve_device(name: str) -> torch.device:
-    """``cuda`` -> the first card, with fp32 (no TF32) convolutions and
-    matmuls; exits non-zero when there is none. ``cpu`` -> the CPU."""
+def resolve_device(name: str, index: int = 0) -> torch.device:
+    """``cuda`` -> card ``index`` (the first by default), with fp32 (no
+    TF32) convolutions and matmuls; exits non-zero when there is none.
+    ``cpu`` -> the CPU."""
     if name == "cpu":
         return torch.device("cpu")
     if not torch.cuda.is_available():
@@ -37,7 +60,7 @@ def resolve_device(name: str) -> torch.device:
     # the exact tier is fp32: no TF32 in convolutions or matmuls
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda", 0)
+    return torch.device("cuda", index)
 
 
 def checkpoint_path(path: str) -> str:

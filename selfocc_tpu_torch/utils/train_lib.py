@@ -1,8 +1,9 @@
 """Training library — counterpart of ``selfocc_tpu/utils/train_lib.py``
 (single-device path): the LR schedule, AdamW with the backbone LR multiplier
 and frozen subtrees, the global-norm clip, gradient accumulation
-(``optax.MultiSteps``), the loss inputs and one train step. Data and model
-parallelism are not ported.
+(``optax.MultiSteps``), the loss inputs and one train step, which a process
+group makes a data-parallel step (``make_dp_train_step``, ``train_lib.py:
+202-231``). Model parallelism (``make_mp_train_step``) is not ported.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch
 
 from ..configs.base import Config
 from ..losses import MultiLoss
+from ..parallel.mesh import Group, all_reduce_mean
 
 ADAM_EPS = 1e-8   # optax.adamw's default
 
@@ -153,10 +155,24 @@ class Trainer:
     schedule and AdamW's step count advance with the optimizer updates
     (``updates``), the model's ``global_iter`` with the micro-steps
     (``global_step``, the JAX ``TrainState.step``). K = 1 is the plain
-    step, with no copy of the gradients."""
+    step, with no copy of the gradients.
+
+    ``group`` (``parallel.mesh.Group``, more than one rank) makes each
+    micro-step a data-parallel one, ``make_dp_train_step``'s
+    (``train_lib.py:213-224``): after the backward, one ``all_reduce_mean``
+    (``average``) replaces the trainable gradients, ``total``, the weighted
+    losses and the BatchNorm running statistics by their means over the
+    ranks, then ``apply_gradients`` runs on the mean as on one rank's
+    gradients (so ``grad_norm`` is the averaged gradients' and K > 1
+    accumulates averaged gradients, as ``optax.MultiSteps`` inside the JAX
+    step does). The statistics are averaged after each rank's own update,
+    the JAX ``pmean(new_bs)``, not the reference's SyncBN. Every rank must
+    hold the same parameters and optimizer state at the start (the driver
+    broadcasts rank 0's); they then stay bit-equal. One rank: the plain
+    step, bit for bit."""
 
     def __init__(self, cfg: Config, model: torch.nn.Module,
-                 grad_accumulation: int = 1):
+                 grad_accumulation: int = 1, group: Optional[Group] = None):
         if grad_accumulation < 1:
             raise ValueError("grad_accumulation must be >= 1")
         self.cfg = cfg
@@ -164,10 +180,49 @@ class Trainer:
         self.loss_fn = MultiLoss(cfg.loss_cfgs)
         self.optimizer, self.sched = make_optimizer(cfg, model)
         self.grad_accumulation = grad_accumulation
+        self.group = group
         self.global_step = 0        # micro-steps (the model's global_iter)
         self.updates = 0            # optimizer updates (the LR schedule's)
         self.mini_step = 0          # micro-steps into the current window
         self.acc_grads = None       # their running mean (K > 1)
+
+    def running_stats(self) -> List[torch.Tensor]:
+        """The BatchNorm running statistics (``running_mean`` /
+        ``running_var`` of ``models/resnet.BatchNorm2d``, which the UNet2D
+        and ``CameraAwareSE`` use too), in module order."""
+        return [b for m in self.model.modules()
+                for k, b in m._buffers.items()
+                if k in ("running_mean", "running_var") and b is not None]
+
+    def average(self, tot: torch.Tensor, ldict: Dict):
+        """The data-parallel part of a micro-step: one ``all_reduce_mean``
+        of the trainable gradients, a has-gradient count per parameter,
+        ``tot`` and the losses, and the BatchNorm running statistics.
+        Gradients can be missing on some ranks only (a data-dependent
+        branch): a parameter with a gradient on no rank keeps ``None``, as
+        in the plain step; one with a gradient on some ranks takes zeros on
+        the others, as JAX's gradient of an unused parameter is. Where
+        every trainable parameter has a gradient here, no host
+        synchronisation; else the counts are read. Returns the averaged
+        (``tot``, ``ldict``)."""
+        params = [p for p in self.model.parameters() if p.requires_grad]
+        here = [p.grad is not None for p in params]
+        grads = [p.grad if h else torch.zeros_like(p)
+                 for p, h in zip(params, here)]
+        device = tot.device
+        have = torch.ones(len(params), device=device) if all(here) else \
+            torch.tensor(here, dtype=torch.float32, device=device)
+        keys = sorted(ldict)
+        losses = torch.stack([tot.detach().float()]
+                             + [ldict[k].detach().float() for k in keys])
+        all_reduce_mean(grads + [have, losses] + self.running_stats(),
+                        self.group)
+        if not all(here):
+            anywhere = (have > 0).tolist()
+            for p, g, h, a in zip(params, grads, here, anywhere):
+                if not h:
+                    p.grad = g if a else None
+        return losses[0], dict(zip(keys, losses[1:]))
 
     def apply_gradients(self):
         """The optimizer's part of a micro-step, on the parameters'
@@ -218,7 +273,9 @@ class Trainer:
         gradients of the trainable parameters, before clipping) and ``lr``
         (of the update this micro-step belongs to) as tensors, plus the
         host seconds of forward, backward and optimizer (each ended by
-        ``sync`` when given)."""
+        ``sync`` when given; with a group also ``all_reduce_s``, the
+        ``average`` between backward and optimizer, whose losses and
+        gradients the metrics then are)."""
         sync = sync or (lambda: None)
         self.model.train()
         t0 = time.perf_counter()
@@ -235,16 +292,21 @@ class Trainer:
         tot.backward()
         sync()
         t2 = time.perf_counter()
+        times = {"forward_s": t1 - t0, "backward_s": t2 - t1}
+        if self.group is not None and self.group.world > 1:
+            tot, ldict = self.average(tot, ldict)
+            sync()
+            times["all_reduce_s"] = time.perf_counter() - t2
+            t2 = time.perf_counter()
         norm, lr = self.apply_gradients()
         sync()
-        t3 = time.perf_counter()
+        times["optimizer_s"] = time.perf_counter() - t2
         self.global_step += 1
         metrics = dict(ldict, total=tot.detach(), grad_norm=norm)
         metrics = {k: v.detach() if torch.is_tensor(v) else v
                    for k, v in metrics.items()}
         metrics["lr"] = lr
-        metrics["times"] = {"forward_s": t1 - t0, "backward_s": t2 - t1,
-                            "optimizer_s": t3 - t2}
+        metrics["times"] = times
         return metrics
 
     def state_dict(self) -> Dict:

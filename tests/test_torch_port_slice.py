@@ -202,6 +202,10 @@ def test_eval_depth_runs_without_jax(tmp_path):
         " '--use-mask', '--sem', '--device', 'cpu'])\n"
         "train.main(['--py-config', 'tiny', '--synthetic', '--max-steps',"
         f" '1', '--device', 'cpu', '--work-dir', {str(tmp_path)!r}])\n"
+        "train.main(['--py-config', 'tiny', '--synthetic', '--max-steps',"
+        " '1', '--device', 'cpu', '--dp', '--dp-ranks', '2', '--work-dir',"
+        f" {str(tmp_path / 'dp')!r}])\n"
+        "from selfocc_tpu_torch.parallel import mesh\n"
         "eval_novel_depth.main(['--py-config', 'tiny', '--synthetic',"
         " '--num-samples', '1', '--batch', '256', '--depth-tgt', 'max',"
         " '--device', 'cpu'])\n"
@@ -237,6 +241,7 @@ def test_eval_depth_runs_without_jax(tmp_path):
     assert "raw evaluation:" in proc.stdout
     assert "miou_miou:" in proc.stdout
     assert "checkpoint saved" in proc.stdout
+    assert "all 2 ranks hold rank 0's parameters" in proc.stdout
     assert "rendered 4 novel views" in proc.stdout
     assert "SceneRF iou:" in proc.stdout and "mIoU:" in proc.stdout
     assert "rendered 1 novel views" in proc.stdout
@@ -273,8 +278,8 @@ def test_port_sources_import_nothing_of_the_jax_package():
     for root, _, names in os.walk(os.path.join(REPO, "selfocc_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
-    assert os.path.join(REPO, "selfocc_tpu_torch", "native",
-                        "__init__.py") in files
+    for module in (("native", "__init__.py"), ("parallel", "mesh.py")):
+        assert os.path.join(REPO, "selfocc_tpu_torch", *module) in files
     bad = []
     for path in files:
         with open(path) as f:
