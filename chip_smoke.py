@@ -242,9 +242,14 @@ raises and the exit code is non-zero.
   steps (profiled, sync-checked), an eval frame and an Occ3D frame with
   the cameras (a 4096-ray subset against the CPU); then the BEV flow head
   at ``nuscenes_occ_bev``'s width (flows and warped samples against the
-  CPU, the lookups' launches) and ``trilinear_cf_fwd`` / ``_bwd`` at C = 3
-  on its 7,372,800 clipped samples against their plain versions and
-  ``F.grid_sample`` with border padding.
+  CPU; its step must launch the narrow instances of ``trilinear_cf_fwd`` /
+  ``_bwd`` twice each and no walk; their in-step device ms; the head
+  timed beside the route they replaced) and both narrow instances on its
+  7,372,800 unclipped samples (border padding in the kernel) against
+  their plain versions, ``F.grid_sample`` with border padding and the
+  C = 3 walks they replaced, and the point instance at knots on every
+  face. The kernels line lists them as ``trilinear_cf_fwd.narrow`` and
+  ``trilinear_cf_bwd.narrow``.
 
 - ``[unet]``: ``nuscenes_occ`` on the UNet2D backbone (EfficientNet-B7,
   ``unet_scaling`` (2.0, 3.1), the AdaBins decoder) with the identity neck
@@ -410,6 +415,24 @@ def timed(fn, reps, warmup=1):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return sorted(times)[len(times) // 2]
+
+
+def batched_ms(fn, reps):
+    """Milliseconds per call of ``fn()`` over ``reps`` calls enqueued back
+    to back between one pair of CUDA events, after a warm-up: the launch
+    gaps hide behind the card's work where a call takes longer than its
+    launch, and no profiler record can be lost."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def device_ms(fn, reps):
@@ -998,36 +1021,53 @@ def dense_grid_points(cfg, device):
         xyz.reshape(-1, 3)).contiguous()
 
 
+def clip_in_torch(pts, shape):
+    """(..., 3) fractional indices clipped to a (H, W, D) volume, as
+    ``"border"`` padding clips them before it reads their corners, in
+    torch: a maximum and a minimum per axis, then a stack (the flow
+    lookup's route before the narrow instances)."""
+    import torch
+    return torch.stack([
+        torch.minimum(torch.maximum(pts[..., i], pts.new_zeros(())),
+                      pts.new_full((), n - 1.0))
+        for i, n in enumerate(shape)], -1)
+
+
 def values_fwd_record(interp, vol, pts, shape, reps, padding="zeros"):
-    """``trilinear_cf_fwd`` on one input: against its plain version (each
-    channel within 1e-5 of its max) and ``F.grid_sample`` (``padding``:
-    points clipped to the volume take ``"border"``, the same function);
-    timed by events and device time beside its plain version and
-    ``F.grid_sample`` (the channel-first copy that it needs timed apart).
-    Bound: the distinct corner rows its points touch read once, the points
-    read once, the values written once; 20 + 16 C operations per point."""
+    """``trilinear_cf_fwd`` on one input with ``padding``: against its plain
+    version (each channel within 1e-5 of its max) and ``F.grid_sample``
+    with the same padding; timed by events and device time beside its
+    plain version and ``F.grid_sample`` (the channel-first copy that it
+    needs timed apart). Bound: the distinct corner rows its points touch
+    (``"border"``: after the clip) read once, the points read once, the
+    values written once; 20 + 16 C operations per point."""
     import torch
     n, C = pts.shape[0], vol.shape[0]
-    got = interp.trilinear_cf_fwd(vol, pts)
-    ref = interp.trilinear_sample_cf_plain(vol, pts)
+    got = interp.trilinear_cf_fwd(vol, pts, padding)
+    ref = interp.trilinear_sample_cf_plain(vol, pts, padding)
     rel, err = channel_close(got, ref)
     check(f"trilinear_cf_fwd ({shape}) / channel tolerance", rel, 1.0)
     lib, copy = grid_sample_of(vol, pts, padding)
     lib_rel, lib_err = channel_close(lib(), ref)
     del got, ref
     torch.cuda.empty_cache()
-    voxels = corner_voxels(pts, tuple(vol.shape[1:]))
+    voxels = corner_voxels(clip_in_torch(pts, vol.shape[1:])
+                           if padding == "border" else pts,
+                           tuple(vol.shape[1:]))
 
     def kern():
-        return interp.trilinear_cf_fwd(vol, pts)
+        return interp.trilinear_cf_fwd(vol, pts, padding)
     rec = kernel_record(
         err, timed(kern, reps),
-        timed(lambda: interp.trilinear_sample_cf_plain(vol, pts), 3),
+        timed(lambda: interp.trilinear_sample_cf_plain(vol, pts, padding),
+              3),
         (voxels * C * 4 + nbytes(pts) + n * C * 4, n * (20 + 16 * C)),
         library_ms=timed(lib, reps), library="F.grid_sample",
         library_copy_ms=timed(copy, reps),
         library_device_ms=device_ms(lib, reps), library_max_abs_err=lib_err,
         library_channel_rel_err=lib_rel, device_ms=device_ms(kern, reps),
+        batched_ms=batched_ms(kern, reps),
+        library_batched_ms=batched_ms(lib, reps),
         shape=shape, points=n, C=C, corner_voxels=voxels,
         channel_rel_err=rel)
     log(f"  trilinear_cf_fwd {shape}: ms {rec['ms']:.4g}, device_ms "
@@ -1082,7 +1122,9 @@ def values_kernel_checks(g, device):
     inputs, checked only: C = 1, 2, 3, 4, 5, 8, 21, 25, 33, volumes that are
     channel slices of wider rows (row stride > C, 16-byte aligned or 4
     bytes off), the points of ``edge_points``; and the values agree bit
-    for bit with the with-grad forward's (the same value arithmetic)."""
+    for bit with the with-grad forward's (the same value arithmetic).
+    ``"border"`` padding at C = 1, 2, 3 (the narrow instances) on the same
+    points."""
     import torch
     from selfocc_tpu_torch.configs.experiments import get_config
     from selfocc_tpu_torch.ops import interp
@@ -1135,6 +1177,19 @@ def values_kernel_checks(g, device):
     if same != total:
         raise AssertionError("trilinear_cf_fwd: values differ from the "
                              f"with-grad forward's in {total - same} cases")
+    # "border" padding: the narrow instances, C <= 3
+    for C in (1, 2, 3):
+        full = torch.randn(small + (C + 4,), generator=g, device=device)
+        for tag, v in (("contiguous", full[..., :C].contiguous()),
+                       ("row stride", full[..., 4:])):
+            v = v.permute(3, 0, 1, 2)
+            for ptag, p in sets.items():
+                check(f"trilinear_cf_fwd (border, C={C}, {tag}, {ptag}, "
+                      f"N={p.shape[0]})",
+                      max_err(interp.trilinear_cf_fwd(v, p, "border"),
+                              interp.trilinear_sample_cf_plain(v, p,
+                                                               "border")),
+                      1e-5)
     torch.cuda.synchronize()
     return {"trilinear_cf_fwd": dict(rec, bit_equal_to_with_grad=[same,
                                                                   total])}
@@ -1221,50 +1276,55 @@ def grid_sample_bwd_of(shape, pts, grad_vals, padding="zeros"):
 def values_bwd_record(interp, vol_shape, pts, gv, tag, reps,
                       padding="zeros"):
     """``trilinear_cf_bwd`` for the cotangent ``gv`` (N, C) at (N, 3)
-    points of a ``vol_shape`` (C, H, W, D) volume: against its plain version
-    (GRAD_RTOL), timed by events and device time beside its plain version
-    and ``F.grid_sample``'s backward (alone, and with the channel-first copy
-    it needs and the gradient copied back). Bound: the cotangent and the
-    points read once, the dense gradient written once; 20 + 16 C
-    operations per point."""
+    points of a ``vol_shape`` (C, H, W, D) volume with ``padding``: against
+    its plain version (GRAD_RTOL), timed by events and device time beside
+    its plain version and ``F.grid_sample``'s backward with the same
+    padding (alone, and with the channel-first copy it needs and the
+    gradient copied back). Bound: the cotangent and the points read once,
+    the dense gradient written once; 20 + 16 C operations per point."""
     import torch
     C = vol_shape[0]
     shape = tuple(vol_shape[1:])
     vol = torch.zeros(vol_shape, device=pts.device)
-    got = interp.trilinear_cf_bwd(vol_shape, pts, gv)
-    ref = interp.trilinear_cf_bwd_plain(vol, pts, gv)
+    got = interp.trilinear_cf_bwd(vol_shape, pts, gv, padding=padding)
+    ref = interp.trilinear_cf_bwd_plain(vol, pts, gv, padding=padding)
     err = max_err(got, ref)
     check(f"trilinear_cf_bwd ({tag}, C={C}, {pts.shape[0]} points)",
           err, GRAD_RTOL * float(ref.abs().max()) + 1e-7)
     del got, ref
     torch.cuda.empty_cache()
     lib, lib_copy = grid_sample_bwd_of(vol_shape, pts, gv, padding)
-    # the locality the plane backward's segments use: runs of one cell
-    # in a warp's 32 consecutive points, and the voxels touched
-    cells = torch.floor(pts[: pts.shape[0] // 32 * 32]).long()
+    # the locality the segments use: runs of one cell in a warp's 32
+    # consecutive points, and the voxels touched
+    seen = clip_in_torch(pts, shape) if padding == "border" else pts
+    cells = torch.floor(seen[: pts.shape[0] // 32 * 32]).long()
     cells = cells.view(-1, 32, 3)
     runs = float(((cells[:, 1:] != cells[:, :-1]).any(-1).sum(1) + 1)
                  .float().mean())
     del cells
     lib_err = max_err(lib()[0].permute(1, 2, 3, 0),
-                      interp.trilinear_cf_bwd(vol_shape, pts, gv)
+                      interp.trilinear_cf_bwd(vol_shape, pts, gv,
+                                              padding=padding)
                       .permute(1, 2, 3, 0))
     n = pts.shape[0]
     out_bytes = shape[0] * shape[1] * shape[2] * C * 4
 
     def kern():
-        return interp.trilinear_cf_bwd(vol_shape, pts, gv)
+        return interp.trilinear_cf_bwd(vol_shape, pts, gv, padding=padding)
     rec = kernel_record(
         err, timed(kern, reps),
-        timed(lambda: interp.trilinear_cf_bwd_plain(vol, pts, gv), 3),
+        timed(lambda: interp.trilinear_cf_bwd_plain(vol, pts, gv,
+                                                    padding=padding), 3),
         (nbytes(pts, gv) + out_bytes, n * (20 + 16 * C)),
         library_ms=timed(lib, 10), library="F.grid_sample backward",
         library_device_ms=device_ms(lib, 10),
         library_with_copy_ms=timed(lib_copy, 10),
         library_with_copy_device_ms=device_ms(lib_copy, 10),
         library_max_abs_err=lib_err, device_ms=device_ms(kern, reps),
+        batched_ms=batched_ms(kern, reps),
+        library_batched_ms=batched_ms(lib, 10),
         shape=f"{tag}, C={C}, {n} points", points=n, C=C,
-        cell_runs_per_warp=runs, corner_voxels=corner_voxels(pts, shape))
+        cell_runs_per_warp=runs, corner_voxels=corner_voxels(seen, shape))
     log(f"  trilinear_cf_bwd {tag}: {rec}")
     del vol, lib, lib_copy
     torch.cuda.empty_cache()
@@ -1288,7 +1348,9 @@ def values_bwd_checks(g, device):
     decoded volume there, the walk instance), with the channel-0-only
     cotangent too. Then off-path inputs, checked only: C = 1, 2, 3, 4, 5,
     8, 25 at the points of ``edge_points``, and at C = 4 and 25 a
-    cotangent 4 bytes off 16-byte alignment (the walk)."""
+    cotangent 4 bytes off 16-byte alignment (the walk); the narrow
+    instances (C <= 3, either padding, with the points' cotangent too) on
+    a row-strided volume."""
     import torch
     from selfocc_tpu_torch.ops import interp
     shape, uniform, taps = kitti_points(device)[:3]
@@ -1321,6 +1383,26 @@ def values_bwd_checks(g, device):
             check(f"trilinear_cf_bwd (C={C}, {ptag}, N={p.shape[0]})",
                   max_err(interp.trilinear_cf_bwd(vol.shape, p, gv), ref),
                   GRAD_RTOL * float(ref.abs().max()) + 1e-7)
+    # the narrow instances (C <= 3) with either padding, point-free and
+    # with the points' cotangent, on a volume read at row stride C + 4
+    for C in (1, 2, 3):
+        full = torch.randn(small + (C + 4,), generator=g, device=device)
+        vol = full[..., 4:].permute(3, 0, 1, 2)
+        for padding in ("zeros", "border"):
+            for ptag, p in sets.items():
+                gv = torch.randn((p.shape[0], C), generator=g, device=device)
+                what = f"{padding}, C={C}, {ptag}, N={p.shape[0]}"
+                ref = interp.trilinear_cf_bwd_plain(vol, p, gv,
+                                                    padding=padding)
+                check(f"trilinear_cf_bwd ({what})",
+                      max_err(interp.trilinear_cf_bwd(
+                          tuple(vol.shape), p, gv, padding=padding), ref),
+                      GRAD_RTOL * float(ref.abs().max()) + 1e-7)
+                check_grads(f"trilinear_cf_bwd points ({what})",
+                            interp.trilinear_cf_bwd(tuple(vol.shape), p, gv,
+                                                    vol, padding),
+                            interp.trilinear_cf_bwd_plain(
+                                vol, p, gv, points=True, padding=padding))
     p = sets["rays"]
     for C in (4, 25):
         buf = torch.randn(p.shape[0] * C + 1, generator=g, device=device)
@@ -1910,7 +1992,8 @@ def kernel_checks(device, baseline=None):
     return res
 
 
-INSTANCE_COUNTS = ("plane", "points", "tiled", "walk", "points_walk")
+INSTANCE_COUNTS = ("plane", "points", "tiled", "walk", "points_walk",
+                   "narrow")
 
 
 def reset_counts(wrappers):
@@ -1923,15 +2006,18 @@ def reset_counts(wrappers):
 
 def instance_counts(fn):
     """A wrapper's launches by kernel instance: the trilinear wrappers'
-    ``plane`` (C = 1) and ``rows`` (C > 1) and, for the backwards,
-    ``points`` (the point-cotangent instances); ``trilinear_cf_bwd``'s
-    ``walk`` (C > 1 but for the float4 rows) and ``trilinear_bwd``'s
+    ``plane`` (C = 1) and ``rows`` (the rest) and, for the backwards,
+    ``points`` (the point-cotangent instances); the values-only pair's
+    ``narrow`` (C <= 3 but for the plane, every ``"border"`` query: the
+    flow head's lookup), which ``rows`` leaves out; ``trilinear_cf_bwd``'s
+    ``walk`` (C > 3 but for the float4 rows) and ``trilinear_bwd``'s
     ``points_walk`` (its point instance at C > 1); ``neus_weights_bwd``'s
     ``tiled`` (more than 256 samples a ray)."""
     kinds = {}
     if hasattr(fn, "plane_launches"):
         kinds.update(plane=fn.plane_launches,
-                     rows=fn.launches - fn.plane_launches)
+                     rows=fn.launches - fn.plane_launches
+                     - getattr(fn, "narrow_launches", 0))
     for kind in INSTANCE_COUNTS[1:]:
         if hasattr(fn, f"{kind}_launches"):
             kinds[kind] = getattr(fn, f"{kind}_launches")
@@ -6097,10 +6183,11 @@ def weights_ab(base, this, g, device):
     return out
 
 
-def grid_sample_points_bwd_of(vol_cf, pts, grad_vals):
+def grid_sample_points_bwd_of(vol_cf, pts, grad_vals, padding="zeros"):
     """``F.grid_sample``'s backward with a grid that needs a gradient: the
     volume's and the grid's cotangents of the values ``grid_sample_of``
-    computes, on its channel-first copy (made once, outside the call)."""
+    computes with ``padding``, on its channel-first copy (made once,
+    outside the call)."""
     import torch
     C, H, W, D = vol_cf.shape
     x = vol_cf.contiguous()[None]
@@ -6111,7 +6198,8 @@ def grid_sample_points_bwd_of(vol_cf, pts, grad_vals):
 
     def call():
         return torch.ops.aten.grid_sampler_3d_backward(
-            gout, x, grid, 0, 0, True, [True, True])
+            gout, x, grid, 0, {"zeros": 0, "border": 1}[padding], True,
+            [True, True])
     return call
 
 
@@ -6593,27 +6681,26 @@ def variant_config(base="nuscenes_occ"):
     return dataclasses.replace(cfg, name=f"{base}_variants", model=model)
 
 
-def flow_head_path(device):
-    """The BEV flow head (``estimate_flow``) at ``nuscenes_occ_bev``'s full
-    width: the head with seeded weights takes random (1, 257 x 257, 96)
-    current, previous and next planes and renders one training forward on
-    the card (28,800 random-grid rays x 256 samples); its four (1, 257,
-    257, 25, 3) flows and the two warped sample sets go into a backward.
-    The lookups at the samples must launch ``trilinear_cf_fwd`` (rows, C =
-    3) and ``trilinear_cf_bwd`` (its walk) twice each (the forward once
-    more for the recipe's uniform sdf grid). Held against the
-    plain path on the CPU: the four flows (GRAD_RTOL of their max) and the
-    warps of 4096 rays (1e-5 of their max). Then both kernels at the
-    step's own 7,372,800 clipped points of ``curr2prev_flow``
-    (``values_fwd_record`` / ``values_bwd_record``: against their plain
-    versions, timed beside ``F.grid_sample`` with border padding and its
-    backward)."""
+def load_tool(name):
+    """``selfocc_tpu_torch/tools/<name>.py`` of this checkout as a module."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "selfocc_tpu_torch", "tools", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"_tool_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def flow_head_setup(device):
+    """The BEV flow head at ``nuscenes_occ_bev``'s width with seeded
+    weights, in training mode: (the recipe's head config, the head on the
+    card, a copy on the CPU, three random (1, 257 x 257, 96) planes, a
+    synthetic batch's ``img2lidar``, the card's generator)."""
     import torch
     from selfocc_tpu_torch.configs.experiments import get_config
-    from selfocc_tpu_torch.geometry.projection import rays_from_img2lidar
     from selfocc_tpu_torch.models.initializers import init_weights
     from selfocc_tpu_torch.models.segmentor import TPVSegmentor
-    from selfocc_tpu_torch.ops import interp
     from selfocc_tpu_torch.utils.runtime import get_dataset, to_device
     cfg = get_config("nuscenes_occ_bev")
     h = cfg.model.head
@@ -6629,27 +6716,306 @@ def flow_head_path(device):
     reps = [0.5 * torch.randn((1, H * W, h.embed_dims), generator=g,
                               device=device) for _ in range(3)]
     batch = to_device(get_dataset(cfg, synthetic=True, length=1)[0], device)
-    img2lidar = batch[h.trans_kw]
-    wrappers = (interp.trilinear_cf_fwd, interp.trilinear_cf_bwd)
-    reset_counts(wrappers)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    return h, head, cpu_head, reps, batch[h.trans_kw], g
+
+
+def flow_lookup_inputs(head, out, img2lidar):
+    """The flow lookup's inputs in the head's forward ``out``: the rays'
+    origins and directions (one a ray), the samples as fractional indices
+    of the flow grid (N, 3), unclipped (the kernels clip), and the
+    ``curr2prev_flow`` volume (H, W, D, 3)."""
+    import torch
+    from selfocc_tpu_torch.geometry.projection import rays_from_img2lidar
+    with torch.no_grad():
+        origin, direction = rays_from_img2lidar(img2lidar, out["ms_rays"])
+        n_cams, n_rays = direction.shape[1:3]
+        origin = origin[0, :, None, :].expand(n_cams, n_rays, 3).reshape(
+            -1, 3)
+        direction = direction[0].reshape(-1, 3)
+        S = out["ts"].shape[-1]
+        norm = direction.norm(dim=-1, keepdim=True)
+        positions = origin[:, None, :] + (direction / norm)[:, None, :] \
+            * (out["ts"].reshape(-1, S) * norm)[..., None]
+        pts = head.field.mapping.meter2grid(
+            positions.reshape(-1, 3)).contiguous()
+        vol = out["curr2prev_flow"][0].detach().contiguous()
+    return origin, direction, pts, vol
+
+
+def flow_forward_backward(head, reps, img2lidar, g):
+    """One training forward of the flow head and a backward of the warped
+    samples and the four flows (random cotangents); returns the outputs."""
+    import torch
     out = head(reps[0], img2lidar, train=True, generator=g,
                prev_rep=reps[1], next_rep=reps[2])
     keys = ("prev_warp", "next_warp", "curr2prev_flow", "curr2next_flow",
             "prev2curr_flow", "next2curr_flow")
-    cots = [torch.randn(out[k].shape, generator=g, device=device)
+    cots = [torch.randn(out[k].shape, generator=g, device=out[k].device)
             for k in keys]
     torch.autograd.backward([out[k] for k in keys], cots)
+    return out
+
+
+def flow_profile(head, reps, img2lidar, g, narrow=True):
+    """torch.profiler over one more forward and backward of the flow head:
+    the kernel time, the launches and the wall, and (``narrow``) the
+    narrow kernels' device ms per call and calls in it, 2 each."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            flow_forward_backward(head, reps, img2lidar, g)
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        total_us = sum(e.self_device_time_total for e in kernels)
+        if total_us > 0:
+            break
+        log(f"  profiled flow head {attempt + 1}: no device time recorded")
+    res = {"profiled_wall_ms": wall_ms, "kernel_ms": total_us / 1e3,
+           "kernel_launches": sum(e.count for e in kernels)}
+    for name in ("values_fwd_narrow", "values_bwd_narrow")[:2 * narrow]:
+        hits = [e for e in kernels if f"{name}_kernel" in e.key]
+        calls = sum(e.count for e in hits)
+        ms = sum(e.self_device_time_total for e in hits) / 1e3
+        res[name] = {"calls": calls, "device_ms": ms,
+                     "ms_per_call": ms / max(calls, 1)}
+        log(f"    {name} in the flow head's forward and backward: x{calls} "
+            f"{ms:.4f} ms ({ms / max(calls, 1):.4f} ms per call)")
+        if calls != 2:
+            raise AssertionError(f"profiled flow head: {name} x{calls}, "
+                                 "expected 2")
+    log(f"  profiled flow head: wall {wall_ms:.1f} ms, "
+        f"{res['kernel_launches']} kernels, {res['kernel_ms']:.2f} ms of "
+        "kernel time")
+    return res
+
+
+def walk_library():
+    """``csrc/trilinear.cu`` without the narrow instances (``narrow_walk``
+    of ``tools/trilinear_scatter_variants.py``), built and loaded: C = 2
+    and 3 with zeros padding take the walks there."""
+    import tempfile
+    tool = load_tool("trilinear_scatter_variants")
+    with tempfile.TemporaryDirectory() as tmp:
+        return tool.build(tmp, ("narrow_walk",))["narrow_walk"]
+
+
+@contextlib.contextmanager
+def walk_route(lib):
+    """The flow lookup by the route before the narrow instances while the
+    block runs: the head's ``sample_border`` clipping in torch, then the
+    zeros-padded query, and ``lib`` (``walk_library``) swapped in for the
+    port's trilinear library."""
+    from selfocc_tpu_torch import _build
+    from selfocc_tpu_torch.models import heads
+    from selfocc_tpu_torch.ops import interp
+    own = _build.load("trilinear", interp._SIGNATURES)
+    narrow_lookup = heads.sample_border
+
+    def clip_then_zeros(vol, hwd):
+        return interp.trilinear_sample_cf(
+            vol.permute(3, 0, 1, 2), clip_in_torch(hwd, vol.shape[:3]),
+            "zeros")
+    heads.sample_border = clip_then_zeros
+    _build._LIBS["trilinear"] = lib
+    try:
+        yield
+    finally:
+        heads.sample_border = narrow_lookup
+        _build._LIBS["trilinear"] = own
+
+
+def flow_route_ab(head, reps, img2lidar, g, lib):
+    """The flow head's forward and backward by the narrow instances
+    (``narrow``) and by the route they replaced (``walk``, ``walk_route``),
+    in turns (narrow, walk, walk, narrow): each turn's median wall over 3
+    runs (synchronised) and the kernel time of one profiled run."""
+    import statistics
+    import torch
+    res = {"narrow": [], "walk": []}
+    for route in ("narrow", "walk", "walk", "narrow"):
+        with (walk_route(lib) if route == "walk"
+              else contextlib.nullcontext()):
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                flow_forward_backward(head, reps, img2lidar, g)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            prof = flow_profile(head, reps, img2lidar, g,
+                                narrow=route == "narrow")
+        res[route].append({"wall_s": statistics.median(walls),
+                           "kernel_ms": prof["kernel_ms"],
+                           "kernel_launches": prof["kernel_launches"]})
+    log(f"  the flow head's forward and backward, narrow against walk in "
+        f"turns: {res}")
+    return res
+
+
+def dropped_walk_route(interp, vol_cf, pts, gv, lib):
+    """The route the narrow instances replaced, timed in this call: the
+    points clipped in torch (``clip_in_torch``), then ``trilinear_cf_fwd``
+    / ``trilinear_cf_bwd``'s walk kernels at C = 3 with zeros padding,
+    from ``lib`` (``walk_library``), swapped in for the port's library
+    while it runs. Each walk is held against the plain border version on
+    the unclipped points."""
+    import torch
+    from selfocc_tpu_torch import _build
+    shape = tuple(vol_cf.shape[1:])
+    clipped = clip_in_torch(pts, shape).contiguous()
+    own = _build.load("trilinear", interp._SIGNATURES)
+    _build._LIBS["trilinear"] = lib
+    try:
+        def fwd():
+            return interp.trilinear_cf_fwd(vol_cf, clipped)
+
+        def bwd():
+            return interp.trilinear_cf_bwd(tuple(vol_cf.shape), clipped, gv)
+        ref = interp.trilinear_sample_cf_plain(vol_cf, pts, "border")
+        rel, err = channel_close(fwd(), ref)
+        check("walk at C = 3 on the clipped points / channel tolerance",
+              rel, 1.0)
+        del ref
+        ref = interp.trilinear_cf_bwd_plain(vol_cf, pts, gv,
+                                            padding="border")
+        berr = max_err(bwd(), ref)
+        check("walk backward at C = 3 on the clipped points", berr,
+              GRAD_RTOL * float(ref.abs().max()) + 1e-7)
+        del ref
+        torch.cuda.empty_cache()
+        rec = {"fwd": {"device_ms": device_ms(fwd, 10), "ms": timed(fwd, 10),
+                       "batched_ms": batched_ms(fwd, 10),
+                       "max_abs_err": err},
+               "bwd": {"device_ms": device_ms(bwd, 10), "ms": timed(bwd, 10),
+                       "batched_ms": batched_ms(bwd, 10),
+                       "max_abs_err": berr}}
+    finally:
+        _build._LIBS["trilinear"] = own
+    clip = (lambda: clip_in_torch(pts, shape))
+    rec["clip_device_ms"] = device_ms(clip, 10)
+    rec["clip_ms"] = timed(clip, 10)
+    rec["clip_launches"] = sum(c for c, _ in call_kernels(clip).values())
+    log(f"  the dropped route (torch clip, then the walk): {rec}")
+    return rec
+
+
+def flow_points_record(interp, vol_cf, pts, g):
+    """The narrow backward's point instance (``values_bwd_narrow_kernel``
+    with kPoints, border padding) on stand-ins of the step's points: of
+    every 48, one snapped to a knot of each of the six faces (the other
+    two indices rounded) and one to its nearest knot; the rest as the step
+    has them, inside and beyond the volume. Both cotangents against the
+    plain version (GRAD_RTOL), their distances from the plain version in
+    float64 logged; timed beside ``F.grid_sample``'s backward with a grid
+    gradient (border). Bound: points and cotangent read, the corner rows
+    read once, the volume's and the points' cotangents written; 20 + 16 C
+    + 8 (2 C + 20) operations per point."""
+    import torch
+    C = vol_cf.shape[0]
+    shape = tuple(vol_cf.shape[1:])
+    m = pts.shape[0]
+    stand = pts.clone()
+    knots = clip_in_torch(torch.round(pts), shape)
+    for f in range(7):
+        sel = slice(8 * f, None, 48)
+        stand[sel] = knots[sel]
+        if f < 6:
+            stand[sel, f // 2] = (f % 2) * (shape[f // 2] - 1.0)
+    gv = torch.randn((m, C), generator=g, device=pts.device)
+    got = interp.trilinear_cf_bwd(tuple(vol_cf.shape), stand, gv, vol_cf,
+                                  "border")
+    ref = interp.trilinear_cf_bwd_plain(vol_cf, stand, gv, points=True,
+                                        padding="border")
+    err = check_grads("trilinear_cf_bwd narrow points (flow stand-ins, "
+                      "knots on every face)", got, ref)
+    ref64 = interp.trilinear_cf_bwd_plain(
+        vol_cf.double(), stand.double(), gv.double(), points=True,
+        padding="border")
+    f64 = {which: {"kernel": max_err(a, r), "plain_fp32": max_err(b, r),
+                   "scale": float(r.abs().max())}
+           for which, a, b, r in zip(("volume", "points"), got, ref, ref64)}
+    log(f"  narrow points against float64: {f64}")
+    del got, ref, ref64
+    torch.cuda.empty_cache()
+    lib = grid_sample_points_bwd_of(vol_cf, stand, gv, "border")
+
+    def kern():
+        return interp.trilinear_cf_bwd(tuple(vol_cf.shape), stand, gv,
+                                       vol_cf, "border")
+    voxels = corner_voxels(clip_in_torch(stand, shape), shape)
+    rec = kernel_record(
+        err, timed(kern, 10),
+        timed(lambda: interp.trilinear_cf_bwd_plain(
+            vol_cf, stand, gv, points=True, padding="border"), 3),
+        (nbytes(stand, gv) + voxels * C * 4
+         + shape[0] * shape[1] * shape[2] * C * 4 + m * 12,
+         m * (20 + 16 * C + 8 * (2 * C + POINTS_OPS_PER_CORNER))),
+        library_ms=timed(lib, 10), library="F.grid_sample backward, grid "
+        "with a gradient (border)", library_device_ms=device_ms(lib, 10),
+        device_ms=device_ms(kern, 10), batched_ms=batched_ms(kern, 10),
+        float64=f64, shape=f"flow stand-ins, C={C}, {m} points", points=m,
+        C=C,
+        corner_voxels=voxels)
+    log(f"  trilinear_cf_bwd narrow points: {rec}")
+    del stand, gv, lib
+    torch.cuda.empty_cache()
+    return rec
+
+
+def flow_head_path(device):
+    """The BEV flow head (``estimate_flow``) at ``nuscenes_occ_bev``'s full
+    width: the head with seeded weights takes random (1, 257 x 257, 96)
+    current, previous and next planes and renders one training forward on
+    the card (28,800 random-grid rays x 256 samples); its four (1, 257,
+    257, 25, 3) flows and the two warped sample sets go into a backward.
+    The lookups at the samples must launch the narrow instances of
+    ``trilinear_cf_fwd`` and ``trilinear_cf_bwd`` (C = 3, the border
+    padding in the kernel) twice each and no walk (the forward's rows
+    instance once more for the recipe's uniform sdf grid). Held against
+    the plain path on the CPU: the four flows (GRAD_RTOL of their max) and
+    the warps of 4096 rays (1e-5 of their max). A profiled forward and
+    backward gives the pair's in-step device ms (``flow_profile``), and
+    the head's forward and backward is timed beside the route the narrow
+    instances replaced (``flow_route_ab``). Then,
+    at the step's own 7,372,800 unclipped points of ``curr2prev_flow``
+    (their clipped share and most points in one cell logged): both
+    kernels (``values_fwd_record`` / ``values_bwd_record`` with
+    ``"border"``: against their plain versions, timed beside
+    ``F.grid_sample`` with border padding and its backward), the dropped
+    route in the same call (``dropped_walk_route``) and the point instance
+    (``flow_points_record``)."""
+    import torch
+    from selfocc_tpu_torch.ops import interp
+    h, head, cpu_head, reps, img2lidar, g = flow_head_setup(device)
+    wrappers = (interp.trilinear_cf_fwd, interp.trilinear_cf_bwd)
+    reset_counts(wrappers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = flow_forward_backward(head, reps, img2lidar, g)
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
-    launches = read_counts(wrappers, "flow head", ("rows",),
-                           ("trilinear_cf_bwd.walk",))
+    launches = read_counts(wrappers, "flow head", (),
+                           ("trilinear_cf_fwd.narrow",
+                            "trilinear_cf_bwd.narrow"))
+    launches.update({f"{fn.__name__}.{k}": n for fn in wrappers
+                     for k, n in instance_counts(fn).items()})
     # the two lookups, and the recipe's uniform sdf query (C = 25; the
     # backward above leaves its output out)
-    if launches["trilinear_cf_fwd.rows"] != 2 + h.return_uniform_sdf or \
-            launches["trilinear_cf_bwd.walk"] != 2:
-        raise AssertionError(f"the flow lookups launched {launches}")
+    want = {"trilinear_cf_fwd.narrow": 2, "trilinear_cf_bwd.narrow": 2,
+            "trilinear_cf_fwd.rows": int(h.return_uniform_sdf),
+            "trilinear_cf_bwd.rows": 0, "trilinear_cf_bwd.walk": 0,
+            "trilinear_cf_bwd.points": 0}
+    wrong = {k: (launches[k], n) for k, n in want.items()
+             if launches[k] != n}
+    if wrong:
+        raise AssertionError(f"the flow lookups launched (got, expected) "
+                             f"{wrong}")
     res = {"forward_backward_s": step_s, "launches": launches,
            "flow_shape": list(out["curr2prev_flow"].shape)}
     with torch.no_grad():
@@ -6660,12 +7026,8 @@ def flow_head_path(device):
             check(f"flow head {k}, card against CPU", e,
                   GRAD_RTOL * float(ref.abs().max()) + 1e-7)
             err[k] = e
-        rays = out["ms_rays"]
-        origin, direction = rays_from_img2lidar(img2lidar, rays)
-        n_cams, n_rays = direction.shape[1:3]
-        origin = origin[0, :, None, :].expand(n_cams, n_rays, 3).reshape(
-            -1, 3)
-        direction = direction[0].reshape(-1, 3)
+        origin, direction, pts, vol = flow_lookup_inputs(head, out,
+                                                         img2lidar)
         S = out["ts"].shape[-1]
         idx = torch.linspace(0, origin.shape[0] - 1, SUBSET_RAYS,
                              device=device).long()
@@ -6678,26 +7040,36 @@ def flow_head_path(device):
                   1e-5 * float(ref.abs().max()))
             err[k] = e
         res["max_abs_err"] = err
-        # the lookup's own points and volume, clipped as the head clips
-        positions = origin[:, None, :] + (
-            direction / direction.norm(dim=-1, keepdim=True))[:, None, :] \
-            * (out["ts"].reshape(-1, S)
-               * direction.norm(dim=-1, keepdim=True))[..., None]
-        pts = head.field.mapping.meter2grid(positions.reshape(-1, 3))
-        vol = out["curr2prev_flow"][0].detach().contiguous()
-        hi = torch.tensor([n - 1.0 for n in vol.shape[:3]], device=device)
-        pts = torch.minimum(torch.maximum(pts, torch.zeros_like(hi)),
-                            hi).contiguous()
-    del out, cots, cpu_head, positions
+    del out, cpu_head, origin, direction
     torch.cuda.empty_cache()
+    res["profile"] = flow_profile(head, reps, img2lidar, g)
+    lib = walk_library()
+    res["route_ab"] = flow_route_ab(head, reps, img2lidar, g, lib)
+    shape = tuple(vol.shape[:3])
+    clipped = clip_in_torch(pts, shape)
+    res["clipped_share"] = float((clipped != pts).any(-1).float().mean())
+    res["points_census"] = point_stats(clipped, shape)
+    log(f"  flow lookup points: {res['clipped_share']:.4f} clipped; "
+        f"{res['points_census']}")
+    del clipped
     vol_cf = vol.permute(3, 0, 1, 2)
     tag = f"flow lookup, C=3, {pts.shape[0]} points"
-    res["trilinear_cf_fwd"] = values_fwd_record(interp, vol_cf, pts, tag, 10,
-                                                padding="border")
+    fwd = values_fwd_record(interp, vol_cf, pts, tag, 10, padding="border")
     gv = torch.randn((pts.shape[0], 3), generator=g, device=device)
-    res["trilinear_cf_bwd"] = values_bwd_record(
-        interp, tuple(vol_cf.shape), pts, gv, "flow lookup", 10,
-        padding="border")
+    bwd = values_bwd_record(interp, tuple(vol_cf.shape), pts, gv,
+                            "flow lookup", 10, padding="border")
+    walk = dropped_walk_route(interp, vol_cf, pts, gv, lib)
+    fwd.update(walk_device_ms=walk["fwd"]["device_ms"],
+               walk_ms=walk["fwd"]["ms"],
+               walk_batched_ms=walk["fwd"]["batched_ms"],
+               clip_device_ms=walk["clip_device_ms"],
+               clip_ms=walk["clip_ms"], clip_launches=walk["clip_launches"])
+    bwd.update(walk_device_ms=walk["bwd"]["device_ms"],
+               walk_ms=walk["bwd"]["ms"],
+               walk_batched_ms=walk["bwd"]["batched_ms"],
+               points_instance=flow_points_record(interp, vol_cf, pts, g))
+    res["trilinear_cf_fwd"], res["trilinear_cf_bwd"] = fwd, bwd
+    res["dropped_walk_route"] = walk
     del vol, vol_cf, pts, gv, head, reps
     torch.cuda.empty_cache()
     return res
@@ -8112,10 +8484,10 @@ def main():
                           "max_abs_err"):
                     entry[f"{tag}_{k}"] = recs[name][k]
         if name in ("trilinear_cf_fwd", "trilinear_cf_bwd"):
-            # the values-only pair's other calls; the flow lookup is C = 3
+            # the values-only pair's other calls (the flow lookup, C = 3,
+            # has its narrow instances' lines)
             for tag, recs in (("bev_uniform", bres["values"]),
-                              ("density_query", denres["values"]),
-                              ("flow_lookup", vres["flow"])):
+                              ("density_query", denres["values"])):
                 rec = recs[name]
                 for k in ("ms", "device_ms", "plain_ms", "bound_ms",
                           "library_ms", "library_device_ms", "max_abs_err",
@@ -8189,15 +8561,12 @@ def main():
             "launches": denres["train"]["launches"]["trilinear_cf_bwd.walk"],
             "launches_bev_steps": bres["train"]["launches"][
                 "trilinear_cf_bwd.walk"],
-            "launches_options_steps": opt_launches["trilinear_cf_bwd.walk"],
-            "launches_variants_flow_head": vres["flow"]["launches"][
-                "trilinear_cf_bwd.walk"]}
+            "launches_options_steps": opt_launches["trilinear_cf_bwd.walk"]}
     walk.update(denres["values"]["trilinear_cf_bwd"])
     walk["cases"] = {
         "density_query": denres["values"]["trilinear_cf_bwd"],
         "bev_uniform": bres["values"]["trilinear_cf_bwd"],
-        "options_chunk": kres["trilinear_cf_bwd"]["options_chunk"],
-        "flow_lookup": vres["flow"]["trilinear_cf_bwd"]}
+        "options_chunk": kres["trilinear_cf_bwd"]["options_chunk"]}
     walk["max_abs_err"] = max(r["max_abs_err"]
                               for r in walk["cases"].values())
     for path, r in (("density", denres["train"]), ("bev", bres["train"]),
@@ -8207,6 +8576,22 @@ def main():
             walk[f"in_{path}_step_ms_per_call"] = k["ms_per_call"]
             walk[f"in_{path}_step_calls"] = k["calls"]
     kernels.append(walk)
+    # the values-only pair's narrow instances (C <= 3, "border" padding in
+    # the kernel): their main path is the flow head's step ([variants]);
+    # beside each, the walk it replaced at C = 3 in the same call, and the
+    # backward's point instance on stand-ins of the step's points
+    flow = vres["flow"]
+    for name in ("trilinear_cf_fwd", "trilinear_cf_bwd"):
+        entry = {"name": f"{name}.narrow", "route": "cuda",
+                 "source": "selfocc_tpu_torch/csrc/trilinear.cu",
+                 "replaces": "selfocc_tpu/ops/interp.py:118",
+                 "launches": flow["launches"][f"{name}.narrow"]}
+        entry.update(flow[name])
+        in_step = flow["profile"][
+            name.replace("trilinear_cf", "values") + "_narrow"]
+        entry["in_step_ms_per_call"] = in_step["ms_per_call"]
+        entry["in_step_calls"] = in_step["calls"]
+        kernels.append(entry)
     # the vis tools' launches ([vis]) on every entry, and the [vis] records
     # of its kernels at the vis paths' own inputs
     visres = phases["vis"]

@@ -12,8 +12,11 @@
 // only, interp.py::trilinear_sample_cf (:118, the dense occupancy query,
 // the KITTI uniform sdf grid and sdf taps) and interp.py::trilinear_sample
 // (:73, the Occ3D resample of the dense sdf and logits grids), with their
-// cotangents. Semantics:
-// align_corners=True fractional (h, w, d) indices, zeros padding; vals
+// cotangents; and the flow head's lookup, interp.py::trilinear_sample_cf
+// with "border" padding (:131-150, called at selfocc_tpu/models/
+// heads.py:519-520). Semantics:
+// align_corners=True fractional (h, w, d) indices, zeros padding (the
+// narrow instances: either padding, below); vals
 // (N, C) = sum over the 8 corners of weight * value; grad0 (N, 3) =
 // d(channel 0)/d(h, w, d), the bilinear interpolation over the other two
 // axes of the corner differences along each axis. The backward adds, for
@@ -86,13 +89,49 @@
 // 10.5M points of a 512 x 512 x 40 grid, 0.5-0.6 cells apart), the Occ3D
 // resample (C = 21 and the sdf plane, both at row stride 25, 640,000
 // points about 2 cells apart), the kitti_occ uniform sdf grid (C = 4 at
-// row 4, 262,144 jittered points, each in a cell of its own) and the
+// row 4, 262,144 jittered points, each in a cell of its own), the
 // compact second derivative (C = 1: the six taps of each of a chunk's
-// 1,048,576 samples as one point-major query, forward and backward). A
-// sample's six taps lie 0.05 of a cell apart, in one cell 73% of the
-// time; consecutive samples about one cell apart, so the 32 taps of a
-// warp fall in about 9 runs of one cell.
-// - Rows forward, 1 < C <= 32 (walk): as the render's, lanes over channels
+// 1,048,576 samples as one point-major query, forward and backward) and
+// the flow head's border lookup (C = 3, 12-byte rows of a (257, 257, 25,
+// 3) flow, 19.8 MB, at a step's 7,372,800 ray samples: about 16 runs of
+// one cell in a warp's 32, none clipped, as the samples lie in the
+// volume's box). A sample's six taps lie 0.05 of a cell apart, in one cell
+// 73% of the time; consecutive samples about one cell apart, so the 32
+// taps of a warp fall in about 9 runs of one cell.
+// - "border" padding (the narrow instances alone; the launchers refuse it
+//   at C > 3): each index clipped to [0, size - 1] in the kernel, the
+//   upper corners clamped onto the face rows, where their weight is 0;
+//   the points' cotangent takes the clip's derivative as JAX autodiff
+//   gives jnp.clip's (a maximum, then a minimum: 1 inside, 0.5 at a tie,
+//   0 outside).
+// - Narrow forward, C <= 3 (but C = 1 with zeros padding, the plane's):
+//   one thread per point, its 8 x C scalar loads issued before the sum
+//   (the flow stays in L2), the warp's 32 x C values staged through shared
+//   memory for C coalesced stores. Until then C = 3 took the walk below,
+//   whose lanes over channels left 29 of 32 idle and walked the warp's 32
+//   points one after another, after a clip in torch of 11-12 launches.
+// - Narrow backward, C <= 3: lanes over points; consecutive lanes whose
+//   points share a cell sum their 8 x C contributions by a segmented
+//   shuffle scan (as the plane's, with only as many steps as the warp's
+//   longest segment needs); each segment's last lane makes one float4
+//   atomic a corner row into a zeroed (H, W, D, 4) scratch, none for a row
+//   of exact zeros, and narrow_fold_kernel writes the (H, W, D, C)
+//   gradient from it (a 12-byte row is 16-byte aligned at no voxel). The
+//   point instance also gives each point its cotangent from its own 8
+//   corner rows. Runs are short (about 2 points), so the atomics bound it
+//   (the kernel without them, a probe: 0.124 of 0.55 ms): a float4 atomic
+//   carries a row in one request where scalar atomics took C. Tried and
+//   slower at the flow step's points (tools/trilinear_scatter_variants.py,
+//   device ms in one call): C scalar atomics straight into the gradient
+//   (1.45 against 0.55), a float2 on the row's 8-byte-aligned pair and a
+//   scalar (1.02), no segments, each lane its own 8 float4 atomics (1.08),
+//   the block's shared-memory table of the C = 1 segments before float4
+//   atomics (0.60), and chains of consecutive segments that share a voxel,
+//   summed through a warp table in shared memory before one float4 atomic
+//   a chain (0.58: about half the atomics, and no faster). The crowded
+//   cells of that step (at most 10,704 points) keep fp32 atomics: the
+//   volume's cotangent stays within GRAD_RTOL of the plain version.
+// - Rows forward, 3 < C <= 32 (walk): as the render's, lanes over channels
 //   walk the warp's 32 points and reload the 8 corner rows only when the
 //   cell changes; each point's row is stored as it is. At the dense query
 //   the bound is the 1.05 GB of values (0.38 ms over HBM); the walk takes
@@ -117,7 +156,7 @@
 //   gradient (vec4): one thread per (point, 4 channels), one float4
 //   atomicAdd per in-volume corner row (8 a point at C = 4, compute
 //   capability 9.x).
-// - Rows backward, any other C > 1 (walk): as the render's rows backward,
+// - Rows backward, any other C > 3 (walk): as the render's rows backward,
 //   lanes over channels walk the warp's 32 points, sum each run of one
 //   cell in 8 registers and carry the 4 shared corner rows across a unit
 //   step; each row it leaves takes one scalar atomic a lane, none where
@@ -145,7 +184,8 @@
 // The point instances also give the points their cotangent: at C = 1
 // (both the with-grad and the values-only one) from each point's own lane,
 // which reads its 8 corners (below); C > 1 from the walks, as below
-// (values-only: the walk above, no caller on a shipped path).
+// (values-only: the walk above at C > 3, no caller on a shipped path; the
+// narrow instance at C <= 3).
 // The C = 1 point instances (trilinear_plane_points_bwd), one design for
 // both: the importance step's merged render (its six second-derivative
 // taps, with grad0, on the contiguous sdf plane) and its rounds' sdf
@@ -236,6 +276,11 @@
 // - trilinear_bwd_points, C = 25, 4096 x 320 points: 0.6417-0.6423 (old
 //   0.6605-0.6662), bound 0.1046; its volume cotangent 2.9e-5 from float64
 //   where the fp32 plain version is 9.3e-5;
+// - the narrow pair at the flow step's 7,372,800 points, C = 3, border:
+//   forward 0.150-0.153 (F.grid_sample 0.223-0.224; the walk 0.881-0.882
+//   after the torch clip's 0.62), bound 0.0580; backward, whole calls
+//   (fill, segments, fold) 0.549-0.567 (the walk 1.248-1.260; scalar
+//   atomics 1.41-1.45), bound 0.0587;
 // - the C = 1 point instances, whole calls (fill, segments, fold), in one
 //   call with those 7-launch ones (chip_smoke.py --phases head
 //   --baseline): the plane one at 4096 x 320 uniform stand-ins
@@ -356,20 +401,20 @@ __device__ __forceinline__ void point_cotangent(const Cell& c,
   out[2] = pd + gh * mhd + gw * mwd;
 }
 
-// Writes each lane's 3 floats to out[3 * (tile + lane) + j] through the
-// warp's staging buffer, as three coalesced stores of 32 floats.
-__device__ __forceinline__ void store_rows3(float* stage, float* out,
-                                            int64_t tile, int64_t num_points,
-                                            int lane, const float (&v)[3]) {
-  stage[3 * lane] = v[0];
-  stage[3 * lane + 1] = v[1];
-  stage[3 * lane + 2] = v[2];
-  __syncwarp();
-  const int64_t limit = 3 * (num_points - tile);
+// Writes each lane's C floats to out[C * (tile + lane) + j] through the
+// warp's staging buffer (C * 32 floats), as C coalesced stores of 32 floats.
+template <int C>
+__device__ __forceinline__ void store_rows(float* stage, float* out,
+                                           int64_t tile, int64_t num_points,
+                                           int lane, const float (&v)[C]) {
 #pragma unroll
-  for (int j = 0; j < 3; ++j) {
+  for (int j = 0; j < C; ++j) stage[C * lane + j] = v[j];
+  __syncwarp();
+  const int64_t limit = C * (num_points - tile);
+#pragma unroll
+  for (int j = 0; j < C; ++j) {
     const int i = j * kWarp + lane;
-    if (i < limit) out[3 * tile + i] = stage[i];
+    if (i < limit) out[C * tile + i] = stage[i];
   }
 }
 
@@ -554,7 +599,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     vals[n] = acc;
   }
-  store_rows3(stage[warp], grad0, tile, num_points, lane, g0);
+  store_rows<3>(stage[warp], grad0, tile, num_points, lane, g0);
 }
 
 // C > 1: vol is the contiguous (H, W, D, C). grad0 from the point's own
@@ -592,7 +637,7 @@ __global__ void __launch_bounds__(kThreads)
                                       C)
                     : 0.f,
                 g0);
-    store_rows3(stage[warp], grad0, tile, num_points, lane, g0);
+    store_rows<3>(stage[warp], grad0, tile, num_points, lane, g0);
   }
   __syncwarp();
 
@@ -1106,8 +1151,9 @@ __global__ void __launch_bounds__(kThreads)
   for (int j = done + threadIdx.x; j < total; j += kThreads) out[j] = stage[j];
 }
 
-// 1 < C <= 32: vol is (H, W, D, C) with `row` >= C floats between voxels.
-// A warp takes 32 consecutive points; each point's own lane computes its
+// 3 < C <= 32 (and C = 2, 3 in a build without the narrow instances): vol
+// is (H, W, D, C) with `row` >= C floats between voxels. A warp takes 32
+// consecutive points; each point's own lane computes its
 // cell record and its 8 weights into shared memory, once; then the lanes
 // over channels walk the points in order, keeping the 8 corner rows of the
 // current cell in registers and loading them again only when the cell
@@ -1264,7 +1310,7 @@ __device__ __forceinline__ void plane_seg(const float* __restrict__ hwd,
           sv[k] = g * v[k];
         }
         point_cotangent(c, sv, v, gh, gw, gd, cot);
-        store_rows3(stage[warp], gpts, tile, num_points, lane, cot);
+        store_rows<3>(stage[warp], gpts, tile, num_points, lane, cot);
         __syncwarp();  // the staging buffer is written again next tile
       }
       float x[8];
@@ -1368,7 +1414,7 @@ __global__ void __launch_bounds__(kThreads)
     }
 }
 
-// C > 1 (any C not taken by values_bwd_rows_kernel): grad is (H, W, D, C).
+// C > 3 (any C not taken by values_bwd_rows_kernel): grad is (H, W, D, C).
 // A warp takes 32 consecutive points; each point's own lane computes its
 // cell record and 8 weights into shared memory, once. Then the lanes over
 // channels (32 at a time) walk the points in order and sum each run of
@@ -1504,6 +1550,204 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ------------------------------------------------ values only, narrow rows
+
+// The narrow instances: C <= kNarrowMax (the flow head's lookup, C = 3),
+// either padding. One thread per point, as the plane kernels.
+constexpr int kNarrowMax = 3;
+
+// A point's cell; with kBorder its indices first clipped to [0, size - 1]
+// (interp.py:131-134).
+template <bool kBorder>
+__device__ __forceinline__ Cell narrow_cell(const float* __restrict__ hwd,
+                                            int64_t n, int H, int W, int D) {
+  float h = hwd[3 * n], w = hwd[3 * n + 1], d = hwd[3 * n + 2];
+  if constexpr (kBorder) {
+    h = fminf(fmaxf(h, 0.f), static_cast<float>(H - 1));
+    w = fminf(fmaxf(w, 0.f), static_cast<float>(W - 1));
+    d = fminf(fmaxf(d, 0.f), static_cast<float>(D - 1));
+  }
+  return cell_of(h, w, d);
+}
+
+// Corner k's voxel. kBorder: the clipped cell's upper corners clamped onto
+// the face rows, where their weight is 0 (interp.py:145-148); zeros: -1
+// outside the volume.
+template <bool kBorder>
+__device__ __forceinline__ int narrow_voxel(const Cell& c, int k, int H,
+                                            int W, int D) {
+  if constexpr (kBorder)
+    return (min(c.h0 + (k >> 2), H - 1) * W +
+            min(c.w0 + ((k >> 1) & 1), W - 1)) * D +
+           min(c.d0 + (k & 1), D - 1);
+  else
+    return in_volume(c, k, H, W, D) ? voxel(c, k, W, D) : -1;
+}
+
+// d clip(x, 0, hi) / dx as JAX autodiff gives jnp.clip's: a maximum, then
+// a minimum, each passing half of the gradient at a tie.
+__device__ __forceinline__ float clip_slope(float x, float hi) {
+  const float m = fmaxf(x, 0.f);
+  return (x > 0.f ? 1.f : x == 0.f ? 0.5f : 0.f) *
+         (m < hi ? 1.f : m == hi ? 0.5f : 0.f);
+}
+
+// vol is (H, W, D, C) with `row` >= C floats between voxels. Each thread
+// issues its point's 8 x C scalar loads before the sum (the flow volume,
+// 19.8 MB, stays in L2) and the warp's 32 x C values go out through shared
+// memory as C coalesced stores.
+template <int C, bool kBorder>
+__global__ void __launch_bounds__(kThreads)
+    values_fwd_narrow_kernel(const float* __restrict__ vol,
+                             const float* __restrict__ hwd,
+                             float* __restrict__ vals, int64_t num_points,
+                             int H, int W, int D, int64_t row) {
+  __shared__ float stage[kWarps][C * kWarp];
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int64_t tile =
+      (static_cast<int64_t>(blockIdx.x) * kWarps + warp) * kWarp;
+  if (tile >= num_points) return;  // the whole warp
+  const int64_t n = tile + lane;
+  float acc[C];
+#pragma unroll
+  for (int ch = 0; ch < C; ++ch) acc[ch] = 0.f;
+  if (n < num_points) {
+    const Cell c = narrow_cell<kBorder>(hwd, n, H, W, D);
+    float v[8][C];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int vox = narrow_voxel<kBorder>(c, k, H, W, D);
+#pragma unroll
+      for (int ch = 0; ch < C; ++ch)
+        v[k][ch] = vox >= 0 ? __ldg(vol + static_cast<int64_t>(vox) * row + ch)
+                            : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const float w = weight(c, k);
+#pragma unroll
+      for (int ch = 0; ch < C; ++ch) acc[ch] += w * v[k][ch];
+    }
+  }
+  store_rows<C>(stage[warp], vals, tile, num_points, lane, acc);
+}
+
+// acc is the zeroed (H, W, D, 4) scratch, which narrow_fold_kernel turns
+// into the (H, W, D, C) gradient. Lanes over points, not channels: the
+// lanes of a warp whose points lie in one cell (consecutive lanes) sum
+// their 8 x C contributions by a segmented shuffle scan, as plane_seg does
+// at C = 1, with only as many steps as the warp's longest segment needs;
+// each segment's last lane makes one float4 atomic a corner row of the
+// scratch (a 12-byte row of the gradient is never 16-byte aligned), none
+// for a row of exact zeros (a border point on an upper face gives its
+// upper corners weight 0).
+//
+// kPoints: also the points' cotangent (N, 3) into gpts, from the 8 corner
+// rows of vol (`row` floats between voxels) that each lane loads: the
+// slopes of the interpolant, times clip_slope of each index with kBorder.
+template <int C, bool kBorder, bool kPoints>
+__global__ void __launch_bounds__(kThreads)
+    values_bwd_narrow_kernel(const float* __restrict__ hwd,
+                             const float* __restrict__ gv,
+                             float4* __restrict__ acc, int64_t num_points,
+                             int H, int W, int D,
+                             const float* __restrict__ vol, int64_t row,
+                             float* __restrict__ gpts) {
+  __shared__ float stage[kPoints ? kWarps : 1][3 * kWarp];
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const unsigned upto = (2u << lane) - 1u;  // lanes 0 .. lane
+  const int64_t tile =
+      (static_cast<int64_t>(blockIdx.x) * kWarps + warp) * kWarp;
+  if (tile >= num_points) return;  // the whole warp
+  const int64_t n = tile + lane;
+  const bool live = n < num_points;
+  // points past the end: a cell with no corner in the volume, which no
+  // live border point has
+  Cell c;
+  c.h0 = c.w0 = c.d0 = -2;
+  c.fh = c.fw = c.fd = 0.f;
+  float g[C];
+#pragma unroll
+  for (int ch = 0; ch < C; ++ch) g[ch] = 0.f;
+  if (live) {
+    c = narrow_cell<kBorder>(hwd, n, H, W, D);
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) g[ch] = gv[n * C + ch];
+  }
+  if constexpr (kPoints) {
+    float s[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int vox = live ? narrow_voxel<kBorder>(c, k, H, W, D) : -1;
+      s[k] = 0.f;
+      if (vox >= 0) {
+#pragma unroll
+        for (int ch = 0; ch < C; ++ch)
+          s[k] += g[ch] * __ldg(vol + static_cast<int64_t>(vox) * row + ch);
+      }
+    }
+    float cot[3];
+    point_cotangent(c, s, s, 0.f, 0.f, 0.f, cot);
+    if constexpr (kBorder) {
+      if (live) {
+        cot[0] *= clip_slope(hwd[3 * n], static_cast<float>(H - 1));
+        cot[1] *= clip_slope(hwd[3 * n + 1], static_cast<float>(W - 1));
+        cot[2] *= clip_slope(hwd[3 * n + 2], static_cast<float>(D - 1));
+      }
+    }
+    store_rows<3>(stage[warp], gpts, tile, num_points, lane, cot);
+  }
+  const int ph = __shfl_up_sync(kFull, c.h0, 1);
+  const int pw = __shfl_up_sync(kFull, c.w0, 1);
+  const int pd = __shfl_up_sync(kFull, c.d0, 1);
+  const unsigned heads = __ballot_sync(
+      kFull, lane == 0 || c.h0 != ph || c.w0 != pw || c.d0 != pd);
+  const int start = 31 - __clz(heads & upto);
+  const unsigned later = heads & ~upto;
+  const bool last = later ? __ffs(later) - 2 == lane : lane == kWarp - 1;
+  // the scan covers positions up to the longest segment's last
+  const int longest = static_cast<int>(
+      __reduce_max_sync(kFull, static_cast<unsigned>(lane - start)));
+  float x[8][C];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const float w = weight(c, k);
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) x[k][ch] = w * g[ch];
+  }
+  for (int d = 1; d <= longest; d <<= 1) {  // warp-uniform
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+#pragma unroll
+      for (int ch = 0; ch < C; ++ch) {
+        const float y = __shfl_up_sync(kFull, x[k][ch], d);
+        if (lane - d >= start) x[k][ch] += y;
+      }
+    }
+  }
+  if (last && live) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int vox = narrow_voxel<kBorder>(c, k, H, W, D);
+      float4 v = make_float4(x[k][0], 0.f, 0.f, 0.f);
+      if constexpr (C > 1) v.y = x[k][C > 1 ? 1 : 0];
+      if constexpr (C > 2) v.z = x[k][C > 2 ? 2 : 0];
+      if (vox >= 0 && (v.x != 0.f || v.y != 0.f || v.z != 0.f))
+        atomicAdd(acc + vox, v);
+    }
+  }
+}
+
+// grad (H, W, D, C) = the first C floats of each row of the narrow
+// backward's (H, W, D, 4) scratch; one thread an element, every element.
+__global__ void __launch_bounds__(kThreads)
+    narrow_fold_kernel(const float4* __restrict__ acc,
+                       float* __restrict__ grad, int64_t voxels, int C) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i < voxels * C)
+    grad[i] = reinterpret_cast<const float*>(acc + i / C)[i % C];
+}
+
 unsigned blocks_for(int64_t num_points) {
   return static_cast<unsigned>((num_points + kThreads - 1) / kThreads);
 }
@@ -1511,6 +1755,51 @@ unsigned blocks_for(int64_t num_points) {
 unsigned seg_blocks(int64_t num_points) {
   return static_cast<unsigned>((num_points + kThreads * kSegTiles - 1) /
                                (kThreads * kSegTiles));
+}
+
+template <bool kBorder>
+void narrow_fwd(const float* vol, const float* hwd, float* vals,
+                int64_t num_points, int C, int H, int W, int D, int64_t row,
+                cudaStream_t s) {
+  const unsigned blocks = blocks_for(num_points);
+  if (C == 1)
+    values_fwd_narrow_kernel<1, kBorder><<<blocks, kThreads, 0, s>>>(
+        vol, hwd, vals, num_points, H, W, D, row);
+  else if (C == 2)
+    values_fwd_narrow_kernel<2, kBorder><<<blocks, kThreads, 0, s>>>(
+        vol, hwd, vals, num_points, H, W, D, row);
+  else
+    values_fwd_narrow_kernel<3, kBorder><<<blocks, kThreads, 0, s>>>(
+        vol, hwd, vals, num_points, H, W, D, row);
+}
+
+// The narrow backward into the zeroed scratch acc (H W D float4s), then
+// its fold into grad, every element; vol and gpts: null for the point-free
+// instance.
+template <bool kBorder, bool kPoints>
+void narrow_bwd(const float* hwd, const float* gv, float* grad, float* acc,
+                int64_t num_points, int C, int H, int W, int D,
+                const float* vol, int64_t row, float* gpts, cudaStream_t s) {
+  const unsigned blocks = blocks_for(num_points);
+  float4* rows = reinterpret_cast<float4*>(acc);
+  if (num_points > 0) {
+    if (C == 1)
+      values_bwd_narrow_kernel<1, kBorder, kPoints>
+          <<<blocks, kThreads, 0, s>>>(hwd, gv, rows, num_points, H, W, D,
+                                       vol, row, gpts);
+    else if (C == 2)
+      values_bwd_narrow_kernel<2, kBorder, kPoints>
+          <<<blocks, kThreads, 0, s>>>(hwd, gv, rows, num_points, H, W, D,
+                                       vol, row, gpts);
+    else
+      values_bwd_narrow_kernel<3, kBorder, kPoints>
+          <<<blocks, kThreads, 0, s>>>(hwd, gv, rows, num_points, H, W, D,
+                                       vol, row, gpts);
+  }
+  const int64_t voxels = static_cast<int64_t>(H) * W * D;
+  if (voxels > 0)
+    narrow_fold_kernel<<<blocks_for(voxels * C), kThreads, 0, s>>>(
+        rows, grad, voxels, C);
 }
 
 }  // namespace
@@ -1537,16 +1826,24 @@ extern "C" int trilinear_cf_with_grad_fwd(const float* vol, const float* hwd,
 // channels contiguous and `row` >= C floats between consecutive voxels, so
 // that a slice of channels of a wider channel-last tensor (the occupancy
 // query's sdf or logits out of its (N, 25) values) is read in place. At
-// most kStageFloats / 4 = 2048 channels.
+// most kStageFloats / 4 = 2048 channels. `border`: "border" padding, which
+// the narrow instances alone implement (C <= kNarrowMax); else zeros.
 extern "C" int trilinear_cf_fwd(const float* vol, const float* hwd,
                                 float* vals, int64_t num_points, int C, int H,
-                                int W, int D, int64_t row, void* stream) {
-  if (C > kStageFloats / 4) return static_cast<int>(cudaErrorInvalidValue);
+                                int W, int D, int64_t row, int border,
+                                void* stream) {
+  if (C > kStageFloats / 4 || (border && C > kNarrowMax))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (num_points > 0) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (C == 1) {
+    if (C == 1 && !border) {
       values_fwd_plane_kernel<<<blocks_for(num_points), kThreads, 0, s>>>(
           vol, hwd, vals, num_points, H, W, D, row);
+    } else if (C <= kNarrowMax) {
+      if (border)
+        narrow_fwd<true>(vol, hwd, vals, num_points, C, H, W, D, row, s);
+      else
+        narrow_fwd<false>(vol, hwd, vals, num_points, C, H, W, D, row, s);
     } else if (C == 4 && row % 4 == 0 &&
                aligned16(vol) && aligned16(vals)) {
       values_fwd_vec4_kernel<<<blocks_for(num_points), kThreads, 0, s>>>(
@@ -1570,12 +1867,24 @@ extern "C" int trilinear_cf_fwd(const float* vol, const float* hwd,
 }
 
 // The values-only backward: gv (N, C), the values' cotangent; grad (H, W,
-// D, C) channel-last, zeroed by the caller.
+// D, C) channel-last. `border`: as trilinear_cf_fwd's. The narrow
+// instances (C <= kNarrowMax but for C = 1 with zeros padding) sum into
+// acc, a zeroed (H, W, D, 4) scratch, and write every element of grad;
+// the others accumulate into grad, zeroed by the caller (acc unused).
 extern "C" int trilinear_cf_bwd(const float* hwd, const float* gv,
-                                float* grad, int64_t num_points, int C, int H,
-                                int W, int D, void* stream) {
-  if (num_points > 0) {
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+                                float* grad, float* acc, int64_t num_points,
+                                int C, int H, int W, int D, int border,
+                                void* stream) {
+  if (border && C > kNarrowMax) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((C > 1 || border) && C <= kNarrowMax) {
+    if (border)
+      narrow_bwd<true, false>(hwd, gv, grad, acc, num_points, C, H, W, D,
+                              nullptr, 0, nullptr, s);
+    else
+      narrow_bwd<false, false>(hwd, gv, grad, acc, num_points, C, H, W, D,
+                               nullptr, 0, nullptr, s);
+  } else if (num_points > 0) {
     const Hot none{nullptr, nullptr, nullptr, 0};
     if (C == 1)
       values_bwd_plane_seg_kernel<<<seg_blocks(num_points), kThreads, 0, s>>>(
@@ -1655,18 +1964,30 @@ extern "C" int trilinear_bwd_points(const float* vol, const float* hwd,
   return static_cast<int>(cudaGetLastError());
 }
 
-// trilinear_cf_bwd with the points' cotangent at C > 1: vol (H, W, D, C),
-// `row` floats between voxels, the forward's volume; gpts (N, 3), every row
-// written; hot_counts, hot_keys, hot_sums: as trilinear_bwd_points'. C = 1
-// is trilinear_plane_points_bwd.
+// trilinear_cf_bwd with the points' cotangent at C > 1 or with `border`:
+// vol (H, W, D, C), `row` floats between voxels, the forward's volume; gpts
+// (N, 3), every row written. C <= kNarrowMax: the narrow instance, with
+// acc and grad as trilinear_cf_bwd's (the hot arguments unused, null);
+// else the walk into grad, zeroed by the caller, with hot_counts,
+// hot_keys, hot_sums as trilinear_bwd_points' (acc unused). C = 1 with
+// zeros padding is trilinear_plane_points_bwd.
 extern "C" int trilinear_cf_bwd_points(const float* vol, int64_t row,
                                        const float* hwd, const float* gv,
-                                       float* grad, float* gpts,
+                                       float* grad, float* acc, float* gpts,
                                        int64_t num_points, int C, int H,
                                        int W, int D, int* hot_counts,
                                        int* hot_keys, double* hot_sums,
-                                       void* stream) {
-  if (num_points > 0) {
+                                       int border, void* stream) {
+  if (border && C > kNarrowMax) return static_cast<int>(cudaErrorInvalidValue);
+  if (C <= kNarrowMax) {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (border)
+      narrow_bwd<true, true>(hwd, gv, grad, acc, num_points, C, H, W, D, vol,
+                             row, gpts, s);
+    else
+      narrow_bwd<false, true>(hwd, gv, grad, acc, num_points, C, H, W, D, vol,
+                              row, gpts, s);
+  } else if (num_points > 0) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     const Hot hot{hot_counts, hot_keys, hot_sums, H * W * D};
     hot_count(hot, hwd, num_points, H, W, D, s);

@@ -17,10 +17,9 @@ flow head (``estimate_flow``, ``FlowNet``; ``heads.py:44-67, 412-431,
 ``next_rep``) the training forward predicts four flow volumes and warps
 the ray samples by two of them. No segmentor path passes neighbours and no
 loss reads the flows, as in the JAX package; the head's forward takes
-them. The flow lookup at the samples is ``trilinear_sample_cf``'s
-``"border"`` padding: the points clipped to the volume in torch, then the
-values-only query (on the card ``trilinear_cf_fwd`` / ``trilinear_cf_bwd``
-at C = 3).
+them. The flow lookup at the samples is one values-only query with
+``"border"`` padding (on the card ``trilinear_cf_fwd`` / ``trilinear_cf_bwd``
+at C = 3, their narrow instances, which clip the points themselves).
 
 The field sits at ``head.model.field`` so its state-dict keys are the
 reference's (``head.model.field.*``, the sdfstudio wrapper's naming).
@@ -55,7 +54,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..geometry.projection import rays_from_img2lidar
 from ..geometry.ray_sampler import RaySampler
-from ..ops.interp import first_channel, trilinear_sample_cf
+from ..ops.interp import first_channel, trilinear_sample
 from ..ops.render_weights import neus_composite, weights_from_alpha
 from . import neus
 from .field import TPVSDFField
@@ -233,15 +232,11 @@ class FlowNet(nn.Sequential):
 
 def sample_border(vol: torch.Tensor, hwd: torch.Tensor) -> torch.Tensor:
     """A channel-last (H, W, D, C) volume at (..., 3) fractional indices
-    with ``"border"`` padding (``interp.py:131-134``): the indices clipped
-    to the volume (``minimum`` / ``maximum``, whose gradient splits a tie
-    as ``jnp.clip``'s does), then the values-only query, which reads no
-    corner outside the volume after the clip."""
-    clipped = torch.stack([
-        torch.minimum(torch.maximum(hwd[..., i], hwd.new_zeros(())),
-                      hwd.new_full((), n - 1.0))
-        for i, n in enumerate(vol.shape[:3])], -1)
-    return trilinear_sample_cf(vol.permute(3, 0, 1, 2), clipped, "zeros")
+    with ``"border"`` padding, as the JAX head's lookup
+    (``heads.py:519-520``): one values-only query, whose points are clipped
+    to the volume and whose upper corners are clamped onto the face rows
+    (``interp.py:131-150``)."""
+    return trilinear_sample(vol, hwd, "border")
 
 
 class _FieldHolder(nn.Module):

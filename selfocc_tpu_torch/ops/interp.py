@@ -6,15 +6,20 @@ indices** under ``align_corners=True`` (0 .. size-1), not [-1, 1] grids, and
 volumes have the channel-first shape ``(C, H, W, D)``.
 
 ``trilinear_sample_cf`` (values only: the occupancy query, the uniform
-sdf grid of ``SoftSparsityLoss`` and the compact second derivative's sdf
-taps) and ``trilinear_sample`` (a channel-last volume; the Occ3D resample)
-launch the values-only kernel ``trilinear_cf_fwd`` for a CUDA volume and
-take ``trilinear_sample_cf_plain`` for a CPU one. Where the CUDA volume
-needs a gradient, ``_TrilinearValues`` pairs that forward with the
-values-only backward ``trilinear_cf_bwd``; on the CPU autograd runs through
-the plain version. Points that need a gradient (the importance rounds'
-sdf queries, the surface sdf) get the cotangent JAX autodiff gives the
-fractional indices, from the backward's point instance.
+sdf grid of ``SoftSparsityLoss``, the compact second derivative's sdf
+taps and, with ``"border"`` padding at C = 3, the flow head's lookup) and
+``trilinear_sample`` (a channel-last volume; the Occ3D resample, the flow
+lookup) launch the values-only kernel ``trilinear_cf_fwd`` for a CUDA
+volume and take ``trilinear_sample_cf_plain`` for a CPU one. Where the
+CUDA volume needs a gradient, ``_TrilinearValues`` pairs that forward with
+the values-only backward ``trilinear_cf_bwd``; on the CPU autograd runs
+through the plain version. Points that need a gradient (the importance
+rounds' sdf queries, the surface sdf) get the cotangent JAX autodiff gives
+the fractional indices, from the backward's point instance. ``"border"``
+padding is JAX's (``interp.py:131-150``): each index clipped by a maximum
+and a minimum, whose gradient splits a tie as ``jnp.clip``'s does, and the
+upper corners clamped onto the face rows; on the card the narrow instances
+(C <= 3) clip in the kernel.
 ``lerp_axis_cf`` and ``separable_grid_resample_cf`` (the separable
 occupancy query) are plain torch ops.
 
@@ -49,8 +54,8 @@ def bilinear_sample(img: torch.Tensor, xy: torch.Tensor,
     H, W = img.shape[0], img.shape[1]
     x, y = xy[..., 0], xy[..., 1]
     if padding == "border":
-        x = x.clamp(0.0, W - 1.0)
-        y = y.clamp(0.0, H - 1.0)
+        x = _clip(x, W - 1.0)
+        y = _clip(y, H - 1.0)
     x0f, y0f = torch.floor(x), torch.floor(y)
     wx, wy = x - x0f, y - y0f
     x0, y0 = x0f.long(), y0f.long()
@@ -67,15 +72,21 @@ def bilinear_sample(img: torch.Tensor, xy: torch.Tensor,
     return out
 
 
+def _clip(x: torch.Tensor, hi: float) -> torch.Tensor:
+    """``jnp.clip(x, 0, hi)``: a maximum, then a minimum, whose gradients
+    pass half at a tie (``torch.clamp`` passes all of it)."""
+    return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_full((), hi))
+
+
 def _corners(vol_cf, hwd, padding):
     """Per-corner (flat index, weight, mask, axis weights) for a (C, H, W, D)
     volume at (N, 3) fractional indices — the reference's loop order."""
     C, H, W, D = vol_cf.shape
     h, w, d = hwd[:, 0], hwd[:, 1], hwd[:, 2]
     if padding == "border":
-        h = h.clamp(0.0, H - 1.0)
-        w = w.clamp(0.0, W - 1.0)
-        d = d.clamp(0.0, D - 1.0)
+        h = _clip(h, H - 1.0)
+        w = _clip(w, W - 1.0)
+        d = _clip(d, D - 1.0)
     h0, w0, d0 = torch.floor(h), torch.floor(w), torch.floor(d)
     wh_ = (1.0 - (h - h0), h - h0)
     ww_ = (1.0 - (w - w0), w - w0)
@@ -118,24 +129,23 @@ def trilinear_sample_cf(vol_cf: torch.Tensor, hwd: torch.Tensor,
                         padding: str = "zeros") -> torch.Tensor:
     """Values-only trilinear sampling (``interp.py:118``): vol (C, H, W, D),
     hwd (..., 3) fractional indices -> (..., C) fp32, differentiable with
-    respect to the volume and the points. A CUDA volume
-    launches ``trilinear_cf_fwd`` (zeros padding), reading a channel-last
-    volume in place, rows of a wider channel-last tensor included
-    (``row_stride``), and copying any other layout; where it needs a
-    gradient, the backward launches ``trilinear_cf_bwd``. A CPU volume takes
-    ``trilinear_sample_cf_plain``, with autograd through it."""
+    respect to the volume and the points. A CUDA volume launches
+    ``trilinear_cf_fwd`` (``"border"`` padding at C <= 3, in the narrow
+    instances), reading a channel-last volume in place, rows of a wider
+    channel-last tensor included (``row_stride``), and copying any other
+    layout; where it needs a gradient, the backward launches
+    ``trilinear_cf_bwd``. A CPU volume takes ``trilinear_sample_cf_plain``,
+    with autograd through it."""
     if not vol_cf.is_cuda:
         return trilinear_sample_cf_plain(vol_cf, hwd, padding)
-    if padding != "zeros":
-        raise ValueError("the CUDA trilinear kernel implements zeros padding")
     vol = vol_cf.float()
     if row_stride(vol) is None:
         vol = kernel_volume(vol)
     pts = hwd.reshape(-1, 3).float().contiguous()
     if torch.is_grad_enabled() and (vol.requires_grad or pts.requires_grad):
-        vals = _TrilinearValues.apply(vol, pts)
+        vals = _TrilinearValues.apply(vol, pts, padding)
     else:
-        vals = trilinear_cf_fwd(vol, pts)
+        vals = trilinear_cf_fwd(vol, pts, padding)
     return vals.reshape(*hwd.shape[:-1], vol_cf.shape[0])
 
 
@@ -308,14 +318,40 @@ _SIGNATURES = {"trilinear_cf_with_grad_fwd": (
 
 
 TRILINEAR_CF_MAX_CHANNELS = 2048   # the rows forward stages 4 points' rows
+NARROW_MAX_CHANNELS = 3            # csrc/trilinear.cu: kNarrowMax
 
 
-def trilinear_cf_fwd(vol_cf: torch.Tensor, hwd: torch.Tensor) -> torch.Tensor:
+def _border(padding: str, C: int, name: str, instance: str) -> bool:
+    """Whether ``padding`` is ``"border"``, which the values-only kernels
+    implement in their narrow instances alone (C <= 3)."""
+    if padding not in ("zeros", "border"):
+        raise ValueError(f"{name}: padding must be 'zeros' or 'border', got "
+                         f"{padding!r}")
+    if padding == "border" and C > NARROW_MAX_CHANNELS:
+        raise ValueError(f"{name}: 'border' padding is the narrow instance's "
+                         f"({instance}, C <= {NARROW_MAX_CHANNELS}), got "
+                         f"C = {C}")
+    return padding == "border"
+
+
+def _narrow(C: int, border: bool) -> bool:
+    """The launchers' choice of the narrow instances: C <= 3 but for C = 1
+    with zeros padding, which the plane kernels take."""
+    return C <= NARROW_MAX_CHANNELS and (C > 1 or border)
+
+
+def trilinear_cf_fwd(vol_cf: torch.Tensor, hwd: torch.Tensor,
+                     padding: str = "zeros") -> torch.Tensor:
     """Launch ``csrc/trilinear.cu::trilinear_cf_fwd``, the values-only
     forward: an fp32 CUDA (C, H, W, D) volume that is channel-last with
     contiguous channels and any row stride (``row_stride``), (N, 3)
-    fractional indices, zeros padding -> vals (N, C). C = 1 takes the plane
-    kernel (``plane_launches``), any other C a rows kernel."""
+    fractional indices, ``padding`` -> vals (N, C). C = 1 with zeros
+    padding takes the plane kernel (``plane_launches``); C <= 3 otherwise
+    the narrow instance (``narrow_launches``), the only one with
+    ``"border"`` padding, which clips the points itself; any other C a
+    rows kernel."""
+    border = _border(padding, vol_cf.shape[0], "trilinear_cf_fwd",
+                     "values_fwd_narrow_kernel")
     if not vol_cf.is_cuda or vol_cf.dtype != torch.float32 \
             or vol_cf.dim() != 4:
         raise ValueError("trilinear_cf_fwd: expected an fp32 CUDA (C, H, W, "
@@ -339,18 +375,20 @@ def trilinear_cf_fwd(vol_cf: torch.Tensor, hwd: torch.Tensor) -> torch.Tensor:
     vals = torch.empty((N, C), dtype=torch.float32, device=hwd.device)
     status = lib.trilinear_cf_fwd(
         _build.ptr(vol_cf), _build.ptr(hwd), _build.ptr(vals), N, C, H, W, D,
-        row, _build.stream_ptr(hwd.device))
+        row, int(border), _build.stream_ptr(hwd.device))
     _build.check(status, "trilinear_cf_fwd")
     trilinear_cf_fwd.launches += 1
-    trilinear_cf_fwd.plane_launches += C == 1
+    trilinear_cf_fwd.plane_launches += C == 1 and not border
+    trilinear_cf_fwd.narrow_launches += _narrow(C, border)
     return vals
 
 
 trilinear_cf_fwd.launches = 0
 trilinear_cf_fwd.plane_launches = 0
+trilinear_cf_fwd.narrow_launches = 0
 _SIGNATURES["trilinear_cf_fwd"] = (
     _build.PTR, _build.PTR, _build.PTR, _build.I64, _build.I32, _build.I32,
-    _build.I32, _build.I32, _build.I64, _build.PTR)
+    _build.I32, _build.I32, _build.I64, _build.I32, _build.PTR)
 
 
 def trilinear_bwd_plain(vol_cf, hwd, grad_vals, grad_grad0,
@@ -496,40 +534,51 @@ _SIGNATURES["trilinear_bwd_points"] = (
     _build.PTR, _build.PTR, _build.PTR)
 
 
-def trilinear_cf_bwd_plain(vol_cf, hwd, grad_vals, points: bool = False):
+def trilinear_cf_bwd_plain(vol_cf, hwd, grad_vals, points: bool = False,
+                           padding: str = "zeros"):
     """Plain PyTorch version of ``trilinear_cf_bwd``: autograd through
-    ``trilinear_sample_cf_plain``. With ``points``, (the volume's
-    cotangent, the points' cotangent, shaped as ``hwd``)."""
+    ``trilinear_sample_cf_plain`` with ``padding``. With ``points``, (the
+    volume's cotangent, the points' cotangent, shaped as ``hwd``)."""
     with torch.enable_grad():
         vol = vol_cf.detach().requires_grad_(True)
         pts = hwd.detach().requires_grad_(points)
-        vals = trilinear_sample_cf_plain(vol, pts)
+        vals = trilinear_sample_cf_plain(vol, pts, padding)
         if points:
             return torch.autograd.grad(vals, (vol, pts), grad_vals)
         return torch.autograd.grad(vals, vol, grad_vals)[0]
 
 
 def trilinear_cf_bwd(vol_shape, hwd: torch.Tensor, grad_vals: torch.Tensor,
-                     vol_cf=None):
+                     vol_cf=None, padding: str = "zeros"):
     """Launch ``csrc/trilinear.cu::trilinear_cf_bwd``, the backward of
     ``trilinear_cf_fwd``: ``vol_shape`` (C, H, W, D), (N, 3) fractional
-    indices and ``grad_vals`` (N, C), zeros padding -> the volume's
-    cotangent as a (C, H, W, D) view of a contiguous channel-last (H, W, D,
-    C) tensor, which the kernel accumulates into after a zero fill. A
-    row-strided forward (channel 0 of a wider volume, ``channel0_view``)
+    indices and ``grad_vals`` (N, C), ``padding`` -> the volume's cotangent
+    as a (C, H, W, D) view of a contiguous channel-last (H, W, D, C) tensor.
+    A row-strided forward (channel 0 of a wider volume, ``channel0_view``)
     gets this gradient of its C channels; autograd's backward of the slice
-    scatters it into the wider volume's channel-last gradient. C = 1 takes
-    the plane kernel (``plane_launches``); a C that is a multiple of 4,
+    scatters it into the wider volume's channel-last gradient. C = 1 with
+    zeros padding takes the plane kernel (``plane_launches``); C <= 3
+    otherwise the narrow instance (``narrow_launches``: lanes over points,
+    each run of one cell summed by a segmented shuffle scan, then one
+    float4 atomic a corner row into a zeroed (H, W, D, 4) scratch, which a
+    second kernel folds into the gradient), the only one with ``"border"``
+    padding, which clips the points itself; a C that is a multiple of 4,
     with 16-byte-aligned ``grad_vals``, the float4 rows kernel; any other
-    C > 1 the walk kernel (``walk_launches``), which sums each run of
-    points in one cell before its atomics.
+    C > 3 the walk kernel (``walk_launches``), which sums each run of
+    points in one cell before its atomics. All but the narrow instance
+    accumulate into the gradient after a zero fill.
 
     ``vol_cf``: the forward's volume (fp32, CUDA, ``row_stride``), for the
     point instance (``points_launches``): it reads each point's corners and
-    returns (the volume's cotangent, the points' (N, 3)); at C = 1 that is
-    ``_plane_points``, at C > 1 the walk kernel
+    returns (the volume's cotangent, the points' (N, 3)); at C = 1 with
+    zeros padding that is ``_plane_points``, at C <= 3 otherwise the narrow
+    instance (with ``"border"``, times the clip's derivative: 1 inside, 0.5
+    at a tie, 0 outside), at C > 3 the walk kernel
     (``trilinear_cf_bwd_points``)."""
     C, H, W, D = vol_shape
+    border = _border(padding, C, "trilinear_cf_bwd",
+                     "values_bwd_narrow_kernel")
+    narrow = _narrow(C, border)
     _build.require_cuda_tensor(hwd, "trilinear_cf_bwd points", torch.float32,
                                2)
     _build.require_cuda_tensor(grad_vals, "trilinear_cf_bwd grad_vals",
@@ -546,31 +595,37 @@ def trilinear_cf_bwd(vol_shape, hwd: torch.Tensor, grad_vals: torch.Tensor,
                 not vol_cf.is_cuda or vol_cf.dtype != torch.float32:
             raise ValueError("trilinear_cf_bwd: the points' cotangent needs "
                              "the forward's fp32 CUDA volume, channel-last")
-    if vol_cf is not None and C == 1:
+    if vol_cf is not None and C == 1 and not border:
         grad, gpts = _plane_points(vol_cf, row, hwd, grad_vals, None,
                                    "trilinear_cf_bwd")
     else:
-        grad = torch.zeros((H, W, D, C), dtype=torch.float32,
-                           device=hwd.device)
+        # the narrow instances sum into a zeroed (H, W, D, 4) scratch and
+        # write every element of the gradient; the others accumulate into it
+        grad = (torch.empty if narrow else torch.zeros)(
+            (H, W, D, C), dtype=torch.float32, device=hwd.device)
+        acc = torch.zeros((H, W, D, 4), dtype=torch.float32,
+                          device=hwd.device) if narrow else None
         lib = _build.load("trilinear", _SIGNATURES)
         if vol_cf is not None:
             gpts = torch.empty((N, 3), dtype=torch.float32, device=hwd.device)
-            hot = _hot_rows(C, H, W, D, hwd.device)
+            hot = (None,) * 3 if narrow else _hot_rows(C, H, W, D, hwd.device)
             status = lib.trilinear_cf_bwd_points(
                 _build.ptr(vol_cf), row, _build.ptr(hwd),
-                _build.ptr(grad_vals), _build.ptr(grad), _build.ptr(gpts), N,
-                C, H, W, D, *map(_build.ptr, hot),
-                _build.stream_ptr(hwd.device))
+                _build.ptr(grad_vals), _build.ptr(grad), _optional_ptr(acc),
+                _build.ptr(gpts), N, C, H, W, D, *map(_optional_ptr, hot),
+                int(border), _build.stream_ptr(hwd.device))
         else:
             status = lib.trilinear_cf_bwd(
-                _build.ptr(hwd), _build.ptr(grad_vals), _build.ptr(grad), N,
-                C, H, W, D, _build.stream_ptr(hwd.device))
+                _build.ptr(hwd), _build.ptr(grad_vals), _build.ptr(grad),
+                _optional_ptr(acc), N, C, H, W, D, int(border),
+                _build.stream_ptr(hwd.device))
         _build.check(status, "trilinear_cf_bwd")
     trilinear_cf_bwd.launches += 1
-    trilinear_cf_bwd.plane_launches += C == 1
+    trilinear_cf_bwd.plane_launches += C == 1 and not border
+    trilinear_cf_bwd.narrow_launches += narrow
     trilinear_cf_bwd.points_launches += vol_cf is not None
     # the launcher's choice in csrc/trilinear.cu::trilinear_cf_bwd
-    trilinear_cf_bwd.walk_launches += C > 1 and (
+    trilinear_cf_bwd.walk_launches += C > NARROW_MAX_CHANNELS and (
         vol_cf is not None or C % 4 != 0
         or grad_vals.data_ptr() % 16 != 0 or grad.data_ptr() % 16 != 0)
     grad = grad.permute(3, 0, 1, 2)
@@ -579,15 +634,16 @@ def trilinear_cf_bwd(vol_shape, hwd: torch.Tensor, grad_vals: torch.Tensor,
 
 trilinear_cf_bwd.launches = 0
 trilinear_cf_bwd.plane_launches = 0
+trilinear_cf_bwd.narrow_launches = 0
 trilinear_cf_bwd.points_launches = 0
 trilinear_cf_bwd.walk_launches = 0
 _SIGNATURES["trilinear_cf_bwd_points"] = (
     _build.PTR, _build.I64, _build.PTR, _build.PTR, _build.PTR, _build.PTR,
-    _build.I64, _build.I32, _build.I32, _build.I32, _build.I32, _build.PTR,
-    _build.PTR, _build.PTR, _build.PTR)
+    _build.PTR, _build.I64, _build.I32, _build.I32, _build.I32, _build.I32,
+    _build.PTR, _build.PTR, _build.PTR, _build.I32, _build.PTR)
 _SIGNATURES["trilinear_cf_bwd"] = (
-    _build.PTR, _build.PTR, _build.PTR, _build.I64, _build.I32, _build.I32,
-    _build.I32, _build.I32, _build.PTR)
+    _build.PTR, _build.PTR, _build.PTR, _build.PTR, _build.I64, _build.I32,
+    _build.I32, _build.I32, _build.I32, _build.I32, _build.PTR)
 
 
 class _TrilinearValues(torch.autograd.Function):
@@ -596,21 +652,23 @@ class _TrilinearValues(torch.autograd.Function):
     backward's point instance."""
 
     @staticmethod
-    def forward(ctx, vol_cf, hwd):
+    def forward(ctx, vol_cf, hwd, padding="zeros"):
         ctx.vol_shape = tuple(vol_cf.shape)
         ctx.points = hwd.requires_grad
+        ctx.padding = padding
         ctx.save_for_backward(hwd, vol_cf if ctx.points else None)
-        return trilinear_cf_fwd(vol_cf, hwd)
+        return trilinear_cf_fwd(vol_cf, hwd, padding)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad_vals):
         hwd, vol_cf = ctx.saved_tensors
         if ctx.points:
-            return trilinear_cf_bwd(ctx.vol_shape, hwd,
-                                    grad_vals.contiguous(), vol_cf)
-        return trilinear_cf_bwd(ctx.vol_shape, hwd,
-                                grad_vals.contiguous()), None
+            return (*trilinear_cf_bwd(ctx.vol_shape, hwd,
+                                      grad_vals.contiguous(), vol_cf,
+                                      ctx.padding), None)
+        return trilinear_cf_bwd(ctx.vol_shape, hwd, grad_vals.contiguous(),
+                                padding=ctx.padding), None, None
 
 
 class _TapsPlain(torch.autograd.Function):
