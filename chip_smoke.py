@@ -318,6 +318,22 @@ raises and the exit code is non-zero.
   one-device frame within 1e-6 of its largest value. Prints step seconds
   (median, spread), all-reduce ms and bytes a step, peak GiB per rank, the
   card count, render seconds sharded and not.
+- ``[mp]``: the model-parallel step (``train --mp``) at ``nuscenes_occ``'s
+  full width on synthetic item 0: two gloo ranks share the card (gloo's
+  CUDA route of ``gather_rows``: an all-reduce of zeroed rows), each with
+  the TPV encoder's query rows of its half of each plane; one step with
+  each rank's launch counts set to 0 just before and read after, held to
+  one process's step on the same item and generator (losses and
+  ``total`` rtol 1e-5, every gradient within 1e-4 of its max + 1e-7,
+  ``grad_norm`` rtol 1e-4, the updated parameters atol 2e-5 + rtol 1e-4)
+  with the ranks bit-equal; one step with each collective synchronised
+  and timed (ms and bytes), ``MP_STEPS`` timed steps (step seconds, peak
+  GiB a rank against one process's) and one profiled step (MSDA's
+  in-step ms at the sharded shapes); ``msda_fwd`` / ``msda_bwd`` against
+  their plain versions at rank 0's sharded shapes; one warm model-parallel
+  step in a one-rank NCCL group under ``set_sync_debug_mode("error")``;
+  ``train.main --mp`` for 2 steps over NCCL on every visible card (one
+  card: the plain step, launches counted).
 
 ``--phases`` runs a subset (then no result line is printed). Each path's
 launch counts are set to 0 just before it runs and read just after; a
@@ -377,7 +393,7 @@ RENDER_FWD_OPS = 50
 RENDER_BWD_OPS = 103
 PHASES = ("kernels", "gather", "frame", "occ", "train-parity", "train",
           "data", "kitti", "depth", "levers", "bev", "density", "head",
-          "variants", "unet", "teacher", "vis", "dp")
+          "variants", "unet", "teacher", "vis", "dp", "mp")
 OPENOCC_PCR = (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0)   # 512 x 512 x 40 at 0.2
 OCC_SLAB = 1 << 20    # dense-grid points held against the plain version
 # the compact stencil's volume cotangent, card against CPU on one volume:
@@ -8268,6 +8284,368 @@ def dp_phase(device):
     return res
 
 
+MP_STEPS = 3          # timed steps after [mp]'s checked and timed-collective ones
+
+
+def mp_rank_shapes(world=2, rank=0):
+    """The MSDA calls of ``nuscenes_occ``'s model-parallel step on ``rank``
+    of ``world`` (``msda_case``'s B, Q, shapes, P): the hw- and zh-plane
+    cross-attention on the rank's rows, the self-attention's rows of the
+    three planes against the whole sequence."""
+    from selfocc_tpu_torch.parallel.mesh import split_rows
+    hw, zh = (b - a for a, b in (split_rows(n, world)[rank]
+                                 for n in (66049, 6425)))
+    return (("mp_cross", (6, hw, FPN_SHAPES, 8)),
+            ("mp_zh", (6, zh, FPN_SHAPES, 48)),
+            ("mp_self", (1, hw + 2 * zh, ((257, 257), (25, 257), (257, 25)),
+                         12)))
+
+
+def timed_collectives(records):
+    """Wrap the model-parallel step's collectives (``parallel.mesh``'s
+    ``_gather`` and ``_scatter_sum``, ``utils/train_lib``'s
+    ``all_reduce_sum`` of the gradients) so that each call is synchronised
+    and timed: its kind, ms and the bytes of its buffer go to
+    ``records``. Returns the function that restores them."""
+    import torch
+    from selfocc_tpu_torch.parallel import mesh
+    from selfocc_tpu_torch.utils import train_lib
+    saved = (mesh._gather, mesh._scatter_sum, train_lib.all_reduce_sum)
+
+    def rows_bytes(args, out):
+        t, rows = args
+        n = rows.n if rows.route == "all_reduce" else \
+            rows.group.world * rows.width
+        return n * t[0, 0].numel() * t.element_size()
+
+    def flat_bytes(args, out):
+        return sum(t.numel() * t.element_size() for t in args[0])
+
+    def timing(kind, fn, nbytes):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            records.append({"kind": kind, "bytes": nbytes(args, out),
+                            "ms": (time.perf_counter() - t0) * 1e3})
+            return out
+        return call
+
+    mesh._gather = timing("gather_rows", saved[0], rows_bytes)
+    mesh._scatter_sum = timing("gather_rows backward", saved[1], rows_bytes)
+    train_lib.all_reduce_sum = timing("gradient all-reduce", saved[2],
+                                      flat_bytes)
+
+    def restore():
+        mesh._gather, mesh._scatter_sum, train_lib.all_reduce_sum = saved
+    return restore
+
+
+def catch_gradients(trainer, caught):
+    """Patch ``utils/train_lib.clip_by_global_norm`` to put the gradients
+    the optimizer is given (by name, on the host) into ``caught`` once;
+    returns the function that restores it."""
+    from selfocc_tpu_torch.utils import train_lib
+    clip = train_lib.clip_by_global_norm
+
+    def catching(params, max_norm):
+        if "grads" not in caught:
+            caught["grads"] = {n: p.grad.detach().cpu().clone() for n, p in
+                               trainer.model.named_parameters()
+                               if p.grad is not None}
+        return clip(params, max_norm)
+    train_lib.clip_by_global_norm = catching
+
+    def restore():
+        train_lib.clip_by_global_norm = clip
+    return restore
+
+
+def mp_rank_run(group):
+    """One rank of [mp]'s model-parallel step at ``nuscenes_occ``'s full
+    width (run by ``parallel.mesh.spawn``): rank 0's weights broadcast as
+    the driver does, synthetic item 0 and the plain step's generator on
+    every rank; one step with the counts set to 0 just before it and read
+    after, its summed gradients and updated parameters caught; one step
+    with each collective timed; ``MP_STEPS`` timed steps; one profiled
+    step; the ranks' parameters and statistics compared bit for bit."""
+    import torch
+    from selfocc_tpu_torch.configs.experiments import get_config
+    from selfocc_tpu_torch.parallel.mesh import broadcast_, replicas_equal
+    from selfocc_tpu_torch.train import build_trainer, step_seed
+    from selfocc_tpu_torch.utils.runtime import (get_dataset, resolve_device,
+                                                 to_device)
+    device = resolve_device("cuda", group.device.index)
+    cfg = get_config("nuscenes_occ")
+    trainer = build_trainer(cfg, SEED, device, group=group,
+                            model_parallel=True)
+    replicated = list(trainer.model.parameters()) + trainer.running_stats()
+    broadcast_(replicated, group)
+    batch = to_device(get_dataset(cfg, synthetic=True, length=1)[0], device)
+
+    def gen(step):
+        return torch.Generator(device=device).manual_seed(
+            step_seed(SEED, step))
+    caught = {}
+    restore = catch_gradients(trainer, caught)
+    wrappers = dp_wrappers()
+    try:
+        reset_counts(wrappers)
+        torch.cuda.reset_peak_memory_stats()
+        m = trainer.step(batch, gen(0), sync=torch.cuda.synchronize)
+        launches = read_counts(wrappers, f"rank {group.rank}'s "
+                               "model-parallel step", ("plane", "rows"))
+    finally:
+        restore()
+    check_finite_metrics(m)
+    res = {"launches": launches, "grads": caught["grads"],
+           "first_step_peak_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "metrics": {k: float(v) for k, v in m.items() if k != "times"},
+           "params": {n: p.detach().cpu().clone()
+                      for n, p in trainer.model.named_parameters()},
+           "rows": [r.count for r in trainer.shard.planes],
+           "route": trainer.shard.route}
+    records = []
+    restore = timed_collectives(records)
+    try:
+        trainer.step(batch, gen(1), sync=torch.cuda.synchronize)
+    finally:
+        restore()
+    res["collectives"] = records
+    res["steps"], res["max_memory_gb"] = dp_step_times(
+        trainer, batch, lambda i: gen(i + 2), MP_STEPS)
+    step_s = spread([s["step_s"] for s in res["steps"]])["median"]
+    res["profile"] = profile_step(trainer, batch, gen(MP_STEPS + 2), step_s)
+    res["replicas_equal"] = replicas_equal(replicated, group)
+    return res
+
+
+def mp_reference(device, r0, r1):
+    """The checks of [mp]'s two-rank step against one process's step on
+    the same item, weights and generator: the ranks' parameters bit-equal,
+    the losses and ``total`` rtol 1e-5, every gradient within 1e-4 of its
+    max + 1e-7, ``grad_norm`` rtol 1e-4, the updated parameters within
+    2e-5 + 1e-4 of their value. Returns the reference trainer (its step
+    taken) and the errors."""
+    import torch
+    from selfocc_tpu_torch.configs.experiments import get_config
+    from selfocc_tpu_torch.train import build_trainer, step_seed
+    from selfocc_tpu_torch.utils.runtime import get_dataset, to_device
+    differ = [n for n in r0["params"]
+              if not torch.equal(r0["params"][n], r1["params"][n])]
+    if differ or set(r0["grads"]) != set(r1["grads"]):
+        raise AssertionError(f"the ranks' parameters differ after the "
+                             f"model-parallel step: {differ[:8]}")
+    cfg = get_config("nuscenes_occ")
+    trainer = build_trainer(cfg, SEED, device)
+    batch = to_device(get_dataset(cfg, synthetic=True, length=1)[0], device)
+    caught = {}
+    restore = catch_gradients(trainer, caught)
+    try:
+        m = trainer.step(batch, torch.Generator(device=device).manual_seed(
+            step_seed(SEED, 0)), sync=torch.cuda.synchronize)
+    finally:
+        restore()
+    ref = {k: float(v) for k, v in m.items() if k != "times"}
+    loss_err = max(abs(r0["metrics"][k] - v) / abs(v)
+                   for k, v in ref.items() if k not in ("grad_norm", "lr"))
+    norm_err = abs(r0["metrics"]["grad_norm"] - ref["grad_norm"]) / \
+        ref["grad_norm"]
+    if set(caught["grads"]) != set(r0["grads"]):
+        raise AssertionError("the ranks' gradients are not one process's "
+                             "parameters'")
+    grad_ratio, worst = 0.0, None
+    for n, g in caught["grads"].items():
+        tol = 1e-4 * float(g.abs().max()) + 1e-7
+        ratio = max_err(r0["grads"][n], g) / tol
+        if ratio > grad_ratio:
+            grad_ratio, worst = ratio, n
+    param_ratio = 0.0
+    for n, p in trainer.model.named_parameters():
+        p = p.detach().cpu()
+        excess = ((r0["params"][n].double() - p.double()).abs()
+                  / (2e-5 + 1e-4 * p.double().abs())).max()
+        param_ratio = max(param_ratio, float(excess))
+    log(f"  two ranks against one process, one step on item 0: losses "
+        f"{loss_err:.3e} (rtol 1e-5), grad_norm {norm_err:.3e} (rtol "
+        f"1e-4), gradients at {grad_ratio:.3f} of their tolerance (worst "
+        f"{worst}), updated parameters at {param_ratio:.3f} of theirs; "
+        f"ranks bit-equal")
+    if loss_err > 1e-5 or norm_err > 1e-4 or grad_ratio > 1 or \
+            param_ratio > 1:
+        raise AssertionError("the model-parallel step differs from one "
+                             "process's beyond its tolerance")
+    return trainer, batch, {
+        "loss_rel_err": loss_err, "grad_norm_rel_err": norm_err,
+        "grad_err_over_tol": grad_ratio, "grad_worst": worst,
+        "param_err_over_tol": param_ratio}
+
+
+def mp_sync_check(trainer, batch, device):
+    """A warm model-parallel step of ``trainer`` in a one-rank NCCL group
+    (after one step that builds it) under ``set_sync_debug_mode("error")``;
+    the trainer is the plain one again after."""
+    import tempfile
+    import torch
+    from selfocc_tpu_torch.parallel.mesh import close, init_group
+    from selfocc_tpu_torch.train import step_seed
+    with tempfile.TemporaryDirectory() as tmp:
+        group = init_group("nccl", 0, 1, device,
+                           f"file://{os.path.join(tmp, 'store')}")
+        trainer.group, trainer.model_parallel = group, True
+        trainer.shard = trainer.model.model_shard(group)
+        try:
+            for step, checked in ((100, False), (101, True)):
+                gen = torch.Generator(device=device).manual_seed(
+                    step_seed(SEED, step))
+                torch.cuda.synchronize()
+                if checked:
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    m = trainer.step(batch, gen)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                torch.cuda.synchronize()
+                check_finite_metrics(m)
+        finally:
+            trainer.group, trainer.model_parallel = None, False
+            trainer.shard = None
+            close(group)
+    log("  a one-rank NCCL group's warm model-parallel step under "
+        "set_sync_debug_mode('error'): no synchronising call")
+
+
+def mp_train_main(device):
+    """``train.main --mp`` for 2 steps at ``nuscenes_occ``'s full width
+    (synthetic): NCCL over every visible card, one a rank, every rank on
+    the step's one item; with one card the plain step in this process,
+    whose launches are counted. Fails unless the checkpoint counts 2 steps
+    and 2 items and, with several cards, the ranks ended bit-equal."""
+    import tempfile
+    import torch
+    from selfocc_tpu_torch import train
+    n = torch.cuda.device_count()
+    wrappers = dp_wrappers()
+    with tempfile.TemporaryDirectory() as work:
+        reset_counts(wrappers)
+        t0 = time.time()
+        out = train.main(["--py-config", "nuscenes_occ", "--synthetic",
+                          "--mp", "--max-steps", "2", "--print-freq", "1",
+                          "--work-dir", work])
+        wall = time.time() - t0
+        state = torch.load(os.path.join(work, "ckpts", "latest.pt"),
+                           map_location="cpu")
+        if state["step"] != 2 or state["last_iter"] != 2:
+            raise AssertionError(f"--mp checkpoint: step {state['step']}, "
+                                 f"item {state['last_iter']}")
+        del state
+    res = {"cards": n, "wall_s": wall, "step_s": out["step_s"]}
+    if n == 1:
+        res["launches"] = read_counts(wrappers, "train.main --mp run",
+                                      ("plane", "rows"))
+    elif out.get("replicas_equal") is not True:
+        raise AssertionError(f"train.main --mp over {n} cards: ranks not "
+                             "bit-equal")
+    log(f"  train.main --mp: {n} card(s), "
+        + ("the plain step (one card)" if n == 1 else
+           f"{n} NCCL ranks, bit-equal at the end")
+        + f"; 2 steps in {wall:.1f}s (build and items included)")
+    torch.cuda.empty_cache()
+    return res
+
+
+def collective_summary(records):
+    """Per kind of collective: calls, ms (median, spread, sum) and bytes
+    (per call, sum) of one step."""
+    out = {}
+    for kind in sorted({r["kind"] for r in records}):
+        rs = [r for r in records if r["kind"] == kind]
+        out[kind] = {"calls": len(rs), "ms": spread([r["ms"] for r in rs]),
+                     "ms_sum": sum(r["ms"] for r in rs),
+                     "bytes": sorted({r["bytes"] for r in rs}),
+                     "bytes_sum": sum(r["bytes"] for r in rs)}
+    return out
+
+
+def mp_phase(device):
+    """[mp]: the model-parallel step at ``nuscenes_occ``'s full width. Two
+    gloo ranks on the one card take one step on item 0 and are held to
+    one process's (``mp_reference``), then time their collectives,
+    ``MP_STEPS`` steps and a profiled one; the one-process step is timed
+    beside them; ``msda_fwd`` / ``msda_bwd`` at rank 0's sharded shapes;
+    the one-rank NCCL step under the sync check; ``train.main --mp``."""
+    import torch
+    from selfocc_tpu_torch.parallel.mesh import spawn
+    from selfocc_tpu_torch.train import step_seed
+    log(f"  card: {card_name()}; {torch.cuda.device_count()} visible")
+    log("  backend: gloo (two ranks on one card; NCCL refuses two ranks on "
+        "one device), gather_rows by its all-reduce route")
+    torch.cuda.empty_cache()
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    t0 = time.time()
+    r0, r1 = spawn(mp_rank_run, 2, "gloo", [device, device])
+    spawn_s = time.time() - t0
+    log(f"  two ranks spawned, built, stepped {MP_STEPS + 3} times and "
+        f"joined in {spawn_s:.1f}s; rows a rank (hw, zh, wz): "
+        f"{r0['rows']} / {r1['rows']}, route {r0['route']}")
+    if not (r0["replicas_equal"] and r1["replicas_equal"]):
+        raise AssertionError("[mp] ranks not bit-equal after their steps")
+    trainer, batch, checks = mp_reference(device, r0, r1)
+    del r0["grads"], r0["params"], r1["grads"], r1["params"]
+
+    def gen(step):
+        return torch.Generator(device=device).manual_seed(
+            step_seed(SEED, step))
+    one, one_peak = dp_step_times(trainer, batch, lambda i: gen(i + 1),
+                                  MP_STEPS)
+    mp_sync_check(trainer, batch, device)
+    del trainer, batch
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=device).manual_seed(SEED)
+    msda = {}
+    for tag, args in mp_rank_shapes():
+        fwd, bwd = msda_records(g, device, tag, args)
+        msda[tag] = {"msda_fwd": fwd, "msda_bwd": bwd, "queries": args[1],
+                     "cams": args[0]}
+    two = [s for r in (r0, r1) for s in r["steps"]]
+    res = {
+        "backend_one_card": "gloo", "route": r0["route"],
+        "cards": torch.cuda.device_count(), "spawn_wall_s": spawn_s,
+        "rows_rank0": r0["rows"], "rows_rank1": r1["rows"],
+        "checks": checks, "msda": msda,
+        "one_process_step_s": spread([s["step_s"] for s in one]),
+        "two_rank_step_s": spread([s["step_s"] for s in two]),
+        "collectives_rank0": collective_summary(r0["collectives"]),
+        "collectives_rank1": collective_summary(r1["collectives"]),
+        "peak_gb": {"one_process": one_peak, "rank0": r0["max_memory_gb"],
+                    "rank1": r1["max_memory_gb"],
+                    "rank0_first_step": r0["first_step_peak_gb"],
+                    "rank1_first_step": r1["first_step_peak_gb"]},
+        "launches_rank0": r0["launches"], "launches_rank1": r1["launches"],
+        "profile_rank0": r0["profile"], "profile_rank1": r1["profile"],
+        "steps_one_process": one, "steps_two_ranks": two}
+    coll = res["collectives_rank0"]
+    log(f"  step s (median, min-max): one process "
+        f"{res['one_process_step_s']['median']:.3f} "
+        f"({res['one_process_step_s']['min']:.3f}-"
+        f"{res['one_process_step_s']['max']:.3f}); two gloo ranks on one "
+        f"card {res['two_rank_step_s']['median']:.3f} "
+        f"({res['two_rank_step_s']['min']:.3f}-"
+        f"{res['two_rank_step_s']['max']:.3f}); peak GiB: one process "
+        f"{one_peak:.2f}, ranks {r0['max_memory_gb']:.2f} / "
+        f"{r1['max_memory_gb']:.2f} (first step {r0['first_step_peak_gb']:.2f}"
+        f" / {r1['first_step_peak_gb']:.2f})")
+    for kind, c in coll.items():
+        log(f"  rank 0, {kind}: {c['calls']} calls a step, "
+            f"{c['ms']['median']:.1f} ms each ({c['ms']['min']:.1f}-"
+            f"{c['ms']['max']:.1f}), {c['ms_sum']:.1f} ms and "
+            f"{c['bytes_sum'] / 2**20:.1f} MiB a step (per call "
+            f"{[round(b / 2**20, 2) for b in c['bytes']]} MiB)")
+    res["train_main"] = mp_train_main(device)
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -8338,7 +8716,8 @@ def main():
             "unet": lambda: unet_phase(device),
             "teacher": lambda: teacher_phase(device),
             "vis": lambda: vis_phase(device),
-            "dp": lambda: dp_phase(device)}
+            "dp": lambda: dp_phase(device),
+            "mp": lambda: mp_phase(device)}
     phases = {}
     for tag in PHASES:
         if tag not in wanted:
@@ -8629,6 +9008,27 @@ def main():
                  dpres["eval"]["cuda0_twice"]["launches"])):
             if entry["name"] in counts:
                 entry[f"launches_{path}"] = counts[entry["name"]]
+    # [mp]: each rank's model-parallel step, its profiled MSDA calls at the
+    # sharded shapes, train.main --mp (one card: in this process) and the
+    # MSDA records at rank 0's sharded shapes
+    mpres = phases["mp"]
+    for entry in kernels:
+        for path, counts in (
+                ("mp_rank0", mpres["launches_rank0"]),
+                ("mp_rank1", mpres["launches_rank1"]),
+                ("mp_train_main", mpres["train_main"].get("launches", {}))):
+            if entry["name"] in counts:
+                entry[f"launches_{path}"] = counts[entry["name"]]
+        name = entry["name"]
+        in_step = mpres["profile_rank0"]["msda_kernels"].get(name)
+        if in_step is not None:
+            entry["in_mp_step_ms_per_call"] = in_step["ms_per_call"]
+            entry["in_mp_step_calls"] = in_step["calls"]
+        for tag, recs in mpres["msda"].items():
+            if name in recs:
+                for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                          "max_abs_err"):
+                    entry[f"{tag}_{k}"] = recs[name][k]
     print(json.dumps({
         "kernels": kernels,
         "frame": {"prepare_s": fres["prepare_s"],
@@ -8651,7 +9051,7 @@ def main():
                                  if k != "kernels"},
         "head": {k: v for k, v in hres.items() if k != "kernels"},
         "variants": vres, "unet": ures, "teacher": teres, "vis": visres,
-        "dp": dpres}),
+        "dp": dpres, "mp": mpres}),
         flush=True)
     print(card_name(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -48,6 +48,7 @@ from torch import nn
 from ..geometry.mappings import make_mapping
 from ..geometry.projection import point_sampling
 from ..ops.msda import ms_deform_attn
+from ..parallel.mesh import gather_rows
 from .initializers import normal_, xavier_uniform_
 from .resnet import BatchNorm2d
 from .lifter import (TPVPositionalEncoding, fourier_feat_from_meter,
@@ -138,14 +139,21 @@ def offset_bias_init(num_heads, num_levels, num_points,
     return grid.reshape(-1).astype(np.float32)
 
 
-def dropout(x, p: float, training: bool, generator):
+def dropout(x, p: float, training: bool, generator, rows=None):
     """flax ``nn.Dropout``: keep with probability 1 - p, scale by
-    1 / (1 - p); the identity at eval or p = 0."""
+    1 / (1 - p); the identity at eval or p = 0. ``rows`` (a
+    ``parallel.mesh.RowShard``): ``x`` holds a rank's rows of a longer
+    sequence (dim 1); the mask is drawn for the whole sequence, as one
+    process draws it, and the rank keeps its rows."""
     if not training or p == 0.0:
         return x
     if generator is None:
         raise ValueError("train-mode dropout needs a torch.Generator")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    shape = x.shape if rows is None else \
+        (x.shape[0], rows.n) + tuple(x.shape[2:])
+    keep = torch.rand(shape, generator=generator, device=x.device) >= p
+    if rows is not None:
+        keep = rows.take(keep)
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 
@@ -272,13 +280,19 @@ class CrossViewHybridAttention(nn.Module):
         _reset_xavier(self.output_proj, generator)
 
     def forward(self, query, query_pos, ref_points, spatial_shapes,
-                generator=None):
-        # query (B, Qtot, C); ref_points (Qtot, 3, P, 2)
+                generator=None, rows=None):
+        # query (B, Qtot, C); ref_points (Qtot, 3, P, 2). ``rows`` (a
+        # parallel.mesh.RowShard of the sequence): query and query_pos hold
+        # this rank's rows; the value is gathered whole, in global order
         B, Q, C = query.shape
         H = self.num_heads
-        value = self.value_proj(query).reshape(B, Q, H, C // H)
+        value = self.value_proj(query)
         if self.value_bf16:
             value = bf16_rounded(value)
+        if rows is not None:
+            value = gather_rows(value, rows)
+            ref_points = rows.take(ref_points, 0)
+        value = value.reshape(B, -1, H, C // H)
         shared = self.shared_locations
         offsets, attn = deform_heads(query + query_pos, self.sampling_offsets,
                                      self.attention_weights, H, 3,
@@ -291,7 +305,7 @@ class CrossViewHybridAttention(nn.Module):
                 offsets / norm[None, None, None, :, None, :]
         out = ms_deform_attn(value, spatial_shapes, loc, attn, shared)
         out = dropout(self.output_proj(out), self.dropout_p, self.training,
-                      generator)
+                      generator, rows)
         return out + query
 
 
@@ -336,7 +350,14 @@ class BEVCrossAttention(nn.Module):
     queries the forward is therefore the dense branch's bit for bit; past
     that, both packages drop the same queries (the overflow, see
     ``TPVFormerEncoder.visible_overflow``). M is a Python int of static
-    shapes: no host synchronisation."""
+    shapes: no host synchronisation.
+
+    ``rows`` (a ``parallel.mesh.RowShard`` of the plane): ``query`` holds
+    this rank's rows of the plane, ``ref_cams`` and ``masks`` the whole
+    plane's. The dense branch runs on the rank's rows. The compact one
+    gathers the plane's query and runs over the whole plane, since each
+    camera's visible-first order is the whole plane's, then keeps the
+    rank's rows: the one-process result either way."""
 
     def __init__(self, embed_dims: int, num_heads: int, num_levels: int,
                  num_points: int, dropout_p: float = 0.0,
@@ -355,9 +376,28 @@ class BEVCrossAttention(nn.Module):
         _reset_xavier(self.output_proj, generator)
 
     def forward(self, query, value, ref_cams, masks, spatial_shapes,
-                generator=None):
+                generator=None, rows=None):
         # query (1, Q, C); value (cams, L, C); ref_cams (cams, Q, P, 2);
         # masks (cams, Q, P)
+        Q = query.shape[1] if rows is None else rows.n
+        M = visible_rows(Q, self.visible_capacity)
+        if rows is None:
+            slots = self._slots(query, value, ref_cams, masks,
+                                spatial_shapes, M)
+        elif M < Q:
+            slots = rows.take(self._slots(gather_rows(query, rows), value,
+                                          ref_cams, masks, spatial_shapes, M))
+        else:
+            slots = self._slots(query, value, rows.take(ref_cams),
+                                rows.take(masks), spatial_shapes, rows.count)
+        slots = dropout(self.output_proj(slots), self.dropout_p,
+                        self.training, generator, rows)
+        return slots + query
+
+    def _slots(self, query, value, ref_cams, masks, spatial_shapes, M):
+        """Each query's image cross-attention, averaged over the cameras
+        that see it, before the output projection: (1, Q, C); compacted
+        to M rows a camera where M < Q."""
         da = self.deformable_attention
         _, Q, C = query.shape
         cams = value.shape[0]
@@ -371,7 +411,6 @@ class BEVCrossAttention(nn.Module):
                                      da.num_points, shared)
         norm = _normalizer(spatial_shapes, query.device)
         hit = masks.sum(-1) > 0                               # (cams, Q)
-        M = visible_rows(Q, self.visible_capacity)
         if M < Q:
             sel = visible_first(hit, M)                       # (cams, M)
             hit, ref, off, attn_c = gather_visible(sel, hit, ref_cams,
@@ -393,10 +432,7 @@ class BEVCrossAttention(nn.Module):
             contrib, hitf = rows_to_slots(sel, Q, contrib, hitf)
         slots = contrib.sum(0)
         count = hitf.sum(0).clamp_min(1.0)
-        slots = (slots / count[..., None])[None]
-        slots = dropout(self.output_proj(slots), self.dropout_p,
-                        self.training, generator)
-        return slots + query
+        return (slots / count[..., None])[None]
 
 
 class TPVImageCrossAttention(nn.Module):
@@ -418,10 +454,12 @@ class TPVImageCrossAttention(nn.Module):
                 dropout_p, shared_locations, caps[i], value_bf16))
 
     def forward(self, planes, value, ref_cams_list, masks_list,
-                spatial_shapes, generator=None) -> List[torch.Tensor]:
+                spatial_shapes, generator=None,
+                shard=None) -> List[torch.Tensor]:
         return [getattr(self, f"attn_{plane}")(
                     planes[i], value, ref_cams_list[i], masks_list[i],
-                    spatial_shapes, generator)
+                    spatial_shapes, generator,
+                    None if shard is None else shard.planes[i])
                 for i, plane in enumerate(self.PLANES)]
 
 
@@ -438,11 +476,11 @@ class FFN(nn.Module):
             nn.Linear(feedforward_channels, embed_dims))
         self.dropout_p = dropout_p
 
-    def forward(self, x, generator=None):
+    def forward(self, x, generator=None, rows=None):
         y = dropout(self.layers[0](x), self.dropout_p, self.training,
-                    generator)
+                    generator, rows)
         y = dropout(self.layers[1](y), self.dropout_p, self.training,
-                    generator)
+                    generator, rows)
         return y + x
 
 
@@ -499,7 +537,10 @@ class TPVFormerLayer(nn.Module):
     """``self_attn -> norm -> cross_attn -> norm -> ffn -> norm``
     (post-norm, reference ``tpvformer_encoder_layer.py:123-219``); with
     ``multi_plane`` (``multi_plane_ffn_norm``) each plane has its own
-    LayerNorms (``norms.{j}.{plane}``) and FFN (``ffns.{plane}``)."""
+    LayerNorms (``norms.{j}.{plane}``) and FFN (``ffns.{plane}``).
+    ``shard`` (a ``parallel.mesh.ModelShard``): ``planes`` and ``tpv_pos``
+    hold this rank's rows of each plane (the model-parallel step); the
+    norms and FFNs act row by row, the attentions take the shard."""
 
     def __init__(self, embed_dims, num_heads, num_levels, num_points_cross,
                  num_points_self, feedforward_channels, tpv_size,
@@ -529,24 +570,26 @@ class TPVFormerLayer(nn.Module):
                 nn.LayerNorm(embed_dims, eps=LN_EPS) for _ in range(3))
 
     def forward(self, planes, value, tpv_pos, cross_view_ref, ref_cams_list,
-                masks_list, img_spatial_shapes, generator=None):
+                masks_list, img_spatial_shapes, generator=None, shard=None):
         H, W, D = self.tpv_size
-        sizes = [H * W, D * H, W * D]
+        sizes = [p.shape[1] for p in planes]
         plane_shapes = ((H, W), (D, H), (W, D))
+        seq, plane_rows = (None, (None,) * 3) if shard is None else \
+            (shard.seq, shard.planes)
         q = self.attentions[0](torch.cat(planes, 1), torch.cat(tpv_pos, 1),
-                               cross_view_ref, plane_shapes, generator)
+                               cross_view_ref, plane_shapes, generator, seq)
         if self.multi_plane:
             planes = [n(p) for n, p in zip(self.norms[0],
                                            q.split(sizes, dim=1))]
         else:
             planes = list(self.norms[0](q).split(sizes, dim=1))
         planes = self.attentions[1](planes, value, ref_cams_list, masks_list,
-                                    img_spatial_shapes, generator)
+                                    img_spatial_shapes, generator, shard)
         if self.multi_plane:
-            return [n3(ffn(n2(p), generator)) for n2, ffn, n3, p in zip(
-                self.norms[1], self.ffns, self.norms[2], planes)]
+            return [n3(ffn(n2(p), generator, r)) for n2, ffn, n3, p, r in zip(
+                self.norms[1], self.ffns, self.norms[2], planes, plane_rows)]
         q = self.norms[1](torch.cat(planes, 1))
-        q = self.norms[2](self.ffns[0](q, generator))
+        q = self.norms[2](self.ffns[0](q, generator, seq))
         return list(q.split(sizes, dim=1))
 
 
@@ -560,7 +603,16 @@ class TPVFormerEncoder(nn.Module):
     visible queries of its busiest camera (``encoder.py:916-930``; the JAX
     package sows it as ``visible_overflow_i``); the compaction is exact
     while all three are 0. Nothing in the forward reads it back. None where
-    no plane is compacted."""
+    no plane is compacted. ``plane_sizes``: the rows of hw, zh and wz.
+
+    ``forward(..., shard=)`` (a ``parallel.mesh.ModelShard``) runs the
+    model-parallel step's share of the encoder (the JAX package's
+    ``maybe_shard`` at each layer's entry, ``encoder.py:457-462``): the
+    lifter's planes and ``tpv_pos`` are cut to the rank's rows of each
+    plane, every layer runs on those rows (``TPVFormerLayer``), and after
+    the last layer ``gather_rows`` returns the whole planes on every rank.
+    The geometry (``point_sampling``, ``visible_overflow``) is the whole
+    planes'."""
 
     def __init__(self, mapping_args: Dict, embed_dims: int = 96,
                  num_heads: int = 6, num_cams: int = 6,
@@ -586,6 +638,7 @@ class TPVFormerEncoder(nn.Module):
         mapping = make_mapping(**mapping_args)
         self.tpv_size = (mapping.size_h, mapping.size_w, mapping.size_d)
         H, W, D = self.tpv_size
+        self.plane_sizes = (H * W, D * H, W * D)
         self.positional_encoding = TPVPositionalEncoding(
             tuple(pos_num_freqs), embed_dims, tuple(pc_range), mapping)
         self.level_embeds = nn.Parameter(
@@ -614,14 +667,15 @@ class TPVFormerEncoder(nn.Module):
 
     def forward(self, representation, ms_img_feats, lidar2img, img_shape,
                 generator=None, focal_ratios_x=None, focal_ratios_y=None,
-                intrinsic=None, cam2ego=None):
+                intrinsic=None, cam2ego=None, shard=None):
         """representation: [hw (1,HW,C), zh (1,DH,C), wz (1,WD,C)];
         ms_img_feats: list of (1, N, h, w, C); lidar2img (1, N, 4, 4);
         img_shape: (H, W) of the network input; ``generator`` draws the
         train-mode dropout masks; ``focal_ratios_x/y``: optional (N,)
         scales of the projected reference points (``point_sampling``);
         ``intrinsic`` / ``cam2ego`` (1, N, 4, 4): the cameras that a
-        camera-aware encoder gates the features by (required then)."""
+        camera-aware encoder gates the features by (required then);
+        ``shard``: see the class."""
         if ms_img_feats[0].shape[0] != 1:
             raise ValueError("the TPV encoder runs batch size 1")
         tpv_pos = [p[None] for p in self.positional_encoding()]
@@ -650,10 +704,16 @@ class TPVFormerEncoder(nn.Module):
                  - visible_rows(m.shape[1], cap)).clamp_min(0)
                 for m, cap in zip(masks_list, self.visible_capacity))
         planes = list(representation)
+        if shard is not None:
+            planes = [r.take(p) for r, p in zip(shard.planes, planes)]
+            tpv_pos = [r.take(p) for r, p in zip(shard.planes, tpv_pos)]
         for layer in self.layers:
             planes = layer(planes, value, tpv_pos, self.cross_view_ref,
                            ref_cams_list, masks_list,
-                           tuple(img_spatial_shapes), generator)
+                           tuple(img_spatial_shapes), generator, shard)
+        if shard is not None:
+            planes = list(gather_rows(torch.cat(planes, 1), shard.seq).split(
+                self.plane_sizes, dim=1))
         return planes
 
 

@@ -32,6 +32,7 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..geometry.mappings import make_mapping
+from ..parallel.mesh import ModelShard
 from .density_head import NeRFAccHead
 from .encoder import BEVFormerEncoder, TPVFormerEncoder
 from .efficientnet import EfficientNetConfig
@@ -200,9 +201,19 @@ class TPVSegmentor(nn.Module):
         return [flip_width(f, flip).permute(0, 2, 3, 1).reshape(
             B, N, *f.shape[2:], f.shape[1]).float() for f in feats]
 
+    def model_shard(self, group):
+        """This rank's ``ModelShard`` of the TPV encoder's planes in
+        ``group`` (the model-parallel step), or None for the BEV encoder,
+        which the JAX package does not shard (its BEV encoder carries no
+        hint, ``encoder.py:642``)."""
+        if self.cfg.use_bev_encoder:
+            return None
+        return ModelShard(group, self.encoder.plane_sizes)
+
     def get_representation(self, imgs, lidar2img, generator=None, flip=False,
                            focal_ratios_x=None, focal_ratios_y=None,
-                           intrinsic=None, cam2ego=None, feats=None):
+                           intrinsic=None, cam2ego=None, feats=None,
+                           shard=None):
         """backbone -> neck -> lifter -> encoder: the three TPV planes, or
         the BEV plane (``generator`` draws the encoder's train-mode
         dropout; ``flip`` see ``extract_img_feat``; ``focal_ratios_x/y``
@@ -210,20 +221,24 @@ class TPVSegmentor(nn.Module):
         ``geometry.projection.point_sampling``; ``intrinsic`` / ``cam2ego``
         (1, N, 4, 4): the camera-aware encoder's inputs, read only
         there; ``feats``: ``extract_img_feat(imgs, flip)`` computed by the
-        caller, as the camera-sharded eval prepare does)."""
+        caller, as the camera-sharded eval prepare does; ``shard``: a
+        ``model_shard``, the TPV encoder's share of the model-parallel
+        step)."""
         if feats is None:
             feats = self.extract_img_feat(imgs, flip)
         rep = self.lifter(feats)
-        cams = dict(intrinsic=intrinsic, cam2ego=cam2ego) \
+        kw = dict(intrinsic=intrinsic, cam2ego=cam2ego) \
             if self.cfg.encoder.camera_aware else {}
+        if shard is not None:
+            kw["shard"] = shard
         return self.encoder(rep, feats, lidar2img,
                             (imgs.shape[2], imgs.shape[3]), generator,
-                            focal_ratios_x, focal_ratios_y, **cams)
+                            focal_ratios_x, focal_ratios_y, **kw)
 
     def forward(self, imgs, lidar2img, img2lidar, train: bool = True,
                 generator=None, draws=None, flip=False, focal_ratios_x=None,
                 focal_ratios_y=None, global_iter=None, intrinsic=None,
-                cam2ego=None):
+                cam2ego=None, shard=None):
         """Training forward -> the head's loss inputs
         (``selfocc_tpu/models/segmentor.py:236``). BatchNorm and dropout
         follow the module's mode (``model.train()``); ``train`` selects the
@@ -234,10 +249,10 @@ class TPVSegmentor(nn.Module):
         ``global_iter``: the step count before this step's update, which
         the NeuS head's ``anneal_aabb`` and ``beta_hand_tune`` read (the
         density head takes it and reads nothing). ``intrinsic`` /
-        ``cam2ego``: see ``get_representation``."""
+        ``cam2ego``, ``shard``: see ``get_representation``."""
         rep = self.get_representation(imgs, lidar2img, generator, flip,
                                       focal_ratios_x, focal_ratios_y,
-                                      intrinsic, cam2ego)
+                                      intrinsic, cam2ego, shard=shard)
         return self.head(rep, img2lidar, train=train, generator=generator,
                          draws=draws, global_iter=global_iter)
 

@@ -1,10 +1,12 @@
-"""Process groups, the data-parallel step's collectives and the eval's row
-splits — counterpart of ``selfocc_tpu/parallel/mesh.py``.
+"""Process groups, the data- and model-parallel steps' collectives and the
+eval's row splits — counterpart of ``selfocc_tpu/parallel/mesh.py``.
 
 The JAX package runs one process over a device mesh: ``shard_map`` and
 ``pmean`` for the data-parallel gradients (``utils/train_lib.py:202-231``),
-sharded ray and point axes for the eval. The port trains as the reference
-does (``train.py:32-45, 400-403``): one process per card, each rank one
+``maybe_shard`` hints on a ``"model"`` mesh for the model-parallel step
+(``parallel/mesh.py:53-77``, ``utils/train_lib.py:174-199``), sharded ray
+and point axes for the eval. The port trains as the reference does
+(``train.py:32-45, 400-403``): one process per card, each rank one
 replica, joined in an explicit ``torch.distributed`` process group
 (``init_group``, ``spawn``; a launcher such as ``torchrun`` sets
 ``WORLD_SIZE`` / ``RANK`` / ``LOCAL_RANK``, ``launcher_env``). The backend
@@ -13,11 +15,19 @@ is always the caller's choice: the drivers pass ``"nccl"`` on cards and
 one process splits its rows over its cards (``split_rows``,
 ``utils/eval_lib``).
 
-The collectives are ``all_reduce`` and ``broadcast`` only, each over a few
-flat buffers (``BUCKET_ELEMS`` elements at most) rather than one call per
-tensor. Gloo carries CUDA tensors for these two (not for ``all_gather``),
-which lets two gloo ranks share one card; NCCL refuses two ranks on one
-device.
+The data-parallel collectives are ``all_reduce`` and ``broadcast``, each
+over a few flat buffers (``BUCKET_ELEMS`` elements at most) rather than one
+call per tensor (``all_reduce_mean``, ``all_reduce_sum``, ``broadcast_``).
+The model-parallel step shards the TPV encoder's query rows
+(``ModelShard``: each rank a contiguous block of each plane, ``split_rows``)
+and joins them with ``gather_rows``, an autograd all-gather whose backward
+is a reduce-scatter by sum. Its route follows the (backend, device type)
+of the group (``collective_route``): NCCL, and gloo on CPU tensors,
+``all_gather`` / ``reduce_scatter`` over shards padded to the largest; gloo
+carries only ``all_reduce`` and ``broadcast`` for CUDA tensors, so there
+the gather is an ``all_reduce`` of a zeroed buffer that holds the rank's
+own rows (exact: x + 0 = x), which lets two gloo ranks share one card;
+NCCL refuses two ranks on one device.
 """
 from __future__ import annotations
 
@@ -27,6 +37,7 @@ import os
 import tempfile
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -140,21 +151,29 @@ def _buckets(tensors: Sequence[torch.Tensor]) -> List[List[torch.Tensor]]:
 
 
 @torch.no_grad()
-def all_reduce_mean(tensors: Sequence[torch.Tensor], group: Group):
-    """Replace each tensor by its mean over the group's ranks, in place
-    (the JAX ``lax.pmean``: the sum over ranks divided by their count).
-    The tensors travel in a few flat buffers (``_buckets``); every rank
-    must pass tensors of the same shapes, dtypes and order. One rank: no
-    collective. Enqueues the collectives without a host synchronisation
-    (NCCL)."""
+def all_reduce_sum(tensors: Sequence[torch.Tensor], group: Group,
+                   mean: bool = False):
+    """Replace each tensor by its sum over the group's ranks, in place
+    (``mean``: divided by their count). The tensors travel in a few flat
+    buffers (``_buckets``); every rank must pass tensors of the same
+    shapes, dtypes and order. One rank: no collective. Enqueues the
+    collectives without a host synchronisation (NCCL)."""
     if group.world == 1:
         return
     for run in _buckets(tensors):
         flat = torch.cat([t.reshape(-1) for t in run])
         dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group.pg)
-        flat.div_(group.world)
+        if mean:
+            flat.div_(group.world)
         for t, v in zip(run, flat.split([t.numel() for t in run])):
             t.copy_(v.view_as(t))
+
+
+def all_reduce_mean(tensors: Sequence[torch.Tensor], group: Group):
+    """Replace each tensor by its mean over the group's ranks, in place
+    (the JAX ``lax.pmean``: the sum over ranks divided by their count;
+    see ``all_reduce_sum``)."""
+    all_reduce_sum(tensors, group, mean=True)
 
 
 @torch.no_grad()
@@ -202,3 +221,156 @@ def split_rows(n: int, parts: int) -> List[Tuple[int, int]]:
         out.append((start, stop))
         start = stop
     return out
+
+
+# ------------------------------------------------------ the model-parallel step
+ROUTES = ("gather", "all_reduce")
+
+
+def collective_route(backend: str, device_type: str) -> str:
+    """How ``gather_rows`` moves rows for a group of ``backend`` whose
+    tensors lie on ``device_type``: ``"gather"`` (``all_gather`` forward,
+    ``reduce_scatter`` backward) for NCCL and for gloo on the CPU;
+    ``"all_reduce"`` for gloo on CUDA tensors, where gloo has no gather."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got "
+                         f"{backend!r}")
+    return "all_reduce" if (backend, device_type) == ("gloo", "cuda") \
+        else "gather"
+
+
+class RowShard:
+    """One rank's rows of an ``n``-row sequence, and how ``gather_rows``
+    puts the ranks' rows back in global order. ``owned[r]``: rank r's
+    global row indices, in order. Every rank's tensors in a gather are (1,
+    rows, C): the rank's own rows in, the whole sequence out. The index
+    tables go to a device once and are kept (a host-to-device copy in a
+    per-call path blocks the stream)."""
+
+    def __init__(self, owned: Sequence[np.ndarray], rank: int, group: Group,
+                 route: str):
+        if route not in ROUTES:
+            raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+        self.group, self.route, self.rank = group, route, rank
+        self.counts = [len(o) for o in owned]
+        self.n = sum(self.counts)
+        self.width = max(self.counts)          # rows a rank sends, padded
+        self.index = np.asarray(owned[rank], np.int64)
+        # global row j -> its position in the gathered (world * width) rows
+        src = np.empty(self.n, np.int64)
+        for r, o in enumerate(owned):
+            src[np.asarray(o, np.int64)] = r * self.width + np.arange(len(o))
+        if sorted(np.concatenate(owned).tolist()) != list(range(self.n)):
+            raise ValueError("the ranks' rows must cover the sequence once")
+        self.src = src
+        self.identity = bool(np.array_equal(src, np.arange(self.n)))
+        lo = int(self.index[0]) if len(self.index) else 0
+        self.span = (lo, lo + len(self.index)) if np.array_equal(
+            self.index, np.arange(lo, lo + len(self.index))) else None
+        self._tables: Dict[tuple, torch.Tensor] = {}
+
+    @property
+    def count(self) -> int:
+        """The rows this rank owns."""
+        return len(self.index)
+
+    def table(self, name: str, device) -> torch.Tensor:
+        """``index`` or ``src`` as an int64 tensor on ``device``."""
+        key = (name, torch.device(device))
+        if key not in self._tables:
+            self._tables[key] = torch.from_numpy(getattr(self, name)).to(
+                device)
+        return self._tables[key]
+
+    def take(self, t: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """This rank's rows of ``t`` (the whole sequence along ``dim``)."""
+        if self.span is not None:
+            return t.narrow(dim, self.span[0], self.count)
+        return t.index_select(dim, self.table("index", t.device))
+
+
+class ModelShard:
+    """A rank's share of the TPV encoder under the model-parallel step
+    (the JAX ``maybe_shard(p, None, "model", None)`` on each plane at each
+    layer's entry): ``planes[i]``, a contiguous block of plane i's ``sizes[i]``
+    rows (``split_rows(sizes[i], world)[rank]``); ``seq``, the same rows of
+    the concatenated sequence (hw, then zh, then wz), which the
+    self-attention's value and the shared FFN see. ``route``: see
+    ``collective_route`` (default: the group's)."""
+
+    def __init__(self, group: Group, sizes: Sequence[int],
+                 route: Optional[str] = None):
+        route = route or collective_route(group.backend, group.device.type)
+        self.group, self.sizes, self.route = group, tuple(sizes), route
+        splits = [split_rows(n, group.world) for n in self.sizes]
+        self.planes = [RowShard([np.arange(a, b) for a, b in s],
+                                group.rank, group, route) for s in splits]
+        starts = np.cumsum((0,) + self.sizes[:-1])
+        self.seq = RowShard(
+            [np.concatenate([o + np.arange(s[r][0], s[r][1])
+                             for o, s in zip(starts, splits)])
+             for r in range(group.world)], group.rank, group, route)
+
+
+def _gather(x: torch.Tensor, rows: RowShard) -> torch.Tensor:
+    """(1, rows.count, C) own rows -> (1, rows.n, C), global order."""
+    x = x[0].contiguous()
+    group = rows.group
+    if rows.route == "all_reduce":
+        buf = x.new_zeros((rows.n,) + x.shape[1:])
+        if rows.span is not None:
+            buf[rows.span[0]:rows.span[1]] = x
+        else:
+            buf.index_copy_(0, rows.table("index", x.device), x)
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group.pg)
+        return buf[None]
+    if rows.count < rows.width:
+        x = torch.cat([x, x.new_zeros((rows.width - rows.count,)
+                                      + x.shape[1:])])
+    out = x.new_empty((group.world * rows.width,) + x.shape[1:])
+    dist.all_gather(list(out.chunk(group.world)), x, group=group.pg)
+    if rows.identity:
+        return out[:rows.n][None]
+    return out.index_select(0, rows.table("src", x.device))[None]
+
+
+def _scatter_sum(g: torch.Tensor, rows: RowShard) -> torch.Tensor:
+    """(1, rows.n, C) cotangent on every rank -> (1, rows.count, C), each
+    own row's sum over the ranks."""
+    g = g[0].contiguous()
+    group = rows.group
+    if rows.route == "all_reduce":
+        buf = g.clone()
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group.pg)
+        return rows.take(buf[None])
+    if rows.identity and rows.n == group.world * rows.width:
+        buf = g
+    else:
+        buf = g.new_zeros((group.world * rows.width,) + g.shape[1:])
+        buf.index_copy_(0, rows.table("src", g.device), g)
+    out = g.new_empty((rows.width,) + g.shape[1:])
+    dist.reduce_scatter(out, list(buf.chunk(group.world)),
+                        op=dist.ReduceOp.SUM, group=group.pg)
+    return out[:rows.count][None]
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, rows):
+        ctx.rows = rows
+        return _gather(x, rows)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        return _scatter_sum(g, ctx.rows), None
+
+
+def gather_rows(x: torch.Tensor, rows: RowShard) -> torch.Tensor:
+    """Every rank's own rows of a sequence, (1, rows.count, C), as the
+    whole sequence (1, rows.n, C) in global row order, on every rank. The
+    backward sums each row's cotangent over the ranks and hands each rank
+    its own rows (a reduce-scatter by sum): with every rank
+    backpropagating its loss over ``world``, the sum is the one-process
+    cotangent. The route is ``rows.route``."""
+    return _GatherRows.apply(x, rows)

@@ -6,7 +6,8 @@
         [--work-dir DIR] [--ckpt-freq-iters N] \\
         [--resume-from CKPT [--iter-resume]] [--resnet-pth PTH] [--amp] \\
         [--gradient-accumulation K] [--profile] \\
-        [--eval-every-epoch [--eval-samples N]] [--teacher-ckpt CKPT]
+        [--eval-every-epoch [--eval-samples N]] [--teacher-ckpt CKPT] \\
+        [--dp | --mp] [--dp-ranks N]
 
 Data: the nuScenes train split (``data.build_dataset(cfg, "train")``:
 ``data/nuscenes_infos_train_sweeps.pkl``, images and sweeps under
@@ -91,8 +92,20 @@ statistics; rank 0 alone writes the run log, ``scalars.jsonl``,
 checkpoints and ``--profile``, and runs ``--eval-every-epoch`` while the
 others wait at a barrier (the group's timeout, ``DP_TIMEOUT``, covers
 it). At the end every rank's parameters are checked bit-equal to rank
-0's. The online teacher labels each rank's own items. ``--mp`` (the
-model-parallel step) is not ported: it exits non-zero.
+0's. The online teacher labels each rank's own items.
+
+``--mp``: the JAX driver's model-parallel step (``make_mp_train_step``,
+``train.py:203-211``): ranks as ``--dp`` makes them (``--dp-ranks`` counts
+them too; ``--dp`` wins where both are given, as in the JAX driver), each
+step one item that every rank takes, with the same generator
+(``step_seed`` of rank 0). The TPV encoder's query rows are sharded over
+the ranks, the rest of the step runs whole on every rank, and the
+gradients are summed (``utils/train_lib.Trainer``, ``model_parallel``);
+a BEV config runs whole on every rank. A step moves the epoch position
+on by one item, so ``last_iter`` counts items. Rank 0 alone writes, and
+the ranks end bit-equal, as under ``--dp``. With one card (or one rank)
+it runs the plain step and logs that. The online teacher labels the
+step's item on every rank.
 """
 from __future__ import annotations
 
@@ -129,8 +142,8 @@ from .utils.runtime import (add_device_arg, checkpoint_path, get_dataset,
 from .utils.train_lib import Trainer
 
 RESNET_PTH = "ckpts/resnet50-0676ba61.pth"
-# a --dp group's collective timeout: long enough for rank 0's per-epoch
-# eval while the other ranks wait at the barrier
+# a --dp / --mp group's collective timeout: long enough for rank 0's
+# per-epoch eval while the other ranks wait at the barrier
 DP_TIMEOUT = datetime.timedelta(hours=6)
 
 
@@ -178,11 +191,13 @@ def parse_args(argv=None):
                     help="data-parallel: one rank per visible card (NCCL), "
                          "or per --dp-ranks")
     ap.add_argument("--dp-ranks", type=int, default=0,
-                    help="--dp ranks: the first N cards (0: all visible); "
-                         "with --device cpu, N gloo ranks on the CPU (0: 1)")
+                    help="--dp / --mp ranks: the first N cards (0: all "
+                         "visible); with --device cpu, N gloo ranks on the "
+                         "CPU (0: 1)")
     ap.add_argument("--mp", action="store_true",
-                    help="the JAX driver's model-parallel step: not ported "
-                         "(exits non-zero)")
+                    help="model-parallel: one item a step on every rank, "
+                         "the TPV encoder's query rows sharded over the "
+                         "ranks (--dp wins where both are given)")
     add_device_arg(ap)
     return ap.parse_args(argv)
 
@@ -197,13 +212,15 @@ def config_of(args):
 
 
 def build_trainer(cfg, seed: int, device, grad_accumulation: int = 1,
-                  group: Optional[Group] = None) -> Trainer:
+                  group: Optional[Group] = None,
+                  model_parallel: bool = False) -> Trainer:
     """The port's segmentor with seeded JAX-like initial weights on
-    ``device``, and its optimizer (``grad_accumulation``, ``group``: see
-    ``Trainer``)."""
+    ``device``, and its optimizer (``grad_accumulation``, ``group``,
+    ``model_parallel``: see ``Trainer``)."""
     model = TPVSegmentor(cfg.model)
     init_weights(model, torch.Generator().manual_seed(seed))
-    return Trainer(cfg, model.to(device), grad_accumulation, group)
+    return Trainer(cfg, model.to(device), grad_accumulation, group,
+                   model_parallel)
 
 
 def item_groups(order, world: int):
@@ -330,7 +347,8 @@ def train(cfg, trainer: Trainer, ds, device, max_steps: int, seed: int,
           ckpt_freq_iters: int = 0, writer: Optional[ScalarWriter] = None,
           profiler: Optional[StepProfiler] = None,
           epoch_eval: Optional[Callable[[int], Dict]] = None,
-          teacher=None, group: Optional[Group] = None) -> Dict:
+          teacher=None, group: Optional[Group] = None,
+          model_parallel: bool = False) -> Dict:
     """Steps over ``ds`` from item ``start_pos`` of epoch ``start_epoch``,
     in the sampler's order, up to ``max_steps`` (micro-)steps in all (0:
     no limit) or the end of epoch ``epochs`` (0: ``cfg.max_epochs``).
@@ -342,9 +360,11 @@ def train(cfg, trainer: Trainer, ds, device, max_steps: int, seed: int,
     ``TorchSemTeacher``) fills a batch's missing ``sem_gt`` where
     ``cfg.sem``. With a ``group`` each step is a data-parallel one on
     ``item_groups``' r-th item (positions count items: a step moves
-    ``world`` on); only rank 0 logs its steps, and each epoch's end waits
-    at a barrier (rank 0 checkpoints and evaluates there: the callbacks
-    are given to rank 0 only). Returns the last step's
+    ``world`` on), or with ``model_parallel`` a model-parallel one on the
+    step's one item, the same on every rank (a step moves one on); only
+    rank 0 logs its steps, and each epoch's end waits at a barrier (rank
+    0 checkpoints and evaluates there: the callbacks are given to rank 0
+    only). Returns the last step's
     ``metrics``, the ``items`` trained on, the logged steps' scalars
     (``logged``: step -> losses, ``grad_norm``, ``lr``), per step the host
     seconds spent waiting for its batch (``data_wait_s``) and from that
@@ -355,7 +375,11 @@ def train(cfg, trainer: Trainer, ds, device, max_steps: int, seed: int,
     # each step's group from it (a DistributedSampler over the ranks would
     # yield other items after a resume's offset)
     sampler = DistributedSampler(len(ds), 1, 0, shuffle=True, seed=seed)
-    world, rank = (group.world, group.rank) if group is not None else (1, 0)
+    ranks = group.world if group is not None else 1
+    # the items of a step: one a rank (data-parallel), or one for all
+    world, rank = (group.world, group.rank) \
+        if group is not None and not model_parallel else (1, 0)
+    lead = group is None or group.rank == 0
     res = {"metrics": None, "items": [], "logged": {}, "data_wait_s": [],
            "step_s": [], "epoch_evals": {}}
     if max_steps and trainer.global_step >= max_steps:
@@ -366,7 +390,7 @@ def train(cfg, trainer: Trainer, ds, device, max_steps: int, seed: int,
             checkpoint(name, next_epoch, pos)
         if epoch_eval is not None:
             res["epoch_evals"][epoch] = epoch_eval(epoch)
-        if world > 1:
+        if ranks > 1:
             group.barrier()
     for epoch in range(start_epoch, epochs or cfg.max_epochs):
         sampler.set_epoch(epoch)
@@ -406,7 +430,7 @@ def train(cfg, trainer: Trainer, ds, device, max_steps: int, seed: int,
                 res["items"].append(index)
                 pos += world
                 done = bool(max_steps) and trainer.global_step >= max_steps
-                if rank == 0 and (step % print_freq == 0 or done):
+                if lead and (step % print_freq == 0 or done):
                     res["logged"][step] = {k: float(v) for k, v in
                                            metrics.items() if k != "times"}
                     if writer is not None:
@@ -435,10 +459,10 @@ def train(cfg, trainer: Trainer, ds, device, max_steps: int, seed: int,
 
 
 def dp_plan(args):
-    """(world, backend, devices) of ``--dp``: on cards NCCL over the first
-    ``--dp-ranks`` (all visible by default), one card a rank, exiting
-    non-zero where fewer are visible; on the CPU ``--dp-ranks`` gloo
-    ranks (1 by default)."""
+    """(world, backend, devices) of ``--dp`` and ``--mp``: on cards NCCL
+    over the first ``--dp-ranks`` (all visible by default), one card a
+    rank, exiting non-zero where fewer are visible; on the CPU
+    ``--dp-ranks`` gloo ranks (1 by default)."""
     if args.device == "cpu":
         world = args.dp_ranks or 1
         return world, "gloo", ["cpu"] * world
@@ -447,20 +471,17 @@ def dp_plan(args):
     world = args.dp_ranks or n
     if world > n:
         sys.exit(f"selfocc_tpu_torch: --dp-ranks {world} but {n} CUDA "
-                 "device(s) visible; --dp runs one rank per card (NCCL)")
+                 "device(s) visible; --dp / --mp run one rank per card "
+                 "(NCCL)")
     return world, "nccl", [f"cuda:{r}" for r in range(world)]
 
 
 def main(argv=None) -> Dict:
-    """The driver: ``run`` in this process, or with ``--dp`` one rank per
-    device (``dp_plan``: spawned, or joining a launcher's group), which
-    returns rank 0's result."""
+    """The driver: ``run`` in this process, or with ``--dp`` / ``--mp`` one
+    rank per device (``dp_plan``: spawned, or joining a launcher's group),
+    which returns rank 0's result."""
     args = parse_args(argv)
-    if args.mp:
-        sys.exit("selfocc_tpu_torch: --mp (the JAX driver's model-parallel "
-                 "step, the encoder's TPV-query axis sharded over the "
-                 "devices) is not ported; --dp trains one sample a card")
-    if not args.dp:
+    if not (args.dp or args.mp):
         return run(args)
     launched = launcher_env()
     if launched is not None:
@@ -481,8 +502,8 @@ def main(argv=None) -> Dict:
 
 
 def dp_rank(group: Group, args) -> Dict:
-    """One spawned ``--dp`` rank: ``run`` with its group, the result on the
-    host."""
+    """One spawned ``--dp`` / ``--mp`` rank: ``run`` with its group, the
+    result on the host."""
     res = run(args, group)
     res["metrics"] = {k: v if k == "times" else float(v)
                       for k, v in (res["metrics"] or {}).items()}
@@ -491,8 +512,10 @@ def dp_rank(group: Group, args) -> Dict:
 
 def run(args, group: Optional[Group] = None) -> Dict:
     """Build, resume and train as the arguments say; with a ``group`` as
-    one data-parallel rank (rank 0's parameters and statistics broadcast
-    first, rank 0 alone writing; ``replicas_equal`` checked at the end)."""
+    one data-parallel rank, or model-parallel with ``--mp`` and no
+    ``--dp`` (rank 0's parameters and statistics broadcast first, rank 0
+    alone writing; ``replicas_equal`` checked at the end)."""
+    model_parallel = args.mp and not args.dp
     lead = group is None or group.rank == 0
     device = resolve_device(args.device, 0 if group is None
                             else group.device.index or 0)
@@ -501,12 +524,15 @@ def run(args, group: Optional[Group] = None) -> Dict:
     logger = get_logger(args.work_dir if lead else None)
     if not lead:
         logger.setLevel(logging.WARNING)
-    if group is not None:
+    if group is not None and model_parallel:
+        logger.info(f"model-parallel (the TPV encoder's query rows): "
+                    f"{group.world} ranks over {group.backend}")
+    elif group is not None:
         logger.info(f"data-parallel: {group.world} ranks over "
                     f"{group.backend}")
-    elif args.dp:
-        logger.info("--dp with one device: the plain step (the JAX driver "
-                    "with one device)")
+    elif args.dp or args.mp:
+        logger.info(f"{'--dp' if args.dp else '--mp'} with one device: the "
+                    "plain step (the JAX driver with one device)")
     logger.info(f"config {cfg.name} on {device}; {len(ds)} items")
     resnet_pth = args.resnet_pth if cfg.model.backbone_type == "resnet50" \
         and args.resnet_pth and os.path.exists(args.resnet_pth) else ""
@@ -515,7 +541,8 @@ def run(args, group: Optional[Group] = None) -> Dict:
         sys.exit(f"selfocc_tpu_torch: --resnet-pth {args.resnet_pth!r} "
                  "not found")
     trainer = build_trainer(cfg, args.seed, device,
-                            args.gradient_accumulation, group)
+                            args.gradient_accumulation, group,
+                            model_parallel and group is not None)
     n_params = sum(p.numel() for p in trainer.model.parameters())
     logger.info(f"params: {n_params / 1e6:.2f}M")
     if resnet_pth:
@@ -566,7 +593,8 @@ def run(args, group: Optional[Group] = None) -> Dict:
                     ckpt_freq_iters=args.ckpt_freq_iters, writer=writer,
                     profiler=profiler,
                     epoch_eval=epoch_eval if args.eval_every_epoch and lead
-                    else None, teacher=teacher, group=group)
+                    else None, teacher=teacher, group=group,
+                    model_parallel=model_parallel)
     finally:
         if profiler is not None:
             profiler.close()
@@ -575,8 +603,8 @@ def run(args, group: Optional[Group] = None) -> Dict:
     if group is not None:
         res["replicas_equal"] = replicas_equal(replicated, group)
         if not res["replicas_equal"]:
-            raise RuntimeError("data-parallel ranks ended with parameters "
-                               "or statistics that differ from rank 0's")
+            raise RuntimeError("the ranks ended with parameters or "
+                               "statistics that differ from rank 0's")
         logger.info(f"all {group.world} ranks hold rank 0's parameters "
                     "and statistics, bit for bit")
     logger.info("training complete")

@@ -3,7 +3,8 @@
 and frozen subtrees, the global-norm clip, gradient accumulation
 (``optax.MultiSteps``), the loss inputs and one train step, which a process
 group makes a data-parallel step (``make_dp_train_step``, ``train_lib.py:
-202-231``). Model parallelism (``make_mp_train_step``) is not ported.
+202-231``) or a model-parallel one (``make_mp_train_step``,
+``train_lib.py:174-199``).
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import torch
 
 from ..configs.base import Config
 from ..losses import MultiLoss
-from ..parallel.mesh import Group, all_reduce_mean
+from ..parallel.mesh import Group, all_reduce_mean, all_reduce_sum
 
 ADAM_EPS = 1e-8   # optax.adamw's default
 
@@ -169,18 +170,38 @@ class Trainer:
     the JAX ``pmean(new_bs)``, not the reference's SyncBN. Every rank must
     hold the same parameters and optimizer state at the start (the driver
     broadcasts rank 0's); they then stay bit-equal. One rank: the plain
-    step, bit for bit."""
+    step, bit for bit.
+
+    ``model_parallel`` (with a ``group``) makes each micro-step the JAX
+    ``make_mp_train_step``'s instead: every rank takes the same batch and
+    generator, the model's ``model_shard(group)`` gives the TPV encoder
+    the rank's rows of each plane (``models/encoder.TPVFormerEncoder``; a
+    BEV model runs whole on every rank), and the rest of the step runs
+    whole on every rank. A parameter's gradient is then the sum of the
+    ranks' gradients: each rank backpropagates its loss divided by
+    ``world``, every ``gather_rows`` sums over the ranks in its backward,
+    and one ``all_reduce_sum`` sums the trainable gradients (with the
+    has-gradient counts of ``_reduce_gradients``) before
+    ``apply_gradients`` (clip and ``grad_norm`` after the sum). The
+    losses and BatchNorm statistics are the rank's own: every rank
+    computes them whole. The ranks stay bit-equal. A one-rank group runs
+    the sharded code path, numerically the plain step."""
 
     def __init__(self, cfg: Config, model: torch.nn.Module,
-                 grad_accumulation: int = 1, group: Optional[Group] = None):
+                 grad_accumulation: int = 1, group: Optional[Group] = None,
+                 model_parallel: bool = False):
         if grad_accumulation < 1:
             raise ValueError("grad_accumulation must be >= 1")
+        if model_parallel and group is None:
+            raise ValueError("model_parallel needs a process group")
         self.cfg = cfg
         self.model = model
         self.loss_fn = MultiLoss(cfg.loss_cfgs)
         self.optimizer, self.sched = make_optimizer(cfg, model)
         self.grad_accumulation = grad_accumulation
         self.group = group
+        self.model_parallel = model_parallel
+        self.shard = model.model_shard(group) if model_parallel else None
         self.global_step = 0        # micro-steps (the model's global_iter)
         self.updates = 0            # optimizer updates (the LR schedule's)
         self.mini_step = 0          # micro-steps into the current window
@@ -194,35 +215,40 @@ class Trainer:
                 for k, b in m._buffers.items()
                 if k in ("running_mean", "running_var") and b is not None]
 
-    def average(self, tot: torch.Tensor, ldict: Dict):
-        """The data-parallel part of a micro-step: one ``all_reduce_mean``
-        of the trainable gradients, a has-gradient count per parameter,
-        ``tot`` and the losses, and the BatchNorm running statistics.
-        Gradients can be missing on some ranks only (a data-dependent
-        branch): a parameter with a gradient on no rank keeps ``None``, as
-        in the plain step; one with a gradient on some ranks takes zeros on
-        the others, as JAX's gradient of an unused parameter is. Where
-        every trainable parameter has a gradient here, no host
-        synchronisation; else the counts are read. Returns the averaged
-        (``tot``, ``ldict``)."""
+    def _reduce_gradients(self, reduce, device, extra=()):
+        """``reduce`` (a ``parallel.mesh`` all-reduce) of the trainable
+        gradients, a has-gradient count per parameter and ``extra``, in one
+        call. Gradients can be missing on some ranks only (a
+        data-dependent branch): a parameter with a gradient on no rank
+        keeps ``None``, as in the plain step; one with a gradient on some
+        ranks takes zeros on the others, as JAX's gradient of an unused
+        parameter is. Where every trainable parameter has a gradient here,
+        no host synchronisation; else the counts are read."""
         params = [p for p in self.model.parameters() if p.requires_grad]
         here = [p.grad is not None for p in params]
         grads = [p.grad if h else torch.zeros_like(p)
                  for p, h in zip(params, here)]
-        device = tot.device
         have = torch.ones(len(params), device=device) if all(here) else \
             torch.tensor(here, dtype=torch.float32, device=device)
-        keys = sorted(ldict)
-        losses = torch.stack([tot.detach().float()]
-                             + [ldict[k].detach().float() for k in keys])
-        all_reduce_mean(grads + [have, losses] + self.running_stats(),
-                        self.group)
+        reduce(grads + [have] + list(extra), self.group)
         if not all(here):
             anywhere = (have > 0).tolist()
             for p, g, h, a in zip(params, grads, here, anywhere):
                 if not h:
                     p.grad = g if a else None
+
+    def average(self, tot: torch.Tensor, ldict: Dict):
+        """The data-parallel part of a micro-step: one ``all_reduce_mean``
+        of the trainable gradients, a has-gradient count per parameter
+        (``_reduce_gradients``), ``tot`` and the losses, and the BatchNorm
+        running statistics. Returns the averaged (``tot``, ``ldict``)."""
+        keys = sorted(ldict)
+        losses = torch.stack([tot.detach().float()]
+                             + [ldict[k].detach().float() for k in keys])
+        self._reduce_gradients(all_reduce_mean, tot.device,
+                               [losses] + self.running_stats())
         return losses[0], dict(zip(keys, losses[1:]))
+
 
     def apply_gradients(self):
         """The optimizer's part of a micro-step, on the parameters'
@@ -274,26 +300,32 @@ class Trainer:
         (of the update this micro-step belongs to) as tensors, plus the
         host seconds of forward, backward and optimizer (each ended by
         ``sync`` when given; with a group also ``all_reduce_s``, the
-        ``average`` between backward and optimizer, whose losses and
-        gradients the metrics then are)."""
+        reduction between backward and optimizer; after the data-parallel
+        ``average`` the metrics are the averaged losses)."""
         sync = sync or (lambda: None)
         self.model.train()
+        kw = aug_kwargs(batch, self.cfg.model.encoder.camera_aware)
+        if self.shard is not None:
+            kw["shard"] = self.shard
         t0 = time.perf_counter()
         out = self.model(batch["imgs"], batch["lidar2img"],
                          batch[self.cfg.model.head.trans_kw], train=True,
                          generator=generator, draws=draws,
-                         global_iter=self.global_step,
-                         **aug_kwargs(batch,
-                                      self.cfg.model.encoder.camera_aware))
+                         global_iter=self.global_step, **kw)
         tot, ldict = self.loss_fn(build_loss_inputs(self.cfg, out, batch))
         sync()
         t1 = time.perf_counter()
         self.optimizer.zero_grad(set_to_none=True)
-        tot.backward()
+        (tot / self.group.world if self.model_parallel else tot).backward()
         sync()
         t2 = time.perf_counter()
         times = {"forward_s": t1 - t0, "backward_s": t2 - t1}
-        if self.group is not None and self.group.world > 1:
+        if self.model_parallel:
+            self._reduce_gradients(all_reduce_sum, tot.device)
+            sync()
+            times["all_reduce_s"] = time.perf_counter() - t2
+            t2 = time.perf_counter()
+        elif self.group is not None and self.group.world > 1:
             tot, ldict = self.average(tot, ldict)
             sync()
             times["all_reduce_s"] = time.perf_counter() - t2

@@ -9,7 +9,7 @@ bottleneck's BatchNorm statistics are averaged as flax's ``pmean(new_bs)``;
 the driver's item groups are the JAX driver's; the eval's render,
 occupancy query and camera-sharded prepare on two devices equal one
 device's and agree with the JAX mesh's; ``train --dp`` runs two gloo
-ranks and ``--mp`` exits.
+ranks and ``--mp`` with one rank the plain step.
 
 The JAX step's optimizer is replaced by one that keeps the gradients it is
 given as its state (``keep_grads``), so that the one DP compile returns
@@ -104,9 +104,12 @@ def dp_run():
                         np.random.RandomState(0))
     params = jax.tree_util.tree_map(jnp.asarray, np_params)
     tx = keep_grads()
+    # the step donates its state: a copy of the consts, which the memoised
+    # init shares with the other modules of this process
     state = jtrain.TrainState(step=jnp.zeros((), jnp.int32), params=params,
                               batch_stats={}, opt_state=tx.init(params),
-                              tx=tx, consts=variables["consts"])
+                              tx=tx, consts=jax.tree_util.tree_map(
+                                  jnp.copy, variables["consts"]))
     stacked = {k: np.stack([it[k] for it in items]) for k in items[0]}
     rngs = jax.random.split(jax.random.PRNGKey(3), 2)
     two = make_mesh(jax.devices()[:2])
@@ -411,10 +414,17 @@ def test_train_main_dp_runs_two_gloo_ranks(tmp_path, monkeypatch):
     assert proc.stdout.count("[e0 i") == 2        # rank 0 logs, alone
     state = torch.load(tmp_path / "ckpts" / "latest.pt", map_location="cpu")
     assert state["step"] == 2 and state["last_iter"] == 4
-    # the JAX driver's model-parallel step is not ported: a non-zero exit
-    proc = subprocess.run(base + ["--mp"], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=300)
-    assert proc.returncode != 0 and "--mp" in proc.stderr
+    # --mp with one rank (no --dp-ranks on the CPU) is the plain step, as
+    # the JAX driver's with one device (test_torch_port_mp.py: two ranks)
+    proc = subprocess.run(base + ["--mp", "--work-dir", str(tmp_path / "mp")],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "--mp with one device: the plain step" in proc.stdout
+    assert "model-parallel" not in proc.stdout
+    state = torch.load(tmp_path / "mp" / "ckpts" / "latest.pt",
+                       map_location="cpu")
+    assert state["step"] == 2 and state["last_iter"] == 2
     # on cards --dp takes one card a rank: more ranks than cards exit
     monkeypatch.setattr(tdriver, "resolve_device", lambda *a: None)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
